@@ -1,0 +1,364 @@
+"""Batched k-mer lookup on PyTorch tensors: probe, orchestration, engine.
+
+Counterpart of sshash_tpu/engine.py's lookup path (mphf_eval_minimizer,
+_pilot_read, skew_slot, lookup_with_info, make_lookup, _merge,
+DeviceEngine) for v1 indexes of k <= 63. One lookup is two kernels and
+some elementwise glue:
+
+  1. kernel 1 (ops.packed.minimizer): both strands' minimizers, and the
+     reverse-complemented kmers, in one launch;
+  2. kernel 2 (`probe`): MPHF slot, fused codeword row, minimizer guard,
+     candidate verification and id resolution, one thread per lane.
+
+Canonical mode folds the tie retry into two extra position tries of one
+probe (the minimizer VALUES tie, so both strands probe the same bucket).
+Regular mode probes forward, then probes the reverse complement of the
+lanes that missed; a lane that missed forward reports BACKWARD orientation
+whether or not the RC probe finds it, and ORs minimizer_found over both
+strands (src/dictionary.cpp:71-76).
+
+The plain versions here (`probe_plain` and its helpers) hold u32 values in
+int64 tensors and run on any device; `probe` sends CPU tensors to them and
+CUDA tensors to the kernel. Results carry u32 fields as int32 tensors of
+the same bits (kmer ids are < 2^31, char offsets < 2^32).
+"""
+
+import numpy as np
+import torch
+
+from sshash_tpu import kmer as K
+from sshash_tpu.constants import BACKWARD_ORIENTATION, FORWARD_ORIENTATION, INVALID_UINT64
+
+from . import kernels
+from .layout import (SKEW_PARAMS, StaticCfg, cand_block_width, device_arrays,
+                     row_width, tables_from_host)
+from .ops import packed as P
+from .ops import u64 as u
+from .ops.u64 import M32
+
+INVALID32 = 0xFFFFFFFF
+_SKP = {name: i for i, name in enumerate(SKEW_PARAMS)}
+
+
+def _take_rows(table, idx):
+    """table[idx] as u32 values in int64, clipping idx the way the JAX
+    package's jnp.take(..., idx.astype(int32), mode="clip") does: an index
+    >= 2^31 turns negative there and clips to row 0."""
+    n = table.shape[0]
+    i = torch.where(idx >= 1 << 31, torch.zeros_like(idx), idx.clamp(max=n - 1))
+    return u.u32(table.index_select(0, i))
+
+
+def _skew_param(tables, name, cls):
+    return _take_rows(tables["sk_params"][_SKP[name]], cls)
+
+
+def _pilot_read(w, words, bucket, word_off=None):
+    """pilot = packed_words[word_off + bucket] at field width w."""
+    if w == 32:
+        return _take_rows(words, bucket if word_off is None else (word_off + bucket) & M32)
+    ppw = 32 // w
+    widx = bucket >> (ppw.bit_length() - 1)
+    if word_off is not None:
+        widx = (word_off + widx) & M32
+    word = _take_rows(words, widx)
+    return (word >> ((bucket & (ppw - 1)) * w)) & ((1 << w) - 1)
+
+
+def mphf_eval_minimizer(cfg, tables, minval):
+    """Minimizer (u64 pair) -> raw MPHF slot (u32 in int64)."""
+    mh = u.splitmix64(u.xor(minval, u.const64(cfg.mphf_seedmix, minval.lo)))
+    if cfg.mphf_partitioned:
+        pid = u.mulhi32(mh.hi, cfg.mphf_P)
+        row = _take_rows(tables["mphf_seedrows"], pid)
+        h2 = u.splitmix64(u.xor(mh, u.u64(row[:, 0], row[:, 1])))
+        nb, T = cfg.mphf_part_buckets, cfg.mphf_part_table
+        bucket = (pid * nb + u.mulhi32(h2.hi, nb)) & M32
+        pilot = _pilot_read(cfg.pilot_w, tables["pilots"], bucket)
+        local = u.mulhi32(u.fmix32(h2.lo ^ u.fmix32(pilot)), T)
+        return (pid * T + local) & M32
+    bucket = u.mulhi32(mh.hi, cfg.mphf_nbuckets)
+    pilot = _pilot_read(cfg.pilot_w, tables["pilots"], bucket)
+    return u.mulhi32(u.fmix32(mh.lo ^ u.fmix32(pilot)), cfg.mphf_table)
+
+
+def skew_slot(cfg, tables, kmers, cls):
+    """Slot of each (canonical) kmer in its heavy bucket's size class
+    (partitioned class MPHFs; the layout refuses the legacy forms)."""
+    seedmix = u.u64(_skew_param(tables, "seedmix_hi", cls),
+                    _skew_param(tables, "seedmix_lo", cls))
+    h = u.hash64_words(kmers, seedmix)
+    nb = _skew_param(tables, "nbuckets", cls)
+    table = _skew_param(tables, "table", cls)
+    pid2 = u.mulhi32(h.hi, _skew_param(tables, "np2", cls))
+    row = _take_rows(tables["sk_seedrows"],
+                     (_skew_param(tables, "seed_off", cls) + pid2) & M32)
+    h2 = u.splitmix64(u.xor(h, u.u64(row[:, 0], row[:, 1])))
+    bucket = (pid2 * nb + u.mulhi32(h2.hi, nb)) & M32
+    pilot = _pilot_read(cfg.sk_pilot_w, tables["sk_pilots"], bucket,
+                        word_off=_skew_param(tables, "pilot_off", cls))
+    local = u.mulhi32(u.fmix32(h2.lo ^ u.fmix32(pilot)), table)
+    return (pid2 * table + local) & M32
+
+
+def _verify(cfg, blk, active, km, kr, tries):
+    """Verify and resolve one candidate block per lane
+    ([cand, vbits, window, quad] rows, u32 values in int64) at each position
+    try, in order. Returns (match, off, orient, sid, begin, end)."""
+    Wv, Ww, k = cfg.vbits_words, cfg.win_words, cfg.k
+    kmw = cfg.kmw
+    cand = blk[:, 0]
+    vbw, win = blk[:, 1: 1 + Wv], blk[:, 1 + Wv: 1 + Wv + Ww]
+    rsv = blk[:, 1 + Wv + Ww:]
+    ext0 = cand - (((cand - cand.clamp(max=kmw)) >> 4) << 4)
+    zero = torch.zeros_like(cand)
+    match = torch.zeros_like(active)
+    off = zero.clone()
+    orient = torch.full_like(cand, FORWARD_ORIENTATION)
+    sid, beg, end = zero.clone(), zero.clone(), zero.clone()
+    for pos in tries:
+        can = active & ~match & (ext0 >= pos)
+        j = kmw - pos
+        vword = vbw[:, 0] if Wv == 1 else torch.gather(
+            torch.cat([vbw, torch.zeros_like(vbw[:, :1])], dim=1), 1,
+            (j >> 5).clamp(max=Wv)[:, None])[:, 0]
+        vbit = ((vword >> (j & 31)) & 1) != 0
+        read = P.extract_kmer_dyn(win, ((ext0 - pos) * 2) & M32, k, cfg.max_start_word)
+        eq_f = P.kmer_equal(read, km)
+        if kr is not None:
+            eq_r = P.kmer_equal(read, kr)
+            hit = can & vbit & (eq_f | eq_r)
+            orient = torch.where(hit & eq_r & ~eq_f, BACKWARD_ORIENTATION, orient)
+        else:
+            hit = can & vbit & eq_f
+        o = torch.where(can, cand - pos, zero)
+        ep1 = rsv[:, 2]
+        over = o >= ep1
+        off = torch.where(hit, o, off)
+        sid = torch.where(hit, rsv[:, 0] + over, sid)
+        beg = torch.where(hit, torch.where(over, ep1, rsv[:, 1]), beg)
+        end = torch.where(hit, torch.where(over, rsv[:, 3], ep1), end)
+        match = match | hit
+    return match, off, orient, sid, beg, end
+
+
+def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
+                active=None, fields="full"):
+    """Plain version of kernel 2 (csrc/probe.cu), same contract as
+    kernels.probe_kernel: kmers32 / kmers_rc32 (canonical only) (B, W)
+    int32, minval int64, minpos / minpos2 int32, active bool or None (every
+    lane). Returns int32 kmer_id / kmer_orientation (and the string fields
+    when fields="full"), bool minimizer_found and found.
+
+    Mirrors engine.lookup_with_info: candidate 0 rides the codeword row,
+    a failed minimizer guard stops the lane after it, heavy lanes go
+    through the skew index, candidate 1 rides the row when c1_in_row, and
+    the remaining mid-bucket candidates are tried in a masked loop."""
+    B, dev = kmers32.shape[0], kmers32.device
+    km = u.u32(kmers32)
+    kr = u.u32(kmers_rc32) if kmers_rc32 is not None else None
+    mv = u.from_i64(minval)
+    mp = minpos.to(torch.int64)
+    tries = [mp]
+    if kr is not None:
+        tries.append(cfg.kmw - mp)
+        if minpos2 is not None:
+            mp2 = minpos2.to(torch.int64)
+            tries += [mp2, cfg.kmw - mp2]
+    active = torch.ones(B, dtype=torch.bool, device=dev) if active is None else active
+
+    slot = mphf_eval_minimizer(cfg, tables, mv)
+    row = _take_rows(tables["cw_row"], slot)
+    sb, cw_a = row[:, 0], row[:, 1]
+    status, cw_b = sb & 3, sb >> 2
+    heavy, midload = status == 2, status == 1
+    size = torch.where(midload, cw_b, torch.ones_like(cw_b))
+    R1 = cand_block_width(cfg)
+    c0 = row[:, 2: 2 + R1]
+
+    gext0 = c0[:, 0] - (((c0[:, 0] - c0[:, 0].clamp(max=cfg.kmw)) >> 4) << 4)
+    gv = P.extract_window_dyn(c0[:, 1 + cfg.vbits_words: 1 + cfg.vbits_words + cfg.win_words],
+                              (gext0 * 2) & M32, 2 * cfg.m, cfg.max_start_word)
+    guard_ok = u.equal(gv, mv)
+    if kr is not None:
+        guard_ok = guard_ok | u.equal(gv, P.revcomp_mmer64(mv, cfg.m))
+
+    found, off, orient, sid, beg, end = _verify(cfg, c0, active & ~heavy, km, kr, tries)
+    state = [found, off, orient, sid, beg, end]
+
+    def take(new):
+        hit = new[0]
+        for i in range(1, 6):
+            state[i] = torch.where(hit, new[i], state[i])
+        state[0] = state[0] | hit
+
+    if cfg.has_skew:
+        canon = km
+        if kr is not None:
+            canon = torch.where(P.kmer_less(kr, km)[:, None], kr, km)
+        cls = torch.where(heavy, cw_b, torch.zeros_like(cw_b))
+        hidx = (_skew_param(tables, "pos_off", cls) + skew_slot(cfg, tables, canon, cls)) & M32
+        take(_verify(cfg, _take_rows(tables["sk_hrows"], hidx), active & heavy, km, kr, tries))
+
+    minimizer_found = ~(active & ~guard_ok & ~heavy)
+    active = active & (guard_ok | heavy)
+    if cfg.c1_in_row:
+        take(_verify(cfg, row[:, 2 + R1: 2 + 2 * R1],
+                     active & midload & (size >= 2) & ~state[0], km, kr, tries))
+    jmin = 2 if cfg.c1_in_row else 1
+    need = active & midload & ~state[0] & (size > jmin)
+    lanes = need.nonzero()[:, 0]
+    if len(lanes):
+        sub = [s[lanes] for s in state]
+        lsize, la, lkm = size[lanes], cw_a[lanes], km[lanes]
+        lkr = kr[lanes] if kr is not None else None
+        ltries = [t[lanes] for t in tries]
+        for j in range(jmin, int(lsize.max())):
+            mrow = _take_rows(tables["mid_rows"], (la + j) & M32)
+            new = _verify(cfg, mrow, (j < lsize) & ~sub[0], lkm, lkr, ltries)
+            for i in range(1, 6):
+                sub[i] = torch.where(new[0], new[i], sub[i])
+            sub[0] = sub[0] | new[0]
+        for i in range(6):
+            state[i] = state[i].index_put((lanes,), sub[i])
+
+    found, off, orient, sid, beg, end = state
+    off = torch.where(found, off, torch.zeros_like(off))
+    invalid = torch.full_like(off, INVALID32)
+    res = {"kmer_id": u.to_i32(torch.where(found, (off - sid * (cfg.k - 1)) & M32, invalid)),
+           "kmer_orientation": torch.where(found, orient, FORWARD_ORIENTATION).to(torch.int32),
+           "minimizer_found": minimizer_found,
+           "found": found}
+    if fields == "full":
+        for name, v in (("kmer_offset", off), ("string_id", sid), ("string_begin", beg),
+                        ("string_end", end), ("kmer_id_in_string", (off - beg) & M32)):
+            res[name] = u.to_i32(torch.where(found, v, invalid))
+    return res
+
+
+def probe(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
+          active=None, fields="full"):
+    """Kernel 2 entry: a CUDA tensor runs csrc/probe.cu, a CPU tensor its
+    plain version. Anything else raises."""
+    if kmers32.is_cuda:
+        return kernels.probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos,
+                                    minpos2, active, fields)
+    if kmers32.device.type == "cpu":
+        return probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2,
+                           active, fields)
+    raise ValueError(f"no probe kernel for device {kmers32.device}")
+
+
+def _merge(res_a, res_b, use_b, use_b_flags):
+    out = {}
+    for key in res_a:
+        if key == "minimizer_found":
+            out[key] = torch.where(use_b_flags, res_b[key], res_a[key])
+        elif key == "found":
+            out[key] = res_a[key] | (use_b & res_b[key])
+        else:
+            out[key] = torch.where(use_b, res_b[key], res_a[key])
+    return out
+
+
+def canonical_fold(mv_f, mp_f, mv_r, mp_r):
+    """Canonical probe inputs from both strands' minimizers: the smaller
+    minimizer VALUE and its position, plus the other strand's position
+    where the values tie (a tie probes the same bucket, so the reference's
+    retry with the other strand, src/dictionary.cpp:34-41, becomes two more
+    position tries). Returns (minval, minpos, minpos2)."""
+    rc_first = mv_r < mv_f
+    mp1 = torch.where(rc_first, mp_r, mp_f)
+    return (torch.where(rc_first, mv_r, mv_f), mp1,
+            torch.where(mv_r == mv_f, mp_r, mp1))
+
+
+def make_lookup(cfg, fields="full", minimizer=P.minimizer, probe=probe):
+    """Batched lookup over (B, W) int32 kmers (src/dictionary.cpp:58-78
+    semantics). fields="ids" returns only kmer_id / kmer_orientation /
+    minimizer_found (the reference's plain lookup()). `minimizer` and
+    `probe` default to the kernel entry points; passing the plain versions
+    runs the same lookup without kernels on any device."""
+    k, m, magic = cfg.k, cfg.m, cfg.magic
+
+    def fn(tables, kmers32):
+        mv_f, mp_f, kmers_rc32, mv_r, mp_r = minimizer(kmers32, k, m, magic, both=True)
+        if cfg.canonical:
+            mv1, mp1, mp2 = canonical_fold(mv_f, mp_f, mv_r, mp_r)
+            return probe(cfg, tables, kmers32, kmers_rc32, mv1, mp1, mp2, None, fields)
+        res = probe(cfg, tables, kmers32, None, mv_f, mp_f, None, None, fields)
+        miss = ~res["found"]
+        res2 = probe(cfg, tables, kmers_rc32, None, mv_r, mp_r, None, miss, fields)
+        merged = _merge(res, res2, miss & res2["found"], miss)
+        merged["minimizer_found"] = torch.where(
+            miss, res["minimizer_found"] | res2["minimizer_found"], res["minimizer_found"])
+        merged["kmer_orientation"] = torch.where(
+            miss, BACKWARD_ORIENTATION, merged["kmer_orientation"]).to(torch.int32)
+        return merged
+
+    return fn
+
+
+def _to_host_result(res):
+    """Device result -> the oracle's numpy contract: u32 fields as uint64
+    with INVALID on misses, orientation int64, minimizer_found bool."""
+    res = {key: v.cpu().numpy() for key, v in res.items()}
+    found = res.pop("found")
+    out = {}
+    for key, v in res.items():
+        if key == "kmer_orientation":
+            out[key] = v.astype(np.int64)
+        elif v.dtype == np.int32:
+            v64 = v.view(np.uint32).astype(np.uint64)
+            v64[~found] = np.uint64(INVALID_UINT64)
+            out[key] = v64
+        else:
+            out[key] = v
+    return out
+
+
+class TorchEngine:
+    """Device-resident lookup tables + batched lookup entry points
+    (counterpart of sshash_tpu.engine.DeviceEngine's lookup path).
+
+    host_arrs: a precomputed table dict (layout.device_arrays, or the JAX
+    package's _device_arrays / its .npy cache) for large indexes."""
+
+    def __init__(self, index, device, host_arrs=None):
+        self.index = index
+        self.device = torch.device(device)
+        self.cfg = StaticCfg(index)
+        if host_arrs is None:
+            host_arrs = device_arrays(index)
+        elif host_arrs["cw_row"].shape[1] != row_width(self.cfg):
+            raise ValueError(
+                f"host_arrs cw_row has {host_arrs['cw_row'].shape[1]} columns, this "
+                f"index needs {row_width(self.cfg)} (v1 rows); recompute with "
+                f"layout.device_arrays(index)")
+        self.tables = tables_from_host(host_arrs, self.device)
+        self._lookup = make_lookup(self.cfg, "full")
+        self._lookup_ids = make_lookup(self.cfg, "ids")
+
+    def table_bytes(self):
+        """Device bytes of the lookup tables."""
+        return sum(t.numel() * t.element_size() for t in self.tables.values())
+
+    def kmers32(self, kmers64):
+        """(B, W64) uint64 packed kmers -> (B, W) int32 tensor on the device."""
+        kmers64 = np.atleast_2d(np.asarray(kmers64, dtype=np.uint64))
+        k32 = np.ascontiguousarray(K.kmers_to_u32(kmers64, self.cfg.k))
+        return torch.from_numpy(k32.view(np.int32)).to(self.device)
+
+    def lookup_device(self, kmers32):
+        """(B, W) int32 kmers on the device -> dict of result tensors."""
+        return self._lookup(self.tables, kmers32)
+
+    def lookup_ids_device(self, kmers32):
+        return self._lookup_ids(self.tables, kmers32)
+
+    def lookup(self, kmers64):
+        """(B, W64) uint64 packed kmers -> numpy results, as oracle.lookup."""
+        return _to_host_result(self.lookup_device(self.kmers32(kmers64)))
+
+    def is_member(self, kmers64):
+        return self.lookup(kmers64)["kmer_id"] != np.uint64(INVALID_UINT64)

@@ -1,0 +1,341 @@
+"""Lookup table layout: host Index -> the tables the probe reads.
+
+JAX-free counterpart of the lookup half of sshash_tpu.engine._device_arrays
+and of the lookup geometry of sshash_tpu.engine.StaticCfg. The tables are
+the same arrays, bit for bit (tests/test_torch_layout.py holds them
+against the JAX package):
+
+  cw_row[slot]   one fused row per raw minimizer-MPHF slot:
+                 [status | b<<2, a, candidate-0 block, (candidate-1 block)]
+  mid_rows[i]    candidate block of mid_load_buckets[i]
+  sk_hrows[i]    candidate block of the heavy kmer with skew slot i
+  pilots, mphf_seedrows, sk_pilots, sk_seedrows, sk_*   MPHF parameters
+
+A candidate block is [char offset, valid-start bits (Wv words), packed
+string window (Ww words), resolve quad (sid0, ep0, ep1, ep2)]: verifying a
+candidate and resolving its id needs no further gather.
+
+The port serves v1 rows only: fewer than 2^32 chars, fewer than 2^31
+kmers, k <= 63 and hindex-keyed partitioned skew classes. StaticCfg raises
+on any other index, so char offsets fit the u32 row fields exactly.
+"""
+
+import numpy as np
+import torch
+
+from sshash_tpu import hashing as H
+from sshash_tpu import kmer as K
+from sshash_tpu.compact import CompactVector
+from sshash_tpu.index import decode_codeword
+from sshash_tpu.mphf import PartitionedMPHF, _get
+
+NUM_SKEW = 8
+QUAD_W = 4
+SKEW_PARAMS = ("table", "nbuckets", "seedmix_hi", "seedmix_lo", "pilot_off",
+               "pos_off", "np2", "seed_off")
+# tables the probe reads; the optional ones get a placeholder row when the
+# index has no such structure
+LOOKUP_KEYS = ("strings32", "cw_row", "mid_rows", "pilots", "sk_pilots")
+OPTIONAL_KEYS = ("mphf_seedrows", "sk_seedrows", "sk_hrows")
+
+
+def check_supported(index):
+    """Raise on index formats the port does not serve."""
+    if index.k > 63:
+        raise ValueError(f"k={index.k}: the port serves k <= 63 (at most 4 "
+                         f"u32 words per kmer)")
+    if index.num_chars >= 1 << 32:
+        raise ValueError(f"{index.num_chars} chars needs rebased (v2) rows; "
+                         f"the port serves v1 rows (< 2^32 chars)")
+    if index.num_kmers >= 1 << 31:
+        raise ValueError(f"{index.num_kmers} kmers needs wide ids; the port "
+                         f"serves < 2^31 kmers")
+    parts = [p for p in index.skew_partitions if p.mphf.n > 0]
+    if any(p.hindex is None for p in index.skew_partitions) and parts:
+        raise ValueError("skew partitions without hindex (pre-v1.2 index): "
+                         "the legacy positions path is not ported; rebuild")
+    if any(not isinstance(p.mphf, PartitionedMPHF) for p in parts):
+        raise ValueError("non-partitioned skew MPHF (pre-v1.2 index) is not "
+                         "ported; rebuild")
+
+
+def use_c1(index):
+    """Carry candidate 1 in the fused row when >= 0.1% of buckets hold 2+
+    positions (the JAX package's default gate, without its env overrides);
+    indexes without a histogram keep it."""
+    hist = index.stats.get("bucket_size_histogram") or {}
+    nmini = int(index.stats.get("num_minimizers", 0))
+    singles = int(hist.get("1", hist.get(1, 0)))
+    if not (nmini and hist):
+        return True
+    return (1.0 - singles / nmini) >= 0.001
+
+
+def pilot_width(mphf):
+    """Smallest divisor of 32 in {4, 8, 16, 32} that fits every pilot."""
+    p = mphf.pilots
+    if isinstance(p, CompactVector):
+        b = p.width
+    else:
+        b = int(np.max(p, initial=0)).bit_length() if len(p) else 1
+    for w in (4, 8, 16):
+        if b <= w:
+            return w
+    return 32
+
+
+class StaticCfg:
+    """Lookup geometry of an index (the JAX StaticCfg's lookup fields)."""
+
+    def __init__(self, index):
+        check_supported(index)
+        self.k, self.m = index.k, index.m
+        self.canonical = index.canonical
+        self.W = (2 * index.k + 31) // 32
+        self.quad_w = QUAD_W
+        self.c1_in_row = use_c1(index)
+        self.kmw = index.k - index.m
+        self.win_words = ((4 * index.k - 2 * index.m + 29) >> 5) + 1
+        self.vbits_words = (self.kmw + 1 + 31) // 32
+        # windows start word-aligned at max(0, cand-(k-m)), so the in-window
+        # bit offset of any candidate kmer starts at word <= max_start_word
+        self.max_start_word = (2 * (15 + self.kmw)) >> 5
+        self.magic = int(H.mixer_magic(index.seed))
+        f = index.minimizer_mphf
+        self.mphf_partitioned = isinstance(f, PartitionedMPHF)
+        self.mphf_table = max(1, f.table_size)
+        self.mphf_nbuckets = f.num_buckets
+        self.mphf_seedmix = int(H.splitmix64(np.uint64(f.seed)))
+        self.pilot_w = pilot_width(f)
+        self.sk_pilot_w = max([pilot_width(p.mphf)
+                               for p in index.skew_partitions[:NUM_SKEW]],
+                              default=32)
+        self.mphf_P = self.mphf_part_table = self.mphf_part_buckets = 1
+        if self.mphf_partitioned:
+            self.mphf_P = f.num_partitions
+            self.mphf_part_table = max(1, f.part_table)
+            self.mphf_part_buckets = f.part_buckets
+        # check_supported admits only hindex-keyed partitioned skew classes,
+        # so the JAX cfg's skew_hrows and skew_partitioned equal has_skew
+        self.has_skew = any(p.mphf.n > 0 for p in index.skew_partitions)
+
+
+def cand_block_width(cfg):
+    return 1 + cfg.vbits_words + cfg.win_words + cfg.quad_w
+
+
+def row_width(cfg):
+    """cw_row width in u32 words: [status|b, a] + 1 or 2 candidate blocks."""
+    return 2 + (2 if cfg.c1_in_row else 1) * cand_block_width(cfg)
+
+
+def _expand_to_slots(arr, mphf):
+    """Re-key an array by raw MPHF slot in [0, table_size): slot < n reads
+    arr[slot], overflow slots read through the remap (evaluation then needs
+    no remap gather; untaken slots alias arr[remap=0])."""
+    if isinstance(mphf, PartitionedMPHF):
+        return mphf.expand_to_slots(arr)
+    ts = max(1, mphf.table_size)
+    out = np.zeros(ts, dtype=arr.dtype)
+    n = min(mphf.n, len(arr))
+    out[:n] = arr[:n]
+    if ts > mphf.n and len(arr):
+        rmp = _get(mphf.remap, np.arange(ts - mphf.n))
+        out[mphf.n:] = arr[np.clip(rmp, 0, len(arr) - 1)]
+    return out
+
+
+def _pilots_u32(mphf):
+    p = mphf.pilots
+    return p.to_array(np.uint32) if isinstance(p, CompactVector) else p
+
+
+def _pack_pilots(vals, w):
+    """Pack u32 pilots (< 2^w) into u32 words, 32//w per word, little end
+    first; pads to a whole word."""
+    if w == 32:
+        return vals.astype(np.uint32)
+    ppw = 32 // w
+    v = np.pad(vals, (0, (-len(vals)) % ppw)).astype(np.uint32)
+    v = v.reshape(-1, ppw) << (np.arange(ppw, dtype=np.uint32) * w)
+    return np.bitwise_or.reduce(v, axis=1)
+
+
+def _nz(x):
+    """Never ship a zero-length table (clipped reads land in row 0)."""
+    return x if len(x) else np.zeros(1, dtype=x.dtype)
+
+
+def _seedrows(seedmixes):
+    return np.stack([(seedmixes >> np.uint64(32)).astype(np.uint32),
+                     (seedmixes & np.uint64(0xFFFFFFFF)).astype(np.uint32)],
+                    axis=1)
+
+
+def device_arrays(index):
+    """Host Index -> dict of numpy uint32 lookup tables (see module doc)."""
+    check_supported(index)
+    status, a, b = decode_codeword(index.codewords)
+    mid = status == 1
+    msize = b.astype(np.int64)
+    mbegin = (index.begin_buckets_of_size[np.where(mid, msize, 0)].astype(np.int64)
+              + a.astype(np.int64) * msize)
+    a = np.where(mid, mbegin.astype(np.uint64), a)
+
+    # valid-start bits: a kmer may start at char offset o iff o+k <= the end
+    # of o's string
+    k, m = index.k, index.m
+    ep = index.string_endpoints.astype(np.int64)
+    delta = np.zeros(index.num_chars + 1, dtype=np.int32)
+    np.add.at(delta, ep[:-1], 1)
+    np.add.at(delta, ep[1:] - (k - 1), -1)
+    vstart = np.cumsum(delta[:-1]) > 0
+
+    f = index.minimizer_mphf
+    s32 = K.pack_words_to_u32(index.strings64)
+    sb = status.astype(np.uint32) | (b.astype(np.uint32) << 2)
+    mid_arr = np.asarray(index.mid_load_buckets).astype(np.uint32)
+    cand0 = a.astype(np.uint32)
+    if len(mid_arr):
+        cand0 = np.where(mid, mid_arr[np.clip(a.astype(np.int64), 0, len(mid_arr) - 1)],
+                         cand0)
+    kmw = k - m
+    Ww = ((4 * k - 2 * m + 29) >> 5) + 1
+    Wv = (kmw + 1 + 31) // 32
+    R1 = 1 + Wv + Ww + QUAD_W
+
+    def fused_rows(dpos):
+        """(n,) candidate char offsets -> (n, R1) candidate blocks. The
+        candidate's possible kmer starts span [dpos-(k-m), dpos], shorter
+        than any string, so at most one string boundary falls inside: the
+        quad [sid0, ep0, ep1, ep2] resolves either side. Chunked to bound
+        the (n, k-m+1) intermediates."""
+        CH = 16 << 20
+        if len(dpos) > CH:
+            return np.concatenate([fused_rows(dpos[i: i + CH])
+                                   for i in range(0, len(dpos), CH)])
+        c0 = dpos.astype(np.int64)
+        wlo = np.maximum(c0 - kmw, 0) >> 4
+        win = s32[np.clip(wlo[:, None] + np.arange(Ww)[None, :], 0, len(s32) - 1)]
+        offs = c0[:, None] - kmw + np.arange(kmw + 1)[None, :]
+        okoff = (offs >= 0) & (offs < len(vstart))
+        bits = np.where(okoff, vstart[np.clip(offs, 0, len(vstart) - 1)], False)
+        vb8 = np.packbits(bits, axis=1, bitorder="little")
+        vbp = np.zeros((len(c0), Wv * 4), dtype=np.uint8)
+        vbp[:, : vb8.shape[1]] = vb8
+        sid0 = np.searchsorted(ep, np.maximum(c0 - kmw, 0), side="right") - 1
+        eidx = np.clip(sid0[:, None] + np.arange(3)[None, :], 0, len(ep) - 1)
+        rsv = np.concatenate([sid0[:, None].astype(np.uint32),
+                              ep[eidx].astype(np.uint32)], axis=1)
+        return np.concatenate([dpos.astype(np.uint32)[:, None],
+                               np.ascontiguousarray(vbp).view(np.uint32), win,
+                               rsv], axis=1)
+
+    heavym = status == 2
+    c0rows = fused_rows(np.where(heavym, 0, cand0.astype(np.int64)).astype(np.uint32))
+    c0rows[heavym, 1:] = 0
+    c0rows[heavym, 0] = cand0[heavym]
+    cols = [sb, a.astype(np.uint32)] + [c0rows[:, i] for i in range(R1)]
+    c1rows = None
+    if use_c1(index):
+        has2 = mid & (b >= 2)
+        cand1 = np.zeros_like(cand0)
+        if len(mid_arr):
+            cand1 = np.where(has2, mid_arr[np.clip(a.astype(np.int64) + 1, 0,
+                                                   len(mid_arr) - 1)],
+                             np.uint32(0))
+        c1rows = fused_rows(cand1)
+        c1rows[~has2, :] = 0
+        cols += [c1rows[:, i] for i in range(R1)]
+    # column by column into a preallocated table: a stacked copy would
+    # double the largest host array
+    col0 = _expand_to_slots(cols[0], f)
+    cw_row = np.empty((len(col0), len(cols)), np.uint32)
+    cw_row[:, 0] = col0
+    del col0
+    for j in range(1, len(cols)):
+        cw_row[:, j] = _expand_to_slots(cols[j], f)
+    del cols, c0rows, c1rows
+    empty_rows = np.zeros((1, R1), np.uint32)
+    arrs = {
+        "strings32": s32,
+        "cw_row": cw_row,
+        "mid_rows": fused_rows(mid_arr) if len(mid_arr) else empty_rows,
+        "pilots": _nz(_pack_pilots(_pilots_u32(f), pilot_width(f))),
+    }
+    if isinstance(f, PartitionedMPHF):
+        arrs["mphf_seedrows"] = _seedrows(f.seedmixes())
+
+    # skew size classes: concatenated pilots and hindex-keyed heavy rows,
+    # plus 8 per-class parameter slots
+    heavy_arr = np.asarray(index.heavy_load_buckets).astype(np.uint32)
+    use_hrows = (len(heavy_arr) > 0 and len(index.skew_partitions) > 0
+                 and all(p.hindex is not None for p in index.skew_partitions))
+    use_part_skew = any(p.mphf.n > 0 for p in index.skew_partitions)
+    parts = index.skew_partitions[:NUM_SKEW]
+    sk_w = max([pilot_width(p.mphf) for p in parts], default=32)
+    params = {name: np.zeros(NUM_SKEW, dtype=np.uint32) for name in SKEW_PARAMS}
+    params["nbuckets"][:] = 1
+    params["table"][:] = 1
+    params["np2"][:] = 1
+    sk_pilots, sk_aux, sk_seedrows = [], [], []
+    for i, part in enumerate(parts):
+        fp = part.mphf
+        smix = int(H.splitmix64(np.uint64(fp.seed)))
+        params["seedmix_hi"][i] = smix >> 32
+        params["seedmix_lo"][i] = smix & 0xFFFFFFFF
+        params["pilot_off"][i] = sum(len(x) for x in sk_pilots)
+        params["pos_off"][i] = sum(len(x) for x in sk_aux)
+        if use_part_skew:
+            params["seed_off"][i] = sum(len(x) for x in sk_seedrows)
+            if isinstance(fp, PartitionedMPHF):
+                params["table"][i] = max(1, fp.part_table)
+                params["nbuckets"][i] = fp.part_buckets
+                params["np2"][i] = fp.num_partitions
+                sk_seedrows.append(_seedrows(fp.seedmixes()))
+            else:  # empty size class
+                sk_seedrows.append(np.zeros((1, 2), np.uint32))
+        else:
+            params["table"][i] = max(1, fp.table_size)
+            params["nbuckets"][i] = fp.num_buckets
+        sk_pilots.append(_pack_pilots(_pilots_u32(fp), sk_w))
+        sk_aux.append(_expand_to_slots(part.hindex if use_hrows else part.positions, fp))
+    if use_part_skew:
+        arrs["sk_seedrows"] = (np.concatenate(sk_seedrows) if sk_seedrows
+                               else np.zeros((1, 2), np.uint32))
+    arrs["sk_pilots"] = _nz(np.concatenate(sk_pilots) if sk_pilots
+                            else np.zeros(0, np.uint32))
+    if use_hrows:
+        allh = np.concatenate(sk_aux) if sk_aux else np.zeros(0, np.uint32)
+        gidx = np.clip(allh.astype(np.int64), 0, max(0, len(heavy_arr) - 1))
+        arrs["sk_hrows"] = fused_rows(heavy_arr[gidx]) if len(allh) else empty_rows
+    for name, v in params.items():
+        arrs[f"sk_{name}"] = v
+    # the kernels address rows with int32
+    for name, t in arrs.items():
+        if t.shape[0] >= 1 << 31:
+            raise ValueError(f"table {name!r} has {t.shape[0]} rows (>= 2^31); "
+                             f"rows are int32-addressed")
+    return arrs
+
+
+def tables_from_host(host_arrs, device):
+    """Lookup tables as int32 tensors (the u32 bits) on `device`, from this
+    module's device_arrays or the JAX package's _device_arrays dict (or its
+    .npy cache). Optional tables missing from the dict get one zero row, and
+    the eight sk_* parameter vectors become one (8, 8) `sk_params` table in
+    SKEW_PARAMS order."""
+    R1 = host_arrs["mid_rows"].shape[1]
+    fill = {"mphf_seedrows": np.zeros((1, 2), np.uint32),
+            "sk_seedrows": np.zeros((1, 2), np.uint32),
+            "sk_hrows": np.zeros((1, R1), np.uint32)}
+    host = {name: host_arrs.get(name, fill.get(name))
+            for name in LOOKUP_KEYS + OPTIONAL_KEYS}
+    host["sk_params"] = np.stack([host_arrs[f"sk_{p}"] for p in SKEW_PARAMS])
+    out = {}
+    for name, arr in host.items():
+        arr = np.ascontiguousarray(arr)
+        if arr.dtype != np.uint32:
+            raise ValueError(f"table {name!r} is {arr.dtype}, expected uint32")
+        out[name] = torch.from_numpy(arr.view(np.int32)).to(device)
+    return out

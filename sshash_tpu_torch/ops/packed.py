@@ -1,0 +1,191 @@
+"""Packed 2-bit string algebra on u32 words held in int64 tensors.
+
+Plain PyTorch counterpart of sshash_tpu/ops/packed.py (same layout: char j
+of a kmer lives in word j // 16 at bit 2 * (j % 16), words little-end
+first). Kmers are (B, W) int64 tensors of u32 values; 64-bit values are
+ops.u64 pairs.
+
+`minimizer` is the entry point of kernel 1 (csrc/minimizer.cu): a CPU
+tensor runs `minimizer_plain`, a CUDA tensor runs the kernel.
+"""
+
+import torch
+
+from .. import kernels
+from . import u64 as u
+from .u64 import M32
+
+
+def num_words32(k):
+    return (2 * k + 31) // 32
+
+
+def mask_last_word(words, k):
+    rem = 2 * k - 32 * (num_words32(k) - 1)
+    if rem == 32:
+        return words
+    out = words.clone()
+    out[:, -1] &= (1 << rem) - 1
+    return out
+
+
+def crc32_word(x):
+    """Reverse-complement 16 chars packed in a u32 (host analog:
+    kmer.crc64)."""
+    c = x ^ 0xAAAAAAAA
+    r = ((c & 0x0000FFFF) << 16) | ((c & 0xFFFF0000) >> 16)
+    r = ((r & 0x00FF00FF) << 8) | ((r & 0xFF00FF00) >> 8)
+    r = ((r & 0x0F0F0F0F) << 4) | ((r & 0xF0F0F0F0) >> 4)
+    return ((r & 0x33333333) << 2) | ((r & 0xCCCCCCCC) >> 2)
+
+
+def revcomp_kmers(kmers, k):
+    """(B, W) -> reverse complement, same layout."""
+    W = kmers.shape[1]
+    rev = crc32_word(kmers).flip(1)
+    s = W * 32 - 2 * k
+    if s == 0:
+        return rev
+    out = rev >> s
+    out[:, :-1] |= (rev[:, 1:] << (32 - s)) & M32
+    return out
+
+
+def revcomp_mmer64(val, m):
+    """RC of u64-packed m-mers (m <= 31)."""
+    return u.shr(u.u64(crc32_word(val.lo), crc32_word(val.hi)), 64 - 2 * m)
+
+
+def _word(words, i):
+    return words[:, i] if i < words.shape[1] else torch.zeros_like(words[:, 0])
+
+
+def extract_window(kmers, bit, width_bits):
+    """Up to 64 bits at constant bit offset `bit` of (B, W) kmers -> u64
+    masked to width_bits."""
+    w, b = divmod(bit, 32)
+    if b == 0:
+        lo, hi = _word(kmers, w), _word(kmers, w + 1)
+    else:
+        lo = (_word(kmers, w) >> b) | ((_word(kmers, w + 1) << (32 - b)) & M32)
+        hi = (_word(kmers, w + 1) >> b) | ((_word(kmers, w + 2) << (32 - b)) & M32)
+    if width_bits < 64:
+        hi = hi & (((1 << width_bits) - 1) >> 32)
+        lo = lo & (((1 << width_bits) - 1) & M32)
+    return u.u64(hi, lo)
+
+
+def _funnel(win, bitpos, nout, max_start_word):
+    """nout words starting at a per-lane bit offset of the (B, Ww) window.
+    A start word past max_start_word reads from word 0, as the JAX select
+    chain does (it only has variants for start words 0..max_start_word)."""
+    B, Ww = win.shape
+    nvar = Ww if max_start_word is None else min(Ww, max_start_word + 1)
+    w0 = bitpos >> 5
+    w0 = torch.where(w0 < nvar, w0, torch.zeros_like(w0))
+    b = (bitpos & 31)[:, None]
+    pad = torch.cat([win, win.new_zeros(B, nout + 1)], dim=1)
+    idx = w0[:, None] + torch.arange(nout + 1, device=win.device)[None, :]
+    g = torch.gather(pad, 1, idx)
+    hi = torch.where(b != 0, (g[:, 1:] << (32 - b)) & M32, torch.zeros_like(b))
+    return (g[:, :-1] >> b) | hi
+
+
+def extract_window_dyn(win, bitpos, width_bits, max_start_word=None):
+    """Up to 64 bits at a per-lane bit offset (int64 (B,), u32 values) of a
+    (B, Ww) window -> u64 masked to width_bits."""
+    lo_hi = _funnel(win, bitpos, 2, max_start_word)
+    lo, hi = lo_hi[:, 0], lo_hi[:, 1]
+    if width_bits < 64:
+        hi = hi & (((1 << width_bits) - 1) >> 32)
+        lo = lo & (((1 << width_bits) - 1) & M32)
+    return u.u64(hi, lo)
+
+
+def extract_kmer_dyn(win, bitpos, k, max_start_word=None):
+    """k-char kmer at a per-lane bit offset of a (B, Ww) window -> (B, W)."""
+    return mask_last_word(_funnel(win, bitpos, num_words32(k), max_start_word), k)
+
+
+def kmer_less(a, b):
+    """Integer compare, word W-1 most significant."""
+    less = torch.zeros(a.shape[0], dtype=torch.bool, device=a.device)
+    decided = torch.zeros_like(less)
+    for w in range(a.shape[1] - 1, -1, -1):
+        lt, gt = a[:, w] < b[:, w], a[:, w] > b[:, w]
+        less = less | (~decided & lt)
+        decided = decided | lt | gt
+    return less
+
+
+def kmer_equal(a, b):
+    return (a == b).all(dim=1)
+
+
+def compute_minimizer(kmers, k, m, magic):
+    """Leftmost minimal mixer-hash m-mer per kmer (strict < keeps the
+    leftmost). Returns (value u64, pos int64 (B,)). Also stands in for the
+    JAX tournament tree `_tree_min`, which computes the same function."""
+    best_h = best_v = None
+    best_p = torch.zeros(kmers.shape[0], dtype=torch.int64, device=kmers.device)
+    for j in range(k - m + 1):
+        v = extract_window(kmers, 2 * j, 2 * m)
+        h = u.mixer64(v, magic)
+        if best_h is None:
+            best_h, best_v = h, v
+            continue
+        upd = u.less(h, best_h)
+        best_h, best_v = u.select(upd, h, best_h), u.select(upd, v, best_v)
+        best_p = torch.where(upd, j, best_p)
+    return best_v, best_p
+
+
+def compute_minimizer_two_strand(kmers, k, m, magic):
+    """Both-strand minimizers from one window scan: the RC kmer's window at
+    RC position l is the RC of the forward window at j = k-m-l. The RC scan
+    keeps the LEFTMOST minimum in RC coordinates, i.e. the rightmost j (<=).
+    Returns (mv_f, mp_f, mv_r, mp_r), equal to compute_minimizer on kmers
+    and on revcomp_kmers(kmers)."""
+    B = kmers.shape[0]
+    bf_h = bf_v = br_h = br_v = None
+    bf_p = torch.zeros(B, dtype=torch.int64, device=kmers.device)
+    br_j = torch.zeros_like(bf_p)
+    for j in range(k - m + 1):
+        v = extract_window(kmers, 2 * j, 2 * m)
+        h = u.mixer64(v, magic)
+        vr = revcomp_mmer64(v, m)
+        hr = u.mixer64(vr, magic)
+        if bf_h is None:
+            bf_h, bf_v, br_h, br_v = h, v, hr, vr
+            continue
+        upd = u.less(h, bf_h)
+        bf_h, bf_v = u.select(upd, h, bf_h), u.select(upd, v, bf_v)
+        bf_p = torch.where(upd, j, bf_p)
+        updr = ~u.less(br_h, hr)
+        br_h, br_v = u.select(updr, hr, br_h), u.select(updr, vr, br_v)
+        br_j = torch.where(updr, j, br_j)
+    return bf_v, bf_p, br_v, (k - m) - br_j
+
+
+def minimizer_plain(kmers32, k, m, magic, both=False):
+    """Plain version of kernel 1, same signature and dtypes: kmers32 (B, W)
+    int32 (u32 bits) -> (mv int64, mp int32) and, with both=True, also
+    (kmers_rc32 int32 (B, W), mv_r int64, mp_r int32). Minimizer values
+    are < 2^62, so int64 holds them exactly."""
+    km = u.u32(kmers32)
+    if not both:
+        mv, mp = compute_minimizer(km, k, m, magic)
+        return u.to_i64(mv), mp.to(torch.int32)
+    mv, mp, mv_r, mp_r = compute_minimizer_two_strand(km, k, m, magic)
+    return (u.to_i64(mv), mp.to(torch.int32), u.to_i32(revcomp_kmers(km, k)),
+            u.to_i64(mv_r), mp_r.to(torch.int32))
+
+
+def minimizer(kmers32, k, m, magic, both=False):
+    """Kernel 1 entry: a CUDA tensor runs csrc/minimizer.cu, a CPU tensor
+    its plain version. Anything else raises."""
+    if kmers32.is_cuda:
+        return kernels.minimizer_kernel(kmers32, k, m, magic, both)
+    if kmers32.device.type == "cpu":
+        return minimizer_plain(kmers32, k, m, magic, both)
+    raise ValueError(f"no minimizer kernel for device {kmers32.device}")

@@ -1,0 +1,139 @@
+"""Synthetic unitig sets, and the small index configurations that the CPU
+tests and chip_smoke.py both check the port on.
+
+Random strings stand in for the reference's bundled unitigs (absent from
+the build machines). `planted` overwrites random sites with m-mers whose
+minimizer hash is among the smallest of a large sample, so each planted
+m-mer is the minimizer of nearly every kmer around it: planting it c times
+makes a bucket of about c super-kmers, and c > 2^MIN_L makes it heavy.
+"""
+
+import os
+import tempfile
+
+import numpy as np
+
+from sshash_tpu import BuildConfig, Dictionary
+from sshash_tpu import hashing as H
+from sshash_tpu import kmer as K
+from sshash_tpu import oracle
+
+# code -> char under the index's 2-bit map (kmer.NUCLEOTIDES)
+_CHARS = np.frombuffer(b"ACTG", dtype=np.uint8)
+
+# name -> build parameters; each exercises a path of the probe
+SMALL_CONFIGS = {
+    # singleton-rich: no candidate 1 in the row, size-2 buckets on the sweep
+    "m13_regular": dict(k=31, m=13, canonical=False, num_strings=128, string_len=1001, seed=1),
+    "m13_canonical": dict(k=31, m=13, canonical=True, num_strings=64, string_len=1001, seed=2),
+    # >= 0.1% multi buckets: candidate 1 in the row
+    "m9_c1": dict(k=31, m=9, canonical=False, num_strings=64, string_len=101, seed=3),
+    # tiny m: heavy (skew) buckets and long mid buckets
+    "m3_skew": dict(k=31, m=3, canonical=False, num_strings=64, string_len=101, seed=4),
+    "m3_skew_canonical": dict(k=31, m=3, canonical=True, num_strings=64, string_len=101, seed=5),
+    # partitioned minimizer MPHF
+    "partitioned": dict(k=31, m=13, canonical=False, num_strings=64, string_len=101, seed=6,
+                        avg_partition_size=128),
+    # one, three and four u32 words per kmer
+    "k15": dict(k=15, m=7, canonical=False, num_strings=64, string_len=101, seed=8),
+    "k47": dict(k=47, m=17, canonical=True, num_strings=32, string_len=201, seed=9),
+    "k63": dict(k=63, m=25, canonical=True, num_strings=32, string_len=201, seed=7),
+}
+
+
+def low_hash_mmers(n, m, seed, sample=1 << 20, rng=None):
+    """The n m-mers (as 2-bit code arrays) of smallest minimizer hash among
+    `sample` random ones, for an index built with `seed`."""
+    rng = rng or np.random.default_rng(0)
+    vals = rng.integers(0, 1 << (2 * m), sample, dtype=np.uint64)
+    h = H.mixer64(vals, H.mixer_magic(seed))
+    best = vals[np.argsort(h)[:n]]
+    shifts = np.arange(m, dtype=np.uint64) * np.uint64(2)
+    return ((best[:, None] >> shifts[None, :]) & np.uint64(3)).astype(np.uint8)
+
+
+def plant(codes, mmers, counts, k, rng):
+    """Write mmers[i] counts[i] times at distinct random sites of `codes`,
+    sites at least k apart."""
+    S, L = codes.shape
+    m = mmers.shape[1]
+    per = (L - m) // (2 * k)
+    need = int(sum(counts))
+    if need > S * per:
+        raise ValueError(f"{need} plants do not fit {S} strings of {L} chars")
+    sites = rng.choice(S * per, need, replace=False)
+    owner = np.repeat(np.arange(len(counts)), counts)
+    rows, cols = sites // per, (sites % per) * 2 * k
+    for i in range(m):
+        codes[rows, cols + i] = mmers[owner, i]
+    return codes
+
+
+def write_fasta(path, codes):
+    chars = _CHARS[codes]
+    with open(path, "wb") as f:
+        for i in range(len(chars)):
+            f.write(b">%d\n" % i)
+            f.write(chars[i].tobytes())
+            f.write(b"\n")
+
+
+def build_index(k, m, canonical, num_strings, string_len, seed, avg_partition_size=None,
+                planted=None, threads=1):
+    """Index over random strings drawn from `seed`. planted: list of plant
+    counts, one low-hash m-mer per entry."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (num_strings, string_len), dtype=np.uint8)
+    cfg = BuildConfig(k=k, m=m, canonical=canonical, verbose=False, threads=threads,
+                      avg_partition_size=avg_partition_size)
+    if planted:
+        plant(codes, low_hash_mmers(len(planted), m, cfg.seed, rng=rng), planted, k, rng)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "unitigs.fa")
+        write_fasta(path, codes)
+        del codes
+        return Dictionary.build(path, cfg).index
+
+
+def small_index(name):
+    return build_index(**SMALL_CONFIGS[name])
+
+
+def path_kmer_ids(idx, rng, n):
+    """Up to n ids of kmers whose minimizer bucket holds 2+ positions or is
+    heavy (the lanes that reach candidate 1, the sweep or the skew index)."""
+    ids = np.arange(idx.num_kmers)
+    km = oracle.access(idx, ids)
+    magic = H.mixer_magic(idx.seed)
+    mv, _ = oracle.compute_minimizer(km, idx.k, idx.m, magic)
+    if idx.canonical:
+        mr, _ = oracle.compute_minimizer(K.revcomp_kmers(km, idx.k), idx.k, idx.m, magic)
+        mv = np.minimum(mv, mr)
+    status, _, size, _ = oracle._decode_codewords(idx, mv)
+    sel = ids[(status == 2) | (size >= 2)]
+    return rng.choice(sel, min(n, len(sel)), replace=False)
+
+
+def random_kmers(k, rng, n):
+    """n random packed k-mers (almost surely absent from an index)."""
+    W64 = K.num_words64(k)
+    km = rng.integers(0, 1 << 64, (n, W64), dtype=np.uint64)
+    rem = 2 * k - 64 * (W64 - 1)
+    if rem < 64:
+        km[:, -1] &= np.uint64((1 << rem) - 1)
+    return km
+
+
+def query_batch(idx, seed=0):
+    """An odd-sized batch of packed kmers: 50%-RC positives (uniform ids
+    plus path_kmer_ids), random negatives, and a shuffled mix. Returns
+    (kmers64, number of leading positives)."""
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([rng.integers(0, idx.num_kmers, 600), path_kmer_ids(idx, rng, 300)])
+    pos = oracle.access(idx, ids)
+    pos[::2] = K.revcomp_kmers(pos[::2], idx.k)
+    mixed = np.concatenate([oracle.access(idx, rng.integers(0, idx.num_kmers, 300)),
+                            random_kmers(idx.k, rng, 300)])
+    mixed[::3] = K.revcomp_kmers(mixed[::3], idx.k)
+    q = np.concatenate([pos, random_kmers(idx.k, rng, 500), mixed[rng.permutation(len(mixed))]])
+    return q[: len(q) - 1 + len(q) % 2], len(pos)

@@ -1,0 +1,134 @@
+"""The port's table layout against the JAX package's _device_arrays and
+StaticCfg, tables_from_host on a JAX table dict, the formats the port
+refuses, and the port running with JAX blocked from import."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+from sshash_tpu import oracle
+from sshash_tpu.engine import StaticCfg as JaxCfg
+from sshash_tpu.engine import _device_arrays
+from sshash_tpu.engine import row_width as jax_row_width
+from sshash_tpu_torch import TorchEngine, synthetic, to_device
+from sshash_tpu_torch.layout import (LOOKUP_KEYS, OPTIONAL_KEYS, SKEW_PARAMS, StaticCfg,
+                                     device_arrays, row_width, tables_from_host)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GEOMETRY = ("k", "m", "canonical", "W", "kmw", "win_words", "vbits_words",
+            "max_start_word", "quad_w", "magic", "c1_in_row", "mphf_partitioned",
+            "mphf_table", "mphf_nbuckets", "mphf_seedmix", "pilot_w", "sk_pilot_w",
+            "has_skew")
+
+
+@pytest.fixture(scope="module", params=sorted(synthetic.SMALL_CONFIGS))
+def built(request):
+    idx = synthetic.small_index(request.param)
+    return request.param, idx, _device_arrays(idx)
+
+
+def test_device_arrays_equal_jax(built):
+    name, idx, jax_arrs = built
+    port = device_arrays(idx)
+    assert set(port) <= set(jax_arrs)
+    assert set(LOOKUP_KEYS) <= set(port)
+    assert {f"sk_{p}" for p in SKEW_PARAMS} <= set(port)
+    for key, v in port.items():
+        assert v.dtype == np.uint32, key
+        assert np.array_equal(v, jax_arrs[key]), key
+    cfg, jcfg = StaticCfg(idx), JaxCfg(idx)
+    for attr in GEOMETRY:
+        assert getattr(cfg, attr) == getattr(jcfg, attr), attr
+    assert cfg.has_skew == jcfg.skew_hrows == jcfg.skew_partitioned
+    if cfg.mphf_partitioned:
+        for attr in ("mphf_P", "mphf_part_table", "mphf_part_buckets"):
+            assert getattr(cfg, attr) == getattr(jcfg, attr), attr
+    assert row_width(cfg) == jax_row_width(jcfg) == port["cw_row"].shape[1]
+
+
+def test_tables_from_jax_dict(built):
+    """The JAX package's table dict feeds the port directly."""
+    name, idx, jax_arrs = built
+    from_jax = tables_from_host(jax_arrs, "cpu")
+    own = tables_from_host(device_arrays(idx), "cpu")
+    assert set(from_jax) == set(own) == set(LOOKUP_KEYS + OPTIONAL_KEYS) | {"sk_params"}
+    for key in own:
+        assert from_jax[key].dtype == own[key].dtype
+        assert np.array_equal(from_jax[key].numpy(), own[key].numpy()), key
+    assert from_jax["sk_params"].shape == (8, 8)
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, idx.num_kmers, 257)
+    km = oracle.access(idx, ids)
+    got = TorchEngine(idx, "cpu", host_arrs=jax_arrs).lookup(km)
+    assert np.array_equal(got["kmer_id"], ids.astype(np.uint64))
+
+
+def test_refuses_formats_it_does_not_serve(monkeypatch):
+    idx = synthetic.small_index("m3_skew")
+    with pytest.raises(ValueError, match="v2"):
+        StaticCfg(dataclasses.replace(idx, num_chars=1 << 32))
+    with pytest.raises(ValueError, match="wide ids"):
+        StaticCfg(dataclasses.replace(idx, num_kmers=1 << 31))
+    legacy = [dataclasses.replace(p, hindex=None) for p in idx.skew_partitions]
+    with pytest.raises(ValueError, match="hindex"):
+        TorchEngine(dataclasses.replace(idx, skew_partitions=legacy), "cpu")
+    with pytest.raises(ValueError, match="k <= 63"):
+        StaticCfg(synthetic.build_index(k=65, m=21, canonical=False, num_strings=4,
+                                        string_len=100, seed=1))
+    # rebased (v2) rows from the JAX package are refused as a table source
+    monkeypatch.setenv("SSHASH_ROW_V2", "1")
+    v2 = _device_arrays(idx)
+    monkeypatch.delenv("SSHASH_ROW_V2")
+    with pytest.raises(ValueError, match="v1 rows"):
+        TorchEngine(idx, "cpu", host_arrs=v2)
+
+
+def test_runs_with_jax_blocked():
+    """The port package imports no JAX: a process that cannot import jax
+    builds an index and looks it up on the CPU."""
+    code = textwrap.dedent("""
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib"):
+                    raise ImportError("jax is blocked")
+
+        sys.meta_path.insert(0, Block())
+        import numpy as np
+        from sshash_tpu import oracle
+        from sshash_tpu_torch import synthetic, to_device
+
+        idx = synthetic.small_index("m9_c1")
+        eng = to_device(idx, "cpu")
+        ids = np.arange(0, idx.num_kmers, 7)
+        got = eng.lookup(oracle.access(idx, ids))
+        assert np.array_equal(got["kmer_id"], ids.astype(np.uint64))
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib")
+                        or m.startswith(("sshash_tpu.engine", "sshash_tpu.ops",
+                                         "sshash_tpu.streaming", "sshash_tpu.parallel",
+                                         "sshash_tpu.debug")))
+        assert not loaded, loaded
+        print("ok", len(ids))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_to_device_accepts_dictionary_and_index():
+    idx = synthetic.small_index("m9_c1")
+
+    class Holder:  # a Dictionary-like wrapper
+        index = idx
+
+    for obj in (idx, Holder()):
+        eng = to_device(obj, "cpu")
+        assert eng.index is idx and eng.device.type == "cpu"
