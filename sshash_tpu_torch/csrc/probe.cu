@@ -28,6 +28,7 @@
 #include <cstdint>
 
 #include "packed.cuh"
+#include "tables.cuh"
 #include "u64.cuh"
 
 namespace sshash {
@@ -85,13 +86,6 @@ struct ProbeIO {
   uint32_t* string_begin;
   uint32_t* string_end;
 };
-
-// jnp.take(table, idx.astype(int32), mode="clip") on a table of n rows
-__device__ __forceinline__ int64_t clip_row(uint32_t idx, int64_t n) {
-  const int32_t s = (int32_t)idx;
-  if (s < 0) return 0;
-  return s < n ? s : n - 1;
-}
 
 // engine._pilot_read: field `bucket` of a table packed at width w (4..32)
 __device__ __forceinline__ uint32_t pilot_read(int w, const uint32_t* words, int64_t n,

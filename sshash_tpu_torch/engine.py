@@ -1,9 +1,11 @@
-"""Batched k-mer lookup on PyTorch tensors: probe, orchestration, engine.
+"""Batched point queries on PyTorch tensors: lookup, navigation, access,
+iteration and weight, and the engine that serves them.
 
-Counterpart of sshash_tpu/engine.py's lookup path (mphf_eval_minimizer,
+Counterpart of sshash_tpu/engine.py's query paths (mphf_eval_minimizer,
 _pilot_read, skew_slot, lookup_with_info, make_lookup, _merge,
-DeviceEngine) for v1 indexes of k <= 63. One lookup is two kernels and
-some elementwise glue:
+make_neighbours, make_access with _acc_resolve and _acc_read_window,
+make_iterator, make_weight, DeviceEngine) for v1 indexes of k <= 63. One
+lookup is two kernels and some elementwise glue:
 
   1. kernel 1 (ops.packed.minimizer): both strands' minimizers, and the
      reverse-complemented kmers, in one launch;
@@ -21,6 +23,22 @@ The plain versions here (`probe_plain` and its helpers) hold u32 values in
 int64 tensors and run on any device; `probe` sends CPU tensors to them and
 CUDA tensors to the kernel. Results carry u32 fields as int32 tensors of
 the same bits (kmer ids are < 2^31, char offsets < 2^32).
+
+Navigation builds the 8 one-char variants of each kmer in one launch of
+the neighbours kernel (ops.packed.neighbour_variants) and looks them all
+up at once. The id-side queries are one kernel each:
+
+  access     csrc/access.cu: id -> packed kmer from one acc_rows row, and
+             in the two-round form a strings32 read;
+  iterate    csrc/iterator.cu: (count, checksum) of every valid kmer in one
+             pass over strings32 and vstart32;
+  weight     csrc/weight.cu: id -> weight by an upper-bound search over the
+             weight runs, then two gathers.
+
+Ids at or past num_kmers: the windowed access form reads what the JAX
+program reads, bit for bit. The two-round form (and read_kmers_at) clips
+its strings32 reads to the last word, where JAX's unclipped gather fills;
+such lanes read in bounds and their kmer is meaningless in both.
 """
 
 import numpy as np
@@ -30,8 +48,9 @@ from sshash_tpu import kmer as K
 from sshash_tpu.constants import BACKWARD_ORIENTATION, FORWARD_ORIENTATION, INVALID_UINT64
 
 from . import kernels
-from .layout import (SKEW_PARAMS, StaticCfg, cand_block_width, device_arrays,
-                     row_width, tables_from_host)
+from .layout import (SKEW_PARAMS, TABLE_GROUPS, StaticCfg, acc_windowed, cand_block_width,
+                     device_arrays, row_width, tables_from_host, take_rows,
+                     with_access_tables)
 from .ops import packed as P
 from .ops import u64 as u
 from .ops.u64 import M32
@@ -40,28 +59,19 @@ INVALID32 = 0xFFFFFFFF
 _SKP = {name: i for i, name in enumerate(SKEW_PARAMS)}
 
 
-def _take_rows(table, idx):
-    """table[idx] as u32 values in int64, clipping idx the way the JAX
-    package's jnp.take(..., idx.astype(int32), mode="clip") does: an index
-    >= 2^31 turns negative there and clips to row 0."""
-    n = table.shape[0]
-    i = torch.where(idx >= 1 << 31, torch.zeros_like(idx), idx.clamp(max=n - 1))
-    return u.u32(table.index_select(0, i))
-
-
 def _skew_param(tables, name, cls):
-    return _take_rows(tables["sk_params"][_SKP[name]], cls)
+    return take_rows(tables["sk_params"][_SKP[name]], cls)
 
 
 def _pilot_read(w, words, bucket, word_off=None):
     """pilot = packed_words[word_off + bucket] at field width w."""
     if w == 32:
-        return _take_rows(words, bucket if word_off is None else (word_off + bucket) & M32)
+        return take_rows(words, bucket if word_off is None else (word_off + bucket) & M32)
     ppw = 32 // w
     widx = bucket >> (ppw.bit_length() - 1)
     if word_off is not None:
         widx = (word_off + widx) & M32
-    word = _take_rows(words, widx)
+    word = take_rows(words, widx)
     return (word >> ((bucket & (ppw - 1)) * w)) & ((1 << w) - 1)
 
 
@@ -70,7 +80,7 @@ def mphf_eval_minimizer(cfg, tables, minval):
     mh = u.splitmix64(u.xor(minval, u.const64(cfg.mphf_seedmix, minval.lo)))
     if cfg.mphf_partitioned:
         pid = u.mulhi32(mh.hi, cfg.mphf_P)
-        row = _take_rows(tables["mphf_seedrows"], pid)
+        row = take_rows(tables["mphf_seedrows"], pid)
         h2 = u.splitmix64(u.xor(mh, u.u64(row[:, 0], row[:, 1])))
         nb, T = cfg.mphf_part_buckets, cfg.mphf_part_table
         bucket = (pid * nb + u.mulhi32(h2.hi, nb)) & M32
@@ -91,8 +101,8 @@ def skew_slot(cfg, tables, kmers, cls):
     nb = _skew_param(tables, "nbuckets", cls)
     table = _skew_param(tables, "table", cls)
     pid2 = u.mulhi32(h.hi, _skew_param(tables, "np2", cls))
-    row = _take_rows(tables["sk_seedrows"],
-                     (_skew_param(tables, "seed_off", cls) + pid2) & M32)
+    row = take_rows(tables["sk_seedrows"],
+                    (_skew_param(tables, "seed_off", cls) + pid2) & M32)
     h2 = u.splitmix64(u.xor(h, u.u64(row[:, 0], row[:, 1])))
     bucket = (pid2 * nb + u.mulhi32(h2.hi, nb)) & M32
     pilot = _pilot_read(cfg.sk_pilot_w, tables["sk_pilots"], bucket,
@@ -168,7 +178,7 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
     active = torch.ones(B, dtype=torch.bool, device=dev) if active is None else active
 
     slot = mphf_eval_minimizer(cfg, tables, mv)
-    row = _take_rows(tables["cw_row"], slot)
+    row = take_rows(tables["cw_row"], slot)
     sb, cw_a = row[:, 0], row[:, 1]
     status, cw_b = sb & 3, sb >> 2
     heavy, midload = status == 2, status == 1
@@ -198,7 +208,7 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
             canon = torch.where(P.kmer_less(kr, km)[:, None], kr, km)
         cls = torch.where(heavy, cw_b, torch.zeros_like(cw_b))
         hidx = (_skew_param(tables, "pos_off", cls) + skew_slot(cfg, tables, canon, cls)) & M32
-        take(_verify(cfg, _take_rows(tables["sk_hrows"], hidx), active & heavy, km, kr, tries))
+        take(_verify(cfg, take_rows(tables["sk_hrows"], hidx), active & heavy, km, kr, tries))
 
     minimizer_found = ~(active & ~guard_ok & ~heavy)
     active = active & (guard_ok | heavy)
@@ -214,7 +224,7 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         lkr = kr[lanes] if kr is not None else None
         ltries = [t[lanes] for t in tries]
         for j in range(jmin, int(lsize.max())):
-            mrow = _take_rows(tables["mid_rows"], (la + j) & M32)
+            mrow = take_rows(tables["mid_rows"], (la + j) & M32)
             new = _verify(cfg, mrow, (j < lsize) & ~sub[0], lkm, lkr, ltries)
             for i in range(1, 6):
                 sub[i] = torch.where(new[0], new[i], sub[i])
@@ -299,6 +309,128 @@ def make_lookup(cfg, fields="full", minimizer=P.minimizer, probe=probe):
     return fn
 
 
+def make_neighbours(cfg, fields="full", variants=P.neighbour_variants, **lookup_kw):
+    """Batched navigation (src/dictionary.cpp:112-128): one lookup over the
+    8 one-char variants of each kmer, 4 forward then 4 backward; result
+    fields are (B, 8). `variants` and `lookup_kw` (make_lookup's
+    `minimizer` and `probe`) default to the kernel entry points."""
+    lookup = make_lookup(cfg, fields, **lookup_kw)
+
+    def fn(tables, kmers32):
+        B = kmers32.shape[0]
+        res = lookup(tables, variants(kmers32, cfg.k).view(8 * B, cfg.W))
+        return {key: v.reshape(8, B).t() for key, v in res.items()}
+
+    return fn
+
+
+def acc_offset(cfg, row, ids):
+    """Char offset per lane from its access row (_acc_resolve): the string
+    id is the row's sid hint plus the row's string starts <= the id."""
+    sid = row[:, 0] + (ids[:, None] >= row[:, 1: 1 + cfg.access_C]).sum(dim=1)
+    return (ids + sid * (cfg.k - 1)) & M32
+
+
+def acc_read_window(cfg, row, ids, off):
+    """The kmer from the row's own packed-string words: the window starts
+    at word floor(o_min/16), o_min = (id & ~31) + hint*(k-1)."""
+    o_min = ((ids & ~31) + row[:, 0] * (cfg.k - 1)) & M32
+    local = (off - (o_min & ~15)) & M32
+    return P.extract_kmer_dyn(row[:, 1 + cfg.access_C:], 2 * local, cfg.k)
+
+
+def access_plain(cfg, tables, ids):
+    """Plain version of the access kernel: (B,) int32 ids -> (B, W) int32
+    kmers."""
+    i = u.u32(ids)
+    row = take_rows(tables["acc_rows"], i >> 5)
+    off = acc_offset(cfg, row, i)
+    if acc_windowed(cfg.k, cfg.access_C):
+        out = acc_read_window(cfg, row, i, off)
+    else:
+        out = P.read_kmers_at(u.u32(tables["strings32"]), off, cfg.k)
+    return u.to_i32(out)
+
+
+def access(cfg, tables, ids):
+    """Access kernel entry: a CUDA tensor runs csrc/access.cu, a CPU tensor
+    its plain version. Anything else raises."""
+    if ids.is_cuda:
+        return kernels.access_kernel(cfg, tables, ids)
+    if ids.device.type == "cpu":
+        return access_plain(cfg, tables, ids)
+    raise ValueError(f"no access kernel for device {ids.device}")
+
+
+def _popcount32(x):
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & M32) >> 24
+
+
+def iterate_plain(k, strings32, vstart32):
+    """Plain version of the iterator kernel: (2,) int32 tensor of u32
+    (count, checksum). count is the popcount of vstart32; checksum the
+    sum mod 2^32, over every valid start, of the XOR of its kmer's W
+    words (make_iterator's reduce form)."""
+    s, v = u.u32(strings32), u.u32(vstart32)
+    W, NW = P.num_words32(k), s.shape[0]
+    sp = torch.cat([s, s.new_zeros(W)])
+    srcs = [sp[j: j + NW] for j in range(W + 1)]
+    last_mask = (1 << (2 * k - 32 * (W - 1))) - 1
+    # word w's 16 valid bits sit in half (w & 1) of vstart32[w >> 1]
+    vv = v.repeat_interleave(2)[:NW] >> ((torch.arange(NW, device=s.device) & 1) * 16)
+    acc = torch.zeros_like(s)
+    for c in range(16):
+        fold = torch.zeros_like(s)
+        for j in range(W):
+            xj = srcs[j] if c == 0 else (srcs[j] >> (2 * c)) | ((srcs[j + 1] << (32 - 2 * c)) & M32)
+            fold ^= xj & last_mask if j == W - 1 else xj
+        acc = (acc + fold * ((vv >> c) & 1)) & M32
+    out = torch.stack([_popcount32(v).sum() & M32, acc.sum() & M32])
+    return u.to_i32(out)
+
+
+def iterate_kmers_plain(k, strings32, vstart32):
+    """make_iterator(materialize=True): (valid bool (16*NW,), kmers int32
+    (16*NW, W)) for every char offset, in offset order (= id order over
+    the valid ones)."""
+    kmers = P.iterate_kmers(u.u32(strings32), k)
+    bits = (u.u32(vstart32)[:, None] >> torch.arange(32, device=strings32.device)) & 1
+    return bits.reshape(-1)[: kmers.shape[0]] != 0, u.to_i32(kmers)
+
+
+def iterate(k, strings32, vstart32):
+    """Iterator kernel entry: a CUDA tensor runs csrc/iterator.cu, a CPU
+    tensor its plain version. Anything else raises. The result stays on
+    the tensors' device."""
+    if strings32.is_cuda:
+        return kernels.iterate_kernel(k, strings32, vstart32)
+    if strings32.device.type == "cpu":
+        return iterate_plain(k, strings32, vstart32)
+    raise ValueError(f"no iterator kernel for device {strings32.device}")
+
+
+def weight_plain(tables, ids):
+    """Plain version of the weight kernel: (B,) int32 ids -> (B,) int32
+    weights. The run index is searchsorted(right) - 1 over w_endpoints,
+    clipped to the runs (-1 reads run 0, as JAX's clipped take does)."""
+    i = torch.searchsorted(u.u32(tables["w_endpoints"]), u.u32(ids), right=True) - 1
+    vid = take_rows(tables["w_value_ids"], i.clamp(min=0))
+    return u.to_i32(take_rows(tables["w_dictionary"], vid))
+
+
+def weight(tables, ids):
+    """Weight kernel entry: a CUDA tensor runs csrc/weight.cu, a CPU tensor
+    its plain version. Anything else raises."""
+    if ids.is_cuda:
+        return kernels.weight_kernel(tables, ids)
+    if ids.device.type == "cpu":
+        return weight_plain(tables, ids)
+    raise ValueError(f"no weight kernel for device {ids.device}")
+
+
 def _to_host_result(res):
     """Device result -> the oracle's numpy contract: u32 fields as uint64
     with INVALID on misses, orientation int64, minimizer_found bool."""
@@ -317,9 +449,18 @@ def _to_host_result(res):
     return out
 
 
+def _neighbours_to_host(res):
+    """Navigation result -> DeviceEngine.kmer_neighbours' contract: as
+    _to_host_result, but orientation stays int32."""
+    out = _to_host_result(res)
+    out["kmer_orientation"] = out["kmer_orientation"].astype(np.int32)
+    return out
+
+
 class TorchEngine:
-    """Device-resident lookup tables + batched lookup entry points
-    (counterpart of sshash_tpu.engine.DeviceEngine's lookup path).
+    """Device-resident tables + the batched point-query entry points
+    (counterpart of sshash_tpu.engine.DeviceEngine): lookup, membership,
+    access, weight, navigation and full iteration.
 
     host_arrs: a precomputed table dict (layout.device_arrays, or the JAX
     package's _device_arrays / its .npy cache) for large indexes."""
@@ -335,13 +476,20 @@ class TorchEngine:
                 f"host_arrs cw_row has {host_arrs['cw_row'].shape[1]} columns, this "
                 f"index needs {row_width(self.cfg)} (v1 rows); recompute with "
                 f"layout.device_arrays(index)")
+        else:
+            host_arrs = with_access_tables(index, self.cfg, host_arrs)
         self.tables = tables_from_host(host_arrs, self.device)
         self._lookup = make_lookup(self.cfg, "full")
         self._lookup_ids = make_lookup(self.cfg, "ids")
+        self._neighbours = make_neighbours(self.cfg, "full")
 
     def table_bytes(self):
-        """Device bytes of the lookup tables."""
-        return sum(t.numel() * t.element_size() for t in self.tables.values())
+        """Device bytes of the tables by group (layout.TABLE_GROUPS):
+        "lookup" (the probe's tables and strings32), "access" (acc_rows,
+        vstart32) and "weight"."""
+        return {group: sum(self.tables[n].numel() * self.tables[n].element_size()
+                           for n in names if n in self.tables)
+                for group, names in TABLE_GROUPS.items()}
 
     def kmers32(self, kmers64):
         """(B, W64) uint64 packed kmers -> (B, W) int32 tensor on the device."""
@@ -362,3 +510,51 @@ class TorchEngine:
 
     def is_member(self, kmers64):
         return self.lookup(kmers64)["kmer_id"] != np.uint64(INVALID_UINT64)
+
+    def access_device(self, ids):
+        """(B,) int32 kmer ids (u32 bits) on the device -> (B, W) int32
+        kmers."""
+        return access(self.cfg, self.tables, ids)
+
+    def _ids(self, ids):
+        """kmer ids -> (B,) int32 tensor of their u32 bits on the device."""
+        ids = np.ascontiguousarray(np.asarray(ids, dtype=np.uint32))
+        return torch.from_numpy(ids.view(np.int32)).to(self.device)
+
+    def access(self, ids):
+        """kmer ids -> (B, W64) uint64 packed kmers, as oracle.access."""
+        out = self.access_device(self._ids(ids))
+        return K.u32_to_kmers64(out.cpu().numpy().view(np.uint32), self.cfg.k)
+
+    def weight_device(self, ids):
+        """(B,) int32 kmer ids (u32 bits) on the device -> (B,) int32
+        weights (u32 bits). Raises on an unweighted index."""
+        if not self.cfg.weighted:
+            raise RuntimeError("dictionary is not weighted")
+        return weight(self.tables, ids)
+
+    def weight(self, ids):
+        """kmer ids -> uint64 weights, as index.weights.weight."""
+        out = self.weight_device(self._ids(ids))
+        return out.cpu().numpy().view(np.uint32).astype(np.uint64)
+
+    def kmer_neighbours_device(self, kmers32):
+        """(B, W) int32 kmers on the device -> dict of (B, 8) result
+        tensors: columns 0-3 forward A, C, T, G, then 4-7 backward."""
+        return self._neighbours(self.tables, kmers32)
+
+    def kmer_neighbours(self, kmers64):
+        """(B, W64) uint64 packed kmers -> dict of (B, 8) numpy arrays, as
+        DeviceEngine.kmer_neighbours."""
+        return _neighbours_to_host(self.kmer_neighbours_device(self.kmers32(kmers64)))
+
+    def iterator_device(self):
+        """(count, checksum) of a full iteration as a (2,) int32 tensor of
+        u32 bits, left on the device."""
+        return iterate(self.cfg.k, self.tables["strings32"], self.tables["vstart32"])
+
+    def iterator(self):
+        """(count, checksum) as numpy uint32 scalars, as DeviceEngine's
+        iterator returns them."""
+        count, checksum = self.iterator_device().cpu().numpy().view(np.uint32)
+        return count, checksum

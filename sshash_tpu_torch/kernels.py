@@ -1,7 +1,11 @@
 """Build and bind the port's CUDA kernels (csrc/), with launch counters.
 
-The sources compile with nvcc for sm_90a into one shared library with a
-plain C interface, loaded with ctypes. The library lands in
+Six kernels: minimizer (kernel 1) and probe (kernel 2) carry lookup;
+access, iterate, weight and neighbours carry the other point queries.
+
+The sources compile with nvcc for sm_90a, one nvcc process per source, all
+started together, and link into one shared library with a plain C
+interface, loaded with ctypes. The library lands in
 build/sshash_tpu_torch/ at the repo root, named by a hash of the sources,
 and is built at first use, so a fresh checkout builds it on its first
 CUDA lookup. Nothing builds or loads at import: machines without nvcc
@@ -10,8 +14,9 @@ import this module and run the plain versions.
 Each launch wrapper checks its tensors, allocates its outputs with
 torch.empty, launches on the current stream without synchronising, raises
 if the launch returned a CUDA error, and adds one to its `launches` count.
-The wrappers take CUDA tensors only; ops/packed.minimizer and
-engine.probe choose between a wrapper and its plain version by device.
+The wrappers take CUDA tensors only; the entry points (ops/packed.minimizer
+and .neighbour_variants; engine.probe, .access, .iterate and
+.weight) choose between a wrapper and its plain version by device.
 """
 
 import ctypes
@@ -25,14 +30,15 @@ from pathlib import Path
 
 import torch
 
-from .layout import cand_block_width, row_width
+from .layout import acc_width, acc_win_words, acc_windowed, cand_block_width, row_width
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("minimizer.cu", "probe.cu")
-HEADERS = ("packed.cuh", "u64.cuh")
+SOURCES = ("minimizer.cu", "probe.cu", "access.cu", "iterator.cu", "weight.cu",
+           "neighbours.cu")
+HEADERS = ("packed.cuh", "tables.cuh", "u64.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sshash_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lib = None
 
@@ -55,6 +61,18 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; raise if any failed. Returns their
+    stderr, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+    return [err for _, err in outs]
+
+
 def build():
     """Compile the kernels unless the library for these sources exists.
     Returns (path, seconds spent compiling, nvcc's output)."""
@@ -62,20 +80,16 @@ def build():
     if path.exists():
         return path, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return path, time.perf_counter() - t0, proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src + ".o") for src in SOURCES]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c",
+                         str(CSRC / src), "-o", obj] for src, obj in zip(SOURCES, objs)])
+        lib = os.path.join(tmp, path.name)
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, path)
+    return path, time.perf_counter() - t0, "".join(log)
 
 
 # ctypes mirrors of the structs in csrc/probe.cu (8-byte fields only)
@@ -111,6 +125,12 @@ class ProbeIO(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _IO_NAMES]
 
 
+class AccessParams(ctypes.Structure):
+    """Mirror of csrc/access.cu AccessParams."""
+    _fields_ = [(n, ctypes.c_int64) for n in ("B", "W", "k", "C", "windowed", "win_words",
+                                               "row_w", "rows_n", "strings_n")]
+
+
 def library():
     """Build (if needed) and load the kernel library."""
     global _lib
@@ -126,6 +146,12 @@ def library():
                                      ctypes.POINTER(ProbeParams),
                                      ctypes.POINTER(ProbeIO), p]
         lib.sshash_probe.restype = ctypes.c_int
+        lib.sshash_access.argtypes = [p, p, ctypes.POINTER(AccessParams), p, p, p]
+        lib.sshash_iterate.argtypes = [p, i64, p, i64, i64, p, p]
+        lib.sshash_weight.argtypes = [p, i64, p, i64, p, i64, p, i64, p, p]
+        lib.sshash_neighbours.argtypes = [p, i64, i64, i64, p, p]
+        for name in ("sshash_access", "sshash_iterate", "sshash_weight", "sshash_neighbours"):
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -144,6 +170,21 @@ def _check(t, name, dtype, shape=None):
 def _raise_on(err, what):
     if err != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+
+
+def _check_table(t, name, dev, cols=None):
+    _check(t, name, torch.int32)
+    if t.device != dev:
+        raise ValueError(f"table {name} is on {t.device}, queries on {dev}")
+    if t.shape[0] < 1 or (cols is not None and tuple(t.shape[1:]) != (cols,)):
+        raise ValueError(f"table {name} has shape {tuple(t.shape)}")
+
+
+def _ids(ids):
+    if ids.dim() != 1:
+        raise ValueError(f"ids must be (B,), got {tuple(ids.shape)}")
+    _check(ids, "ids", torch.int32)
+    return ids.shape[0]
 
 
 def _stream(device):
@@ -253,11 +294,97 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
 probe_kernel.launches = 0
 
 
+def access_kernel(cfg, tables, ids):
+    """Access: (B,) int32 ids -> (B, W) int32 kmers. Same contract as
+    engine.access_plain."""
+    B = _ids(ids)
+    dev = ids.device
+    C = cfg.access_C
+    windowed = acc_windowed(cfg.k, C)
+    rows, s32 = tables["acc_rows"], tables["strings32"]
+    _check_table(rows, "acc_rows", dev, acc_width(cfg))
+    _check_table(s32, "strings32", dev)
+    out = torch.empty((B, cfg.W), dtype=torch.int32, device=dev)
+    prm = AccessParams(B=B, W=cfg.W, k=cfg.k, C=C, windowed=int(windowed),
+                       win_words=acc_win_words(cfg.k, C), row_w=rows.shape[1],
+                       rows_n=rows.shape[0], strings_n=s32.shape[0])
+    err = library().sshash_access(rows.data_ptr(), s32.data_ptr(), ctypes.byref(prm),
+                                  ids.data_ptr(), out.data_ptr(), _stream(dev))
+    _raise_on(err, "access_kernel")
+    access_kernel.launches += 1
+    return out
+
+
+access_kernel.launches = 0
+
+
+def iterate_kernel(k, strings32, vstart32):
+    """Iteration: (2,) int32 (count, checksum) u32 bits, left on the
+    device. Same contract as engine.iterate_plain."""
+    dev = strings32.device
+    _check_table(strings32, "strings32", dev)
+    _check_table(vstart32, "vstart32", dev)
+    if strings32.dim() != 1 or vstart32.dim() != 1 or 2 * vstart32.shape[0] < strings32.shape[0]:
+        raise ValueError("strings32 and vstart32 must be 1-D, vstart32 covering every word")
+    out = torch.zeros(2, dtype=torch.int32, device=dev)
+    err = library().sshash_iterate(strings32.data_ptr(), strings32.shape[0],
+                                   vstart32.data_ptr(), vstart32.shape[0], k,
+                                   out.data_ptr(), _stream(dev))
+    _raise_on(err, "iterate_kernel")
+    iterate_kernel.launches += 1
+    return out
+
+
+iterate_kernel.launches = 0
+
+
+def weight_kernel(tables, ids):
+    """Weight: (B,) int32 ids -> (B,) int32 weights (u32 bits). Same
+    contract as engine.weight_plain."""
+    B = _ids(ids)
+    dev = ids.device
+    names = ("w_endpoints", "w_value_ids", "w_dictionary")
+    for name in names:
+        _check_table(tables[name], name, dev)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    err = library().sshash_weight(*(v for n in names
+                                    for v in (tables[n].data_ptr(), tables[n].shape[0])),
+                                  ids.data_ptr(), B, out.data_ptr(), _stream(dev))
+    _raise_on(err, "weight_kernel")
+    weight_kernel.launches += 1
+    return out
+
+
+weight_kernel.launches = 0
+
+
+def neighbours_kernel(kmers32, k):
+    """The 8 one-char variants: (B, W) int32 kmers -> (8, B, W) int32. Same
+    contract as ops.packed.neighbour_variants_plain."""
+    W = (2 * k + 31) // 32
+    if kmers32.dim() != 2:
+        raise ValueError(f"kmers32 must be (B, {W}), got {tuple(kmers32.shape)}")
+    B = kmers32.shape[0]
+    _check(kmers32, "kmers32", torch.int32, (B, W))
+    out = torch.empty((8, B, W), dtype=torch.int32, device=kmers32.device)
+    err = library().sshash_neighbours(kmers32.data_ptr(), B, W, k, out.data_ptr(),
+                                      _stream(kmers32.device))
+    _raise_on(err, "neighbours_kernel")
+    neighbours_kernel.launches += 1
+    return out
+
+
+neighbours_kernel.launches = 0
+
+
+KERNELS = (minimizer_kernel, probe_kernel, access_kernel, iterate_kernel, weight_kernel,
+           neighbours_kernel)
+
+
 def reset_counts():
-    minimizer_kernel.launches = 0
-    probe_kernel.launches = 0
+    for kern in KERNELS:
+        kern.launches = 0
 
 
 def counts():
-    return {"minimizer_kernel": minimizer_kernel.launches,
-            "probe_kernel": probe_kernel.launches}
+    return {kern.__name__: kern.launches for kern in KERNELS}

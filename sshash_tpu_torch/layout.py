@@ -1,9 +1,9 @@
-"""Lookup table layout: host Index -> the tables the probe reads.
+"""Table layout: host Index -> the tables the kernels read.
 
-JAX-free counterpart of the lookup half of sshash_tpu.engine._device_arrays
-and of the lookup geometry of sshash_tpu.engine.StaticCfg. The tables are
-the same arrays, bit for bit (tests/test_torch_layout.py holds them
-against the JAX package):
+JAX-free counterpart of sshash_tpu.engine._device_arrays and of the
+geometry of sshash_tpu.engine.StaticCfg. The tables are the same arrays,
+bit for bit (tests/test_torch_layout.py holds them against the JAX
+package):
 
   cw_row[slot]   one fused row per raw minimizer-MPHF slot:
                  [status | b<<2, a, candidate-0 block, (candidate-1 block)]
@@ -15,9 +15,18 @@ A candidate block is [char offset, valid-start bits (Wv words), packed
 string window (Ww words), resolve quad (sid0, ep0, ep1, ep2)]: verifying a
 candidate and resolving its id needs no further gather.
 
+  acc_rows[b]    one row per 32-id block b: [sid hint, kmer_cum of the next
+                 C strings, and, when 1+C+Wa <= 16, the Wa packed-string
+                 words that every access in the block reads]
+  vstart32       valid-start bits, bit o of word o//32: a kmer starts at
+                 char offset o (the iterator's mask)
+  sidk32, kmer_cum   host-side sources of acc_rows (not uploaded)
+  w_value_ids, w_endpoints, w_dictionary   the weight runs (weighted only)
+
 The port serves v1 rows only: fewer than 2^32 chars, fewer than 2^31
-kmers, k <= 63 and hindex-keyed partitioned skew classes. StaticCfg raises
-on any other index, so char offsets fit the u32 row fields exactly.
+kmers, k <= 63, hindex-keyed partitioned skew classes and weights below
+2^32. StaticCfg raises on any other index, so char offsets and weights fit
+the u32 table fields exactly.
 """
 
 import numpy as np
@@ -37,6 +46,12 @@ SKEW_PARAMS = ("table", "nbuckets", "seedmix_hi", "seedmix_lo", "pilot_off",
 # index has no such structure
 LOOKUP_KEYS = ("strings32", "cw_row", "mid_rows", "pilots", "sk_pilots")
 OPTIONAL_KEYS = ("mphf_seedrows", "sk_seedrows", "sk_hrows")
+# tables of access and iteration, and of weight (uploaded for a weighted
+# index only)
+ACCESS_KEYS = ("acc_rows", "vstart32")
+WEIGHT_KEYS = ("w_value_ids", "w_endpoints", "w_dictionary")
+TABLE_GROUPS = {"lookup": LOOKUP_KEYS + OPTIONAL_KEYS + ("sk_params",),
+                "access": ACCESS_KEYS, "weight": WEIGHT_KEYS}
 
 
 def check_supported(index):
@@ -57,6 +72,10 @@ def check_supported(index):
     if any(not isinstance(p.mphf, PartitionedMPHF) for p in parts):
         raise ValueError("non-partitioned skew MPHF (pre-v1.2 index) is not "
                          "ported; rebuild")
+    w = index.weights
+    if w is not None and len(w.dictionary) and int(np.max(w.dictionary)) >= 1 << 32:
+        raise ValueError(f"weight {int(np.max(w.dictionary))} does not fit the "
+                         f"u32 weight table (weights < 2^32)")
 
 
 def use_c1(index):
@@ -118,6 +137,92 @@ class StaticCfg:
         # check_supported admits only hindex-keyed partitioned skew classes,
         # so the JAX cfg's skew_hrows and skew_partitioned equal has_skew
         self.has_skew = any(p.mphf.n > 0 for p in index.skew_partitions)
+        self.access_C = access_C(index)
+        self.weighted = index.weights is not None
+
+
+def access_C(index):
+    """Most string starts inside any 32-id block: the crossings an access
+    row carries (engine._access_C). A string may hold a single kmer, so
+    up to 31 strings can start inside one block."""
+    ep = index.string_endpoints.astype(np.int64)
+    kmer_cum = ep - np.arange(len(ep)) * (index.k - 1)
+    nk = int(index.num_kmers)
+    if nk == 0:
+        return 1
+    blk = np.arange((nk + 31) // 32, dtype=np.int64) * 32
+    lo = np.searchsorted(kmer_cum, blk, side="right")
+    hi = np.searchsorted(kmer_cum, np.minimum(blk + 31, nk - 1), side="right")
+    return max(1, int((hi - lo).max()))
+
+
+def acc_win_words(k, C):
+    """Packed-string words covering every char a 32-id block's accesses
+    read: offsets span [o_min, o_min + 31 + C*(k-1)], each read takes k
+    chars, from word floor(o_min/16)."""
+    return (31 + C * (k - 1) + k - 1 + 15) // 16 + 1
+
+
+def acc_windowed(k, C):
+    """The access row carries its char window while it stays within 16
+    words; wider geometries read strings32 in a second round."""
+    return 1 + C + acc_win_words(k, C) <= 16
+
+
+def acc_width(cfg):
+    C = cfg.access_C
+    return 1 + C + (acc_win_words(cfg.k, C) if acc_windowed(cfg.k, C) else 0)
+
+
+def acc_rows(sidk32, kmer_cum, C, s32, k):
+    """Per-32-id-block access rows [sid hint, kmer_cum[hint+1..hint+C],
+    (window)] (engine._acc_rows): the string of an id is the hint plus
+    the row entries <= the id, and in the windowed form the row also
+    holds the Wa words from floor(o_min/16), o_min = 32*b + hint*(k-1).
+    Reads clip to the ends of kmer_cum and s32."""
+    hint = sidk32.astype(np.int64)
+    kidx = np.clip(hint[:, None] + np.arange(1, C + 1, dtype=np.int64)[None, :],
+                   0, len(kmer_cum) - 1)
+    cols = [sidk32[:, None], kmer_cum[kidx].astype(np.uint32)]
+    if acc_windowed(k, C):
+        Wa = acc_win_words(k, C)
+        ws = (np.arange(len(sidk32), dtype=np.int64) * 32 + hint * (k - 1)) >> 4
+        widx = np.clip(ws[:, None] + np.arange(Wa, dtype=np.int64)[None, :],
+                       0, len(s32) - 1)
+        cols.append(s32[widx])
+    return np.concatenate(cols, axis=1)
+
+
+def _vstart_words(vstart, nwords32):
+    """Valid-start bits packed 32 to a u32 word, zero-padded to cover every
+    char of the nwords32 packed-string words."""
+    vpad = np.zeros(-(-16 * nwords32 // 32) * 32, dtype=bool)
+    vpad[: len(vstart)] = vstart
+    return np.packbits(vpad, bitorder="little").view(np.uint32)
+
+
+def vstart32_from_index(index):
+    """vstart32 alone, for a table cache written without it."""
+    nW = len(K.pack_words_to_u32(index.strings64))
+    v = np.ones(index.num_chars, dtype=bool)
+    ep = index.string_endpoints.astype(np.int64)[1:]
+    for j in range(1, index.k):
+        v[ep - j] = False
+    return _vstart_words(v, nW)
+
+
+def with_access_tables(index, cfg, host_arrs):
+    """A table dict from the JAX package (or its .npy cache) with vstart32
+    and acc_rows rebuilt where the cache predates them or holds acc_rows of
+    another width, as DeviceEngine.__init__ does."""
+    host_arrs = dict(host_arrs)
+    if "vstart32" not in host_arrs:
+        host_arrs["vstart32"] = vstart32_from_index(index)
+    acc = host_arrs.get("acc_rows")
+    if acc is None or acc.shape[1] != acc_width(cfg):
+        host_arrs["acc_rows"] = acc_rows(host_arrs["sidk32"], host_arrs["kmer_cum"],
+                                         cfg.access_C, host_arrs["strings32"], cfg.k)
+    return host_arrs
 
 
 def cand_block_width(cfg):
@@ -173,7 +278,7 @@ def _seedrows(seedmixes):
 
 
 def device_arrays(index):
-    """Host Index -> dict of numpy uint32 lookup tables (see module doc)."""
+    """Host Index -> dict of numpy uint32 tables (see module doc)."""
     check_supported(index)
     status, a, b = decode_codeword(index.codewords)
     mid = status == 1
@@ -190,6 +295,11 @@ def device_arrays(index):
     np.add.at(delta, ep[:-1], 1)
     np.add.at(delta, ep[1:] - (k - 1), -1)
     vstart = np.cumsum(delta[:-1]) > 0
+    kmer_cum64 = ep - np.arange(len(ep)) * (k - 1)
+    nkb = (index.num_kmers + 31) // 32 + 1
+    sidk32 = (np.searchsorted(kmer_cum64, np.arange(nkb, dtype=np.int64) * 32,
+                              side="right") - 1).astype(np.uint32)
+    kmer_cum32 = kmer_cum64.astype(np.uint32)
 
     f = index.minimizer_mphf
     s32 = K.pack_words_to_u32(index.strings64)
@@ -259,6 +369,10 @@ def device_arrays(index):
     empty_rows = np.zeros((1, R1), np.uint32)
     arrs = {
         "strings32": s32,
+        "vstart32": _vstart_words(vstart, len(s32)),
+        "sidk32": sidk32,
+        "kmer_cum": kmer_cum32,
+        "acc_rows": acc_rows(sidk32, kmer_cum32, access_C(index), s32, k),
         "cw_row": cw_row,
         "mid_rows": fused_rows(mid_arr) if len(mid_arr) else empty_rows,
         "pilots": _nz(_pack_pilots(_pilots_u32(f), pilot_width(f))),
@@ -311,6 +425,11 @@ def device_arrays(index):
         arrs["sk_hrows"] = fused_rows(heavy_arr[gidx]) if len(allh) else empty_rows
     for name, v in params.items():
         arrs[f"sk_{name}"] = v
+    w = index.weights
+    if w is not None:  # check_supported refuses weights that u32 would wrap
+        arrs["w_value_ids"] = w.interval_value_ids.astype(np.uint32)
+        arrs["w_endpoints"] = w.interval_endpoints.astype(np.uint32)
+        arrs["w_dictionary"] = w.dictionary.astype(np.uint32)
     # the kernels address rows with int32
     for name, t in arrs.items():
         if t.shape[0] >= 1 << 31:
@@ -319,12 +438,23 @@ def device_arrays(index):
     return arrs
 
 
+def take_rows(table, idx):
+    """table[idx] as u32 values in int64 (idx: int64 u32 values), clipping
+    idx the way the JAX package's jnp.take(..., idx.astype(int32),
+    mode="clip") does: an index >= 2^31 turns negative there and clips to
+    row 0."""
+    n = table.shape[0]
+    i = torch.where(idx >= 1 << 31, torch.zeros_like(idx), idx.clamp(max=n - 1))
+    return table.index_select(0, i).to(torch.int64) & 0xFFFFFFFF
+
+
 def tables_from_host(host_arrs, device):
-    """Lookup tables as int32 tensors (the u32 bits) on `device`, from this
-    module's device_arrays or the JAX package's _device_arrays dict (or its
-    .npy cache). Optional tables missing from the dict get one zero row, and
-    the eight sk_* parameter vectors become one (8, 8) `sk_params` table in
-    SKEW_PARAMS order."""
+    """The kernels' tables as int32 tensors (the u32 bits) on `device`, from
+    this module's device_arrays or the JAX package's _device_arrays dict
+    (or its .npy cache, completed by with_access_tables). Optional lookup
+    tables missing from the dict get one zero row, the eight sk_* parameter
+    vectors become one (8, 8) `sk_params` table in SKEW_PARAMS order, and
+    the weight tables come along when the dict has them."""
     R1 = host_arrs["mid_rows"].shape[1]
     fill = {"mphf_seedrows": np.zeros((1, 2), np.uint32),
             "sk_seedrows": np.zeros((1, 2), np.uint32),
@@ -332,6 +462,8 @@ def tables_from_host(host_arrs, device):
     host = {name: host_arrs.get(name, fill.get(name))
             for name in LOOKUP_KEYS + OPTIONAL_KEYS}
     host["sk_params"] = np.stack([host_arrs[f"sk_{p}"] for p in SKEW_PARAMS])
+    host.update({name: host_arrs[name] for name in ACCESS_KEYS})
+    host.update({name: host_arrs[name] for name in WEIGHT_KEYS if name in host_arrs})
     out = {}
     for name, arr in host.items():
         arr = np.ascontiguousarray(arr)

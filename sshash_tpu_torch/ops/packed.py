@@ -5,8 +5,9 @@ of a kmer lives in word j // 16 at bit 2 * (j % 16), words little-end
 first). Kmers are (B, W) int64 tensors of u32 values; 64-bit values are
 ops.u64 pairs.
 
-`minimizer` is the entry point of kernel 1 (csrc/minimizer.cu): a CPU
-tensor runs `minimizer_plain`, a CUDA tensor runs the kernel.
+`minimizer` is the entry point of kernel 1 (csrc/minimizer.cu) and
+`neighbour_variants` of the neighbours kernel (csrc/neighbours.cu): a CPU
+tensor runs the plain version, a CUDA tensor runs the kernel.
 """
 
 import torch
@@ -105,6 +106,71 @@ def extract_window_dyn(win, bitpos, width_bits, max_start_word=None):
 def extract_kmer_dyn(win, bitpos, k, max_start_word=None):
     """k-char kmer at a per-lane bit offset of a (B, Ww) window -> (B, W)."""
     return mask_last_word(_funnel(win, bitpos, num_words32(k), max_start_word), k)
+
+
+def read_kmers_at(strings32, offsets, k):
+    """k-char kmers at char offsets (int64 (B,)) of the packed strings
+    (int64 (NW,)) -> (B, W). Word reads clip to the last word, so every
+    offset reads in bounds."""
+    idx = (offsets >> 4)[:, None] + torch.arange(num_words32(k) + 1, device=offsets.device)
+    g = strings32[idx.clamp(max=strings32.shape[0] - 1)]
+    return extract_kmer_dyn(g, 2 * (offsets & 15), k)
+
+
+def iterate_kmers(strings32, k):
+    """The kmer at every char offset of the packed strings (int64 (NW,)):
+    (16 * NW, W), offset order; offsets past the end read zero words.
+    Callers mask with the valid-start bits."""
+    W = num_words32(k)
+    NW = strings32.shape[0]
+    sp = torch.cat([strings32, strings32.new_zeros(W + 1)])
+    cols = []
+    for j in range(W):
+        lo, hi = sp[j: j + NW], sp[j + 1: j + 1 + NW]
+        phases = [lo] + [(lo >> (2 * p)) | ((hi << (32 - 2 * p)) & M32) for p in range(1, 16)]
+        cols.append(torch.stack(phases, dim=1).reshape(-1))
+    return mask_last_word(torch.stack(cols, dim=1), k)
+
+
+def drop_one_char(kmers):
+    out = kmers >> 2
+    out[:, :-1] |= (kmers[:, 1:] << 30) & M32
+    return out
+
+
+def shift_up_one_char(kmers, k):
+    out = (kmers << 2) & M32
+    out[:, 1:] |= kmers[:, :-1] >> 30
+    return mask_last_word(out, k)
+
+
+def set_char(kmers, i, code):
+    """OR code into char i (the char is zero in the callers' kmers)."""
+    w, b = divmod(2 * i, 32)
+    out = kmers.clone()
+    out[:, w] |= code << b
+    return out
+
+
+def neighbour_variants_plain(kmers32, k):
+    """Plain version of the neighbours kernel: (B, W) int32 kmers -> the
+    8 one-char variants as one (8, B, W) int32 tensor, variant-major:
+    drop the first char and append A, C, T, G (codes 0-3), then shift up
+    one char and prepend A, C, T, G (engine.make_neighbours)."""
+    km = u.u32(kmers32)
+    fwd, bwd = drop_one_char(km), shift_up_one_char(km, k)
+    variants = [set_char(fwd, k - 1, c) for c in range(4)] + [set_char(bwd, 0, c) for c in range(4)]
+    return u.to_i32(torch.stack(variants))
+
+
+def neighbour_variants(kmers32, k):
+    """Neighbours kernel entry: a CUDA tensor runs csrc/neighbours.cu, a
+    CPU tensor its plain version. Anything else raises."""
+    if kmers32.is_cuda:
+        return kernels.neighbours_kernel(kmers32, k)
+    if kmers32.device.type == "cpu":
+        return neighbour_variants_plain(kmers32, k)
+    raise ValueError(f"no neighbours kernel for device {kmers32.device}")
 
 
 def kmer_less(a, b):

@@ -6,6 +6,11 @@ the build machines). `planted` overwrites random sites with m-mers whose
 minimizer hash is among the smallest of a large sample, so each planted
 m-mer is the minimizer of nearly every kmer around it: planting it c times
 makes a bucket of about c super-kmers, and c > 2^MIN_L makes it heavy.
+`weights` writes per-kmer weights into the FASTA headers, in runs of equal
+weight that cross string ends, as a weighted build input. Its mean run
+length at scale is the reference's own weighted example's,
+ECOLI_SAKAI_MEAN_RUN; the small weighted configuration uses short runs so
+that its tests cross many run edges.
 """
 
 import os
@@ -20,6 +25,13 @@ from sshash_tpu import oracle
 
 # code -> char under the index's 2-bit map (kmer.NUCLEOTIDES)
 _CHARS = np.frombuffer(b"ACTG", dtype=np.uint8)
+
+# E. coli O157:H7 Sakai, k31: the reference's weighted example (its README
+# Example 4, lines 236-251; BASELINE.md) has 5,820 weight runs over 2,115
+# unitigs (tests/test_permute.py) of a 5.5 Mbp genome, so about 5.5M kmers
+# and a mean run of about 945 kmers. The source gives no count of distinct
+# weights.
+ECOLI_SAKAI_MEAN_RUN = 945
 
 # name -> build parameters; each exercises a path of the probe
 SMALL_CONFIGS = {
@@ -38,6 +50,13 @@ SMALL_CONFIGS = {
     "k15": dict(k=15, m=7, canonical=False, num_strings=64, string_len=101, seed=8),
     "k47": dict(k=47, m=17, canonical=True, num_strings=32, string_len=201, seed=9),
     "k63": dict(k=63, m=25, canonical=True, num_strings=32, string_len=201, seed=7),
+    # weighted build: weight runs of random length (mean 16), skewed values
+    "weighted": dict(k=31, m=13, canonical=False, num_strings=64, string_len=101, seed=10,
+                     weights=16),
+    # 5 kmers per string: 7+ string starts per 32-id block, so the access
+    # rows are too wide for their char window (the two-round access form)
+    "short_strings": dict(k=31, m=13, canonical=False, num_strings=400, string_len=35,
+                          seed=11),
 }
 
 
@@ -69,28 +88,48 @@ def plant(codes, mmers, counts, k, rng):
     return codes
 
 
-def write_fasta(path, codes):
+def weight_runs(n, rng, mean_run):
+    """n per-kmer weights in runs of equal weight: run lengths geometric
+    (mean mean_run), run values Zipf-distributed (many small, a few large,
+    as k-mer abundances fall; at most 2^32 - 1)."""
+    lens = rng.geometric(1.0 / mean_run, n // mean_run + 64)
+    while lens.sum() < n:
+        lens = np.concatenate([lens, rng.geometric(1.0 / mean_run, n // mean_run + 64)])
+    vals = np.minimum(rng.zipf(1.5, len(lens)), (1 << 32) - 1).astype(np.uint64)
+    return np.repeat(vals, lens)[:n]
+
+
+def write_fasta(path, codes, k=None, weights=None):
+    """One record per row of codes; with weights (one per kmer, string by
+    string), weighted headers '>i LN:i:len ab:Z:w0 w1 ...'."""
     chars = _CHARS[codes]
+    L = codes.shape[1]
     with open(path, "wb") as f:
         for i in range(len(chars)):
-            f.write(b">%d\n" % i)
+            if weights is None:
+                f.write(b">%d\n" % i)
+            else:
+                w = weights[i * (L - k + 1): (i + 1) * (L - k + 1)]
+                f.write(b">%d LN:i:%d ab:Z:%s\n" % (i, L, " ".join(map(str, w.tolist())).encode()))
             f.write(chars[i].tobytes())
             f.write(b"\n")
 
 
 def build_index(k, m, canonical, num_strings, string_len, seed, avg_partition_size=None,
-                planted=None, threads=1):
+                planted=None, threads=1, weights=None):
     """Index over random strings drawn from `seed`. planted: list of plant
-    counts, one low-hash m-mer per entry."""
+    counts, one low-hash m-mer per entry. weights: the mean run length of a
+    weighted build, with weight_runs drawn from the same seed."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, (num_strings, string_len), dtype=np.uint8)
     cfg = BuildConfig(k=k, m=m, canonical=canonical, verbose=False, threads=threads,
-                      avg_partition_size=avg_partition_size)
+                      avg_partition_size=avg_partition_size, weighted=bool(weights))
     if planted:
         plant(codes, low_hash_mmers(len(planted), m, cfg.seed, rng=rng), planted, k, rng)
+    w = weight_runs(num_strings * (string_len - k + 1), rng, weights) if weights else None
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "unitigs.fa")
-        write_fasta(path, codes)
+        write_fasta(path, codes, k, w)
         del codes
         return Dictionary.build(path, cfg).index
 

@@ -15,6 +15,7 @@ import torch
 
 from sshash_tpu import oracle
 from sshash_tpu_torch import TorchEngine, kernels, synthetic
+from sshash_tpu_torch import engine as E
 from sshash_tpu_torch.engine import canonical_fold, probe, probe_plain
 from sshash_tpu_torch.ops import packed as P
 
@@ -53,6 +54,35 @@ def test_kernels_equal_plain_on_card(card, name):
         assert np.array_equal(host[key], want[key]), key
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(synthetic.SMALL_CONFIGS))
+def test_point_query_kernels_equal_plain_on_card(card, name):
+    """Access (both forms), iteration, weight and the neighbour variants."""
+    idx = synthetic.small_index(name)
+    eng = TorchEngine(idx, card)
+    cfg, t = eng.cfg, eng.tables
+    rng = np.random.default_rng(2)
+    ids = np.concatenate([np.arange(idx.num_kmers), rng.integers(0, 1 << 32, 999)])
+    it = torch.from_numpy(ids.astype(np.uint32).view(np.int32)).to(card)
+    before = kernels.counts()
+    got = E.access(cfg, t, it)
+    assert torch.equal(got, E.access_plain(cfg, t, it))
+    n = idx.num_kmers
+    assert np.array_equal(eng.access(ids[:n]), oracle.access(idx, ids[:n]))
+    got = E.iterate(cfg.k, t["strings32"], t["vstart32"])
+    assert torch.equal(got, E.iterate_plain(cfg.k, t["strings32"], t["vstart32"]))
+    assert eng.iterator()[0] == idx.num_kmers
+    if cfg.weighted:
+        assert torch.equal(E.weight(t, it), E.weight_plain(t, it))
+        assert np.array_equal(eng.weight(ids[:n]), idx.weights.weight(ids[:n]))
+    kt = eng.kmers32(oracle.access(idx, ids[:4096] % n))
+    assert torch.equal(P.neighbour_variants(kt, cfg.k), P.neighbour_variants_plain(kt, cfg.k))
+    after = kernels.counts()
+    for kern in ("access_kernel", "iterate_kernel", "neighbours_kernel") + (
+            ("weight_kernel",) if cfg.weighted else ()):
+        assert after[kern] > before[kern], kern
+
+
 def test_wrappers_take_cuda_tensors_only():
     idx = synthetic.small_index("m9_c1")
     eng = TorchEngine(idx, "cpu")
@@ -65,6 +95,15 @@ def test_wrappers_take_cuda_tensors_only():
     mp = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.probe_kernel(cfg, eng.tables, kt, None, mv, mp)
+    ids = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.access_kernel(cfg, eng.tables, ids)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.iterate_kernel(cfg.k, eng.tables["strings32"], eng.tables["vstart32"])
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.weight_kernel(eng.tables, ids)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.neighbours_kernel(kt, cfg.k)
     assert kernels.counts() == before
     meta = torch.empty((4, cfg.W), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="minimizer"):

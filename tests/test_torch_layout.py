@@ -1,6 +1,7 @@
 """The port's table layout against the JAX package's _device_arrays and
-StaticCfg, tables_from_host on a JAX table dict, the formats the port
-refuses, and the port running with JAX blocked from import."""
+StaticCfg, tables_from_host on a JAX table dict (stale access rows
+included), the formats the port refuses, and the port running with JAX
+blocked from import."""
 
 import dataclasses
 import os
@@ -13,17 +14,19 @@ import pytest
 
 from sshash_tpu import oracle
 from sshash_tpu.engine import StaticCfg as JaxCfg
-from sshash_tpu.engine import _device_arrays
+from sshash_tpu.engine import _device_arrays, vstart32_from_index
 from sshash_tpu.engine import row_width as jax_row_width
 from sshash_tpu_torch import TorchEngine, synthetic, to_device
-from sshash_tpu_torch.layout import (LOOKUP_KEYS, OPTIONAL_KEYS, SKEW_PARAMS, StaticCfg,
-                                     device_arrays, row_width, tables_from_host)
+from sshash_tpu_torch import layout as L
+from sshash_tpu_torch.layout import (ACCESS_KEYS, LOOKUP_KEYS, OPTIONAL_KEYS, SKEW_PARAMS,
+                                     WEIGHT_KEYS, StaticCfg, device_arrays, row_width,
+                                     tables_from_host)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEOMETRY = ("k", "m", "canonical", "W", "kmw", "win_words", "vbits_words",
             "max_start_word", "quad_w", "magic", "c1_in_row", "mphf_partitioned",
             "mphf_table", "mphf_nbuckets", "mphf_seedmix", "pilot_w", "sk_pilot_w",
-            "has_skew")
+            "has_skew", "access_C")
 
 
 @pytest.fixture(scope="module", params=sorted(synthetic.SMALL_CONFIGS))
@@ -38,6 +41,9 @@ def test_device_arrays_equal_jax(built):
     assert set(port) <= set(jax_arrs)
     assert set(LOOKUP_KEYS) <= set(port)
     assert {f"sk_{p}" for p in SKEW_PARAMS} <= set(port)
+    assert {"acc_rows", "vstart32", "sidk32", "kmer_cum"} <= set(port)
+    assert (set(WEIGHT_KEYS) <= set(port)) == (idx.weights is not None)
+    assert np.array_equal(L.vstart32_from_index(idx), vstart32_from_index(idx))
     for key, v in port.items():
         assert v.dtype == np.uint32, key
         assert np.array_equal(v, jax_arrs[key]), key
@@ -56,7 +62,10 @@ def test_tables_from_jax_dict(built):
     name, idx, jax_arrs = built
     from_jax = tables_from_host(jax_arrs, "cpu")
     own = tables_from_host(device_arrays(idx), "cpu")
-    assert set(from_jax) == set(own) == set(LOOKUP_KEYS + OPTIONAL_KEYS) | {"sk_params"}
+    keys = set(LOOKUP_KEYS + OPTIONAL_KEYS + ACCESS_KEYS) | {"sk_params"}
+    if idx.weights is not None:
+        keys |= set(WEIGHT_KEYS)
+    assert set(from_jax) == set(own) == keys
     for key in own:
         assert from_jax[key].dtype == own[key].dtype
         assert np.array_equal(from_jax[key].numpy(), own[key].numpy()), key
@@ -66,6 +75,41 @@ def test_tables_from_jax_dict(built):
     km = oracle.access(idx, ids)
     got = TorchEngine(idx, "cpu", host_arrs=jax_arrs).lookup(km)
     assert np.array_equal(got["kmer_id"], ids.astype(np.uint64))
+
+
+@pytest.mark.parametrize("name", ["m13_regular", "short_strings"])
+def test_stale_access_tables_are_rebuilt(name):
+    """A JAX table cache written before the access rows (or with rows of
+    another width, or without vstart32) still serves access and iteration,
+    with the tables device_arrays builds."""
+    idx = synthetic.small_index(name)
+    jax_arrs = _device_arrays(idx)
+    own = tables_from_host(device_arrays(idx), "cpu")
+    ids = np.arange(idx.num_kmers)
+    for drop, narrow in (("acc_rows", False), ("vstart32", False), (None, True)):
+        stale = {key: v for key, v in jax_arrs.items() if key != drop}
+        if narrow:
+            stale["acc_rows"] = stale["acc_rows"][:, :2]
+        eng = TorchEngine(idx, "cpu", host_arrs=stale)
+        for key in ACCESS_KEYS:
+            assert np.array_equal(eng.tables[key].numpy(), own[key].numpy()), (drop, key)
+        assert np.array_equal(eng.access(ids), oracle.access(idx, ids))
+        assert eng.iterator()[0] == idx.num_kmers
+
+
+def test_refuses_weights_that_would_wrap():
+    """The JAX engine casts the weight dictionary to uint32, which wraps
+    weights >= 2^32; the port refuses such an index."""
+    idx = synthetic.small_index("weighted")
+    w = idx.weights
+    big = dataclasses.replace(w, dictionary=np.append(w.dictionary[:-1], np.uint64(1 << 32)))
+    with pytest.raises(ValueError, match="2\\^32"):
+        StaticCfg(dataclasses.replace(idx, weights=big))
+    with pytest.raises(ValueError, match="2\\^32"):
+        device_arrays(dataclasses.replace(idx, weights=big))
+    ok = dataclasses.replace(w, dictionary=np.append(w.dictionary[:-1],
+                                                     np.uint64((1 << 32) - 1)))
+    assert StaticCfg(dataclasses.replace(idx, weights=ok)).weighted
 
 
 def test_refuses_formats_it_does_not_serve(monkeypatch):
@@ -90,7 +134,8 @@ def test_refuses_formats_it_does_not_serve(monkeypatch):
 
 def test_runs_with_jax_blocked():
     """The port package imports no JAX: a process that cannot import jax
-    builds an index and looks it up on the CPU."""
+    builds an index and looks it up, accesses, iterates, weighs and
+    navigates it on the CPU."""
     code = textwrap.dedent("""
         import sys
 
@@ -104,11 +149,17 @@ def test_runs_with_jax_blocked():
         from sshash_tpu import oracle
         from sshash_tpu_torch import synthetic, to_device
 
-        idx = synthetic.small_index("m9_c1")
+        idx = synthetic.small_index("weighted")
         eng = to_device(idx, "cpu")
         ids = np.arange(0, idx.num_kmers, 7)
-        got = eng.lookup(oracle.access(idx, ids))
+        km = oracle.access(idx, ids)
+        got = eng.lookup(km)
         assert np.array_equal(got["kmer_id"], ids.astype(np.uint64))
+        assert np.array_equal(eng.access(ids), km)
+        assert eng.iterator()[0] == idx.num_kmers
+        assert np.array_equal(eng.weight(ids), idx.weights.weight(ids))
+        nb = eng.kmer_neighbours(km)
+        assert (nb["kmer_id"] != np.uint64(2 ** 64 - 1)).any()
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib")
                         or m.startswith(("sshash_tpu.engine", "sshash_tpu.ops",
