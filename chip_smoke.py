@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card, batched k-mer
-lookup first, then access, iteration, weight and navigation, and check
-them end to end.
+lookup first, then access, iteration, weight, navigation and streaming
+membership over reads, and check them end to end.
 
     python3 chip_smoke.py
 
@@ -18,7 +18,7 @@ line):
   4. main path, 5M kmers k31 m17 (the repo's salmonella bench config on
      synthetic unitigs), regular and canonical: 2^23 lanes, 50% reverse
      complemented, through TorchEngine; every id round-trips; a 2^20-lane
-     sample of positives and negatives equals sshash_tpu.oracle in every
+     sample of positives and negatives equals the port's oracle in every
      field; launch counters of both kernels; lookup time through the
      kernels and through the plain versions
   5. heavy and sweep paths at 1M kmers k31 m13 with planted m-mers: lane
@@ -38,30 +38,47 @@ line):
   8. access and iteration at 200M kmers, on phase 6's index: 2^24 ids,
      access/lookup round trip on every lane, a 2^20 oracle sample, count
      equals num_kmers, kernel == plain; times
+  9. streaming membership through streaming_query_from_file's pipeline, on
+     phase 4's and phase 6's indexes: a high-hit genome (the 5M index's 50
+     strings as one multiline record, every other one reverse-complemented,
+     one chunk of 5<<20), low-hit reads (100,000 of 76 chars, 10 cut from
+     the index, 1% with an N), mixed reads on the canonical index (2^16 of
+     150 chars, half cut with RC and 1% substitutions, half random) and a
+     200M high-hit genome of 168 strings in chunks of 2^22. Each report
+     equals the host _Batcher's (oracle lookups; at 200M on a 2^21-position
+     prefix); each chunk's kernel step equals the plain step (the first at
+     200M); every stream kernel and kernels 1-2 launch, and the run-skip
+     skips lookups in the low-hit run; device and wall k-mers/s; each stream
+     source timed against its plain version at the 200M chunk's shapes
   Times are device times from CUDA events around windows of back-to-back
   calls, median of 7 windows after a warm-up; kernel and plain run in turns.
+  A stream run's device time replays its chunks' steps from one CUDA graph,
+  so the host's ~40 launches per chunk stay out of it; the same steps
+  queued back to back from the host are timed too (host-enqueue-bound).
   Each path's launch counts are set to 0 just before it and read just
   after; every kernel of the path must have launched.
-  9. one JSON line of per-kernel results, then the ok line.
+ 10. one JSON line of per-source results (launches, max |err|, ms, plain ms,
+     bound ms and what bounds it, library-call ms), then the ok line.
 
-Data is random, drawn from fixed seeds. Nothing here imports JAX.
+Data is random, drawn from fixed seeds. Nothing here imports JAX or the
+JAX package (sshash_tpu): a finder refuses both.
 """
 
 import importlib.abc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 
 class _NoJax(importlib.abc.MetaPathFinder):
-    """Keep JAX out of this process, so the run shows that the port needs
-    none. (sshash_tpu/__init__.py imports jax for its compile cache when jax
-    is installed, and goes on without it.)"""
+    """Keep JAX and the JAX package out of this process, so the run shows
+    that the port needs neither."""
 
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"{name} is blocked: the port runs without JAX")
+        if name.split(".")[0] in ("jax", "jaxlib", "sshash_tpu"):
+            raise ImportError(f"{name} is blocked: the port runs without JAX and sshash_tpu")
         return None
 
 
@@ -70,15 +87,14 @@ sys.meta_path.insert(0, _NoJax())
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from sshash_tpu import Dictionary  # noqa: E402
-from sshash_tpu import kmer as K  # noqa: E402
-from sshash_tpu import oracle  # noqa: E402
-from sshash_tpu.index import decode_codeword  # noqa: E402
-from sshash_tpu_torch import TorchEngine, kernels, synthetic  # noqa: E402
+from sshash_tpu_torch import Dictionary, TorchEngine, kernels, oracle, synthetic  # noqa: E402
 from sshash_tpu_torch import engine as E  # noqa: E402
+from sshash_tpu_torch import kmer as K  # noqa: E402
+from sshash_tpu_torch import streaming as ST  # noqa: E402
+from sshash_tpu_torch.index import decode_codeword  # noqa: E402
 from sshash_tpu_torch.engine import (_neighbours_to_host, canonical_fold, make_lookup,  # noqa: E402
                                      make_neighbours, probe, probe_plain)
-from sshash_tpu_torch.layout import acc_windowed, device_arrays  # noqa: E402
+from sshash_tpu_torch.layout import acc_width, acc_windowed, device_arrays, row_width  # noqa: E402
 from sshash_tpu_torch.ops import packed as P  # noqa: E402
 
 INVALID = np.uint64(2 ** 64 - 1)
@@ -118,6 +134,21 @@ def median_ms(fn, reps=REPS, window_ms=20.0):
         end.synchronize()
         times.append(start.elapsed_time(end) / n)
     return float(np.median(times))
+
+
+def graph_ms(fn):
+    """Device ms of fn()'s launches replayed from a CUDA graph (median_ms of
+    the replay): no host launch overhead between them. fn must not wait on
+    the device; the capture raises if it does."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return median_ms(graph.replay)
 
 
 def time_turns(tag, what, n, kernel, plain, unit="kmer"):
@@ -554,6 +585,8 @@ def phase_point_queries(dev, built, errs):
     per_kernel["weight_kernel"] = time_turns("weighted", "weight", MAIN_B,
                                              lambda: eng.weight_device(it),
                                              lambda: E.weight_plain(eng.tables, it))
+    # ids in, weights out, the weight tables read once
+    per_kernel["weight_kernel"]["bytes"] = MAIN_B * 8 + eng.table_bytes()["weight"]
     return launches, per_kernel
 
 
@@ -570,6 +603,307 @@ def phase_scale_point_queries(idx, eng, errs):
     return launches, {"access_kernel": acc, "iterate_kernel": itr}
 
 
+HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s (NVIDIA's H100 data sheet)
+# integer ALU: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper white paper)
+INT32_OPS = 132 * 64 * 1.98e9
+# kernel 1, per window of both strands: two 64-bit mixer multiplies (3
+# IMADs and an XOR each), the m-mer's reverse complement (~10), the 128-bit
+# window shift and mask (~4), two compare-and-selects (~4 each)
+MINIMIZER_OPS_PER_WINDOW = 32
+SOURCES = {"minimizer.cu": "sshash_tpu/ops/packed.py:263",
+           "probe.cu": "sshash_tpu/engine.py:739",
+           "access.cu": "sshash_tpu/engine.py:1304",
+           "iterator.cu": "sshash_tpu/engine.py:1338",
+           "weight.cu": "sshash_tpu/engine.py:1404",
+           "neighbours.cu": "sshash_tpu/engine.py:1412",
+           "scan.cu": "sshash_tpu/ops/packed.py:359",
+           "stream_anchor.cu": "sshash_tpu/streaming.py:334",
+           "stream_chain.cu": "sshash_tpu/streaming.py:390",
+           "stream_derive.cu": "sshash_tpu/streaming.py:460"}
+
+
+def bound(nbytes, int_ops=0):
+    """(least ms, what bounds it) for nbytes of device memory traffic and
+    int_ops integer operations."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, int_ops / INT32_OPS * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+STREAM_SOURCES = ("scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu")
+STREAM_WRAPPERS = tuple(n for src in STREAM_SOURCES for n in kernels.SOURCE_KERNELS[src])
+LOWHIT_READS, LOWHIT_LEN, LOWHIT_TRUE = 100_000, 76, 10
+MIXED_READS, MIXED_LEN = 1 << 16, 150
+SCALE_STREAM_STRINGS = 168
+HOST_PREFIX = 1 << 21
+
+
+def plain_step(eng, Pn, R, CW, av):
+    lookup = make_lookup(eng.cfg, "full", minimizer=P.minimizer_plain, probe=probe_plain)
+    return ST.make_stream_step(eng.cfg, Pn, R, CW, lookup, all_valid=av, ops=ST.PLAIN_OPS)
+
+
+def rows_equal(got, want):
+    """Stream-step outputs: counters exactly; lane 0 and the last lane in
+    field 0 exactly and in fields 1-3 where field 0 is 1."""
+    g = got.cpu().numpy().view(np.uint32)
+    w = want.cpu().numpy().view(np.uint32)
+    ok = np.array_equal(g[0], w[0]) and all(g[i, 0] == w[i, 0] for i in (1, 2))
+    return ok and all(not w[i, 0] or np.array_equal(g[i], w[i]) for i in (1, 2))
+
+
+def _flat(x):
+    if isinstance(x, dict):
+        return [v for v in x.values()]
+    return list(x) if isinstance(x, (tuple, list)) else [x]
+
+
+def _n(t):
+    return int(t[0]) if t is not None else None
+
+
+def _rows(name, args):
+    """Rows of a stage's output that the step reads: a k-mer read of
+    compacted lanes, the run-skip heads and the round-2 lanes hold results
+    only below the misses' count (device count); None where all are."""
+    if name == "kmers":
+        return _n(args[6]) if len(args) > 5 else None
+    if name in ("heads", "round2"):
+        return _n(args[3])
+    return None
+
+
+def stage_bytes(name, args, out):
+    """Bytes a stage must move on this input: each input it needs read
+    once, each output row the step reads written once (data-dependent
+    sizes from the device counts)."""
+    nb = lambda t: t.numel() * t.element_size()  # noqa: E731
+    n = _rows(name, args)
+    if name == "scan":
+        return 2 * nb(args[0])
+    if name == "compact":
+        return nb(args[0]) + 4 * _n(out[1]) + 4
+    if name == "masks":
+        _, rfirst, nreads, _ = args
+        return 4 * _n(nreads) + nb(rfirst) + sum(nb(t) for t in out)
+    if name == "kmers":
+        # per row: W+1 words of the chunk, its lane id (compacted lanes),
+        # its group's scan entry and start-bit word, W words out
+        words32, sbits, cum_g, _, n_out = args[:5]
+        W, lanes = out.shape[1], n is not None
+        n = n_out if n is None else n
+        return (4 * n * (2 * W + 1) + (4 * n + 4 if lanes else 0)
+                + min(4 * n, nb(cum_g)) + min(4 * n, nb(sbits)))
+    if name == "heads":
+        # per rank: both strands' minimizers, the lane, its start bit; one
+        # byte out
+        fbits = args[4]
+        return 21 * n + min(4 * n, nb(fbits)) + 4
+    if name == "round2":
+        # per rank: head flag, head scan, the run head's minimizer flag; one
+        # byte out
+        return 7 * n + 4
+    if name == "chain":
+        ares, words32, _, valid, sbits, fbits, cum_g, _ = args
+        A = ares["found"].shape[0]
+        return (sum(nb(ares[f]) for f in ST.CHAIN_FIELDS) + nb(words32) + 8 * A
+                + nb(valid) + nb(sbits) + nb(fbits) + nb(cum_g) + sum(nb(t) for t in out.values()))
+    if name == "merge":
+        _, count, r1, r2, _ = args
+        n = _n(count)
+        hit = int(((r1["found"][:n]) | (r2["found"][:n])).sum())
+        return 4 * n + 2 * n + hit * (12 + 13)
+    if name == "count":
+        state, valid, fbits, count = args
+        return sum(nb(state[f]) for f in ST.MERGE_FIELDS) + nb(valid) + nb(fbits) + 48
+    raise ValueError(name)
+
+
+def record_ops(ops):
+    """ops whose stages keep their arguments (and outputs) on every call."""
+    calls = []
+
+    def wrap(name, fn):
+        def f(*a, **kw):
+            out = fn(*a, **kw)
+            calls.append((name, a, out))
+            return out
+        return f
+
+    return ST.StepOps(*(wrap(n, getattr(ops, n)) for n in ST.StepOps._fields)), calls
+
+
+def _clone_state(args):
+    """merge updates its state in place: give each call a copy."""
+    a = list(args)
+    a[4] = {key: v.clone() for key, v in a[4].items()}
+    return a
+
+
+def library_ms(name, args):
+    """Device ms of one PyTorch call computing the stage's function, where
+    there is one (None elsewhere). torch.nonzero reads its size on the
+    host, so it runs queued, not from a graph."""
+    if name == "scan":
+        return graph_ms(lambda: torch.cumsum(args[0], 0))
+    if name == "compact":
+        return median_ms(lambda: torch.nonzero(args[0]))
+    return None
+
+
+def time_stages(eng, packed, Pn, R, CW, av, errs):
+    """Each stream stage of one chunk, kernel vs plain on the card, at the
+    chunk's shapes: outputs equal (max |err| per source), device ms of the
+    kernel (from a CUDA graph), the plain version and the library call
+    (summed over a source's calls), and the bound from the bytes each call
+    must move."""
+    ops, calls = record_ops(ST.KERNEL_OPS)
+    lookup = make_lookup(eng.cfg, "full")
+    ST.make_stream_step(eng.cfg, Pn, R, CW, lookup, all_valid=av, ops=ops)(eng.tables, packed)
+    src_of = {"scan": "scan.cu", "compact": "scan.cu", "masks": "stream_anchor.cu",
+              "kmers": "stream_anchor.cu", "chain": "stream_chain.cu"}
+    per = {src: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bytes": 0, "calls": 0}
+           for src in STREAM_SOURCES}
+    for name, args, out in calls:
+        if name == "minimizer":
+            continue
+        src = src_of.get(name, "stream_derive.cu")
+        kern, plain = getattr(ST.KERNEL_OPS, name), getattr(ST.PLAIN_OPS, name)
+        fresh = _clone_state if name == "merge" else list
+        got, want = kern(*fresh(args)), plain(*fresh(args))
+        if name == "kmers" and _rows(name, args) is not None:
+            # the kernel leaves the rows past the count unwritten
+            got, want = got[:_rows(name, args)], want[:_rows(name, args)]
+        err = max_abs_err(_flat(got), _flat(want))
+        errs[src] = max(errs.get(src, 0), err)
+        require(err == 0, f"stream stage {name}: kernel != plain")
+        # merge rewrites the same values on a repeat, so one copy serves
+        # every timed call; the kernel's launches replay from a CUDA graph
+        # (a call takes tens of microseconds, about its host overhead), the
+        # plain version reads counts on the host and cannot be captured
+        a = fresh(args)
+        ms, pms = graph_ms(lambda: kern(*a)), median_ms(lambda: plain(*a))
+        log(f"  stage {name}: kernel {ms:.4f} ms (graph replay), plain {pms:.4f} ms")
+        per[src]["kernel"] += ms
+        per[src]["plain"] += pms
+        lib = library_ms(name, args)
+        if lib is not None:
+            per[src]["library"] += lib
+        per[src]["bytes"] += stage_bytes(name, args, out)
+        per[src]["calls"] += 1
+    for src, v in per.items():
+        v["bound_ms"] = v["bytes"] / HBM_BPS * 1e3
+        log(f"  {src}: {v['calls']} calls, kernel {v['kernel']:.4f} ms, plain {v['plain']:.4f} ms, "
+            f"bound {v['bound_ms']:.4f} ms ({v['bytes']} bytes)"
+            f"{', library %.4f ms' % v['library'] if v['library'] else ''}")
+    return per
+
+
+def stream_run(eng, path, multiline, chunk, tag, need_runskip=False, check_chunks=None):
+    """Stream one file through the port: the step launches every stream
+    kernel and kernels 1-2 (counts set to 0 just before, read just after),
+    each checked chunk's kernel step equals the plain step on the card
+    (rows_equal), and device and wall rates. Returns (report, captured
+    chunks, launches, device ms of the resident steps)."""
+    idx = eng.index
+    stream = ST._DeviceStream(eng, idx.k, pmax=chunk, rmax_shift=12 if multiline else 4)
+    stream.capture = []
+    kernels.reset_counts()
+    for seq in ST.parse_reads(path, multiline=multiline):
+        stream.add_read(seq)
+    rep = stream.finalize()
+    torch.cuda.synchronize()
+    c = path_counts(f"{tag} stream path", STREAM_WRAPPERS + ("minimizer_kernel", "probe_kernel"))
+    chunks = stream.capture
+    positions = rep["num_kmers"]
+    Pn, R, CW = stream.P, stream.R, stream.CW
+    steps = {av: ST.make_stream_step(eng.cfg, Pn, R, CW, make_lookup(eng.cfg, "full"),
+                                     all_valid=av) for av in (False, True)}
+    skipped = 0
+    for i, (av, packed) in enumerate(chunks):
+        stats = {}
+        got = steps[av](eng.tables, packed, stats)
+        skipped += int(stats["need"]) - int(stats["heads"]) - int(stats["round2"])
+        if check_chunks is None or i < check_chunks:
+            require(rows_equal(got, plain_step(eng, Pn, R, CW, av)(eng.tables, packed)),
+                    f"{tag}: chunk {i} kernel step != plain step")
+    checked = len(chunks) if check_chunks is None else min(check_chunks, len(chunks))
+    require(not need_runskip or skipped > 0, f"{tag}: the run-skip skipped no lane")
+    run_steps = lambda: [steps[av](eng.tables, b) for av, b in chunks]  # noqa: E731
+    queued_ms = median_ms(run_steps)
+    dev_ms = graph_ms(run_steps)
+    wall = ST.streaming_query_from_file(eng, path, multiline=multiline, chunk=chunk)
+    require(all(wall[key] == rep[key] for key in rep), f"{tag}: a second run differs")
+    log(f"  {tag}: {positions} positions in {len(chunks)} chunks of P={Pn} (R={R}); report {rep}; "
+        f"kernel step == plain step on {checked} chunks; run-skip skipped {skipped} lookups")
+    log(f"  {tag}: device {dev_ms:.4f} ms = {positions / dev_ms * 1e3:.4g} kmers/s (the steps on "
+        f"resident chunks, replayed from a CUDA graph); queued {queued_ms:.4f} ms = "
+        f"{positions / queued_ms * 1e3:.4g} kmers/s (the same steps launched back to back from "
+        f"the host: host-enqueue-bound); wall {wall['elapsed_millisec']:.1f} ms = "
+        f"{positions / wall['elapsed_millisec'] * 1e3:.4g} kmers/s (parse, encode, upload, steps)")
+    return rep, chunks, c, dev_ms, stream
+
+
+def check_host(idx, rep, path, multiline, tag):
+    t0 = time.perf_counter()
+    want = ST.host_report(idx, path, multiline=multiline)
+    require(all(rep[key] == want[key] for key in want), f"{tag}: report {rep} != host {want}")
+    log(f"  {tag}: report equals the host _Batcher (oracle lookups, "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
+def phase_streaming(dev, built, idx200, eng200, tmp, errs):
+    log("[9] streaming membership: 5M high-hit genome, low-hit and mixed reads; 200M high-hit")
+    rng = np.random.default_rng(9)
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    idx, eng = built["regular"][:2]
+    strings = synthetic.index_strings(idx)
+    path = f"{tmp}/genome5m.fa"
+    synthetic.write_genome(path, strings, rng)
+    rep, _, c, _, _ = stream_run(eng, path, True, 5 << 20, "high-hit 5M regular")
+    add_counts(launches, c)
+    check_host(idx, rep, path, True, "high-hit 5M regular")
+    reads = synthetic.cut_reads(strings, LOWHIT_TRUE, LOWHIT_LEN, rng) + synthetic.random_reads(
+        LOWHIT_READS - LOWHIT_TRUE, LOWHIT_LEN, rng)
+    reads = synthetic.with_n([reads[i] for i in rng.permutation(len(reads))], 0.01, rng)
+    path = f"{tmp}/lowhit.fq"
+    synthetic.write_reads(path, reads)
+    rep, _, c, _, _ = stream_run(eng, path, False, 1 << 22, "low-hit 5M regular",
+                                 need_runskip=True)
+    add_counts(launches, c)
+    check_host(idx, rep, path, False, "low-hit 5M regular")
+    idx, eng = built["canonical"][:2]
+    strings = synthetic.index_strings(idx)
+    half = MIXED_READS // 2
+    reads = synthetic.cut_reads(strings, half, MIXED_LEN, rng, rc=0.5, subst=0.01)
+    reads += synthetic.random_reads(half, MIXED_LEN, rng)
+    path = f"{tmp}/mixed.fq"
+    synthetic.write_reads(path, [reads[i] for i in rng.permutation(len(reads))])
+    rep, _, c, _, _ = stream_run(eng, path, False, 1 << 22, "mixed 5M canonical")
+    add_counts(launches, c)
+    check_host(idx, rep, path, False, "mixed 5M canonical")
+    strings = synthetic.index_strings(idx200, rng.choice(idx200.num_strings, SCALE_STREAM_STRINGS,
+                                                         replace=False))
+    path = f"{tmp}/genome200m.fa"
+    synthetic.write_genome(path, strings, rng)
+    rep, chunks, c, dev_ms, stream = stream_run(eng200, path, True, 1 << 22,
+                                                "high-hit 200M canonical", check_chunks=1)
+    add_counts(launches, c)
+    prefix = f"{tmp}/genome200m_prefix.fa"
+    with open(path, "rb") as f_in, open(prefix, "wb") as f_out:
+        f_out.write(f_in.readline())
+        f_out.write(f_in.read((HOST_PREFIX + idx200.k - 1) // 80 * 81))
+    part = ST.streaming_query_from_file(eng200, prefix, multiline=True)
+    check_host(idx200, part, prefix, True, f"high-hit 200M canonical, {part['num_kmers']}-position "
+               f"prefix")
+    log(f"  peak device memory: {torch.cuda.max_memory_allocated()} bytes")
+    av, packed = chunks[0]
+    per = time_stages(eng200, packed, stream.P, stream.R, stream.CW, av, errs)
+    log(f"  200M canonical, chunk 0: the four stream sources {sum(v['kernel'] for v in per.values()):.4f} ms "
+        f"of the step's {dev_ms / len(chunks):.4f} ms per chunk (graph replay, mean)")
+    return launches, per
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -584,30 +918,50 @@ def main():
     for name, err in scale_errs.items():
         errs[name] = max(errs[name], err)
     point_launches, point_times = phase_point_queries(dev, built, errs)
-    del built
     scale_launches, scale_times = phase_scale_point_queries(idx, eng, errs)
-    del idx, eng
     for name in ("access_kernel", "iterate_kernel", "weight_kernel", "neighbours_kernel"):
         launches[name] = point_launches.get(name, 0) + scale_launches.get(name, 0)
     times.update(point_times)
     times.update(scale_times)
+    with tempfile.TemporaryDirectory() as tmp:
+        stream_launches, stream_times = phase_streaming(dev, built, idx, eng, tmp, errs)
+    add_counts(launches, stream_launches)
+    # the least time of each kernel's work at the shapes timed above
+    cfg, W5 = eng.cfg, built["canonical"][1].cfg.W
+    bounds = {
+        "minimizer.cu": bound(SCALE_B * (4 * cfg.W + 32),
+                              SCALE_B * MINIMIZER_OPS_PER_WINDOW * (cfg.k - cfg.m + 1)),
+        "probe.cu": bound(SCALE_B * (32 + 4 + 4 * row_width(cfg)
+                                     + (8 if cfg.mphf_partitioned else 0) + 10)),
+        "access.cu": bound(SCALE_B * (4 + 4 * acc_width(cfg) + 4 * cfg.W)),
+        "iterator.cu": bound(sum(eng.tables[n].numel() * 4 for n in ("strings32", "vstart32"))
+                             + 8),
+        "weight.cu": bound(point_times["weight_kernel"]["bytes"]),
+        "neighbours.cu": bound(NAV_B * 9 * 4 * W5),
+    }
+    del built, idx, eng
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sshash_tpu"))
+    require(not loaded, f"JAX or the JAX package was imported: {loaded}")
+    log(f"[10] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
     csrc = "sshash_tpu_torch/csrc/"
-    sources = {"minimizer_kernel": ("minimizer.cu", "sshash_tpu/ops/packed.py:263"),
-               "probe_kernel": ("probe.cu", "sshash_tpu/engine.py:739"),
-               "access_kernel": ("access.cu", "sshash_tpu/engine.py:1304"),
-               "iterate_kernel": ("iterator.cu", "sshash_tpu/engine.py:1338"),
-               "weight_kernel": ("weight.cu", "sshash_tpu/engine.py:1404"),
-               "neighbours_kernel": ("neighbours.cu", "sshash_tpu/engine.py:1412")}
-    require(all(launches[name] > 0 for name in sources), f"launches {launches}")
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
-                    or m.startswith(("sshash_tpu.engine", "sshash_tpu.ops")))
-    require(not loaded, f"JAX modules were imported: {loaded}")
-    log(f"[9] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
-    log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": csrc + src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name]["kernel"], "plain_ms": times[name]["plain"]}
-        for name, (src, rep) in sources.items()]}))
+    rows = []
+    for src, rep in SOURCES.items():
+        names = kernels.SOURCE_KERNELS[src]
+        n_launch = sum(launches.get(name, 0) for name in names)
+        require(n_launch > 0, f"{src}: no launch on the main path ({launches})")
+        if src in stream_times:
+            t = stream_times[src]
+            ms, pms, lib = t["kernel"], t["plain"], t["library"] or None
+            b_ms, b_by = t["bound_ms"], "bytes"
+            err = errs.get(src, 0)
+        else:
+            ms, pms = times[names[0]]["kernel"], times[names[0]]["plain"]
+            lib, (b_ms, b_by) = None, bounds[src]
+            err = errs[names[0]]
+        rows.append({"name": src.split(".")[0], "route": "cuda", "source": csrc + src,
+                     "replaces": rep, "launches": n_launch, "max_abs_err": err, "ms": ms,
+                     "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

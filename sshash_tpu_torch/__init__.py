@@ -1,17 +1,22 @@
-"""sshash_tpu_torch — the k-mer dictionary's lookup on PyTorch and CUDA.
+"""sshash_tpu_torch — the k-mer dictionary on PyTorch and CUDA.
 
-A port of sshash_tpu's device engine to one NVIDIA H100 (sm_90a). It
-serves batched lookup (kmer -> id, orientation and string fields) from the
-same Index files and gives the JAX engine's answers in every lane and
-field. Two hand-written CUDA kernels carry the path (csrc/minimizer.cu and
-csrc/probe.cu, built with nvcc at first use); every kernel has a plain
-PyTorch version beside it, which CPU tensors run.
+A port of sshash_tpu to one NVIDIA H100 (sm_90a). It builds and loads the
+same Index files and serves, batched, what the JAX package serves: lookup
+(kmer -> id, orientation and string fields), membership, access, weight,
+navigation, full iteration and streaming membership over FASTA/FASTQ reads,
+with the JAX engine's answers in every lane and field and the same
+streaming report. Hand-written CUDA kernels (csrc/*.cu, built with nvcc at
+first use) carry the device paths; every kernel has a plain PyTorch
+version beside it, which CPU tensors run.
 
-Host work (index build, the NumPy oracle) comes from sshash_tpu's host
-modules; nothing here imports JAX.
+The host side (index build, on-disk format, the NumPy oracle, the read
+parsers and the native encoder) is the package's own copy of sshash_tpu's
+host modules, under the same names. Nothing here imports JAX or sshash_tpu.
 """
 
-from .dictionary import to_device
+from .builder.build import BuildConfig, build
+from .dictionary import Dictionary, to_device
 from .engine import TorchEngine
+from .index import Index
 
-__all__ = ["TorchEngine", "to_device"]
+__all__ = ["BuildConfig", "build", "Dictionary", "Index", "TorchEngine", "to_device"]

@@ -44,10 +44,9 @@ such lanes read in bounds and their kmer is meaningless in both.
 import numpy as np
 import torch
 
-from sshash_tpu import kmer as K
-from sshash_tpu.constants import BACKWARD_ORIENTATION, FORWARD_ORIENTATION, INVALID_UINT64
-
 from . import kernels
+from . import kmer as K
+from .constants import BACKWARD_ORIENTATION, FORWARD_ORIENTATION, INVALID_UINT64
 from .layout import (SKEW_PARAMS, TABLE_GROUPS, StaticCfg, acc_windowed, cand_block_width,
                      device_arrays, row_width, tables_from_host, take_rows,
                      with_access_tables)
@@ -246,17 +245,7 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
     return res
 
 
-def probe(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
-          active=None, fields="full"):
-    """Kernel 2 entry: a CUDA tensor runs csrc/probe.cu, a CPU tensor its
-    plain version. Anything else raises."""
-    if kmers32.is_cuda:
-        return kernels.probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos,
-                                    minpos2, active, fields)
-    if kmers32.device.type == "cpu":
-        return probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2,
-                           active, fields)
-    raise ValueError(f"no probe kernel for device {kmers32.device}")
+probe = kernels.by_device(kernels.probe_kernel, probe_plain, "probe", arg=2)
 
 
 def _merge(res_a, res_b, use_b, use_b_flags):
@@ -288,16 +277,22 @@ def make_lookup(cfg, fields="full", minimizer=P.minimizer, probe=probe):
     semantics). fields="ids" returns only kmer_id / kmer_orientation /
     minimizer_found (the reference's plain lookup()). `minimizer` and
     `probe` default to the kernel entry points; passing the plain versions
-    runs the same lookup without kernels on any device."""
+    runs the same lookup without kernels on any device.
+
+    fn(tables, kmers32, mins=None, active=None): mins are kernel 1's five
+    outputs for these kmers where the caller has them; active (bool) limits
+    the probes to those lanes, the others report not found."""
     k, m, magic = cfg.k, cfg.m, cfg.magic
 
-    def fn(tables, kmers32):
-        mv_f, mp_f, kmers_rc32, mv_r, mp_r = minimizer(kmers32, k, m, magic, both=True)
+    def fn(tables, kmers32, mins=None, active=None):
+        if mins is None:
+            mins = minimizer(kmers32, k, m, magic, both=True)
+        mv_f, mp_f, kmers_rc32, mv_r, mp_r = mins
         if cfg.canonical:
             mv1, mp1, mp2 = canonical_fold(mv_f, mp_f, mv_r, mp_r)
-            return probe(cfg, tables, kmers32, kmers_rc32, mv1, mp1, mp2, None, fields)
-        res = probe(cfg, tables, kmers32, None, mv_f, mp_f, None, None, fields)
-        miss = ~res["found"]
+            return probe(cfg, tables, kmers32, kmers_rc32, mv1, mp1, mp2, active, fields)
+        res = probe(cfg, tables, kmers32, None, mv_f, mp_f, None, active, fields)
+        miss = ~res["found"] if active is None else active & ~res["found"]
         res2 = probe(cfg, tables, kmers_rc32, None, mv_r, mp_r, None, miss, fields)
         merged = _merge(res, res2, miss & res2["found"], miss)
         merged["minimizer_found"] = torch.where(
@@ -352,14 +347,7 @@ def access_plain(cfg, tables, ids):
     return u.to_i32(out)
 
 
-def access(cfg, tables, ids):
-    """Access kernel entry: a CUDA tensor runs csrc/access.cu, a CPU tensor
-    its plain version. Anything else raises."""
-    if ids.is_cuda:
-        return kernels.access_kernel(cfg, tables, ids)
-    if ids.device.type == "cpu":
-        return access_plain(cfg, tables, ids)
-    raise ValueError(f"no access kernel for device {ids.device}")
+access = kernels.by_device(kernels.access_kernel, access_plain, "access", arg=2)
 
 
 def _popcount32(x):
@@ -401,15 +389,7 @@ def iterate_kmers_plain(k, strings32, vstart32):
     return bits.reshape(-1)[: kmers.shape[0]] != 0, u.to_i32(kmers)
 
 
-def iterate(k, strings32, vstart32):
-    """Iterator kernel entry: a CUDA tensor runs csrc/iterator.cu, a CPU
-    tensor its plain version. Anything else raises. The result stays on
-    the tensors' device."""
-    if strings32.is_cuda:
-        return kernels.iterate_kernel(k, strings32, vstart32)
-    if strings32.device.type == "cpu":
-        return iterate_plain(k, strings32, vstart32)
-    raise ValueError(f"no iterator kernel for device {strings32.device}")
+iterate = kernels.by_device(kernels.iterate_kernel, iterate_plain, "iterator", arg=1)
 
 
 def weight_plain(tables, ids):
@@ -421,14 +401,7 @@ def weight_plain(tables, ids):
     return u.to_i32(take_rows(tables["w_dictionary"], vid))
 
 
-def weight(tables, ids):
-    """Weight kernel entry: a CUDA tensor runs csrc/weight.cu, a CPU tensor
-    its plain version. Anything else raises."""
-    if ids.is_cuda:
-        return kernels.weight_kernel(tables, ids)
-    if ids.device.type == "cpu":
-        return weight_plain(tables, ids)
-    raise ValueError(f"no weight kernel for device {ids.device}")
+weight = kernels.by_device(kernels.weight_kernel, weight_plain, "weight", arg=1)
 
 
 def _to_host_result(res):
@@ -465,7 +438,7 @@ class TorchEngine:
     host_arrs: a precomputed table dict (layout.device_arrays, or the JAX
     package's _device_arrays / its .npy cache) for large indexes."""
 
-    def __init__(self, index, device, host_arrs=None):
+    def __init__(self, index, device="cuda", host_arrs=None):
         self.index = index
         self.device = torch.device(device)
         self.cfg = StaticCfg(index)

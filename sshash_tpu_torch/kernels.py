@@ -1,7 +1,10 @@
 """Build and bind the port's CUDA kernels (csrc/), with launch counters.
 
-Six kernels: minimizer (kernel 1) and probe (kernel 2) carry lookup;
-access, iterate, weight and neighbours carry the other point queries.
+Ten CUDA sources: minimizer (kernel 1) and probe (kernel 2) carry lookup;
+access, iterator, weight and neighbours the other point queries; scan,
+stream_anchor, stream_chain and stream_derive the stream step (a source
+may hold several wrappers, each with its own count; SOURCE_KERNELS maps
+them).
 
 The sources compile with nvcc for sm_90a, one nvcc process per source, all
 started together, and link into one shared library with a plain C
@@ -14,9 +17,12 @@ import this module and run the plain versions.
 Each launch wrapper checks its tensors, allocates its outputs with
 torch.empty, launches on the current stream without synchronising, raises
 if the launch returned a CUDA error, and adds one to its `launches` count.
-The wrappers take CUDA tensors only; the entry points (ops/packed.minimizer
-and .neighbour_variants; engine.probe, .access, .iterate and
-.weight) choose between a wrapper and its plain version by device.
+The wrappers take CUDA tensors only; each entry point (ops/packed.minimizer,
+.neighbour_variants, .scan_ex and .compact; engine.probe, .access, .iterate
+and .weight; streaming.stream_masks, .stream_kmers, .stream_chain,
+.stream_heads, .stream_round2, .stream_merge and .stream_count) is made by
+`by_device`, which chooses between a wrapper and its plain version by the
+device of one argument.
 """
 
 import ctypes
@@ -34,7 +40,7 @@ from .layout import acc_width, acc_win_words, acc_windowed, cand_block_width, ro
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("minimizer.cu", "probe.cu", "access.cu", "iterator.cu", "weight.cu",
-           "neighbours.cu")
+           "neighbours.cu", "scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu")
 HEADERS = ("packed.cuh", "tables.cuh", "u64.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sshash_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -150,10 +156,43 @@ def library():
         lib.sshash_iterate.argtypes = [p, i64, p, i64, i64, p, p]
         lib.sshash_weight.argtypes = [p, i64, p, i64, p, i64, p, i64, p, p]
         lib.sshash_neighbours.argtypes = [p, i64, i64, i64, p, p]
-        for name in ("sshash_access", "sshash_iterate", "sshash_weight", "sshash_neighbours"):
+        lib.sshash_scan_scratch.argtypes = [i64]
+        lib.sshash_scan_scratch.restype = i64
+        lib.sshash_scan.argtypes = [p, i64, p, p, p]
+        lib.sshash_compact.argtypes = [p, i64, p, p, p, p]
+        lib.sshash_stream_masks.argtypes = [p, p, p, i64, i64, p, p, p, p]
+        lib.sshash_stream_kmers.argtypes = [p, i64, p, p, p, p, i64, i64, p, p]
+        lib.sshash_stream_chain.argtypes = [ctypes.POINTER(ChainIO), i64, i64, p]
+        lib.sshash_stream_heads.argtypes = [p, p, p, p, p, i64, i64, p, p]
+        lib.sshash_stream_round2.argtypes = [p, p, p, p, i64, p, p, p]
+        lib.sshash_stream_merge.argtypes = [ctypes.POINTER(MergeIO), i64, p]
+        lib.sshash_stream_count.argtypes = [p, p, p, p, p, p, p, i64, p, p]
+        for name in ("sshash_access", "sshash_iterate", "sshash_weight", "sshash_neighbours",
+                     "sshash_scan", "sshash_compact", "sshash_stream_masks",
+                     "sshash_stream_kmers", "sshash_stream_chain", "sshash_stream_heads",
+                     "sshash_stream_round2", "sshash_stream_merge", "sshash_stream_count"):
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def by_device(kernel, plain, what, arg=0):
+    """The entry point of one kernel: a call runs `kernel` (a wrapper
+    below) when positional argument `arg` is a CUDA tensor, `plain` when
+    it is a CPU tensor, and raises on any other device. Both take the
+    entry's arguments."""
+
+    def entry(*args, **kw):
+        dev = args[arg].device
+        if dev.type == "cuda":
+            return kernel(*args, **kw)
+        if dev.type == "cpu":
+            return plain(*args, **kw)
+        raise ValueError(f"no {what} kernel for device {dev}")
+
+    entry.__doc__ = (f"{what} entry: {kernel.__name__} on a CUDA tensor, {plain.__name__} "
+                     f"on a CPU tensor; any other device raises.")
+    return entry
 
 
 def _check(t, name, dtype, shape=None):
@@ -377,8 +416,262 @@ def neighbours_kernel(kmers32, k):
 neighbours_kernel.launches = 0
 
 
+def _scratch_sums(n, dev):
+    return torch.empty(max(1, library().sshash_scan_scratch(n)), dtype=torch.int32, device=dev)
+
+
+def _vec(t, name, dtype):
+    if t.dim() != 1:
+        raise ValueError(f"{name} must be 1-D, got {tuple(t.shape)}")
+    _check(t, name, dtype)
+    return t.shape[0]
+
+
+def scan_kernel(v):
+    """Exclusive scan of (B,) int32 (u32 sums, wrapping) -> (B,) int32. Same
+    contract as ops.packed.prefix_sum_ex."""
+    n = _vec(v, "v", torch.int32)
+    out = torch.empty_like(v)
+    err = library().sshash_scan(v.data_ptr(), n, _scratch_sums(n, v.device).data_ptr(),
+                                out.data_ptr(), _stream(v.device))
+    _raise_on(err, "scan_kernel")
+    scan_kernel.launches += 1
+    return out
+
+
+scan_kernel.launches = 0
+
+
+def compact_kernel(flags):
+    """Compaction of (B,) uint8 flags -> (idx int32 (B,), n int32 (1,)):
+    idx[:n] the flagged lanes in order, zeros after. Same contract as
+    ops.packed.compact_plain."""
+    n = _vec(flags, "flags", torch.uint8)
+    dev = flags.device
+    idx = torch.zeros(n, dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = library().sshash_compact(flags.data_ptr(), n, _scratch_sums(n, dev).data_ptr(),
+                                   idx.data_ptr(), count.data_ptr(), _stream(dev))
+    _raise_on(err, "compact_kernel")
+    compact_kernel.launches += 1
+    return idx, count
+
+
+compact_kernel.launches = 0
+
+
+def _scalar(t, name):
+    _check(t, name, torch.int32, (1,))
+
+
+def stream_masks_kernel(pstart, rfirst, nreads, P):
+    """Segment / read-start bits and group counts of a chunk. Same contract
+    as streaming.stream_masks_plain."""
+    R = _vec(pstart, "pstart", torch.int32)
+    dev = pstart.device
+    _check(rfirst, "rfirst", torch.int32, (R // 32 + 1,))
+    _scalar(nreads, "nreads")
+    if P % 32 or P <= 0:
+        raise ValueError(f"P={P} must be a positive multiple of 32")
+    sbits = torch.zeros(P // 32 + 1, dtype=torch.int32, device=dev)
+    fbits = torch.zeros_like(sbits)
+    gcnt = torch.empty(P // 16, dtype=torch.int32, device=dev)
+    err = library().sshash_stream_masks(pstart.data_ptr(), rfirst.data_ptr(), nreads.data_ptr(),
+                                        R, P, sbits.data_ptr(), fbits.data_ptr(),
+                                        gcnt.data_ptr(), _stream(dev))
+    _raise_on(err, "stream_masks_kernel")
+    stream_masks_kernel.launches += 1
+    return sbits, fbits, gcnt
+
+
+stream_masks_kernel.launches = 0
+
+
+def stream_kmers_kernel(words32, sbits, cum_g, k, n_out, lanes=None, count=None):
+    """The kmer at each listed lane of a chunk -> (n_out, W) int32. Same
+    contract as streaming.stream_kmers_plain."""
+    nw = _vec(words32, "words32", torch.int32)
+    dev = words32.device
+    _check(sbits, "sbits", torch.int32)
+    _check(cum_g, "cum_g", torch.int32)
+    P = (sbits.shape[0] - 1) * 32
+    if cum_g.shape != (P // 16,):
+        raise ValueError(f"cum_g must be ({P // 16},), got {tuple(cum_g.shape)}")
+    if (lanes is None) != (count is None):
+        raise ValueError("lanes and count go together")
+    if lanes is not None:
+        _check(lanes, "lanes", torch.int32, (n_out,))
+        _scalar(count, "count")
+    elif n_out > P // 16:
+        raise ValueError(f"{n_out} anchors for {P} lanes")
+    out = torch.empty((n_out, (2 * k + 31) // 32), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = library().sshash_stream_kmers(words32.data_ptr(), nw, sbits.data_ptr(),
+                                        cum_g.data_ptr(), ptr(lanes), ptr(count), n_out, k,
+                                        out.data_ptr(), _stream(dev))
+    _raise_on(err, "stream_kmers_kernel")
+    stream_kmers_kernel.launches += 1
+    return out
+
+
+stream_kmers_kernel.launches = 0
+
+
+class ChainIO(ctypes.Structure):
+    """Mirror of csrc/stream_chain.cu ChainIO."""
+    _fields_ = [(n, ctypes.c_int64 if n.endswith("_n") else ctypes.c_void_p) for n in (
+        "afound", "aoff", "asid", "akid", "aori", "abeg", "aend", "words", "words_n",
+        "strings", "strings_n", "valid", "sbits", "fbits", "cum_g", "found", "sid", "kid",
+        "ori", "need")]
+
+
+def stream_chain_kernel(ares, words32, strings32, valid_bits, sbits, fbits, cum_g, k):
+    """Chain extension of every anchor -> per-lane state dict. Same
+    contract as streaming.stream_chain_plain."""
+    A = _vec(ares["found"], "found", torch.bool)
+    dev = words32.device
+    for name in ("kmer_offset", "string_id", "kmer_id", "kmer_orientation", "string_begin",
+                 "string_end"):
+        _check(ares[name], name, torch.int32, (A,))
+    nbits = A * 16 // 32 + 1
+    for t, name in ((valid_bits, "valid_bits"), (sbits, "sbits"), (fbits, "fbits")):
+        _check(t, name, torch.int32, (nbits,))
+    _check(cum_g, "cum_g", torch.int32, (A,))
+    _vec(words32, "words32", torch.int32)
+    _check_table(strings32, "strings32", dev)
+    P = 16 * A
+    out = {"found": torch.empty(P, dtype=torch.uint8, device=dev),
+           "string_id": torch.empty(P, dtype=torch.int32, device=dev),
+           "kmer_id": torch.empty(P, dtype=torch.int32, device=dev),
+           "kmer_orientation": torch.empty(P, dtype=torch.int32, device=dev),
+           "need": torch.empty(P, dtype=torch.uint8, device=dev)}
+    io = ChainIO(ares["found"].data_ptr(), ares["kmer_offset"].data_ptr(),
+                 ares["string_id"].data_ptr(), ares["kmer_id"].data_ptr(),
+                 ares["kmer_orientation"].data_ptr(), ares["string_begin"].data_ptr(),
+                 ares["string_end"].data_ptr(), words32.data_ptr(), words32.shape[0],
+                 strings32.data_ptr(), strings32.shape[0], valid_bits.data_ptr(),
+                 sbits.data_ptr(), fbits.data_ptr(), cum_g.data_ptr(), out["found"].data_ptr(),
+                 out["string_id"].data_ptr(), out["kmer_id"].data_ptr(),
+                 out["kmer_orientation"].data_ptr(), out["need"].data_ptr())
+    err = library().sshash_stream_chain(ctypes.byref(io), A, k, _stream(dev))
+    _raise_on(err, "stream_chain_kernel")
+    stream_chain_kernel.launches += 1
+    return out
+
+
+stream_chain_kernel.launches = 0
+
+
+def stream_heads_kernel(mv_f, mv_r, lanes, count, fbits, gate):
+    """Run-skip heads in rank space -> (P,) uint8. Same contract as
+    streaming.stream_heads_plain."""
+    P = _vec(lanes, "lanes", torch.int32)
+    dev = lanes.device
+    _check(mv_f, "mv_f", torch.int64, (P,))
+    _check(mv_r, "mv_r", torch.int64, (P,))
+    _scalar(count, "count")
+    _check(fbits, "fbits", torch.int32, (P // 32 + 1,))
+    head = torch.empty(P, dtype=torch.uint8, device=dev)
+    err = library().sshash_stream_heads(mv_f.data_ptr(), mv_r.data_ptr(), lanes.data_ptr(),
+                                        count.data_ptr(), fbits.data_ptr(), P, int(gate),
+                                        head.data_ptr(), _stream(dev))
+    _raise_on(err, "stream_heads_kernel")
+    stream_heads_kernel.launches += 1
+    return head
+
+
+stream_heads_kernel.launches = 0
+
+
+def stream_round2_kernel(head, hs, mf, count):
+    """Second-round lanes in rank space -> (P,) uint8. Same contract as
+    streaming.stream_round2_plain."""
+    P = _vec(head, "head", torch.uint8)
+    dev = head.device
+    _check(hs, "hs", torch.int32, (P,))
+    _check(mf, "mf", torch.uint8, (P,))
+    _scalar(count, "count")
+    head_mf = torch.zeros(P + 1, dtype=torch.uint8, device=dev)
+    out = torch.empty(P, dtype=torch.uint8, device=dev)
+    err = library().sshash_stream_round2(head.data_ptr(), hs.data_ptr(), mf.data_ptr(),
+                                         count.data_ptr(), P, head_mf.data_ptr(),
+                                         out.data_ptr(), _stream(dev))
+    _raise_on(err, "stream_round2_kernel")
+    stream_round2_kernel.launches += 1
+    return out
+
+
+stream_round2_kernel.launches = 0
+
+
+class MergeIO(ctypes.Structure):
+    """Mirror of csrc/stream_derive.cu MergeIO."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "lanes", "count", "f1", "sid1", "kid1", "ori1", "f2", "sid2", "kid2", "ori2", "found",
+        "sid", "kid", "ori")]
+
+
+def stream_merge_kernel(lanes, count, r1, r2, state):
+    """Write the found results of both rounds to their lanes, in place in
+    `state`. Same contract as streaming.stream_merge_plain."""
+    P = _vec(lanes, "lanes", torch.int32)
+    _scalar(count, "count")
+    fields = ("string_id", "kmer_id", "kmer_orientation")
+    for r in (r1, r2):
+        _check(r["found"], "found", torch.bool, (P,))
+        for name in fields:
+            _check(r[name], name, torch.int32, (P,))
+    _check(state["found"], "found", torch.uint8, (P,))
+    for name in fields:
+        _check(state[name], name, torch.int32, (P,))
+    io = MergeIO(lanes.data_ptr(), count.data_ptr(),
+                 *(r[n].data_ptr() for r in (r1, r2) for n in ("found",) + fields),
+                 *(state[n].data_ptr() for n in ("found",) + fields))
+    err = library().sshash_stream_merge(ctypes.byref(io), P, _stream(lanes.device))
+    _raise_on(err, "stream_merge_kernel")
+    stream_merge_kernel.launches += 1
+    return state
+
+
+stream_merge_kernel.launches = 0
+
+
+def stream_count_kernel(state, valid_bits, fbits, count):
+    """Counters, lane 0 and the last lane -> (3, 4) int32 (u32 bits). Same
+    contract as streaming.stream_count_plain."""
+    P = _vec(state["found"], "found", torch.uint8)
+    dev = valid_bits.device
+    for name in ("string_id", "kmer_id", "kmer_orientation"):
+        _check(state[name], name, torch.int32, (P,))
+    _check(valid_bits, "valid_bits", torch.int32, (P // 32 + 1,))
+    _check(fbits, "fbits", torch.int32, (P // 32 + 1,))
+    _scalar(count, "count")
+    out = torch.zeros((3, 4), dtype=torch.int32, device=dev)
+    err = library().sshash_stream_count(
+        state["found"].data_ptr(), state["string_id"].data_ptr(), state["kmer_id"].data_ptr(),
+        state["kmer_orientation"].data_ptr(), valid_bits.data_ptr(), fbits.data_ptr(),
+        count.data_ptr(), P, out.data_ptr(), _stream(dev))
+    _raise_on(err, "stream_count_kernel")
+    stream_count_kernel.launches += 1
+    return out
+
+
+stream_count_kernel.launches = 0
+
+
 KERNELS = (minimizer_kernel, probe_kernel, access_kernel, iterate_kernel, weight_kernel,
-           neighbours_kernel)
+           neighbours_kernel, scan_kernel, compact_kernel, stream_masks_kernel,
+           stream_kmers_kernel, stream_chain_kernel, stream_heads_kernel, stream_round2_kernel,
+           stream_merge_kernel, stream_count_kernel)
+# the wrappers of each CUDA source
+SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel",), "probe.cu": ("probe_kernel",),
+                  "access.cu": ("access_kernel",), "iterator.cu": ("iterate_kernel",),
+                  "weight.cu": ("weight_kernel",), "neighbours.cu": ("neighbours_kernel",),
+                  "scan.cu": ("scan_kernel", "compact_kernel"),
+                  "stream_anchor.cu": ("stream_masks_kernel", "stream_kmers_kernel"),
+                  "stream_chain.cu": ("stream_chain_kernel",),
+                  "stream_derive.cu": ("stream_heads_kernel", "stream_round2_kernel",
+                                       "stream_merge_kernel", "stream_count_kernel")}
 
 
 def reset_counts():

@@ -32,11 +32,11 @@ the u32 table fields exactly.
 import numpy as np
 import torch
 
-from sshash_tpu import hashing as H
-from sshash_tpu import kmer as K
-from sshash_tpu.compact import CompactVector
-from sshash_tpu.index import decode_codeword
-from sshash_tpu.mphf import PartitionedMPHF, _get
+from . import hashing as H
+from . import kmer as K
+from .compact import CompactVector
+from .index import decode_codeword
+from .mphf import PartitionedMPHF, _get
 
 NUM_SKEW = 8
 QUAD_W = 4

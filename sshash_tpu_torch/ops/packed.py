@@ -132,6 +132,60 @@ def iterate_kmers(strings32, k):
     return mask_last_word(torch.stack(cols, dim=1), k)
 
 
+def char_mmer_hashes(words32, n_chars, m, magic):
+    """Per-char m-mer mixer hashes over a packed buffer (int64 (NW,), u32
+    values): h_f[c] = mixer64(m-mer at char c), h_r[c] = mixer64 of its
+    reverse complement; chars past the buffer read zero. Returns (h_f, h_r)
+    u64 pairs of (n_chars,)."""
+    nw = (n_chars + 15) // 16
+    pad = torch.cat([words32, words32.new_zeros(2)])
+    w0, w1, w2 = pad[:nw], pad[1: nw + 1], pad[2: nw + 2]
+    los = [w0] + [((w0 >> (2 * p)) | (w1 << (32 - 2 * p))) & M32 for p in range(1, 16)]
+    his = [w1] + [((w1 >> (2 * p)) | (w2 << (32 - 2 * p))) & M32 for p in range(1, 16)]
+    lo = torch.stack(los, dim=1).reshape(-1)[:n_chars]
+    hi = torch.stack(his, dim=1).reshape(-1)[:n_chars]
+    mask = (1 << (2 * m)) - 1
+    v = u.u64(hi & (mask >> 32), lo & (mask & M32))
+    return u.mixer64(v, magic), u.mixer64(revcomp_mmer64(v, m), magic)
+
+
+def sliding_min_u64(h, w):
+    """min over the windows [c, c+w) of a u64 pair of (C,); past the end
+    reads 2^64-1 (log-steps of shifted minimums)."""
+    cur, span = h, 1
+    while span < w:
+        s = min(span, w - span)
+        fill = torch.full((s,), M32, dtype=torch.int64, device=h.hi.device)
+        sh = u.u64(torch.cat([cur.hi[s:], fill]), torch.cat([cur.lo[s:], fill]))
+        cur = u.select(u.less(sh, cur), sh, cur)
+        span += s
+    return cur
+
+
+def prefix_sum_ex(v):
+    """Exclusive prefix sum over axis 0 (int32 (B,) or (B, C)), wrapping
+    mod 2^32 as the JAX int32 scan does. Plain version of the scan kernel
+    (csrc/scan.cu)."""
+    s = torch.cumsum(v, 0, dtype=torch.int64) - v
+    return u.to_i32(s & M32)
+
+
+scan_ex = kernels.by_device(kernels.scan_kernel, prefix_sum_ex, "scan")
+
+
+def compact_plain(flags):
+    """Compaction (the rank scatter of streaming.py:557-559 of the JAX
+    package): flags uint8 (B,) -> (idx int32 (B,), n int32 (1,)) with
+    idx[:n] the flagged lanes in order and zeros after."""
+    lanes = torch.nonzero(flags).reshape(-1)
+    idx = torch.zeros(flags.shape[0], dtype=torch.int32, device=flags.device)
+    idx[: lanes.shape[0]] = lanes.to(torch.int32)
+    return idx, torch.tensor([lanes.shape[0]], dtype=torch.int32, device=flags.device)
+
+
+compact = kernels.by_device(kernels.compact_kernel, compact_plain, "compaction")
+
+
 def drop_one_char(kmers):
     out = kmers >> 2
     out[:, :-1] |= (kmers[:, 1:] << 30) & M32
@@ -163,14 +217,8 @@ def neighbour_variants_plain(kmers32, k):
     return u.to_i32(torch.stack(variants))
 
 
-def neighbour_variants(kmers32, k):
-    """Neighbours kernel entry: a CUDA tensor runs csrc/neighbours.cu, a
-    CPU tensor its plain version. Anything else raises."""
-    if kmers32.is_cuda:
-        return kernels.neighbours_kernel(kmers32, k)
-    if kmers32.device.type == "cpu":
-        return neighbour_variants_plain(kmers32, k)
-    raise ValueError(f"no neighbours kernel for device {kmers32.device}")
+neighbour_variants = kernels.by_device(kernels.neighbours_kernel, neighbour_variants_plain,
+                                       "neighbours")
 
 
 def kmer_less(a, b):
@@ -247,11 +295,4 @@ def minimizer_plain(kmers32, k, m, magic, both=False):
             u.to_i64(mv_r), mp_r.to(torch.int32))
 
 
-def minimizer(kmers32, k, m, magic, both=False):
-    """Kernel 1 entry: a CUDA tensor runs csrc/minimizer.cu, a CPU tensor
-    its plain version. Anything else raises."""
-    if kmers32.is_cuda:
-        return kernels.minimizer_kernel(kmers32, k, m, magic, both)
-    if kmers32.device.type == "cpu":
-        return minimizer_plain(kmers32, k, m, magic, both)
-    raise ValueError(f"no minimizer kernel for device {kmers32.device}")
+minimizer = kernels.by_device(kernels.minimizer_kernel, minimizer_plain, "minimizer")

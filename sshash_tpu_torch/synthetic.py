@@ -18,10 +18,10 @@ import tempfile
 
 import numpy as np
 
-from sshash_tpu import BuildConfig, Dictionary
-from sshash_tpu import hashing as H
-from sshash_tpu import kmer as K
-from sshash_tpu import oracle
+from . import hashing as H
+from . import kmer as K
+from . import oracle
+from .builder.build import BuildConfig, build
 
 # code -> char under the index's 2-bit map (kmer.NUCLEOTIDES)
 _CHARS = np.frombuffer(b"ACTG", dtype=np.uint8)
@@ -115,11 +115,12 @@ def write_fasta(path, codes, k=None, weights=None):
             f.write(b"\n")
 
 
-def build_index(k, m, canonical, num_strings, string_len, seed, avg_partition_size=None,
-                planted=None, threads=1, weights=None):
-    """Index over random strings drawn from `seed`. planted: list of plant
-    counts, one low-hash m-mer per entry. weights: the mean run length of a
-    weighted build, with weight_runs drawn from the same seed."""
+def write_input(path, k, m, canonical, num_strings, string_len, seed,
+                avg_partition_size=None, planted=None, threads=1, weights=None):
+    """Write the FASTA of random strings drawn from `seed` to path and
+    return its BuildConfig. planted: list of plant counts, one low-hash
+    m-mer per entry. weights: the mean run length of a weighted build, with
+    weight_runs drawn from the same seed."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, (num_strings, string_len), dtype=np.uint8)
     cfg = BuildConfig(k=k, m=m, canonical=canonical, verbose=False, threads=threads,
@@ -127,11 +128,15 @@ def build_index(k, m, canonical, num_strings, string_len, seed, avg_partition_si
     if planted:
         plant(codes, low_hash_mmers(len(planted), m, cfg.seed, rng=rng), planted, k, rng)
     w = weight_runs(num_strings * (string_len - k + 1), rng, weights) if weights else None
+    write_fasta(path, codes, k, w)
+    return cfg
+
+
+def build_index(**kw):
+    """Index over write_input's FASTA (same keywords)."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "unitigs.fa")
-        write_fasta(path, codes, k, w)
-        del codes
-        return Dictionary.build(path, cfg).index
+        return build(path, write_input(path, **kw))
 
 
 def small_index(name):
@@ -151,6 +156,80 @@ def path_kmer_ids(idx, rng, n):
     status, _, size, _ = oracle._decode_codewords(idx, mv)
     sel = ids[(status == 2) | (size >= 2)]
     return rng.choice(sel, min(n, len(sel)), replace=False)
+
+
+_RC = bytes.maketrans(b"ACGT", b"TGCA")
+
+
+def revcomp_bytes(seq):
+    return seq[::-1].translate(_RC)
+
+
+def index_strings(idx, ids=None):
+    """The index's strings (or those of `ids`) as ACGT bytes."""
+    ep = idx.string_endpoints.astype(np.int64)
+    ids = range(idx.num_strings) if ids is None else ids
+    shifts = np.arange(32, dtype=np.uint64) * np.uint64(2)
+    out = []
+    for s in ids:
+        b, e = int(ep[s]), int(ep[s + 1])
+        w = idx.strings64[b // 32: (e + 31) // 32 + 1]
+        codes = ((w[:, None] >> shifts) & np.uint64(3)).astype(np.uint8).reshape(-1)
+        out.append(_CHARS[codes[b % 32: b % 32 + e - b]].tobytes())
+    return out
+
+
+def write_genome(path, strings, rng, line=80):
+    """One FASTA record: the strings joined in a random order, every other
+    one reverse-complemented, in lines of `line` chars (a genome streamed
+    against its own index)."""
+    order = rng.permutation(len(strings))
+    seq = b"".join(revcomp_bytes(strings[j]) if i % 2 else strings[j]
+                   for i, j in enumerate(order))
+    with open(path, "wb") as f:
+        f.write(b">genome\n")
+        for i in range(0, len(seq), line):
+            f.write(seq[i: i + line] + b"\n")
+    return len(seq)
+
+
+def write_reads(path, reads):
+    """FASTQ of the reads (bytes)."""
+    with open(path, "wb") as f:
+        for i, r in enumerate(reads):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, r, b"I" * len(r)))
+
+
+def cut_reads(strings, n, length, rng, rc=0.0, subst=0.0):
+    """n reads of `length` chars cut at random from the strings (at least
+    that long), a fraction rc of them reverse-complemented, each char
+    substituted at random with probability subst."""
+    pool = [s for s in strings if len(s) >= length]
+    reads = []
+    for i in range(n):
+        s = pool[rng.integers(len(pool))]
+        o = rng.integers(0, len(s) - length + 1)
+        r = bytearray(s[o: o + length])
+        hits = np.nonzero(rng.random(length) < subst)[0]
+        for j in hits:
+            r[j] = _CHARS[rng.integers(4)]
+        r = bytes(r)
+        reads.append(revcomp_bytes(r) if rng.random() < rc else r)
+    return reads
+
+
+def random_reads(n, length, rng):
+    return [_CHARS[c].tobytes() for c in rng.integers(0, 4, (n, length), dtype=np.uint8)]
+
+
+def with_n(reads, frac, rng):
+    """One N at a random place in a fraction `frac` of the reads."""
+    out = list(reads)
+    for i in np.nonzero(rng.random(len(out)) < frac)[0]:
+        r = bytearray(out[i])
+        r[rng.integers(len(r))] = ord("N")
+        out[i] = bytes(r)
+    return out
 
 
 def random_kmers(k, rng, n):

@@ -13,12 +13,13 @@ from sshash_tpu.engine import DeviceEngine, make_iterator
 from sshash_tpu_torch import TorchEngine, kernels, synthetic
 from sshash_tpu_torch import engine as E
 from sshash_tpu_torch.layout import acc_windowed
+from test_torch_host import jax_index
 
 
 @pytest.fixture(scope="module", params=sorted(synthetic.SMALL_CONFIGS))
 def case(request):
     idx = synthetic.small_index(request.param)
-    return request.param, idx, TorchEngine(idx, "cpu"), DeviceEngine(idx)
+    return request.param, idx, TorchEngine(idx, "cpu"), DeviceEngine(jax_index(idx))
 
 
 def edge_ids(idx, rng):
@@ -53,7 +54,7 @@ def test_access_equals_jax_and_oracle(case):
 def test_short_strings_take_the_two_round_form():
     idx = synthetic.small_index("short_strings")
     eng = TorchEngine(idx, "cpu")
-    assert eng.cfg.access_C == DeviceEngine(idx).cfg.access_C > 1
+    assert eng.cfg.access_C == DeviceEngine(jax_index(idx)).cfg.access_C > 1
     assert not acc_windowed(idx.k, eng.cfg.access_C)
     assert eng.tables["acc_rows"].shape[1] == 1 + eng.cfg.access_C
     ids = np.arange(idx.num_kmers)
@@ -87,7 +88,7 @@ def test_materialized_iteration_equals_jax_and_oracle(case):
 
 def test_weight_equals_jax_and_index():
     idx = synthetic.small_index("weighted")
-    eng, jeng = TorchEngine(idx, "cpu"), DeviceEngine(idx)
+    eng, jeng = TorchEngine(idx, "cpu"), DeviceEngine(jax_index(idx))
     rng = np.random.default_rng(2)
     ep = idx.weights.interval_endpoints.astype(np.int64)
     ids = np.concatenate([edge_ids(idx, rng), ep[1:-1] - 1, ep[1:-1]]).astype(np.uint32)

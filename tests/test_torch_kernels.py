@@ -1,7 +1,9 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions and against
+the JAX package's oracle and host stream, on the card.
 
-This file imports no JAX, so a machine with a card and no JAX runs it
-(tests/conftest.py imports JAX, hence --noconftest):
+This file imports no JAX (the JAX package's oracle, index and host stream
+do not), so a machine with a card and no JAX runs it (tests/conftest.py
+imports JAX, hence --noconftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
@@ -9,13 +11,19 @@ Without a CUDA card the `cuda` tests skip (the kernels have no CPU mode);
 the wrapper checks below run everywhere. Outputs are integers: tolerance 0.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+import sshash_tpu
 from sshash_tpu import oracle
+from sshash_tpu import streaming as jax_streaming
+from sshash_tpu.index import Index as JaxIndex
 from sshash_tpu_torch import TorchEngine, kernels, synthetic
 from sshash_tpu_torch import engine as E
+from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.engine import canonical_fold, probe, probe_plain
 from sshash_tpu_torch.ops import packed as P
 
@@ -27,9 +35,17 @@ def card():
     return torch.device("cuda")
 
 
+def jax_index(idx, tmp_path):
+    """The port's Index as the JAX package's (save, then load), for its
+    oracle."""
+    path = str(tmp_path / "index.npz")
+    idx.save(path)
+    return JaxIndex.load(path)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(synthetic.SMALL_CONFIGS))
-def test_kernels_equal_plain_on_card(card, name):
+def test_kernels_equal_plain_on_card(card, name, tmp_path):
     idx = synthetic.small_index(name)
     eng = TorchEngine(idx, card)
     q, _ = synthetic.query_batch(idx)
@@ -49,16 +65,17 @@ def test_kernels_equal_plain_on_card(card, name):
         assert g.keys() == w.keys()
         for key in w:
             assert torch.equal(g[key], w[key]), key
-    host, want = eng.lookup(q), oracle.lookup(idx, q)
+    host, want = eng.lookup(q), oracle.lookup(jax_index(idx, tmp_path), q)
     for key in want:
         assert np.array_equal(host[key], want[key]), key
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(synthetic.SMALL_CONFIGS))
-def test_point_query_kernels_equal_plain_on_card(card, name):
+def test_point_query_kernels_equal_plain_on_card(card, name, tmp_path):
     """Access (both forms), iteration, weight and the neighbour variants."""
     idx = synthetic.small_index(name)
+    jidx = jax_index(idx, tmp_path)
     eng = TorchEngine(idx, card)
     cfg, t = eng.cfg, eng.tables
     rng = np.random.default_rng(2)
@@ -68,19 +85,100 @@ def test_point_query_kernels_equal_plain_on_card(card, name):
     got = E.access(cfg, t, it)
     assert torch.equal(got, E.access_plain(cfg, t, it))
     n = idx.num_kmers
-    assert np.array_equal(eng.access(ids[:n]), oracle.access(idx, ids[:n]))
+    assert np.array_equal(eng.access(ids[:n]), oracle.access(jidx, ids[:n]))
     got = E.iterate(cfg.k, t["strings32"], t["vstart32"])
     assert torch.equal(got, E.iterate_plain(cfg.k, t["strings32"], t["vstart32"]))
-    assert eng.iterator()[0] == idx.num_kmers
+    assert eng.iterator()[0] == jidx.num_kmers
     if cfg.weighted:
         assert torch.equal(E.weight(t, it), E.weight_plain(t, it))
-        assert np.array_equal(eng.weight(ids[:n]), idx.weights.weight(ids[:n]))
-    kt = eng.kmers32(oracle.access(idx, ids[:4096] % n))
+        assert np.array_equal(eng.weight(ids[:n]), jidx.weights.weight(ids[:n]))
+    kt = eng.kmers32(oracle.access(jidx, ids[:4096] % n))
     assert torch.equal(P.neighbour_variants(kt, cfg.k), P.neighbour_variants_plain(kt, cfg.k))
     after = kernels.counts()
     for kern in ("access_kernel", "iterate_kernel", "neighbours_kernel") + (
             ("weight_kernel",) if cfg.weighted else ()):
         assert after[kern] > before[kern], kern
+
+
+def _rows_equal(got, want):
+    g, w = got.cpu().numpy().view(np.uint32), want.cpu().numpy().view(np.uint32)
+    assert np.array_equal(g[0], w[0])
+    for i in (1, 2):
+        assert g[i, 0] == w[i, 0] and (not w[i, 0] or np.array_equal(g[i], w[i]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m13_regular", "m13_canonical", "k15", "k63", "m3_skew"])
+def test_stream_kernels_equal_plain_on_card(card, name, tmp_path):
+    """The stream step through the four stream sources and kernels 1-2
+    equals the plain step on every chunk, and the report equals the JAX
+    package's host _Batcher (its oracle's lookups), for a genome, mixed
+    reads and low-hit reads with Ns."""
+    idx = synthetic.small_index(name)
+    jdict = sshash_tpu.Dictionary(jax_index(idx, tmp_path))
+    eng = TorchEngine(idx, card)
+    rng = np.random.default_rng(3)
+    plain = E.make_lookup(eng.cfg, "full", minimizer=P.minimizer_plain, probe=probe_plain)
+    for path, ml in _stream_files(idx, rng, tmp_path).items():
+        s = ST._DeviceStream(eng, idx.k, pmax=1 << 16, rmax_shift=12 if ml else 6)
+        s.capture = []
+        before = kernels.counts()
+        for seq in ST.parse_reads(path, multiline=ml):
+            s.add_read(seq)
+        rep = s.finalize()
+        after = kernels.counts()
+        assert all(after[n] > before[n] for src in ("scan.cu", "stream_anchor.cu",
+                                                    "stream_chain.cu", "stream_derive.cu")
+                   for n in kernels.SOURCE_KERNELS[src])
+        want = jax_streaming.streaming_query_from_file(jdict, path, multiline=ml)
+        assert rep == {key: want[key] for key in rep}
+        for av, packed in s.capture:
+            step = ST.make_stream_step(eng.cfg, s.P, s.R, s.CW, plain, all_valid=av,
+                                       ops=ST.PLAIN_OPS)
+            _rows_equal(s._steps[av](eng.tables, packed), step(eng.tables, packed))
+
+
+def _stream_files(idx, rng, tmp_path):
+    """A genome of the index's strings (multiline FASTA) and reads cut from
+    them with RC and substitutions, plus random reads, with Ns (FASTQ).
+    Returns {path: multiline}."""
+    strings = synthetic.index_strings(idx)
+    L = min(100, max(len(s) for s in strings))
+    reads = synthetic.cut_reads(strings, 600, L, rng, rc=0.5, subst=0.01)
+    reads = synthetic.with_n(reads + synthetic.random_reads(600, 76, rng), 0.02, rng)
+    genome, fq = os.path.join(tmp_path, "genome.fa"), os.path.join(tmp_path, "reads.fq")
+    synthetic.write_genome(genome, strings * 2, rng)
+    synthetic.write_reads(fq, reads)
+    return {genome: True, fq: False}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m13_regular", "m13_canonical"])
+def test_stream_step_captures_in_a_cuda_graph(card, name, tmp_path):
+    """The kernel step waits on nothing from the host: it captures in a
+    CUDA graph, and each replay gives the step's (3, 4) on every chunk."""
+    idx = synthetic.small_index(name)
+    eng = TorchEngine(idx, card)
+    for path, ml in _stream_files(idx, np.random.default_rng(4), tmp_path).items():
+        s = ST._DeviceStream(eng, idx.k, pmax=1 << 16, rmax_shift=12 if ml else 6)
+        s.capture = []
+        for seq in ST.parse_reads(path, multiline=ml):
+            s.add_read(seq)
+        s.finalize()
+        want = [s._steps[av](eng.tables, packed) for av, packed in s.capture]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            [s._steps[av](eng.tables, packed) for av, packed in s.capture]
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = [s._steps[av](eng.tables, packed) for av, packed in s.capture]
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
 
 
 def test_wrappers_take_cuda_tensors_only():
@@ -104,12 +202,57 @@ def test_wrappers_take_cuda_tensors_only():
         kernels.weight_kernel(eng.tables, ids)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.neighbours_kernel(kt, cfg.k)
+    v = torch.zeros(64, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.scan_kernel(v)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.compact_kernel(v.to(torch.uint8))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stream_masks_kernel(v, torch.zeros(3, dtype=torch.int32),
+                                    torch.zeros(1, dtype=torch.int32), 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stream_kmers_kernel(v, torch.zeros(3, dtype=torch.int32),
+                                    torch.zeros(4, dtype=torch.int32), cfg.k, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stream_heads_kernel(mv, mv, mp, mp[:1], mp[:1], -1)
     assert kernels.counts() == before
     meta = torch.empty((4, cfg.W), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="minimizer"):
         P.minimizer(meta, cfg.k, cfg.m, cfg.magic)
     with pytest.raises(ValueError, match="probe"):
         probe(cfg, eng.tables, meta, None, mv, mp)
+    mv = torch.empty(64, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="scan"):
+        P.scan_ex(mv)
+    with pytest.raises(ValueError, match="compaction"):
+        P.compact(mv)
+    with pytest.raises(ValueError, match="masks"):
+        ST.stream_masks(mv, mv, mv, 64)
+    with pytest.raises(ValueError, match="kmer-read"):
+        ST.stream_kmers(mv, mv, mv, cfg.k, 4)
+
+
+ENTRIES = {"minimizer": (P.minimizer, 0), "neighbours": (P.neighbour_variants, 0),
+           "scan": (P.scan_ex, 0), "compaction": (P.compact, 0), "probe": (E.probe, 2),
+           "access": (E.access, 2), "iterator": (E.iterate, 1), "weight": (E.weight, 1),
+           "masks": (ST.stream_masks, 0), "kmer-read": (ST.stream_kmers, 0),
+           "chain": (ST.stream_chain, 1), "run-skip": (ST.stream_heads, 2),
+           "round-2": (ST.stream_round2, 0), "merge": (ST.stream_merge, 0),
+           "count": (ST.stream_count, 1)}
+
+
+@pytest.mark.parametrize("what", sorted(ENTRIES))
+def test_entry_dispatches_on_its_tensor_argument(what):
+    """Each entry point reads the device of its own tensor argument and
+    raises, naming its kernel, on a device with neither a kernel nor a
+    plain version."""
+    entry, arg = ENTRIES[what]
+    args = [None] * (arg + 1)
+    args[arg] = torch.empty(4, device="meta")
+    before = kernels.counts()
+    with pytest.raises(ValueError, match=f"no {what} kernel for device meta"):
+        entry(*args)
+    assert kernels.counts() == before
 
 
 def test_library_name_tracks_sources():

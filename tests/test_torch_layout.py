@@ -21,6 +21,7 @@ from sshash_tpu_torch import layout as L
 from sshash_tpu_torch.layout import (ACCESS_KEYS, LOOKUP_KEYS, OPTIONAL_KEYS, SKEW_PARAMS,
                                      WEIGHT_KEYS, StaticCfg, device_arrays, row_width,
                                      tables_from_host)
+from test_torch_host import jax_index
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEOMETRY = ("k", "m", "canonical", "W", "kmw", "win_words", "vbits_words",
@@ -32,7 +33,7 @@ GEOMETRY = ("k", "m", "canonical", "W", "kmw", "win_words", "vbits_words",
 @pytest.fixture(scope="module", params=sorted(synthetic.SMALL_CONFIGS))
 def built(request):
     idx = synthetic.small_index(request.param)
-    return request.param, idx, _device_arrays(idx)
+    return request.param, idx, _device_arrays(jax_index(idx))
 
 
 def test_device_arrays_equal_jax(built):
@@ -43,11 +44,11 @@ def test_device_arrays_equal_jax(built):
     assert {f"sk_{p}" for p in SKEW_PARAMS} <= set(port)
     assert {"acc_rows", "vstart32", "sidk32", "kmer_cum"} <= set(port)
     assert (set(WEIGHT_KEYS) <= set(port)) == (idx.weights is not None)
-    assert np.array_equal(L.vstart32_from_index(idx), vstart32_from_index(idx))
+    assert np.array_equal(L.vstart32_from_index(idx), vstart32_from_index(jax_index(idx)))
     for key, v in port.items():
         assert v.dtype == np.uint32, key
         assert np.array_equal(v, jax_arrs[key]), key
-    cfg, jcfg = StaticCfg(idx), JaxCfg(idx)
+    cfg, jcfg = StaticCfg(idx), JaxCfg(jax_index(idx))
     for attr in GEOMETRY:
         assert getattr(cfg, attr) == getattr(jcfg, attr), attr
     assert cfg.has_skew == jcfg.skew_hrows == jcfg.skew_partitioned
@@ -83,7 +84,7 @@ def test_stale_access_tables_are_rebuilt(name):
     another width, or without vstart32) still serves access and iteration,
     with the tables device_arrays builds."""
     idx = synthetic.small_index(name)
-    jax_arrs = _device_arrays(idx)
+    jax_arrs = _device_arrays(jax_index(idx))
     own = tables_from_host(device_arrays(idx), "cpu")
     ids = np.arange(idx.num_kmers)
     for drop, narrow in (("acc_rows", False), ("vstart32", False), (None, True)):
@@ -126,45 +127,57 @@ def test_refuses_formats_it_does_not_serve(monkeypatch):
                                         string_len=100, seed=1))
     # rebased (v2) rows from the JAX package are refused as a table source
     monkeypatch.setenv("SSHASH_ROW_V2", "1")
-    v2 = _device_arrays(idx)
+    v2 = _device_arrays(jax_index(idx))
     monkeypatch.delenv("SSHASH_ROW_V2")
     with pytest.raises(ValueError, match="v1 rows"):
         TorchEngine(idx, "cpu", host_arrs=v2)
 
 
 def test_runs_with_jax_blocked():
-    """The port package imports no JAX: a process that cannot import jax
-    builds an index and looks it up, accesses, iterates, weighs and
-    navigates it on the CPU."""
+    """The port imports neither JAX nor the JAX package: a process that can
+    import neither builds an index with the port's own builder and looks
+    it up, accesses, iterates, weighs, navigates and streams reads over it
+    on the CPU, and ends with no jax or sshash_tpu module loaded."""
     code = textwrap.dedent("""
+        import os
         import sys
+        import tempfile
 
         class Block:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib"):
-                    raise ImportError("jax is blocked")
+                if name.split(".")[0] in ("jax", "jaxlib", "sshash_tpu"):
+                    raise ImportError(f"{name} is blocked")
 
         sys.meta_path.insert(0, Block())
         import numpy as np
-        from sshash_tpu import oracle
-        from sshash_tpu_torch import synthetic, to_device
+        from sshash_tpu_torch import Dictionary, oracle, synthetic, to_device
+        from sshash_tpu_torch import streaming as ST
 
-        idx = synthetic.small_index("weighted")
-        eng = to_device(idx, "cpu")
-        ids = np.arange(0, idx.num_kmers, 7)
-        km = oracle.access(idx, ids)
-        got = eng.lookup(km)
-        assert np.array_equal(got["kmer_id"], ids.astype(np.uint64))
-        assert np.array_equal(eng.access(ids), km)
-        assert eng.iterator()[0] == idx.num_kmers
-        assert np.array_equal(eng.weight(ids), idx.weights.weight(ids))
-        nb = eng.kmer_neighbours(km)
-        assert (nb["kmer_id"] != np.uint64(2 ** 64 - 1)).any()
+        rng = np.random.default_rng(0)
+        with tempfile.TemporaryDirectory() as tmp:
+            fa = os.path.join(tmp, "unitigs.fa")
+            cfg = synthetic.write_input(fa, **synthetic.SMALL_CONFIGS["weighted"])
+            d = Dictionary.build(fa, cfg)
+            idx = d.index
+            eng = to_device(idx, "cpu")
+            ids = np.arange(0, idx.num_kmers, 7)
+            km = oracle.access(idx, ids)
+            got = eng.lookup(km)
+            assert np.array_equal(got["kmer_id"], ids.astype(np.uint64))
+            assert np.array_equal(eng.access(ids), km)
+            assert eng.iterator()[0] == idx.num_kmers
+            assert np.array_equal(eng.weight(ids), idx.weights.weight(ids))
+            nb = eng.kmer_neighbours(km)
+            assert (nb["kmer_id"] != np.uint64(2 ** 64 - 1)).any()
+            strings = synthetic.index_strings(idx)
+            fq = os.path.join(tmp, "reads.fq")
+            synthetic.write_reads(fq, synthetic.cut_reads(strings, 40, 60, rng)
+                                  + synthetic.random_reads(40, 60, rng))
+            rep = ST.streaming_query_from_file(d, fq, device="cpu", chunk=1 << 16)
+            rep.pop("elapsed_millisec")
+            assert rep == ST.host_report(idx, fq) and rep["num_positive_kmers"] > 0
         loaded = sorted(m for m in sys.modules
-                        if m.split(".")[0] in ("jax", "jaxlib")
-                        or m.startswith(("sshash_tpu.engine", "sshash_tpu.ops",
-                                         "sshash_tpu.streaming", "sshash_tpu.parallel",
-                                         "sshash_tpu.debug")))
+                        if m.split(".")[0] in ("jax", "jaxlib", "sshash_tpu"))
         assert not loaded, loaded
         print("ok", len(ids))
     """)

@@ -13,6 +13,7 @@ from sshash_tpu.engine import DeviceEngine
 from sshash_tpu_torch import TorchEngine, kernels, synthetic
 from sshash_tpu_torch.engine import _to_host_result, make_lookup, probe_plain
 from sshash_tpu_torch.ops import packed as P
+from test_torch_host import jax_index
 
 IDS_KEYS = ("kmer_id", "kmer_orientation", "minimizer_found")
 
@@ -28,7 +29,7 @@ def test_lookup_equals_jax_and_oracle(case):
     name, idx, q, npos, want = case
     eng = TorchEngine(idx, "cpu")
     got = eng.lookup(q)
-    jax_got = DeviceEngine(idx).lookup(q)
+    jax_got = DeviceEngine(jax_index(idx)).lookup(q)
     assert set(got) == set(want) == set(jax_got)
     for key in want:
         assert got[key].dtype == want[key].dtype, key

@@ -17,6 +17,7 @@ from sshash_tpu.ops import packed as JP
 from sshash_tpu_torch import TorchEngine, kernels, synthetic
 from sshash_tpu_torch.engine import make_neighbours, probe_plain
 from sshash_tpu_torch.ops import packed as P
+from test_torch_host import jax_index
 
 
 @pytest.mark.parametrize("k", [15, 16, 31, 47, 63])
@@ -53,14 +54,14 @@ def test_neighbours_equal_jax_and_oracle(name):
     q = query(idx, np.random.default_rng(3))
     eng = TorchEngine(idx, "cpu")
     got = eng.kmer_neighbours(q)
-    want = DeviceEngine(idx).kmer_neighbours(q)
+    want = DeviceEngine(jax_index(idx)).kmer_neighbours(q)
     assert set(got) == set(want)
     for key in want:
         assert got[key].dtype == want[key].dtype, key
         assert got[key].shape == (len(q), 8), key
         assert np.array_equal(got[key], want[key]), f"{name}: {key}"
     assert (got["kmer_id"] != np.uint64(2 ** 64 - 1)).sum() > len(q) // 2
-    ref = Dictionary(idx).kmer_neighbours(q)
+    ref = Dictionary(jax_index(idx)).kmer_neighbours(q)
     for side, cols in (("forward", slice(0, 4)), ("backward", slice(4, 8))):
         for key, v in ref[side].items():
             assert np.array_equal(got[key][:, cols], v), f"{name}: {side} {key}"

@@ -22,6 +22,7 @@ from sshash_tpu_torch import TorchEngine, kernels, synthetic
 from sshash_tpu_torch.engine import _to_host_result, canonical_fold, probe, probe_plain
 from sshash_tpu_torch.layout import StaticCfg, device_arrays, tables_from_host
 from sshash_tpu_torch.ops import packed as P
+from test_torch_host import jax_index
 from sshash_tpu_torch.ops import u64 as u
 
 
@@ -149,7 +150,7 @@ def test_probe_matches_jax_lookup_with_info(name):
     """The plain probe equals engine.lookup_with_info lane for lane, inactive
     lanes and the canonical tie tries included."""
     idx = synthetic.small_index(name)
-    cfg, jcfg = StaticCfg(idx), JaxCfg(idx)
+    cfg, jcfg = StaticCfg(idx), JaxCfg(jax_index(idx))
     host = device_arrays(idx)
     tables = tables_from_host(host, "cpu")
     rng = np.random.default_rng(5)
@@ -170,7 +171,7 @@ def test_probe_matches_jax_lookup_with_info(name):
     assert got.keys() == probe(cfg, tables, kt, rc if canon else None, mv, mp, mp2,
                                active).keys()
 
-    arrs = {key: jnp.asarray(v) for key, v in _device_arrays(idx).items()}
+    arrs = {key: jnp.asarray(v) for key, v in _device_arrays(jax_index(idx)).items()}
     mvn = mv.numpy().astype(np.uint64)
 
     def run(arrs, km, kmr, mhi, mlo, mpos, act, mpos2):
@@ -196,7 +197,7 @@ def test_ids_mode_equals_jax_ids_kernel():
     configuration where candidate 1 rides the row and the sweep runs."""
     idx = synthetic.small_index("m3_skew")
     q, _ = synthetic.query_batch(idx, seed=1)
-    eng, jeng = TorchEngine(idx, "cpu"), DeviceEngine(idx)
+    eng, jeng = TorchEngine(idx, "cpu"), DeviceEngine(jax_index(idx))
     got = _to_host_result(eng.lookup_ids_device(eng.kmers32(q)))
     res = jeng._lookup_ids(jeng.arrs, jnp.asarray(K.kmers_to_u32(q, idx.k)))
     want = jax_host({key: np.asarray(v) for key, v in res.items()})
