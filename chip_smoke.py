@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card, batched k-mer
-lookup first, then access, iteration, weight, navigation and streaming
-membership over reads, and check them end to end.
+lookup first, then access, iteration, weight, navigation, streaming
+membership over reads, and the capacity formats (legacy skew indexes,
+rebased v2 rows, ids above 2^31), and check them end to end.
 
     python3 chip_smoke.py
 
@@ -14,7 +15,9 @@ line):
      (k, m) in (31, 17), (31, 21), (63, 25); on every small configuration
      of synthetic.SMALL_CONFIGS kernel 2 (full and ids fields), access
      (both row forms across the configurations), iteration, weight (the
-     weighted configuration) and the neighbour variants
+     weighted configuration) and the neighbour variants; kernel 2 in v2
+     rows (ids above 2^31 too) and in both legacy skew forms on m3_skew,
+     m3_skew_canonical, partitioned and k63
   4. main path, 5M kmers k31 m17 (the repo's salmonella bench config on
      synthetic unitigs), regular and canonical: 2^23 lanes, 50% reverse
      complemented, through TorchEngine; every id round-trips; a 2^20-lane
@@ -23,11 +26,18 @@ line):
      kernels and through the plain versions
   5. heavy and sweep paths at 1M kmers k31 m13 with planted m-mers: lane
      counts per path, oracle equality
-  6. scale, 200M kmers k31 m21 canonical (the repo's human-config scale
+  6. legacy skew forms on phase 5's indexes (synthetic.legacy_skew: hindex
+     dropped, then also plain class MPHFs): every lane equals the v1.2
+     form's in every field, heavy lanes counted, kernel 2 == plain, lookup
+     and kernel 2 timed against the v1.2 form; the same on a batch of 2^20
+     lanes tiled from the heavy lanes alone, where every lane takes the
+     legacy path (the kernels line's legacy row); these calls take tens of
+     microseconds, so the kernels' sides replay from a CUDA graph
+  7. scale, 200M kmers k31 m21 canonical (the repo's human-config scale
      bench): 2^24 lanes round-trip, 2^20-lane oracle sample, ns/kmer of the
      lookup and of each kernel, against the plain versions on the card,
      device bytes per kmer, peak device memory
-  7. access, iteration, weight and navigation at 5M kmers, on phase 4's
+  8. access, iteration, weight and navigation at 5M kmers, on phase 4's
      indexes: 2^23 random ids; access equals the oracle in every lane and
      each accessed kmer looks up to its id on the card; iteration count
      equals num_kmers and its checksum the oracle's; navigation of 2^20
@@ -35,11 +45,11 @@ line):
      weight of 2^23 ids on a weighted 5M build (weight runs as long as in
      the reference's E. coli Sakai example) equals index.weights; each
      kernel equals its plain version on all lanes; times
-  8. access and iteration at 200M kmers, on phase 6's index: 2^24 ids,
+  9. access and iteration at 200M kmers, on phase 7's index: 2^24 ids,
      access/lookup round trip on every lane, a 2^20 oracle sample, count
      equals num_kmers, kernel == plain; times
-  9. streaming membership through streaming_query_from_file's pipeline, on
-     phase 4's and phase 6's indexes: a high-hit genome (the 5M index's 50
+ 10. streaming membership through streaming_query_from_file's pipeline, on
+     phase 4's and phase 7's indexes: a high-hit genome (the 5M index's 50
      strings as one multiline record, every other one reverse-complemented,
      one chunk of 5<<20), low-hit reads (100,000 of 76 chars, 10 cut from
      the index, 1% with an N), mixed reads on the canonical index (2^16 of
@@ -55,10 +65,19 @@ line):
   A stream run's device time replays its chunks' steps from one CUDA graph,
   so the host's ~40 launches per chunk stay out of it; the same steps
   queued back to back from the host are timed too (host-enqueue-bound).
+ 11. rebased (v2) rows at scale: phase 7's index forced to v2 rows, the
+     same 2^24 lanes and 2^20 random kmers (misses): every lane equals the
+     v1 engine's, every positive round-trips, a 2^20-lane sample equals
+     the oracle in the id fields, access and
+     iteration equal the v1 engine's, streaming raises; tables with kid0
+     rebased by 2^31 + 12345 give every found id + that base mod 2^32 and
+     every miss 0xFFFFFFFF from kernel 2 and its plain version; lookup and
+     kernel 2 in v1 and v2 timed in turns, table bytes per kmer of each
   Each path's launch counts are set to 0 just before it and read just
   after; every kernel of the path must have launched.
- 10. one JSON line of per-source results (launches, max |err|, ms, plain ms,
-     bound ms and what bounds it, library-call ms), then the ok line.
+ 12. one JSON line of per-source results (launches, max |err|, ms, plain ms,
+     bound ms and what bounds it, library-call ms; kernel 2 once per
+     variant: v1, v2 rows, legacy skew), then the ok line.
 
 Data is random, drawn from fixed seeds. Nothing here imports JAX or the
 JAX package (sshash_tpu): a finder refuses both.
@@ -92,10 +111,13 @@ from sshash_tpu_torch import engine as E  # noqa: E402
 from sshash_tpu_torch import kmer as K  # noqa: E402
 from sshash_tpu_torch import streaming as ST  # noqa: E402
 from sshash_tpu_torch.index import decode_codeword  # noqa: E402
-from sshash_tpu_torch.engine import (_neighbours_to_host, canonical_fold, make_lookup,  # noqa: E402
-                                     make_neighbours, probe, probe_plain)
-from sshash_tpu_torch.layout import acc_width, acc_windowed, device_arrays, row_width  # noqa: E402
+from sshash_tpu_torch.engine import (_neighbours_to_host, _to_host_result,  # noqa: E402
+                                     canonical_fold, make_lookup, make_neighbours, probe,
+                                     probe_plain)
+from sshash_tpu_torch.layout import (acc_width, acc_windowed, cand_block_width,  # noqa: E402
+                                     device_arrays, row_width, take_rows)
 from sshash_tpu_torch.ops import packed as P  # noqa: E402
+from sshash_tpu_torch.ops import u64 as u  # noqa: E402
 
 INVALID = np.uint64(2 ** 64 - 1)
 REPS = 7
@@ -104,6 +126,14 @@ SCALE_B = 1 << 24
 SAMPLE = 1 << 20
 NAV_B = 1 << 20
 NAV_SAMPLE = 1 << 14
+HEAVY_B = 1 << 20  # phase 6's batch of heavy lanes only
+BASE = (1 << 31) + 12345  # synthetic.rebase_ids: every found id lands at or above 2^31
+M32 = 0xFFFFFFFF
+# kernel 2's variants beside v1 rows (probe_kernel), each a row of the
+# kernels JSON line: v2 rows, and the legacy skew path (skew classes
+# without hindex), with the TPU code each replaces
+PROBE_VARIANTS = {"probe_v2": "sshash_tpu/engine.py:824",
+                  "probe_legacy_skew": "sshash_tpu/engine.py:713"}
 STRING_LEN = 100_030  # 100,000 k31 kmers per string
 MAIN_STRINGS, PATH_STRINGS, SCALE_STRINGS = 50, 10, 2000  # 5M, 1M, 200M kmers
 
@@ -151,17 +181,22 @@ def graph_ms(fn):
     return median_ms(graph.replay)
 
 
-def time_turns(tag, what, n, kernel, plain, unit="kmer"):
+def time_turns(tag, what, n, kernel, plain, unit="kmer", sides=("kernel", "plain"), graph=()):
     """Device ms of kernel() and plain() (n items per call), in turns plain,
-    kernel, kernel, plain. Logs both and returns {side: median ms}."""
-    fns = {"kernel": kernel, "plain": plain}
+    kernel, kernel, plain. Logs both and returns {side: median ms}; sides
+    names the two (the kernel versions against the plain ones by
+    default). The sides named in graph replay from a CUDA graph (graph_ms),
+    for calls of tens of microseconds, where queued windows time the host."""
+    a, b = sides
+    fns = {a: kernel, b: plain}
     runs = {}
-    for side in ("plain", "kernel", "kernel", "plain"):
-        runs.setdefault(side, []).append(median_ms(fns[side]))
+    for side in (b, a, a, b):
+        runs.setdefault(side, []).append((graph_ms if side in graph else median_ms)(fns[side]))
     out = {}
     for side, v in runs.items():
         out[side] = ms = float(np.median(v))
-        log(f"  {tag}: {what} with {side} versions: {ms:.4f} ms per {n} = "
+        log(f"  {tag}: {what}, {side}{' (graph replay)' if side in graph else ''}: "
+            f"{ms:.4f} ms per {n} = "
             f"{ms * 1e6 / n:.4f} ns/{unit}, {n / ms * 1e3:.4g} {unit}s/s "
             f"(runs {['%.4f' % x for x in v]})")
     return out
@@ -228,11 +263,11 @@ def check_oracle(eng, idx, km_pos, rng, tag):
     t0 = time.perf_counter()
     got = eng.lookup(q)
     want = oracle.lookup(idx, q)
-    for key in want:
+    for key in got:  # a v2 engine returns the id fields only
         require(np.array_equal(got[key], want[key]), f"{tag}: {key} differs from the oracle")
     n_pos = int((got["kmer_id"][: len(km_pos)] != INVALID).sum())
     n_neg = int((got["kmer_id"][len(km_pos):] != INVALID).sum())
-    log(f"  {tag}: oracle equal on {len(q)} lanes in all {len(want)} fields "
+    log(f"  {tag}: oracle equal on {len(q)} lanes in all {len(got)} fields "
         f"(positives found {n_pos}/{len(km_pos)}, negatives found {n_neg}, "
         f"{time.perf_counter() - t0:.1f} s)")
     return q
@@ -241,7 +276,7 @@ def check_oracle(eng, idx, km_pos, rng, tag):
 def round_trip(eng, ids, km, tag):
     kt = eng.kmers32(km)
     res = eng.lookup_ids_device(kt)
-    want = torch.from_numpy(ids.astype(np.int32)).to(kt.device)
+    want = id_tensor(ids, kt.device)
     ok = bool((res["kmer_id"] == want).all())
     require(ok, f"{tag}: an id did not round-trip")
     log(f"  {tag}: all {len(ids)} ids round-trip")
@@ -320,6 +355,45 @@ def point_queries_equal_plain(eng, idx, rng, errs):
     return "windowed" if acc_windowed(cfg.k, cfg.access_C) else "two-round"
 
 
+def probe_args(cfg, kt, minimizer=P.minimizer_plain):
+    """Kernel 2's inputs after kernel 1 (or its plain version): (kmers_rc,
+    minval, minpos, minpos2), canonically folded in a canonical index."""
+    mv, mp, rc, mv_r, mp_r = minimizer(kt, cfg.k, cfg.m, cfg.magic, both=True)
+    return (rc, *canonical_fold(mv, mp, mv_r, mp_r)) if cfg.canonical else (None, mv, mp, None)
+
+
+def probe_equal_plain(cfg, tables, kt, args, active, tag, errs, key):
+    """Kernel 2 == its plain version on every lane, in every field the row
+    format serves."""
+    for fields in ("ids",) if cfg.row_v2 else ("full", "ids"):
+        got = probe(cfg, tables, kt, *args, active, fields)
+        want = probe_plain(cfg, tables, kt, *args, active, fields)
+        require(got.keys() == want.keys(), f"probe {tag}: fields differ")
+        err = max_abs_err([got[f] for f in want], list(want.values()))
+        errs[key] = max(errs[key], err)
+        require(err == 0, f"probe {tag} {fields}: kernel != plain")
+
+
+def rebased_equal(cfg2, tables2, kt, args, ref, tag, errs):
+    """Kernel 2 and its plain version on v2 tables with kid0 rebased by
+    BASE: every found id is ref's (the v1 lookup's) + BASE mod 2^32, every
+    miss 0xFFFFFFFF. Returns the number of found lanes."""
+    hi = synthetic.rebase_ids(cfg2, tables2, BASE)
+    expect = torch.where(ref["found"], (ref["kmer_id"].to(torch.int64) + BASE) & M32, M32)
+    outs = [fn(cfg2, hi, kt, *args, None, "ids") for fn in (probe, probe_plain)]
+    for fn, out in zip(("kernel", "plain"), outs):
+        require(torch.equal(out["kmer_id"].to(torch.int64) & M32, expect)
+                and torch.equal(out["found"], ref["found"]),
+                f"{tag}: {fn} ids over rebased kid0 != v1 ids + {BASE}")
+    err = max_abs_err([outs[0][f] for f in outs[1]], list(outs[1].values()))
+    errs["probe_v2"] = max(errs["probe_v2"], err)
+    require(err == 0, f"{tag}: rebased probe kernel != plain")
+    n = int(ref["found"].sum())
+    log(f"  {tag}: kid0 rebased by {BASE}: {n} found ids (all >= 2^31) and "
+        f"{ref['found'].numel() - n} misses equal v1 + base / 0xFFFFFFFF, kernel and plain")
+    return n
+
+
 def phase_kernels_equal_plain(dev, errs):
     log("[3] kernel == plain on the card")
     forms = set()
@@ -341,16 +415,11 @@ def phase_kernels_equal_plain(dev, errs):
         cfg = eng.cfg
         q, _ = synthetic.query_batch(idx)
         kt = eng.kmers32(q)
-        mv, mp, rc, mv_r, mp_r = P.minimizer_plain(kt, cfg.k, cfg.m, cfg.magic, both=True)
-        args = (rc, *canonical_fold(mv, mp, mv_r, mp_r)) if cfg.canonical else (None, mv, mp, None)
+        args = probe_args(cfg, kt)
         active = torch.from_numpy(rng.random(len(q)) < 0.9).to(dev)
-        for fields in ("full", "ids"):
-            got = probe(cfg, eng.tables, kt, *args, active, fields)
-            want = probe_plain(cfg, eng.tables, kt, *args, active, fields)
-            require(got.keys() == want.keys(), f"probe {name}: fields differ")
-            err = max_abs_err([got[key] for key in want], list(want.values()))
-            errs["probe_kernel"] = max(errs["probe_kernel"], err)
-            require(err == 0, f"probe {name} {fields}: kernel != plain")
+        probe_equal_plain(cfg, eng.tables, kt, args, active, name, errs, "probe_kernel")
+        if name in ("m3_skew", "m3_skew_canonical", "partitioned", "k63"):
+            probe_variants_equal_plain(idx, eng, q, kt, args, active, name, errs)
         want = oracle.lookup(idx, q)
         got = eng.lookup(q)
         for key in want:
@@ -362,6 +431,31 @@ def phase_kernels_equal_plain(dev, errs):
         log(f"  access ({form}, C={cfg.access_C}), iterate, "
             f"{'weight, ' if cfg.weighted else ''}neighbours {name}: equal to plain and oracle")
     require(forms == {"windowed", "two-round"}, f"access forms run: {forms}")
+
+
+def probe_variants_equal_plain(idx, eng, q, kt, args, active, name, errs):
+    """Kernel 2 in v2 rows and in both legacy skew forms, on one small
+    configuration: == plain and == the oracle; in v2, ids above 2^31 too."""
+    dev = eng.device
+    eng2 = TorchEngine(idx, dev, row_format="v2")
+    probe_equal_plain(eng2.cfg, eng2.tables, kt, args, active, f"{name} v2", errs, "probe_v2")
+    ref = probe(eng.cfg, eng.tables, kt, *args, None, "ids")
+    rebased_equal(eng2.cfg, eng2.tables, kt, args, ref, f"{name} v2", errs)
+    forms = [("v2", eng2)]
+    for plain in (False, True):
+        lidx = synthetic.legacy_skew(idx, plain_mphf=plain)
+        leng = TorchEngine(lidx, dev)
+        require(leng.cfg.skew_hrows is False, f"{name}: legacy form kept hindex")
+        probe_equal_plain(leng.cfg, leng.tables, kt, args, active, f"{name} legacy", errs,
+                          "probe_legacy_skew")
+        forms.append(("legacy, plain class MPHFs" if plain else "legacy, no hindex", leng))
+    want = oracle.lookup(idx, q)
+    for form, e in forms:
+        got = e.lookup(q)
+        for key in got:
+            require(np.array_equal(got[key], want[key]), f"{name} {form}: {key} != oracle")
+    log(f"  probe_kernel {name}: v2 rows and both legacy skew forms (skew={eng.cfg.has_skew}) "
+        f"equal to plain and oracle")
 
 
 def phase_main(dev):
@@ -392,6 +486,7 @@ def phase_paths(dev):
     rng = np.random.default_rng(5)
     # 4 heavy buckets (> 2^MIN_L = 64 super-kmers) and 64 mid buckets of 3..40
     planted = [100, 150, 200, 300] + [3, 4, 5, 8, 10, 20, 30, 40] * 8
+    built = {}
     for mode in ("regular", "canonical"):
         idx, host = build(mode, k=31, m=13, canonical=mode == "canonical",
                           num_strings=PATH_STRINGS, string_len=STRING_LEN, seed=50,
@@ -401,12 +496,7 @@ def phase_paths(dev):
                               synthetic.path_kmer_ids(idx, rng, SAMPLE // 4)])
         km = oracle.access(idx, ids)
         # the bucket each positive probes: its (canonical) minimizer's
-        mv, _ = oracle.compute_minimizer(km, idx.k, idx.m, np.uint64(eng.cfg.magic))
-        if idx.canonical:
-            mr, _ = oracle.compute_minimizer(K.revcomp_kmers(km, idx.k), idx.k, idx.m,
-                                             np.uint64(eng.cfg.magic))
-            mv = np.minimum(mv, mr)
-        status, _, size, _ = oracle._decode_codewords(idx, mv)
+        status, _, size, _ = oracle._decode_codewords(idx, synthetic.bucket_minimizers(idx, km))
         jmin = 2 if eng.cfg.c1_in_row else 1
         lanes = {"singleton": int((status == 0).sum()),
                  "in_row_candidate_1": int(((status == 1) & (size == 2)).sum()) if jmin == 2 else 0,
@@ -416,11 +506,120 @@ def phase_paths(dev):
         require(lanes["heavy_skew"] > 0 and lanes["mid_sweep"] > 0, "a path got no lanes")
         km[::2] = K.revcomp_kmers(km[::2], idx.k)
         round_trip(eng, ids, km, mode)
-        check_oracle(eng, idx, km, rng, mode)
+        q = check_oracle(eng, idx, km, rng, mode)
+        built[mode] = (idx, eng, q)
+    return built
+
+
+def probe_bytes(cfg, tables, kt, args, fields="ids"):
+    """Bytes kernel 2 must move on these lanes (kt and probe_args' args),
+    each input read once: per lane its kmer (and reverse complement),
+    minimizer and position tries in and the result fields out; of the
+    tables, the distinct rows the lanes read: fused rows by MPHF slot and,
+    for heavy lanes, skew slots (the legacy path's sk_positions) and
+    candidate blocks; pilot and seed words one a lane, capped at their
+    table's size. Rows of mid buckets past the fused row (a few lanes) are
+    not counted: a lower bound."""
+    B, canon = kt.shape[0], 2 if cfg.canonical else 1
+    nb = lambda name: tables[name].numel() * tables[name].element_size()  # noqa: E731
+
+    def distinct(idx, name):  # rows of tables[name] read at idx, clipped as take_rows does
+        return int(torch.unique(idx.clamp(max=tables[name].shape[0] - 1)).numel())
+
+    total = B * (4 * cfg.W * canon + 8 + 4 * canon + 10 + (20 if fields == "full" else 0))
+    total += min(4 * B, nb("pilots"))
+    total += min(8 * B, nb("mphf_seedrows")) if cfg.mphf_partitioned else 0
+    slot = E.mphf_eval_minimizer(cfg, tables, u.from_i64(args[1]))
+    total += distinct(slot, "cw_row") * 4 * row_width(cfg)
+    if not cfg.has_skew:
+        return total
+    head = take_rows(tables["cw_row"][:, :2], slot)  # (status | class << 2, cw_a)
+    lanes = ((head[:, 0] & 3) == 2).nonzero()[:, 0]
+    nh = lanes.numel()
+    km = u.u32(kt[lanes])
+    if args[0] is not None:
+        kr = u.u32(args[0][lanes])
+        km = torch.where(P.kmer_less(kr, km)[:, None], kr, km)
+    cls = head[lanes, 0] >> 2
+    hidx = (E._skew_param(tables, "pos_off", cls) + E.skew_slot(cfg, tables, km, cls)) & M32
+    total += nb("sk_params") + min(4 * nh, nb("sk_pilots"))
+    total += min(8 * nh, nb("sk_seedrows")) if cfg.skew_partitioned else 0
+    if cfg.skew_hrows:
+        blocks = distinct(hidx, "sk_hrows")
+    else:
+        total += 4 * distinct(hidx, "sk_positions")
+        blocks = distinct((head[lanes, 1] + take_rows(tables["sk_positions"], hidx)) & M32,
+                          "heavy_rows")
+    return total + blocks * 4 * cand_block_width(cfg)
+
+
+def phase_legacy(built, errs):
+    log("[6] legacy skew forms: phase 5's 1M k31 m13 planted indexes without hindex, then "
+        "with plain class MPHFs")
+    launches, timed = 0, None
+    for mode, (idx, eng, q) in built.items():
+        kt = eng.kmers32(q)
+        status = oracle._decode_codewords(idx, synthetic.bucket_minimizers(idx, q))[0]
+        n_heavy = int((status == 2).sum())
+        require(n_heavy > 0, f"{mode}: no heavy lane")
+        # the heavy lanes alone (found and missed), tiled to HEAVY_B lanes:
+        # every lane takes the skew path
+        heavy_q = q[status == 2]
+        kth = eng.kmers32(np.resize(heavy_q, (HEAVY_B, heavy_q.shape[1])))
+        ref, ref_h = eng.lookup_device(kt), eng.lookup_device(kth)
+        for plain in (False, True):
+            form = "plain class MPHFs" if plain else "no hindex"
+            t0 = time.perf_counter()
+            lidx = synthetic.legacy_skew(idx, plain_mphf=plain)
+            leng = TorchEngine(lidx, eng.device)
+            require(not leng.cfg.skew_hrows and leng.cfg.skew_partitioned == (not plain),
+                    f"{mode} {form}: not a legacy form")
+            t1 = time.perf_counter()
+            kernels.reset_counts()
+            got, got_h = leng.lookup_device(kt), leng.lookup_device(kth)
+            launches += path_counts(f"{mode} {form} lookup path",
+                                    ("minimizer_kernel", "probe_kernel"))["probe_kernel"]
+            for key in ref:
+                require(torch.equal(got[key], ref[key]) and torch.equal(got_h[key], ref_h[key]),
+                        f"{mode} {form}: {key} != v1.2 form")
+            args = probe_args(leng.cfg, kt, P.minimizer)
+            args_h = probe_args(leng.cfg, kth, P.minimizer)
+            probe_equal_plain(leng.cfg, leng.tables, kt, args, None, f"{mode} {form}", errs,
+                              "probe_legacy_skew")
+            probe_equal_plain(leng.cfg, leng.tables, kth, args_h, None, f"{mode} {form} heavy",
+                              errs, "probe_legacy_skew")
+            log(f"  {mode} {form}: {len(q)} lanes ({n_heavy} heavy) and {HEAVY_B} heavy lanes "
+                f"({int(ref_h['found'].sum())} found) equal the v1.2 form's in all {len(ref)} "
+                f"fields; kernel 2 == plain on both (form and tables {t1 - t0:.1f} s)")
+            # every call here takes tens of microseconds: the kernels' sides
+            # replay from a CUDA graph
+            both = ("legacy", "v1.2 form")
+            time_turns(f"{mode} {form}", "lookup (ids)", len(q),
+                       lambda: leng.lookup_ids_device(kt), lambda: eng.lookup_ids_device(kt),
+                       sides=both, graph=both)
+            for tag, x, a in (("", kt, args), (", heavy lanes only", kth, args_h)):
+                time_turns(f"{mode} {form}", f"kernel 2 (ids){tag}", x.shape[0],
+                           lambda: probe(leng.cfg, leng.tables, x, *a, None, "ids"),
+                           lambda: probe(eng.cfg, eng.tables, x, *a, None, "ids"),
+                           sides=both, graph=both)
+            if mode == "canonical" and plain:
+                # the row of the kernels line: the legacy path on heavy lanes
+                # only; the plain version reads a count on the host, so it
+                # runs queued
+                t = time_turns(f"{mode} {form}", "kernel 2 (ids), heavy lanes only", HEAVY_B,
+                               lambda: probe(leng.cfg, leng.tables, kth, *args_h, None, "ids"),
+                               lambda: probe_plain(leng.cfg, leng.tables, kth, *args_h, None,
+                                                   "ids"), graph=("kernel",))
+                nbytes = probe_bytes(leng.cfg, leng.tables, kth, args_h)
+                timed = {"kernel": t["kernel"], "plain": t["plain"], "bound": bound(nbytes)}
+                log(f"  {mode} {form}, heavy lanes only: kernel 2 bound {timed['bound'][0]:.4f} "
+                    f"ms ({nbytes} bytes); the mixed batch's "
+                    f"{bound(probe_bytes(leng.cfg, leng.tables, kt, args))[0]:.4f} ms")
+    return launches, timed
 
 
 def phase_scale(dev):
-    log("[6] scale: 200M kmers k31 m21 canonical, B=2^24, 50% RC")
+    log("[7] scale: 200M kmers k31 m21 canonical, B=2^24, 50% RC")
     rng = np.random.default_rng(6)
     torch.cuda.reset_peak_memory_stats()
     idx, host = build("canonical", k=31, m=21, canonical=True, num_strings=SCALE_STRINGS,
@@ -461,8 +660,12 @@ def phase_scale(dev):
     glue = lookup["kernel"] - sum(ms for ms, _ in per_kernel.values())
     log(f"  lookup (ids) {lookup['kernel']:.4f} ms = kernels "
         f"{lookup['kernel'] - glue:.4f} ms + fold glue and gaps {glue:.4f} ms (by difference)")
+    b = lookup_bounds(cfg, SCALE_B, probe_bytes(cfg, eng.tables, kt, (rc, mv1, mp1, mp2)))
+    log(f"  lookup (ids) bound {sum(ms for ms, _ in b.values()):.4f} ms = kernel 1 "
+        f"{b['minimizer.cu'][0]:.4f} ({b['minimizer.cu'][1]}) + kernel 2 {b['probe.cu'][0]:.4f} "
+        f"({b['probe.cu'][1]}) + the fold's {FOLD_BYTES} bytes a lane {b['fold'][0]:.4f}")
     log(f"  peak device memory: {torch.cuda.max_memory_allocated()} bytes")
-    return per_kernel, errs, idx, eng
+    return per_kernel, errs, idx, eng, ids, kt, b
 
 
 def drive_access(eng, idx, ids, tag, errs, sample=None):
@@ -522,7 +725,7 @@ def add_counts(total, c):
 
 
 def phase_point_queries(dev, built, errs):
-    log("[7] access, iteration, weight, navigation: 5M kmers k31 m17, B=2^23 "
+    log("[8] access, iteration, weight, navigation: 5M kmers k31 m17, B=2^23 "
         "(navigation 2^20 kmers)")
     rng = np.random.default_rng(7)
     launches, per_kernel = {}, {}
@@ -591,7 +794,7 @@ def phase_point_queries(dev, built, errs):
 
 
 def phase_scale_point_queries(idx, eng, errs):
-    log("[8] access and iteration at scale: 200M kmers k31 m21 canonical, B=2^24")
+    log("[9] access and iteration at scale: 200M kmers k31 m21 canonical, B=2^24")
     rng = np.random.default_rng(8)
     ids = rng.integers(0, idx.num_kmers, SCALE_B)
     launches = {}
@@ -620,6 +823,21 @@ SOURCES = {"minimizer.cu": "sshash_tpu/ops/packed.py:263",
            "stream_anchor.cu": "sshash_tpu/streaming.py:334",
            "stream_chain.cu": "sshash_tpu/streaming.py:390",
            "stream_derive.cu": "sshash_tpu/streaming.py:460"}
+
+
+# canonical_fold reads both strands' (minimizer, position), 24 bytes a
+# lane, and writes (minval, minpos, minpos2), 16
+FOLD_BYTES = 40
+
+
+def lookup_bounds(cfg, B, probe_nbytes):
+    """Least ms of a canonical lookup's parts for B lanes: kernel 1 (bytes
+    or its mixer operations), kernel 2 (probe_nbytes, from probe_bytes)
+    and the fold's glue."""
+    return {"minimizer.cu": bound(B * (4 * cfg.W + 32),
+                                  B * MINIMIZER_OPS_PER_WINDOW * (cfg.k - cfg.m + 1)),
+            "probe.cu": bound(probe_nbytes),
+            "fold": bound(B * FOLD_BYTES)}
 
 
 def bound(nbytes, int_ops=0):
@@ -852,7 +1070,7 @@ def check_host(idx, rep, path, multiline, tag):
 
 
 def phase_streaming(dev, built, idx200, eng200, tmp, errs):
-    log("[9] streaming membership: 5M high-hit genome, low-hit and mixed reads; 200M high-hit")
+    log("[10] streaming membership: 5M high-hit genome, low-hit and mixed reads; 200M high-hit")
     rng = np.random.default_rng(9)
     torch.cuda.reset_peak_memory_stats()
     launches = {}
@@ -904,16 +1122,97 @@ def phase_streaming(dev, built, idx200, eng200, tmp, errs):
     return launches, per
 
 
+def raises(fn, what):
+    """fn() must raise ValueError (a format the engine refuses)."""
+    try:
+        fn()
+    except ValueError as e:
+        log(f"  {what} raises: {str(e)[:100]}")
+        return
+    raise AssertionError(f"{what} did not raise")
+
+
+def phase_v2(idx, eng, ids, kt, tmp, errs):
+    log("[11] rebased (v2) rows at scale: phase 7's 200M index forced to v2, the same 2^24 lanes")
+    rng = np.random.default_rng(11)
+    dev = eng.device
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    host2 = device_arrays(idx, "v2")
+    t1 = time.perf_counter()
+    eng2 = TorchEngine(idx, dev, host_arrs=host2, row_format="v2")
+    torch.cuda.synchronize()
+    del host2
+    log(f"  v2 tables: {time.perf_counter() - t0:.1f} s ({t1 - t0:.1f} s host build); v2 "
+        f"{table_line(eng2, idx)}; v1 {table_line(eng, idx)}; row {row_width(eng2.cfg)} "
+        f"words (v1 {row_width(eng.cfg)})")
+    # the 2^24 positives, then 2^20 random kmers (misses, most of them
+    # failing the minimizer guard)
+    kt_all = torch.cat([kt, eng.kmers32(synthetic.random_kmers(idx.k, rng, SAMPLE))])
+    n_all = kt_all.shape[0]
+    kernels.reset_counts()
+    res2 = eng2.lookup_ids_device(kt_all)
+    sample = np.sort(rng.choice(n_all, SAMPLE, replace=False))
+    got = _to_host_result({key: v[torch.from_numpy(sample).to(dev)] for key, v in res2.items()})
+    launches = path_counts("v2 lookup path", ("minimizer_kernel", "probe_kernel"))["probe_kernel"]
+    require(torch.equal(res2["kmer_id"][:SCALE_B], id_tensor(ids, dev)),
+            "v2: an id did not round-trip")
+    res1 = eng.lookup_ids_device(kt_all)
+    for key in res1:
+        require(torch.equal(res2[key], res1[key]), f"v2: {key} != the v1 engine's")
+    n_miss = int((~res1["found"]).sum())
+    n_guard = int((~res1["minimizer_found"]).sum())
+    require(n_miss > 0 and n_guard > 0, f"v2: {n_miss} misses, {n_guard} failed guards")
+    km = K.u32_to_kmers64(kt_all[torch.from_numpy(sample).to(dev)].cpu().numpy().view(np.uint32),
+                          idx.k)
+    want = oracle.lookup(idx, km)
+    for key in got:
+        require(np.array_equal(got[key], want[key]), f"v2: {key} != oracle")
+    log(f"  v2: all {SCALE_B} ids round-trip; {n_all} lanes ({n_miss} misses, {n_guard} failed "
+        f"minimizer guards) equal the v1 engine's in all {len(res1)} fields; a {SAMPLE}-lane "
+        f"sample ({int((sample >= SCALE_B).sum())} random kmers) equals the oracle in the id "
+        f"fields")
+    args_all = probe_args(eng2.cfg, kt_all, P.minimizer)
+    probe_equal_plain(eng2.cfg, eng2.tables, kt_all, args_all, None, "200M v2", errs, "probe_v2")
+    rebased_equal(eng2.cfg, eng2.tables, kt_all, args_all, res1, "200M v2", errs)
+    del args_all, res1, res2, kt_all
+    args = probe_args(eng2.cfg, kt, P.minimizer)
+    it = id_tensor(rng.integers(0, idx.num_kmers, SCALE_B), dev)
+    require(torch.equal(eng2.access_device(it), eng.access_device(it)), "v2: access != v1")
+    require(torch.equal(eng2.iterator_device(), eng.iterator_device()), "v2: iteration != v1")
+    log(f"  v2: access of {SCALE_B} ids and the iteration equal the v1 engine's")
+    path = f"{tmp}/v2_reads.fq"
+    synthetic.write_reads(path, synthetic.index_strings(idx, range(2)))
+    raises(lambda: ST.streaming_query_from_file(eng2, path), "v2: streaming_query_from_file")
+    raises(lambda: ST.make_stream_step(eng2.cfg, 1 << 16, 16, 1 << 14, eng2.lookup_ids_device),
+           "v2: make_stream_step")
+    lookup = time_turns("200M canonical", "lookup (ids)", SCALE_B,
+                        lambda: eng2.lookup_ids_device(kt), lambda: eng.lookup_ids_device(kt),
+                        sides=("v2", "v1"))
+    probe_ms = time_turns("200M canonical", "kernel 2 (ids)", SCALE_B,
+                          lambda: probe(eng2.cfg, eng2.tables, kt, *args, None, "ids"),
+                          lambda: probe(eng.cfg, eng.tables, kt, *args, None, "ids"),
+                          sides=("v2", "v1"))
+    plain_ms = median_ms(lambda: probe_plain(eng2.cfg, eng2.tables, kt, *args, None, "ids"))
+    log(f"  200M canonical: kernel 2 (ids) v2 plain version {plain_ms:.4f} ms; lookup v2/v1 "
+        f"{lookup['v2'] / lookup['v1']:.4f}, kernel 2 v2/v1 {probe_ms['v2'] / probe_ms['v1']:.4f}")
+    log(f"  peak device memory: {torch.cuda.max_memory_allocated()} bytes")
+    nbytes = probe_bytes(eng2.cfg, eng2.tables, kt, args)
+    log(f"  200M canonical: kernel 2 (ids) v2 bound {bound(nbytes)[0]:.4f} ms ({nbytes} bytes)")
+    return launches, {"kernel": probe_ms["v2"], "plain": plain_ms, "bound": bound(nbytes)}
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     phase_build()
     errs = {name: 0 for name in kernels.counts()}
+    errs.update({name: 0 for name in PROBE_VARIANTS})
     phase_kernels_equal_plain(dev, errs)
     launches, built = phase_main(dev)
-    phase_paths(dev)
-    per_kernel, scale_errs, idx, eng = phase_scale(dev)
+    variants = {"probe_legacy_skew": phase_legacy(phase_paths(dev), errs)}
+    per_kernel, scale_errs, idx, eng, ids, kt, bounds = phase_scale(dev)
     times = {name: {"kernel": ms, "plain": pms} for name, (ms, pms) in per_kernel.items()}
     for name, err in scale_errs.items():
         errs[name] = max(errs[name], err)
@@ -925,24 +1224,21 @@ def main():
     times.update(scale_times)
     with tempfile.TemporaryDirectory() as tmp:
         stream_launches, stream_times = phase_streaming(dev, built, idx, eng, tmp, errs)
+        variants["probe_v2"] = phase_v2(idx, eng, ids, kt, tmp, errs)
     add_counts(launches, stream_launches)
     # the least time of each kernel's work at the shapes timed above
     cfg, W5 = eng.cfg, built["canonical"][1].cfg.W
-    bounds = {
-        "minimizer.cu": bound(SCALE_B * (4 * cfg.W + 32),
-                              SCALE_B * MINIMIZER_OPS_PER_WINDOW * (cfg.k - cfg.m + 1)),
-        "probe.cu": bound(SCALE_B * (32 + 4 + 4 * row_width(cfg)
-                                     + (8 if cfg.mphf_partitioned else 0) + 10)),
+    bounds.update({
         "access.cu": bound(SCALE_B * (4 + 4 * acc_width(cfg) + 4 * cfg.W)),
         "iterator.cu": bound(sum(eng.tables[n].numel() * 4 for n in ("strings32", "vstart32"))
                              + 8),
         "weight.cu": bound(point_times["weight_kernel"]["bytes"]),
         "neighbours.cu": bound(NAV_B * 9 * 4 * W5),
-    }
-    del built, idx, eng
+    })
+    del built, idx, eng, kt
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sshash_tpu"))
     require(not loaded, f"JAX or the JAX package was imported: {loaded}")
-    log(f"[10] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
+    log(f"[12] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
     csrc = "sshash_tpu_torch/csrc/"
     rows = []
     for src, rep in SOURCES.items():
@@ -961,6 +1257,17 @@ def main():
         rows.append({"name": src.split(".")[0], "route": "cuda", "source": csrc + src,
                      "replaces": rep, "launches": n_launch, "max_abs_err": err, "ms": ms,
                      "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+        if src != "probe.cu":
+            continue
+        # kernel 2's v2 and legacy-skew variants, each counted on its own path
+        for name, rep in PROBE_VARIANTS.items():
+            n_launch, t = variants[name]
+            require(n_launch > 0, f"{name}: no launch on its path")
+            rows.append({"name": name.replace("_kernel", ""), "route": "cuda",
+                         "source": csrc + src, "replaces": rep,
+                         "launches": n_launch, "max_abs_err": errs[name], "ms": t["kernel"],
+                         "plain_ms": t["plain"], "bound_ms": t["bound"][0],
+                         "bound_by": t["bound"][1], "library_ms": None})
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 // Kernel 2: the fused-row probe, one thread per query lane.
 //
 // Replaces sshash_tpu/engine.py mphf_eval_minimizer (:663), _pilot_read
-// (:531), skew_slot (:687) and lookup_with_info (:739) with its
-// verify_fused (:812) and pair_window (:982) sweep; ops/u64.py splitmix64,
+// (:531), skew_slot (:687, both branches), skew_eval (:713, the legacy
+// heavy path) and lookup_with_info (:739) with its verify_fused (:812, v1
+// and v2 rows) and pair_window (:982) sweep; ops/u64.py splitmix64,
 // fmix32, mulhi32, hash64_words; ops/packed.py extract_window_dyn,
 // extract_kmer_dyn, kmer_equal, kmer_less. Plain version:
 // sshash_tpu_torch/engine.py probe_plain.
@@ -10,15 +11,25 @@
 // Per lane: minimizer -> raw MPHF slot (one pilot read, one seed-row read
 // when partitioned) -> one cw_row read carrying the candidate-0 block (and
 // candidate 1 when c1_in_row) -> minimizer guard -> candidate tries; heavy
-// lanes hash the canonical kmer into their skew class and read one
-// sk_hrows block; mid buckets past the row's candidates loop over mid_rows
-// in the lane itself (the TPU compacted them into pair windows).
+// lanes hash the canonical kmer into their skew class (a partitioned or a
+// plain class MPHF) and read one sk_hrows block, or on a pre-v1.2 index
+// (no hindex) its position in the bucket from sk_positions and then the
+// heavy_rows block at the bucket's begin plus that position; mid buckets
+// past the row's candidates loop over mid_rows in the lane itself (the TPU
+// compacted them into pair windows).
+//
+// Row formats: v1 blocks resolve a match to a char offset and its string
+// (sid0, ep0, ep1, ep2); v2 ("rebased") blocks carry the in-window offset
+// and (kid0, sid0, rel_ep1), so a match resolves straight to its kmer id
+// and no char offset is read or formed (indexes of >= 2^32 chars). v2
+// serves the id fields only.
 //
 // Bound: dependent random reads of device memory, three to four rounds per
-// lane (pilot, row, then heavy or mid rows for a few lanes), each a row of
-// 12..34 words; the arithmetic is a few 64-bit multiplies. The design reads
-// each row in place through L1 and keeps every intermediate in registers;
-// nothing but the result fields is written.
+// lane (pilot, row, then heavy or mid rows for a few lanes; the legacy
+// heavy path one round more), each a row of 11..34 words; the arithmetic
+// is a few 64-bit multiplies. The design reads each row in place through
+// L1 and keeps every intermediate in registers; nothing but the result
+// fields is written.
 //
 // Every table read clamps its index as jnp.take(..., mode="clip") does
 // after the JAX package's int32 cast, so a lane reads exactly the entries
@@ -37,6 +48,8 @@ constexpr uint32_t kInvalid32 = 0xFFFFFFFFu;
 constexpr int32_t kForward = 1;
 constexpr int32_t kBackward = -1;
 constexpr int kMaxTries = 4;
+// result fields and row format: ids (v1 rows), full (v1 rows), ids (v2 rows)
+enum Fields { kIds = 0, kFull = 1, kIdsV2 = 2 };
 // sk_params rows (sshash_tpu_torch/layout.py SKEW_PARAMS), 8 classes each
 enum SkewParam { kTable, kNBuckets, kSeedmixHi, kSeedmixLo, kPilotOff, kPosOff, kNp2, kSeedOff };
 
@@ -57,13 +70,17 @@ struct ProbeTables {
   int64_t sk_pilots_n;
   const uint32_t* sk_seedrows;
   int64_t sk_seedrows_n;
+  const uint32_t* heavy_rows;  // legacy heavy path (skew_hrows == 0)
+  int64_t heavy_rows_n;
+  const uint32_t* sk_positions;
+  int64_t sk_positions_n;
   const uint32_t* sk_params;  // (8 params, 8 classes)
 };
 
 struct ProbeParams {
   int64_t B, W, k, m, canonical, full;
   int64_t win_words, vbits_words, max_start_word, row_w, blk_w;
-  int64_t c1_in_row, has_skew;
+  int64_t c1_in_row, has_skew, row_v2, skew_hrows, skew_partitioned;
   int64_t mphf_partitioned, mphf_P, mphf_part_table, mphf_part_buckets;
   int64_t mphf_nbuckets, mphf_table, pilot_w, sk_pilot_w;
   uint64_t mphf_seedmix;
@@ -119,13 +136,20 @@ __device__ __forceinline__ uint32_t mphf_slot(const ProbeTables& t, const ProbeP
   return mulhi32(fmix32(lo32(mh) ^ fmix32(pilot)), (uint32_t)p.mphf_table);
 }
 
-// engine.skew_slot (partitioned size classes; the layout refuses others)
+// engine.skew_slot: the kmer's slot in its size class's MPHF, partitioned
+// (v1.2+ builds) or plain (older ones)
 template <int W>
 __device__ __forceinline__ uint32_t skew_slot(const ProbeTables& t, const ProbeParams& p,
                                               const uint32_t (&canon)[W], uint32_t cls) {
   const uint64_t seedmix = ((uint64_t)skp(t, kSeedmixHi, cls) << 32) | skp(t, kSeedmixLo, cls);
   const uint64_t h = hash64_words(canon, seedmix);
   const uint32_t nb = skp(t, kNBuckets, cls), table = skp(t, kTable, cls);
+  if (!p.skew_partitioned) {
+    const uint32_t bucket = mulhi32(hi32(h), nb);
+    const uint32_t pilot = pilot_read((int)p.sk_pilot_w, t.sk_pilots, t.sk_pilots_n, bucket,
+                                      skp(t, kPilotOff, cls));
+    return mulhi32(fmix32(lo32(h) ^ fmix32(pilot)), table);
+  }
   const uint32_t pid2 = mulhi32(hi32(h), skp(t, kNp2, cls));
   const uint32_t* row =
       t.sk_seedrows + 2 * clip_row(skp(t, kSeedOff, cls) + pid2, t.sk_seedrows_n);
@@ -138,15 +162,25 @@ __device__ __forceinline__ uint32_t skew_slot(const ProbeTables& t, const ProbeP
 
 struct Hit {
   bool match;
-  uint32_t off;  // matching char offset
+  uint32_t off;  // matching char offset (v1 rows) or the kmer id (v2 rows)
   int32_t orient;
-  uint32_t sid, begin, end;
+  uint32_t sid, begin, end;  // v1 rows only
 };
 
+// In-window char offset of a block's candidate: v2 rows store it, v1 rows
+// store the candidate's char offset (the window starts at word
+// max(0, cand-(k-m)) >> 4).
+template <bool V2>
+__device__ __forceinline__ uint32_t ext_off(uint32_t col0, uint32_t kmw) {
+  return V2 ? col0 : col0 - (((col0 - min(col0, kmw)) >> 4) << 4);
+}
+
 // engine.lookup_with_info.verify_fused: verify and resolve one candidate
-// block [cand, vbits (Wv), window (Ww), quad (sid0, ep0, ep1, ep2)] at each
-// position try, in order; the first hit wins.
-template <int W, bool CANON>
+// block [col0, vbits (Wv), window (Ww), quad] at each position try, in
+// order; the first hit wins. v1 quad (sid0, ep0, ep1, ep2); v2 quad (kid0,
+// sid0, rel_ep1): the id is kid0 - pos - over*(k-1), over = (k-m-pos) >=
+// rel_ep1.
+template <int W, bool CANON, bool V2>
 __device__ __forceinline__ Hit verify_block(const uint32_t* blk, const ProbeParams& p,
                                             const uint32_t (&km)[W], const uint32_t (&kr)[W],
                                             const uint32_t (&tries)[kMaxTries], int ntries) {
@@ -157,7 +191,7 @@ __device__ __forceinline__ Hit verify_block(const uint32_t* blk, const ProbePara
   const uint32_t* vbw = blk + 1;
   const uint32_t* win = blk + 1 + Wv;
   const uint32_t* rsv = blk + 1 + Wv + Ww;
-  const uint32_t ext0 = cand - (((cand - min(cand, kmw)) >> 4) << 4);
+  const uint32_t ext0 = ext_off<V2>(cand, kmw);
   for (int t = 0; t < ntries; ++t) {
     const uint32_t pos = tries[t];
     if (ext0 < pos) continue;
@@ -171,12 +205,16 @@ __device__ __forceinline__ Hit verify_block(const uint32_t* blk, const ProbePara
     const bool eq_f = kmer_equal(read, km);
     const bool eq_r = CANON && kmer_equal(read, kr);
     if (!(eq_f || eq_r)) continue;
+    h.match = true;
+    h.orient = (eq_r && !eq_f) ? kBackward : kForward;
+    if (V2) {
+      h.off = rsv[0] - pos - (j >= rsv[2] ? (uint32_t)(p.k - 1) : 0u);
+      break;
+    }
     const uint32_t off = cand - pos;
     const uint32_t ep1 = rsv[2];
     const bool over = off >= ep1;  // at most one string boundary in the span
-    h.match = true;
     h.off = off;
-    h.orient = (eq_r && !eq_f) ? kBackward : kForward;
     h.sid = rsv[0] + (over ? 1u : 0u);
     h.begin = over ? ep1 : rsv[1];
     h.end = over ? rsv[3] : ep1;
@@ -185,8 +223,9 @@ __device__ __forceinline__ Hit verify_block(const uint32_t* blk, const ProbePara
   return h;
 }
 
-template <int W, bool CANON, bool FULL>
+template <int W, bool CANON, int F>
 __global__ void probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
+  constexpr bool FULL = F == kFull, V2 = F == kIdsV2;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
   bool found = false, mfound = true;
@@ -223,14 +262,14 @@ __global__ void probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
     // minimizer guard on the candidate-0 window (spss:47-65)
     const int Wv = (int)p.vbits_words, Ww = (int)p.win_words;
     const uint32_t cand0 = c0[0];
-    const uint32_t gext0 = cand0 - (((cand0 - min(cand0, kmw)) >> 4) << 4);
+    const uint32_t gext0 = ext_off<V2>(cand0, kmw);
     const uint64_t gv = extract_window_dyn(c0 + 1 + Wv, Ww, gext0 * 2u, (int)(2 * p.m),
                                            (int)p.max_start_word);
     bool guard_ok = gv == minval;
     if (CANON) guard_ok |= gv == revcomp_mmer64(minval, (int)p.m);
 
     if (!heavy) {
-      res = verify_block<W, CANON>(c0, p, km, kr, tries, ntries);
+      res = verify_block<W, CANON, V2>(c0, p, km, kr, tries, ntries);
       found = res.match;
     } else if (p.has_skew) {
       uint32_t canon[W];
@@ -238,8 +277,15 @@ __global__ void probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
 #pragma unroll
       for (int w = 0; w < W; ++w) canon[w] = use_rc ? kr[w] : km[w];
       const uint32_t hidx = skp(t, kPosOff, cw_b) + skew_slot(t, p, canon, cw_b);
-      res = verify_block<W, CANON>(t.sk_hrows + clip_row(hidx, t.sk_hrows_n) * p.blk_w, p, km,
-                                   kr, tries, ntries);
+      const uint32_t* blk;
+      if (p.skew_hrows) {
+        blk = t.sk_hrows + clip_row(hidx, t.sk_hrows_n) * p.blk_w;
+      } else {
+        // engine.skew_eval: slot -> position in the bucket -> heavy row
+        const uint32_t pos = t.sk_positions[clip_row(hidx, t.sk_positions_n)];
+        blk = t.heavy_rows + clip_row(cw_a + pos, t.heavy_rows_n) * p.blk_w;
+      }
+      res = verify_block<W, CANON, V2>(blk, p, km, kr, tries, ntries);
       found = res.match;
     }
     mfound = guard_ok || heavy;
@@ -247,18 +293,18 @@ __global__ void probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
     // further candidate can match
     if (mfound && midload && !found) {
       if (p.c1_in_row && size >= 2) {
-        res = verify_block<W, CANON>(c0 + p.blk_w, p, km, kr, tries, ntries);
+        res = verify_block<W, CANON, V2>(c0 + p.blk_w, p, km, kr, tries, ntries);
         found = res.match;
       }
       for (uint32_t j = p.c1_in_row ? 2u : 1u; !found && j < size; ++j) {
         const uint32_t* mrow = t.mid_rows + clip_row(cw_a + j, t.mid_n) * p.blk_w;
-        res = verify_block<W, CANON>(mrow, p, km, kr, tries, ntries);
+        res = verify_block<W, CANON, V2>(mrow, p, km, kr, tries, ntries);
         found = res.match;
       }
     }
   }
   const uint32_t off = found ? res.off : 0u;
-  io.kmer_id[i] = found ? off - res.sid * (uint32_t)(p.k - 1) : kInvalid32;
+  io.kmer_id[i] = !found ? kInvalid32 : V2 ? off : off - res.sid * (uint32_t)(p.k - 1);
   io.kmer_orientation[i] = found ? res.orient : kForward;
   io.minimizer_found[i] = mfound;
   io.found[i] = found;
@@ -277,9 +323,11 @@ cudaError_t launch_probe(const ProbeTables& t, const ProbeParams& p, const Probe
   const int threads = 256;
   const unsigned blocks = (unsigned)((p.B + threads - 1) / threads);
   if (p.full)
-    probe_kernel<W, CANON, true><<<blocks, threads, 0, stream>>>(t, p, io);
+    probe_kernel<W, CANON, kFull><<<blocks, threads, 0, stream>>>(t, p, io);
+  else if (p.row_v2)
+    probe_kernel<W, CANON, kIdsV2><<<blocks, threads, 0, stream>>>(t, p, io);
   else
-    probe_kernel<W, CANON, false><<<blocks, threads, 0, stream>>>(t, p, io);
+    probe_kernel<W, CANON, kIds><<<blocks, threads, 0, stream>>>(t, p, io);
   return cudaGetLastError();
 }
 
@@ -291,7 +339,12 @@ extern "C" int sshash_probe(const sshash::ProbeTables* t, const sshash::ProbePar
   using namespace sshash;
   if (p->B <= 0) return (int)cudaGetLastError();
   if (p->k > 63 || p->m < 1 || p->m > 31 || p->W != (2 * p->k + 31) / 32 ||
-      (p->canonical && !io->kmers_rc) || (p->full && !io->kmer_offset))
+      (p->canonical && !io->kmers_rc) || (p->full && !io->kmer_offset) ||
+      (p->full && p->row_v2) ||
+      p->blk_w != 1 + p->vbits_words + p->win_words + (p->row_v2 ? 3 : 4) ||
+      p->row_w != 2 + (p->c1_in_row ? 2 : 1) * p->blk_w ||
+      (p->has_skew && (p->skew_hrows ? !t->sk_hrows : !t->heavy_rows || !t->sk_positions)) ||
+      (p->has_skew && p->skew_partitioned && !t->sk_seedrows))
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   const bool c = p->canonical != 0;

@@ -4,13 +4,16 @@ iteration and weight, and the engine that serves them.
 Counterpart of sshash_tpu/engine.py's query paths (mphf_eval_minimizer,
 _pilot_read, skew_slot, lookup_with_info, make_lookup, _merge,
 make_neighbours, make_access with _acc_resolve and _acc_read_window,
-make_iterator, make_weight, DeviceEngine) for v1 indexes of k <= 63. One
-lookup is two kernels and some elementwise glue:
+make_iterator, make_weight, DeviceEngine) for indexes of k <= 63, in
+either row format (layout.py) and either skew form. One lookup is two
+kernels and some elementwise glue:
 
   1. kernel 1 (ops.packed.minimizer): both strands' minimizers, and the
      reverse-complemented kmers, in one launch;
   2. kernel 2 (`probe`): MPHF slot, fused codeword row, minimizer guard,
-     candidate verification and id resolution, one thread per lane.
+     candidate verification and id resolution, one thread per lane. Heavy
+     lanes resolve through the skew index: slot -> sk_hrows row, or on a
+     pre-v1.2 index slot -> sk_positions -> heavy_rows (skew_eval).
 
 Canonical mode folds the tie retry into two extra position tries of one
 probe (the minimizer VALUES tie, so both strands probe the same bucket).
@@ -22,7 +25,8 @@ strands (src/dictionary.cpp:71-76).
 The plain versions here (`probe_plain` and its helpers) hold u32 values in
 int64 tensors and run on any device; `probe` sends CPU tensors to them and
 CUDA tensors to the kernel. Results carry u32 fields as int32 tensors of
-the same bits (kmer ids are < 2^31, char offsets < 2^32).
+the same bits: kmer ids up to 2^32 - 2, char offsets below 2^32 (v1 rows;
+v2 rows return ids only). Nothing reads an id's top bit as a sign.
 
 Navigation builds the 8 one-char variants of each kmer in one launch of
 the neighbours kernel (ops.packed.neighbour_variants) and looks them all
@@ -48,8 +52,8 @@ from . import kernels
 from . import kmer as K
 from .constants import BACKWARD_ORIENTATION, FORWARD_ORIENTATION, INVALID_UINT64
 from .layout import (SKEW_PARAMS, TABLE_GROUPS, StaticCfg, acc_windowed, cand_block_width,
-                     device_arrays, row_width, tables_from_host, take_rows,
-                     with_access_tables)
+                     check_access, check_fields, device_arrays, row_width, tables_from_host,
+                     take_rows, with_access_tables)
 from .ops import packed as P
 from .ops import u64 as u
 from .ops.u64 import M32
@@ -92,34 +96,48 @@ def mphf_eval_minimizer(cfg, tables, minval):
 
 
 def skew_slot(cfg, tables, kmers, cls):
-    """Slot of each (canonical) kmer in its heavy bucket's size class
-    (partitioned class MPHFs; the layout refuses the legacy forms)."""
+    """Slot of each (canonical) kmer in its heavy bucket's size class:
+    partitioned class MPHFs (v1.2+), or plain ones (one pilot read)."""
     seedmix = u.u64(_skew_param(tables, "seedmix_hi", cls),
                     _skew_param(tables, "seedmix_lo", cls))
     h = u.hash64_words(kmers, seedmix)
     nb = _skew_param(tables, "nbuckets", cls)
     table = _skew_param(tables, "table", cls)
+    pilot_off = _skew_param(tables, "pilot_off", cls)
+    if not cfg.skew_partitioned:
+        bucket = u.mulhi32(h.hi, nb)
+        pilot = _pilot_read(cfg.sk_pilot_w, tables["sk_pilots"], bucket, word_off=pilot_off)
+        return u.mulhi32(u.fmix32(h.lo ^ u.fmix32(pilot)), table)
     pid2 = u.mulhi32(h.hi, _skew_param(tables, "np2", cls))
     row = take_rows(tables["sk_seedrows"],
                     (_skew_param(tables, "seed_off", cls) + pid2) & M32)
     h2 = u.splitmix64(u.xor(h, u.u64(row[:, 0], row[:, 1])))
     bucket = (pid2 * nb + u.mulhi32(h2.hi, nb)) & M32
-    pilot = _pilot_read(cfg.sk_pilot_w, tables["sk_pilots"], bucket,
-                        word_off=_skew_param(tables, "pilot_off", cls))
+    pilot = _pilot_read(cfg.sk_pilot_w, tables["sk_pilots"], bucket, word_off=pilot_off)
     local = u.mulhi32(u.fmix32(h2.lo ^ u.fmix32(pilot)), table)
     return (pid2 * table + local) & M32
 
 
+def _ext0(cfg, col0):
+    """In-window char offset of a block's candidate: v2 rows store it, v1
+    rows store the candidate's char offset (the window starts at word
+    max(0, cand-(k-m)) >> 4)."""
+    if cfg.row_v2:
+        return col0
+    return col0 - (((col0 - col0.clamp(max=cfg.kmw)) >> 4) << 4)
+
+
 def _verify(cfg, blk, active, km, kr, tries):
     """Verify and resolve one candidate block per lane
-    ([cand, vbits, window, quad] rows, u32 values in int64) at each position
-    try, in order. Returns (match, off, orient, sid, begin, end)."""
+    ([col0, vbits, window, quad] rows, u32 values in int64) at each
+    position try, in order. Returns (match, off, orient, sid, begin, end);
+    in v2 rows off is the kmer id itself and sid, begin and end stay 0."""
     Wv, Ww, k = cfg.vbits_words, cfg.win_words, cfg.k
     kmw = cfg.kmw
     cand = blk[:, 0]
     vbw, win = blk[:, 1: 1 + Wv], blk[:, 1 + Wv: 1 + Wv + Ww]
     rsv = blk[:, 1 + Wv + Ww:]
-    ext0 = cand - (((cand - cand.clamp(max=kmw)) >> 4) << 4)
+    ext0 = _ext0(cfg, cand)
     zero = torch.zeros_like(cand)
     match = torch.zeros_like(active)
     off = zero.clone()
@@ -140,6 +158,12 @@ def _verify(cfg, blk, active, km, kr, tries):
             orient = torch.where(hit & eq_r & ~eq_f, BACKWARD_ORIENTATION, orient)
         else:
             hit = can & vbit & eq_f
+        match = match | hit
+        if cfg.row_v2:
+            # kid = kid0 - pos - over*(k-1), over = j >= rel_ep1
+            kid = (rsv[:, 0] - pos - (j >= rsv[:, 2]) * (k - 1)) & M32
+            off = torch.where(hit, kid, off)
+            continue
         o = torch.where(can, cand - pos, zero)
         ep1 = rsv[:, 2]
         over = o >= ep1
@@ -147,7 +171,6 @@ def _verify(cfg, blk, active, km, kr, tries):
         sid = torch.where(hit, rsv[:, 0] + over, sid)
         beg = torch.where(hit, torch.where(over, ep1, rsv[:, 1]), beg)
         end = torch.where(hit, torch.where(over, rsv[:, 3], ep1), end)
-        match = match | hit
     return match, off, orient, sid, beg, end
 
 
@@ -157,12 +180,13 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
     kernels.probe_kernel: kmers32 / kmers_rc32 (canonical only) (B, W)
     int32, minval int64, minpos / minpos2 int32, active bool or None (every
     lane). Returns int32 kmer_id / kmer_orientation (and the string fields
-    when fields="full"), bool minimizer_found and found.
+    when fields="full", v1 rows only), bool minimizer_found and found.
 
     Mirrors engine.lookup_with_info: candidate 0 rides the codeword row,
     a failed minimizer guard stops the lane after it, heavy lanes go
     through the skew index, candidate 1 rides the row when c1_in_row, and
     the remaining mid-bucket candidates are tried in a masked loop."""
+    check_fields(cfg, fields)
     B, dev = kmers32.shape[0], kmers32.device
     km = u.u32(kmers32)
     kr = u.u32(kmers_rc32) if kmers_rc32 is not None else None
@@ -185,7 +209,7 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
     R1 = cand_block_width(cfg)
     c0 = row[:, 2: 2 + R1]
 
-    gext0 = c0[:, 0] - (((c0[:, 0] - c0[:, 0].clamp(max=cfg.kmw)) >> 4) << 4)
+    gext0 = _ext0(cfg, c0[:, 0])
     gv = P.extract_window_dyn(c0[:, 1 + cfg.vbits_words: 1 + cfg.vbits_words + cfg.win_words],
                               (gext0 * 2) & M32, 2 * cfg.m, cfg.max_start_word)
     guard_ok = u.equal(gv, mv)
@@ -207,7 +231,12 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
             canon = torch.where(P.kmer_less(kr, km)[:, None], kr, km)
         cls = torch.where(heavy, cw_b, torch.zeros_like(cw_b))
         hidx = (_skew_param(tables, "pos_off", cls) + skew_slot(cfg, tables, canon, cls)) & M32
-        take(_verify(cfg, take_rows(tables["sk_hrows"], hidx), active & heavy, km, kr, tries))
+        if cfg.skew_hrows:
+            blk = take_rows(tables["sk_hrows"], hidx)
+        else:  # skew_eval: slot -> position in the bucket -> heavy row
+            blk = take_rows(tables["heavy_rows"], (cw_a + take_rows(tables["sk_positions"], hidx))
+                            & M32)
+        take(_verify(cfg, blk, active & heavy, km, kr, tries))
 
     minimizer_found = ~(active & ~guard_ok & ~heavy)
     active = active & (guard_ok | heavy)
@@ -234,7 +263,8 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
     found, off, orient, sid, beg, end = state
     off = torch.where(found, off, torch.zeros_like(off))
     invalid = torch.full_like(off, INVALID32)
-    res = {"kmer_id": u.to_i32(torch.where(found, (off - sid * (cfg.k - 1)) & M32, invalid)),
+    kid = off if cfg.row_v2 else (off - sid * (cfg.k - 1)) & M32
+    res = {"kmer_id": u.to_i32(torch.where(found, kid, invalid)),
            "kmer_orientation": torch.where(found, orient, FORWARD_ORIENTATION).to(torch.int32),
            "minimizer_found": minimizer_found,
            "found": found}
@@ -277,11 +307,13 @@ def make_lookup(cfg, fields="full", minimizer=P.minimizer, probe=probe):
     semantics). fields="ids" returns only kmer_id / kmer_orientation /
     minimizer_found (the reference's plain lookup()). `minimizer` and
     `probe` default to the kernel entry points; passing the plain versions
-    runs the same lookup without kernels on any device.
+    runs the same lookup without kernels on any device. v2 rows serve
+    fields="ids" only.
 
     fn(tables, kmers32, mins=None, active=None): mins are kernel 1's five
     outputs for these kmers where the caller has them; active (bool) limits
     the probes to those lanes, the others report not found."""
+    check_fields(cfg, fields)
     k, m, magic = cfg.k, cfg.m, cfg.magic
 
     def fn(tables, kmers32, mins=None, active=None):
@@ -337,6 +369,7 @@ def acc_read_window(cfg, row, ids, off):
 def access_plain(cfg, tables, ids):
     """Plain version of the access kernel: (B,) int32 ids -> (B, W) int32
     kmers."""
+    check_access(cfg)
     i = u.u32(ids)
     row = take_rows(tables["acc_rows"], i >> 5)
     off = acc_offset(cfg, row, i)
@@ -436,25 +469,29 @@ class TorchEngine:
     access, weight, navigation and full iteration.
 
     host_arrs: a precomputed table dict (layout.device_arrays, or the JAX
-    package's _device_arrays / its .npy cache) for large indexes."""
+    package's _device_arrays / its .npy cache) for large indexes.
+    row_format: None (rebased v2 rows at >= 2^32 chars, else v1), "v1" or
+    "v2". A v2 engine's lookup and navigation return the id fields only,
+    as the JAX package's DeviceEngine does."""
 
-    def __init__(self, index, device="cuda", host_arrs=None):
+    def __init__(self, index, device="cuda", host_arrs=None, row_format=None):
         self.index = index
         self.device = torch.device(device)
-        self.cfg = StaticCfg(index)
+        self.cfg = StaticCfg(index, row_format)
         if host_arrs is None:
-            host_arrs = device_arrays(index)
+            host_arrs = device_arrays(index, row_format)
         elif host_arrs["cw_row"].shape[1] != row_width(self.cfg):
             raise ValueError(
-                f"host_arrs cw_row has {host_arrs['cw_row'].shape[1]} columns, this "
-                f"index needs {row_width(self.cfg)} (v1 rows); recompute with "
-                f"layout.device_arrays(index)")
+                f"stale host_arrs: cw_row has {host_arrs['cw_row'].shape[1]} columns, this "
+                f"engine expects {row_width(self.cfg)} ({'v2' if self.cfg.row_v2 else 'v1'} "
+                f"rows); recompute with layout.device_arrays(index, row_format)")
         else:
             host_arrs = with_access_tables(index, self.cfg, host_arrs)
         self.tables = tables_from_host(host_arrs, self.device)
-        self._lookup = make_lookup(self.cfg, "full")
+        fields = "ids" if self.cfg.row_v2 else "full"
+        self._lookup = make_lookup(self.cfg, fields)
         self._lookup_ids = make_lookup(self.cfg, "ids")
-        self._neighbours = make_neighbours(self.cfg, "full")
+        self._neighbours = make_neighbours(self.cfg, fields)
 
     def table_bytes(self):
         """Device bytes of the tables by group (layout.TABLE_GROUPS):

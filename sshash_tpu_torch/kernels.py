@@ -36,7 +36,8 @@ from pathlib import Path
 
 import torch
 
-from .layout import acc_width, acc_win_words, acc_windowed, cand_block_width, row_width
+from .layout import (acc_width, acc_win_words, acc_windowed, cand_block_width, check_access,
+                     check_fields, row_width)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("minimizer.cu", "probe.cu", "access.cu", "iterator.cu", "weight.cu",
@@ -100,7 +101,7 @@ def build():
 
 # ctypes mirrors of the structs in csrc/probe.cu (8-byte fields only)
 _TABLE_NAMES = ("cw_row", "mid_rows", "sk_hrows", "pilots", "mphf_seedrows",
-                "sk_pilots", "sk_seedrows")
+                "sk_pilots", "sk_seedrows", "heavy_rows", "sk_positions")
 
 
 class ProbeTables(ctypes.Structure):
@@ -111,8 +112,8 @@ class ProbeTables(ctypes.Structure):
 
 _PARAM_NAMES = ("B", "W", "k", "m", "canonical", "full", "win_words",
                 "vbits_words", "max_start_word", "row_w", "blk_w", "c1_in_row",
-                "has_skew", "mphf_partitioned", "mphf_P", "mphf_part_table",
-                "mphf_part_buckets", "mphf_nbuckets", "mphf_table", "pilot_w",
+                "has_skew", "row_v2", "skew_hrows", "skew_partitioned",
+                "mphf_partitioned", "mphf_P", "mphf_part_table", "mphf_part_buckets", "mphf_nbuckets", "mphf_table", "pilot_w",
                 "sk_pilot_w")
 
 
@@ -261,9 +262,11 @@ minimizer_kernel.launches = 0
 
 def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
                  active=None, fields="full"):
-    """Kernel 2: the fused-row probe. Same contract as engine.probe_plain:
-    returns kmer_id / kmer_orientation / minimizer_found / found and, with
-    fields="full", the string fields (u32 fields as int32 bits)."""
+    """Kernel 2: the fused-row probe, in either row format and either skew
+    form. Same contract as engine.probe_plain: returns kmer_id /
+    kmer_orientation / minimizer_found / found and, with fields="full" (v1
+    rows only), the string fields (u32 fields as int32 bits)."""
+    check_fields(cfg, fields)
     if kmers32.dim() != 2:
         raise ValueError(f"kmers32 must be (B, {cfg.W}), got {tuple(kmers32.shape)}")
     B = kmers32.shape[0]
@@ -278,8 +281,6 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         _check(minpos2, "minpos2", torch.int32, (B,))
     if active is not None:
         _check(active, "active", torch.bool, (B,))
-    if fields not in ("full", "ids"):
-        raise ValueError(f"fields must be 'full' or 'ids', got {fields!r}")
     dev = kmers32.device
     t = {}
     for name in _TABLE_NAMES + ("sk_params",):
@@ -290,7 +291,7 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
     blk_w, row_w = cand_block_width(cfg), row_width(cfg)
     if tuple(t["cw_row"].shape[1:]) != (row_w,):
         raise ValueError(f"cw_row must have {row_w} columns, got {tuple(t['cw_row'].shape)}")
-    for name in ("mid_rows", "sk_hrows"):
+    for name in ("mid_rows", "sk_hrows", "heavy_rows"):
         if tuple(t[name].shape[1:]) != (blk_w,):
             raise ValueError(f"{name} must have {blk_w} columns")
     if tuple(t["sk_params"].shape) != (8, 8):
@@ -315,7 +316,8 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         B=B, W=cfg.W, k=cfg.k, m=cfg.m, canonical=int(cfg.canonical), full=int(full),
         win_words=cfg.win_words, vbits_words=cfg.vbits_words,
         max_start_word=cfg.max_start_word, row_w=row_w, blk_w=blk_w,
-        c1_in_row=int(cfg.c1_in_row), has_skew=int(cfg.has_skew),
+        c1_in_row=int(cfg.c1_in_row), has_skew=int(cfg.has_skew), row_v2=int(cfg.row_v2),
+        skew_hrows=int(cfg.skew_hrows), skew_partitioned=int(cfg.skew_partitioned),
         mphf_partitioned=int(cfg.mphf_partitioned), mphf_P=cfg.mphf_P,
         mphf_part_table=cfg.mphf_part_table, mphf_part_buckets=cfg.mphf_part_buckets,
         mphf_nbuckets=cfg.mphf_nbuckets, mphf_table=cfg.mphf_table,
@@ -336,6 +338,7 @@ probe_kernel.launches = 0
 def access_kernel(cfg, tables, ids):
     """Access: (B,) int32 ids -> (B, W) int32 kmers. Same contract as
     engine.access_plain."""
+    check_access(cfg)
     B = _ids(ids)
     dev = ids.device
     C = cfg.access_C

@@ -2,18 +2,28 @@
 
 JAX-free counterpart of sshash_tpu.engine._device_arrays and of the
 geometry of sshash_tpu.engine.StaticCfg. The tables are the same arrays,
-bit for bit (tests/test_torch_layout.py holds them against the JAX
-package):
+bit for bit (tests/test_torch_layout.py and tests/test_torch_capacity.py
+hold them against the JAX package):
 
   cw_row[slot]   one fused row per raw minimizer-MPHF slot:
                  [status | b<<2, a, candidate-0 block, (candidate-1 block)]
   mid_rows[i]    candidate block of mid_load_buckets[i]
-  sk_hrows[i]    candidate block of the heavy kmer with skew slot i
+  sk_hrows[i]    candidate block of the heavy kmer with skew slot i (v1.2+
+                 indexes: every skew class carries hindex)
+  heavy_rows[i], sk_positions   the legacy heavy path, for skew classes
+                 without hindex: slot -> position in the bucket ->
+                 heavy_rows[bucket begin + position]
   pilots, mphf_seedrows, sk_pilots, sk_seedrows, sk_*   MPHF parameters
 
-A candidate block is [char offset, valid-start bits (Wv words), packed
-string window (Ww words), resolve quad (sid0, ep0, ep1, ep2)]: verifying a
-candidate and resolving its id needs no further gather.
+A candidate block is [col0, valid-start bits (Wv words), packed string
+window (Ww words), resolve quad]: verifying a candidate and resolving its id
+needs no further gather. Two row formats:
+
+  v1  col0 = the candidate's char offset, quad (sid0, ep0, ep1, ep2);
+  v2  ("rebased" rows) col0 = the candidate's offset inside its window,
+      quad (kid0, sid0, rel_ep1) in kmer-id space: no char offset anywhere,
+      so an index of >= 2^32 chars serves as long as its ids fit u32. v2
+      rows serve the id fields of lookup only.
 
   acc_rows[b]    one row per 32-id block b: [sid hint, kmer_cum of the next
                  C strings, and, when 1+C+Wa <= 16, the Wa packed-string
@@ -23,10 +33,13 @@ candidate and resolving its id needs no further gather.
   sidk32, kmer_cum   host-side sources of acc_rows (not uploaded)
   w_value_ids, w_endpoints, w_dictionary   the weight runs (weighted only)
 
-The port serves v1 rows only: fewer than 2^32 chars, fewer than 2^31
-kmers, k <= 63, hindex-keyed partitioned skew classes and weights below
-2^32. StaticCfg raises on any other index, so char offsets and weights fit
-the u32 table fields exactly.
+The port serves every index with k <= 63 and fewer than 2^32 - 1 kmers
+(ids are u32, 0xFFFFFFFF the not-found sentinel) and weights below 2^32:
+v1 rows below 2^32 chars, v2 rows at or above it (or when asked for), skew
+classes with or without hindex, partitioned or plain class MPHFs. Char
+offsets stay int64 until they become a u32 field, so a v2 row past 2^32
+chars holds exact values (the JAX package casts candidate offsets to
+uint32 first, which wraps there).
 """
 
 import numpy as np
@@ -39,13 +52,13 @@ from .index import decode_codeword
 from .mphf import PartitionedMPHF, _get
 
 NUM_SKEW = 8
-QUAD_W = 4
 SKEW_PARAMS = ("table", "nbuckets", "seedmix_hi", "seedmix_lo", "pilot_off",
                "pos_off", "np2", "seed_off")
+ROW_FORMATS = (None, "v1", "v2")
 # tables the probe reads; the optional ones get a placeholder row when the
 # index has no such structure
 LOOKUP_KEYS = ("strings32", "cw_row", "mid_rows", "pilots", "sk_pilots")
-OPTIONAL_KEYS = ("mphf_seedrows", "sk_seedrows", "sk_hrows")
+OPTIONAL_KEYS = ("mphf_seedrows", "sk_seedrows", "sk_hrows", "heavy_rows", "sk_positions")
 # tables of access and iteration, and of weight (uploaded for a weighted
 # index only)
 ACCESS_KEYS = ("acc_rows", "vstart32")
@@ -59,19 +72,10 @@ def check_supported(index):
     if index.k > 63:
         raise ValueError(f"k={index.k}: the port serves k <= 63 (at most 4 "
                          f"u32 words per kmer)")
-    if index.num_chars >= 1 << 32:
-        raise ValueError(f"{index.num_chars} chars needs rebased (v2) rows; "
-                         f"the port serves v1 rows (< 2^32 chars)")
-    if index.num_kmers >= 1 << 31:
-        raise ValueError(f"{index.num_kmers} kmers needs wide ids; the port "
-                         f"serves < 2^31 kmers")
-    parts = [p for p in index.skew_partitions if p.mphf.n > 0]
-    if any(p.hindex is None for p in index.skew_partitions) and parts:
-        raise ValueError("skew partitions without hindex (pre-v1.2 index): "
-                         "the legacy positions path is not ported; rebuild")
-    if any(not isinstance(p.mphf, PartitionedMPHF) for p in parts):
-        raise ValueError("non-partitioned skew MPHF (pre-v1.2 index) is not "
-                         "ported; rebuild")
+    if index.num_kmers >= (1 << 32) - 1:
+        raise ValueError(f"ids are u32 with 0xFFFFFFFF as the not-found sentinel, so "
+                         f"an index holds fewer than 2^32-1 kmers; this one has "
+                         f"{index.num_kmers}")
     w = index.weights
     if w is not None and len(w.dictionary) and int(np.max(w.dictionary)) >= 1 << 32:
         raise ValueError(f"weight {int(np.max(w.dictionary))} does not fit the "
@@ -90,6 +94,29 @@ def use_c1(index):
     return (1.0 - singles / nmini) >= 0.001
 
 
+def use_row_v2(index, row_format=None):
+    """Rebased (v2) rows: automatic at >= 2^32 chars, where a v1 row's u32
+    char offsets would wrap; row_format "v2" forces them on a smaller
+    index, "v1" refuses an index that needs them."""
+    if row_format not in ROW_FORMATS:
+        raise ValueError(f"row_format must be one of {ROW_FORMATS}, got {row_format!r}")
+    big = index.num_chars >= 1 << 32
+    if big and row_format == "v1":
+        raise ValueError(f"row_format='v1' at {index.num_chars} chars: v1 rows hold u32 "
+                         f"char offsets (< 2^32 chars); this index needs v2 rows")
+    return big or row_format == "v2"
+
+
+def check_fields(cfg, fields):
+    """Lookup fields "full" or "ids"; v2 rows serve "ids" only."""
+    if fields not in ("full", "ids"):
+        raise ValueError(f"fields must be 'full' or 'ids', got {fields!r}")
+    if cfg.row_v2 and fields == "full":
+        raise ValueError("rebased (v2) rows carry no char-offset resolve quad: serve "
+                         "fields='ids' (the reference's plain lookup(), dictionary.hpp:34); "
+                         "string bounds need a v1-format index (< 2^32 chars)")
+
+
 def pilot_width(mphf):
     """Smallest divisor of 32 in {4, 8, 16, 32} that fits every pilot."""
     p = mphf.pilots
@@ -104,14 +131,17 @@ def pilot_width(mphf):
 
 
 class StaticCfg:
-    """Lookup geometry of an index (the JAX StaticCfg's lookup fields)."""
+    """Lookup geometry of an index (the JAX StaticCfg's lookup fields).
+    row_format: None (v2 rows at >= 2^32 chars, else v1), "v1" or "v2"."""
 
-    def __init__(self, index):
+    def __init__(self, index, row_format=None):
         check_supported(index)
         self.k, self.m = index.k, index.m
         self.canonical = index.canonical
         self.W = (2 * index.k + 31) // 32
-        self.quad_w = QUAD_W
+        self.num_chars = int(index.num_chars)
+        self.row_v2 = use_row_v2(index, row_format)
+        self.quad_w = 3 if self.row_v2 else 4
         self.c1_in_row = use_c1(index)
         self.kmw = index.k - index.m
         self.win_words = ((4 * index.k - 2 * index.m + 29) >> 5) + 1
@@ -134,9 +164,13 @@ class StaticCfg:
             self.mphf_P = f.num_partitions
             self.mphf_part_table = max(1, f.part_table)
             self.mphf_part_buckets = f.part_buckets
-        # check_supported admits only hindex-keyed partitioned skew classes,
-        # so the JAX cfg's skew_hrows and skew_partitioned equal has_skew
         self.has_skew = any(p.mphf.n > 0 for p in index.skew_partitions)
+        # v1.2+ builds: every skew class carries hindex (slot -> heavy row)
+        # and is a PartitionedMPHF; older ones take the legacy forms
+        self.skew_hrows = self.has_skew and all(p.hindex is not None
+                                                for p in index.skew_partitions)
+        self.skew_partitioned = self.has_skew and all(
+            isinstance(p.mphf, PartitionedMPHF) for p in index.skew_partitions if p.mphf.n > 0)
         self.access_C = access_C(index)
         self.weighted = index.weights is not None
 
@@ -172,6 +206,17 @@ def acc_windowed(k, C):
 def acc_width(cfg):
     C = cfg.access_C
     return 1 + C + (acc_win_words(cfg.k, C) if acc_windowed(cfg.k, C) else 0)
+
+
+def check_access(cfg):
+    """The two-round access form reads strings32 at a u32 char offset,
+    which wraps at >= 2^32 chars: raise there (the windowed form resolves
+    its offset against row-resident data and stays exact through u32
+    wrap-around)."""
+    if cfg.num_chars >= 1 << 32 and not acc_windowed(cfg.k, cfg.access_C):
+        raise ValueError(f"access at {cfg.num_chars} chars needs the windowed row form, but "
+                         f"k={cfg.k}, C={cfg.access_C} exceeds its width gate; shard into "
+                         f"< 2^32-char sub-indexes")
 
 
 def acc_rows(sidk32, kmer_cum, C, s32, k):
@@ -277,84 +322,98 @@ def _seedrows(seedmixes):
                     axis=1)
 
 
-def device_arrays(index):
-    """Host Index -> dict of numpy uint32 tables (see module doc)."""
-    check_supported(index)
-    status, a, b = decode_codeword(index.codewords)
-    mid = status == 1
-    msize = b.astype(np.int64)
-    mbegin = (index.begin_buckets_of_size[np.where(mid, msize, 0)].astype(np.int64)
-              + a.astype(np.int64) * msize)
-    a = np.where(mid, mbegin.astype(np.uint64), a)
+def fused_rows(dpos, s32, ep, k, m, row_v2):
+    """(n,) candidate char offsets -> (n, R1) u32 candidate blocks
+    [col0, valid-start bits, packed string window, resolve quad]
+    (engine._device_arrays.fused_rows). The candidate's possible kmer
+    starts span [dpos-(k-m), dpos], shorter than any string, so at most one
+    string boundary falls inside: the quad resolves either side.
 
-    # valid-start bits: a kmer may start at char offset o iff o+k <= the end
-    # of o's string
-    k, m = index.k, index.m
-    ep = index.string_endpoints.astype(np.int64)
-    delta = np.zeros(index.num_chars + 1, dtype=np.int32)
-    np.add.at(delta, ep[:-1], 1)
-    np.add.at(delta, ep[1:] - (k - 1), -1)
-    vstart = np.cumsum(delta[:-1]) > 0
-    kmer_cum64 = ep - np.arange(len(ep)) * (k - 1)
-    nkb = (index.num_kmers + 31) // 32 + 1
-    sidk32 = (np.searchsorted(kmer_cum64, np.arange(nkb, dtype=np.int64) * 32,
-                              side="right") - 1).astype(np.uint32)
-    kmer_cum32 = kmer_cum64.astype(np.uint32)
+      v1: col0 = dpos, quad [sid0, ep0, ep1, ep2];
+      v2: col0 = dpos - 16 * (max(0, dpos-(k-m)) >> 4), the offset inside
+          the window, and quad [kid0, sid0, rel_ep1] with kid0 = dpos -
+          sid0*(k-1) and rel_ep1 = clip(ep1 - (dpos-(k-m)), 0, k-m+1): a
+          match at position try p has id kid0 - p - over*(k-1), over =
+          (k-m-p) >= rel_ep1.
 
-    f = index.minimizer_mphf
-    s32 = K.pack_words_to_u32(index.strings64)
-    sb = status.astype(np.uint32) | (b.astype(np.uint32) << 2)
-    mid_arr = np.asarray(index.mid_load_buckets).astype(np.uint32)
-    cand0 = a.astype(np.uint32)
-    if len(mid_arr):
-        cand0 = np.where(mid, mid_arr[np.clip(a.astype(np.int64), 0, len(mid_arr) - 1)],
-                         cand0)
+    Every offset stays int64 until its u32 field. A start o is valid iff
+    o + k <= the end of o's string. s32 is read with int64 word indices
+    only, so any array-like that takes them serves (a view of a larger
+    string set). Chunked to bound the (n, Ww) window intermediates."""
+    CH = 16 << 20
+    if len(dpos) > CH:
+        return np.concatenate([fused_rows(dpos[i: i + CH], s32, ep, k, m, row_v2)
+                               for i in range(0, len(dpos), CH)])
     kmw = k - m
     Ww = ((4 * k - 2 * m + 29) >> 5) + 1
     Wv = (kmw + 1 + 31) // 32
-    R1 = 1 + Wv + Ww + QUAD_W
+    last = len(ep) - 1
+    c0 = np.asarray(dpos, dtype=np.int64)
+    lo = np.maximum(c0 - kmw, 0)
+    wlo = lo >> 4
+    win = np.asarray(s32[np.clip(wlo[:, None] + np.arange(Ww)[None, :], 0, len(s32) - 1)],
+                     dtype=np.uint32)
+    sid0 = np.searchsorted(ep, lo, side="right") - 1
+    ep1, ep2 = (ep[np.clip(sid0 + j, 0, last)] for j in (1, 2))
+    # start j of the span (char offset base + j) is valid in [0, ep1-k] of
+    # sid0's string or in [ep1, ep2-k] of the next: two bit ranges
+    base = c0 - kmw
+    bits = (_bit_range(-base, ep1 - k - base, kmw + 1)
+            | _bit_range(ep1 - base, ep2 - k - base, kmw + 1))
+    vbp = np.stack([(bits >> np.uint64(32 * w)).astype(np.uint32) for w in range(Wv)], axis=1)
+    if row_v2:
+        rsv = np.stack([(c0 - sid0 * (k - 1)).astype(np.uint32), sid0.astype(np.uint32),
+                        np.clip(ep1 - (c0 - kmw), 0, kmw + 1).astype(np.uint32)], axis=1)
+        col0 = (c0 - (wlo << 4)).astype(np.uint32)
+    else:
+        rsv = np.stack([sid0, ep[np.clip(sid0, 0, last)], ep1, ep2], axis=1).astype(np.uint32)
+        col0 = c0.astype(np.uint32)
+    return np.concatenate([col0[:, None], vbp, win, rsv], axis=1)
 
-    def fused_rows(dpos):
-        """(n,) candidate char offsets -> (n, R1) candidate blocks. The
-        candidate's possible kmer starts span [dpos-(k-m), dpos], shorter
-        than any string, so at most one string boundary falls inside: the
-        quad [sid0, ep0, ep1, ep2] resolves either side. Chunked to bound
-        the (n, k-m+1) intermediates."""
-        CH = 16 << 20
-        if len(dpos) > CH:
-            return np.concatenate([fused_rows(dpos[i: i + CH])
-                                   for i in range(0, len(dpos), CH)])
-        c0 = dpos.astype(np.int64)
-        wlo = np.maximum(c0 - kmw, 0) >> 4
-        win = s32[np.clip(wlo[:, None] + np.arange(Ww)[None, :], 0, len(s32) - 1)]
-        offs = c0[:, None] - kmw + np.arange(kmw + 1)[None, :]
-        okoff = (offs >= 0) & (offs < len(vstart))
-        bits = np.where(okoff, vstart[np.clip(offs, 0, len(vstart) - 1)], False)
-        vb8 = np.packbits(bits, axis=1, bitorder="little")
-        vbp = np.zeros((len(c0), Wv * 4), dtype=np.uint8)
-        vbp[:, : vb8.shape[1]] = vb8
-        sid0 = np.searchsorted(ep, np.maximum(c0 - kmw, 0), side="right") - 1
-        eidx = np.clip(sid0[:, None] + np.arange(3)[None, :], 0, len(ep) - 1)
-        rsv = np.concatenate([sid0[:, None].astype(np.uint32),
-                              ep[eidx].astype(np.uint32)], axis=1)
-        return np.concatenate([dpos.astype(np.uint32)[:, None],
-                               np.ascontiguousarray(vbp).view(np.uint32), win,
-                               rsv], axis=1)
+
+def _bit_range(lo, hi, n):
+    """uint64 masks with bits lo..hi (int64 arrays, inclusive) set, cut to
+    bits 0..n-1 (n <= 63)."""
+    a = np.clip(lo, 0, n)
+    b = np.maximum(np.clip(hi + 1, 0, n), a)
+    one = np.uint64(1)
+    return (one << b.astype(np.uint64)) - (one << a.astype(np.uint64))
+
+
+def lookup_tables(index, cfg, rows):
+    """The probe's tables (cw_row, mid_rows, pilots, mphf_seedrows and the
+    skew tables) from the index's codewords, with rows(dpos) -> candidate
+    blocks for int64 candidate char offsets (fused_rows bound to the
+    index's strings)."""
+    status, a, b = decode_codeword(index.codewords)
+    mid = status == 1
+    msize = b.astype(np.int64)
+    a = a.astype(np.int64)
+    a = np.where(mid, index.begin_buckets_of_size[np.where(mid, msize, 0)].astype(np.int64)
+                 + a * msize, a)
+    mid_arr = np.asarray(index.mid_load_buckets).astype(np.int64)
+    heavy_arr = np.asarray(index.heavy_load_buckets).astype(np.int64)
+    cand0 = a
+    if len(mid_arr):
+        cand0 = np.where(mid, mid_arr[np.clip(a, 0, len(mid_arr) - 1)], cand0)
+    R1 = cand_block_width(cfg)
+    empty_rows = np.zeros((1, R1), np.uint32)
+    f = index.minimizer_mphf
+    sb = status.astype(np.uint32) | (b.astype(np.uint32) << 2)
 
     heavym = status == 2
-    c0rows = fused_rows(np.where(heavym, 0, cand0.astype(np.int64)).astype(np.uint32))
+    c0rows = rows(np.where(heavym, 0, cand0))
+    # a heavy codeword's a is its bucket's begin in heavy_load_buckets
     c0rows[heavym, 1:] = 0
     c0rows[heavym, 0] = cand0[heavym]
-    cols = [sb, a.astype(np.uint32)] + [c0rows[:, i] for i in range(R1)]
+    cols = [sb, (a & 0xFFFFFFFF).astype(np.uint32)] + [c0rows[:, i] for i in range(R1)]
     c1rows = None
-    if use_c1(index):
+    if cfg.c1_in_row:
         has2 = mid & (b >= 2)
         cand1 = np.zeros_like(cand0)
         if len(mid_arr):
-            cand1 = np.where(has2, mid_arr[np.clip(a.astype(np.int64) + 1, 0,
-                                                   len(mid_arr) - 1)],
-                             np.uint32(0))
-        c1rows = fused_rows(cand1)
+            cand1 = np.where(has2, mid_arr[np.clip(a + 1, 0, len(mid_arr) - 1)], 0)
+        c1rows = rows(cand1)
         c1rows[~has2, :] = 0
         cols += [c1rows[:, i] for i in range(R1)]
     # column by column into a preallocated table: a stacked copy would
@@ -366,28 +425,16 @@ def device_arrays(index):
     for j in range(1, len(cols)):
         cw_row[:, j] = _expand_to_slots(cols[j], f)
     del cols, c0rows, c1rows
-    empty_rows = np.zeros((1, R1), np.uint32)
-    arrs = {
-        "strings32": s32,
-        "vstart32": _vstart_words(vstart, len(s32)),
-        "sidk32": sidk32,
-        "kmer_cum": kmer_cum32,
-        "acc_rows": acc_rows(sidk32, kmer_cum32, access_C(index), s32, k),
-        "cw_row": cw_row,
-        "mid_rows": fused_rows(mid_arr) if len(mid_arr) else empty_rows,
-        "pilots": _nz(_pack_pilots(_pilots_u32(f), pilot_width(f))),
-    }
+    arrs = {"cw_row": cw_row,
+            "mid_rows": rows(mid_arr) if len(mid_arr) else empty_rows,
+            "pilots": _nz(_pack_pilots(_pilots_u32(f), pilot_width(f)))}
     if isinstance(f, PartitionedMPHF):
         arrs["mphf_seedrows"] = _seedrows(f.seedmixes())
 
-    # skew size classes: concatenated pilots and hindex-keyed heavy rows,
-    # plus 8 per-class parameter slots
-    heavy_arr = np.asarray(index.heavy_load_buckets).astype(np.uint32)
-    use_hrows = (len(heavy_arr) > 0 and len(index.skew_partitions) > 0
-                 and all(p.hindex is not None for p in index.skew_partitions))
-    use_part_skew = any(p.mphf.n > 0 for p in index.skew_partitions)
+    # skew size classes: concatenated pilots, 8 per-class parameter slots,
+    # and per slot either an hindex-keyed heavy row (sk_hrows) or, for the
+    # legacy classes, the kmer's position in its bucket (sk_positions)
     parts = index.skew_partitions[:NUM_SKEW]
-    sk_w = max([pilot_width(p.mphf) for p in parts], default=32)
     params = {name: np.zeros(NUM_SKEW, dtype=np.uint32) for name in SKEW_PARAMS}
     params["nbuckets"][:] = 1
     params["table"][:] = 1
@@ -400,7 +447,7 @@ def device_arrays(index):
         params["seedmix_lo"][i] = smix & 0xFFFFFFFF
         params["pilot_off"][i] = sum(len(x) for x in sk_pilots)
         params["pos_off"][i] = sum(len(x) for x in sk_aux)
-        if use_part_skew:
+        if cfg.skew_partitioned:
             params["seed_off"][i] = sum(len(x) for x in sk_seedrows)
             if isinstance(fp, PartitionedMPHF):
                 params["table"][i] = max(1, fp.part_table)
@@ -412,19 +459,53 @@ def device_arrays(index):
         else:
             params["table"][i] = max(1, fp.table_size)
             params["nbuckets"][i] = fp.num_buckets
-        sk_pilots.append(_pack_pilots(_pilots_u32(fp), sk_w))
-        sk_aux.append(_expand_to_slots(part.hindex if use_hrows else part.positions, fp))
-    if use_part_skew:
+        sk_pilots.append(_pack_pilots(_pilots_u32(fp), cfg.sk_pilot_w))
+        sk_aux.append(_expand_to_slots(part.hindex if cfg.skew_hrows else part.positions, fp))
+    if cfg.skew_partitioned:
         arrs["sk_seedrows"] = (np.concatenate(sk_seedrows) if sk_seedrows
                                else np.zeros((1, 2), np.uint32))
-    arrs["sk_pilots"] = _nz(np.concatenate(sk_pilots) if sk_pilots
-                            else np.zeros(0, np.uint32))
-    if use_hrows:
-        allh = np.concatenate(sk_aux) if sk_aux else np.zeros(0, np.uint32)
+    arrs["sk_pilots"] = _nz(np.concatenate(sk_pilots) if sk_pilots else np.zeros(0, np.uint32))
+    allh = np.concatenate(sk_aux) if sk_aux else np.zeros(0, np.uint32)
+    if cfg.skew_hrows:
         gidx = np.clip(allh.astype(np.int64), 0, max(0, len(heavy_arr) - 1))
-        arrs["sk_hrows"] = fused_rows(heavy_arr[gidx]) if len(allh) else empty_rows
+        arrs["sk_hrows"] = rows(heavy_arr[gidx]) if len(allh) else empty_rows
+    else:
+        arrs["heavy_rows"] = rows(heavy_arr) if len(heavy_arr) else empty_rows
+        arrs["sk_positions"] = _nz(allh)
     for name, v in params.items():
         arrs[f"sk_{name}"] = v
+    return arrs
+
+
+def device_arrays(index, row_format=None):
+    """Host Index -> dict of numpy uint32 tables (see module doc), in the
+    row format StaticCfg(index, row_format) picks."""
+    cfg = StaticCfg(index, row_format)
+    k, m = index.k, index.m
+    # valid-start bits: a kmer may start at char offset o iff o+k <= the end
+    # of o's string
+    ep = index.string_endpoints.astype(np.int64)
+    delta = np.zeros(index.num_chars + 1, dtype=np.int32)
+    np.add.at(delta, ep[:-1], 1)
+    np.add.at(delta, ep[1:] - (k - 1), -1)
+    vstart = np.cumsum(delta[:-1]) > 0
+    del delta
+    kmer_cum64 = ep - np.arange(len(ep)) * (k - 1)
+    nkb = (index.num_kmers + 31) // 32 + 1
+    sidk32 = (np.searchsorted(kmer_cum64, np.arange(nkb, dtype=np.int64) * 32,
+                              side="right") - 1).astype(np.uint32)
+    kmer_cum32 = kmer_cum64.astype(np.uint32)
+    s32 = K.pack_words_to_u32(index.strings64)
+    arrs = {
+        "strings32": s32,
+        "vstart32": _vstart_words(vstart, len(s32)),
+        "sidk32": sidk32,
+        "kmer_cum": kmer_cum32,
+        "acc_rows": acc_rows(sidk32, kmer_cum32, cfg.access_C, s32, k),
+    }
+    del vstart
+    arrs.update(lookup_tables(index, cfg,
+                              lambda dpos: fused_rows(dpos, s32, ep, k, m, cfg.row_v2)))
     w = index.weights
     if w is not None:  # check_supported refuses weights that u32 would wrap
         arrs["w_value_ids"] = w.interval_value_ids.astype(np.uint32)
@@ -451,14 +532,17 @@ def take_rows(table, idx):
 def tables_from_host(host_arrs, device):
     """The kernels' tables as int32 tensors (the u32 bits) on `device`, from
     this module's device_arrays or the JAX package's _device_arrays dict
-    (or its .npy cache, completed by with_access_tables). Optional lookup
-    tables missing from the dict get one zero row, the eight sk_* parameter
-    vectors become one (8, 8) `sk_params` table in SKEW_PARAMS order, and
-    the weight tables come along when the dict has them."""
+    (or its .npy cache, completed by with_access_tables), in either row
+    format and either skew form. Optional lookup tables missing from the
+    dict get one zero row, the eight sk_* parameter vectors become one
+    (8, 8) `sk_params` table in SKEW_PARAMS order, and the weight tables
+    come along when the dict has them."""
     R1 = host_arrs["mid_rows"].shape[1]
     fill = {"mphf_seedrows": np.zeros((1, 2), np.uint32),
             "sk_seedrows": np.zeros((1, 2), np.uint32),
-            "sk_hrows": np.zeros((1, R1), np.uint32)}
+            "sk_hrows": np.zeros((1, R1), np.uint32),
+            "heavy_rows": np.zeros((1, R1), np.uint32),
+            "sk_positions": np.zeros(1, np.uint32)}
     host = {name: host_arrs.get(name, fill.get(name))
             for name in LOOKUP_KEYS + OPTIONAL_KEYS}
     host["sk_params"] = np.stack([host_arrs[f"sk_{p}"] for p in SKEW_PARAMS])

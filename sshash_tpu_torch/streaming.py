@@ -594,6 +594,17 @@ def packed_offsets(P, R):
     return 2, o1, o2, o2 + P // 32 + 1
 
 
+def check_streamable(cfg):
+    """Streaming reads string bounds (the chain's in-string test) and char
+    offsets, which rebased (v2) rows do not carry: raise on a v2 engine, as
+    the JAX package does."""
+    if cfg.row_v2:
+        raise ValueError("streaming needs full lookup fields (string bounds for the "
+                         "chain-extension in-string test) and char-offset cursors; rebased "
+                         "v2-row indexes (>= 2^32 chars) serve point queries only - shard the "
+                         "input into < 2^32-char sub-indexes to stream")
+
+
 def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, runskip=None):
     """The per-chunk step on one packed int32 buffer (u32 bits) at the
     offsets of the JAX package's step_packed (step_packed_av when
@@ -610,6 +621,7 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
     fn(tables, packed, stats=None): a dict passed as stats receives, as
     device tensors, the lanes that missed their chain ("need"), the lookup
     heads ("heads") and the round-2 lanes ("round2")."""
+    check_streamable(cfg)
     if P % 32 or P < 32:
         raise ValueError(f"P={P} must be a positive multiple of 32")
     A = P // S
@@ -661,6 +673,7 @@ class _DeviceStream:
     into exact-P segments with a k-1 overlap."""
 
     def __init__(self, engine, k, pmax=1 << 22, rmax_shift=4, runskip=None):
+        check_streamable(engine.cfg)
         self.engine = engine
         self.k = k
         self.P = pmax

@@ -13,6 +13,7 @@ ECOLI_SAKAI_MEAN_RUN; the small weighted configuration uses short runs so
 that its tests cross many run edges.
 """
 
+import dataclasses
 import os
 import tempfile
 
@@ -22,6 +23,9 @@ from . import hashing as H
 from . import kmer as K
 from . import oracle
 from .builder.build import BuildConfig, build
+from .layout import cand_block_width
+from .mphf import MPHF
+from .ops import u64 as u
 
 # code -> char under the index's 2-bit map (kmer.NUCLEOTIDES)
 _CHARS = np.frombuffer(b"ACTG", dtype=np.uint8)
@@ -147,15 +151,76 @@ def path_kmer_ids(idx, rng, n):
     """Up to n ids of kmers whose minimizer bucket holds 2+ positions or is
     heavy (the lanes that reach candidate 1, the sweep or the skew index)."""
     ids = np.arange(idx.num_kmers)
-    km = oracle.access(idx, ids)
+    status, _, size, _ = oracle._decode_codewords(
+        idx, bucket_minimizers(idx, oracle.access(idx, ids)))
+    sel = ids[(status == 2) | (size >= 2)]
+    return rng.choice(sel, min(n, len(sel)), replace=False)
+
+
+def bucket_minimizers(idx, km):
+    """The minimizer whose bucket each kmer's lookup probes (the smaller of
+    both strands' in a canonical index)."""
     magic = H.mixer_magic(idx.seed)
     mv, _ = oracle.compute_minimizer(km, idx.k, idx.m, magic)
     if idx.canonical:
         mr, _ = oracle.compute_minimizer(K.revcomp_kmers(km, idx.k), idx.k, idx.m, magic)
         mv = np.minimum(mv, mr)
-    status, _, size, _ = oracle._decode_codewords(idx, mv)
-    sel = ids[(status == 2) | (size >= 2)]
-    return rng.choice(sel, min(n, len(sel)), replace=False)
+    return mv
+
+
+def legacy_skew(idx, plain_mphf=False):
+    """A copy of a v1.2+ index in a pre-v1.2 skew form: every skew class
+    loses hindex (heavy lanes then resolve slot -> position in the bucket
+    -> heavy row). With plain_mphf each non-empty class is also rebuilt as
+    a plain MPHF over its canonical heavy kmers, found with the oracle as
+    path_kmer_ids finds them, its positions re-keyed so that
+    new[new_slot(kmer)] = old[old_slot(kmer)]."""
+    parts = [dataclasses.replace(p, hindex=None) for p in idx.skew_partitions]
+    if plain_mphf and any(p.mphf.n for p in parts):
+        km = oracle.access(idx, np.arange(idx.num_kmers))
+        status, _, _, pid = oracle._decode_codewords(idx, bucket_minimizers(idx, km))
+        if idx.canonical:
+            rc = K.revcomp_kmers(km, idx.k)
+            km = np.where(oracle._kmer_less_mask(rc, km)[:, None], rc, km)
+        words = K.kmers_to_u32(km, idx.k)
+        for i, p in enumerate(parts):
+            if p.mphf.n == 0:
+                continue
+            keys = words[(status == 2) & (pid == i)]
+            old = p.mphf.eval_words(keys)
+            if len(keys) != p.mphf.n or len(np.unique(old)) != p.mphf.n:
+                raise ValueError(f"skew class {i}: {len(keys)} heavy kmers found for "
+                                 f"{p.mphf.n} keys")
+            f = MPHF.build_words(keys, seed=idx.seed + 1000 + i)
+            positions = np.zeros(p.mphf.n, dtype=np.uint32)
+            positions[f.eval_words(keys)] = p.positions[old]
+            parts[i] = dataclasses.replace(p, mphf=f, positions=positions)
+    return dataclasses.replace(idx, skew_partitions=parts)
+
+
+def rebase_ids(cfg, tables, base):
+    """A copy of a v2 engine's tables (layout.tables_from_host) with `base`
+    added, mod 2^32, to every candidate block's kid0: each kmer the tables
+    find then comes back as its id + base mod 2^32, so ids at and above
+    2^31 run through the probe without an index of that size. Tensors not
+    changed are shared."""
+    if not cfg.row_v2:
+        raise ValueError("kid0 exists in v2 rows only")
+    R1 = cand_block_width(cfg)
+    kid0 = 1 + cfg.vbits_words + cfg.win_words
+
+    def shifted(t, cols):
+        t = t.clone()
+        for c in cols:
+            t[:, c] = u.to_i32((u.u32(t[:, c]) + base) & u.M32)
+        return t
+
+    out = dict(tables)
+    out["cw_row"] = shifted(tables["cw_row"],
+                            [2 + kid0 + j * R1 for j in range(2 if cfg.c1_in_row else 1)])
+    for name in ("mid_rows", "sk_hrows", "heavy_rows"):
+        out[name] = shifted(tables[name], [kid0])
+    return out
 
 
 _RC = bytes.maketrans(b"ACGT", b"TGCA")

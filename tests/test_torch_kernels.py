@@ -100,6 +100,56 @@ def test_point_query_kernels_equal_plain_on_card(card, name, tmp_path):
         assert after[kern] > before[kern], kern
 
 
+BASE = (1 << 31) + 12345  # rebase_ids: every found id lands at or above 2^31
+
+
+def _probe_args(cfg, kt):
+    mv, mp, rc, mv_r, mp_r = P.minimizer_plain(kt, cfg.k, cfg.m, cfg.magic, both=True)
+    return (rc, *canonical_fold(mv, mp, mv_r, mp_r)) if cfg.canonical else (None, mv, mp, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m3_skew", "m3_skew_canonical", "partitioned", "k63"])
+@pytest.mark.parametrize("form", ["v2", "legacy", "legacy_plain_mphf"])
+def test_probe_variants_equal_plain_on_card(card, name, form, tmp_path):
+    """Kernel 2 in v2 rows and in both legacy skew forms (hindex dropped;
+    also plain class MPHFs) equals its plain version and the oracle; in v2,
+    tables whose kid0 is rebased by BASE give every found id + BASE mod
+    2^32 from both, and 0xFFFFFFFF on every miss."""
+    idx = synthetic.small_index(name)
+    v1 = TorchEngine(idx, card)
+    if form == "v2":
+        eng = TorchEngine(idx, card, row_format="v2")
+    else:
+        idx = synthetic.legacy_skew(idx, plain_mphf=form == "legacy_plain_mphf")
+        eng = TorchEngine(idx, card)
+    cfg = eng.cfg
+    q, _ = synthetic.query_batch(idx)
+    kt = eng.kmers32(q)
+    args = _probe_args(cfg, kt)
+    active = torch.from_numpy(np.random.default_rng(5).random(kt.shape[0]) < 0.9).to(card)
+    for fields in ("ids",) if cfg.row_v2 else ("full", "ids"):
+        g = probe(cfg, eng.tables, kt, *args, active, fields)
+        w = probe_plain(cfg, eng.tables, kt, *args, active, fields)
+        assert g.keys() == w.keys()
+        for key in w:
+            assert torch.equal(g[key], w[key]), key
+    host, want = eng.lookup(q), oracle.lookup(jax_index(idx, tmp_path), q)
+    assert set(host) == ({"kmer_id", "kmer_orientation", "minimizer_found"} if cfg.row_v2
+                         else set(want))
+    for key in host:
+        assert np.array_equal(host[key], want[key]), key
+    if cfg.row_v2:
+        ref = probe(v1.cfg, v1.tables, kt, *args, None, "ids")
+        expect = torch.where(ref["found"], (ref["kmer_id"].to(torch.int64) + BASE) & 0xFFFFFFFF,
+                             0xFFFFFFFF)
+        hi = synthetic.rebase_ids(cfg, eng.tables, BASE)
+        for fn in (probe, probe_plain):
+            got = fn(cfg, hi, kt, *args, None, "ids")
+            assert torch.equal(got["kmer_id"].to(torch.int64) & 0xFFFFFFFF, expect)
+            assert torch.equal(got["found"], ref["found"])
+
+
 def _rows_equal(got, want):
     g, w = got.cpu().numpy().view(np.uint32), want.cpu().numpy().view(np.uint32)
     assert np.array_equal(g[0], w[0])

@@ -11,13 +11,17 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 from sshash_tpu import oracle
 from sshash_tpu.engine import StaticCfg as JaxCfg
 from sshash_tpu.engine import _device_arrays, vstart32_from_index
 from sshash_tpu.engine import row_width as jax_row_width
-from sshash_tpu_torch import TorchEngine, synthetic, to_device
+from sshash_tpu_torch import TorchEngine, kernels, synthetic, to_device
+from sshash_tpu_torch import engine as E
 from sshash_tpu_torch import layout as L
+from sshash_tpu_torch import streaming as ST
+from sshash_tpu_torch.ops import packed as P
 from sshash_tpu_torch.layout import (ACCESS_KEYS, LOOKUP_KEYS, OPTIONAL_KEYS, SKEW_PARAMS,
                                      WEIGHT_KEYS, StaticCfg, device_arrays, row_width,
                                      tables_from_host)
@@ -27,7 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEOMETRY = ("k", "m", "canonical", "W", "kmw", "win_words", "vbits_words",
             "max_start_word", "quad_w", "magic", "c1_in_row", "mphf_partitioned",
             "mphf_table", "mphf_nbuckets", "mphf_seedmix", "pilot_w", "sk_pilot_w",
-            "has_skew", "access_C")
+            "has_skew", "access_C", "row_v2", "num_chars", "skew_hrows", "skew_partitioned")
 
 
 @pytest.fixture(scope="module", params=sorted(synthetic.SMALL_CONFIGS))
@@ -51,7 +55,7 @@ def test_device_arrays_equal_jax(built):
     cfg, jcfg = StaticCfg(idx), JaxCfg(jax_index(idx))
     for attr in GEOMETRY:
         assert getattr(cfg, attr) == getattr(jcfg, attr), attr
-    assert cfg.has_skew == jcfg.skew_hrows == jcfg.skew_partitioned
+    assert cfg.has_skew == cfg.skew_hrows == cfg.skew_partitioned
     if cfg.mphf_partitioned:
         for attr in ("mphf_P", "mphf_part_table", "mphf_part_buckets"):
             assert getattr(cfg, attr) == getattr(jcfg, attr), attr
@@ -113,24 +117,60 @@ def test_refuses_weights_that_would_wrap():
     assert StaticCfg(dataclasses.replace(idx, weights=ok)).weighted
 
 
-def test_refuses_formats_it_does_not_serve(monkeypatch):
+def test_refuses_formats_it_does_not_serve(monkeypatch, tmp_path):
+    """The port raises where the JAX package raises: k > 63, >= 2^32-1
+    kmers (ids are u32 with 0xFFFFFFFF as the sentinel), v1 rows at >=
+    2^32 chars, full lookup fields and streaming on v2 rows, and the
+    two-round access form at >= 2^32 chars."""
     idx = synthetic.small_index("m3_skew")
-    with pytest.raises(ValueError, match="v2"):
-        StaticCfg(dataclasses.replace(idx, num_chars=1 << 32))
-    with pytest.raises(ValueError, match="wide ids"):
-        StaticCfg(dataclasses.replace(idx, num_kmers=1 << 31))
-    legacy = [dataclasses.replace(p, hindex=None) for p in idx.skew_partitions]
-    with pytest.raises(ValueError, match="hindex"):
-        TorchEngine(dataclasses.replace(idx, skew_partitions=legacy), "cpu")
     with pytest.raises(ValueError, match="k <= 63"):
         StaticCfg(synthetic.build_index(k=65, m=21, canonical=False, num_strings=4,
                                         string_len=100, seed=1))
-    # rebased (v2) rows from the JAX package are refused as a table source
+    with pytest.raises(ValueError, match="2\\^32-1"):
+        StaticCfg(dataclasses.replace(idx, num_kmers=(1 << 32) - 1))
+    assert not StaticCfg(dataclasses.replace(idx, num_kmers=(1 << 32) - 2)).row_v2
+    big = dataclasses.replace(idx, num_chars=1 << 32)
+    assert StaticCfg(big).row_v2 and StaticCfg(big, "v2").row_v2
+    with pytest.raises(ValueError, match="row_format='v1'"):
+        StaticCfg(big, "v1")
+    with pytest.raises(ValueError, match="row_format"):
+        StaticCfg(idx, "v3")
+    # v2 rows carry no string bounds: full fields raise, as in JAX
+    eng = TorchEngine(idx, "cpu", row_format="v2")
+    kt = eng.kmers32(oracle.access(idx, np.arange(8)))
+    for make in (E.make_lookup, E.make_neighbours):
+        with pytest.raises(ValueError, match="fields='ids'"):
+            make(eng.cfg, "full")
+    with pytest.raises(ValueError, match="fields='ids'"):
+        kernels.probe_kernel(eng.cfg, eng.tables, kt, None, None, None)
+    mv, mp = P.minimizer_plain(kt, idx.k, idx.m, eng.cfg.magic)
+    with pytest.raises(ValueError, match="fields='ids'"):
+        E.probe_plain(eng.cfg, eng.tables, kt, None, mv, mp)
+    # ... and streaming raises on them
+    path = str(tmp_path / "reads.fq")
+    synthetic.write_reads(path, synthetic.index_strings(idx)[:2])
+    with pytest.raises(ValueError, match="streaming needs full lookup fields"):
+        ST.streaming_query_from_file(eng, path, device="cpu")
+    with pytest.raises(ValueError, match="streaming needs full lookup fields"):
+        ST.make_stream_step(eng.cfg, 1 << 16, 16, 1 << 14, eng._lookup_ids)
+    # the two-round access form would read strings32 at wrapped offsets
+    short = synthetic.small_index("short_strings")
+    tables = TorchEngine(short, "cpu").tables
+    ids = torch.arange(short.num_kmers, dtype=torch.int32)
+    huge = StaticCfg(dataclasses.replace(short, num_chars=1 << 32))
+    for fn in (E.access_plain, kernels.access_kernel):
+        with pytest.raises(ValueError, match="windowed row form"):
+            fn(huge, tables, ids)
+    # the windowed form stays exact through u32 wrap-around, so it serves
+    assert torch.equal(E.access_plain(StaticCfg(big), eng.tables, ids[:64]),
+                       E.access_plain(eng.cfg, eng.tables, ids[:64]))
+    # a v2 table dict from the JAX package is stale for a v1 engine
     monkeypatch.setenv("SSHASH_ROW_V2", "1")
     v2 = _device_arrays(jax_index(idx))
     monkeypatch.delenv("SSHASH_ROW_V2")
     with pytest.raises(ValueError, match="v1 rows"):
         TorchEngine(idx, "cpu", host_arrs=v2)
+    assert TorchEngine(idx, "cpu", host_arrs=v2, row_format="v2").cfg.row_v2
 
 
 def test_runs_with_jax_blocked():
