@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card, batched k-mer
 lookup first, then access, iteration, weight, navigation, streaming
-membership over reads, and the capacity formats (legacy skew indexes,
-rebased v2 rows, ids above 2^31), and check them end to end.
+membership over reads, the capacity formats (legacy skew indexes, rebased
+v2 rows, ids above 2^31) and the bucket-sharded engine, and check them end
+to end.
 
     python3 chip_smoke.py
 
@@ -73,18 +74,38 @@ line):
      rebased by 2^31 + 12345 give every found id + that base mod 2^32 and
      every miss 0xFFFFFFFF from kernel 2 and its plain version; lookup and
      kernel 2 in v1 and v2 timed in turns, table bytes per kmer of each
+ 12. the bucket-sharded engine (parallel/), every shard on this card in a
+     LocalMesh: on phase 4's 5M indexes in shapes (1, 4) and (2, 2), 2^23
+     positives and 2^20 random kmers equal TorchEngine's lookup in every
+     field, access of 2^23 ids, navigation of 2^20 kmers and weight of 2^23
+     ids (phase 8's weighted build) equal the unsharded engine's, the
+     per-position stream report over 2^20 positions (reads straddling the
+     data rows) equals derive_report, and ShardedStream on phase 10's
+     low-hit and mixed reads equals its host _Batcher reports; on phase 5's
+     1M planted indexes (hindex, and both legacy forms) every field equals
+     the unsharded engine's, with the heavy lanes handed to another shard
+     counted (> 0); on phase 7's 200M index in (1, 4) 2^24 lanes equal the
+     unsharded ids, with shard_tables' host time, per-shard table bytes,
+     the sharded and unsharded lookups in turns, kernel 2 per shard against
+     its bound and the combine; the 5M lookup on one NCCL rank
+     (DistMesh((1, 1))) equals LocalMesh((1, 1)). Kernel 2 (both hand-off
+     passes), access, weight, the chain given windows and the window read
+     equal their plain versions on every shard.
   Each path's launch counts are set to 0 just before it and read just
   after; every kernel of the path must have launched.
- 12. one JSON line of per-source results (launches, max |err|, ms, plain ms,
+ 13. one JSON line of per-source results (launches, max |err|, ms, plain ms,
      bound ms and what bounds it, library-call ms; kernel 2 once per
-     variant: v1, v2 rows, legacy skew), then the ok line.
+     variant: v1, v2 rows, legacy skew; the sharded rows of kernel 2,
+     access, weight and the chain), then the ok line.
 
 Data is random, drawn from fixed seeds. Nothing here imports JAX or the
 JAX package (sshash_tpu): a finder refuses both.
 """
 
+import functools
 import importlib.abc
 import json
+import socket
 import subprocess
 import sys
 import tempfile
@@ -118,6 +139,9 @@ from sshash_tpu_torch.layout import (acc_width, acc_windowed, cand_block_width, 
                                      device_arrays, row_width, take_rows)
 from sshash_tpu_torch.ops import packed as P  # noqa: E402
 from sshash_tpu_torch.ops import u64 as u  # noqa: E402
+from sshash_tpu_torch.parallel import (DistMesh, LocalMesh, ShardedEngine,  # noqa: E402
+                                       ShardedStream)
+from sshash_tpu_torch.parallel.sharded import _pack, _unpack  # noqa: E402
 
 INVALID = np.uint64(2 ** 64 - 1)
 REPS = 7
@@ -511,7 +535,19 @@ def phase_paths(dev):
     return built
 
 
-def probe_bytes(cfg, tables, kt, args, fields="ids"):
+def access_bytes(cfg, ids, shard=None):
+    """Bytes the windowed access form must move for the (B,) ids: per lane
+    its id in and its kmer out, and each distinct access row the lanes read,
+    once (with shard, a layout.AccessShard, only the rows of its blocks)."""
+    require(acc_windowed(cfg.k, cfg.access_C), "access_bytes counts the windowed form")
+    blk = u.u32(ids) >> 5
+    if shard is not None:
+        blk = blk[(blk >= shard.blk_lo) & (blk < shard.blk_hi)]
+    rows = int(torch.unique(blk).numel())
+    return ids.shape[0] * (4 + 4 * cfg.W) + rows * 4 * acc_width(cfg)
+
+
+def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None):
     """Bytes kernel 2 must move on these lanes (kt and probe_args' args),
     each input read once: per lane its kmer (and reverse complement),
     minimizer and position tries in and the result fields out; of the
@@ -519,7 +555,10 @@ def probe_bytes(cfg, tables, kt, args, fields="ids"):
     for heavy lanes, skew slots (the legacy path's sk_positions) and
     candidate blocks; pilot and seed words one a lane, capped at their
     table's size. Rows of mid buckets past the fused row (a few lanes) are
-    not counted: a lower bound."""
+    not counted: a lower bound. With shard (a ProbeShard, tables the
+    shard's), only the lanes whose slot the shard holds read a fused row;
+    in an hindex index their heavy lanes write their row instead of
+    reading it (the hand-off's first pass)."""
     B, canon = kt.shape[0], 2 if cfg.canonical else 1
     nb = lambda name: tables[name].numel() * tables[name].element_size()  # noqa: E731
 
@@ -530,25 +569,32 @@ def probe_bytes(cfg, tables, kt, args, fields="ids"):
     total += min(4 * B, nb("pilots"))
     total += min(8 * B, nb("mphf_seedrows")) if cfg.mphf_partitioned else 0
     slot = E.mphf_eval_minimizer(cfg, tables, u.from_i64(args[1]))
+    sel = torch.arange(B, device=kt.device)
+    if shard is not None:
+        sel = ((slot >= shard.slot_lo) & (slot < shard.slot_hi)).nonzero()[:, 0]
+        slot = slot[sel] - shard.slot_lo
     total += distinct(slot, "cw_row") * 4 * row_width(cfg)
     if not cfg.has_skew:
         return total
     head = take_rows(tables["cw_row"][:, :2], slot)  # (status | class << 2, cw_a)
-    lanes = ((head[:, 0] & 3) == 2).nonzero()[:, 0]
+    heavy = (head[:, 0] & 3) == 2
+    lanes = sel[heavy]
     nh = lanes.numel()
     km = u.u32(kt[lanes])
     if args[0] is not None:
         kr = u.u32(args[0][lanes])
         km = torch.where(P.kmer_less(kr, km)[:, None], kr, km)
-    cls = head[lanes, 0] >> 2
+    cls = head[heavy, 0] >> 2
     hidx = (E._skew_param(tables, "pos_off", cls) + E.skew_slot(cfg, tables, km, cls)) & M32
     total += nb("sk_params") + min(4 * nh, nb("sk_pilots"))
     total += min(8 * nh, nb("sk_seedrows")) if cfg.skew_partitioned else 0
+    if shard is not None and cfg.skew_hrows:
+        return total + 4 * B  # the rows handed on
     if cfg.skew_hrows:
         blocks = distinct(hidx, "sk_hrows")
     else:
         total += 4 * distinct(hidx, "sk_positions")
-        blocks = distinct((head[lanes, 1] + take_rows(tables["sk_positions"], hidx)) & M32,
+        blocks = distinct((head[heavy, 1] + take_rows(tables["sk_positions"], hidx)) & M32,
                           "heavy_rows")
     return total + blocks * 4 * cand_block_width(cfg)
 
@@ -627,7 +673,6 @@ def phase_scale(dev):
     t0 = time.perf_counter()
     eng = TorchEngine(idx, dev, host_arrs=host)
     torch.cuda.synchronize()
-    del host
     log(f"  tables on the card: {table_line(eng, idx)} "
         f"(upload {time.perf_counter() - t0:.1f} s), c1_in_row={eng.cfg.c1_in_row}")
     ids, km = positives(idx, rng, SCALE_B)
@@ -665,7 +710,7 @@ def phase_scale(dev):
         f"{b['minimizer.cu'][0]:.4f} ({b['minimizer.cu'][1]}) + kernel 2 {b['probe.cu'][0]:.4f} "
         f"({b['probe.cu'][1]}) + the fold's {FOLD_BYTES} bytes a lane {b['fold'][0]:.4f}")
     log(f"  peak device memory: {torch.cuda.max_memory_allocated()} bytes")
-    return per_kernel, errs, idx, eng, ids, kt, b
+    return per_kernel, errs, idx, eng, ids, kt, b, host
 
 
 def drive_access(eng, idx, ids, tag, errs, sample=None):
@@ -790,7 +835,7 @@ def phase_point_queries(dev, built, errs):
                                              lambda: E.weight_plain(eng.tables, it))
     # ids in, weights out, the weight tables read once
     per_kernel["weight_kernel"]["bytes"] = MAIN_B * 8 + eng.table_bytes()["weight"]
-    return launches, per_kernel
+    return launches, per_kernel, (idx, eng)
 
 
 def phase_scale_point_queries(idx, eng, errs):
@@ -802,6 +847,9 @@ def phase_scale_point_queries(idx, eng, errs):
                                       sample=np.sort(rng.choice(SCALE_B, SAMPLE, replace=False))))
     add_counts(launches, drive_iterator(eng, idx, "canonical", errs))
     acc, itr = time_access_iteration(eng, idx, ids, "canonical")
+    acc["bytes"] = access_bytes(eng.cfg, id_tensor(ids, eng.device))
+    log(f"  canonical: access bound {bound(acc['bytes'])[0]:.4f} ms ({acc['bytes']} bytes: ids, "
+        f"kmers and {SCALE_B} lanes' distinct access rows)")
     log(f"  peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     return launches, {"access_kernel": acc, "iterate_kernel": itr}
 
@@ -848,7 +896,10 @@ def bound(nbytes, int_ops=0):
 
 
 STREAM_SOURCES = ("scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu")
-STREAM_WRAPPERS = tuple(n for src in STREAM_SOURCES for n in kernels.SOURCE_KERNELS[src])
+# the unsharded stream's wrappers (the window read serves a bucket-sharded
+# stream only)
+STREAM_WRAPPERS = tuple(n for src in STREAM_SOURCES for n in kernels.SOURCE_KERNELS[src]
+                        if n != "stream_swin_kernel")
 LOWHIT_READS, LOWHIT_LEN, LOWHIT_TRUE = 100_000, 76, 10
 MIXED_READS, MIXED_LEN = 1 << 16, 150
 SCALE_STREAM_STRINGS = 168
@@ -1090,6 +1141,7 @@ def phase_streaming(dev, built, idx200, eng200, tmp, errs):
                                  need_runskip=True)
     add_counts(launches, c)
     check_host(idx, rep, path, False, "low-hit 5M regular")
+    read_sets = {"low-hit": ("regular", path, rep)}
     idx, eng = built["canonical"][:2]
     strings = synthetic.index_strings(idx)
     half = MIXED_READS // 2
@@ -1100,6 +1152,7 @@ def phase_streaming(dev, built, idx200, eng200, tmp, errs):
     rep, _, c, _, _ = stream_run(eng, path, False, 1 << 22, "mixed 5M canonical")
     add_counts(launches, c)
     check_host(idx, rep, path, False, "mixed 5M canonical")
+    read_sets["mixed"] = ("canonical", path, rep)
     strings = synthetic.index_strings(idx200, rng.choice(idx200.num_strings, SCALE_STREAM_STRINGS,
                                                          replace=False))
     path = f"{tmp}/genome200m.fa"
@@ -1119,7 +1172,7 @@ def phase_streaming(dev, built, idx200, eng200, tmp, errs):
     per = time_stages(eng200, packed, stream.P, stream.R, stream.CW, av, errs)
     log(f"  200M canonical, chunk 0: the four stream sources {sum(v['kernel'] for v in per.values()):.4f} ms "
         f"of the step's {dev_ms / len(chunks):.4f} ms per chunk (graph replay, mean)")
-    return launches, per
+    return launches, per, read_sets
 
 
 def raises(fn, what):
@@ -1202,34 +1255,463 @@ def phase_v2(idx, eng, ids, kt, tmp, errs):
     return launches, {"kernel": probe_ms["v2"], "plain": plain_ms, "bound": bound(nbytes)}
 
 
+SHARD_SHAPES = ((1, 4), (2, 2))
+DIST_BACKEND = "nccl"  # the one-rank DistMesh run
+STREAM_B, STREAM_READ = 1 << 20, 150  # the per-position stream report's lanes, read length
+# 5M kmers in strings of 5 (the short_strings configuration's length): up to
+# 7 strings start in a 32-id block, so access takes the two-round form
+SHORT_STRINGS, SHORT_LEN = 1_000_000, 35
+# the sharded rows of the kernels line: (source, TPU code replaced)
+SHARDED_ROWS = {"probe_sharded": ("probe.cu", "sshash_tpu/parallel/sharded.py:134"),
+                "access_sharded": ("access.cu", "sshash_tpu/parallel/sharded.py:228"),
+                "weight_sharded": ("weight.cu", "sshash_tpu/parallel/sharded.py:269"),
+                "stream_chain_sharded": ("stream_chain.cu",
+                                         "sshash_tpu/parallel/sharded.py:431")}
+
+
+def equal_fields(got, want, tag):
+    require(got.keys() == want.keys(), f"{tag}: fields differ {sorted(got)} {sorted(want)}")
+    for key in want:
+        require(torch.equal(got[key], want[key]), f"{tag}: {key} differs")
+
+
+def straddling_positions(idx, rng, B, read_len):
+    """Per-position kmers of reads of read_len walking the index's ids (the
+    read length divides no data row, so reads straddle rows), 5% of the
+    lanes random kmers, 2% invalid. Returns (kmers64, valid, first)."""
+    starts = rng.integers(0, idx.num_kmers - read_len, -(-B // read_len))
+    ids = (starts[:, None] + np.arange(read_len)).reshape(-1)[:B]
+    first = np.zeros(B, dtype=bool)
+    first[::read_len] = True
+    km = oracle.access(idx, ids)
+    noise = rng.random(B) < 0.05
+    km[noise] = synthetic.random_kmers(idx.k, rng, int(noise.sum()))
+    return km, rng.random(B) > 0.02, first
+
+
+def shard_probes_equal_plain(seng, kt, tag, errs):
+    """Kernel 2 on every bucket shard of seng equals its plain version, in
+    an hindex index in both passes of the hand-off. Returns (heavy lanes,
+    those whose sk_hrows row another shard holds)."""
+    cfg = seng.cfg
+    args = probe_args(cfg, kt, P.minimizer)
+    outs = []
+    for j, sh in enumerate(seng.probe_shards):
+        got = probe(cfg, seng.tables[j], kt, *args, None, seng.fields, shard=sh)
+        want = probe_plain(cfg, seng.tables[j], kt, *args, None, seng.fields, shard=sh)
+        err = max_abs_err([got[f] for f in want], list(want.values()))
+        errs["probe_sharded"] = max(errs["probe_sharded"], err)
+        require(err == 0 and got.keys() == want.keys(), f"{tag} shard {j}: kernel 2 != plain")
+        outs.append(got)
+    if not seng.handoff:
+        return 0, 0
+    hrow = LocalMesh((1, len(outs)), kt.device).pmin(
+        {(0, j): o["hrow"] for j, o in enumerate(outs)}, "bucket", unsigned=True)[(0, 0)]
+    for j, sh in enumerate(seng.probe_shards):
+        got = probe(cfg, seng.tables[j], kt, *args, None, seng.fields, shard=sh, hrows=hrow)
+        want = probe_plain(cfg, seng.tables[j], kt, *args, None, seng.fields, shard=sh,
+                           hrows=hrow)
+        err = max_abs_err([got[f] for f in want], list(want.values()))
+        errs["probe_sharded"] = max(errs["probe_sharded"], err)
+        require(err == 0, f"{tag} shard {j}: kernel 2's second pass != plain")
+    per_hr = seng.geometry["per_shard_hrows"]
+    heavy = moved = 0
+    for j, o in enumerate(outs):
+        h = u.u32(o["hrow"])
+        mine = h != M32
+        heavy += int(mine.sum())
+        moved += int((mine & (h // per_hr != j)).sum())
+    return heavy, moved
+
+
+def time_shards(tag, what, n, kernel, plain, nbytes, graph=False):
+    """Device ms of kernel(j) for each bucket shard j (replayed from a CUDA
+    graph with graph, for calls of tens of microseconds), the bound of each
+    (nbytes(j)), and the plain version of the slowest shard. Returns that
+    shard's {kernel, plain, bound}."""
+    ms = [(graph_ms if graph else median_ms)(functools.partial(kernel, j))
+          for j in range(len(nbytes))]
+    j = int(np.argmax(ms))
+    out = {"kernel": ms[j], "plain": median_ms(functools.partial(plain, j)),
+           "bound": bound(nbytes[j]), "shard": j}
+    log(f"  {tag}: {what} per shard{' (graph replay)' if graph else ''} "
+        f"{['%.4f' % x for x in ms]} ms for {n} lanes; bounds "
+        f"{['%.4f' % bound(b)[0] for b in nbytes]} ms; slowest shard {j}: plain "
+        f"{out['plain']:.4f} ms")
+    return out
+
+
+def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
+    log("[12] bucket-sharded engine, every shard on this card (LocalMesh): 5M in shapes "
+        f"{SHARD_SHAPES}, 1M planted (hindex and both legacy forms), 200M (1, 4), one NCCL rank")
+    rng = np.random.default_rng(12)
+    launches, timed = {}, {}
+    # ---- 5M: engines and inputs first, then every path with counts from 0
+    engines, inputs = {}, {}
+    for mode, (idx, eng, ids, km) in built.items():
+        for shape in SHARD_SHAPES:
+            t0 = time.perf_counter()
+            engines[(mode, shape)] = ShardedEngine(idx, LocalMesh(shape, dev))
+            log(f"  {mode} {shape}: sharded engine {time.perf_counter() - t0:.1f} s")
+        kt = torch.cat([eng.kmers32(km), eng.kmers32(synthetic.random_kmers(idx.k, rng, SAMPLE))])
+        skm, sv, sf = straddling_positions(idx, rng, STREAM_B, STREAM_READ)
+        inputs[mode] = (kt, id_tensor(ids, dev), eng.kmers32(skm), skm, sv, sf)
+    widx, weng = weighted
+    wids = id_tensor(rng.integers(0, widx.num_kmers, MAIN_B), dev)
+    wengines = {shape: ShardedEngine(widx, LocalMesh(shape, dev)) for shape in SHARD_SHAPES}
+    kernels.reset_counts()
+    results = {}
+    for (mode, shape), seng in engines.items():
+        kt, it, skt, _, sv, sf = inputs[mode]
+        results[(mode, shape)] = (
+            seng.lookup_device(kt), seng.access_device(it),
+            seng.kmer_neighbours_device(kt[:NAV_B]),
+            seng.stream_report_device(skt, torch.from_numpy(sv).to(dev),
+                                      torch.from_numpy(sf).to(dev)))
+    weights = {shape: w.weight_device(wids) for shape, w in wengines.items()}
+    streams = {}
+    for name, (mode, path, _) in read_sets.items():
+        for shape in SHARD_SHAPES:
+            st = ShardedStream(engines[(mode, shape)], pmax=1 << 22, rmax_shift=4)
+            for seq in ST.parse_reads(path):
+                st.add_read(seq)
+            streams[(name, shape)] = (st.finalize(), st.chunks)
+    torch.cuda.synchronize()
+    add_counts(launches, path_counts(
+        "5M sharded paths", ("minimizer_kernel", "probe_kernel", "access_kernel",
+                             "neighbours_kernel", "weight_kernel", "stream_swin_kernel")
+        + STREAM_WRAPPERS))
+    for (mode, shape), (lk, acc, nav, srep) in results.items():
+        idx, eng = built[mode][:2]
+        kt, it, skt, skm, sv, sf = inputs[mode]
+        equal_fields(lk[0], eng.lookup_device(kt), f"{mode} {shape} lookup")
+        require(int(lk[1]["num_kmers"]) == kt.shape[0]
+                and int(lk[1]["num_positive"]) == int(lk[0]["found"].sum()),
+                f"{mode} {shape}: lookup report")
+        require(torch.equal(acc, eng.access_device(it)), f"{mode} {shape}: access")
+        equal_fields(nav, eng.kmer_neighbours_device(kt[:NAV_B]), f"{mode} {shape} navigation")
+        ref = eng.lookup(skm)
+        want = ST.derive_report(ref["kmer_id"] != INVALID, ref["string_id"], ref["kmer_id"],
+                                ref["kmer_orientation"], sv, sf)
+        got = {key: int(v) for key, v in srep.items()}
+        require(got == want, f"{mode} {shape}: stream report {got} != derive_report {want}")
+        log(f"  {mode} {shape}: lookup of {kt.shape[0]} lanes ({int(lk[1]['num_positive'])} "
+            f"found) equals TorchEngine's in all {len(lk[0])} fields; access of {it.shape[0]} "
+            f"ids and navigation of {NAV_B} kmers equal it; stream report over {STREAM_B} "
+            f"positions (reads of {STREAM_READ} straddling the rows) equals derive_report: {got}")
+    for shape, w in weights.items():
+        require(torch.equal(w, weng.weight_device(wids)), f"weighted {shape}: weight")
+    log(f"  weighted {SHARD_SHAPES}: weight of {MAIN_B} ids equals TorchEngine's")
+    for (name, shape), (rep, chunks) in streams.items():
+        want = read_sets[name][2]
+        require(all(rep[key] == want[key] for key in want),
+                f"{name} {shape}: ShardedStream {rep} != host _Batcher {want}")
+        log(f"  {name} {shape}: ShardedStream over {chunks} chunks equals the host _Batcher: "
+            f"{rep}")
+    # kernel == plain at these shapes, and one shard's times (5M canonical, (1, 4))
+    idx, eng = built["canonical"][:2]
+    seng = engines[("canonical", (1, 4))]
+    cfg, it = seng.cfg, inputs["canonical"][1]
+    for j, sh in enumerate(seng.access_shards):
+        err = max_abs_err([E.access(cfg, seng.tables[j], it, sh)],
+                          [E.access_plain(cfg, seng.tables[j], it, sh)])
+        errs["access_sharded"] = max(errs["access_sharded"], err)
+        require(err == 0, f"access shard {j}: kernel != plain")
+        tw = wengines[(1, 4)]
+        err = max_abs_err([E.weight(tw.tables[j], wids, owned=True)],
+                          [E.weight_plain(tw.tables[j], wids, owned=True)])
+        errs["weight_sharded"] = max(errs["weight_sharded"], err)
+        require(err == 0, f"weight shard {j}: kernel != plain")
+    timed["access_sharded"] = time_shards(
+        "canonical 5M (1, 4)", "access", it.shape[0],
+        lambda j: E.access(cfg, seng.tables[j], it, seng.access_shards[j]),
+        lambda j: E.access_plain(cfg, seng.tables[j], it, seng.access_shards[j]),
+        [access_bytes(cfg, it, sh) for sh in seng.access_shards], graph=True)
+    j = timed["access_sharded"]["shard"]
+    time_turns("canonical 5M", "access", it.shape[0],
+               lambda: E.access(cfg, seng.tables[j], it, seng.access_shards[j]),
+               lambda: eng.access_device(it), sides=(f"shard {j} of 4", "unsharded"),
+               graph=(f"shard {j} of 4", "unsharded"))
+    tw = wengines[(1, 4)]
+    timed["weight_sharded"] = time_shards(
+        "weighted 5M (1, 4)", "weight", MAIN_B,
+        lambda j: E.weight(tw.tables[j], wids, owned=True),
+        lambda j: E.weight_plain(tw.tables[j], wids, owned=True),
+        [MAIN_B * 8 + sum(tw.tables[j][n].numel() * 4 for n in
+                          ("w_endpoints", "w_value_ids", "w_dictionary")) for j in range(4)],
+        graph=True)
+    # one shard's weight against the unsharded weight, on the same ids and
+    # on them sorted: sorted, a warp's ids fall in one shard's runs or none
+    j = timed["weight_sharded"]["shard"]
+    for order, ids_ in (("random", wids), ("sorted", wids.sort().values)):
+        sides = (f"shard {j} of 4", "unsharded")
+        w = time_turns(f"weighted 5M, {order} ids", "weight", MAIN_B,
+                       lambda: E.weight(tw.tables[j], ids_, owned=True),
+                       lambda: weng.weight_device(ids_), sides=sides, graph=sides)
+        log(f"  weighted 5M, {order} ids: one shard / unsharded "
+            f"{w[sides[0]] / w[sides[1]]:.4f}")
+    timed["stream_chain_sharded"] = time_sharded_chain(seng, read_sets["mixed"][1], errs)
+    del results, weights, wengines
+    add_counts(launches, sharded_two_round_access(dev, rng, errs))
+    # ---- 1M planted: hindex and both legacy forms
+    for mode, (idx, eng, q) in paths.items():
+        q = q[: len(q) // 2 * 2]  # rows of (2, 2)
+        kt = eng.kmers32(q)
+        ref = eng.lookup_device(kt)
+        for form in ("hindex", "no hindex", "plain class MPHFs"):
+            fidx = idx if form == "hindex" else synthetic.legacy_skew(
+                idx, plain_mphf=form == "plain class MPHFs")
+            for shape in SHARD_SHAPES:
+                seng = ShardedEngine(fidx, LocalMesh(shape, dev))
+                require(seng.handoff == (form == "hindex"), f"{mode} {form}: hand-off")
+                kernels.reset_counts()
+                got = seng.lookup_device(kt)[0]
+                add_counts(launches, path_counts(f"1M {mode} {form} {shape} sharded lookup",
+                                                 ("minimizer_kernel", "probe_kernel")))
+                equal_fields(got, ref, f"1M {mode} {form} {shape}")
+            heavy, moved = shard_probes_equal_plain(seng, kt, f"1M {mode} {form}", errs)
+            if form == "hindex":
+                require(moved > 0, f"1M {mode}: no heavy lane's row is another shard's")
+            log(f"  1M {mode} {form}: {len(q)} lanes equal TorchEngine's in all {len(ref)} "
+                f"fields in shapes {SHARD_SHAPES}; kernel 2 == plain on every (2, 2) shard"
+                + (f"; {heavy} heavy lanes handed on, {moved} of them to another shard"
+                   if form == "hindex" else ""))
+    # ---- 200M canonical, (1, 4)
+    idx, eng, ids, kt, host = scale
+    t0 = time.perf_counter()
+    seng = ShardedEngine(idx, LocalMesh((1, 4), dev), host_arrs=host)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cfg = seng.cfg
+    kernels.reset_counts()
+    res = seng.lookup_ids_device(kt)
+    add_counts(launches, path_counts("200M (1, 4) sharded lookup",
+                                     ("minimizer_kernel", "probe_kernel")))
+    require(torch.equal(res["kmer_id"], id_tensor(ids, dev)), "200M sharded: an id did not "
+            "round-trip")
+    equal_fields(res, eng.lookup_ids_device(kt), "200M sharded")
+    tb = seng.table_bytes()
+    log(f"  200M (1, 4): shard_tables {seng.shard_seconds:.1f} s on the host, upload "
+        f"{t1 - t0 - seng.shard_seconds:.1f} s; all {SCALE_B} ids round-trip and equal the "
+        f"unsharded engine's in all {len(res)} fields")
+    log(f"  200M (1, 4): table bytes per shard {[tb[j] for j in sorted(tb)]} (largest "
+        f"{max(tb.values()) / sum(tb.values()):.4f} of their sum, "
+        f"{max(tb.values()) / idx.num_kmers:.3f} B/kmer); unsharded "
+        f"{sum(eng.table_bytes().values())}; per_device_bytes {seng.per_device_bytes()}")
+    lookup = time_turns("200M canonical", "lookup (ids)", SCALE_B,
+                        lambda: seng.lookup_ids_device(kt), lambda: eng.lookup_ids_device(kt),
+                        sides=("sharded, 4 shards in turn", "unsharded"))
+    args = probe_args(cfg, kt, P.minimizer)
+    shard_probes_equal_plain(seng, kt, "200M", errs)
+    timed["probe_sharded"] = time_shards(
+        "200M canonical (1, 4)", "kernel 2 (ids)", SCALE_B,
+        lambda j: probe(cfg, seng.tables[j], kt, *args, None, "ids", shard=seng.probe_shards[j]),
+        lambda j: probe_plain(cfg, seng.tables[j], kt, *args, None, "ids",
+                              shard=seng.probe_shards[j]),
+        [probe_bytes(cfg, seng.tables[j], kt, args, shard=sh)
+         for j, sh in enumerate(seng.probe_shards)])
+    outs = {(0, j): probe(cfg, seng.tables[j], kt, *args, None, "ids", shard=sh)
+            for j, sh in enumerate(seng.probe_shards)}
+    comb = median_ms(lambda: _unpack(seng.mesh.pmin({s: _pack(o) for s, o in outs.items()},
+                                                    "bucket")[(0, 0)], "ids"))
+    # the whole sharded lookup through the plain versions, and its bound on
+    # one card: kernel 1, the 4 shards' kernel 2, the fold's glue, and the
+    # combine reading each shard's 10 result bytes a lane and writing 10
+    require(not seng.handoff, "200M: the plain sharded lookup has no hand-off pass")
+    plain = median_ms(lambda: plain_sharded_lookup(seng, kt), reps=3)
+    nbytes = [probe_bytes(cfg, seng.tables[j], kt, args, shard=sh)
+              for j, sh in enumerate(seng.probe_shards)]
+    lb = lookup_bounds(cfg, SCALE_B, sum(nbytes))
+    whole = sum(ms for ms, _ in lb.values()) + bound(SCALE_B * 10 * 5)[0]
+    timed["sharded_lookup"] = {"kernel": lookup["sharded, 4 shards in turn"], "plain": plain,
+                               "bound": whole}
+    log(f"  200M (1, 4): the sharded lookup through the plain versions {plain:.4f} ms; its "
+        f"bound on one card {whole:.4f} ms (kernel 1 {lb['minimizer.cu'][0]:.4f}, the 4 "
+        f"shards' kernel 2 {lb['probe.cu'][0]:.4f}, the fold {lb['fold'][0]:.4f}, the "
+        f"combine's bytes {bound(SCALE_B * 50)[0]:.4f})")
+    log(f"  200M (1, 4): the combine of the 4 shards' kernel 2 outputs {comb:.4f} ms; the "
+        f"slowest shard's kernel 2 {timed['probe_sharded']['kernel']:.4f} ms; the sharded lookup "
+        f"runs the 4 shards in turn: {lookup['sharded, 4 shards in turn']:.4f} ms against "
+        f"{lookup['unsharded']:.4f} unsharded")
+    timed["combine_ms"] = comb
+    del seng, outs, res
+    # ---- one NCCL rank
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(DIST_BACKEND, init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        idx, eng, _, km = built["canonical"]
+        kt = eng.kmers32(km)
+        dmesh = DistMesh((1, 1))
+        require(dmesh.device == dev, f"NCCL rank on {dmesh.device}")
+        deng, leng = ShardedEngine(idx, dmesh), ShardedEngine(idx, LocalMesh((1, 1), dev))
+        kernels.reset_counts()
+        got, grep = deng.lookup_device(kt)
+        torch.cuda.synchronize()
+        add_counts(launches, path_counts("NCCL (1, 1) sharded lookup",
+                                         ("minimizer_kernel", "probe_kernel")))
+        want, wrep = leng.lookup_device(kt)
+        equal_fields(got, want, "NCCL (1, 1)")
+        require({key: int(v) for key, v in grep.items()} == {key: int(v) for key, v in
+                                                              wrep.items()}, "NCCL report")
+        log(f"  NCCL, one rank, DistMesh((1, 1)): the 5M canonical lookup of {kt.shape[0]} "
+            f"lanes equals LocalMesh((1, 1)) in all {len(got)} fields and the report")
+    finally:
+        dist.destroy_process_group()
+    launches = {"probe_sharded": launches.get("probe_kernel", 0),
+                "access_sharded": launches.get("access_kernel", 0)
+                + launches.get("access_read_kernel", 0),
+                "weight_sharded": launches.get("weight_kernel", 0),
+                "stream_chain_sharded": launches.get("stream_chain_kernel", 0)
+                + launches.get("stream_swin_kernel", 0)}
+    return launches, timed
+
+
+def sharded_two_round_access(dev, rng, errs):
+    """The sharded two-round access form on a 5M index of short strings,
+    (1, 4): 2^23 ids equal the unsharded engine's and the oracle on a
+    sample; each shard's first round (char offsets) and second round (the
+    word owner's read) equal their plain versions. Returns the path's
+    launch counts."""
+    idx, host = build("short strings regular", k=31, m=17, canonical=False,
+                      num_strings=SHORT_STRINGS, string_len=SHORT_LEN, seed=43, threads=8)
+    eng = TorchEngine(idx, dev, host_arrs=host)
+    cfg = eng.cfg
+    require(not acc_windowed(cfg.k, cfg.access_C), f"short strings: C={cfg.access_C} is windowed")
+    seng = ShardedEngine(idx, LocalMesh((1, 4), dev), host_arrs=host)
+    ids = rng.integers(0, idx.num_kmers, MAIN_B)
+    it = id_tensor(ids, dev)
+    kernels.reset_counts()
+    acc = seng.access_device(it)
+    torch.cuda.synchronize()
+    c = path_counts("5M short strings (1, 4) sharded access", ("access_kernel",
+                                                               "access_read_kernel"))
+    require(torch.equal(acc, eng.access_device(it)), "short strings: sharded access != unsharded")
+    lanes = np.sort(rng.choice(MAIN_B, SAMPLE, replace=False))
+    want = kmer_tensor(oracle.access(idx, ids[lanes]), idx.k, dev)
+    require(torch.equal(acc[torch.from_numpy(lanes).to(dev)], want),
+            "short strings: sharded access != oracle")
+    first, read = [], []
+    for j, sh in enumerate(seng.access_shards):
+        t = seng.tables[j]
+        first.append(E.access(cfg, t, it, sh))
+        err = max_abs_err([first[-1]], [E.access_plain(cfg, t, it, sh)])
+        errs["access_sharded"] = max(errs["access_sharded"], err)
+        require(err == 0 and first[-1].dim() == 1, f"short strings shard {j}: first round")
+    off = seng.mesh.pmin({(0, j): o for j, o in enumerate(first)}, "bucket",
+                         unsigned=True)[(0, 0)]
+    for j, sh in enumerate(seng.access_shards):
+        t = seng.tables[j]
+        err = max_abs_err([E.access_read(cfg, t, off, sh)], [E.access_read_plain(cfg, t, off, sh)])
+        errs["access_sharded"] = max(errs["access_sharded"], err)
+        require(err == 0, f"short strings shard {j}: second round != plain")
+    ms1 = [graph_ms(functools.partial(E.access, cfg, seng.tables[j], it, sh))
+           for j, sh in enumerate(seng.access_shards)]
+    ms2 = [graph_ms(functools.partial(E.access_read, cfg, seng.tables[j], off, sh))
+           for j, sh in enumerate(seng.access_shards)]
+    log(f"  short strings (C={cfg.access_C}, two-round) (1, 4): access of {MAIN_B} ids equals the "
+        f"unsharded engine's, and the oracle on {SAMPLE}; both rounds kernel == plain on every "
+        f"shard; per shard (graph replay) first round {['%.4f' % x for x in ms1]} ms, second "
+        f"round {['%.4f' % x for x in ms2]} ms")
+    return c
+
+
+def plain_sharded_lookup(seng, kt):
+    """A canonical sharded lookup (ids) of an index without hand-off, all
+    through the plain versions: kernel 1's, the canonical fold, each
+    shard's kernel 2 and the combine."""
+    cfg = seng.cfg
+    mv, mp, rc, mv_r, mp_r = P.minimizer_plain(kt, cfg.k, cfg.m, cfg.magic, both=True)
+    args = (rc, *canonical_fold(mv, mp, mv_r, mp_r))
+    outs = {(0, j): _pack(probe_plain(cfg, seng.tables[j], kt, *args, None, "ids", shard=sh))
+            for j, sh in enumerate(seng.probe_shards)}
+    return _unpack(seng.mesh.pmin(outs, "bucket")[(0, 0)], "ids")
+
+
+def time_sharded_chain(seng, path, errs):
+    """The chain given string windows and each shard's window read, on the
+    first chunk of a ShardedStream over `path`: kernel == plain, device ms
+    (graph replay), bounds. Returns the chain's plus the slowest shard's
+    window read."""
+    st = ShardedStream(seng, pmax=1 << 22, rmax_shift=4)
+    st.capture = []
+    for seq in ST.parse_reads(path):
+        st.add_read(seq)
+    st.finalize()
+    av, packed = st.capture[0]
+    calls = []
+
+    def chain(*a, **kw):
+        out = ST.stream_chain(*a, **kw)
+        calls.append((a, kw, out))
+        return out
+
+    ST.make_stream_step(seng.cfg, st.P, st.R, st.CW, seng._lookup_fn(0, "full"), all_valid=av,
+                        ops=ST.KERNEL_OPS._replace(chain=chain),
+                        swin=functools.partial(st._swin, 0))(None, packed)
+    a, kw, out = calls[0]
+    ares, k = a[0], seng.cfg.k
+    A = ares["found"].shape[0]
+    err = max_abs_err(_flat(ST.stream_chain(*a, **kw)), _flat(ST.stream_chain_plain(*a, **kw)))
+    wms, wplain, wbytes = [], [], []
+    for j, sh in enumerate(seng.access_shards):
+        sargs = (ares["kmer_offset"], ares["kmer_orientation"], seng.tables[j]["strings32"], k, sh)
+        got = ST.stream_swin(*sargs)
+        err = max(err, max_abs_err([got], [ST.stream_swin_plain(*sargs)]))
+        wms.append(graph_ms(functools.partial(ST.stream_swin, *sargs)))
+        wplain.append(median_ms(functools.partial(ST.stream_swin_plain, *sargs)))
+        wbytes.append(12 * A + 8 * int((got != 0).sum()))
+    errs["stream_chain_sharded"] = max(errs["stream_chain_sharded"], err)
+    require(err == 0, "sharded chain or window read: kernel != plain")
+    cms = graph_ms(lambda: ST.stream_chain(*a, **kw))
+    cplain = median_ms(lambda: ST.stream_chain_plain(*a, **kw))
+    cbytes = stage_bytes("chain", a, out) - 4 * A  # one window word a lane, not two
+    j = int(np.argmax(wms))
+    log(f"  mixed 5M canonical (1, 4), chunk 0 (P={st.P}, {A} anchors): chain given windows "
+        f"{cms:.4f} ms (plain {cplain:.4f}, bound {bound(cbytes)[0]:.4f}); window read per shard "
+        f"{['%.4f' % x for x in wms]} ms (graph replay; plain {['%.4f' % x for x in wplain]}); "
+        f"kernel == plain")
+    return {"kernel": cms + wms[j], "plain": cplain + wplain[j],
+            "bound": bound(cbytes + wbytes[j])}
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     phase_build()
     errs = {name: 0 for name in kernels.counts()}
-    errs.update({name: 0 for name in PROBE_VARIANTS})
+    errs.update({name: 0 for name in list(PROBE_VARIANTS) + list(SHARDED_ROWS)})
     phase_kernels_equal_plain(dev, errs)
     launches, built = phase_main(dev)
-    variants = {"probe_legacy_skew": phase_legacy(phase_paths(dev), errs)}
-    per_kernel, scale_errs, idx, eng, ids, kt, bounds = phase_scale(dev)
+    paths = phase_paths(dev)
+    variants = {"probe_legacy_skew": phase_legacy(paths, errs)}
+    per_kernel, scale_errs, idx, eng, ids, kt, bounds, host200 = phase_scale(dev)
     times = {name: {"kernel": ms, "plain": pms} for name, (ms, pms) in per_kernel.items()}
     for name, err in scale_errs.items():
         errs[name] = max(errs[name], err)
-    point_launches, point_times = phase_point_queries(dev, built, errs)
+    point_launches, point_times, weighted = phase_point_queries(dev, built, errs)
     scale_launches, scale_times = phase_scale_point_queries(idx, eng, errs)
     for name in ("access_kernel", "iterate_kernel", "weight_kernel", "neighbours_kernel"):
         launches[name] = point_launches.get(name, 0) + scale_launches.get(name, 0)
     times.update(point_times)
     times.update(scale_times)
     with tempfile.TemporaryDirectory() as tmp:
-        stream_launches, stream_times = phase_streaming(dev, built, idx, eng, tmp, errs)
+        stream_launches, stream_times, read_sets = phase_streaming(dev, built, idx, eng, tmp,
+                                                                   errs)
         variants["probe_v2"] = phase_v2(idx, eng, ids, kt, tmp, errs)
+        sharded = phase_sharded(dev, built, paths, weighted, (idx, eng, ids, kt, host200),
+                                read_sets, errs)
+        del host200, paths, weighted
     add_counts(launches, stream_launches)
     # the least time of each kernel's work at the shapes timed above
     cfg, W5 = eng.cfg, built["canonical"][1].cfg.W
     bounds.update({
-        "access.cu": bound(SCALE_B * (4 + 4 * acc_width(cfg) + 4 * cfg.W)),
+        "access.cu": bound(scale_times["access_kernel"]["bytes"]),
         "iterator.cu": bound(sum(eng.tables[n].numel() * 4 for n in ("strings32", "vstart32"))
                              + 8),
         "weight.cu": bound(point_times["weight_kernel"]["bytes"]),
@@ -1238,7 +1720,7 @@ def main():
     del built, idx, eng, kt
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sshash_tpu"))
     require(not loaded, f"JAX or the JAX package was imported: {loaded}")
-    log(f"[12] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
+    log(f"[13] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
     csrc = "sshash_tpu_torch/csrc/"
     rows = []
     for src, rep in SOURCES.items():
@@ -1268,6 +1750,15 @@ def main():
                          "launches": n_launch, "max_abs_err": errs[name], "ms": t["kernel"],
                          "plain_ms": t["plain"], "bound_ms": t["bound"][0],
                          "bound_by": t["bound"][1], "library_ms": None})
+    # the sharded variants, each counted on the sharded paths
+    sh_launches, sh_times = sharded
+    for name, (src, rep) in SHARDED_ROWS.items():
+        require(sh_launches[name] > 0, f"{name}: no launch on the sharded paths")
+        t = sh_times[name]
+        rows.append({"name": name, "route": "cuda", "source": csrc + src, "replaces": rep,
+                     "launches": sh_launches[name], "max_abs_err": errs[name],
+                     "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"][0],
+                     "bound_by": t["bound"][1], "library_ms": None})
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

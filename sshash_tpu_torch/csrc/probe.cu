@@ -34,6 +34,17 @@
 // Every table read clamps its index as jnp.take(..., mode="clip") does
 // after the JAX package's int32 cast, so a lane reads exactly the entries
 // the JAX program reads, for absent and inactive lanes too.
+//
+// Bucket shards (sshash_tpu/parallel/sharded.py _branchfree_lookup, the
+// owner masks of engine.py:778-784 and :904-911): a shard holds the rows of
+// MPHF slots [slot_lo, slot_hi), its own mid and legacy heavy rows (cw_a
+// local), and in hindex indexes the sk_hrows rows [hrow_lo, hrow_hi). A
+// lane whose slot is not the shard's is inactive there. Only the slot's
+// owner knows a heavy lane's global sk_hrows row, so an hindex probe splits
+// there: with hrow_out the heavy lanes write that row (0xFFFFFFFF
+// elsewhere) and verify nothing; the caller takes the unsigned min over the
+// shards; with hrow_in each shard verifies the rows it holds and reads no
+// minimizer table. An unsharded call passes the whole slot range.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -83,6 +94,7 @@ struct ProbeParams {
   int64_t c1_in_row, has_skew, row_v2, skew_hrows, skew_partitioned;
   int64_t mphf_partitioned, mphf_P, mphf_part_table, mphf_part_buckets;
   int64_t mphf_nbuckets, mphf_table, pilot_w, sk_pilot_w;
+  int64_t slot_lo, slot_hi, hrow_lo, hrow_hi;  // this shard's slots and sk_hrows rows
   uint64_t mphf_seedmix;
 };
 
@@ -102,6 +114,8 @@ struct ProbeIO {
   uint32_t* string_id;
   uint32_t* string_begin;
   uint32_t* string_end;
+  uint32_t* hrow_out;       // (B,) or null: hand the heavy lanes' rows on
+  const uint32_t* hrow_in;  // (B,) or null: verify the handed rows held here
 };
 
 // engine._pilot_read: field `bucket` of a table packed at width w (4..32)
@@ -229,6 +243,7 @@ __global__ void probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
   bool found = false, mfound = true;
+  uint32_t hrow = kInvalid32;
   Hit res{false, 0, kForward, 0, 0, 0};
   if (!io.active || io.active[i]) {
     uint32_t km[W], kr[W];
@@ -251,55 +266,72 @@ __global__ void probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
         ntries = 4;
       }
     }
-    const uint32_t slot = mphf_slot(t, p, minval);
-    const uint32_t* row = t.cw_row + clip_row(slot, t.cw_rows) * p.row_w;
-    const uint32_t sb = row[0], cw_a = row[1];
-    const uint32_t status = sb & 3u, cw_b = sb >> 2;
-    const bool heavy = status == 2, midload = status == 1;
-    const uint32_t size = midload ? cw_b : 1u;
-    const uint32_t* c0 = row + 2;
+    if (io.hrow_in) {
+      // the hand-off's second pass: the heavy rows this shard holds
+      const uint32_t r = io.hrow_in[i];
+      if (r >= p.hrow_lo && r < p.hrow_hi) {
+        const uint32_t* blk =
+            t.sk_hrows + clip_row(r - (uint32_t)p.hrow_lo, t.sk_hrows_n) * p.blk_w;
+        res = verify_block<W, CANON, V2>(blk, p, km, kr, tries, ntries);
+        found = res.match;
+      }
+    } else {
+      const uint32_t slot = mphf_slot(t, p, minval);
+      if (slot >= p.slot_lo && slot < p.slot_hi) {
+        const uint32_t* row = t.cw_row + clip_row(slot - (uint32_t)p.slot_lo, t.cw_rows) * p.row_w;
+        const uint32_t sb = row[0], cw_a = row[1];
+        const uint32_t status = sb & 3u, cw_b = sb >> 2;
+        const bool heavy = status == 2, midload = status == 1;
+        const uint32_t size = midload ? cw_b : 1u;
+        const uint32_t* c0 = row + 2;
 
-    // minimizer guard on the candidate-0 window (spss:47-65)
-    const int Wv = (int)p.vbits_words, Ww = (int)p.win_words;
-    const uint32_t cand0 = c0[0];
-    const uint32_t gext0 = ext_off<V2>(cand0, kmw);
-    const uint64_t gv = extract_window_dyn(c0 + 1 + Wv, Ww, gext0 * 2u, (int)(2 * p.m),
-                                           (int)p.max_start_word);
-    bool guard_ok = gv == minval;
-    if (CANON) guard_ok |= gv == revcomp_mmer64(minval, (int)p.m);
+        // minimizer guard on the candidate-0 window (spss:47-65)
+        const int Wv = (int)p.vbits_words, Ww = (int)p.win_words;
+        const uint32_t cand0 = c0[0];
+        const uint32_t gext0 = ext_off<V2>(cand0, kmw);
+        const uint64_t gv = extract_window_dyn(c0 + 1 + Wv, Ww, gext0 * 2u, (int)(2 * p.m),
+                                               (int)p.max_start_word);
+        bool guard_ok = gv == minval;
+        if (CANON) guard_ok |= gv == revcomp_mmer64(minval, (int)p.m);
 
-    if (!heavy) {
-      res = verify_block<W, CANON, V2>(c0, p, km, kr, tries, ntries);
-      found = res.match;
-    } else if (p.has_skew) {
-      uint32_t canon[W];
-      const bool use_rc = CANON && kmer_less(kr, km);
+        if (!heavy) {
+          res = verify_block<W, CANON, V2>(c0, p, km, kr, tries, ntries);
+          found = res.match;
+        } else if (p.has_skew) {
+          uint32_t canon[W];
+          const bool use_rc = CANON && kmer_less(kr, km);
 #pragma unroll
-      for (int w = 0; w < W; ++w) canon[w] = use_rc ? kr[w] : km[w];
-      const uint32_t hidx = skp(t, kPosOff, cw_b) + skew_slot(t, p, canon, cw_b);
-      const uint32_t* blk;
-      if (p.skew_hrows) {
-        blk = t.sk_hrows + clip_row(hidx, t.sk_hrows_n) * p.blk_w;
-      } else {
-        // engine.skew_eval: slot -> position in the bucket -> heavy row
-        const uint32_t pos = t.sk_positions[clip_row(hidx, t.sk_positions_n)];
-        blk = t.heavy_rows + clip_row(cw_a + pos, t.heavy_rows_n) * p.blk_w;
-      }
-      res = verify_block<W, CANON, V2>(blk, p, km, kr, tries, ntries);
-      found = res.match;
-    }
-    mfound = guard_ok || heavy;
-    // a failed guard proves the bucket belongs to another minimizer: no
-    // further candidate can match
-    if (mfound && midload && !found) {
-      if (p.c1_in_row && size >= 2) {
-        res = verify_block<W, CANON, V2>(c0 + p.blk_w, p, km, kr, tries, ntries);
-        found = res.match;
-      }
-      for (uint32_t j = p.c1_in_row ? 2u : 1u; !found && j < size; ++j) {
-        const uint32_t* mrow = t.mid_rows + clip_row(cw_a + j, t.mid_n) * p.blk_w;
-        res = verify_block<W, CANON, V2>(mrow, p, km, kr, tries, ntries);
-        found = res.match;
+          for (int w = 0; w < W; ++w) canon[w] = use_rc ? kr[w] : km[w];
+          const uint32_t hidx = skp(t, kPosOff, cw_b) + skew_slot(t, p, canon, cw_b);
+          if (io.hrow_out) {
+            hrow = hidx;  // verified by the shard holding that row
+          } else {
+            const uint32_t* blk;
+            if (p.skew_hrows) {
+              blk = t.sk_hrows + clip_row(hidx, t.sk_hrows_n) * p.blk_w;
+            } else {
+              // engine.skew_eval: slot -> position in the bucket -> heavy row
+              const uint32_t pos = t.sk_positions[clip_row(hidx, t.sk_positions_n)];
+              blk = t.heavy_rows + clip_row(cw_a + pos, t.heavy_rows_n) * p.blk_w;
+            }
+            res = verify_block<W, CANON, V2>(blk, p, km, kr, tries, ntries);
+            found = res.match;
+          }
+        }
+        mfound = guard_ok || heavy;
+        // a failed guard proves the bucket belongs to another minimizer: no
+        // further candidate can match
+        if (mfound && midload && !found) {
+          if (p.c1_in_row && size >= 2) {
+            res = verify_block<W, CANON, V2>(c0 + p.blk_w, p, km, kr, tries, ntries);
+            found = res.match;
+          }
+          for (uint32_t j = p.c1_in_row ? 2u : 1u; !found && j < size; ++j) {
+            const uint32_t* mrow = t.mid_rows + clip_row(cw_a + j, t.mid_n) * p.blk_w;
+            res = verify_block<W, CANON, V2>(mrow, p, km, kr, tries, ntries);
+            found = res.match;
+          }
+        }
       }
     }
   }
@@ -315,6 +347,7 @@ __global__ void probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
     io.string_end[i] = found ? res.end : kInvalid32;
     io.kmer_id_in_string[i] = found ? off - res.begin : kInvalid32;
   }
+  if (io.hrow_out) io.hrow_out[i] = hrow;
 }
 
 template <int W, bool CANON>
@@ -344,7 +377,10 @@ extern "C" int sshash_probe(const sshash::ProbeTables* t, const sshash::ProbePar
       p->blk_w != 1 + p->vbits_words + p->win_words + (p->row_v2 ? 3 : 4) ||
       p->row_w != 2 + (p->c1_in_row ? 2 : 1) * p->blk_w ||
       (p->has_skew && (p->skew_hrows ? !t->sk_hrows : !t->heavy_rows || !t->sk_positions)) ||
-      (p->has_skew && p->skew_partitioned && !t->sk_seedrows))
+      (p->has_skew && p->skew_partitioned && !t->sk_seedrows) ||
+      ((io->hrow_out || io->hrow_in) && !(p->has_skew && p->skew_hrows)) ||
+      (io->hrow_out && io->hrow_in) || p->slot_lo < 0 || p->slot_hi > (1ll << 32) ||
+      p->hrow_lo < 0 || p->hrow_hi > (1ll << 32))
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   const bool c = p->canonical != 0;

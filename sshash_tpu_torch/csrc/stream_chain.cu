@@ -19,6 +19,13 @@
 // Bound: bytes. Per anchor it reads 7 lookup fields, 4 mask halves and 4
 // window words, and writes 14 bytes per lane (about 1 byte read and 14
 // written per lane, against a few dozen integer operations).
+//
+// Bucket shards (sshash_tpu/parallel/sharded.py ShardedStream, its swin at
+// :431-438): strings32 is split by word range, so the string window comes
+// in precomputed. swin_kernel reads each anchor's 16 string chars on the
+// shard that owns the window's first word (0 elsewhere; the caller takes
+// the unsigned max over the shards), and the chain kernel, given `swin`,
+// reads no string. Bound: bytes, 8 read and 4 written per anchor.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -35,7 +42,7 @@ struct ChainIO {
   const uint32_t* aend;
   const uint32_t* words;
   int64_t words_n;
-  const uint32_t* strings;
+  const uint32_t* strings;  // null when swin is given
   int64_t strings_n;
   const uint32_t* valid;
   const uint32_t* sbits;
@@ -46,6 +53,7 @@ struct ChainIO {
   uint32_t* kid;
   int32_t* ori;
   uint8_t* need;
+  const uint32_t* swin;  // (A,) or null: each anchor's string window
 };
 
 // chars [base, base+16) as one u32; word reads clip to the array.
@@ -61,6 +69,25 @@ __device__ __forceinline__ uint32_t half16(const uint32_t* bits, int64_t g) {
   return (bits[g >> 1] >> (16 * (g & 1))) & 0xFFFFu;
 }
 
+// The first string char of an anchor's followers: after the anchor's kmer
+// on the forward strand, up to 15 chars before it on the backward one.
+__device__ __forceinline__ uint32_t window_base(uint32_t aoff, int32_t aori, int k) {
+  return aori == 1 ? aoff + (uint32_t)(k - 1) : aoff - (aoff < 15u ? aoff : 15u);
+}
+
+__global__ void swin_kernel(const uint32_t* __restrict__ aoff, const int32_t* __restrict__ aori,
+                            int64_t A, const uint32_t* __restrict__ strings, int64_t strings_n,
+                            int k, int64_t word_lo, int64_t word_hi,
+                            uint32_t* __restrict__ out) {
+  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= A) return;
+  const uint32_t base = window_base(aoff[g], aori[g], k);
+  const int64_t w0 = base >> 4;
+  out[g] = w0 >= word_lo && w0 < word_hi
+               ? win16(strings, strings_n, base - 16u * (uint32_t)word_lo)
+               : 0u;
+}
+
 __global__ void chain_kernel(ChainIO io, int64_t A, int k) {
   const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= A) return;
@@ -72,8 +99,8 @@ __global__ void chain_kernel(ChainIO io, int64_t A, int k) {
   const int32_t aori = io.aori[g];
   const bool fwd = aori == 1;
   const uint32_t k1 = (uint32_t)(k - 1);
-  const uint32_t base_s = fwd ? aoff + k1 : aoff - (aoff < 15u ? aoff : 15u);
-  const uint32_t saw = win16(io.strings, io.strings_n, base_s);
+  const uint32_t base_s = window_base(aoff, aori, k);
+  const uint32_t saw = io.swin ? io.swin[g] : win16(io.strings, io.strings_n, base_s);
   const uint32_t raw = win16(io.words, io.words_n, apos + k1);
   bool m = io.afound[g] && (vh & 1u);
   for (uint32_t t = 0; t < 16; ++t) {
@@ -104,9 +131,25 @@ __global__ void chain_kernel(ChainIO io, int64_t A, int k) {
 extern "C" int sshash_stream_chain(const sshash::ChainIO* io, int64_t A, int64_t k, void* stream) {
   using namespace sshash;
   if (A <= 0) return (int)cudaGetLastError();
-  if (k < 1 || k > 63 || io->words_n < 1 || io->strings_n < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > 63 || io->words_n < 1 || (!io->swin && (!io->strings || io->strings_n < 1)))
+    return (int)cudaErrorInvalidValue;
   const int threads = 256;
   chain_kernel<<<(unsigned)((A + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
       *io, A, (int)k);
+  return (int)cudaGetLastError();
+}
+
+// C entry for ctypes: the string window of each of A anchors on one shard.
+// Returns the launch's cudaError_t (0 on success).
+extern "C" int sshash_stream_swin(const void* aoff, const void* aori, int64_t A,
+                                  const void* strings, int64_t strings_n, int64_t k,
+                                  int64_t word_lo, int64_t word_hi, void* out, void* stream) {
+  using namespace sshash;
+  if (A <= 0) return (int)cudaGetLastError();
+  if (k < 1 || k > 63 || strings_n < 1 || word_lo < 0) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  swin_kernel<<<(unsigned)((A + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)aoff, (const int32_t*)aori, A, (const uint32_t*)strings, strings_n,
+      (int)k, word_lo, word_hi, (uint32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -52,8 +52,8 @@ from . import kernels
 from . import kmer as K
 from .constants import BACKWARD_ORIENTATION, FORWARD_ORIENTATION, INVALID_UINT64
 from .layout import (SKEW_PARAMS, TABLE_GROUPS, StaticCfg, acc_windowed, cand_block_width,
-                     check_access, check_fields, device_arrays, row_width, tables_from_host,
-                     take_rows, with_access_tables)
+                     check_access, check_fields, check_probe_shard, device_arrays, row_width,
+                     tables_from_host, take_rows, with_access_tables)
 from .ops import packed as P
 from .ops import u64 as u
 from .ops.u64 import M32
@@ -175,7 +175,7 @@ def _verify(cfg, blk, active, km, kr, tries):
 
 
 def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
-                active=None, fields="full"):
+                active=None, fields="full", shard=None, hrows=None):
     """Plain version of kernel 2 (csrc/probe.cu), same contract as
     kernels.probe_kernel: kmers32 / kmers_rc32 (canonical only) (B, W)
     int32, minval int64, minpos / minpos2 int32, active bool or None (every
@@ -185,8 +185,17 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
     Mirrors engine.lookup_with_info: candidate 0 rides the codeword row,
     a failed minimizer guard stops the lane after it, heavy lanes go
     through the skew index, candidate 1 rides the row when c1_in_row, and
-    the remaining mid-bucket candidates are tried in a masked loop."""
+    the remaining mid-bucket candidates are tried in a masked loop.
+
+    shard (a layout.ProbeShard): the tables are one bucket shard's, and
+    lanes whose MPHF slot is another shard's are inactive here
+    (engine.py:778-784 of the JAX package). In an hindex index the heavy
+    lanes then verify nothing: the result's "hrow" holds each one's global
+    sk_hrows row (0xFFFFFFFF elsewhere), and a second call with hrows (the
+    unsigned min of "hrow" over the shards) verifies the rows this shard
+    holds (:904-911)."""
     check_fields(cfg, fields)
+    handoff = check_probe_shard(cfg, shard, hrows)
     B, dev = kmers32.shape[0], kmers32.device
     km = u.u32(kmers32)
     kr = u.u32(kmers_rc32) if kmers_rc32 is not None else None
@@ -200,7 +209,17 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
             tries += [mp2, cfg.kmw - mp2]
     active = torch.ones(B, dtype=torch.bool, device=dev) if active is None else active
 
+    if hrows is not None:  # the hand-off's second pass
+        r = u.u32(hrows)
+        own = active & (r >= shard.hrow_lo) & (r < shard.hrow_hi)
+        blk = take_rows(tables["sk_hrows"], torch.where(own, r - shard.hrow_lo, 0))
+        return _result(cfg, fields, _verify(cfg, blk, own, km, kr, tries),
+                       torch.ones_like(active))
     slot = mphf_eval_minimizer(cfg, tables, mv)
+    if shard is not None:
+        own = (slot >= shard.slot_lo) & (slot < shard.slot_hi)
+        active = active & own
+        slot = torch.where(own, slot - shard.slot_lo, 0)
     row = take_rows(tables["cw_row"], slot)
     sb, cw_a = row[:, 0], row[:, 1]
     status, cw_b = sb & 3, sb >> 2
@@ -225,18 +244,22 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
             state[i] = torch.where(hit, new[i], state[i])
         state[0] = state[0] | hit
 
+    hrow = None
     if cfg.has_skew:
         canon = km
         if kr is not None:
             canon = torch.where(P.kmer_less(kr, km)[:, None], kr, km)
         cls = torch.where(heavy, cw_b, torch.zeros_like(cw_b))
         hidx = (_skew_param(tables, "pos_off", cls) + skew_slot(cfg, tables, canon, cls)) & M32
-        if cfg.skew_hrows:
-            blk = take_rows(tables["sk_hrows"], hidx)
+        if handoff:  # verified by the shard holding the row
+            hrow = torch.where(active & heavy, hidx, INVALID32)
+        elif cfg.skew_hrows:
+            take(_verify(cfg, take_rows(tables["sk_hrows"], hidx), active & heavy, km, kr,
+                         tries))
         else:  # skew_eval: slot -> position in the bucket -> heavy row
             blk = take_rows(tables["heavy_rows"], (cw_a + take_rows(tables["sk_positions"], hidx))
                             & M32)
-        take(_verify(cfg, blk, active & heavy, km, kr, tries))
+            take(_verify(cfg, blk, active & heavy, km, kr, tries))
 
     minimizer_found = ~(active & ~guard_ok & ~heavy)
     active = active & (guard_ok | heavy)
@@ -260,7 +283,16 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         for i in range(6):
             state[i] = state[i].index_put((lanes,), sub[i])
 
-    found, off, orient, sid, beg, end = state
+    res = _result(cfg, fields, state, minimizer_found)
+    if hrow is not None:
+        res["hrow"] = u.to_i32(hrow)
+    return res
+
+
+def _result(cfg, fields, hit, minimizer_found):
+    """The probe's result fields from the winning candidate's (found, off,
+    orient, sid, begin, end)."""
+    found, off, orient, sid, beg, end = hit
     off = torch.where(found, off, torch.zeros_like(off))
     invalid = torch.full_like(off, INVALID32)
     kid = off if cfg.row_v2 else (off - sid * (cfg.k - 1)) & M32
@@ -366,21 +398,50 @@ def acc_read_window(cfg, row, ids, off):
     return P.extract_kmer_dyn(row[:, 1 + cfg.access_C:], 2 * local, cfg.k)
 
 
-def access_plain(cfg, tables, ids):
+def access_plain(cfg, tables, ids, blocks=None):
     """Plain version of the access kernel: (B,) int32 ids -> (B, W) int32
-    kmers."""
+    kmers. blocks (a layout.AccessShard): the tables are one bucket shard's
+    (acc_rows of id blocks [blk_lo, blk_hi)) and a lane of another shard's
+    block reads zeros; in the two-round form such a call returns the first
+    round's (B,) char offsets instead, 0xFFFFFFFF on those lanes
+    (parallel/sharded.py make_sharded_access of the JAX package)."""
     check_access(cfg)
     i = u.u32(ids)
-    row = take_rows(tables["acc_rows"], i >> 5)
+    blk = i >> 5
+    own = None
+    if blocks is not None:
+        own = (blk >= blocks.blk_lo) & (blk < blocks.blk_hi)
+        blk = torch.where(own, blk - blocks.blk_lo, 0)
+    row = take_rows(tables["acc_rows"], blk)
     off = acc_offset(cfg, row, i)
     if acc_windowed(cfg.k, cfg.access_C):
         out = acc_read_window(cfg, row, i, off)
+    elif own is not None:
+        return u.to_i32(torch.where(own, off, INVALID32))
     else:
         out = P.read_kmers_at(u.u32(tables["strings32"]), off, cfg.k)
+    if own is not None:
+        out = torch.where(own[:, None], out, 0)
     return u.to_i32(out)
 
 
+def access_read_plain(cfg, tables, offsets, words):
+    """Plain version of the sharded two-round access form's second round:
+    (B,) int32 char offsets (0xFFFFFFFF: none) -> (B, W) int32 kmers read
+    from this shard's strings32 words [word_lo, word_hi) and their halo
+    (words: a layout.AccessShard); zeros where the offset's word is
+    another shard's."""
+    o = u.u32(offsets)
+    w0 = o >> 4
+    own = (o != INVALID32) & (w0 >= words.word_lo) & (w0 < words.word_hi)
+    local = torch.where(own, o - 16 * words.word_lo, 0)
+    out = P.read_kmers_at(u.u32(tables["strings32"]), local, cfg.k)
+    return u.to_i32(torch.where(own[:, None], out, 0))
+
+
 access = kernels.by_device(kernels.access_kernel, access_plain, "access", arg=2)
+access_read = kernels.by_device(kernels.access_read_kernel, access_read_plain, "access-read",
+                                arg=2)
 
 
 def _popcount32(x):
@@ -425,13 +486,19 @@ def iterate_kmers_plain(k, strings32, vstart32):
 iterate = kernels.by_device(kernels.iterate_kernel, iterate_plain, "iterator", arg=1)
 
 
-def weight_plain(tables, ids):
+def weight_plain(tables, ids, owned=False):
     """Plain version of the weight kernel: (B,) int32 ids -> (B,) int32
     weights. The run index is searchsorted(right) - 1 over w_endpoints,
-    clipped to the runs (-1 reads run 0, as JAX's clipped take does)."""
-    i = torch.searchsorted(u.u32(tables["w_endpoints"]), u.u32(ids), right=True) - 1
-    vid = take_rows(tables["w_value_ids"], i.clamp(min=0))
-    return u.to_i32(take_rows(tables["w_dictionary"], vid))
+    clipped to the runs (-1 reads run 0, as JAX's clipped take does).
+    owned: the tables are one bucket shard's runs (endpoints padded with
+    the last), and an id outside [endpoints[0], endpoints[-1]) weighs 0."""
+    ep, i = u.u32(tables["w_endpoints"]), u.u32(ids)
+    run = torch.searchsorted(ep, i, right=True) - 1
+    vid = take_rows(tables["w_value_ids"], run.clamp(min=0))
+    w = take_rows(tables["w_dictionary"], vid)
+    if owned:
+        w = torch.where((i >= ep[0]) & (i < ep[-1]), w, 0)
+    return u.to_i32(w)
 
 
 weight = kernels.by_device(kernels.weight_kernel, weight_plain, "weight", arg=1)

@@ -4,7 +4,10 @@ Ten CUDA sources: minimizer (kernel 1) and probe (kernel 2) carry lookup;
 access, iterator, weight and neighbours the other point queries; scan,
 stream_anchor, stream_chain and stream_derive the stream step (a source
 may hold several wrappers, each with its own count; SOURCE_KERNELS maps
-them).
+them). Kernel 2, access, weight and the chain also serve the shards of the
+bucket-sharded engine (parallel/): each takes its shard's range, and
+access_read and stream_swin are the second round and the window read that
+its split tables need.
 
 The sources compile with nvcc for sm_90a, one nvcc process per source, all
 started together, and link into one shared library with a plain C
@@ -18,11 +21,11 @@ Each launch wrapper checks its tensors, allocates its outputs with
 torch.empty, launches on the current stream without synchronising, raises
 if the launch returned a CUDA error, and adds one to its `launches` count.
 The wrappers take CUDA tensors only; each entry point (ops/packed.minimizer,
-.neighbour_variants, .scan_ex and .compact; engine.probe, .access, .iterate
-and .weight; streaming.stream_masks, .stream_kmers, .stream_chain,
-.stream_heads, .stream_round2, .stream_merge and .stream_count) is made by
-`by_device`, which chooses between a wrapper and its plain version by the
-device of one argument.
+.neighbour_variants, .scan_ex and .compact; engine.probe, .access,
+.access_read, .iterate and .weight; streaming.stream_masks, .stream_kmers,
+.stream_chain, .stream_swin, .stream_heads, .stream_round2, .stream_merge
+and .stream_count) is made by `by_device`, which chooses between a wrapper
+and its plain version by the device of one argument.
 """
 
 import ctypes
@@ -36,8 +39,8 @@ from pathlib import Path
 
 import torch
 
-from .layout import (acc_width, acc_win_words, acc_windowed, cand_block_width, check_access,
-                     check_fields, row_width)
+from .layout import (WHOLE_TABLE, AccessShard, acc_width, acc_win_words, acc_windowed,
+                     cand_block_width, check_access, check_fields, check_probe_shard, row_width)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("minimizer.cu", "probe.cu", "access.cu", "iterator.cu", "weight.cu",
@@ -113,8 +116,9 @@ class ProbeTables(ctypes.Structure):
 _PARAM_NAMES = ("B", "W", "k", "m", "canonical", "full", "win_words",
                 "vbits_words", "max_start_word", "row_w", "blk_w", "c1_in_row",
                 "has_skew", "row_v2", "skew_hrows", "skew_partitioned",
-                "mphf_partitioned", "mphf_P", "mphf_part_table", "mphf_part_buckets", "mphf_nbuckets", "mphf_table", "pilot_w",
-                "sk_pilot_w")
+                "mphf_partitioned", "mphf_P", "mphf_part_table", "mphf_part_buckets",
+                "mphf_nbuckets", "mphf_table", "pilot_w", "sk_pilot_w",
+                "slot_lo", "slot_hi", "hrow_lo", "hrow_hi")
 
 
 class ProbeParams(ctypes.Structure):
@@ -125,7 +129,7 @@ class ProbeParams(ctypes.Structure):
 _IO_NAMES = ("kmers", "kmers_rc", "minval", "minpos", "minpos2", "active",
              "kmer_id", "kmer_orientation", "minimizer_found", "found",
              "kmer_id_in_string", "kmer_offset", "string_id", "string_begin",
-             "string_end")
+             "string_end", "hrow", "hrow_in")
 
 
 class ProbeIO(ctypes.Structure):
@@ -135,7 +139,8 @@ class ProbeIO(ctypes.Structure):
 class AccessParams(ctypes.Structure):
     """Mirror of csrc/access.cu AccessParams."""
     _fields_ = [(n, ctypes.c_int64) for n in ("B", "W", "k", "C", "windowed", "win_words",
-                                               "row_w", "rows_n", "strings_n")]
+                                               "row_w", "rows_n", "strings_n", "blk_lo",
+                                               "blk_hi", "word_lo", "word_hi")]
 
 
 def library():
@@ -153,9 +158,9 @@ def library():
                                      ctypes.POINTER(ProbeParams),
                                      ctypes.POINTER(ProbeIO), p]
         lib.sshash_probe.restype = ctypes.c_int
-        lib.sshash_access.argtypes = [p, p, ctypes.POINTER(AccessParams), p, p, p]
+        lib.sshash_access.argtypes = [p, p, ctypes.POINTER(AccessParams), p, p, p, p, p]
         lib.sshash_iterate.argtypes = [p, i64, p, i64, i64, p, p]
-        lib.sshash_weight.argtypes = [p, i64, p, i64, p, i64, p, i64, p, p]
+        lib.sshash_weight.argtypes = [p, i64, p, i64, p, i64, p, i64, i64, p, p]
         lib.sshash_neighbours.argtypes = [p, i64, i64, i64, p, p]
         lib.sshash_scan_scratch.argtypes = [i64]
         lib.sshash_scan_scratch.restype = i64
@@ -164,13 +169,15 @@ def library():
         lib.sshash_stream_masks.argtypes = [p, p, p, i64, i64, p, p, p, p]
         lib.sshash_stream_kmers.argtypes = [p, i64, p, p, p, p, i64, i64, p, p]
         lib.sshash_stream_chain.argtypes = [ctypes.POINTER(ChainIO), i64, i64, p]
+        lib.sshash_stream_swin.argtypes = [p, p, i64, p, i64, i64, i64, i64, p, p]
         lib.sshash_stream_heads.argtypes = [p, p, p, p, p, i64, i64, p, p]
         lib.sshash_stream_round2.argtypes = [p, p, p, p, i64, p, p, p]
         lib.sshash_stream_merge.argtypes = [ctypes.POINTER(MergeIO), i64, p]
         lib.sshash_stream_count.argtypes = [p, p, p, p, p, p, p, i64, p, p]
         for name in ("sshash_access", "sshash_iterate", "sshash_weight", "sshash_neighbours",
                      "sshash_scan", "sshash_compact", "sshash_stream_masks",
-                     "sshash_stream_kmers", "sshash_stream_chain", "sshash_stream_heads",
+                     "sshash_stream_kmers", "sshash_stream_chain", "sshash_stream_swin",
+                     "sshash_stream_heads",
                      "sshash_stream_round2", "sshash_stream_merge", "sshash_stream_count"):
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib
@@ -261,12 +268,16 @@ minimizer_kernel.launches = 0
 
 
 def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
-                 active=None, fields="full"):
+                 active=None, fields="full", shard=None, hrows=None):
     """Kernel 2: the fused-row probe, in either row format and either skew
-    form. Same contract as engine.probe_plain: returns kmer_id /
+    form, over the whole table or one bucket shard's (layout.ProbeShard).
+    Same contract as engine.probe_plain: returns kmer_id /
     kmer_orientation / minimizer_found / found and, with fields="full" (v1
-    rows only), the string fields (u32 fields as int32 bits)."""
+    rows only), the string fields (u32 fields as int32 bits); a sharded
+    hindex probe also "hrow", and with hrows it runs the hand-off's second
+    pass."""
     check_fields(cfg, fields)
+    handoff = check_probe_shard(cfg, shard, hrows)
     if kmers32.dim() != 2:
         raise ValueError(f"kmers32 must be (B, {cfg.W}), got {tuple(kmers32.shape)}")
     B = kmers32.shape[0]
@@ -281,6 +292,8 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         _check(minpos2, "minpos2", torch.int32, (B,))
     if active is not None:
         _check(active, "active", torch.bool, (B,))
+    if hrows is not None:
+        _check(hrows, "hrows", torch.int32, (B,))
     dev = kmers32.device
     t = {}
     for name in _TABLE_NAMES + ("sk_params",):
@@ -308,10 +321,13 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         for name in ("kmer_id_in_string", "kmer_offset", "string_id",
                      "string_begin", "string_end"):
             out[name] = u32_out()
+    if handoff and hrows is None:
+        out["hrow"] = u32_out()
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     tab = ProbeTables(*(v for n in _TABLE_NAMES
                         for v in (t[n].data_ptr(), t[n].shape[0])),
                       t["sk_params"].data_ptr())
+    sh = shard or WHOLE_TABLE
     prm = ProbeParams(
         B=B, W=cfg.W, k=cfg.k, m=cfg.m, canonical=int(cfg.canonical), full=int(full),
         win_words=cfg.win_words, vbits_words=cfg.vbits_words,
@@ -321,10 +337,12 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         mphf_partitioned=int(cfg.mphf_partitioned), mphf_P=cfg.mphf_P,
         mphf_part_table=cfg.mphf_part_table, mphf_part_buckets=cfg.mphf_part_buckets,
         mphf_nbuckets=cfg.mphf_nbuckets, mphf_table=cfg.mphf_table,
-        pilot_w=cfg.pilot_w, sk_pilot_w=cfg.sk_pilot_w, mphf_seedmix=cfg.mphf_seedmix)
+        pilot_w=cfg.pilot_w, sk_pilot_w=cfg.sk_pilot_w, slot_lo=sh.slot_lo,
+        slot_hi=sh.slot_hi, hrow_lo=sh.hrow_lo, hrow_hi=sh.hrow_hi,
+        mphf_seedmix=cfg.mphf_seedmix)
     io = ProbeIO(kmers32.data_ptr(), ptr(kmers_rc32), minval.data_ptr(),
                  minpos.data_ptr(), ptr(minpos2), ptr(active),
-                 *(ptr(out.get(n)) for n in _IO_NAMES[6:]))
+                 *(ptr(out.get(n)) for n in _IO_NAMES[6:-1]), ptr(hrows))
     err = lib.sshash_probe(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
                            _stream(dev))
     _raise_on(err, "probe_kernel")
@@ -335,9 +353,11 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
 probe_kernel.launches = 0
 
 
-def access_kernel(cfg, tables, ids):
-    """Access: (B,) int32 ids -> (B, W) int32 kmers. Same contract as
-    engine.access_plain."""
+def access_kernel(cfg, tables, ids, blocks=None):
+    """Access: (B,) int32 ids -> (B, W) int32 kmers, over the whole table or
+    one bucket shard's (blocks: a layout.AccessShard). Same contract as
+    engine.access_plain: a shard's lanes of other shards' blocks read zeros,
+    and in the two-round form a sharded call returns the char offsets."""
     check_access(cfg)
     B = _ids(ids)
     dev = ids.device
@@ -346,18 +366,50 @@ def access_kernel(cfg, tables, ids):
     rows, s32 = tables["acc_rows"], tables["strings32"]
     _check_table(rows, "acc_rows", dev, acc_width(cfg))
     _check_table(s32, "strings32", dev)
-    out = torch.empty((B, cfg.W), dtype=torch.int32, device=dev)
+    offsets = blocks is not None and not windowed
+    out = torch.empty((B,) if offsets else (B, cfg.W), dtype=torch.int32, device=dev)
+    sh = blocks or AccessShard(0, 1 << 32, 0, 1 << 32)
     prm = AccessParams(B=B, W=cfg.W, k=cfg.k, C=C, windowed=int(windowed),
                        win_words=acc_win_words(cfg.k, C), row_w=rows.shape[1],
-                       rows_n=rows.shape[0], strings_n=s32.shape[0])
+                       rows_n=rows.shape[0], strings_n=s32.shape[0], blk_lo=sh.blk_lo,
+                       blk_hi=sh.blk_hi, word_lo=sh.word_lo, word_hi=sh.word_hi)
     err = library().sshash_access(rows.data_ptr(), s32.data_ptr(), ctypes.byref(prm),
-                                  ids.data_ptr(), out.data_ptr(), _stream(dev))
+                                  ids.data_ptr(), None, None if offsets else out.data_ptr(),
+                                  out.data_ptr() if offsets else None, _stream(dev))
     _raise_on(err, "access_kernel")
     access_kernel.launches += 1
     return out
 
 
 access_kernel.launches = 0
+
+
+def access_read_kernel(cfg, tables, offsets, words):
+    """The sharded two-round access form's second round: (B,) int32 char
+    offsets (0xFFFFFFFF: none) -> (B, W) int32 kmers read from this shard's
+    strings32 slice (words: a layout.AccessShard), zeros where the offset's
+    word is another shard's. Same contract as engine.access_read_plain."""
+    B = _ids(offsets)
+    dev = offsets.device
+    rows, s32 = tables["acc_rows"], tables["strings32"]
+    _check_table(rows, "acc_rows", dev, acc_width(cfg))
+    _check_table(s32, "strings32", dev)
+    C = cfg.access_C
+    if acc_windowed(cfg.k, C):
+        raise ValueError("the windowed access form has no second round")
+    out = torch.empty((B, cfg.W), dtype=torch.int32, device=dev)
+    prm = AccessParams(B=B, W=cfg.W, k=cfg.k, C=C, windowed=0, win_words=acc_win_words(cfg.k, C),
+                       row_w=rows.shape[1], rows_n=rows.shape[0], strings_n=s32.shape[0],
+                       blk_lo=words.blk_lo, blk_hi=words.blk_hi, word_lo=words.word_lo,
+                       word_hi=words.word_hi)
+    err = library().sshash_access(rows.data_ptr(), s32.data_ptr(), ctypes.byref(prm), None,
+                                  offsets.data_ptr(), out.data_ptr(), None, _stream(dev))
+    _raise_on(err, "access_read_kernel")
+    access_read_kernel.launches += 1
+    return out
+
+
+access_read_kernel.launches = 0
 
 
 def iterate_kernel(k, strings32, vstart32):
@@ -380,9 +432,10 @@ def iterate_kernel(k, strings32, vstart32):
 iterate_kernel.launches = 0
 
 
-def weight_kernel(tables, ids):
-    """Weight: (B,) int32 ids -> (B,) int32 weights (u32 bits). Same
-    contract as engine.weight_plain."""
+def weight_kernel(tables, ids, owned=False):
+    """Weight: (B,) int32 ids -> (B,) int32 weights (u32 bits); owned: a
+    bucket shard's runs, ids outside them weigh 0. Same contract as
+    engine.weight_plain."""
     B = _ids(ids)
     dev = ids.device
     names = ("w_endpoints", "w_value_ids", "w_dictionary")
@@ -391,7 +444,7 @@ def weight_kernel(tables, ids):
     out = torch.empty(B, dtype=torch.int32, device=dev)
     err = library().sshash_weight(*(v for n in names
                                     for v in (tables[n].data_ptr(), tables[n].shape[0])),
-                                  ids.data_ptr(), B, out.data_ptr(), _stream(dev))
+                                  ids.data_ptr(), B, int(owned), out.data_ptr(), _stream(dev))
     _raise_on(err, "weight_kernel")
     weight_kernel.launches += 1
     return out
@@ -525,12 +578,13 @@ class ChainIO(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int64 if n.endswith("_n") else ctypes.c_void_p) for n in (
         "afound", "aoff", "asid", "akid", "aori", "abeg", "aend", "words", "words_n",
         "strings", "strings_n", "valid", "sbits", "fbits", "cum_g", "found", "sid", "kid",
-        "ori", "need")]
+        "ori", "need", "swin")]
 
 
-def stream_chain_kernel(ares, words32, strings32, valid_bits, sbits, fbits, cum_g, k):
-    """Chain extension of every anchor -> per-lane state dict. Same
-    contract as streaming.stream_chain_plain."""
+def stream_chain_kernel(ares, words32, strings32, valid_bits, sbits, fbits, cum_g, k, swin=None):
+    """Chain extension of every anchor -> per-lane state dict; swin: the
+    anchors' string windows (a bucket-sharded stream), read in place of
+    strings32. Same contract as streaming.stream_chain_plain."""
     A = _vec(ares["found"], "found", torch.bool)
     dev = words32.device
     for name in ("kmer_offset", "string_id", "kmer_id", "kmer_orientation", "string_begin",
@@ -541,7 +595,11 @@ def stream_chain_kernel(ares, words32, strings32, valid_bits, sbits, fbits, cum_
         _check(t, name, torch.int32, (nbits,))
     _check(cum_g, "cum_g", torch.int32, (A,))
     _vec(words32, "words32", torch.int32)
-    _check_table(strings32, "strings32", dev)
+    if swin is None:
+        _check_table(strings32, "strings32", dev)
+    else:
+        _check(swin, "swin", torch.int32, (A,))
+        strings32 = None
     P = 16 * A
     out = {"found": torch.empty(P, dtype=torch.uint8, device=dev),
            "string_id": torch.empty(P, dtype=torch.int32, device=dev),
@@ -552,10 +610,12 @@ def stream_chain_kernel(ares, words32, strings32, valid_bits, sbits, fbits, cum_
                  ares["string_id"].data_ptr(), ares["kmer_id"].data_ptr(),
                  ares["kmer_orientation"].data_ptr(), ares["string_begin"].data_ptr(),
                  ares["string_end"].data_ptr(), words32.data_ptr(), words32.shape[0],
-                 strings32.data_ptr(), strings32.shape[0], valid_bits.data_ptr(),
+                 None if strings32 is None else strings32.data_ptr(),
+                 0 if strings32 is None else strings32.shape[0], valid_bits.data_ptr(),
                  sbits.data_ptr(), fbits.data_ptr(), cum_g.data_ptr(), out["found"].data_ptr(),
                  out["string_id"].data_ptr(), out["kmer_id"].data_ptr(),
-                 out["kmer_orientation"].data_ptr(), out["need"].data_ptr())
+                 out["kmer_orientation"].data_ptr(), out["need"].data_ptr(),
+                 None if swin is None else swin.data_ptr())
     err = library().sshash_stream_chain(ctypes.byref(io), A, k, _stream(dev))
     _raise_on(err, "stream_chain_kernel")
     stream_chain_kernel.launches += 1
@@ -563,6 +623,26 @@ def stream_chain_kernel(ares, words32, strings32, valid_bits, sbits, fbits, cum_
 
 
 stream_chain_kernel.launches = 0
+
+
+def stream_swin_kernel(aoff, aori, strings32, k, words):
+    """Each anchor's 16 string chars on one bucket shard (words: a
+    layout.AccessShard), 0 where another shard holds the window's first
+    word -> (A,) int32. Same contract as streaming.stream_swin_plain."""
+    A = _vec(aoff, "aoff", torch.int32)
+    dev = aoff.device
+    _check(aori, "aori", torch.int32, (A,))
+    _check_table(strings32, "strings32", dev)
+    out = torch.empty(A, dtype=torch.int32, device=dev)
+    err = library().sshash_stream_swin(aoff.data_ptr(), aori.data_ptr(), A, strings32.data_ptr(),
+                                       strings32.shape[0], k, words.word_lo, words.word_hi,
+                                       out.data_ptr(), _stream(dev))
+    _raise_on(err, "stream_swin_kernel")
+    stream_swin_kernel.launches += 1
+    return out
+
+
+stream_swin_kernel.launches = 0
 
 
 def stream_heads_kernel(mv_f, mv_r, lanes, count, fbits, gate):
@@ -662,17 +742,18 @@ def stream_count_kernel(state, valid_bits, fbits, count):
 stream_count_kernel.launches = 0
 
 
-KERNELS = (minimizer_kernel, probe_kernel, access_kernel, iterate_kernel, weight_kernel,
-           neighbours_kernel, scan_kernel, compact_kernel, stream_masks_kernel,
-           stream_kmers_kernel, stream_chain_kernel, stream_heads_kernel, stream_round2_kernel,
-           stream_merge_kernel, stream_count_kernel)
+KERNELS = (minimizer_kernel, probe_kernel, access_kernel, access_read_kernel, iterate_kernel,
+           weight_kernel, neighbours_kernel, scan_kernel, compact_kernel, stream_masks_kernel,
+           stream_kmers_kernel, stream_chain_kernel, stream_swin_kernel, stream_heads_kernel,
+           stream_round2_kernel, stream_merge_kernel, stream_count_kernel)
 # the wrappers of each CUDA source
 SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel",), "probe.cu": ("probe_kernel",),
-                  "access.cu": ("access_kernel",), "iterator.cu": ("iterate_kernel",),
+                  "access.cu": ("access_kernel", "access_read_kernel"),
+                  "iterator.cu": ("iterate_kernel",),
                   "weight.cu": ("weight_kernel",), "neighbours.cu": ("neighbours_kernel",),
                   "scan.cu": ("scan_kernel", "compact_kernel"),
                   "stream_anchor.cu": ("stream_masks_kernel", "stream_kmers_kernel"),
-                  "stream_chain.cu": ("stream_chain_kernel",),
+                  "stream_chain.cu": ("stream_chain_kernel", "stream_swin_kernel"),
                   "stream_derive.cu": ("stream_heads_kernel", "stream_round2_kernel",
                                        "stream_merge_kernel", "stream_count_kernel")}
 

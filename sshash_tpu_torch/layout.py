@@ -42,6 +42,8 @@ chars holds exact values (the JAX package casts candidate offsets to
 uint32 first, which wraps there).
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -65,6 +67,43 @@ ACCESS_KEYS = ("acc_rows", "vstart32")
 WEIGHT_KEYS = ("w_value_ids", "w_endpoints", "w_dictionary")
 TABLE_GROUPS = {"lookup": LOOKUP_KEYS + OPTIONAL_KEYS + ("sk_params",),
                 "access": ACCESS_KEYS, "weight": WEIGHT_KEYS}
+
+
+class ProbeShard(NamedTuple):
+    """One bucket shard's part of the probe's tables (parallel/sharded.py):
+    the fused rows of MPHF slots [slot_lo, slot_hi) and, in hindex
+    indexes, the sk_hrows rows [hrow_lo, hrow_hi)."""
+
+    slot_lo: int
+    slot_hi: int
+    hrow_lo: int = 0
+    hrow_hi: int = 0
+
+
+WHOLE_TABLE = ProbeShard(0, 1 << 32)  # an unsharded probe: every slot
+
+
+def check_probe_shard(cfg, shard, hrows):
+    """True when a probe on `shard` hands its heavy lanes on: a shard of an
+    index whose skew classes carry hindex, where only the slot's owner
+    knows a heavy lane's sk_hrows row. hrows (the hand-off's second pass)
+    needs such a shard."""
+    handoff = shard is not None and cfg.skew_hrows
+    if hrows is not None and not handoff:
+        raise ValueError("hrows (the heavy-row hand-off's second pass) needs a shard of an "
+                         "index whose skew classes carry hindex")
+    return handoff
+
+
+class AccessShard(NamedTuple):
+    """One bucket shard's part of the access tables: the acc_rows rows of
+    id blocks [blk_lo, blk_hi) and the strings32 words [word_lo, word_hi)
+    (plus a halo of W + 1 words)."""
+
+    blk_lo: int
+    blk_hi: int
+    word_lo: int
+    word_hi: int
 
 
 def check_supported(index):

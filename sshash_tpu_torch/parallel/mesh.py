@@ -1,0 +1,160 @@
+"""The mesh of the bucket-sharded engine, and its combines.
+
+Counterpart of jax.sharding.Mesh and of the collectives shard_map's bodies
+call in sshash_tpu/parallel/sharded.py. A mesh of shape (D, NB) has a
+`data` axis of D rows, each answering its slice of the query batch, and a
+`bucket` axis of NB columns, each holding one slice of the index: shard
+(i, j) answers row i's lanes from column j's tables. Per-shard values are
+dicts {(i, j): tensor} over the shards this process holds (`local`); a
+combine over one axis reduces the values of each group of shards that
+differ only along that axis, and every shard of the group gets the result:
+
+  pmin / pmax(values, axis, unsigned=False)   elementwise min / max; with
+      unsigned=True the int32 tensors hold u32 bits and order as u32 (the
+      top bit flips around a signed reduction: 0xFFFFFFFF, -1 as an
+      int32, is the largest value, not the smallest)
+  psum(values, axis)                          elementwise sum
+  ppermute(values)                            data row i gets row i-1's
+      value, row 0 zeros
+
+Two implementations:
+
+  LocalMesh(shape, device)  every shard in this process, on one device; a
+      combine stacks the group's tensors and reduces them.
+  DistMesh(shape)           one shard per rank of a torch.distributed group
+      (rank r is shard (r // NB, r % NB)), a sub-group per data row and per
+      bucket column; a combine is one all_reduce (MIN, MAX, SUM) on the
+      sub-group, ppermute an all_gather of the column (its payloads are a
+      few words, and every backend has all_gather on every device). gloo
+      on the CPU, NCCL on CUDA; a world of one rank runs the same calls.
+"""
+
+import torch
+
+AXES = ("data", "bucket")
+_TOP = -(1 << 31)  # the int32 with only the top bit set
+
+
+def _flip(t):
+    """u32 bits in int32 <-> an int32 of the same unsigned order."""
+    return t ^ _TOP
+
+
+class _Mesh:
+    axis_names = AXES
+
+    def __init__(self, shape, device):
+        D, NB = (int(x) for x in shape)
+        if D < 1 or NB < 1:
+            raise ValueError(f"mesh shape must be positive, got {shape}")
+        self.shape = (D, NB)
+        self.device = torch.device(device)
+
+    @property
+    def columns(self):
+        """The bucket columns whose tables this process holds."""
+        return sorted({j for _, j in self.local})
+
+    @property
+    def rows(self):
+        """The data rows this process answers."""
+        return sorted({i for i, _ in self.local})
+
+    @property
+    def row_shards(self):
+        """One local shard per local row: the keys of a row-level value
+        (the same on every shard of its row)."""
+        first = {}
+        for s in self.local:
+            first.setdefault(s[0], s)
+        return [first[i] for i in sorted(first)]
+
+    def _axis(self, axis):
+        if axis not in AXES:
+            raise ValueError(f"axis must be one of {AXES}, got {axis!r}")
+        return AXES.index(axis)
+
+    def pmin(self, values, axis, unsigned=False):
+        return self._ordered(values, axis, "min", unsigned)
+
+    def pmax(self, values, axis, unsigned=False):
+        return self._ordered(values, axis, "max", unsigned)
+
+    def psum(self, values, axis):
+        return self._reduce(values, self._axis(axis), "sum")
+
+    def _ordered(self, values, axis, op, unsigned):
+        if not unsigned:
+            return self._reduce(values, self._axis(axis), op)
+        out = self._reduce({s: _flip(v) for s, v in values.items()}, self._axis(axis), op)
+        return {s: _flip(v) for s, v in out.items()}
+
+
+class LocalMesh(_Mesh):
+    """Every shard of a (D, NB) mesh in this process, on one device."""
+
+    def __init__(self, shape, device="cuda"):
+        super().__init__(shape, device)
+        D, NB = self.shape
+        self.local = [(i, j) for i in range(D) for j in range(NB)]
+
+    def _reduce(self, values, ax, op):
+        groups = {}
+        for s in values:
+            groups.setdefault(s[1 - ax], []).append(s)
+        out = {}
+        for members in groups.values():
+            t = torch.stack([values[s] for s in members])
+            r = t.amin(0) if op == "min" else t.amax(0) if op == "max" else t.sum(0)
+            for s in members:
+                out[s] = r
+        return out
+
+    def ppermute(self, values):
+        return {(i, j): values[(i - 1, j)] if i > 0 else torch.zeros_like(v)
+                for (i, j), v in values.items()}
+
+
+class DistMesh(_Mesh):
+    """One shard of a (D, NB) mesh per rank of the default torch.distributed
+    group (initialised by the caller, e.g. multihost.initialize), whose
+    world size must be D * NB. device: the rank's tensors' device; by
+    default cuda:<rank mod cards> under NCCL, else the CPU."""
+
+    def __init__(self, shape, device=None):
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise RuntimeError("DistMesh needs an initialised torch.distributed group")
+        self._dist = dist
+        rank, world = dist.get_rank(), dist.get_world_size()
+        D, NB = (int(x) for x in shape)
+        if D * NB != world:
+            raise ValueError(f"mesh {shape} needs {D * NB} ranks, the group has {world}")
+        if device is None:
+            nccl = dist.get_backend() == "nccl"
+            device = (torch.device("cuda", rank % torch.cuda.device_count()) if nccl
+                      else torch.device("cpu"))
+        super().__init__(shape, device)
+        self.local = [(rank // NB, rank % NB)]
+        # every rank creates every group, in the same order
+        rows = [dist.new_group([i * NB + j for j in range(NB)]) for i in range(D)]
+        cols = [dist.new_group([i * NB + j for i in range(D)]) for j in range(NB)]
+        i, j = self.local[0]
+        # a combine over the bucket axis runs within a data row, and the
+        # reverse
+        self._groups = (cols[j], rows[i])
+
+    def _reduce(self, values, ax, op):
+        (s, v), = values.items()
+        dist = self._dist
+        red = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}[op]
+        t = v.to(torch.int32) if v.dtype == torch.bool else v.clone()
+        dist.all_reduce(t, op=red, group=self._groups[ax])
+        return {s: t.to(v.dtype)}
+
+    def ppermute(self, values):
+        ((i, j), v), = values.items()
+        got = [torch.empty_like(v) for _ in range(self.shape[0])]
+        self._dist.all_gather(got, v.contiguous(), group=self._groups[0])
+        return {(i, j): got[i - 1] if i > 0 else torch.zeros_like(v)}

@@ -1,0 +1,549 @@
+"""The bucket-sharded engine: lookup, access, weight, navigation and
+streaming over a (data x bucket) mesh of shards.
+
+Counterpart of sshash_tpu/parallel/sharded.py (ShardedEngine,
+_branchfree_lookup, make_sharded_*, ShardedStream). The index splits over
+the bucket axis by contiguous ranges, exactly as the JAX engine splits it
+(`shard_tables`): the fused codeword rows by MPHF slot, with each shard's
+mid-bucket and legacy heavy rows re-keyed to local offsets; the hindex
+heavy rows (sk_hrows) by row; strings32 by word, with a halo of W + 1
+words; the access rows by id block; the weight runs by run. The query
+batch splits over the data axis by rows. Each shard answers the lanes it
+owns through the kernels given its range (kernel 2's slot and heavy-row
+owners, the access kernel's block and word owners, the weight kernel's
+run owner, the stream window read), and the mesh combines the answers
+(mesh.py): unsigned min for ids and offsets, max for `found`, min for
+`minimizer_found` and the orientation (FORWARD, 1, is the identity), an
+unsigned max for kmers, weights and string windows.
+
+Where the JAX engine probes branch-free, this one keeps the port's own
+schedule, which gives the same fields: a canonical lookup folds the tie
+retry into one probe (a tie probes the same bucket, hence the same owner)
+and combines once; a regular one combines the forward probe, probes the
+reverse complement of the lanes that missed everywhere, and combines
+again. In an index whose skew classes carry hindex, only the owner of a
+heavy lane's slot knows its sk_hrows row: kernel 2 hands the row on, the
+mesh takes its unsigned min, and each shard verifies the rows it holds.
+
+On a LocalMesh every shard runs in turn on one device; on a DistMesh each
+rank runs its shard and the combines are collectives.
+"""
+
+import functools
+import time
+
+import numpy as np
+import torch
+
+from .. import kmer as K
+from ..engine import (_neighbours_to_host, _to_host_result, access, access_read, make_lookup,
+                      make_neighbours, probe, weight)
+from ..layout import (AccessShard, ProbeShard, StaticCfg, device_arrays, row_width,
+                      tables_from_host, with_access_tables)
+from ..streaming import (_bits, _DeviceStream, check_streamable, make_stream_step, stream_count,
+                         stream_swin)
+from .mesh import LocalMesh, _flip
+
+# the result fields a combine reduces, in their packed order; u32 fields
+# order as unsigned, `found` reduces as -found
+_U32_FIELDS = ("kmer_id", "kmer_id_in_string", "kmer_offset", "string_id", "string_begin",
+               "string_end")
+REPORT_KEYS = ("num_kmers", "num_positive_kmers", "num_extensions", "num_searches",
+               "num_invalid_kmers", "num_negative_kmers")
+
+
+def _ranges(sizes):
+    """[3,2] -> [0,1,2,0,1] (per-group aranges)."""
+    if not len(sizes):
+        return np.zeros(0, dtype=np.int64)
+    total = int(sizes.sum())
+    out = np.arange(total, dtype=np.int64)
+    starts = np.cumsum(sizes) - sizes
+    return out - np.repeat(starts, sizes)
+
+
+def _split_rekeyed(rows, status, cw_a, which, sizes, per_shard, nb):
+    """Each shard's rows of the buckets of `which` status in its slot range,
+    at local offsets: returns (per-shard row arrays, cw_a with those
+    buckets' begins rewritten in place)."""
+    out = []
+    for j in range(nb):
+        sl = slice(j * per_shard, (j + 1) * per_shard)
+        sel = status[sl] == which
+        sz = np.where(sel, sizes[sl], 0).astype(np.int64)
+        local_begin = np.cumsum(sz) - sz
+        idx = np.repeat(cw_a[sl][sel].astype(np.int64), sz[sel]) + _ranges(sz[sel])
+        out.append(rows[idx] if len(idx) else np.zeros((0, rows.shape[1]), rows.dtype))
+        cw_a[sl] = np.where(sel, local_begin.astype(cw_a.dtype), cw_a[sl])
+    return out
+
+
+def _stack_padded(parts):
+    """Per-shard row arrays padded to one length (at least 1), stacked."""
+    n = max(1, max(len(p) for p in parts))
+    return np.concatenate([np.pad(p, ((0, n - len(p)), (0, 0))) for p in parts])
+
+
+def shard_tables(host, cfg, nb):
+    """The table dict of layout.device_arrays (or of the JAX package's
+    _device_arrays) split over nb bucket shards, as the JAX ShardedEngine
+    splits it (sharded.py:548-664 of the JAX package). Returns (one dict
+    per shard, geometry): a sharded table holds the shard's slice, a
+    replicated one the whole array (the same object in every dict);
+    sidk32 and kmer_cum are dropped. geometry: per_shard (slots),
+    per_shard_hrows (sk_hrows rows, None without hindex), per_shard_swords
+    (strings32 words) and per_shard_blocks (access rows)."""
+    host = {key: v for key, v in host.items() if key not in ("sidk32", "kmer_cum")}
+    sharded = {}
+    n_cw = len(host["cw_row"])
+    per_shard = -(-n_cw // nb)
+    cw_row = np.zeros((per_shard * nb, host["cw_row"].shape[1]), dtype=host["cw_row"].dtype)
+    cw_row[:n_cw] = host["cw_row"]
+
+    # mid rows go with their codeword's slot range, cw_a rewritten local
+    status = cw_row[:, 0] & 3
+    cw_a = cw_row[:, 1].copy()
+    cw_b = cw_row[:, 0] >> 2
+    sharded["mid_rows"] = _stack_padded(
+        _split_rekeyed(host["mid_rows"], status, cw_a, 1, cw_b, per_shard, nb))
+    # legacy heavy rows the same way; a bucket's size comes from the UNIQUE
+    # sorted begins (slots remapped to one bucket repeat its begin, and a
+    # plain diff would give the repeat size 0 and drop the bucket)
+    R1 = host["mid_rows"].shape[1]
+    heavy = host.get("heavy_rows", np.zeros((0, R1), np.uint32))
+    size_of_slot = np.zeros(len(status), dtype=np.int64)
+    if (status == 2).any() and not cfg.skew_hrows:
+        hv_all = np.flatnonzero(status == 2)
+        hb = cw_a[hv_all].astype(np.int64)
+        ub = np.unique(hb)
+        usz = np.diff(np.concatenate([ub, [len(heavy)]]))
+        size_of_slot[hv_all] = usz[np.searchsorted(ub, hb)]
+        parts = _split_rekeyed(heavy, status, cw_a, 2, size_of_slot, per_shard, nb)
+    else:  # hindex: heavy lanes resolve through sk_hrows
+        parts = [np.zeros((0, R1), heavy.dtype)] * nb
+    sharded["heavy_rows"] = _stack_padded(parts)
+    cw_row[:, 1] = cw_a
+    sharded["cw_row"] = cw_row
+
+    per_hr = None
+    if cfg.skew_hrows and "sk_hrows" in host:
+        hr = host["sk_hrows"]
+        per_hr = max(1, -(-len(hr) // nb))
+        sk = np.zeros((per_hr * nb, hr.shape[1]), hr.dtype)
+        sk[: len(hr)] = hr
+        sharded["sk_hrows"] = sk
+
+    # strings by word range with a halo (a k-char read spans <= W+1 words),
+    # access rows by id block, weight runs by run
+    s32 = host["strings32"]
+    halo = cfg.W + 1
+    per_sw = max(1, -(-len(s32) // nb))
+    sw = np.zeros((nb, per_sw + halo), s32.dtype)
+    for j in range(nb):
+        seg = s32[j * per_sw: j * per_sw + per_sw + halo]
+        sw[j, : len(seg)] = seg
+    sharded["strings32"] = sw.reshape(-1)
+    acc = host["acc_rows"]
+    per_blk = max(1, -(-len(acc) // nb))
+    acc_pad = np.zeros((per_blk * nb, acc.shape[1]), acc.dtype)
+    acc_pad[: len(acc)] = acc
+    sharded["acc_rows"] = acc_pad
+    if "w_endpoints" in host:
+        ep = host["w_endpoints"]
+        n_iv = len(ep) - 1
+        per_iv = max(1, -(-n_iv // nb))
+        eps, vids = [], []
+        for j in range(nb):
+            lo, hi = j * per_iv, min(n_iv, (j + 1) * per_iv)
+            e = ep[lo: hi + 1] if hi > lo else np.array([ep[-1]], ep.dtype)
+            eps.append(np.pad(e, (0, per_iv + 1 - len(e)), constant_values=ep[-1]))
+            v = host["w_value_ids"][lo:hi]
+            vids.append(np.pad(v, (0, per_iv - len(v))))
+        sharded["w_endpoints"] = np.concatenate(eps)
+        sharded["w_value_ids"] = np.concatenate(vids)
+
+    shards = []
+    for j in range(nb):
+        d = dict(host)
+        for key, v in sharded.items():
+            n = len(v) // nb
+            d[key] = v[j * n: (j + 1) * n]
+        shards.append(d)
+    geometry = {"per_shard": per_shard, "per_shard_hrows": per_hr, "per_shard_swords": per_sw,
+                "per_shard_blocks": per_blk}
+    return shards, geometry
+
+
+def _pack(res):
+    """A probe result as one (F, B) int32 tensor whose elementwise signed
+    min over shards is the combine of every field."""
+    rows = [_flip(res[f]) for f in _U32_FIELDS if f in res]
+    rows += [res["kmer_orientation"], res["minimizer_found"].to(torch.int32),
+             -res["found"].to(torch.int32)]
+    return torch.stack(rows)
+
+
+def _unpack(packed, fields):
+    names = [f for f in _U32_FIELDS if fields == "full" or f == "kmer_id"]
+    out = {f: _flip(packed[n]) for n, f in enumerate(names)}
+    n = len(names)
+    out["kmer_orientation"] = packed[n]
+    out["minimizer_found"] = packed[n + 1] != 0
+    out["found"] = packed[n + 2] != 0
+    return out
+
+
+class ShardedEngine:
+    """An index split over the bucket axis of a mesh (mesh.LocalMesh or
+    mesh.DistMesh; LocalMesh((1, 2)) on the card by default), and the
+    batched point queries and streaming over it: lookup, access, weight,
+    navigation, a per-position stream report and ShardedStream.
+
+    host_arrs: a precomputed table dict (layout.device_arrays, or the JAX
+    package's _device_arrays) for large indexes; row_format as TorchEngine's
+    (a v2 engine serves the id fields only). On a DistMesh a rank uploads
+    its own column's tables only. Entry points that take tensors take the
+    rows of the batch this process answers (every row on a LocalMesh), a
+    multiple of the mesh's local row count."""
+
+    def __init__(self, index, mesh=None, host_arrs=None, row_format=None):
+        self.index = index
+        self.mesh = mesh if mesh is not None else LocalMesh((1, 2))
+        self.device = self.mesh.device
+        self.cfg = StaticCfg(index, row_format)
+        nb = self.mesh.shape[1]
+        if host_arrs is None:
+            host_arrs = device_arrays(index, row_format)
+        elif host_arrs["cw_row"].shape[1] != row_width(self.cfg):
+            raise ValueError(f"stale host_arrs: cw_row has {host_arrs['cw_row'].shape[1]} "
+                             f"columns, this engine expects {row_width(self.cfg)}")
+        else:
+            host_arrs = with_access_tables(index, self.cfg, host_arrs)
+        t0 = time.perf_counter()
+        shards, geo = shard_tables(host_arrs, self.cfg, nb)
+        self.shard_seconds = time.perf_counter() - t0  # the host transform
+        self.geometry = geo
+        self.shard_bytes = [sum(v.nbytes for v in d.values()) for d in shards]
+        self.tables = {j: tables_from_host(shards[j], self.device) for j in self.mesh.columns}
+        del shards
+        self.handoff = geo["per_shard_hrows"] is not None
+        per, phr = geo["per_shard"], geo["per_shard_hrows"] or 0
+        pblk, psw = geo["per_shard_blocks"], geo["per_shard_swords"]
+        self.probe_shards = [ProbeShard(j * per, (j + 1) * per, j * phr, (j + 1) * phr)
+                             for j in range(nb)]
+        self.access_shards = [AccessShard(j * pblk, (j + 1) * pblk, j * psw, (j + 1) * psw)
+                              for j in range(nb)]
+        self.fields = "ids" if self.cfg.row_v2 else "full"
+        self._lookups = {}
+        self._neighbours = {}
+
+    # ---------------------------------------------------------------- helpers
+
+    def per_device_bytes(self):
+        """Index bytes one device holds: bucket shard 0's tables, as the JAX
+        ShardedEngine counts them (sharded tables their slice, replicated
+        ones whole)."""
+        return self.shard_bytes[0]
+
+    def table_bytes(self):
+        """Device bytes of each bucket column's tables this process holds."""
+        return {j: sum(t.numel() * t.element_size() for t in tab.values())
+                for j, tab in self.tables.items()}
+
+    def _row_shards(self, row):
+        return [s for s in self.mesh.local if s[0] == row]
+
+    def _split(self, x):
+        """This process's rows of a batch tensor -> {row: slice}."""
+        rows = self.mesh.rows
+        if x.shape[0] % len(rows):
+            raise ValueError(f"batch of {x.shape[0]} does not split over {len(rows)} rows")
+        n = x.shape[0] // len(rows)
+        return {i: x[r * n: (r + 1) * n] for r, i in enumerate(rows)}
+
+    def _probe_row(self, row, cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
+                   active=None, fields="full"):
+        """Kernel 2 on every shard of data row `row`, combined over the
+        bucket axis (engine.probe's contract; `tables` is unused: each shard
+        reads its own)."""
+        shards = self._row_shards(row)
+        args = (kmers32, kmers_rc32, minval, minpos, minpos2)
+        outs = {s: probe(cfg, self.tables[s[1]], *args, active, fields,
+                         shard=self.probe_shards[s[1]]) for s in shards}
+        packed = {s: _pack(o) for s, o in outs.items()}
+        if self.handoff:
+            hrow = self.mesh.pmin({s: o["hrow"] for s, o in outs.items()}, "bucket",
+                                  unsigned=True)
+            for s in shards:
+                second = probe(cfg, self.tables[s[1]], *args, None, fields,
+                               shard=self.probe_shards[s[1]], hrows=hrow[s])
+                packed[s] = torch.minimum(packed[s], _pack(second))
+        return _unpack(self.mesh.pmin(packed, "bucket")[shards[0]], fields)
+
+    def _lookup_fn(self, row, fields):
+        key = (row, fields)
+        if key not in self._lookups:
+            self._lookups[key] = make_lookup(self.cfg, fields,
+                                             probe=functools.partial(self._probe_row, row))
+        return self._lookups[key]
+
+    def _row_values(self, per_row):
+        """{row: value} -> the row-level value dict of mesh.row_shards."""
+        return {s: per_row[s[0]] for s in self.mesh.row_shards}
+
+    def _psum_rows(self, per_row):
+        """Sum of a per-row value over the data axis (the same everywhere)."""
+        red = self.mesh.psum(self._row_values(per_row), "data")
+        return red[self.mesh.row_shards[0]]
+
+    def _psum_local(self, value):
+        """Sum over the processes of a value each computed over all its
+        rows."""
+        rows = self.mesh.rows
+        return self._psum_rows({i: value if i == rows[0] else torch.zeros_like(value)
+                                for i in rows})
+
+    def _gather(self, per_row):
+        """{row: (n, ...) tensor} -> the concatenation in row order of every
+        row this process answers."""
+        return torch.cat([per_row[i] for i in self.mesh.rows])
+
+    def kmers32(self, kmers64):
+        """(B, W64) uint64 packed kmers -> (B, W) int32 tensor on the mesh's
+        device."""
+        k32 = np.ascontiguousarray(K.kmers_to_u32(np.atleast_2d(
+            np.asarray(kmers64, dtype=np.uint64)), self.cfg.k))
+        return torch.from_numpy(k32.view(np.int32)).to(self.device)
+
+    def _ids(self, ids):
+        ids = np.ascontiguousarray(np.asarray(ids, dtype=np.uint32))
+        return torch.from_numpy(ids.view(np.int32)).to(self.device)
+
+    def _local_rows(self, arr):
+        """This process's rows of a global host batch (a multiple of D), and
+        their [lo, hi)."""
+        D = self.mesh.shape[0]
+        n = len(arr) // D
+        lo, hi = self.mesh.rows[0] * n, (self.mesh.rows[-1] + 1) * n
+        return arr[lo:hi], (lo, hi)
+
+    def _host_rows(self, arr):
+        """A host batch padded to the data-axis size with its last row ->
+        (this process's rows, their lo, how many of them are not padding)."""
+        n = len(arr)
+        pad = (-n) % self.mesh.shape[0]
+        if pad:
+            arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
+        local, (lo, _) = self._local_rows(arr)
+        return local, lo, max(0, n - lo)
+
+    # ----------------------------------------------------------------- lookup
+
+    def lookup_device(self, kmers32, fields=None):
+        """(B, W) int32 kmers of this process's rows -> (dict of result
+        tensors for them, report {num_kmers, num_positive} as int64 tensors
+        summed over the data axis)."""
+        fields = fields or self.fields
+        res = {i: self._lookup_fn(i, fields)(None, km) for i, km in self._split(kmers32).items()}
+        report = {"num_kmers": self._psum_rows(
+                      {i: torch.tensor(len(r["found"]), device=self.device)
+                       for i, r in res.items()}),
+                  "num_positive": self._psum_rows({i: r["found"].sum() for i, r in res.items()})}
+        return {key: self._gather({i: r[key] for i, r in res.items()}) for key in res[
+            self.mesh.rows[0]]}, report
+
+    def lookup_ids_device(self, kmers32):
+        return self.lookup_device(kmers32, "ids")[0]
+
+    def lookup_multiprocess(self, kmers64):
+        """Every process passes the same global batch (a multiple of the
+        data-axis size); returns (res, report, (lo, hi)): the host results
+        of this process's rows [lo, hi) and the global report."""
+        kmers64 = np.atleast_2d(np.asarray(kmers64, dtype=np.uint64))
+        if len(kmers64) % self.mesh.shape[0]:
+            raise ValueError(f"multiprocess batch length must be a multiple of the data-axis "
+                             f"size {self.mesh.shape[0]}")
+        local, lohi = self._local_rows(kmers64)
+        res, report = self.lookup_device(self.kmers32(local))
+        return _to_host_result(res), {key: int(v) for key, v in report.items()}, lohi
+
+    def lookup(self, kmers64):
+        """(B, W64) uint64 packed kmers -> (numpy results as oracle.lookup,
+        report). Pads the batch to the data-axis size and corrects the
+        report for the padded lanes. On a DistMesh whose rows span
+        processes, the results of this process's rows (the report is
+        global)."""
+        kmers64 = np.atleast_2d(np.asarray(kmers64, dtype=np.uint64))
+        local, lo, keep = self._host_rows(kmers64)
+        res, report = self.lookup_device(self.kmers32(local))
+        report = {key: int(v) for key, v in report.items()}
+        pad = (-len(kmers64)) % self.mesh.shape[0]
+        if pad:  # the device report counted the padded lanes
+            report["num_kmers"] -= pad
+            report["num_positive"] -= int(self._psum_local(res["found"][keep:].sum()))
+        return _to_host_result({key: v[:keep] for key, v in res.items()}), report
+
+    def is_member(self, kmers64):
+        return self.lookup(kmers64)[0]["kmer_id"] != np.uint64(2 ** 64 - 1)
+
+    # ------------------------------------------------- access, weight, navigation
+
+    def access_device(self, ids):
+        """(B,) int32 kmer ids of this process's rows -> (B, W) int32 kmers:
+        the id block's owner reads its access row; in the windowed form it
+        decodes the kmer and one unsigned max combines, else the char
+        offset's unsigned min goes to the owner of the char's word, which
+        reads from its strings slice, and an unsigned max combines."""
+        out = {}
+        for row, part in self._split(ids).items():
+            shards = self._row_shards(row)
+            got = {s: access(self.cfg, self.tables[s[1]], part, self.access_shards[s[1]])
+                   for s in shards}
+            if got[shards[0]].dim() == 1:  # two-round form: char offsets
+                off = self.mesh.pmin(got, "bucket", unsigned=True)
+                got = {s: access_read(self.cfg, self.tables[s[1]], off[s],
+                                      self.access_shards[s[1]]) for s in shards}
+            out[row] = self.mesh.pmax(got, "bucket", unsigned=True)[shards[0]]
+        return self._gather(out)
+
+    def access(self, ids):
+        """kmer ids -> (B, W64) uint64 packed kmers, as oracle.access (on a
+        DistMesh, this process's rows, as lookup)."""
+        local, _, keep = self._host_rows(np.asarray(ids, dtype=np.uint32))
+        out = self.access_device(self._ids(local))
+        return K.u32_to_kmers64(out.cpu().numpy().view(np.uint32), self.cfg.k)[:keep]
+
+    def weight_device(self, ids):
+        """(B,) int32 kmer ids of this process's rows -> (B,) int32 weights:
+        the run's owner searches its runs, an unsigned max combines."""
+        if not self.cfg.weighted:
+            raise RuntimeError("dictionary is not weighted")
+        out = {}
+        for row, part in self._split(ids).items():
+            shards = self._row_shards(row)
+            got = {s: weight(self.tables[s[1]], part, owned=True) for s in shards}
+            out[row] = self.mesh.pmax(got, "bucket", unsigned=True)[shards[0]]
+        return self._gather(out)
+
+    def weight(self, ids):
+        """kmer ids -> uint64 weights, as index.weights.weight."""
+        local, _, keep = self._host_rows(np.asarray(ids, dtype=np.uint32))
+        out = self.weight_device(self._ids(local))
+        return out.cpu().numpy().view(np.uint32).astype(np.uint64)[:keep]
+
+    def kmer_neighbours_device(self, kmers32):
+        """(B, W) int32 kmers of this process's rows -> dict of (B, 8)
+        tensors: the 8 one-char variants (neighbours kernel) through one
+        sharded lookup."""
+        out = {}
+        for row, part in self._split(kmers32).items():
+            if row not in self._neighbours:
+                self._neighbours[row] = make_neighbours(
+                    self.cfg, self.fields, probe=functools.partial(self._probe_row, row))
+            out[row] = self._neighbours[row](None, part)
+        return {key: self._gather({i: r[key] for i, r in out.items()})
+                for key in out[self.mesh.rows[0]]}
+
+    def kmer_neighbours(self, kmers64):
+        """(B, W64) uint64 packed kmers -> dict of (B, 8) numpy arrays, as
+        TorchEngine.kmer_neighbours."""
+        local, _, keep = self._host_rows(np.atleast_2d(np.asarray(kmers64, dtype=np.uint64)))
+        res = self.kmer_neighbours_device(self.kmers32(local))
+        return {key: v[:keep] for key, v in _neighbours_to_host(res).items()}
+
+    # ---------------------------------------------------------------- streaming
+
+    def stream_report_device(self, kmers32, valid, first):
+        """One per-position streaming step over this process's rows: (B, W)
+        int32 kmers, bool valid and first (a read starts at the lane).
+        Per data row the lookup, then the adjacency rules on the device (the
+        stream's count kernel), the boundary stitch with data row i-1's last
+        lane (ppermute), and the counters summed over the data axis.
+        Returns the report's counters as int64 tensors."""
+        check_streamable(self.cfg)
+        kms, vs, fs = self._split(kmers32), self._split(valid), self._split(first)
+        rows, lanes0 = {}, {}
+        for row, km in kms.items():
+            res = self._lookup_fn(row, "full")(None, km)
+            n = km.shape[0]
+            nwords = n // 32 + 1
+            state = {"found": res["found"].to(torch.uint8), "string_id": res["string_id"],
+                     "kmer_id": res["kmer_id"], "kmer_orientation": res["kmer_orientation"]}
+            cnt = torch.full((1,), n, dtype=torch.int32, device=self.device)
+            out = stream_count(state, _bits(vs[row], nwords), _bits(fs[row], nwords), cnt)
+            rows[row] = out.to(torch.int64) & 0xFFFFFFFF
+            lanes0[row] = fs[row][0]
+        prev = self.mesh.ppermute(self._row_values({i: r[2] for i, r in rows.items()}))
+        totals = {}
+        for s in self.mesh.row_shards:
+            r, p = rows[s[0]], prev[s]
+            lane0 = r[1]
+            ext0 = ((lane0[0] != 0) & ~lanes0[s[0]] & (p[0] != 0) & (lane0[1] == p[1])
+                    & (lane0[3] == p[3]) & (lane0[2] == ((p[2] + p[3]) & 0xFFFFFFFF)))
+            totals[s[0]] = torch.stack([r[0, 0], r[0, 1], r[0, 2] + ext0.to(torch.int64),
+                                        r[0, 3]])
+        n_all, n_pos, n_ext, n_inv = self._psum_rows(totals)
+        return {"num_kmers": n_all, "num_positive_kmers": n_pos, "num_extensions": n_ext,
+                "num_searches": n_pos - n_ext, "num_invalid_kmers": n_inv,
+                "num_negative_kmers": n_all - n_pos - n_inv}
+
+    def stream_report(self, kmers64, valid, first):
+        """The streaming report of per-position kmers (B a multiple of the
+        data-axis size; every process passes the whole batch). Reads may
+        straddle data rows: the chain stitches across them."""
+        kmers64 = np.atleast_2d(np.asarray(kmers64, dtype=np.uint64))
+        if len(kmers64) % self.mesh.shape[0]:
+            raise ValueError(f"stream batch length must be a multiple of the data-axis "
+                             f"size {self.mesh.shape[0]}")
+        km, _ = self._local_rows(kmers64)
+        flags = [torch.from_numpy(self._local_rows(np.asarray(x, dtype=bool))[0]).to(self.device)
+                 for x in (valid, first)]
+        rep = self.stream_report_device(self.kmers32(km), *flags)
+        return {key: int(n) for key, n in rep.items()}
+
+
+class ShardedStream(_DeviceStream):
+    """Packed streaming over a ShardedEngine: streaming._DeviceStream's
+    host side (chunking, long-read splits, counter folds and the chunk
+    stitch, in stream order) with one step per data row, whose lookups are
+    the engine's bucket-sharded ones and whose chain reads its string
+    windows from their owners (stream_swin, then an unsigned max over the
+    bucket axis). On a LocalMesh chunks go to the data rows in turn; on a
+    DistMesh every rank streams its own row's reads (the bucket ranks of a
+    row feed it the same reads) and finalize sums the rows' reports over
+    the data axis. A row's step combines only within its row, so the rows
+    need not run the same number of steps."""
+
+    def __init__(self, engine, pmax=1 << 18, rmax_shift=4, runskip=None):
+        super().__init__(engine, engine.index.k, pmax=pmax, rmax_shift=rmax_shift,
+                         runskip=runskip)
+
+    def _make_steps(self, runskip):
+        eng = self.engine
+        return {(row, av): make_stream_step(eng.cfg, self.P, self.R, self.CW,
+                                            eng._lookup_fn(row, "full"), all_valid=av,
+                                            runskip=runskip,
+                                            swin=functools.partial(self._swin, row))
+                for row in eng.mesh.rows for av in (False, True)}
+
+    def _swin(self, row, tables, ares):
+        eng = self.engine
+        shards = eng._row_shards(row)
+        got = {s: stream_swin(ares["kmer_offset"], ares["kmer_orientation"],
+                              eng.tables[s[1]]["strings32"], eng.cfg.k, eng.access_shards[s[1]])
+               for s in shards}
+        return eng.mesh.pmax(got, "bucket", unsigned=True)[shards[0]]
+
+    def _run(self, all_valid, packed):
+        rows = self.engine.mesh.rows
+        return self._steps[(rows[self.chunks % len(rows)], all_valid)](None, packed)
+
+    def finalize(self):
+        rep = super().finalize()
+        mesh = self.engine.mesh
+        if len(mesh.rows) == mesh.shape[0]:
+            return rep
+        t = torch.tensor([rep[key] for key in REPORT_KEYS], dtype=torch.int64,
+                         device=self.engine.device)
+        tot = self.engine._psum_local(t)
+        return dict(zip(REPORT_KEYS, (int(x) for x in tot)))

@@ -417,17 +417,25 @@ def _win16(words, base):
     return (words[w0i] >> sh) | hi
 
 
+def _window_base(aoff, fwd, k):
+    """First string char of an anchor's followers' window: after the
+    anchor's kmer forward, up to S-1 chars before it backward."""
+    return torch.where(fwd, (aoff + k - 1) & M32, aoff - aoff.clamp(max=S - 1))
+
+
 CHAIN_FIELDS = ("found", "kmer_offset", "string_id", "kmer_id", "kmer_orientation",
                 "string_begin", "string_end")
 
 
-def stream_chain_plain(ares, words32, strings32, valid_bits, sbits, fbits, cum_g, k):
+def stream_chain_plain(ares, words32, strings32, valid_bits, sbits, fbits, cum_g, k, swin=None):
     """Chain extension (streaming.py:390-435 of the JAX package): anchor g
     covers lanes 16g..16g+15; follower t is found iff every lane 1..t of
     the group is valid, starts no read or segment, its string char equals
     the read char (complemented on the backward strand) and stays inside
-    the anchor's string. ares: the anchors' lookup (CHAIN_FIELDS). Returns
-    per lane found (uint8), string_id, kmer_id (kid = akid +- t mod 2^32),
+    the anchor's string. ares: the anchors' lookup (CHAIN_FIELDS); swin:
+    the anchors' 16-char string windows (a bucket-sharded stream's
+    stream_swin, combined), read in place of strings32. Returns per lane
+    found (uint8), string_id, kmer_id (kid = akid +- t mod 2^32),
     orientation (int32) and need = valid & ~found (uint8)."""
     A = ares["found"].shape[0]
     dev = words32.device
@@ -442,8 +450,8 @@ def stream_chain_plain(ares, words32, strings32, valid_bits, sbits, fbits, cum_g
     afound = ares["found"] & vg[0]
     fwd = aori == 1
     k1 = k - 1
-    base_s = torch.where(fwd, (aoff + k1) & M32, aoff - aoff.clamp(max=S - 1))
-    saw = _win16(u.u32(strings32), base_s)
+    base_s = _window_base(aoff, fwd, k)
+    saw = _win16(u.u32(strings32), base_s) if swin is None else u.u32(swin)
     raw = _win16(u.u32(words32), (apos + k1) & M32)
     og = torch.where(fwd, aoff + t, aoff - t) & M32
     under = ~fwd & (aoff < t)
@@ -468,6 +476,22 @@ def stream_chain_plain(ares, words32, strings32, valid_bits, sbits, fbits, cum_g
 
 
 stream_chain = kernels.by_device(kernels.stream_chain_kernel, stream_chain_plain, "chain", arg=1)
+
+
+def stream_swin_plain(aoff, aori, strings32, k, words):
+    """The anchors' string windows on one bucket shard (ShardedStream's
+    swin, sharded.py:431-438 of the JAX package): chars [base, base+16) of
+    each anchor (_window_base of its kmer_offset and orientation) where
+    this shard's strings32 slice (words: a layout.AccessShard) holds the
+    window's first word, 0 elsewhere. Returns (A,) int32."""
+    base = _window_base(u.u32(aoff), aori == 1, k)
+    w0 = base >> 4
+    own = (w0 >= words.word_lo) & (w0 < words.word_hi)
+    win = _win16(u.u32(strings32), torch.where(own, base - 16 * words.word_lo, 0))
+    return u.to_i32(torch.where(own, win, 0))
+
+
+stream_swin = kernels.by_device(kernels.stream_swin_kernel, stream_swin_plain, "window", arg=0)
 
 
 def stream_heads_plain(mv_f, mv_r, lanes, count, fbits, gate):
@@ -605,7 +629,8 @@ def check_streamable(cfg):
                          "input into < 2^32-char sub-indexes to stream")
 
 
-def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, runskip=None):
+def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, runskip=None,
+                     swin=None):
     """The per-chunk step on one packed int32 buffer (u32 bits) at the
     offsets of the JAX package's step_packed (step_packed_av when
     all_valid: no valid bits; lanes < count are valid). Returns
@@ -617,6 +642,10 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
     the CPU) or PLAIN_OPS (plain versions on any device; pass a plain
     lookup with them). runskip: None for JAX's gate (on when more than P/64
     lanes miss their chain), True / False to force it.
+
+    swin: None (the chain reads tables["strings32"]) or fn(tables, ares) ->
+    the anchors' string windows, for tables split by string range (the
+    bucket-sharded stream).
 
     fn(tables, packed, stats=None): a dict passed as stats receives, as
     device tensors, the lanes that missed their chain ("need"), the lookup
@@ -646,7 +675,12 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
         sbits, fbits, gcnt = ops.masks(pstart, rfirst, nreads, P)
         cum_g = ops.scan(gcnt)
         ares = lookup(tables, ops.kmers(words32, sbits, cum_g, k, A))
-        state = ops.chain(ares, words32, tables["strings32"], valid_bits, sbits, fbits, cum_g, k)
+        if swin is None:
+            state = ops.chain(ares, words32, tables["strings32"], valid_bits, sbits, fbits,
+                              cum_g, k)
+        else:
+            state = ops.chain(ares, words32, None, valid_bits, sbits, fbits, cum_g, k,
+                              swin=swin(tables, ares))
         lanes, n_need = ops.compact(state["need"])
         km = ops.kmers(words32, sbits, cum_g, k, P, lanes, n_need)
         mins = ops.minimizer(km, k, cfg.m, cfg.magic, both=True)
@@ -681,10 +715,7 @@ class _DeviceStream:
         self.R = max(16, pmax >> rmax_shift)
         self.CW = self._cw_words(pmax, self.R, k)
         _, self._o1, self._o2, self._o3 = packed_offsets(self.P, self.R)
-        lookup = make_lookup(engine.cfg, "full")
-        self._steps = {av: make_stream_step(engine.cfg, self.P, self.R, self.CW, lookup,
-                                            all_valid=av, runskip=runskip)
-                       for av in (False, True)}
+        self._steps = self._make_steps(runskip)
         pin = engine.device.type == "cuda"
         self._buf = torch.empty(self._o3 + self.CW, dtype=torch.int32, pin_memory=pin)
         self._buf_np = self._buf.numpy().view(np.uint32)
@@ -701,6 +732,17 @@ class _DeviceStream:
         self.report = dict.fromkeys(
             ["num_kmers", "num_positive_kmers", "num_negative_kmers",
              "num_invalid_kmers", "num_searches", "num_extensions"], 0)
+
+    def _make_steps(self, runskip):
+        """The step of each chunk form (all-valid or not)."""
+        lookup = make_lookup(self.engine.cfg, "full")
+        return {av: make_stream_step(self.engine.cfg, self.P, self.R, self.CW, lookup,
+                                     all_valid=av, runskip=runskip)
+                for av in (False, True)}
+
+    def _run(self, all_valid, packed):
+        """Queue the step of one resident chunk; returns its (3, 4)."""
+        return self._steps[all_valid](self.engine.tables, packed)
 
     @staticmethod
     def _cw_words(pmax, rmax, k):
@@ -809,7 +851,7 @@ class _DeviceStream:
             self._copied.record()
         if self.capture is not None:
             self.capture.append((all_valid, packed))
-        return self._steps[all_valid](self.engine.tables, packed)
+        return self._run(all_valid, packed)
 
     def _fold(self, out, chunk_starts_fresh):
         out = np.asarray(out).view(np.uint32)  # (3, 4) u32

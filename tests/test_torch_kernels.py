@@ -25,7 +25,10 @@ from sshash_tpu_torch import TorchEngine, kernels, synthetic
 from sshash_tpu_torch import engine as E
 from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.engine import canonical_fold, probe, probe_plain
+from sshash_tpu_torch.layout import AccessShard, ProbeShard
 from sshash_tpu_torch.ops import packed as P
+from sshash_tpu_torch.parallel import LocalMesh
+from sshash_tpu_torch.parallel.sharded import _pack, _unpack
 
 
 @pytest.fixture
@@ -150,6 +153,138 @@ def test_probe_variants_equal_plain_on_card(card, name, form, tmp_path):
             assert torch.equal(got["found"], ref["found"])
 
 
+def _cuts(n):
+    """Uneven cuts of n >= 3 rows into three non-empty ranges."""
+    a = max(1, n // 7)
+    return [0, a, max(a + 1, n // 2), n]
+
+
+def _combine(ts, op):
+    """The shards' outputs ts combined by the mesh's unsigned pmin or pmax."""
+    mesh = LocalMesh((1, len(ts)), ts[0].device)
+    return getattr(mesh, op)({(0, j): t for j, t in enumerate(ts)}, "bucket",
+                             unsigned=True)[(0, 0)]
+
+
+def _equal(got, want):
+    assert got.keys() == want.keys()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m3_skew", "m3_skew_canonical", "m9_c1", "short_strings",
+                                  "weighted", "k63"])
+def test_sharded_kernels_equal_plain_on_card(card, name):
+    """Kernel 2, access (both rounds), weight and the stream window read on
+    three shards cut unevenly (1/7, then to 1/2, then the rest of the
+    slots, heavy rows, id blocks, string words and weight runs): each
+    kernel equals its plain version, with the hand-off's rows and on lanes
+    of other shards, and the shards' answers combine to the unsharded
+    kernels' (the chain given the combined windows equals the chain that
+    reads strings32)."""
+    idx = synthetic.small_index(name)
+    eng = TorchEngine(idx, card)
+    cfg, t = eng.cfg, eng.tables
+    q, _ = synthetic.query_batch(idx)
+    kt = eng.kmers32(q)
+    args = _probe_args(cfg, kt)
+    active = torch.from_numpy(np.random.default_rng(6).random(kt.shape[0]) < 0.9).to(card)
+    sc = _cuts(t["cw_row"].shape[0])
+    hc = _cuts(t["sk_hrows"].shape[0]) if cfg.skew_hrows else [0, 0, 0, 0]
+    for fields in ("full", "ids"):
+        shards = [ProbeShard(a, b, c, d) for a, b, c, d in zip(sc, sc[1:], hc, hc[1:])]
+        tabs = [dict(t, cw_row=t["cw_row"][s.slot_lo:s.slot_hi],
+                     sk_hrows=t["sk_hrows"][s.hrow_lo:s.hrow_hi] if cfg.skew_hrows
+                     else t["sk_hrows"]) for s in shards]
+        outs = []
+        for sh, tab in zip(shards, tabs):
+            got = probe(cfg, tab, kt, *args, active, fields, shard=sh)
+            _equal(got, probe_plain(cfg, tab, kt, *args, active, fields, shard=sh))
+            outs.append(got)
+        packed = [_pack(o) for o in outs]
+        if cfg.skew_hrows:
+            hrow = _combine([o["hrow"] for o in outs], "pmin")
+            assert (hrow != -1).any()
+            for i, (sh, tab) in enumerate(zip(shards, tabs)):
+                got = probe(cfg, tab, kt, *args, None, fields, shard=sh, hrows=hrow)
+                _equal(got, probe_plain(cfg, tab, kt, *args, None, fields, shard=sh, hrows=hrow))
+                packed[i] = torch.minimum(packed[i], _pack(got))
+        want = probe(cfg, t, kt, *args, active, fields)
+        _equal(_unpack(torch.stack(packed).amin(0), fields), want)
+    # access: id blocks and string words cut unevenly, the strings' slices
+    # with their halo
+    ids = torch.arange(idx.num_kmers, dtype=torch.int32, device=card)
+    bc, wc = _cuts(t["acc_rows"].shape[0]), _cuts(t["strings32"].shape[0])
+    halo = cfg.W + 1
+    ash = [AccessShard(a, b, c, d) for a, b, c, d in zip(bc, bc[1:], wc, wc[1:])]
+    atabs = [dict(t, acc_rows=t["acc_rows"][s.blk_lo:s.blk_hi],
+                  strings32=t["strings32"][s.word_lo:s.word_hi + halo]) for s in ash]
+    firsts = []
+    for sh, tab in zip(ash, atabs):
+        got = E.access(cfg, tab, ids, sh)
+        assert torch.equal(got, E.access_plain(cfg, tab, ids, sh))
+        firsts.append(got)
+    if firsts[0].dim() == 1:  # two-round form: offsets, then the word owners read
+        off = _combine(firsts, "pmin")
+        firsts = []
+        for sh, tab in zip(ash, atabs):
+            got = E.access_read(cfg, tab, off, sh)
+            assert torch.equal(got, E.access_read_plain(cfg, tab, off, sh))
+            firsts.append(got)
+    assert torch.equal(_combine(firsts, "pmax"), E.access(cfg, t, ids))
+    if cfg.weighted:
+        ep = t["w_endpoints"]
+        rc = _cuts(ep.shape[0] - 1)
+        ws = []
+        for a, b in zip(rc, rc[1:]):
+            tab = dict(t, w_endpoints=ep[a:b + 1], w_value_ids=t["w_value_ids"][a:b])
+            got = E.weight(tab, ids, owned=True)
+            assert torch.equal(got, E.weight_plain(tab, ids, owned=True))
+            ws.append(got)
+        assert torch.equal(_combine(ws, "pmax"), E.weight(t, ids))
+    if cfg.row_v2 or name == "short_strings":
+        return
+    # the stream window read and the chain given windows, on a real chunk's
+    # chain inputs
+    calls = []
+
+    def chain(*a, **kw):
+        calls.append(a)
+        return ST.stream_chain(*a, **kw)
+
+    ops = ST.KERNEL_OPS._replace(chain=chain)
+    strings = synthetic.index_strings(idx)
+    reads = synthetic.cut_reads(strings, 300, min(120, min(map(len, strings))),
+                                np.random.default_rng(7), rc=0.5, subst=0.01)
+    s = ST._DeviceStream(eng, idx.k, pmax=1 << 14)
+    s.capture = []
+    for r in reads:
+        s.add_read(r)
+    s.finalize()
+    av, packed = s.capture[0]
+    ST.make_stream_step(cfg, s.P, s.R, s.CW, E.make_lookup(cfg, "full"), all_valid=av,
+                        ops=ops)(t, packed)
+    ares, words32, strings32, *rest = calls[0]
+    wins = []
+    for sh, tab in zip(ash, atabs):
+        got = ST.stream_swin(ares["kmer_offset"], ares["kmer_orientation"], tab["strings32"],
+                             idx.k, sh)
+        assert torch.equal(got, ST.stream_swin_plain(ares["kmer_offset"],
+                                                     ares["kmer_orientation"], tab["strings32"],
+                                                     idx.k, sh))
+        wins.append(got)
+    swin = _combine(wins, "pmax")
+    want = ST.stream_chain(ares, words32, strings32, *rest)
+    for fn in (ST.stream_chain, ST.stream_chain_plain):
+        got = fn(ares, words32, None, *rest, swin=swin)
+        found = want["found"] != 0
+        assert torch.equal(got["found"], want["found"]) and torch.equal(got["need"], want["need"])
+        for key in ("string_id", "kmer_id", "kmer_orientation"):
+            assert torch.equal(got[key], want[key]), key
+        assert found.any()
+
+
 def _rows_equal(got, want):
     g, w = got.cpu().numpy().view(np.uint32), want.cpu().numpy().view(np.uint32)
     assert np.array_equal(g[0], w[0])
@@ -177,9 +312,10 @@ def test_stream_kernels_equal_plain_on_card(card, name, tmp_path):
             s.add_read(seq)
         rep = s.finalize()
         after = kernels.counts()
+        # every stream wrapper but the window read of a bucket-sharded stream
         assert all(after[n] > before[n] for src in ("scan.cu", "stream_anchor.cu",
                                                     "stream_chain.cu", "stream_derive.cu")
-                   for n in kernels.SOURCE_KERNELS[src])
+                   for n in kernels.SOURCE_KERNELS[src] if n != "stream_swin_kernel")
         want = jax_streaming.streaming_query_from_file(jdict, path, multiline=ml)
         assert rep == {key: want[key] for key in rep}
         for av, packed in s.capture:
@@ -265,6 +401,11 @@ def test_wrappers_take_cuda_tensors_only():
                                     torch.zeros(4, dtype=torch.int32), cfg.k, 4)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.stream_heads_kernel(mv, mv, mp, mp[:1], mp[:1], -1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.access_read_kernel(cfg, eng.tables, ids, AccessShard(0, 1, 0, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stream_swin_kernel(ids, ids, eng.tables["strings32"], cfg.k,
+                                   AccessShard(0, 1, 0, 1))
     assert kernels.counts() == before
     meta = torch.empty((4, cfg.W), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="minimizer"):
@@ -284,7 +425,8 @@ def test_wrappers_take_cuda_tensors_only():
 
 ENTRIES = {"minimizer": (P.minimizer, 0), "neighbours": (P.neighbour_variants, 0),
            "scan": (P.scan_ex, 0), "compaction": (P.compact, 0), "probe": (E.probe, 2),
-           "access": (E.access, 2), "iterator": (E.iterate, 1), "weight": (E.weight, 1),
+           "access": (E.access, 2), "access-read": (E.access_read, 2),
+           "iterator": (E.iterate, 1), "weight": (E.weight, 1), "window": (ST.stream_swin, 0),
            "masks": (ST.stream_masks, 0), "kmer-read": (ST.stream_kmers, 0),
            "chain": (ST.stream_chain, 1), "run-skip": (ST.stream_heads, 2),
            "round-2": (ST.stream_round2, 0), "merge": (ST.stream_merge, 0),
