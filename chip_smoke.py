@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA card, batched k-mer
 lookup first, then access, iteration, weight, navigation, streaming
 membership over reads, the capacity formats (legacy skew indexes, rebased
-v2 rows, ids above 2^31) and the bucket-sharded engine, and check them end
-to end.
+v2 rows, ids above 2^31), the bucket-sharded engine, and k > 63 with the
+sanitizer (SSHASH_DEBUG) and read_kmers_at2, and check them end to end.
 
     python3 chip_smoke.py
 
@@ -13,12 +13,16 @@ line):
   2. build: one nvcc per csrc/ source, in parallel, for sm_90a (timed,
      registers per kernel, any spills)
   3. kernel == plain on the card, exactly: kernel 1 at B = 2^20 for
-     (k, m) in (31, 17), (31, 21), (63, 25); on every small configuration
-     of synthetic.SMALL_CONFIGS kernel 2 (full and ids fields), access
-     (both row forms across the configurations), iteration, weight (the
-     weighted configuration) and the neighbour variants; kernel 2 in v2
-     rows (ids above 2^31 too) and in both legacy skew forms on m3_skew,
-     m3_skew_canonical, partitioned and k63
+     (k, m) in (31, 17), (31, 21), (63, 25), (65, 25), (127, 31), (129,
+     31), (255, 31); on every small configuration of
+     synthetic.SMALL_CONFIGS and WIDE_CONFIGS (k65, k127, k129) kernel 2
+     (full and ids fields), access (both row forms across the
+     configurations), iteration, weight (the weighted configurations), the
+     neighbour variants, the sanitizer's check (K13) and read_kmers_at2
+     (K7); on the wide ones a small stream, each stage == plain, the
+     report == the host _Batcher's; kernel 2 in v2 rows (ids above 2^31
+     too) and in both legacy skew forms on m3_skew, m3_skew_canonical,
+     partitioned, k63 and k129_canonical
   4. main path, 5M kmers k31 m17 (the repo's salmonella bench config on
      synthetic unitigs), regular and canonical: 2^23 lanes, 50% reverse
      complemented, through TorchEngine; every id round-trips; a 2^20-lane
@@ -34,8 +38,9 @@ line):
      lanes tiled from the heavy lanes alone, where every lane takes the
      legacy path (the kernels line's legacy row); these calls take tens of
      microseconds, so the kernels' sides replay from a CUDA graph
-  7. scale, 200M kmers k31 m21 canonical (the repo's human-config scale
-     bench): 2^24 lanes round-trip, 2^20-lane oracle sample, ns/kmer of the
+  7. scale, 100M kmers k31 m21 canonical (the repo's human-config scale
+     bench, 200M, cut to half for the run's time; its lookup tables are
+     still about 20 times the 50 MB L2): 2^24 lanes round-trip, 2^20-lane oracle sample, ns/kmer of the
      lookup and of each kernel, against the plain versions on the card,
      device bytes per kmer, peak device memory
   8. access, iteration, weight and navigation at 5M kmers, on phase 4's
@@ -46,7 +51,7 @@ line):
      weight of 2^23 ids on a weighted 5M build (weight runs as long as in
      the reference's E. coli Sakai example) equals index.weights; each
      kernel equals its plain version on all lanes; times
-  9. access and iteration at 200M kmers, on phase 7's index: 2^24 ids,
+  9. access and iteration at 100M kmers, on phase 7's index: 2^24 ids,
      access/lookup round trip on every lane, a 2^20 oracle sample, count
      equals num_kmers, kernel == plain; times
  10. streaming membership through streaming_query_from_file's pipeline, on
@@ -55,12 +60,12 @@ line):
      one chunk of 5<<20), low-hit reads (100,000 of 76 chars, 10 cut from
      the index, 1% with an N), mixed reads on the canonical index (2^16 of
      150 chars, half cut with RC and 1% substitutions, half random) and a
-     200M high-hit genome of 168 strings in chunks of 2^22. Each report
-     equals the host _Batcher's (oracle lookups; at 200M on a 2^21-position
+     100M high-hit genome of 168 strings in chunks of 2^22. Each report
+     equals the host _Batcher's (oracle lookups; at 100M on a 2^21-position
      prefix); each chunk's kernel step equals the plain step (the first at
-     200M); every stream kernel and kernels 1-2 launch, and the run-skip
+     100M); every stream kernel and kernels 1-2 launch, and the run-skip
      skips lookups in the low-hit run; device and wall k-mers/s; each stream
-     source timed against its plain version at the 200M chunk's shapes
+     source timed against its plain version at the 100M chunk's shapes
   Times are device times from CUDA events around windows of back-to-back
   calls, median of 7 windows after a warm-up; kernel and plain run in turns.
   A stream run's device time replays its chunks' steps from one CUDA graph,
@@ -84,7 +89,7 @@ line):
      low-hit and mixed reads equals its host _Batcher reports; on phase 5's
      1M planted indexes (hindex, and both legacy forms) every field equals
      the unsharded engine's, with the heavy lanes handed to another shard
-     counted (> 0); on phase 7's 200M index in (1, 4) 2^24 lanes equal the
+     counted (> 0); on phase 7's 100M index in (1, 4) 2^24 lanes equal the
      unsharded ids, with shard_tables' host time, per-shard table bytes,
      the sharded and unsharded lookups in turns, kernel 2 per shard against
      its bound and the combine; the 5M lookup on one NCCL rank
@@ -93,10 +98,24 @@ line):
      equal their plain versions on every shard.
   Each path's launch counts are set to 0 just before it and read just
   after; every kernel of the path must have launched.
- 13. one JSON line of per-source results (launches, max |err|, ms, plain ms,
+ 13. k > 63 at scale: k65 m25 (the reference's m for its widest k), 5M
+     kmers regular and 60M canonical (lookup tables about 5 times the 50
+     MB L2, tie pairs planted; its tie batch is found through the engine
+     before the lookup path's counts start): 2^23 lanes, 50% RC, round-trip; a 2^20-lane sample
+     (positives, tie lanes that hit and that miss, random kmers) equals
+     the oracle in every field; access (2^23 ids), iteration and navigation
+     (2^20 kmers) as in phase 8; on the canonical index a mixed-read stream
+     equals the host _Batcher, the (1, 4) LocalMesh lookup equals the
+     unsharded one, the SSHASH_DEBUG lookup (the check kernel, K13) passes
+     and equals the unchecked one while num_kmers_bound=1 raises, and
+     read_kmers_at2 (K7) at every positive's offset equals access; kernels
+     1-2, access, iteration, the variants, the stream's kmer read, the
+     check and the read timed against their plain versions
+ 14. one JSON line of per-source results (launches, max |err|, ms, plain ms,
      bound ms and what bounds it, library-call ms; kernel 2 once per
      variant: v1, v2 rows, legacy skew; the sharded rows of kernel 2,
-     access, weight and the chain), then the ok line.
+     access, weight and the chain; the wide forms' rows at k65), then the
+     ok line.
 
 Data is random, drawn from fixed seeds. Nothing here imports JAX or the
 JAX package (sshash_tpu): a finder refuses both.
@@ -105,6 +124,7 @@ JAX package (sshash_tpu): a finder refuses both.
 import functools
 import importlib.abc
 import json
+import os
 import socket
 import subprocess
 import sys
@@ -127,7 +147,8 @@ sys.meta_path.insert(0, _NoJax())
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from sshash_tpu_torch import Dictionary, TorchEngine, kernels, oracle, synthetic  # noqa: E402
+from sshash_tpu_torch import (Dictionary, TorchEngine, debug, kernels, oracle,  # noqa: E402
+                              synthetic)
 from sshash_tpu_torch import engine as E  # noqa: E402
 from sshash_tpu_torch import kmer as K  # noqa: E402
 from sshash_tpu_torch import streaming as ST  # noqa: E402
@@ -159,10 +180,17 @@ M32 = 0xFFFFFFFF
 PROBE_VARIANTS = {"probe_v2": "sshash_tpu/engine.py:824",
                   "probe_legacy_skew": "sshash_tpu/engine.py:713"}
 STRING_LEN = 100_030  # 100,000 k31 kmers per string
-MAIN_STRINGS, PATH_STRINGS, SCALE_STRINGS = 50, 10, 2000  # 5M, 1M, 200M kmers
+MAIN_STRINGS, PATH_STRINGS, SCALE_STRINGS = 50, 10, 1000  # 5M, 1M, 100M kmers
+
+
+T_START = time.perf_counter()
 
 
 def log(*args):
+    """Print a line; a phase's first line ("[N] ...") also gets the run's
+    seconds so far."""
+    if args and str(args[0]).startswith("["):
+        args = (*args, f"(at {time.perf_counter() - T_START:.0f} s)")
     print(*args, flush=True)
 
 
@@ -338,11 +366,13 @@ def phase_card():
 
 
 def phase_build():
-    path, secs, out = kernels.build()
+    path, secs, out, per_source = kernels.build()
     kernels.library()
     lines = out.splitlines()
     log(f"[2] build: nvcc sm_90a, {len(kernels.SOURCES)} sources in parallel -> {path.name} "
         f"in {secs:.1f} s")
+    log("  nvcc seconds per source: " + ", ".join(f"{src} {t:.1f}"
+                                                  for src, t in per_source.items()))
     for i, ln in enumerate(lines):
         if "registers" in ln:
             entry = next((x for x in reversed(lines[:i]) if "entry function" in x), "")
@@ -418,11 +448,70 @@ def rebased_equal(cfg2, tables2, kt, args, ref, tag, errs):
     return n
 
 
+def check_read_equal_plain(eng, idx, q, rng, errs):
+    """K13's check kernel over the lookup's fields (passing, and failing
+    with shrunk bounds) and K7's read over the interleaved (NW, 2) table
+    (offsets past the end too): kernel == plain, and the read's kmers and
+    bits equal the oracle's at kmer starts."""
+    dev = eng.device
+    res = eng.lookup_device(eng.kmers32(q))
+    f = [res["found"], res["kmer_id"], res["kmer_orientation"], res.get("kmer_offset"),
+         res.get("string_begin")]
+    err = 0
+    for nk, nc in ((idx.num_kmers, idx.num_chars), (1, 1)):
+        got = debug.check(*f, nk, nc)
+        err = max(err, max_abs_err([got], [debug.check_plain(*f, nk, nc)]))
+        require(got.tolist()[:2] == ([0, 0] if nk > 1 else [1, 1]), "check: wrong flags")
+    errs["check_kernel"] = max(errs["check_kernel"], err)
+    require(err == 0, "check kernel != plain")
+    t = P.interleave_valid_starts(eng.tables["strings32"], eng.tables["vstart32"])
+    ids = rng.integers(0, idx.num_kmers, 4096)
+    offs = np.concatenate([kmer_offsets(idx, ids),
+                           rng.integers(0, 16 * t.shape[0] + 64, 4096)]).astype(np.uint32)
+    ot = torch.from_numpy(offs.view(np.int32)).to(dev)
+    got = P.read_kmers_at2(t, ot, idx.k)
+    err = max_abs_err(got, P.read_kmers_at2_plain(t, ot, idx.k))
+    errs["read_at2_kernel"] = max(errs["read_at2_kernel"], err)
+    require(err == 0, "read_at2 kernel != plain")
+    require(bool(got[1][: len(ids)].all()) and torch.equal(
+        got[0][: len(ids)], kmer_tensor(oracle.access(idx, ids), idx.k, dev)),
+        "read_at2 != oracle at kmer starts")
+
+
+def kmer_offsets(idx, ids):
+    """Char offset of each kmer id: id + (its string) * (k - 1)."""
+    kc = idx.string_endpoints.astype(np.int64) - np.arange(idx.num_strings + 1) * (idx.k - 1)
+    return ids + (np.searchsorted(kc, ids, side="right") - 1) * (idx.k - 1)
+
+
+def small_stream_equal_plain(eng, idx, rng, tmp, errs):
+    """Reads cut from a small index (half RC, 1% substituted) and random
+    reads: the report equals the host _Batcher's, and every stream stage of
+    the first chunk equals its plain version (the k-mer read at this
+    index's width among them)."""
+    strings = synthetic.index_strings(idx)
+    n = min(150, min(len(x) for x in strings))
+    reads = (synthetic.cut_reads(strings, 300, n, rng, rc=0.5, subst=0.01)
+             + synthetic.random_reads(100, n, rng))
+    path = f"{tmp}/small_{idx.k}_{int(idx.canonical)}.fq"
+    synthetic.write_reads(path, reads)
+    stream = ST._DeviceStream(eng, idx.k, pmax=1 << 16, rmax_shift=6)
+    stream.capture = []
+    for seq in ST.parse_reads(path):
+        stream.add_read(seq)
+    rep = stream.finalize()
+    want = ST.host_report(idx, path)
+    require(all(rep[key] == want[key] for key in want), f"k{idx.k}: report != host")
+    av, packed = stream.capture[0]
+    time_stages(eng, packed, stream.P, stream.R, stream.CW, av, errs, timed=False)
+    return rep
+
+
 def phase_kernels_equal_plain(dev, errs):
     log("[3] kernel == plain on the card")
     forms = set()
     rng = np.random.default_rng(3)
-    for k, m in ((31, 17), (31, 21), (63, 25)):
+    for k, m in ((31, 17), (31, 21), (63, 25), (65, 25), (127, 31), (129, 31), (255, 31)):
         km = synthetic.random_kmers(k, rng, SAMPLE)
         kt = torch.from_numpy(K.kmers_to_u32(km, k).view(np.int32)).to(dev)
         magic = int(rng.integers(0, 1 << 63))
@@ -433,7 +522,7 @@ def phase_kernels_equal_plain(dev, errs):
             errs["minimizer_kernel"] = max(errs["minimizer_kernel"], err)
             require(err == 0, f"minimizer k{k} m{m} both={both}: kernel != plain")
         log(f"  minimizer_kernel k{k} m{m} B={SAMPLE}: equal (both strands and forward)")
-    for name in sorted(synthetic.SMALL_CONFIGS):
+    for name in sorted(synthetic.SMALL_CONFIGS) + sorted(synthetic.WIDE_CONFIGS):
         idx = synthetic.small_index(name)
         eng = TorchEngine(idx, dev)
         cfg = eng.cfg
@@ -442,8 +531,14 @@ def phase_kernels_equal_plain(dev, errs):
         args = probe_args(cfg, kt)
         active = torch.from_numpy(rng.random(len(q)) < 0.9).to(dev)
         probe_equal_plain(cfg, eng.tables, kt, args, active, name, errs, "probe_kernel")
-        if name in ("m3_skew", "m3_skew_canonical", "partitioned", "k63"):
+        if name in ("m3_skew", "m3_skew_canonical", "partitioned", "k63", "k129_canonical"):
             probe_variants_equal_plain(idx, eng, q, kt, args, active, name, errs)
+        check_read_equal_plain(eng, idx, q, rng, errs)
+        if name in synthetic.WIDE_CONFIGS:
+            with tempfile.TemporaryDirectory() as tmp:
+                rep = small_stream_equal_plain(eng, idx, rng, tmp, errs)
+            log(f"  {name} (W={cfg.W}): stream report {rep} equals the host _Batcher; every "
+                f"stream stage == plain")
         want = oracle.lookup(idx, q)
         got = eng.lookup(q)
         for key in want:
@@ -453,7 +548,8 @@ def phase_kernels_equal_plain(dev, errs):
         form = point_queries_equal_plain(eng, idx, rng, errs)
         forms.add(form)
         log(f"  access ({form}, C={cfg.access_C}), iterate, "
-            f"{'weight, ' if cfg.weighted else ''}neighbours {name}: equal to plain and oracle")
+            f"{'weight, ' if cfg.weighted else ''}neighbours, check, read_at2 {name}: equal to "
+            f"plain and oracle")
     require(forms == {"windowed", "two-round"}, f"access forms run: {forms}")
 
 
@@ -665,7 +761,7 @@ def phase_legacy(built, errs):
 
 
 def phase_scale(dev):
-    log("[7] scale: 200M kmers k31 m21 canonical, B=2^24, 50% RC")
+    log("[7] scale: 100M kmers k31 m21 canonical, B=2^24, 50% RC")
     rng = np.random.default_rng(6)
     torch.cuda.reset_peak_memory_stats()
     idx, host = build("canonical", k=31, m=21, canonical=True, num_strings=SCALE_STRINGS,
@@ -764,6 +860,36 @@ def time_access_iteration(eng, idx, ids, tag):
     return acc, itr
 
 
+def drive_navigation(eng, idx, ids, rng, tag, errs):
+    """Navigation of the first NAV_B ids' kmers, half reverse-complemented:
+    launch counts, equal to Dictionary.kmer_neighbours on NAV_SAMPLE of
+    them in every field, variants kernel == plain. Returns (the kmers,
+    the path's counts)."""
+    dev = eng.device
+    km = oracle.access(idx, ids[:NAV_B])
+    km[::2] = K.revcomp_kmers(km[::2], idx.k)
+    kt = eng.kmers32(km)
+    kernels.reset_counts()
+    res = eng.kmer_neighbours_device(kt)
+    c = path_counts(f"{tag} navigation path", ("neighbours_kernel", "minimizer_kernel",
+                                               "probe_kernel"))
+    lanes = np.sort(rng.choice(NAV_B, NAV_SAMPLE, replace=False))
+    sel = torch.from_numpy(lanes).to(dev)
+    got = _neighbours_to_host({key: v[sel] for key, v in res.items()})
+    ref = Dictionary(idx).kmer_neighbours(km[lanes])
+    for side, cols in (("forward", slice(0, 4)), ("backward", slice(4, 8))):
+        for key, v in ref[side].items():
+            require(np.array_equal(got[key][:, cols], v), f"{tag}: neighbours {side} {key}")
+    err = max_abs_err([P.neighbour_variants(kt, idx.k)], [P.neighbour_variants_plain(kt, idx.k)])
+    errs["neighbours_kernel"] = max(errs["neighbours_kernel"], err)
+    require(err == 0, f"{tag}: neighbours kernel != plain")
+    found = int((got["kmer_id"] != INVALID).sum())
+    log(f"  {tag}: navigation of {NAV_B} kmers equals Dictionary.kmer_neighbours on "
+        f"{NAV_SAMPLE} of them in all {len(got)} fields ({found} of {8 * NAV_SAMPLE} "
+        f"neighbours found); variants kernel == plain")
+    return kt, c
+
+
 def add_counts(total, c):
     for name, v in c.items():
         total[name] = total.get(name, 0) + v
@@ -778,29 +904,8 @@ def phase_point_queries(dev, built, errs):
         ids = rng.integers(0, idx.num_kmers, MAIN_B)
         add_counts(launches, drive_access(eng, idx, ids, mode, errs))
         add_counts(launches, drive_iterator(eng, idx, mode, errs, oracle_checksum(idx)))
-        # navigation: 2^20 kmers, half reverse-complemented
-        km = oracle.access(idx, ids[:NAV_B])
-        km[::2] = K.revcomp_kmers(km[::2], idx.k)
-        kt = eng.kmers32(km)
-        kernels.reset_counts()
-        res = eng.kmer_neighbours_device(kt)
-        add_counts(launches, path_counts(f"{mode} navigation path",
-                                         ("neighbours_kernel", "minimizer_kernel",
-                                          "probe_kernel")))
-        lanes = np.sort(rng.choice(NAV_B, NAV_SAMPLE, replace=False))
-        sel = torch.from_numpy(lanes).to(dev)
-        got = _neighbours_to_host({key: v[sel] for key, v in res.items()})
-        ref = Dictionary(idx).kmer_neighbours(km[lanes])
-        for side, cols in (("forward", slice(0, 4)), ("backward", slice(4, 8))):
-            for key, v in ref[side].items():
-                require(np.array_equal(got[key][:, cols], v), f"{mode}: neighbours {side} {key}")
-        err = max_abs_err([P.neighbour_variants(kt, idx.k)], [P.neighbour_variants_plain(kt, idx.k)])
-        errs["neighbours_kernel"] = max(errs["neighbours_kernel"], err)
-        require(err == 0, f"{mode}: neighbours kernel != plain")
-        found = int((got["kmer_id"] != INVALID).sum())
-        log(f"  {mode}: navigation of {NAV_B} kmers equals Dictionary.kmer_neighbours on "
-            f"{NAV_SAMPLE} of them in all {len(got)} fields ({found} of {8 * NAV_SAMPLE} "
-            f"neighbours found); variants kernel == plain")
+        kt, c = drive_navigation(eng, idx, ids, rng, mode, errs)
+        add_counts(launches, c)
         time_access_iteration(eng, idx, ids, mode)
         plain_nav = make_neighbours(eng.cfg, "full", variants=P.neighbour_variants_plain,
                                     minimizer=P.minimizer_plain, probe=probe_plain)
@@ -839,7 +944,7 @@ def phase_point_queries(dev, built, errs):
 
 
 def phase_scale_point_queries(idx, eng, errs):
-    log("[9] access and iteration at scale: 200M kmers k31 m21 canonical, B=2^24")
+    log("[9] access and iteration at scale: 100M kmers k31 m21 canonical, B=2^24")
     rng = np.random.default_rng(8)
     ids = rng.integers(0, idx.num_kmers, SCALE_B)
     launches = {}
@@ -870,7 +975,9 @@ SOURCES = {"minimizer.cu": "sshash_tpu/ops/packed.py:263",
            "scan.cu": "sshash_tpu/ops/packed.py:359",
            "stream_anchor.cu": "sshash_tpu/streaming.py:334",
            "stream_chain.cu": "sshash_tpu/streaming.py:390",
-           "stream_derive.cu": "sshash_tpu/streaming.py:460"}
+           "stream_derive.cu": "sshash_tpu/streaming.py:460",
+           "check.cu": "sshash_tpu/debug.py:44",
+           "read_at2.cu": "sshash_tpu/ops/packed.py:33"}
 
 
 # canonical_fold reads both strands' (minimizer, position), 24 bytes a
@@ -1019,12 +1126,12 @@ def library_ms(name, args):
     return None
 
 
-def time_stages(eng, packed, Pn, R, CW, av, errs):
+def time_stages(eng, packed, Pn, R, CW, av, errs, timed=True):
     """Each stream stage of one chunk, kernel vs plain on the card, at the
-    chunk's shapes: outputs equal (max |err| per source), device ms of the
-    kernel (from a CUDA graph), the plain version and the library call
-    (summed over a source's calls), and the bound from the bytes each call
-    must move."""
+    chunk's shapes: outputs equal (max |err| per source) and, when timed,
+    device ms of the kernel (from a CUDA graph), the plain version and the
+    library call (summed over a source's calls), and the bound from the
+    bytes each call must move."""
     ops, calls = record_ops(ST.KERNEL_OPS)
     lookup = make_lookup(eng.cfg, "full")
     ST.make_stream_step(eng.cfg, Pn, R, CW, lookup, all_valid=av, ops=ops)(eng.tables, packed)
@@ -1045,6 +1152,8 @@ def time_stages(eng, packed, Pn, R, CW, av, errs):
         err = max_abs_err(_flat(got), _flat(want))
         errs[src] = max(errs.get(src, 0), err)
         require(err == 0, f"stream stage {name}: kernel != plain")
+        if not timed:
+            continue
         # merge rewrites the same values on a repeat, so one copy serves
         # every timed call; the kernel's launches replay from a CUDA graph
         # (a call takes tens of microseconds, about its host overhead), the
@@ -1060,6 +1169,8 @@ def time_stages(eng, packed, Pn, R, CW, av, errs):
         per[src]["bytes"] += stage_bytes(name, args, out)
         per[src]["calls"] += 1
     for src, v in per.items():
+        if not timed:
+            break
         v["bound_ms"] = v["bytes"] / HBM_BPS * 1e3
         log(f"  {src}: {v['calls']} calls, kernel {v['kernel']:.4f} ms, plain {v['plain']:.4f} ms, "
             f"bound {v['bound_ms']:.4f} ms ({v['bytes']} bytes)"
@@ -1121,7 +1232,7 @@ def check_host(idx, rep, path, multiline, tag):
 
 
 def phase_streaming(dev, built, idx200, eng200, tmp, errs):
-    log("[10] streaming membership: 5M high-hit genome, low-hit and mixed reads; 200M high-hit")
+    log("[10] streaming membership: 5M high-hit genome, low-hit and mixed reads; 100M high-hit")
     rng = np.random.default_rng(9)
     torch.cuda.reset_peak_memory_stats()
     launches = {}
@@ -1158,19 +1269,19 @@ def phase_streaming(dev, built, idx200, eng200, tmp, errs):
     path = f"{tmp}/genome200m.fa"
     synthetic.write_genome(path, strings, rng)
     rep, chunks, c, dev_ms, stream = stream_run(eng200, path, True, 1 << 22,
-                                                "high-hit 200M canonical", check_chunks=1)
+                                                "high-hit 100M canonical", check_chunks=1)
     add_counts(launches, c)
     prefix = f"{tmp}/genome200m_prefix.fa"
     with open(path, "rb") as f_in, open(prefix, "wb") as f_out:
         f_out.write(f_in.readline())
         f_out.write(f_in.read((HOST_PREFIX + idx200.k - 1) // 80 * 81))
     part = ST.streaming_query_from_file(eng200, prefix, multiline=True)
-    check_host(idx200, part, prefix, True, f"high-hit 200M canonical, {part['num_kmers']}-position "
+    check_host(idx200, part, prefix, True, f"high-hit 100M canonical, {part['num_kmers']}-position "
                f"prefix")
     log(f"  peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     av, packed = chunks[0]
     per = time_stages(eng200, packed, stream.P, stream.R, stream.CW, av, errs)
-    log(f"  200M canonical, chunk 0: the four stream sources {sum(v['kernel'] for v in per.values()):.4f} ms "
+    log(f"  100M canonical, chunk 0: the four stream sources {sum(v['kernel'] for v in per.values()):.4f} ms "
         f"of the step's {dev_ms / len(chunks):.4f} ms per chunk (graph replay, mean)")
     return launches, per, read_sets
 
@@ -1186,7 +1297,7 @@ def raises(fn, what):
 
 
 def phase_v2(idx, eng, ids, kt, tmp, errs):
-    log("[11] rebased (v2) rows at scale: phase 7's 200M index forced to v2, the same 2^24 lanes")
+    log("[11] rebased (v2) rows at scale: phase 7's 100M index forced to v2, the same 2^24 lanes")
     rng = np.random.default_rng(11)
     dev = eng.device
     torch.cuda.reset_peak_memory_stats()
@@ -1226,8 +1337,8 @@ def phase_v2(idx, eng, ids, kt, tmp, errs):
         f"sample ({int((sample >= SCALE_B).sum())} random kmers) equals the oracle in the id "
         f"fields")
     args_all = probe_args(eng2.cfg, kt_all, P.minimizer)
-    probe_equal_plain(eng2.cfg, eng2.tables, kt_all, args_all, None, "200M v2", errs, "probe_v2")
-    rebased_equal(eng2.cfg, eng2.tables, kt_all, args_all, res1, "200M v2", errs)
+    probe_equal_plain(eng2.cfg, eng2.tables, kt_all, args_all, None, "100M v2", errs, "probe_v2")
+    rebased_equal(eng2.cfg, eng2.tables, kt_all, args_all, res1, "100M v2", errs)
     del args_all, res1, res2, kt_all
     args = probe_args(eng2.cfg, kt, P.minimizer)
     it = id_tensor(rng.integers(0, idx.num_kmers, SCALE_B), dev)
@@ -1239,19 +1350,19 @@ def phase_v2(idx, eng, ids, kt, tmp, errs):
     raises(lambda: ST.streaming_query_from_file(eng2, path), "v2: streaming_query_from_file")
     raises(lambda: ST.make_stream_step(eng2.cfg, 1 << 16, 16, 1 << 14, eng2.lookup_ids_device),
            "v2: make_stream_step")
-    lookup = time_turns("200M canonical", "lookup (ids)", SCALE_B,
+    lookup = time_turns("100M canonical", "lookup (ids)", SCALE_B,
                         lambda: eng2.lookup_ids_device(kt), lambda: eng.lookup_ids_device(kt),
                         sides=("v2", "v1"))
-    probe_ms = time_turns("200M canonical", "kernel 2 (ids)", SCALE_B,
+    probe_ms = time_turns("100M canonical", "kernel 2 (ids)", SCALE_B,
                           lambda: probe(eng2.cfg, eng2.tables, kt, *args, None, "ids"),
                           lambda: probe(eng.cfg, eng.tables, kt, *args, None, "ids"),
                           sides=("v2", "v1"))
     plain_ms = median_ms(lambda: probe_plain(eng2.cfg, eng2.tables, kt, *args, None, "ids"))
-    log(f"  200M canonical: kernel 2 (ids) v2 plain version {plain_ms:.4f} ms; lookup v2/v1 "
+    log(f"  100M canonical: kernel 2 (ids) v2 plain version {plain_ms:.4f} ms; lookup v2/v1 "
         f"{lookup['v2'] / lookup['v1']:.4f}, kernel 2 v2/v1 {probe_ms['v2'] / probe_ms['v1']:.4f}")
     log(f"  peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     nbytes = probe_bytes(eng2.cfg, eng2.tables, kt, args)
-    log(f"  200M canonical: kernel 2 (ids) v2 bound {bound(nbytes)[0]:.4f} ms ({nbytes} bytes)")
+    log(f"  100M canonical: kernel 2 (ids) v2 bound {bound(nbytes)[0]:.4f} ms ({nbytes} bytes)")
     return launches, {"kernel": probe_ms["v2"], "plain": plain_ms, "bound": bound(nbytes)}
 
 
@@ -1343,7 +1454,7 @@ def time_shards(tag, what, n, kernel, plain, nbytes, graph=False):
 
 def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
     log("[12] bucket-sharded engine, every shard on this card (LocalMesh): 5M in shapes "
-        f"{SHARD_SHAPES}, 1M planted (hindex and both legacy forms), 200M (1, 4), one NCCL rank")
+        f"{SHARD_SHAPES}, 1M planted (hindex and both legacy forms), 100M (1, 4), one NCCL rank")
     rng = np.random.default_rng(12)
     launches, timed = {}, {}
     # ---- 5M: engines and inputs first, then every path with counts from 0
@@ -1476,7 +1587,7 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
                 f"fields in shapes {SHARD_SHAPES}; kernel 2 == plain on every (2, 2) shard"
                 + (f"; {heavy} heavy lanes handed on, {moved} of them to another shard"
                    if form == "hindex" else ""))
-    # ---- 200M canonical, (1, 4)
+    # ---- 100M canonical, (1, 4)
     idx, eng, ids, kt, host = scale
     t0 = time.perf_counter()
     seng = ShardedEngine(idx, LocalMesh((1, 4), dev), host_arrs=host)
@@ -1485,26 +1596,26 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
     cfg = seng.cfg
     kernels.reset_counts()
     res = seng.lookup_ids_device(kt)
-    add_counts(launches, path_counts("200M (1, 4) sharded lookup",
+    add_counts(launches, path_counts("100M (1, 4) sharded lookup",
                                      ("minimizer_kernel", "probe_kernel")))
-    require(torch.equal(res["kmer_id"], id_tensor(ids, dev)), "200M sharded: an id did not "
+    require(torch.equal(res["kmer_id"], id_tensor(ids, dev)), "100M sharded: an id did not "
             "round-trip")
-    equal_fields(res, eng.lookup_ids_device(kt), "200M sharded")
+    equal_fields(res, eng.lookup_ids_device(kt), "100M sharded")
     tb = seng.table_bytes()
-    log(f"  200M (1, 4): shard_tables {seng.shard_seconds:.1f} s on the host, upload "
+    log(f"  100M (1, 4): shard_tables {seng.shard_seconds:.1f} s on the host, upload "
         f"{t1 - t0 - seng.shard_seconds:.1f} s; all {SCALE_B} ids round-trip and equal the "
         f"unsharded engine's in all {len(res)} fields")
-    log(f"  200M (1, 4): table bytes per shard {[tb[j] for j in sorted(tb)]} (largest "
+    log(f"  100M (1, 4): table bytes per shard {[tb[j] for j in sorted(tb)]} (largest "
         f"{max(tb.values()) / sum(tb.values()):.4f} of their sum, "
         f"{max(tb.values()) / idx.num_kmers:.3f} B/kmer); unsharded "
         f"{sum(eng.table_bytes().values())}; per_device_bytes {seng.per_device_bytes()}")
-    lookup = time_turns("200M canonical", "lookup (ids)", SCALE_B,
+    lookup = time_turns("100M canonical", "lookup (ids)", SCALE_B,
                         lambda: seng.lookup_ids_device(kt), lambda: eng.lookup_ids_device(kt),
                         sides=("sharded, 4 shards in turn", "unsharded"))
     args = probe_args(cfg, kt, P.minimizer)
-    shard_probes_equal_plain(seng, kt, "200M", errs)
+    shard_probes_equal_plain(seng, kt, "100M", errs)
     timed["probe_sharded"] = time_shards(
-        "200M canonical (1, 4)", "kernel 2 (ids)", SCALE_B,
+        "100M canonical (1, 4)", "kernel 2 (ids)", SCALE_B,
         lambda j: probe(cfg, seng.tables[j], kt, *args, None, "ids", shard=seng.probe_shards[j]),
         lambda j: probe_plain(cfg, seng.tables[j], kt, *args, None, "ids",
                               shard=seng.probe_shards[j]),
@@ -1517,7 +1628,7 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
     # the whole sharded lookup through the plain versions, and its bound on
     # one card: kernel 1, the 4 shards' kernel 2, the fold's glue, and the
     # combine reading each shard's 10 result bytes a lane and writing 10
-    require(not seng.handoff, "200M: the plain sharded lookup has no hand-off pass")
+    require(not seng.handoff, "100M: the plain sharded lookup has no hand-off pass")
     plain = median_ms(lambda: plain_sharded_lookup(seng, kt), reps=3)
     nbytes = [probe_bytes(cfg, seng.tables[j], kt, args, shard=sh)
               for j, sh in enumerate(seng.probe_shards)]
@@ -1525,11 +1636,11 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
     whole = sum(ms for ms, _ in lb.values()) + bound(SCALE_B * 10 * 5)[0]
     timed["sharded_lookup"] = {"kernel": lookup["sharded, 4 shards in turn"], "plain": plain,
                                "bound": whole}
-    log(f"  200M (1, 4): the sharded lookup through the plain versions {plain:.4f} ms; its "
+    log(f"  100M (1, 4): the sharded lookup through the plain versions {plain:.4f} ms; its "
         f"bound on one card {whole:.4f} ms (kernel 1 {lb['minimizer.cu'][0]:.4f}, the 4 "
         f"shards' kernel 2 {lb['probe.cu'][0]:.4f}, the fold {lb['fold'][0]:.4f}, the "
         f"combine's bytes {bound(SCALE_B * 50)[0]:.4f})")
-    log(f"  200M (1, 4): the combine of the 4 shards' kernel 2 outputs {comb:.4f} ms; the "
+    log(f"  100M (1, 4): the combine of the 4 shards' kernel 2 outputs {comb:.4f} ms; the "
         f"slowest shard's kernel 2 {timed['probe_sharded']['kernel']:.4f} ms; the sharded lookup "
         f"runs the 4 shards in turn: {lookup['sharded, 4 shards in turn']:.4f} ms against "
         f"{lookup['unsharded']:.4f} unsharded")
@@ -1679,6 +1790,206 @@ def time_sharded_chain(seng, path, errs):
             "bound": bound(cbytes + wbytes[j])}
 
 
+# k > 63 at scale: k65 m25 (the reference's m for its widest k, human k63
+# m25, BASELINE.md:17), 100,000 kmers per string: 5M regular (phase 4's
+# size) and 60M canonical, whose lookup tables are about 5 times the 50 MB
+# L2, so kernel 2 reads most of its rows from HBM, as at k31;
+# tie pairs planted in the canonical build (synthetic.tie_pair)
+WIDE_K, WIDE_M = 65, 25
+WIDE_STRING_LEN = 100_064
+WIDE_STRINGS = {"regular": 50, "canonical": 600}
+WIDE_TIES = [16] * 64
+WIDE_READS, WIDE_CHUNK = 1 << 12, 1 << 22
+L2_BYTES = 50 << 20
+# the wide forms' rows of the kernels line: (source, TPU code replaced, wrapper)
+WIDE_ROWS = {"minimizer_wide": ("minimizer.cu", "sshash_tpu/ops/packed.py:263",
+                                "minimizer_kernel"),
+             "probe_wide": ("probe.cu", "sshash_tpu/engine.py:739", "probe_kernel"),
+             "access_wide": ("access.cu", "sshash_tpu/engine.py:1304", "access_kernel"),
+             "iterator_wide": ("iterator.cu", "sshash_tpu/engine.py:1338", "iterate_kernel"),
+             "neighbours_wide": ("neighbours.cu", "sshash_tpu/engine.py:1412",
+                                 "neighbours_kernel"),
+             "stream_anchor_wide": ("stream_anchor.cu", "sshash_tpu/streaming.py:334",
+                                    "stream_kmers_kernel")}
+
+
+def read2_bytes(table, offsets, W):
+    """Bytes K7 must move: each offset in, its kmer and bit out, and each
+    distinct table row the offsets read, once."""
+    rows = (u.u32(offsets) >> 4)[:, None] + torch.arange(W + 1, device=offsets.device)
+    n = int(torch.unique(rows.clamp(max=table.shape[0] - 1)).numel())
+    return offsets.shape[0] * (4 + 4 * W + 1) + 8 * n
+
+
+def phase_wide(dev, tmp, errs, k31):
+    """k31: phase 7's {kernel: (ms, plain ms)} at SCALE_B, printed beside
+    the k65 times per kmer."""
+    log(f"[13] k > 63: k{WIDE_K} m{WIDE_M}, 5M regular and 60M canonical, B=2^23, 50% RC")
+    rng = np.random.default_rng(13)
+    built = {}
+    for mode, n in WIDE_STRINGS.items():
+        canon = mode == "canonical"
+        idx, host = build(f"k{WIDE_K} {mode}", k=WIDE_K, m=WIDE_M, canonical=canon,
+                          num_strings=n, string_len=WIDE_STRING_LEN, seed=130 + n, threads=8,
+                          ties=WIDE_TIES if canon else None)
+        eng = TorchEngine(idx, dev, host_arrs=host)
+        tb = eng.table_bytes()
+        log(f"  k{WIDE_K} {mode}: W={eng.cfg.W}, tables on the card: {table_line(eng, idx)}; "
+            f"lookup tables {tb['lookup'] / L2_BYTES:.2f}x the 50 MB L2")
+        built[mode] = (idx, eng, host)
+    launches, times, werrs, tag = {}, {}, {}, f"k{WIDE_K}"
+    for mode, (idx, eng, host) in built.items():
+        cfg, t = eng.cfg, f"{tag} {mode}"
+        ids, km = positives(idx, rng, MAIN_B)
+        q = [km[MAIN_B // 2 - SAMPLE // 4: MAIN_B // 2 + SAMPLE // 4]]
+        if cfg.canonical:
+            # tie hits and tied misses, found through the engine before the
+            # lookup path's counts start
+            q += list(synthetic.tie_batch(idx, rng, SAMPLE // 16, engine=eng))
+        q.append(synthetic.random_kmers(idx.k, rng, SAMPLE - sum(len(x) for x in q)))
+        q = np.concatenate(q)
+        kernels.reset_counts()
+        kt = round_trip(eng, ids, km, t)
+        got = eng.lookup(q)
+        add_counts(launches, path_counts(f"{t} lookup path", ("minimizer_kernel", "probe_kernel")))
+        want = oracle.lookup(idx, q)
+        for key in want:
+            require(np.array_equal(got[key], want[key]), f"{t}: {key} != oracle")
+        tie = synthetic.tie_lanes(eng, eng.kmers32(q)).cpu().numpy()
+        hit = got["kmer_id"] != INVALID
+        n_th, n_tm = int((tie & hit).sum()), int((tie & ~hit).sum())
+        require(not cfg.canonical or (n_th > 0 and n_tm > 0), f"{t}: no tie lanes ({n_th}, {n_tm})")
+        log(f"  {t}: a {len(q)}-lane sample equals the oracle in all {len(want)} fields "
+            f"({int(hit.sum())} found; tie lanes: {n_th} found, {n_tm} missed)")
+        add_counts(launches, drive_access(eng, idx, ids, t, errs,
+                                          sample=np.sort(rng.choice(MAIN_B, SAMPLE,
+                                                                    replace=False))))
+        add_counts(launches, drive_iterator(eng, idx, t, errs,
+                                            oracle_checksum(idx) if not cfg.canonical else None))
+        kn, c = drive_navigation(eng, idx, ids, rng, t, errs)
+        add_counts(launches, c)
+        if not cfg.canonical:
+            continue
+        # the 60M canonical index: streaming, the sharded lookup, the
+        # sanitizer, K7, and the wide forms' times
+        pick = rng.choice(idx.num_strings, min(64, idx.num_strings), replace=False)
+        strings = synthetic.index_strings(idx, pick)
+        half = WIDE_READS // 2
+        reads = synthetic.cut_reads(strings, half, MIXED_LEN, rng, rc=0.5, subst=0.01)
+        reads += synthetic.random_reads(half, MIXED_LEN, rng)
+        path = f"{tmp}/wide_mixed.fq"
+        synthetic.write_reads(path, [reads[i] for i in rng.permutation(len(reads))])
+        rep, chunks, c, _, stream = stream_run(eng, path, False, WIDE_CHUNK, f"mixed {t}")
+        add_counts(launches, c)
+        check_host(idx, rep, path, False, f"mixed {t}")
+        av, packed = chunks[0]
+        per = time_stages(eng, packed, stream.P, stream.R, stream.CW, av, errs)
+        s = per["stream_anchor.cu"]
+        times["stream_anchor_wide"] = {"kernel": s["kernel"], "plain": s["plain"],
+                                       "bound": (s["bound_ms"], "bytes")}
+        werrs["stream_anchor_wide"] = errs.get("stream_anchor.cu", 0)
+        seng = ShardedEngine(idx, LocalMesh((1, 4), dev), host_arrs=host)
+        equal_fields(seng.lookup_ids_device(kt), eng.lookup_ids_device(kt), f"{t} (1, 4)")
+        log(f"  {t}: the (1, 4) LocalMesh lookup of {MAIN_B} lanes equals the unsharded "
+            f"engine's in every field")
+        del seng
+        # the sanitizer: SSHASH_DEBUG at construction checks every lookup
+        os.environ["SSHASH_DEBUG"] = "1"
+        try:
+            deng = TorchEngine(idx, dev, host_arrs=host)
+        finally:
+            del os.environ["SSHASH_DEBUG"]
+        kernels.reset_counts()
+        res = deng.lookup_device(kt)
+        add_counts(launches, path_counts(f"{t} SSHASH_DEBUG lookup path",
+                                         ("minimizer_kernel", "probe_kernel", "check_kernel")))
+        equal_fields(res, eng.lookup_device(kt), f"{t} SSHASH_DEBUG")
+        try:
+            debug.checkified_lookup(eng, num_kmers_bound=1)(kt)
+            raise AssertionError(f"{t}: num_kmers_bound=1 did not raise")
+        except debug.SanitizerError as e:
+            require(str(e) == debug.MESSAGES[0], f"{t}: {e}")
+        log(f"  {t}: the SSHASH_DEBUG lookup of {MAIN_B} lanes passes and equals the "
+            f"unchecked one; num_kmers_bound=1 raises '{debug.MESSAGES[0]}'")
+        f = [res[x] for x in ("found", "kmer_id", "kmer_orientation", "kmer_offset",
+                              "string_begin")]
+        nk, nc = idx.num_kmers, idx.num_chars
+        err = max_abs_err([debug.check(*f, nk, nc)], [debug.check_plain(*f, nk, nc)])
+        errs["check_kernel"] = max(errs["check_kernel"], err)
+        require(err == 0, f"{t}: check kernel != plain")
+        ck = time_turns(t, "check", MAIN_B, lambda: debug.check(*f, nk, nc),
+                        lambda: debug.check_plain(*f, nk, nc), unit="lane")
+        lib = median_ms(lambda: torch.stack([
+            (f[0] & (u.u32(f[1]) >= nk)).any(), (f[0] & (u.u32(f[3]) >= nc)).any(),
+            (f[0] & (f[2] != 1) & (f[2] != -1)).any(),
+            (f[0] & (u.u32(f[4]) > u.u32(f[3]))).any()]))
+        # bytes: found, kmer_id, orientation, kmer_offset, string_begin a
+        # lane; 16 of flags
+        times["check_kernel"] = {"kernel": ck["kernel"], "plain": ck["plain"], "library": lib,
+                                 "bound": bound(MAIN_B * 17 + 16)}
+        time_turns(t, "lookup (full), checked / unchecked", MAIN_B,
+                   lambda: deng.lookup_device(kt), lambda: eng.lookup_device(kt),
+                   sides=("checked", "unchecked"))
+        del deng, res, f
+        # K7: the read over the interleaved table at each positive's offset
+        table = P.interleave_valid_starts(eng.tables["strings32"], eng.tables["vstart32"])
+        ot = id_tensor(kmer_offsets(idx, ids), dev)
+        kernels.reset_counts()
+        rk, vb = P.read_kmers_at2(table, ot, idx.k)
+        add_counts(launches, path_counts(f"{t} read_kmers_at2 path", ("read_at2_kernel",)))
+        it = id_tensor(ids, dev)
+        require(bool(vb.all()) and torch.equal(rk, eng.access_device(it)),
+                f"{t}: read_kmers_at2 != access at the kmers' offsets")
+        err = max_abs_err([rk, vb], P.read_kmers_at2_plain(table, ot, idx.k))
+        errs["read_at2_kernel"] = max(errs["read_at2_kernel"], err)
+        require(err == 0, f"{t}: read_at2 kernel != plain")
+        rd = time_turns(t, "read_kmers_at2", MAIN_B, lambda: P.read_kmers_at2(table, ot, idx.k),
+                        lambda: P.read_kmers_at2_plain(table, ot, idx.k))
+        times["read_at2_kernel"] = {"kernel": rd["kernel"], "plain": rd["plain"],
+                                    "bound": bound(read2_bytes(table, ot, cfg.W))}
+        log(f"  {t}: read_kmers_at2 of {MAIN_B} offsets equals access and the valid-start bits "
+            f"are set; bound {times['read_at2_kernel']['bound'][0]:.4f} ms")
+        del table, ot, rk, vb
+        # the wide forms at k65: kernels 1 and 2, access, iteration, variants
+        args = probe_args(cfg, kt, P.minimizer)
+        werrs["minimizer_wide"] = max_abs_err(
+            P.minimizer(kt, cfg.k, cfg.m, cfg.magic, both=True),
+            P.minimizer_plain(kt, cfg.k, cfg.m, cfg.magic, both=True))
+        werrs["probe_wide"] = max_abs_err(
+            list(probe(cfg, eng.tables, kt, *args, None, "ids").values()),
+            list(probe_plain(cfg, eng.tables, kt, *args, None, "ids").values()))
+        k1 = time_turns(t, "kernel 1 (both strands)", MAIN_B,
+                        lambda: P.minimizer(kt, cfg.k, cfg.m, cfg.magic, both=True),
+                        lambda: P.minimizer_plain(kt, cfg.k, cfg.m, cfg.magic, both=True))
+        k2 = time_turns(t, "kernel 2 (ids)", MAIN_B,
+                        lambda: probe(cfg, eng.tables, kt, *args, None, "ids"),
+                        lambda: probe_plain(cfg, eng.tables, kt, *args, None, "ids"))
+        b = lookup_bounds(cfg, MAIN_B, probe_bytes(cfg, eng.tables, kt, args))
+        times["minimizer_wide"] = {**k1, "bound": b["minimizer.cu"]}
+        times["probe_wide"] = {**k2, "bound": b["probe.cu"]}
+        lk = median_ms(lambda: eng.lookup_ids_device(kt))
+        ns = {name: ms * 1e6 / SCALE_B for name, (ms, _) in k31.items()}
+        log(f"  {t}: lookup (ids) {lk:.4f} ms = {lk * 1e6 / MAIN_B:.4f} ns/kmer; kernel 1 "
+            f"{k1['kernel'] * 1e6 / MAIN_B:.4f}, kernel 2 {k2['kernel'] * 1e6 / MAIN_B:.4f} "
+            f"ns/kmer (bounds {b['minimizer.cu'][0]:.4f} ms {b['minimizer.cu'][1]}, "
+            f"{b['probe.cu'][0]:.4f} ms {b['probe.cu'][1]}); phase 7's k31 m21 at 100M: kernel 1 "
+            f"{ns['minimizer_kernel']:.4f}, kernel 2 {ns['probe_kernel']:.4f} ns/kmer: k65 / k31 "
+            f"{k1['kernel'] * 1e6 / MAIN_B / ns['minimizer_kernel']:.3f} and "
+            f"{k2['kernel'] * 1e6 / MAIN_B / ns['probe_kernel']:.3f}")
+        acc, itr = time_access_iteration(eng, idx, ids, t)
+        times["access_wide"] = {**acc, "bound": bound(access_bytes(cfg, it))}
+        times["iterator_wide"] = {**itr, "bound": bound(
+            sum(eng.tables[x].numel() * 4 for x in ("strings32", "vstart32")) + 8)}
+        nb = time_turns(t, "neighbour variants alone", NAV_B,
+                        lambda: P.neighbour_variants(kn, idx.k),
+                        lambda: P.neighbour_variants_plain(kn, idx.k))
+        times["neighbours_wide"] = {**nb, "bound": bound(NAV_B * 9 * 4 * cfg.W)}
+        for name in ("access_wide", "iterator_wide", "neighbours_wide"):
+            werrs[name] = errs[WIDE_ROWS[name][2]]
+    require(max(werrs.values()) == 0, f"{tag}: a kernel != plain {werrs}")
+    return launches, times, werrs
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -1707,7 +2018,12 @@ def main():
         sharded = phase_sharded(dev, built, paths, weighted, (idx, eng, ids, kt, host200),
                                 read_sets, errs)
         del host200, paths, weighted
+        wide_launches, wide_times, wide_errs = phase_wide(dev, tmp, errs, per_kernel)
     add_counts(launches, stream_launches)
+    for name in ("check_kernel", "read_at2_kernel"):
+        launches[name] = wide_launches.get(name, 0)
+        times[name] = wide_times[name]
+        bounds[name.split("_kernel")[0] + ".cu"] = times[name]["bound"]
     # the least time of each kernel's work at the shapes timed above
     cfg, W5 = eng.cfg, built["canonical"][1].cfg.W
     bounds.update({
@@ -1720,7 +2036,7 @@ def main():
     del built, idx, eng, kt
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sshash_tpu"))
     require(not loaded, f"JAX or the JAX package was imported: {loaded}")
-    log(f"[13] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
+    log(f"[14] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
     csrc = "sshash_tpu_torch/csrc/"
     rows = []
     for src, rep in SOURCES.items():
@@ -1734,7 +2050,7 @@ def main():
             err = errs.get(src, 0)
         else:
             ms, pms = times[names[0]]["kernel"], times[names[0]]["plain"]
-            lib, (b_ms, b_by) = None, bounds[src]
+            lib, (b_ms, b_by) = times[names[0]].get("library"), bounds[src]
             err = errs[names[0]]
         rows.append({"name": src.split(".")[0], "route": "cuda", "source": csrc + src,
                      "replaces": rep, "launches": n_launch, "max_abs_err": err, "ms": ms,
@@ -1757,6 +2073,14 @@ def main():
         t = sh_times[name]
         rows.append({"name": name, "route": "cuda", "source": csrc + src, "replaces": rep,
                      "launches": sh_launches[name], "max_abs_err": errs[name],
+                     "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"][0],
+                     "bound_by": t["bound"][1], "library_ms": None})
+    # the wide forms (W >= 5), each counted on the k65 paths
+    for name, (src, rep, wrapper) in WIDE_ROWS.items():
+        require(wide_launches.get(wrapper, 0) > 0, f"{name}: no launch on the k65 paths")
+        t = wide_times[name]
+        rows.append({"name": name, "route": "cuda", "source": csrc + src, "replaces": rep,
+                     "launches": wide_launches[wrapper], "max_abs_err": wide_errs[name],
                      "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1], "library_ms": None})
     log(json.dumps({"kernels": rows}))

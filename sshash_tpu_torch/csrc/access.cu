@@ -12,7 +12,8 @@
 // 16 words) the row holds every char its block's accesses read, and the
 // kmer is a word select and funnel shift inside the row; in the two-round
 // form (wide k, or short strings where C is large) the kmer is W+1 words of
-// strings32 read at off.
+// strings32 read at off. Widths 1..8 are templates; 9..16 words (k <= 255)
+// run the wide form of packed.cuh.
 //
 // Bound: dependent random reads of device memory: one row of at most 64
 // bytes per id (the windowed form), or the row and then a strings32 read
@@ -55,22 +56,23 @@ struct AccessParams {
   int64_t blk_lo, blk_hi, word_lo, word_hi;  // this shard's id blocks and string words
 };
 
-// The kmer of k chars at char offset off of strings32: W+1 words, reads
-// clipped to the last word.
+// The kmer of k chars (nw words) at char offset off of strings32: nw+1
+// words, reads clipped to the last word.
 template <int W>
 __device__ __forceinline__ void read_at(const uint32_t* __restrict__ strings32, int64_t n,
-                                        uint32_t off, int k, uint32_t (&km)[W]) {
+                                        uint32_t off, int k, int nw, uint32_t (&km)[W]) {
   const int64_t w0 = off >> 4, last = n - 1;
   const uint32_t b = 2u * (off & 15u);
   uint32_t a = strings32[w0 < last ? w0 : last];
 #pragma unroll
   for (int j = 0; j < W; ++j) {
+    if (j >= nw) break;
     const int64_t wj = w0 + j + 1;
     const uint32_t c = strings32[wj < last ? wj : last];
     km[j] = b ? (a >> b) | (c << (32 - b)) : a;
     a = c;
   }
-  km[W - 1] &= last_word_mask(k, W);
+  mask_last_word(km, k, nw);
 }
 
 template <int W>
@@ -81,6 +83,7 @@ __global__ void access_kernel(const uint32_t* __restrict__ acc_rows,
                               uint32_t* __restrict__ off_out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
+  const int nw = used_words<W>(p.W);
   uint32_t km[W];
 #pragma unroll
   for (int w = 0; w < W; ++w) km[w] = 0;
@@ -89,7 +92,7 @@ __global__ void access_kernel(const uint32_t* __restrict__ acc_rows,
     const uint32_t o = offsets[i];
     const int64_t w0 = o >> 4;
     if (o != kNoOffset && w0 >= p.word_lo && w0 < p.word_hi)
-      read_at(strings32, p.strings_n, o - 16u * (uint32_t)p.word_lo, (int)p.k, km);
+      read_at(strings32, p.strings_n, o - 16u * (uint32_t)p.word_lo, (int)p.k, nw, km);
   } else {
     const uint32_t id = ids[i];
     const int64_t blk = id >> 5;
@@ -105,9 +108,9 @@ __global__ void access_kernel(const uint32_t* __restrict__ acc_rows,
         const uint32_t o_min = (id & ~31u) + hint * km1;
         const uint32_t local = off - (o_min & ~15u);
         const int nwin = (int)p.win_words;
-        extract_kmer_dyn(row + 1 + p.C, nwin, 2u * local, (int)p.k, nwin - 1, km);
+        extract_kmer_dyn(row + 1 + p.C, nwin, 2u * local, (int)p.k, nwin - 1, nw, km);
       } else if (!off_out) {
-        read_at(strings32, p.strings_n, off, (int)p.k, km);
+        read_at(strings32, p.strings_n, off, (int)p.k, nw, km);
       }
     }
     if (off_out) {
@@ -115,8 +118,7 @@ __global__ void access_kernel(const uint32_t* __restrict__ acc_rows,
       return;
     }
   }
-#pragma unroll
-  for (int w = 0; w < W; ++w) out[i * W + w] = km[w];
+  store_kmer(out, i, nw, km);
 }
 
 template <int W>
@@ -140,7 +142,7 @@ extern "C" int sshash_access(const void* acc_rows, const void* strings32,
                              void* out, void* off_out, void* stream) {
   using namespace sshash;
   if (p->B <= 0) return (int)cudaGetLastError();
-  if (p->k < 1 || p->k > 63 || p->W != (2 * p->k + 31) / 32 || p->C < 1 || p->rows_n < 1 ||
+  if (p->k < 1 || p->k > kMaxK || p->W != (2 * p->k + 31) / 32 || p->C < 1 || p->rows_n < 1 ||
       p->strings_n < 1 || p->row_w != 1 + p->C + (p->windowed ? p->win_words : 0) ||
       !ids == !offsets || (off_out && (offsets || p->windowed)) ||
       (offsets && p->windowed) || (!off_out && !out) || p->blk_lo < 0 || p->word_lo < 0)
@@ -152,11 +154,8 @@ extern "C" int sshash_access(const void* acc_rows, const void* strings32,
   auto o = (uint32_t*)out;
   auto fo = (uint32_t*)off_out;
   auto st = (cudaStream_t)stream;
-  switch (p->W) {
-    case 1: return (int)launch_access<1>(r, s, *p, d, f, o, fo, st);
-    case 2: return (int)launch_access<2>(r, s, *p, d, f, o, fo, st);
-    case 3: return (int)launch_access<3>(r, s, *p, d, f, o, fo, st);
-    case 4: return (int)launch_access<4>(r, s, *p, d, f, o, fo, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_width(p->W, [&](auto w) {
+    return launch_access<decltype(w)::value>(r, s, *p, d, f, o, fo, st);
+  });
 }
+

@@ -18,6 +18,8 @@
 // neighbouring words; the W extra words each thread reads hit L1) and of
 // vstart32, 4.5 bytes per char offset; about 16*(2W+2) integer operations
 // per word. The result stays in device memory and nothing synchronises.
+// Widths 1..8 are templates; 9..16 words (k <= 255) run the wide form of
+// packed.cuh.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -31,8 +33,9 @@ constexpr int kIterThreads = 256;
 template <int W>
 __global__ void __launch_bounds__(kIterThreads)
     iterate_kernel(const uint32_t* __restrict__ s, int64_t NW, const uint32_t* __restrict__ v32,
-                   int64_t NV, int k, uint32_t* __restrict__ out) {
-  const uint32_t last_mask = last_word_mask(k, W);
+                   int64_t NV, int k, int64_t Wrt, uint32_t* __restrict__ out) {
+  const int nw = used_words<W>(Wrt);
+  const uint32_t last_mask = last_word_mask(k, nw);
   uint32_t acc = 0, cnt = 0;
   const int64_t n = NW > NV ? NW : NV;
   for (int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; w < n;
@@ -41,7 +44,7 @@ __global__ void __launch_bounds__(kIterThreads)
     if (w >= NW) continue;
     uint32_t x[W + 1];
 #pragma unroll
-    for (int j = 0; j <= W; ++j) x[j] = w + j < NW ? s[w + j] : 0u;
+    for (int j = 0; j <= W; ++j) x[j] = j <= nw && w + j < NW ? s[w + j] : 0u;
     const uint32_t valid = v32[w >> 1] >> (16 * (w & 1));
 #pragma unroll
     for (int c = 0; c < 16; ++c) {
@@ -49,8 +52,8 @@ __global__ void __launch_bounds__(kIterThreads)
 #pragma unroll
       for (int j = 0; j < W; ++j) {
         uint32_t xj = c ? (x[j] >> (2 * c)) | (x[j + 1] << (32 - 2 * c)) : x[j];
-        if (j == W - 1) xj &= last_mask;
-        fold ^= xj;
+        if (j == nw - 1) xj &= last_mask;
+        if (j < nw) fold ^= xj;
       }
       if ((valid >> c) & 1u) acc += fold;
     }
@@ -84,7 +87,7 @@ __global__ void __launch_bounds__(kIterThreads)
 
 template <int W>
 cudaError_t launch_iterate(const uint32_t* s, int64_t NW, const uint32_t* v32, int64_t NV, int k,
-                           uint32_t* out, cudaStream_t stream) {
+                           int64_t Wrt, uint32_t* out, cudaStream_t stream) {
   const int64_t n = NW > NV ? NW : NV;
   int64_t blocks = (n + kIterThreads - 1) / kIterThreads;
   // a grid-stride loop: enough blocks to fill the card several times over
@@ -93,7 +96,7 @@ cudaError_t launch_iterate(const uint32_t* s, int64_t NW, const uint32_t* v32, i
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (blocks > (int64_t)sms * 16) blocks = (int64_t)sms * 16;
-  iterate_kernel<W><<<(unsigned)blocks, kIterThreads, 0, stream>>>(s, NW, v32, NV, k, out);
+  iterate_kernel<W><<<(unsigned)blocks, kIterThreads, 0, stream>>>(s, NW, v32, NV, k, Wrt, out);
   return cudaGetLastError();
 }
 
@@ -105,16 +108,14 @@ cudaError_t launch_iterate(const uint32_t* s, int64_t NW, const uint32_t* v32, i
 extern "C" int sshash_iterate(const void* strings32, int64_t NW, const void* vstart32, int64_t NV,
                               int64_t k, void* out, void* stream) {
   using namespace sshash;
-  if (k < 1 || k > 63 || NW < 1 || 2 * NV < NW) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > kMaxK || NW < 1 || 2 * NV < NW) return (int)cudaErrorInvalidValue;
   auto s = (const uint32_t*)strings32;
   auto v = (const uint32_t*)vstart32;
   auto o = (uint32_t*)out;
   auto st = (cudaStream_t)stream;
-  switch ((2 * k + 31) / 32) {
-    case 1: return (int)launch_iterate<1>(s, NW, v, NV, (int)k, o, st);
-    case 2: return (int)launch_iterate<2>(s, NW, v, NV, (int)k, o, st);
-    case 3: return (int)launch_iterate<3>(s, NW, v, NV, (int)k, o, st);
-    case 4: return (int)launch_iterate<4>(s, NW, v, NV, (int)k, o, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const int64_t W = (2 * k + 31) / 32;
+  return (int)dispatch_width(W, [&](auto w) {
+    return launch_iterate<decltype(w)::value>(s, NW, v, NV, (int)k, W, o, st);
+  });
 }
+

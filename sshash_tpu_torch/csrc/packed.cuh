@@ -1,14 +1,51 @@
 // Packed 2-bit string algebra for one query lane.
 //
-// Device counterparts of sshash_tpu/ops/packed.py. A kmer is W <= 4 uint32
-// words, char j at word j / 16, bit 2 * (j % 16); held in registers either
-// as the words or as one unsigned __int128 (char j at bit 2j).
+// Device counterparts of sshash_tpu/ops/packed.py. A kmer is up to 16
+// uint32 words (k <= 255), char j at word j / 16, bit 2 * (j % 16), held
+// in a per-lane word array.
+//
+// Widths: a kernel is a template on its array width W. W = 1..kMaxFixedW
+// are instantiated one by one, and their arrays stay in registers; one
+// runtime-width form, W = kWideW, serves 9..16 words, with `nw` (the words
+// the kmer uses) read at run time. Its arrays may live in local memory.
+// Every helper takes nw beside the array; a fixed-width instantiation
+// passes nw == W, and the compiler folds the checks away. Words past nw
+// are zero.
 #pragma once
+#include <cuda_runtime.h>
+
 #include <cstdint>
+#include <type_traits>
 
 namespace sshash {
 
-typedef unsigned __int128 u128;
+constexpr int kMaxFixedW = 8;
+constexpr int kWideW = 16;
+constexpr int kMaxK = 16 * kWideW - 1;  // 255 chars; layout.MAX_K
+
+// Words a kernel instantiated at width W uses for a kmer of nw words.
+template <int W>
+__device__ __forceinline__ int used_words(int64_t nw) {
+  return W <= kMaxFixedW ? W : (int)nw;
+}
+
+// f(std::integral_constant<int, W>) for the kernel width that serves a
+// kmer of nw words: nw itself up to kMaxFixedW, else the wide form.
+template <typename F>
+cudaError_t dispatch_width(int64_t nw, F&& f) {
+  switch (nw) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+  }
+  if (nw > kMaxFixedW && nw <= kWideW) return f(std::integral_constant<int, kWideW>{});
+  return cudaErrorInvalidValue;
+}
 
 // Reverse-complement the 16 chars of a uint32 / the 32 chars of a uint64:
 // complement is xor 0b10 per char; bit reversal reverses the chars and the
@@ -28,30 +65,57 @@ __device__ __forceinline__ uint64_t revcomp_mmer64(uint64_t v, int m) {
   return crc64_word(v) >> (64 - 2 * m);
 }
 
-template <int W>
-__device__ __forceinline__ u128 to_u128(const uint32_t (&w)[W]) {
-  u128 x = 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i) x |= (u128)w[i] << (32 * i);
-  return x;
-}
-
-template <int W>
-__device__ __forceinline__ void from_u128(u128 x, uint32_t (&w)[W]) {
-#pragma unroll
-  for (int i = 0; i < W; ++i) w[i] = (uint32_t)(x >> (32 * i));
-}
-
-// Reverse complement of a k-char kmer: RC over all 128 bits, then drop the
-// 128-2k low bits (the complements of chars k..63).
-__device__ __forceinline__ u128 revcomp_kmer(u128 x, int k) {
-  u128 r = ((u128)crc64_word((uint64_t)x) << 64) | crc64_word((uint64_t)(x >> 64));
-  return r >> (128 - 2 * k);
-}
-
-__device__ __forceinline__ uint32_t last_word_mask(int k, int W) {
-  int rem = 2 * k - 32 * (W - 1);
+__device__ __forceinline__ uint32_t last_word_mask(int k, int nw) {
+  int rem = 2 * k - 32 * (nw - 1);
   return rem == 32 ? 0xFFFFFFFFu : ((1u << rem) - 1u);
+}
+
+// Mask word nw-1 of x to the kmer's last chars.
+template <int W>
+__device__ __forceinline__ void mask_last_word(uint32_t (&x)[W], int k, int nw) {
+  const uint32_t mask = last_word_mask(k, nw);
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    if (j == nw - 1) x[j] &= mask;
+}
+
+// Load the kmer of row i of a (B, nw) array; words past nw are zero.
+template <int W>
+__device__ __forceinline__ void load_kmer(const uint32_t* __restrict__ rows, int64_t i, int nw,
+                                          uint32_t (&x)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) x[j] = j < nw ? rows[i * nw + j] : 0u;
+}
+
+template <int W>
+__device__ __forceinline__ void store_kmer(uint32_t* __restrict__ rows, int64_t i, int nw,
+                                           const uint32_t (&x)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    if (j < nw) rows[i * nw + j] = x[j];
+}
+
+// Reverse complement of a k-char kmer of nw words (revcomp_kmers): word i
+// of the reversal is the RC of word nw-1-i, then the 32*nw - 2k bits past
+// the kmer's end (the complements of the zero padding) shift out. The word
+// select runs over every pair of array slots, so the indices stay
+// compile-time and the arrays stay in registers at fixed widths.
+template <int W>
+__device__ __forceinline__ void revcomp_words(const uint32_t (&km)[W], int k, int nw,
+                                              uint32_t (&rc)[W]) {
+  uint32_t rev[W + 1];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    uint32_t x = 0u;
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      if (j == nw - 1 - i) x = km[j];
+    rev[i] = i < nw ? crc32_word(x) : 0u;
+  }
+  rev[W] = 0u;
+  const uint32_t s = 32u * nw - 2u * k;  // 0..30
+#pragma unroll
+  for (int i = 0; i < W; ++i) rc[i] = s ? (rev[i] >> s) | (rev[i + 1] << (32 - s)) : rev[i];
 }
 
 // Word i of a window of n words, 0 past its end.
@@ -82,18 +146,23 @@ __device__ __forceinline__ uint64_t extract_window_dyn(const uint32_t* win, int 
   return width_bits < 64 ? v & ((1ull << width_bits) - 1) : v;
 }
 
-// The k-char kmer at a per-lane bit offset of a window (extract_kmer_dyn).
+// The k-char kmer of nw words at a per-lane bit offset of a window
+// (extract_kmer_dyn).
 template <int W>
 __device__ __forceinline__ void extract_kmer_dyn(const uint32_t* win, int nwin, uint32_t bitpos,
-                                                 int k, int max_start_word, uint32_t (&out)[W]) {
+                                                 int k, int max_start_word, int nw,
+                                                 uint32_t (&out)[W]) {
   int w0 = start_word(bitpos, nwin, max_start_word);
   uint32_t b = bitpos & 31u;
 #pragma unroll
   for (int j = 0; j < W; ++j) {
-    uint32_t a = win_word(win, nwin, w0 + j), c = win_word(win, nwin, w0 + j + 1);
-    out[j] = b ? (a >> b) | (c << (32 - b)) : a;
+    out[j] = 0u;
+    if (j < nw) {
+      uint32_t a = win_word(win, nwin, w0 + j), c = win_word(win, nwin, w0 + j + 1);
+      out[j] = b ? (a >> b) | (c << (32 - b)) : a;
+    }
   }
-  out[W - 1] &= last_word_mask(k, W);
+  mask_last_word(out, k, nw);
 }
 
 template <int W>
@@ -104,7 +173,8 @@ __device__ __forceinline__ bool kmer_equal(const uint32_t (&a)[W], const uint32_
   return eq;
 }
 
-// uint_kmer_t::operator<: integer compare, word W-1 most significant.
+// uint_kmer_t::operator<: integer compare, the last word most significant
+// (words past nw are zero in both).
 template <int W>
 __device__ __forceinline__ bool kmer_less(const uint32_t (&a)[W], const uint32_t (&b)[W]) {
 #pragma unroll

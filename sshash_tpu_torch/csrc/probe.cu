@@ -26,10 +26,13 @@
 //
 // Bound: dependent random reads of device memory, three to four rounds per
 // lane (pilot, row, then heavy or mid rows for a few lanes; the legacy
-// heavy path one round more), each a row of 11..34 words; the arithmetic
-// is a few 64-bit multiplies. The design reads each row in place through
-// L1 and keeps every intermediate in registers; nothing but the result
-// fields is written.
+// heavy path one round more), each a row of 11..34 words at k <= 63 and up
+// to 52 at k = 255; the arithmetic is a few 64-bit multiplies. The design
+// reads each row in place through L1 and keeps every intermediate in
+// registers; nothing but the result fields is written. Kmers of 1..8 words
+// are templates whose word arrays (the kmer, its RC, the candidate read)
+// stay in registers; 9..16 words (k <= 255) run the wide form of
+// packed.cuh, whose arrays may spill to local memory.
 //
 // Every table read clamps its index as jnp.take(..., mode="clip") does
 // after the JAX package's int32 cast, so a lane reads exactly the entries
@@ -59,8 +62,6 @@ constexpr uint32_t kInvalid32 = 0xFFFFFFFFu;
 constexpr int32_t kForward = 1;
 constexpr int32_t kBackward = -1;
 constexpr int kMaxTries = 4;
-// result fields and row format: ids (v1 rows), full (v1 rows), ids (v2 rows)
-enum Fields { kIds = 0, kFull = 1, kIdsV2 = 2 };
 // sk_params rows (sshash_tpu_torch/layout.py SKEW_PARAMS), 8 classes each
 enum SkewParam { kTable, kNBuckets, kSeedmixHi, kSeedmixLo, kPilotOff, kPosOff, kNp2, kSeedOff };
 
@@ -156,7 +157,7 @@ template <int W>
 __device__ __forceinline__ uint32_t skew_slot(const ProbeTables& t, const ProbeParams& p,
                                               const uint32_t (&canon)[W], uint32_t cls) {
   const uint64_t seedmix = ((uint64_t)skp(t, kSeedmixHi, cls) << 32) | skp(t, kSeedmixLo, cls);
-  const uint64_t h = hash64_words(canon, seedmix);
+  const uint64_t h = hash64_words(canon, used_words<W>(p.W), seedmix);
   const uint32_t nb = skp(t, kNBuckets, cls), table = skp(t, kTable, cls);
   if (!p.skew_partitioned) {
     const uint32_t bucket = mulhi32(hi32(h), nb);
@@ -215,7 +216,8 @@ __device__ __forceinline__ Hit verify_block(const uint32_t* blk, const ProbePara
       if ((j >> 5) == (uint32_t)w) vword = vbw[w];
     if (!((vword >> (j & 31u)) & 1u)) continue;
     uint32_t read[W];
-    extract_kmer_dyn(win, Ww, (ext0 - pos) * 2u, (int)p.k, (int)p.max_start_word, read);
+    extract_kmer_dyn(win, Ww, (ext0 - pos) * 2u, (int)p.k, (int)p.max_start_word,
+                     used_words<W>(p.W), read);
     const bool eq_f = kmer_equal(read, km);
     const bool eq_r = CANON && kmer_equal(read, kr);
     if (!(eq_f || eq_r)) continue;
@@ -237,21 +239,24 @@ __device__ __forceinline__ Hit verify_block(const uint32_t* blk, const ProbePara
   return h;
 }
 
-template <int W, bool CANON, int F>
+// V2: rebased rows (ids only); v1 rows write the string fields too when
+// p.full (a uniform branch at the end, so the two field forms share one
+// instantiation and the build stays short)
+template <int W, bool CANON, bool V2>
 __global__ void probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
-  constexpr bool FULL = F == kFull, V2 = F == kIdsV2;
+  const bool FULL = !V2 && p.full;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
   bool found = false, mfound = true;
   uint32_t hrow = kInvalid32;
   Hit res{false, 0, kForward, 0, 0, 0};
   if (!io.active || io.active[i]) {
+    const int nw = used_words<W>(p.W);
     uint32_t km[W], kr[W];
+    load_kmer(io.kmers, i, nw, km);
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      km[w] = io.kmers[i * W + w];
-      kr[w] = CANON ? io.kmers_rc[i * W + w] : 0u;
-    }
+    for (int w = 0; w < W; ++w) kr[w] = 0u;
+    if (CANON) load_kmer(io.kmers_rc, i, nw, kr);
     const uint64_t minval = io.minval[i];
     const uint32_t kmw = (uint32_t)(p.k - p.m);
     uint32_t tries[kMaxTries];
@@ -355,12 +360,10 @@ cudaError_t launch_probe(const ProbeTables& t, const ProbeParams& p, const Probe
                          cudaStream_t stream) {
   const int threads = 256;
   const unsigned blocks = (unsigned)((p.B + threads - 1) / threads);
-  if (p.full)
-    probe_kernel<W, CANON, kFull><<<blocks, threads, 0, stream>>>(t, p, io);
-  else if (p.row_v2)
-    probe_kernel<W, CANON, kIdsV2><<<blocks, threads, 0, stream>>>(t, p, io);
+  if (p.row_v2)
+    probe_kernel<W, CANON, true><<<blocks, threads, 0, stream>>>(t, p, io);
   else
-    probe_kernel<W, CANON, kIds><<<blocks, threads, 0, stream>>>(t, p, io);
+    probe_kernel<W, CANON, false><<<blocks, threads, 0, stream>>>(t, p, io);
   return cudaGetLastError();
 }
 
@@ -371,7 +374,7 @@ extern "C" int sshash_probe(const sshash::ProbeTables* t, const sshash::ProbePar
                             const sshash::ProbeIO* io, void* stream) {
   using namespace sshash;
   if (p->B <= 0) return (int)cudaGetLastError();
-  if (p->k > 63 || p->m < 1 || p->m > 31 || p->W != (2 * p->k + 31) / 32 ||
+  if (p->k > kMaxK || p->m < 1 || p->m > 31 || p->W != (2 * p->k + 31) / 32 ||
       (p->canonical && !io->kmers_rc) || (p->full && !io->kmer_offset) ||
       (p->full && p->row_v2) ||
       p->blk_w != 1 + p->vbits_words + p->win_words + (p->row_v2 ? 3 : 4) ||
@@ -384,11 +387,9 @@ extern "C" int sshash_probe(const sshash::ProbeTables* t, const sshash::ProbePar
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   const bool c = p->canonical != 0;
-  switch (p->W) {
-    case 1: return (int)(c ? launch_probe<1, true>(*t, *p, *io, s) : launch_probe<1, false>(*t, *p, *io, s));
-    case 2: return (int)(c ? launch_probe<2, true>(*t, *p, *io, s) : launch_probe<2, false>(*t, *p, *io, s));
-    case 3: return (int)(c ? launch_probe<3, true>(*t, *p, *io, s) : launch_probe<3, false>(*t, *p, *io, s));
-    case 4: return (int)(c ? launch_probe<4, true>(*t, *p, *io, s) : launch_probe<4, false>(*t, *p, *io, s));
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_width(p->W, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return c ? launch_probe<W, true>(*t, *p, *io, s) : launch_probe<W, false>(*t, *p, *io, s);
+  });
 }
+

@@ -14,6 +14,8 @@
 // group scan and the group's start bits up to the lane, then reads W words
 // (plus one) of the packed chunk, clipped to the buffer, and funnel-shifts
 // them; rows past the count are left unwritten, since nothing reads them.
+// Widths 1..8 are templates; 9..16 words (k <= 255) run the wide form of
+// packed.cuh.
 // Counts (nreads, a compaction's size) are read from device memory, so
 // nothing waits on the host.
 //
@@ -61,33 +63,31 @@ template <int W>
 __global__ void kmers_kernel(const uint32_t* __restrict__ words, int64_t NW,
                              const uint32_t* __restrict__ sbits, const int32_t* __restrict__ cum_g,
                              const int32_t* __restrict__ lanes, const int32_t* __restrict__ count,
-                             int64_t n_out, int k, uint32_t* __restrict__ out) {
+                             int64_t n_out, int k, int64_t Wrt, uint32_t* __restrict__ out) {
   const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t n = count ? (int64_t)*count : n_out;
   if (j >= n_out || j >= n) return;  // rows past the count stay unwritten
-  uint32_t* row = out + j * W;
+  const int nw = used_words<W>(Wrt);
   const uint32_t lane = lanes ? (uint32_t)lanes[j] : (uint32_t)(16 * j);
   const uint32_t pos = lane_position(lane, sbits, cum_g, k);
   const int64_t w0 = pos >> 4;
   const uint32_t sh = 2 * (pos & 15);
-  uint32_t g[W + 1];
+  uint32_t g[W + 1], km[W];
 #pragma unroll
-  for (int w = 0; w <= W; ++w) g[w] = words[w0 + w < NW ? w0 + w : NW - 1];
+  for (int w = 0; w <= W; ++w) g[w] = w <= nw ? words[w0 + w < NW ? w0 + w : NW - 1] : 0u;
 #pragma unroll
-  for (int w = 0; w < W; ++w) {
-    uint32_t v = sh ? (g[w] >> sh) | (g[w + 1] << (32 - sh)) : g[w];
-    if (w == W - 1) v &= last_word_mask(k, W);
-    row[w] = v;
-  }
+  for (int w = 0; w < W; ++w) km[w] = sh ? (g[w] >> sh) | (g[w + 1] << (32 - sh)) : g[w];
+  mask_last_word(km, k, nw);
+  store_kmer(out, j, nw, km);
 }
 
 template <int W>
 cudaError_t launch_kmers(const uint32_t* words, int64_t NW, const uint32_t* sbits,
                          const int32_t* cum_g, const int32_t* lanes, const int32_t* count,
-                         int64_t n_out, int k, uint32_t* out, cudaStream_t stream) {
+                         int64_t n_out, int k, int64_t Wrt, uint32_t* out, cudaStream_t stream) {
   const int threads = 256;
   kmers_kernel<W><<<(unsigned)((n_out + threads - 1) / threads), threads, 0, stream>>>(
-      words, NW, sbits, cum_g, lanes, count, n_out, k, out);
+      words, NW, sbits, cum_g, lanes, count, n_out, k, Wrt, out);
   return cudaGetLastError();
 }
 
@@ -123,19 +123,17 @@ extern "C" int sshash_stream_kmers(const void* words, int64_t NW, const void* sb
                                    int64_t n_out, int64_t k, void* out, void* stream) {
   using namespace sshash;
   if (n_out <= 0) return (int)cudaGetLastError();
-  if (k < 1 || k > 63 || NW < 1) return (int)cudaErrorInvalidValue;
-  auto w = (const uint32_t*)words;
+  if (k < 1 || k > kMaxK || NW < 1) return (int)cudaErrorInvalidValue;
+  auto w_ = (const uint32_t*)words;
   auto sb = (const uint32_t*)sbits;
   auto cg = (const int32_t*)cum_g;
   auto ln = (const int32_t*)lanes;
   auto c = (const int32_t*)count;
   auto o = (uint32_t*)out;
   auto s = (cudaStream_t)stream;
-  switch ((2 * k + 31) / 32) {
-    case 1: return (int)launch_kmers<1>(w, NW, sb, cg, ln, c, n_out, (int)k, o, s);
-    case 2: return (int)launch_kmers<2>(w, NW, sb, cg, ln, c, n_out, (int)k, o, s);
-    case 3: return (int)launch_kmers<3>(w, NW, sb, cg, ln, c, n_out, (int)k, o, s);
-    case 4: return (int)launch_kmers<4>(w, NW, sb, cg, ln, c, n_out, (int)k, o, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  const int64_t W = (2 * k + 31) / 32;
+  return (int)dispatch_width(W, [&](auto w) {
+    return launch_kmers<decltype(w)::value>(w_, NW, sb, cg, ln, c, n_out, (int)k, W, o, s);
+  });
 }
+

@@ -30,6 +30,8 @@
 
 #include <cstdint>
 
+#include "packed.cuh"
+
 namespace sshash {
 
 struct ChainIO {
@@ -131,7 +133,7 @@ __global__ void chain_kernel(ChainIO io, int64_t A, int k) {
 extern "C" int sshash_stream_chain(const sshash::ChainIO* io, int64_t A, int64_t k, void* stream) {
   using namespace sshash;
   if (A <= 0) return (int)cudaGetLastError();
-  if (k < 1 || k > 63 || io->words_n < 1 || (!io->swin && (!io->strings || io->strings_n < 1)))
+  if (k < 1 || k > kMaxK || io->words_n < 1 || (!io->swin && (!io->strings || io->strings_n < 1)))
     return (int)cudaErrorInvalidValue;
   const int threads = 256;
   chain_kernel<<<(unsigned)((A + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
@@ -146,7 +148,7 @@ extern "C" int sshash_stream_swin(const void* aoff, const void* aori, int64_t A,
                                   int64_t word_lo, int64_t word_hi, void* out, void* stream) {
   using namespace sshash;
   if (A <= 0) return (int)cudaGetLastError();
-  if (k < 1 || k > 63 || strings_n < 1 || word_lo < 0) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > kMaxK || strings_n < 1 || word_lo < 0) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   swin_kernel<<<(unsigned)((A + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)aoff, (const int32_t*)aori, A, (const uint32_t*)strings, strings_n,

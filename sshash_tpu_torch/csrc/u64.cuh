@@ -44,12 +44,15 @@ __device__ __forceinline__ uint64_t hash64_u64(uint64_t key, uint64_t seed_mix) 
   return splitmix64(key ^ seed_mix);
 }
 
-// hashing.hash64_words: h = seed_mix; h = splitmix64(h ^ (w[i] + i*GOLDEN))
+// hashing.hash64_words over the first nw words of w: h = seed_mix;
+// h = splitmix64(h ^ (w[i] + i*GOLDEN))
 template <int W>
-__device__ __forceinline__ uint64_t hash64_words(const uint32_t (&w)[W], uint64_t seed_mix) {
+__device__ __forceinline__ uint64_t hash64_words(const uint32_t (&w)[W], int nw,
+                                                 uint64_t seed_mix) {
   uint64_t h = seed_mix;
 #pragma unroll
-  for (int i = 0; i < W; ++i) h = splitmix64(h ^ ((uint64_t)w[i] + (uint64_t)i * kGolden));
+  for (int i = 0; i < W; ++i)
+    if (i < nw) h = splitmix64(h ^ ((uint64_t)w[i] + (uint64_t)i * kGolden));
   return h;
 }
 

@@ -4,8 +4,8 @@ iteration and weight, and the engine that serves them.
 Counterpart of sshash_tpu/engine.py's query paths (mphf_eval_minimizer,
 _pilot_read, skew_slot, lookup_with_info, make_lookup, _merge,
 make_neighbours, make_access with _acc_resolve and _acc_read_window,
-make_iterator, make_weight, DeviceEngine) for indexes of k <= 63, in
-either row format (layout.py) and either skew form. One lookup is two
+make_iterator, make_weight, DeviceEngine) for indexes of k <= 255
+(layout.MAX_K), in either row format (layout.py) and either skew form. One lookup is two
 kernels and some elementwise glue:
 
   1. kernel 1 (ops.packed.minimizer): both strands' minimizers, and the
@@ -45,10 +45,12 @@ its strings32 reads to the last word, where JAX's unclipped gather fills;
 such lanes read in bounds and their kmer is meaningless in both.
 """
 
+import os
+
 import numpy as np
 import torch
 
-from . import kernels
+from . import debug, kernels
 from . import kmer as K
 from .constants import BACKWARD_ORIENTATION, FORWARD_ORIENTATION, INVALID_UINT64
 from .layout import (SKEW_PARAMS, TABLE_GROUPS, StaticCfg, acc_windowed, cand_block_width,
@@ -539,7 +541,12 @@ class TorchEngine:
     package's _device_arrays / its .npy cache) for large indexes.
     row_format: None (rebased v2 rows at >= 2^32 chars, else v1), "v1" or
     "v2". A v2 engine's lookup and navigation return the id fields only,
-    as the JAX package's DeviceEngine does."""
+    as the JAX package's DeviceEngine does.
+
+    SSHASH_DEBUG=1 in the environment at construction: lookups run the
+    sanitizer's checked lookup (debug.checkified_lookup: synchronous
+    launches, then the postcondition check over the result), as the JAX
+    package's DeviceEngine does."""
 
     def __init__(self, index, device="cuda", host_arrs=None, row_format=None):
         self.index = index
@@ -559,6 +566,8 @@ class TorchEngine:
         self._lookup = make_lookup(self.cfg, fields)
         self._lookup_ids = make_lookup(self.cfg, "ids")
         self._neighbours = make_neighbours(self.cfg, fields)
+        self._debug = os.environ.get("SSHASH_DEBUG", "") not in ("", "0")
+        self._ck_lookup = debug.checkified_lookup(self) if self._debug else None
 
     def table_bytes(self):
         """Device bytes of the tables by group (layout.TABLE_GROUPS):
@@ -575,7 +584,10 @@ class TorchEngine:
         return torch.from_numpy(k32.view(np.int32)).to(self.device)
 
     def lookup_device(self, kmers32):
-        """(B, W) int32 kmers on the device -> dict of result tensors."""
+        """(B, W) int32 kmers on the device -> dict of result tensors
+        (checked with SSHASH_DEBUG)."""
+        if self._debug:
+            return self._ck_lookup(kmers32)
         return self._lookup(self.tables, kmers32)
 
     def lookup_ids_device(self, kmers32):

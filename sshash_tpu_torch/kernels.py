@@ -1,13 +1,17 @@
 """Build and bind the port's CUDA kernels (csrc/), with launch counters.
 
-Ten CUDA sources: minimizer (kernel 1) and probe (kernel 2) carry lookup;
-access, iterator, weight and neighbours the other point queries; scan,
-stream_anchor, stream_chain and stream_derive the stream step (a source
-may hold several wrappers, each with its own count; SOURCE_KERNELS maps
-them). Kernel 2, access, weight and the chain also serve the shards of the
-bucket-sharded engine (parallel/): each takes its shard's range, and
-access_read and stream_swin are the second round and the window read that
-its split tables need.
+Twelve CUDA sources: minimizer (kernel 1) and probe (kernel 2) carry
+lookup; access, iterator, weight and neighbours the other point queries;
+scan, stream_anchor, stream_chain and stream_derive the stream step; check
+the sanitizer's postconditions (debug.py) and read_at2 the read over the
+interleaved (NW, 2) table (ops/packed.read_kmers_at2). A source may hold
+several wrappers, each with its own count; SOURCE_KERNELS maps them. The
+sources that take kmers are templates on the kmer's width in u32 words:
+1..8 one by one, and one runtime-width form for 9..16 (k <= 255,
+layout.MAX_K). Kernel 2, access, weight and the chain also serve the
+shards of the bucket-sharded engine (parallel/): each takes its shard's
+range, and access_read and stream_swin are the second round and the
+window read that its split tables need.
 
 The sources compile with nvcc for sm_90a, one nvcc process per source, all
 started together, and link into one shared library with a plain C
@@ -21,11 +25,17 @@ Each launch wrapper checks its tensors, allocates its outputs with
 torch.empty, launches on the current stream without synchronising, raises
 if the launch returned a CUDA error, and adds one to its `launches` count.
 The wrappers take CUDA tensors only; each entry point (ops/packed.minimizer,
-.neighbour_variants, .scan_ex and .compact; engine.probe, .access,
-.access_read, .iterate and .weight; streaming.stream_masks, .stream_kmers,
-.stream_chain, .stream_swin, .stream_heads, .stream_round2, .stream_merge
-and .stream_count) is made by `by_device`, which chooses between a wrapper
-and its plain version by the device of one argument.
+.neighbour_variants, .scan_ex, .compact and .read_kmers_at2; engine.probe,
+.access, .access_read, .iterate and .weight; streaming.stream_masks,
+.stream_kmers, .stream_chain, .stream_swin, .stream_heads, .stream_round2,
+.stream_merge and .stream_count; debug.check) is made by `by_device`, which
+chooses between a wrapper and its plain version by the device of one
+argument.
+
+Synchronous launches (`sync_launches`, on inside debug.debug_mode): every
+wrapper then waits for its kernel and raises on any CUDA error, so a fault
+shows at the launch that caused it (the counterpart of the JAX package's
+jax_debug_nans trap, debug.py).
 """
 
 import ctypes
@@ -34,6 +44,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -44,13 +55,16 @@ from .layout import (WHOLE_TABLE, AccessShard, acc_width, acc_win_words, acc_win
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("minimizer.cu", "probe.cu", "access.cu", "iterator.cu", "weight.cu",
-           "neighbours.cu", "scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu")
+           "neighbours.cu", "scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu",
+           "check.cu", "read_at2.cu")
 HEADERS = ("packed.cuh", "tables.cuh", "u64.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sshash_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _lib = None
+# debug.debug_mode: wait for every launch and raise on any CUDA error
+sync_launches = False
 
 
 def library_path():
@@ -73,33 +87,45 @@ def _nvcc():
 
 def _run_all(cmds):
     """Run the commands concurrently; raise if any failed. Returns their
-    stderr, in order."""
+    stderr and their seconds, in order."""
+    t0 = time.perf_counter()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    outs = [p.communicate() for p in procs]
+    outs, secs = [None] * len(procs), [0.0] * len(procs)
+
+    def wait(i):  # drains the pipes as the process writes; notes its end
+        outs[i] = procs[i].communicate()
+        secs[i] = time.perf_counter() - t0
+
+    waits = [threading.Thread(target=wait, args=(i,)) for i in range(len(procs))]
+    for t in waits:
+        t.start()
+    for t in waits:
+        t.join()
     for cmd, p, (_, err) in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
-    return [err for _, err in outs]
+    return [err for _, err in outs], secs
 
 
 def build():
     """Compile the kernels unless the library for these sources exists.
-    Returns (path, seconds spent compiling, nvcc's output)."""
+    Returns (path, seconds spent compiling, nvcc's output, {source: seconds
+    of its nvcc})."""
     path = library_path()
     if path.exists():
-        return path, 0.0, ""
+        return path, 0.0, "", {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, src + ".o") for src in SOURCES]
-        log = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c",
-                         str(CSRC / src), "-o", obj] for src, obj in zip(SOURCES, objs)])
+        log, secs = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c",
+                               str(CSRC / src), "-o", obj] for src, obj in zip(SOURCES, objs)])
         lib = os.path.join(tmp, path.name)
-        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])[0]
         os.replace(lib, path)
-    return path, time.perf_counter() - t0, "".join(log)
+    return path, time.perf_counter() - t0, "".join(log), dict(zip(SOURCES, secs))
 
 
 # ctypes mirrors of the structs in csrc/probe.cu (8-byte fields only)
@@ -147,7 +173,7 @@ def library():
     """Build (if needed) and load the kernel library."""
     global _lib
     if _lib is None:
-        path, _, _ = build()
+        path = build()[0]
         lib = ctypes.CDLL(str(path))
         p = ctypes.c_void_p
         i64 = ctypes.c_int64
@@ -174,11 +200,15 @@ def library():
         lib.sshash_stream_round2.argtypes = [p, p, p, p, i64, p, p, p]
         lib.sshash_stream_merge.argtypes = [ctypes.POINTER(MergeIO), i64, p]
         lib.sshash_stream_count.argtypes = [p, p, p, p, p, p, p, i64, p, p]
+        lib.sshash_check.argtypes = [p, p, p, p, p, i64, i64, i64, p, p]
+        lib.sshash_read_at2.argtypes = [p, i64, p, i64, i64, p, p, p]
+        lib.sshash_last_error.argtypes = []
         for name in ("sshash_access", "sshash_iterate", "sshash_weight", "sshash_neighbours",
                      "sshash_scan", "sshash_compact", "sshash_stream_masks",
                      "sshash_stream_kmers", "sshash_stream_chain", "sshash_stream_swin",
-                     "sshash_stream_heads",
-                     "sshash_stream_round2", "sshash_stream_merge", "sshash_stream_count"):
+                     "sshash_stream_heads", "sshash_stream_round2", "sshash_stream_merge",
+                     "sshash_stream_count", "sshash_check", "sshash_read_at2",
+                     "sshash_last_error"):
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -217,6 +247,11 @@ def _check(t, name, dtype, shape=None):
 def _raise_on(err, what):
     if err != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+    if sync_launches:
+        torch.cuda.synchronize()
+        err = library().sshash_last_error()
+        if err != 0:
+            raise RuntimeError(f"{what} failed on the device: CUDA error {err}")
 
 
 def _check_table(t, name, dev, cols=None):
@@ -742,10 +777,59 @@ def stream_count_kernel(state, valid_bits, fbits, count):
 stream_count_kernel.launches = 0
 
 
+def check_kernel(found, kmer_id, orientation, kmer_offset, string_begin, num_kmers, num_chars):
+    """The sanitizer's four postconditions over a lookup's result -> (4,)
+    int32 flags, 1 where some found lane violates the predicate; the offset
+    fields are None on rebased (v2) rows. Same contract as
+    debug.check_plain."""
+    B = _vec(found, "found", torch.bool)
+    dev = found.device
+    _check(kmer_id, "kmer_id", torch.int32, (B,))
+    _check(orientation, "kmer_orientation", torch.int32, (B,))
+    if (kmer_offset is None) != (string_begin is None):
+        raise ValueError("kmer_offset and string_begin go together")
+    if kmer_offset is not None:
+        _check(kmer_offset, "kmer_offset", torch.int32, (B,))
+        _check(string_begin, "string_begin", torch.int32, (B,))
+    flags = torch.zeros(4, dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = library().sshash_check(found.data_ptr(), kmer_id.data_ptr(), orientation.data_ptr(),
+                                 ptr(kmer_offset), ptr(string_begin), B, int(num_kmers),
+                                 int(num_chars), flags.data_ptr(), _stream(dev))
+    _raise_on(err, "check_kernel")
+    check_kernel.launches += 1
+    return flags
+
+
+check_kernel.launches = 0
+
+
+def read_at2_kernel(table, offsets, k):
+    """The kmer and valid-start bit at each char offset of the interleaved
+    (NW, 2) int32 table: (B,) int32 offsets (u32 bits) -> ((B, W) int32,
+    (B,) bool). Same contract as ops.packed.read_kmers_at2_plain."""
+    B = _vec(offsets, "offsets", torch.int32)
+    dev = offsets.device
+    _check_table(table, "table", dev, 2)
+    if table.dim() != 2:
+        raise ValueError(f"table must be (NW, 2), got {tuple(table.shape)}")
+    out = torch.empty((B, (2 * k + 31) // 32), dtype=torch.int32, device=dev)
+    vbit = torch.empty(B, dtype=torch.bool, device=dev)
+    err = library().sshash_read_at2(table.data_ptr(), table.shape[0], offsets.data_ptr(), B, k,
+                                    out.data_ptr(), vbit.data_ptr(), _stream(dev))
+    _raise_on(err, "read_at2_kernel")
+    read_at2_kernel.launches += 1
+    return out, vbit
+
+
+read_at2_kernel.launches = 0
+
+
 KERNELS = (minimizer_kernel, probe_kernel, access_kernel, access_read_kernel, iterate_kernel,
            weight_kernel, neighbours_kernel, scan_kernel, compact_kernel, stream_masks_kernel,
            stream_kmers_kernel, stream_chain_kernel, stream_swin_kernel, stream_heads_kernel,
-           stream_round2_kernel, stream_merge_kernel, stream_count_kernel)
+           stream_round2_kernel, stream_merge_kernel, stream_count_kernel, check_kernel,
+           read_at2_kernel)
 # the wrappers of each CUDA source
 SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel",), "probe.cu": ("probe_kernel",),
                   "access.cu": ("access_kernel", "access_read_kernel"),
@@ -755,7 +839,8 @@ SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel",), "probe.cu": ("probe_ker
                   "stream_anchor.cu": ("stream_masks_kernel", "stream_kmers_kernel"),
                   "stream_chain.cu": ("stream_chain_kernel", "stream_swin_kernel"),
                   "stream_derive.cu": ("stream_heads_kernel", "stream_round2_kernel",
-                                       "stream_merge_kernel", "stream_count_kernel")}
+                                       "stream_merge_kernel", "stream_count_kernel"),
+                  "check.cu": ("check_kernel",), "read_at2.cu": ("read_at2_kernel",)}
 
 
 def reset_counts():

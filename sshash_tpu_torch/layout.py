@@ -33,7 +33,8 @@ needs no further gather. Two row formats:
   sidk32, kmer_cum   host-side sources of acc_rows (not uploaded)
   w_value_ids, w_endpoints, w_dictionary   the weight runs (weighted only)
 
-The port serves every index with k <= 63 and fewer than 2^32 - 1 kmers
+The port serves every index with k <= 255 (MAX_K: at most 16 u32 words
+per kmer) and fewer than 2^32 - 1 kmers
 (ids are u32, 0xFFFFFFFF the not-found sentinel) and weights below 2^32:
 v1 rows below 2^32 chars, v2 rows at or above it (or when asked for), skew
 classes with or without hindex, partitioned or plain class MPHFs. Char
@@ -106,11 +107,15 @@ class AccessShard(NamedTuple):
     word_hi: int
 
 
+# widest kmer the kernels take: 16 u32 words (csrc/packed.cuh kWideW)
+MAX_K = 255
+
+
 def check_supported(index):
     """Raise on index formats the port does not serve."""
-    if index.k > 63:
-        raise ValueError(f"k={index.k}: the port serves k <= 63 (at most 4 "
-                         f"u32 words per kmer)")
+    if index.k > MAX_K:
+        raise ValueError(f"k={index.k}: the port serves k <= {MAX_K} (at most 16 u32 "
+                         f"words per kmer, the kernels' widest form)")
     if index.num_kmers >= (1 << 32) - 1:
         raise ValueError(f"ids are u32 with 0xFFFFFFFF as the not-found sentinel, so "
                          f"an index holds fewer than 2^32-1 kmers; this one has "
@@ -397,9 +402,11 @@ def fused_rows(dpos, s32, ep, k, m, row_v2):
     # start j of the span (char offset base + j) is valid in [0, ep1-k] of
     # sid0's string or in [ep1, ep2-k] of the next: two bit ranges
     base = c0 - kmw
-    bits = (_bit_range(-base, ep1 - k - base, kmw + 1)
-            | _bit_range(ep1 - base, ep2 - k - base, kmw + 1))
-    vbp = np.stack([(bits >> np.uint64(32 * w)).astype(np.uint32) for w in range(Wv)], axis=1)
+    # one u32 word of the span's kmw + 1 bits at a time
+    vbp = np.empty((len(c0), Wv), np.uint32)
+    for w in range(Wv):
+        b0, n = base + 32 * w, min(32, kmw + 1 - 32 * w)
+        vbp[:, w] = _bit_range(-b0, ep1 - k - b0, n) | _bit_range(ep1 - b0, ep2 - k - b0, n)
     if row_v2:
         rsv = np.stack([(c0 - sid0 * (k - 1)).astype(np.uint32), sid0.astype(np.uint32),
                         np.clip(ep1 - (c0 - kmw), 0, kmw + 1).astype(np.uint32)], axis=1)
@@ -412,7 +419,7 @@ def fused_rows(dpos, s32, ep, k, m, row_v2):
 
 def _bit_range(lo, hi, n):
     """uint64 masks with bits lo..hi (int64 arrays, inclusive) set, cut to
-    bits 0..n-1 (n <= 63)."""
+    bits 0..n-1 (n <= 32 here)."""
     a = np.clip(lo, 0, n)
     b = np.maximum(np.clip(hi + 1, 0, n), a)
     one = np.uint64(1)

@@ -5,9 +5,11 @@ of a kmer lives in word j // 16 at bit 2 * (j % 16), words little-end
 first). Kmers are (B, W) int64 tensors of u32 values; 64-bit values are
 ops.u64 pairs.
 
-`minimizer` is the entry point of kernel 1 (csrc/minimizer.cu) and
-`neighbour_variants` of the neighbours kernel (csrc/neighbours.cu): a CPU
-tensor runs the plain version, a CUDA tensor runs the kernel.
+`minimizer` is the entry point of kernel 1 (csrc/minimizer.cu),
+`neighbour_variants` of the neighbours kernel (csrc/neighbours.cu) and
+`read_kmers_at2` of the read kernel (csrc/read_at2.cu): a CPU tensor runs
+the plain version, a CUDA tensor runs the kernel. Every function here
+takes kmers of any width (k <= 255 in the kernels).
 """
 
 import torch
@@ -115,6 +117,33 @@ def read_kmers_at(strings32, offsets, k):
     idx = (offsets >> 4)[:, None] + torch.arange(num_words32(k) + 1, device=offsets.device)
     g = strings32[idx.clamp(max=strings32.shape[0] - 1)]
     return extract_kmer_dyn(g, 2 * (offsets & 15), k)
+
+
+def interleave_valid_starts(strings32, vstart32):
+    """The interleaved (NW, 2) int32 table of read_kmers_at2 from the
+    packed strings and the valid-start bits (int32 u32 bits): row w holds
+    word w and the 16 valid-start bits of its char offsets, which sit in
+    half (w & 1) of vstart32[w >> 1]."""
+    w = torch.arange(strings32.shape[0], device=strings32.device)
+    bits = (u.u32(vstart32)[w >> 1] >> ((w & 1) * 16)) & 0xFFFF
+    return torch.stack([strings32, bits.to(torch.int32)], dim=1)
+
+
+def read_kmers_at2_plain(table, offsets, k):
+    """Plain version of the read kernel (csrc/read_at2.cu): the k-char kmer
+    and the valid-start bit at each char offset of the interleaved (NW, 2)
+    table (interleave_valid_starts). (B,) int32 offsets (u32 bits) ->
+    ((B, W) int32 kmers, (B,) bool); row reads clip to the last row, as
+    the JAX package's take(..., mode="clip") does."""
+    o = u.u32(offsets)
+    idx = (o >> 4)[:, None] + torch.arange(num_words32(k) + 1, device=o.device)
+    rows = u.u32(table)[idx.clamp(max=table.shape[0] - 1)]
+    kmers = extract_kmer_dyn(rows[:, :, 0], 2 * (o & 15), k)
+    return u.to_i32(kmers), ((rows[:, 0, 1] >> (o & 15)) & 1) != 0
+
+
+read_kmers_at2 = kernels.by_device(kernels.read_at2_kernel, read_kmers_at2_plain, "read-at2",
+                                   arg=1)
 
 
 def iterate_kmers(strings32, k):

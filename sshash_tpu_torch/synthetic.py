@@ -18,6 +18,7 @@ import os
 import tempfile
 
 import numpy as np
+import torch
 
 from . import hashing as H
 from . import kmer as K
@@ -25,6 +26,7 @@ from . import oracle
 from .builder.build import BuildConfig, build
 from .layout import cand_block_width
 from .mphf import MPHF
+from .ops import packed as P
 from .ops import u64 as u
 
 # code -> char under the index's 2-bit map (kmer.NUCLEOTIDES)
@@ -63,6 +65,27 @@ SMALL_CONFIGS = {
                           seed=11),
 }
 
+# k > 63 (five or more u32 words per kmer): the kernels' fixed widths W = 5
+# and 8 and their runtime-width form (W = 9). planted adds mid and heavy
+# buckets (m >= 21 leaves random strings all singletons); ties plants
+# pairs of a low-hash m-mer and its reverse complement, so that both
+# strands of the kmers spanning a pair share their minimizer value (the
+# canonical tie, tie_batch)
+WIDE_CONFIGS = {
+    # test_fuzz.py case 10's k and m; 26 kmers per string, so up to two
+    # strings start in a 32-id block and the access rows take the
+    # two-round form; weighted
+    "k65": dict(k=65, m=21, canonical=False, num_strings=200, string_len=90, seed=12,
+                weights=8),
+    # test_fuzz.py case 11's k and m; windowed access rows (C = 1)
+    "k65_canonical": dict(k=65, m=23, canonical=True, num_strings=96, string_len=400, seed=13,
+                          planted=[120, 3, 5, 10], ties=[12, 12]),
+    "k127_canonical": dict(k=127, m=27, canonical=True, num_strings=48, string_len=500,
+                           seed=14, planted=[3, 5, 8], ties=[10]),
+    "k129_canonical": dict(k=129, m=31, canonical=True, num_strings=80, string_len=700,
+                           seed=15, planted=[100, 3, 5], ties=[12, 12]),
+}
+
 
 def low_hash_mmers(n, m, seed, sample=1 << 20, rng=None):
     """The n m-mers (as 2-bit code arrays) of smallest minimizer hash among
@@ -75,11 +98,13 @@ def low_hash_mmers(n, m, seed, sample=1 << 20, rng=None):
     return ((best[:, None] >> shifts[None, :]) & np.uint64(3)).astype(np.uint8)
 
 
-def plant(codes, mmers, counts, k, rng):
-    """Write mmers[i] counts[i] times at distinct random sites of `codes`,
-    sites at least k apart."""
+def plant(codes, mmers, counts, k, rng, leads=None):
+    """Write mmers[i] (code arrays) counts[i] times at distinct random sites
+    of `codes`, sites 2k chars apart, leads[i] chars (0 by default) into
+    its site; a unit and its lead take at most 2k chars."""
     S, L = codes.shape
-    m = mmers.shape[1]
+    leads = leads or [0] * len(mmers)
+    m = max(len(x) + d for x, d in zip(mmers, leads))
     per = (L - m) // (2 * k)
     need = int(sum(counts))
     if need > S * per:
@@ -87,8 +112,10 @@ def plant(codes, mmers, counts, k, rng):
     sites = rng.choice(S * per, need, replace=False)
     owner = np.repeat(np.arange(len(counts)), counts)
     rows, cols = sites // per, (sites % per) * 2 * k
-    for i in range(m):
-        codes[rows, cols + i] = mmers[owner, i]
+    for j, x in enumerate(mmers):
+        sel = owner == j
+        for i in range(len(x)):
+            codes[rows[sel], cols[sel] + leads[j] + i] = x[i]
     return codes
 
 
@@ -119,18 +146,32 @@ def write_fasta(path, codes, k=None, weights=None):
             f.write(b"\n")
 
 
+def tie_pair(mmer, rng):
+    """Codes of a low-hash m-mer, 3 random chars and the m-mer's reverse
+    complement: both strands of every kmer that holds the whole pair have
+    the m-mer as their minimizer (a tie, as its hash is the lowest)."""
+    return np.concatenate([mmer, rng.integers(0, 4, 3, dtype=np.uint8), (mmer ^ 2)[::-1]])
+
+
 def write_input(path, k, m, canonical, num_strings, string_len, seed,
-                avg_partition_size=None, planted=None, threads=1, weights=None):
+                avg_partition_size=None, planted=None, threads=1, weights=None, ties=None):
     """Write the FASTA of random strings drawn from `seed` to path and
     return its BuildConfig. planted: list of plant counts, one low-hash
-    m-mer per entry. weights: the mean run length of a weighted build, with
-    weight_runs drawn from the same seed."""
+    m-mer per entry. ties: list of plant counts of tie_pair units, one
+    low-hash m-mer per entry. weights: the mean run length of a weighted
+    build, with weight_runs drawn from the same seed."""
     rng = np.random.default_rng(seed)
     codes = rng.integers(0, 4, (num_strings, string_len), dtype=np.uint8)
     cfg = BuildConfig(k=k, m=m, canonical=canonical, verbose=False, threads=threads,
                       avg_partition_size=avg_partition_size, weighted=bool(weights))
-    if planted:
-        plant(codes, low_hash_mmers(len(planted), m, cfg.seed, rng=rng), planted, k, rng)
+    if planted or ties:
+        low = low_hash_mmers(len(planted or []) + len(ties or []), m, cfg.seed, rng=rng)
+        units = list(low[: len(planted or [])])
+        units += [tie_pair(x, rng) for x in low[len(planted or []):]]
+        # a tie pair sits k - 2m - 3 chars into its site, so that each of
+        # the k - 2m - 2 kmers holding it starts inside the string
+        leads = [0] * len(planted or []) + [k - 2 * m - 3] * len(ties or [])
+        plant(codes, units, list(planted or []) + list(ties or []), k, rng, leads)
     w = weight_runs(num_strings * (string_len - k + 1), rng, weights) if weights else None
     write_fasta(path, codes, k, w)
     return cfg
@@ -144,7 +185,7 @@ def build_index(**kw):
 
 
 def small_index(name):
-    return build_index(**SMALL_CONFIGS[name])
+    return build_index(**(SMALL_CONFIGS.get(name) or WIDE_CONFIGS[name]))
 
 
 def path_kmer_ids(idx, rng, n):
@@ -320,3 +361,58 @@ def query_batch(idx, seed=0):
     mixed[::3] = K.revcomp_kmers(mixed[::3], idx.k)
     q = np.concatenate([pos, random_kmers(idx.k, rng, 500), mixed[rng.permutation(len(mixed))]])
     return q[: len(q) - 1 + len(q) % 2], len(pos)
+
+
+def tie_kmers(idx, km):
+    """Mask of the packed kmers whose two strands' minimizer values are
+    equal (the canonical lookup's tie)."""
+    magic = H.mixer_magic(idx.seed)
+    mv, _ = oracle.compute_minimizer(km, idx.k, idx.m, magic)
+    mr, _ = oracle.compute_minimizer(K.revcomp_kmers(km, idx.k), idx.k, idx.m, magic)
+    return mv == mr
+
+
+def tie_lanes(engine, kmers32):
+    """Mask of the (B, W) int32 kmers on a TorchEngine's device whose two
+    strands' minimizer values are equal: kernel 1 on a CUDA tensor, its
+    plain version on a CPU one."""
+    cfg = engine.cfg
+    mv, _, _, mv_r, _ = P.minimizer(kmers32, cfg.k, cfg.m, cfg.magic, both=True)
+    return mv == mv_r
+
+
+def tie_batch(idx, rng, n, engine=None, chunk=1 << 23):
+    """Up to n kmers of the index whose strands tie (WIDE_CONFIGS' ties)
+    and, from them, misses that still tie: each hit with the first
+    one-char change (lowest char) that keeps the tie and leaves the kmer
+    absent from the index. Returns (hits, misses), packed. The kmers are
+    read, tested for the tie and looked up through the oracle or, given a
+    TorchEngine over idx, through its access (chunk ids at a time),
+    tie_lanes and lookup on its device."""
+    if engine is None:
+        km = oracle.access(idx, np.arange(idx.num_kmers))
+        hits = km[tie_kmers(idx, km)]
+
+        def tied_miss(x):
+            return tie_kmers(idx, x) & (oracle.lookup(idx, x)["kmer_id"] == oracle.INVALID)
+    else:
+        found = []
+        for lo in range(0, idx.num_kmers, chunk):
+            ids = torch.arange(lo, min(lo + chunk, idx.num_kmers), device=engine.device)
+            km = engine.access_device(ids.to(torch.int32))
+            found.append(km[tie_lanes(engine, km)].cpu().numpy().view(np.uint32))
+        hits = K.u32_to_kmers64(np.concatenate(found), idx.k)
+
+        def tied_miss(x):
+            kt = engine.kmers32(x)
+            return (tie_lanes(engine, kt) & ~engine.lookup_ids_device(kt)["found"]).cpu().numpy()
+    hits = hits[rng.permutation(len(hits))[:n]]
+    miss = hits.copy()
+    done = np.zeros(len(hits), dtype=bool)
+    for j in range(idx.k):
+        w, b = divmod(2 * j, 64)
+        flip = miss.copy()
+        flip[:, w] ^= np.uint64(1 << b)
+        take = ~done & tied_miss(flip)
+        miss[take], done = flip[take], done | take
+    return hits, miss[done]

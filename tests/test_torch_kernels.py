@@ -21,7 +21,8 @@ import sshash_tpu
 from sshash_tpu import oracle
 from sshash_tpu import streaming as jax_streaming
 from sshash_tpu.index import Index as JaxIndex
-from sshash_tpu_torch import TorchEngine, kernels, synthetic
+from sshash_tpu_torch import TorchEngine, debug, kernels, synthetic
+from sshash_tpu_torch import kmer as K
 from sshash_tpu_torch import engine as E
 from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.engine import canonical_fold, probe, probe_plain
@@ -46,8 +47,11 @@ def jax_index(idx, tmp_path):
     return JaxIndex.load(path)
 
 
+ALL_CONFIGS = sorted(synthetic.SMALL_CONFIGS) + sorted(synthetic.WIDE_CONFIGS)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(synthetic.SMALL_CONFIGS))
+@pytest.mark.parametrize("name", ALL_CONFIGS)
 def test_kernels_equal_plain_on_card(card, name, tmp_path):
     idx = synthetic.small_index(name)
     eng = TorchEngine(idx, card)
@@ -74,7 +78,7 @@ def test_kernels_equal_plain_on_card(card, name, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(synthetic.SMALL_CONFIGS))
+@pytest.mark.parametrize("name", ALL_CONFIGS)
 def test_point_query_kernels_equal_plain_on_card(card, name, tmp_path):
     """Access (both forms), iteration, weight and the neighbour variants."""
     idx = synthetic.small_index(name)
@@ -112,7 +116,8 @@ def _probe_args(cfg, kt):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["m3_skew", "m3_skew_canonical", "partitioned", "k63"])
+@pytest.mark.parametrize("name", ["m3_skew", "m3_skew_canonical", "partitioned", "k63",
+                                  "k65_canonical", "k129_canonical"])
 @pytest.mark.parametrize("form", ["v2", "legacy", "legacy_plain_mphf"])
 def test_probe_variants_equal_plain_on_card(card, name, form, tmp_path):
     """Kernel 2 in v2 rows and in both legacy skew forms (hindex dropped;
@@ -174,7 +179,7 @@ def _equal(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["m3_skew", "m3_skew_canonical", "m9_c1", "short_strings",
-                                  "weighted", "k63"])
+                                  "weighted", "k63", "k65", "k129_canonical"])
 def test_sharded_kernels_equal_plain_on_card(card, name):
     """Kernel 2, access (both rounds), weight and the stream window read on
     three shards cut unevenly (1/7, then to 1/2, then the rest of the
@@ -255,7 +260,7 @@ def test_sharded_kernels_equal_plain_on_card(card, name):
 
     ops = ST.KERNEL_OPS._replace(chain=chain)
     strings = synthetic.index_strings(idx)
-    reads = synthetic.cut_reads(strings, 300, min(120, min(map(len, strings))),
+    reads = synthetic.cut_reads(strings, 300, min(max(120, idx.k + 40), min(map(len, strings))),
                                 np.random.default_rng(7), rc=0.5, subst=0.01)
     s = ST._DeviceStream(eng, idx.k, pmax=1 << 14)
     s.capture = []
@@ -293,7 +298,8 @@ def _rows_equal(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["m13_regular", "m13_canonical", "k15", "k63", "m3_skew"])
+@pytest.mark.parametrize("name", ["m13_regular", "m13_canonical", "k15", "k63", "m3_skew",
+                                  "k65", "k127_canonical", "k129_canonical"])
 def test_stream_kernels_equal_plain_on_card(card, name, tmp_path):
     """The stream step through the four stream sources and kernels 1-2
     equals the plain step on every chunk, and the report equals the JAX
@@ -329,9 +335,11 @@ def _stream_files(idx, rng, tmp_path):
     them with RC and substitutions, plus random reads, with Ns (FASTQ).
     Returns {path: multiline}."""
     strings = synthetic.index_strings(idx)
-    L = min(100, max(len(s) for s in strings))
+    # reads hold kmers at every k (k + 37 and k + 13 chars past k = 63)
+    L = min(max(100, idx.k + 37), max(len(s) for s in strings))
     reads = synthetic.cut_reads(strings, 600, L, rng, rc=0.5, subst=0.01)
-    reads = synthetic.with_n(reads + synthetic.random_reads(600, 76, rng), 0.02, rng)
+    reads = synthetic.with_n(reads + synthetic.random_reads(600, max(76, idx.k + 13), rng), 0.02,
+                             rng)
     genome, fq = os.path.join(tmp_path, "genome.fa"), os.path.join(tmp_path, "reads.fq")
     synthetic.write_genome(genome, strings * 2, rng)
     synthetic.write_reads(fq, reads)
@@ -365,6 +373,58 @@ def test_stream_step_captures_in_a_cuda_graph(card, name, tmp_path):
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m", [(65, 25), (127, 31), (129, 31), (200, 13), (255, 31)])
+def test_wide_minimizer_and_variants_equal_plain_on_card(card, k, m):
+    """Kernel 1 (both strands and forward) and the neighbour variants at
+    W = 5..16, fixed widths and the runtime-width form, on random kmers."""
+    rng = np.random.default_rng(k)
+    k32 = K.kmers_to_u32(synthetic.random_kmers(k, rng, 1 << 14), k)
+    kt = torch.from_numpy(np.ascontiguousarray(k32).view(np.int32)).to(card)
+    magic = int(rng.integers(0, 1 << 63))
+    for both in (False, True):
+        for g, w in zip(P.minimizer(kt, k, m, magic, both), P.minimizer_plain(kt, k, m, magic,
+                                                                             both)):
+            assert torch.equal(g, w)
+    assert torch.equal(P.neighbour_variants(kt, k), P.neighbour_variants_plain(kt, k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m13_regular", "m3_skew_canonical", "k63", "k65",
+                                  "k129_canonical"])
+def test_check_and_read_kernels_equal_plain_on_card(card, name):
+    """The sanitizer's check kernel on the lookup's real fields (passing,
+    and with shrunk bounds, failing), on v2 rows' id fields, and on
+    fields with planted violations; the read kernel over the interleaved
+    (NW, 2) table, offsets past the end included."""
+    idx = synthetic.small_index(name)
+    eng = TorchEngine(idx, card)
+    q, _ = synthetic.query_batch(idx)
+    res = eng.lookup_device(eng.kmers32(q))
+    n = res["found"].shape[0]
+    fields = [res[f] for f in ("found", "kmer_id", "kmer_orientation", "kmer_offset",
+                               "string_begin")]
+    bad_ori = res["kmer_orientation"].clone()
+    bad_ori[::7] = 0
+    bad_beg = res["string_begin"].clone()
+    bad_beg[::5] = -1
+    cases = [(fields, idx.num_kmers, idx.num_chars), (fields, 1, 1),
+             (fields[:3] + [None, None], idx.num_kmers, 0),
+             (fields[:2] + [bad_ori] + fields[3:], idx.num_kmers, idx.num_chars),
+             (fields[:4] + [bad_beg], idx.num_kmers, idx.num_chars)]
+    for args, nk, nc in cases:
+        got = debug.check(*args, nk, nc)
+        assert torch.equal(got, debug.check_plain(*args, nk, nc))
+    assert debug.check(*fields, idx.num_kmers, idx.num_chars).tolist() == [0, 0, 0, 0]
+    assert debug.check(*fields, 1, 1).tolist()[:2] == [1, 1]
+    t = P.interleave_valid_starts(eng.tables["strings32"], eng.tables["vstart32"])
+    rng = np.random.default_rng(7)
+    offs = rng.integers(0, 16 * t.shape[0] + 64, n).astype(np.uint32)
+    ot = torch.from_numpy(offs.view(np.int32)).to(card)
+    for g, w in zip(P.read_kmers_at2(t, ot, idx.k), P.read_kmers_at2_plain(t, ot, idx.k)):
+        assert torch.equal(g, w)
 
 
 def test_wrappers_take_cuda_tensors_only():
@@ -406,6 +466,11 @@ def test_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.stream_swin_kernel(ids, ids, eng.tables["strings32"], cfg.k,
                                    AccessShard(0, 1, 0, 1))
+    found = torch.zeros(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.check_kernel(found, ids, ids, ids, ids, 1, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.read_at2_kernel(torch.zeros((4, 2), dtype=torch.int32), ids, cfg.k)
     assert kernels.counts() == before
     meta = torch.empty((4, cfg.W), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="minimizer"):
@@ -430,7 +495,8 @@ ENTRIES = {"minimizer": (P.minimizer, 0), "neighbours": (P.neighbour_variants, 0
            "masks": (ST.stream_masks, 0), "kmer-read": (ST.stream_kmers, 0),
            "chain": (ST.stream_chain, 1), "run-skip": (ST.stream_heads, 2),
            "round-2": (ST.stream_round2, 0), "merge": (ST.stream_merge, 0),
-           "count": (ST.stream_count, 1)}
+           "count": (ST.stream_count, 1), "check": (debug.check, 0),
+           "read-at2": (P.read_kmers_at2, 1)}
 
 
 @pytest.mark.parametrize("what", sorted(ENTRIES))

@@ -118,14 +118,17 @@ def test_refuses_weights_that_would_wrap():
 
 
 def test_refuses_formats_it_does_not_serve(monkeypatch, tmp_path):
-    """The port raises where the JAX package raises: k > 63, >= 2^32-1
-    kmers (ids are u32 with 0xFFFFFFFF as the sentinel), v1 rows at >=
-    2^32 chars, full lookup fields and streaming on v2 rows, and the
-    two-round access form at >= 2^32 chars."""
+    """The port raises where the JAX package raises: >= 2^32-1 kmers (ids
+    are u32 with 0xFFFFFFFF as the sentinel), v1 rows at >= 2^32 chars,
+    full lookup fields and streaming on v2 rows, and the two-round access
+    form at >= 2^32 chars; and past its kernels' widest form, k > 255
+    (a k = 65 index serves)."""
     idx = synthetic.small_index("m3_skew")
-    with pytest.raises(ValueError, match="k <= 63"):
-        StaticCfg(synthetic.build_index(k=65, m=21, canonical=False, num_strings=4,
-                                        string_len=100, seed=1))
+    k65 = synthetic.build_index(k=65, m=21, canonical=False, num_strings=4, string_len=100,
+                                seed=1)
+    assert StaticCfg(k65).W == 5
+    with pytest.raises(ValueError, match="k <= 255"):
+        StaticCfg(dataclasses.replace(k65, k=256))
     with pytest.raises(ValueError, match="2\\^32-1"):
         StaticCfg(dataclasses.replace(idx, num_kmers=(1 << 32) - 1))
     assert not StaticCfg(dataclasses.replace(idx, num_kmers=(1 << 32) - 2)).row_v2

@@ -80,7 +80,7 @@ def _kmers32(rng, n, k):
     return K.kmers_to_u32(synthetic.random_kmers(k, rng, n), k)
 
 
-@pytest.mark.parametrize("k", [16, 31, 33, 63])
+@pytest.mark.parametrize("k", [16, 31, 33, 63, 65, 127, 129, 255])
 def test_packed_ops_match_jax(k):
     rng = np.random.default_rng(k)
     k32 = _kmers32(rng, 1024, k)
@@ -97,8 +97,9 @@ def test_packed_ops_match_jax(k):
         want = JP.extract_window(jk, bit, 2 * m)
         assert np.array_equal(_np64(got), JU.to_np(want))
     # per-lane offsets over a wider window, with and without the start-word bound
-    win = rng.integers(0, 1 << 32, (1024, 9), dtype=np.uint64).astype(np.uint32)
-    bitpos = (2 * rng.integers(0, 16 * 9, 1024)).astype(np.uint32)
+    nwin = max(9, (2 * k + 31) // 32 + 2)
+    win = rng.integers(0, 1 << 32, (1024, nwin), dtype=np.uint64).astype(np.uint32)
+    bitpos = (2 * rng.integers(0, 16 * nwin, 1024)).astype(np.uint32)
     for msw in (None, 1, 3):
         got = P.extract_kmer_dyn(_t(win), _t(bitpos), k, msw).numpy()
         want = np.asarray(JP.extract_kmer_dyn(jnp.asarray(win), jnp.asarray(bitpos), k, msw))
@@ -111,7 +112,8 @@ def test_packed_ops_match_jax(k):
                           JU.to_np(JP.revcomp_mmer64(_jpair(mm), m)))
 
 
-@pytest.mark.parametrize("k,m", [(31, 13), (31, 17), (31, 21), (63, 25), (15, 7)])
+@pytest.mark.parametrize("k,m", [(31, 13), (31, 17), (31, 21), (63, 25), (15, 7), (65, 21),
+                                 (65, 25), (127, 31), (129, 31)])
 def test_minimizer_matches_jax(k, m):
     rng = np.random.default_rng(k * 100 + m)
     k32 = _kmers32(rng, 2048, k)
@@ -143,6 +145,43 @@ def test_minimizer_matches_jax(k, m):
     hv, hp = oracle.compute_minimizer(K.u32_to_kmers64(k32, k), k, m, np.uint64(magic))
     assert np.array_equal(out[0].numpy().astype(np.uint64), hv)
     assert np.array_equal(out[1].numpy(), hp)
+
+
+READ2_CONFIGS = {15: "k15", 31: "m13_regular", 63: "k63", 65: "k65", 129: "k129_canonical"}
+
+
+@pytest.mark.parametrize("k", sorted(READ2_CONFIGS))
+def test_read_kmers_at2_matches_jax(k):
+    """The read over the interleaved (NW, 2) table: on random words and
+    bits, and on an index's strings32 and valid-start bits (where the bit
+    says whether a kmer starts at the offset), offsets past the end
+    included (reads clip to the last row)."""
+    rng = np.random.default_rng(k)
+    idx = synthetic.small_index(READ2_CONFIGS[k])
+    arrs = device_arrays(idx)
+    rand = rng.integers(0, 1 << 32, (2, 301), dtype=np.uint64).astype(np.uint32)
+    for s32, v32 in ((rand[0], rand[1, :151]), (arrs["strings32"], arrs["vstart32"])):
+        table = P.interleave_valid_starts(torch.from_numpy(s32.view(np.int32)),
+                                          torch.from_numpy(v32.view(np.int32)))
+        assert table.shape == (len(s32), 2)
+        offsets = rng.integers(0, 16 * len(s32) + 64, 2000).astype(np.uint32)
+        offsets[:16] = 16 * len(s32) - 1 - np.arange(16)
+        got, vbit = P.read_kmers_at2(table, torch.from_numpy(offsets.view(np.int32)), k)
+        want, wbit = JP.read_kmers_at2(jnp.asarray(table.numpy().view(np.uint32)),
+                                       jnp.asarray(offsets), k)
+        assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))
+        assert np.array_equal(vbit.numpy(), np.asarray(wbit))
+    # on the index: the bit marks kmer starts, and the kmer there is the oracle's
+    o = np.arange(idx.num_chars)
+    starts = (arrs["vstart32"][o >> 5] >> (o & 31)) & 1 != 0
+    assert np.array_equal(vbit.numpy()[offsets < idx.num_chars],
+                          starts[offsets[offsets < idx.num_chars]])
+    ids = rng.integers(0, idx.num_kmers, 500)
+    offs = np.flatnonzero(starts)[ids].astype(np.uint32)
+    got, vbit = P.read_kmers_at2(table, torch.from_numpy(offs.view(np.int32)), k)
+    assert vbit.all()
+    assert np.array_equal(K.u32_to_kmers64(got.numpy().view(np.uint32), k),
+                          oracle.access(jax_index(idx), ids))
 
 
 @pytest.mark.parametrize("name", ["m3_skew_canonical", "m9_c1", "partitioned"])

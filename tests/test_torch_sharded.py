@@ -43,7 +43,7 @@ def small(name):
 
 @pytest.mark.parametrize("nb", [2, 4])
 @pytest.mark.parametrize("name", ["m13_regular", "m3_skew", "legacy_m3_skew", "short_strings",
-                                  "weighted"])
+                                  "weighted", "k65", "k129_canonical"])
 def test_shard_tables_equal_jax(name, nb):
     """Every bucket shard's tables are the JAX ShardedEngine's shard on the
     same mesh, array for array, and per_device_bytes agree."""
@@ -62,7 +62,7 @@ def test_shard_tables_equal_jax(name, nb):
                         if s.device == devices[0, j])
             assert v.dtype == want.dtype and np.array_equal(v, want), (j, key)
     assert eng.per_device_bytes() == jeng.per_device_bytes()
-    assert eng.handoff == (name == "m3_skew")
+    assert eng.handoff == (name in ("m3_skew", "k129_canonical"))
 
 
 def test_lookup_equals_jax():
