@@ -11,24 +11,30 @@ Phases (each prints its lines; any failure exits non-zero before the last
 line):
   1. card: nvidia-smi name and power limit; no CUDA card -> exit 1
   2. build: one nvcc per csrc/ source, in parallel, for sm_90a (timed,
-     registers per kernel, any spills)
+     registers per kernel, any spills; none allowed in the lookup kernel
+     at widths 1..8)
   3. kernel == plain on the card, exactly: kernel 1 at B = 2^20 for
      (k, m) in (31, 17), (31, 21), (63, 25), (65, 25), (127, 31), (129,
      31), (255, 31); on every small configuration of
      synthetic.SMALL_CONFIGS and WIDE_CONFIGS (k65, k127, k129) kernel 2
-     (full and ids fields), access (both row forms across the
+     (full and ids fields), the lookup kernel (== lookup_plain and == the
+     two-kernel form, full and ids fields, with and without an active
+     mask), access (both row forms across the
      configurations), iteration, weight (the weighted configurations), the
      neighbour variants, the sanitizer's check (K13) and read_kmers_at2
      (K7); on the wide ones a small stream, each stage == plain, the
      report == the host _Batcher's; kernel 2 in v2 rows (ids above 2^31
      too) and in both legacy skew forms on m3_skew, m3_skew_canonical,
-     partitioned, k63 and k129_canonical
+     partitioned, k63 and k129_canonical, the lookup kernel in those forms
+     too
   4. main path, 5M kmers k31 m17 (the repo's salmonella bench config on
      synthetic unitigs), regular and canonical: 2^23 lanes, 50% reverse
      complemented, through TorchEngine; every id round-trips; a 2^20-lane
      sample of positives and negatives equals the port's oracle in every
-     field; launch counters of both kernels; lookup time through the
-     kernels and through the plain versions
+     field; launch counters (the lookup kernel, once a lookup); the lookup
+     kernel == lookup_plain == the two-kernel form in every field; lookup
+     time in three forms in turns: the lookup kernel, the two-kernel form
+     (kernel 1, the fold or the RC retry, kernel 2) and the plain version
   5. heavy and sweep paths at 1M kmers k31 m13 with planted m-mers: lane
      counts per path, oracle equality
   6. legacy skew forms on phase 5's indexes (synthetic.legacy_skew: hindex
@@ -40,9 +46,13 @@ line):
      microseconds, so the kernels' sides replay from a CUDA graph
   7. scale, 100M kmers k31 m21 canonical (the repo's human-config scale
      bench, 200M, cut to half for the run's time; its lookup tables are
-     still about 20 times the 50 MB L2): 2^24 lanes round-trip, 2^20-lane oracle sample, ns/kmer of the
-     lookup and of each kernel, against the plain versions on the card,
-     device bytes per kmer, peak device memory
+     still about 20 times the 50 MB L2): 2^24 lanes round-trip, 2^20-lane
+     oracle sample, the lookup kernel == lookup_plain == the two-kernel
+     form in every field, the lookup in its three forms in turns and each
+     of kernels 1-2 alone against its plain version and its bound, the
+     32-byte sectors kernel 2's lanes touch beside its byte bound, the
+     occupancy of kernel 2 and the lookup kernel, device bytes per kmer,
+     peak device memory
   8. access, iteration, weight and navigation at 5M kmers, on phase 4's
      indexes: 2^23 random ids; access equals the oracle in every lane and
      each accessed kmer looks up to its id on the card; iteration count
@@ -108,12 +118,15 @@ line):
      equals the host _Batcher, the (1, 4) LocalMesh lookup equals the
      unsharded one, the SSHASH_DEBUG lookup (the check kernel, K13) passes
      and equals the unchecked one while num_kmers_bound=1 raises, and
-     read_kmers_at2 (K7) at every positive's offset equals access; kernels
-     1-2, access, iteration, the variants, the stream's kmer read, the
-     check and the read timed against their plain versions
+     read_kmers_at2 (K7) at every positive's offset equals access; the
+     lookup kernel == lookup_plain == the two-kernel form (both indexes);
+     the lookup in its three forms in turns; kernels 1-2, access,
+     iteration, the variants, the stream's kmer read, the check and the
+     read timed against their plain versions
  14. one JSON line of per-source results (launches, max |err|, ms, plain ms,
      bound ms and what bounds it, library-call ms; kernel 2 once per
-     variant: v1, v2 rows, legacy skew; the sharded rows of kernel 2,
+     variant: v1, v2 rows, legacy skew; the lookup kernel (phase 7, bound
+     by kernel 1's operations or the lookup's own bytes); the sharded rows of kernel 2,
      access, weight and the chain; the wide forms' rows at k65), then the
      ok line.
 
@@ -125,6 +138,7 @@ import functools
 import importlib.abc
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -154,8 +168,9 @@ from sshash_tpu_torch import kmer as K  # noqa: E402
 from sshash_tpu_torch import streaming as ST  # noqa: E402
 from sshash_tpu_torch.index import decode_codeword  # noqa: E402
 from sshash_tpu_torch.engine import (_neighbours_to_host, _to_host_result,  # noqa: E402
-                                     canonical_fold, make_lookup, make_neighbours, probe,
-                                     probe_plain)
+                                     canonical_fold, lookup_plain, make_lookup,
+                                     make_neighbours, probe, probe_plain)
+from sshash_tpu_torch.kernels import lookup_kernel  # noqa: E402
 from sshash_tpu_torch.layout import (acc_width, acc_windowed, cand_block_width,  # noqa: E402
                                      device_arrays, row_width, take_rows)
 from sshash_tpu_torch.ops import packed as P  # noqa: E402
@@ -239,10 +254,14 @@ def time_turns(tag, what, n, kernel, plain, unit="kmer", sides=("kernel", "plain
     names the two (the kernel versions against the plain ones by
     default). The sides named in graph replay from a CUDA graph (graph_ms),
     for calls of tens of microseconds, where queued windows time the host."""
-    a, b = sides
-    fns = {a: kernel, b: plain}
+    return time_sides(tag, what, n, dict(zip(sides, (kernel, plain))), unit, graph)
+
+
+def time_sides(tag, what, n, fns, unit="kmer", graph=()):
+    """time_turns over any number of sides ({side: fn}, in order): the turns
+    run them backwards, then forwards (c, b, a, a, b, c)."""
     runs = {}
-    for side in (b, a, a, b):
+    for side in [*reversed(fns), *fns]:
         runs.setdefault(side, []).append((graph_ms if side in graph else median_ms)(fns[side]))
     out = {}
     for side, v in runs.items():
@@ -254,12 +273,41 @@ def time_turns(tag, what, n, kernel, plain, unit="kmer", sides=("kernel", "plain
     return out
 
 
+def two_kernel_lookup(cfg, fields="ids"):
+    """The lookup's two-kernel form: kernel 1, the fold (or the RC retry and
+    the merge) and kernel 2, as separate launches."""
+    return make_lookup(cfg, fields, minimizer=P.minimizer, probe=probe)
+
+
 def time_lookup(eng, kt, tag):
-    """lookup (ids) of the (B, W) kmers kt through the kernels and through
-    the plain versions on the card. Returns {side: median ms}."""
-    plain = make_lookup(eng.cfg, "ids", minimizer=P.minimizer_plain, probe=probe_plain)
-    return time_turns(tag, "lookup (ids)", kt.shape[0], lambda: eng.lookup_ids_device(kt),
-                      lambda: plain(eng.tables, kt))
+    """lookup (ids) of the (B, W) kmers kt in three forms, in turns: the
+    lookup kernel (the engine's path), the two-kernel form and the plain
+    version on the card. Returns {side: median ms}."""
+    two = two_kernel_lookup(eng.cfg)
+    return time_sides(tag, "lookup (ids)", kt.shape[0],
+                      {"kernel": lambda: eng.lookup_ids_device(kt),
+                       "two kernels": lambda: two(eng.tables, kt),
+                       "plain": lambda: lookup_plain(eng.cfg, eng.tables, kt, None, "ids")})
+
+
+def lookup_equal(eng, kt, tag, errs, active=None, quiet=False, forms=("full", "ids")):
+    """The lookup kernel == lookup_plain == the two-kernel form on every
+    lane, in every field the row format serves, in each field form of
+    forms (the full fields hold the ids fields: large batches compare
+    those alone)."""
+    cfg = eng.cfg
+    for fields in ("ids",) if cfg.row_v2 else forms:
+        got = lookup_kernel(cfg, eng.tables, kt, active, fields)
+        for form, want in (("plain", lookup_plain(cfg, eng.tables, kt, active, fields)),
+                           ("two kernels", two_kernel_lookup(cfg, fields)(eng.tables, kt,
+                                                                           active=active))):
+            require(got.keys() == want.keys(), f"{tag}: lookup kernel fields != {form}")
+            err = max_abs_err([got[key] for key in want], list(want.values()))
+            errs["lookup_kernel"] = max(errs["lookup_kernel"], err)
+            require(err == 0, f"{tag} {fields}: lookup kernel != {form}")
+    if not quiet:
+        log(f"  {tag}: the lookup kernel equals lookup_plain and the two-kernel form on all "
+            f"{kt.shape[0]} lanes in every field")
 
 
 def max_abs_err(got, want):
@@ -379,6 +427,15 @@ def phase_build():
             log(f"  ptxas: {entry.split(chr(39))[1] if chr(39) in entry else ''}: {ln.strip()}")
     spills = [ln.strip() for ln in lines if "spill" in ln and " 0 bytes spill stores" not in ln]
     log(f"  spills: {spills or 'none'}")
+    # the lookup kernel's fixed widths 1..8 keep their arrays in registers
+    fixed = [(ln, nxt) for ln, nxt in zip(lines, lines[1:]) if "Function properties for" in ln
+             and re.search(r"13lookup_kernelILi[1-8]E", ln)]
+    bad = [ln for ln, nxt in fixed if not re.search(r" 0 bytes spill stores, 0 bytes spill loads",
+                                                   nxt)]
+    if out:  # compiled by this run (a library built earlier leaves no ptxas output)
+        require(len(fixed) == 32 and not bad, f"lookup kernel at widths 1..8: {len(fixed)} "
+                f"instantiations reported, spills in {bad}")
+        log(f"  lookup_kernel at widths 1..8: {len(fixed)} instantiations, no spills")
 
 
 def point_queries_equal_plain(eng, idx, rng, errs):
@@ -531,6 +588,8 @@ def phase_kernels_equal_plain(dev, errs):
         args = probe_args(cfg, kt)
         active = torch.from_numpy(rng.random(len(q)) < 0.9).to(dev)
         probe_equal_plain(cfg, eng.tables, kt, args, active, name, errs, "probe_kernel")
+        for act in (None, active):
+            lookup_equal(eng, kt, name, errs, act, quiet=True)
         if name in ("m3_skew", "m3_skew_canonical", "partitioned", "k63", "k129_canonical"):
             probe_variants_equal_plain(idx, eng, q, kt, args, active, name, errs)
         check_read_equal_plain(eng, idx, q, rng, errs)
@@ -543,8 +602,10 @@ def phase_kernels_equal_plain(dev, errs):
         got = eng.lookup(q)
         for key in want:
             require(np.array_equal(got[key], want[key]), f"{name}: {key} != oracle")
-        log(f"  probe_kernel {name} (B={len(q)}, c1={cfg.c1_in_row}, skew={cfg.has_skew}, "
-            f"partitioned={cfg.mphf_partitioned}): equal to plain (full, ids) and oracle")
+        log(f"  probe_kernel, lookup_kernel {name} (B={len(q)}, c1={cfg.c1_in_row}, "
+            f"skew={cfg.has_skew}, partitioned={cfg.mphf_partitioned}): equal to plain (full, "
+            f"ids; lookup_kernel also to the two-kernel form, with and without an active mask) "
+            f"and oracle")
         form = point_queries_equal_plain(eng, idx, rng, errs)
         forms.add(form)
         log(f"  access ({form}, C={cfg.access_C}), iterate, "
@@ -559,6 +620,7 @@ def probe_variants_equal_plain(idx, eng, q, kt, args, active, name, errs):
     dev = eng.device
     eng2 = TorchEngine(idx, dev, row_format="v2")
     probe_equal_plain(eng2.cfg, eng2.tables, kt, args, active, f"{name} v2", errs, "probe_v2")
+    lookup_equal(eng2, kt, f"{name} v2", errs, active, quiet=True)
     ref = probe(eng.cfg, eng.tables, kt, *args, None, "ids")
     rebased_equal(eng2.cfg, eng2.tables, kt, args, ref, f"{name} v2", errs)
     forms = [("v2", eng2)]
@@ -568,17 +630,18 @@ def probe_variants_equal_plain(idx, eng, q, kt, args, active, name, errs):
         require(leng.cfg.skew_hrows is False, f"{name}: legacy form kept hindex")
         probe_equal_plain(leng.cfg, leng.tables, kt, args, active, f"{name} legacy", errs,
                           "probe_legacy_skew")
+        lookup_equal(leng, kt, f"{name} legacy", errs, active, quiet=True)
         forms.append(("legacy, plain class MPHFs" if plain else "legacy, no hindex", leng))
     want = oracle.lookup(idx, q)
     for form, e in forms:
         got = e.lookup(q)
         for key in got:
             require(np.array_equal(got[key], want[key]), f"{name} {form}: {key} != oracle")
-    log(f"  probe_kernel {name}: v2 rows and both legacy skew forms (skew={eng.cfg.has_skew}) "
-        f"equal to plain and oracle")
+    log(f"  probe_kernel, lookup_kernel {name}: v2 rows and both legacy skew forms "
+        f"(skew={eng.cfg.has_skew}) equal to plain (and the two-kernel form) and oracle")
 
 
-def phase_main(dev):
+def phase_main(dev, errs):
     log("[4] main path: 5M kmers k31 m17, B=2^23, 50% RC")
     rng = np.random.default_rng(4)
     built = {}
@@ -594,10 +657,13 @@ def phase_main(dev):
         round_trip(eng, ids, km, mode)
         check_oracle(eng, idx, km[MAIN_B // 2 - SAMPLE // 4: MAIN_B // 2 + SAMPLE // 4], rng,
                      mode)
-    launches = path_counts("main path (lookup)", ("minimizer_kernel", "probe_kernel"))
+    launches = path_counts("main path (lookup)", ("lookup_kernel",))
     for mode, (idx, eng, ids, km) in built.items():
         log(f"  {mode}: tables on the card: {table_line(eng, idx)}")
-        time_lookup(eng, eng.kmers32(km), mode)
+        kt = eng.kmers32(km)
+        lookup_equal(eng, kt, mode, errs, forms=("full",))
+        t = time_lookup(eng, kt, mode)
+        log(f"  {mode}: lookup kernel / two-kernel form {t['kernel'] / t['two kernels']:.4f}")
     return launches, built
 
 
@@ -643,10 +709,11 @@ def access_bytes(cfg, ids, shard=None):
     return ids.shape[0] * (4 + 4 * cfg.W) + rows * 4 * acc_width(cfg)
 
 
-def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None):
+def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None, fused=False):
     """Bytes kernel 2 must move on these lanes (kt and probe_args' args),
     each input read once: per lane its kmer (and reverse complement),
-    minimizer and position tries in and the result fields out; of the
+    minimizer and position tries in (fused: the lookup kernel's work, the
+    kmer alone) and the result fields out; of the
     tables, the distinct rows the lanes read: fused rows by MPHF slot and,
     for heavy lanes, skew slots (the legacy path's sk_positions) and
     candidate blocks; pilot and seed words one a lane, capped at their
@@ -661,7 +728,8 @@ def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None):
     def distinct(idx, name):  # rows of tables[name] read at idx, clipped as take_rows does
         return int(torch.unique(idx.clamp(max=tables[name].shape[0] - 1)).numel())
 
-    total = B * (4 * cfg.W * canon + 8 + 4 * canon + 10 + (20 if fields == "full" else 0))
+    lane_in = 4 * cfg.W if fused else 4 * cfg.W * canon + 8 + 4 * canon
+    total = B * (lane_in + 10 + (20 if fields == "full" else 0))
     total += min(4 * B, nb("pilots"))
     total += min(8 * B, nb("mphf_seedrows")) if cfg.mphf_partitioned else 0
     slot = E.mphf_eval_minimizer(cfg, tables, u.from_i64(args[1]))
@@ -719,8 +787,8 @@ def phase_legacy(built, errs):
             t1 = time.perf_counter()
             kernels.reset_counts()
             got, got_h = leng.lookup_device(kt), leng.lookup_device(kth)
-            launches += path_counts(f"{mode} {form} lookup path",
-                                    ("minimizer_kernel", "probe_kernel"))["probe_kernel"]
+            c = path_counts(f"{mode} {form} lookup path", ("lookup_kernel",))
+            launches += c["lookup_kernel"] + c["probe_kernel"]
             for key in ref:
                 require(torch.equal(got[key], ref[key]) and torch.equal(got_h[key], ref_h[key]),
                         f"{mode} {form}: {key} != v1.2 form")
@@ -777,6 +845,8 @@ def phase_scale(dev):
                  "canonical")
     del km
     cfg = eng.cfg
+    errs = {"lookup_kernel": 0}
+    lookup_equal(eng, kt, "canonical", errs, forms=("full",))
     lookup = time_lookup(eng, kt, "canonical")
     mv, mp, rc, mv_r, mp_r = P.minimizer(kt, cfg.k, cfg.m, cfg.magic, both=True)
     mv1, mp1, mp2 = canonical_fold(mv, mp, mv_r, mp_r)
@@ -784,8 +854,9 @@ def phase_scale(dev):
     want_p = probe_plain(cfg, eng.tables, kt, rc, mv1, mp1, mp2, None, "ids")
     got_m = P.minimizer(kt, cfg.k, cfg.m, cfg.magic, both=True)
     want_m = P.minimizer_plain(kt, cfg.k, cfg.m, cfg.magic, both=True)
-    errs = {"minimizer_kernel": max_abs_err(got_m, want_m),
-            "probe_kernel": max_abs_err([got_p[key] for key in want_p], list(want_p.values()))}
+    errs.update({"minimizer_kernel": max_abs_err(got_m, want_m),
+                 "probe_kernel": max_abs_err([got_p[key] for key in want_p],
+                                             list(want_p.values()))})
     require(max(errs.values()) == 0, f"scale: kernel != plain {errs}")
     del got_p, want_p, got_m, want_m
     per_kernel = {
@@ -798,13 +869,16 @@ def phase_scale(dev):
     }
     for name, (ms, pms) in per_kernel.items():
         log(f"  {name} at B={SCALE_B}: {ms:.4f} ms, plain {pms:.4f} ms")
-    glue = lookup["kernel"] - sum(ms for ms, _ in per_kernel.values())
-    log(f"  lookup (ids) {lookup['kernel']:.4f} ms = kernels "
-        f"{lookup['kernel'] - glue:.4f} ms + fold glue and gaps {glue:.4f} ms (by difference)")
-    b = lookup_bounds(cfg, SCALE_B, probe_bytes(cfg, eng.tables, kt, (rc, mv1, mp1, mp2)))
-    log(f"  lookup (ids) bound {sum(ms for ms, _ in b.values()):.4f} ms = kernel 1 "
-        f"{b['minimizer.cu'][0]:.4f} ({b['minimizer.cu'][1]}) + kernel 2 {b['probe.cu'][0]:.4f} "
-        f"({b['probe.cu'][1]}) + the fold's {FOLD_BYTES} bytes a lane {b['fold'][0]:.4f}")
+    per_kernel["lookup_kernel"] = (lookup["kernel"], lookup["plain"])
+    args = (rc, mv1, mp1, mp2)
+    b = lookup_bounds(cfg, SCALE_B, probe_bytes(cfg, eng.tables, kt, args),
+                      probe_bytes(cfg, eng.tables, kt, args, fused=True))
+    log_lookup_split(lookup, per_kernel, b, "canonical")
+    log_sectors(cfg, eng.tables, kt, args, b)
+    for name, fused in (("lookup_kernel", True), ("probe_kernel", False)):
+        blocks, threads = kernels.probe_occupancy(cfg, fused)
+        log(f"  {name} occupancy at k{cfg.k} m{cfg.m}: {blocks} blocks of {threads} threads an "
+            f"SM = {blocks * threads / 2048:.0%} of the SM's 2048 threads")
     log(f"  peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     return per_kernel, errs, idx, eng, ids, kt, b, host
 
@@ -818,7 +892,7 @@ def drive_access(eng, idx, ids, tag, errs, sample=None):
     kernels.reset_counts()
     acc = eng.access_device(it)
     round_trip = bool((eng.lookup_ids_device(acc)["kmer_id"] == it).all())
-    c = path_counts(f"{tag} access path", ("access_kernel", "minimizer_kernel", "probe_kernel"))
+    c = path_counts(f"{tag} access path", ("access_kernel", "lookup_kernel"))
     require(round_trip, f"{tag}: an accessed kmer did not look up to its id")
     lanes = np.arange(len(ids)) if sample is None else sample
     want = kmer_tensor(oracle.access(idx, ids[lanes]), idx.k, dev)
@@ -871,8 +945,7 @@ def drive_navigation(eng, idx, ids, rng, tag, errs):
     kt = eng.kmers32(km)
     kernels.reset_counts()
     res = eng.kmer_neighbours_device(kt)
-    c = path_counts(f"{tag} navigation path", ("neighbours_kernel", "minimizer_kernel",
-                                               "probe_kernel"))
+    c = path_counts(f"{tag} navigation path", ("neighbours_kernel", "lookup_kernel"))
     lanes = np.sort(rng.choice(NAV_B, NAV_SAMPLE, replace=False))
     sel = torch.from_numpy(lanes).to(dev)
     got = _neighbours_to_host({key: v[sel] for key, v in res.items()})
@@ -978,6 +1051,8 @@ SOURCES = {"minimizer.cu": "sshash_tpu/ops/packed.py:263",
            "stream_derive.cu": "sshash_tpu/streaming.py:460",
            "check.cu": "sshash_tpu/debug.py:44",
            "read_at2.cu": "sshash_tpu/ops/packed.py:33"}
+# the lookup kernel (probe.cu sshash_lookup): make_lookup.fn with _merge
+LOOKUP_REPLACES = "sshash_tpu/engine.py:1079"
 
 
 # canonical_fold reads both strands' (minimizer, position), 24 bytes a
@@ -985,14 +1060,87 @@ SOURCES = {"minimizer.cu": "sshash_tpu/ops/packed.py:263",
 FOLD_BYTES = 40
 
 
-def lookup_bounds(cfg, B, probe_nbytes):
-    """Least ms of a canonical lookup's parts for B lanes: kernel 1 (bytes
-    or its mixer operations), kernel 2 (probe_nbytes, from probe_bytes)
-    and the fold's glue."""
-    return {"minimizer.cu": bound(B * (4 * cfg.W + 32),
-                                  B * MINIMIZER_OPS_PER_WINDOW * (cfg.k - cfg.m + 1)),
-            "probe.cu": bound(probe_nbytes),
-            "fold": bound(B * FOLD_BYTES)}
+def lookup_bounds(cfg, B, probe_nbytes, lookup_nbytes=None):
+    """Least ms of a canonical lookup's parts for B lanes in the two-kernel
+    form: kernel 1 (bytes or its mixer operations), kernel 2 (probe_nbytes,
+    from probe_bytes) and the fold's glue; and of the lookup kernel: the
+    larger of kernel 1's operations and lookup_nbytes (probe_bytes(...,
+    fused=True): kmers in, result fields out, pilot and seed words and
+    distinct rows; no intermediate reaches device memory)."""
+    ops = B * MINIMIZER_OPS_PER_WINDOW * (cfg.k - cfg.m + 1)
+    b = {"minimizer.cu": bound(B * (4 * cfg.W + 32), ops), "probe.cu": bound(probe_nbytes),
+         "fold": bound(B * FOLD_BYTES)}
+    if lookup_nbytes is not None:
+        b["lookup"], b["lookup_bytes"] = bound(lookup_nbytes, ops), bound(lookup_nbytes)
+    return b
+
+
+def log_lookup_split(lookup, per_kernel, b, tag):
+    """The lookup's three forms against their bounds: the two-kernel form
+    split into its kernels and the fold's glue (by difference), the lookup
+    kernel against its own bound."""
+    k1, k2 = per_kernel["minimizer_kernel"][0], per_kernel["probe_kernel"][0]
+    two, one = lookup["two kernels"], lookup["kernel"]
+    summed = sum(b[x][0] for x in ("minimizer.cu", "probe.cu", "fold"))
+    log(f"  {tag}: lookup (ids), two-kernel form {two:.4f} ms = kernel 1 {k1:.4f} + kernel 2 "
+        f"{k2:.4f} + fold "
+        f"glue and gaps {two - k1 - k2:.4f} (by difference), against {summed:.4f} ms of summed "
+        f"bound (kernel 1 {b['minimizer.cu'][0]:.4f} {b['minimizer.cu'][1]}, kernel 2 "
+        f"{b['probe.cu'][0]:.4f} {b['probe.cu'][1]}, the fold's {FOLD_BYTES} bytes a lane "
+        f"{b['fold'][0]:.4f})")
+    log(f"  {tag}: lookup kernel {one:.4f} ms = {one / two:.4f} of the two-kernel form, "
+        f"{one / b['lookup'][0]:.3f}x its bound {b['lookup'][0]:.4f} ms ({b['lookup'][1]}; its "
+        f"bytes alone {b['lookup_bytes'][0]:.4f} ms); plain {lookup['plain']:.4f} ms")
+
+
+def pilot_words(cfg, tables, minval):
+    """Per lane: the pilots word of its MPHF bucket and, with a partitioned
+    MPHF, its seed row (else None), as engine.mphf_eval_minimizer reads
+    them, clipped as take_rows clips."""
+    mh = u.splitmix64(u.xor(minval, u.const64(cfg.mphf_seedmix, minval.lo)))
+    seed = None
+    if cfg.mphf_partitioned:
+        pid = u.mulhi32(mh.hi, cfg.mphf_P)
+        row = take_rows(tables["mphf_seedrows"], pid)
+        h2 = u.splitmix64(u.xor(mh, u.u64(row[:, 0], row[:, 1])))
+        nb = cfg.mphf_part_buckets
+        bucket = (pid * nb + u.mulhi32(h2.hi, nb)) & M32
+        seed = pid.clamp(max=tables["mphf_seedrows"].shape[0] - 1)
+    else:
+        bucket = u.mulhi32(mh.hi, cfg.mphf_nbuckets)
+    word = bucket >> ((32 // cfg.pilot_w).bit_length() - 1)
+    return word.clamp(max=tables["pilots"].shape[0] - 1), seed
+
+
+def log_sectors(cfg, tables, kt, args, b):
+    """The 32-byte sectors kernel 2's lanes touch in the tables (the pilot
+    word's, the seed row's, the span of the row head it stages: status,
+    cw_a and candidate 0), per lane and distinct over the batch, beside the
+    byte bounds (which count 4 bytes a pilot and each distinct row once).
+    Heavy and mid lanes' further blocks are left out."""
+    B = kt.shape[0]
+    word, seed = pilot_words(cfg, tables, u.from_i64(args[1]))
+    slot = E.mphf_eval_minimizer(cfg, tables, u.from_i64(args[1]))
+    slot = slot.clamp(max=tables["cw_row"].shape[0] - 1)
+    head = 2 + cand_block_width(cfg)
+    first = (slot * row_width(cfg) * 4) >> 5
+    last = (slot * row_width(cfg) * 4 + head * 4 - 1) >> 5
+    span = last - first + 1
+    secs = first[:, None] + torch.arange(int(span.max()), device=kt.device)
+    rows = int(torch.unique(secs[secs <= last[:, None]]).numel())
+    pilots = int(torch.unique(word >> 3).numel())
+    seeds = 0 if seed is None else int(torch.unique(seed >> 2).numel())
+    lanes = {"kernel 2": B * (4 * cfg.W * (2 if cfg.canonical else 1) + 8
+                              + 4 * (2 if cfg.canonical else 1) + 10),
+             "lookup kernel": B * (4 * cfg.W + 10)}
+    tb = 32 * (rows + pilots + seeds)
+    log(f"  sectors a lane touches in the tables: pilot 1, seed row "
+        f"{0 if seed is None else 1}, row head ({head} of {row_width(cfg)} words) "
+        f"{float(span.double().mean()):.4f} (mean); distinct over {B} lanes: pilot {pilots}, "
+        f"seed {seeds}, row heads {rows} = {tb} bytes; with the lanes' own bytes "
+        + ", ".join(f"{name} {(tb + n) / HBM_BPS * 1e3:.4f} ms" for name, n in lanes.items())
+        + f" at 3.35 TB/s (bounds: kernel 2 {b['probe.cu'][0]:.4f} ms ({b['probe.cu'][1]}), "
+        f"the lookup kernel {b['lookup'][0]:.4f} ms ({b['lookup'][1]}))")
 
 
 def bound(nbytes, int_ops=0):
@@ -1180,7 +1328,9 @@ def time_stages(eng, packed, Pn, R, CW, av, errs, timed=True):
 
 def stream_run(eng, path, multiline, chunk, tag, need_runskip=False, check_chunks=None):
     """Stream one file through the port: the step launches every stream
-    kernel and kernels 1-2 (counts set to 0 just before, read just after),
+    kernel, the lookup kernel (the anchors' lookup) and kernels 1-2 (the
+    missed lanes' lookups, given kernel 1's outputs; counts set to 0 just
+    before, read just after),
     each checked chunk's kernel step equals the plain step on the card
     (rows_equal), and device and wall rates. Returns (report, captured
     chunks, launches, device ms of the resident steps)."""
@@ -1192,7 +1342,8 @@ def stream_run(eng, path, multiline, chunk, tag, need_runskip=False, check_chunk
         stream.add_read(seq)
     rep = stream.finalize()
     torch.cuda.synchronize()
-    c = path_counts(f"{tag} stream path", STREAM_WRAPPERS + ("minimizer_kernel", "probe_kernel"))
+    c = path_counts(f"{tag} stream path", STREAM_WRAPPERS + ("minimizer_kernel", "probe_kernel",
+                                                              "lookup_kernel"))
     chunks = stream.capture
     positions = rep["num_kmers"]
     Pn, R, CW = stream.P, stream.R, stream.CW
@@ -1318,7 +1469,8 @@ def phase_v2(idx, eng, ids, kt, tmp, errs):
     res2 = eng2.lookup_ids_device(kt_all)
     sample = np.sort(rng.choice(n_all, SAMPLE, replace=False))
     got = _to_host_result({key: v[torch.from_numpy(sample).to(dev)] for key, v in res2.items()})
-    launches = path_counts("v2 lookup path", ("minimizer_kernel", "probe_kernel"))["probe_kernel"]
+    c = path_counts("v2 lookup path", ("lookup_kernel",))
+    launches = c["lookup_kernel"] + c["probe_kernel"]
     require(torch.equal(res2["kmer_id"][:SCALE_B], id_tensor(ids, dev)),
             "v2: an id did not round-trip")
     res1 = eng.lookup_ids_device(kt_all)
@@ -1632,7 +1784,7 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
     plain = median_ms(lambda: plain_sharded_lookup(seng, kt), reps=3)
     nbytes = [probe_bytes(cfg, seng.tables[j], kt, args, shard=sh)
               for j, sh in enumerate(seng.probe_shards)]
-    lb = lookup_bounds(cfg, SCALE_B, sum(nbytes))
+    lb = lookup_bounds(cfg, SCALE_B, sum(nbytes))  # the two-kernel form's parts
     whole = sum(ms for ms, _ in lb.values()) + bound(SCALE_B * 10 * 5)[0]
     timed["sharded_lookup"] = {"kernel": lookup["sharded, 4 shards in turn"], "plain": plain,
                                "bound": whole}
@@ -1851,10 +2003,13 @@ def phase_wide(dev, tmp, errs, k31):
         kernels.reset_counts()
         kt = round_trip(eng, ids, km, t)
         got = eng.lookup(q)
-        add_counts(launches, path_counts(f"{t} lookup path", ("minimizer_kernel", "probe_kernel")))
+        add_counts(launches, path_counts(f"{t} lookup path", ("lookup_kernel",)))
         want = oracle.lookup(idx, q)
         for key in want:
             require(np.array_equal(got[key], want[key]), f"{t}: {key} != oracle")
+        if cfg.canonical:
+            lookup_equal(eng, kt, t, errs, forms=("full",))
+        lookup_equal(eng, eng.kmers32(q), f"{t} sample", errs)
         tie = synthetic.tie_lanes(eng, eng.kmers32(q)).cpu().numpy()
         hit = got["kmer_id"] != INVALID
         n_th, n_tm = int((tie & hit).sum()), int((tie & ~hit).sum())
@@ -1902,7 +2057,7 @@ def phase_wide(dev, tmp, errs, k31):
         kernels.reset_counts()
         res = deng.lookup_device(kt)
         add_counts(launches, path_counts(f"{t} SSHASH_DEBUG lookup path",
-                                         ("minimizer_kernel", "probe_kernel", "check_kernel")))
+                                         ("lookup_kernel", "check_kernel")))
         equal_fields(res, eng.lookup_device(kt), f"{t} SSHASH_DEBUG")
         try:
             debug.checkified_lookup(eng, num_kmers_bound=1)(kt)
@@ -1964,10 +2119,18 @@ def phase_wide(dev, tmp, errs, k31):
         k2 = time_turns(t, "kernel 2 (ids)", MAIN_B,
                         lambda: probe(cfg, eng.tables, kt, *args, None, "ids"),
                         lambda: probe_plain(cfg, eng.tables, kt, *args, None, "ids"))
-        b = lookup_bounds(cfg, MAIN_B, probe_bytes(cfg, eng.tables, kt, args))
+        b = lookup_bounds(cfg, MAIN_B, probe_bytes(cfg, eng.tables, kt, args),
+                          probe_bytes(cfg, eng.tables, kt, args, fused=True))
         times["minimizer_wide"] = {**k1, "bound": b["minimizer.cu"]}
         times["probe_wide"] = {**k2, "bound": b["probe.cu"]}
-        lk = median_ms(lambda: eng.lookup_ids_device(kt))
+        lk3 = time_lookup(eng, kt, t)
+        log_lookup_split(lk3, {"minimizer_kernel": (k1["kernel"],),
+                               "probe_kernel": (k2["kernel"],)}, b, t)
+        log_sectors(cfg, eng.tables, kt, args, b)
+        blocks, threads = kernels.probe_occupancy(cfg, True)
+        log(f"  lookup_kernel occupancy at k{cfg.k} m{cfg.m}: {blocks} blocks of {threads} "
+            f"threads an SM = {blocks * threads / 2048:.0%} of the SM's 2048 threads")
+        lk = lk3["kernel"]
         ns = {name: ms * 1e6 / SCALE_B for name, (ms, _) in k31.items()}
         log(f"  {t}: lookup (ids) {lk:.4f} ms = {lk * 1e6 / MAIN_B:.4f} ns/kmer; kernel 1 "
             f"{k1['kernel'] * 1e6 / MAIN_B:.4f}, kernel 2 {k2['kernel'] * 1e6 / MAIN_B:.4f} "
@@ -1998,7 +2161,7 @@ def main():
     errs = {name: 0 for name in kernels.counts()}
     errs.update({name: 0 for name in list(PROBE_VARIANTS) + list(SHARDED_ROWS)})
     phase_kernels_equal_plain(dev, errs)
-    launches, built = phase_main(dev)
+    launches, built = phase_main(dev, errs)
     paths = phase_paths(dev)
     variants = {"probe_legacy_skew": phase_legacy(paths, errs)}
     per_kernel, scale_errs, idx, eng, ids, kt, bounds, host200 = phase_scale(dev)
@@ -2040,7 +2203,8 @@ def main():
     csrc = "sshash_tpu_torch/csrc/"
     rows = []
     for src, rep in SOURCES.items():
-        names = kernels.SOURCE_KERNELS[src]
+        # the lookup kernel, in probe.cu beside kernel 2, has a row of its own
+        names = ("probe_kernel",) if src == "probe.cu" else kernels.SOURCE_KERNELS[src]
         n_launch = sum(launches.get(name, 0) for name in names)
         require(n_launch > 0, f"{src}: no launch on the main path ({launches})")
         if src in stream_times:
@@ -2057,6 +2221,13 @@ def main():
                      "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
         if src != "probe.cu":
             continue
+        require(launches.get("lookup_kernel", 0) > 0, "lookup_kernel: no launch on the main path")
+        t, (b_ms, b_by) = times["lookup_kernel"], bounds["lookup"]
+        rows.append({"name": "lookup", "route": "cuda", "source": csrc + src,
+                     "replaces": LOOKUP_REPLACES, "launches": launches["lookup_kernel"],
+                     "max_abs_err": errs["lookup_kernel"], "ms": t["kernel"],
+                     "plain_ms": t["plain"], "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None})
         # kernel 2's v2 and legacy-skew variants, each counted on its own path
         for name, rep in PROBE_VARIANTS.items():
             n_launch, t = variants[name]

@@ -9,24 +9,17 @@
 //
 // Bound: integer ALU. A lane reads nw*4 bytes and writes 12 (forward) or
 // 24 + nw*4 (both strands); its k-m+1 windows each cost one 64-bit
-// multiply (two with the RC strand). The kmer stays in a per-lane word
-// array; the windows walk it word by word (an unrolled loop, so every word
-// index is a compile-time constant and the words stay in registers), and
-// the window at char j = 16w + c is a funnel shift of words w, w+1 and
-// w+2 by 2c bits: an m-mer of m <= 31 spans at most three words, at any k.
-// The RC kmer is a word-array reverse complement (packed.cuh
-// revcomp_words). Widths 1..8 are templates; 9..16 words (k <= 255) run
-// the wide form, whose window walk still indexes the array by constants.
-//
-// Tie rules: the forward scan keeps the leftmost minimum (strict <); the RC
-// scan walks the forward windows and keeps the rightmost j (<=), which is
-// the leftmost minimum in RC coordinates, reported as k-m-j.
+// multiply (two with the RC strand). The window walk and its tie rules
+// are minimizer.cuh's kmer_minimizers, which the lookup kernel (probe.cu
+// sshash_lookup) shares; the RC kmer is packed.cuh's revcomp_words.
+// Widths 1..8 are templates; 9..16 words (k <= 255) run the wide form,
+// whose window walk still indexes the array by constants.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "minimizer.cuh"
 #include "packed.cuh"
-#include "u64.cuh"
 
 namespace sshash {
 
@@ -38,49 +31,17 @@ __global__ void minimizer_kernel(const uint32_t* __restrict__ kmers, int64_t B, 
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   const int nw = used_words<W>(Wrt);
-  uint32_t kw[W], km[W + 2];  // km: the kmer and two zero words past it
+  uint32_t kw[W];
   load_kmer(kmers, i, nw, kw);
-#pragma unroll
-  for (int j = 0; j < W + 2; ++j) km[j] = j < W ? kw[j] : 0u;
-  const uint64_t mask = (1ull << (2 * m)) - 1;  // m <= 31
-  const int nwin = k - m + 1;
-  uint64_t bf_h = 0, bf_v = 0, br_h = 0, br_v = 0;
-  int bf_p = 0, br_j = 0;
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    if (16 * w >= nwin) break;
-    const uint64_t lo = km[w] | ((uint64_t)km[w + 1] << 32);
-    const uint64_t hi = km[w + 2];
-    const int cend = min(16, nwin - 16 * w);
-#pragma unroll 1
-    for (int c = 0; c < cend; ++c) {
-      const int j = 16 * w + c;
-      const uint64_t v = (c ? (lo >> (2 * c)) | (hi << (64 - 2 * c)) : lo) & mask;
-      const uint64_t h = mixer64(v, magic);
-      if (j == 0 || h < bf_h) {
-        bf_h = h;
-        bf_v = v;
-        bf_p = j;
-      }
-      if (BOTH) {
-        const uint64_t vr = revcomp_mmer64(v, m);
-        const uint64_t hr = mixer64(vr, magic);
-        if (j == 0 || hr <= br_h) {
-          br_h = hr;
-          br_v = vr;
-          br_j = j;
-        }
-      }
-    }
-  }
-  mv[i] = bf_v;
-  mp[i] = bf_p;
+  const Minimizers mz = kmer_minimizers<W, BOTH>(kw, k, m, magic);
+  mv[i] = mz.mv_f;
+  mp[i] = mz.mp_f;
   if (BOTH) {
     uint32_t rc[W];
     revcomp_words(kw, k, nw, rc);
     store_kmer(kmers_rc, i, nw, rc);
-    mv_r[i] = br_v;
-    mp_r[i] = k - m - br_j;
+    mv_r[i] = mz.mv_r;
+    mp_r[i] = mz.mp_r;
   }
 }
 

@@ -1,12 +1,28 @@
-// Kernel 2: the fused-row probe, one thread per query lane.
+// Kernel 2, and the whole lookup in one kernel: two entries over one
+// per-lane probe body.
 //
-// Replaces sshash_tpu/engine.py mphf_eval_minimizer (:663), _pilot_read
-// (:531), skew_slot (:687, both branches), skew_eval (:713, the legacy
-// heavy path) and lookup_with_info (:739) with its verify_fused (:812, v1
-// and v2 rows) and pair_window (:982) sweep; ops/u64.py splitmix64,
-// fmix32, mulhi32, hash64_words; ops/packed.py extract_window_dyn,
-// extract_kmer_dyn, kmer_equal, kmer_less. Plain version:
-// sshash_tpu_torch/engine.py probe_plain.
+// sshash_probe (kernel 2): the fused-row probe of lanes whose minimizers
+// kernel 1 (minimizer.cu) has computed, one thread per lane. Replaces
+// sshash_tpu/engine.py mphf_eval_minimizer (:663), _pilot_read (:531),
+// skew_slot (:687, both branches), skew_eval (:713, the legacy heavy path)
+// and lookup_with_info (:739) with its verify_fused (:812, v1 and v2 rows)
+// and pair_window (:982) sweep; ops/u64.py splitmix64, fmix32, mulhi32,
+// hash64_words; ops/packed.py extract_window_dyn, extract_kmer_dyn,
+// kmer_equal, kmer_less. Plain version: sshash_tpu_torch/engine.py
+// probe_plain. The bucket-sharded engine and the stream call it.
+//
+// sshash_lookup (the lookup kernel): the whole jitted lookup of
+// sshash_tpu/engine.py make_lookup.fn (:1079-1258) with _merge (:1260),
+// from the (B, W) kmers alone. Per thread: both strands' minimizers and
+// the RC kmer (minimizer.cuh, kernel 1's window walk), then in canonical
+// mode the fold of engine.canonical_fold (the smaller minimizer value
+// wins; a tie adds the other strand's two position tries) and one probe;
+// in regular mode a forward probe and, on a miss, a probe of the RC kmer
+// in the same thread, merged as _merge does (a lane that missed forward
+// reports BACKWARD whether or not the RC probe finds it, and ORs
+// minimizer_found over both probes). Only the result fields are written:
+// kernel 1's outputs and the fold's tensors never reach device memory.
+// Plain version: sshash_tpu_torch/engine.py lookup_plain.
 //
 // Per lane: minimizer -> raw MPHF slot (one pilot read, one seed-row read
 // when partitioned) -> one cw_row read carrying the candidate-0 block (and
@@ -27,31 +43,41 @@
 // Bound: dependent random reads of device memory, three to four rounds per
 // lane (pilot, row, then heavy or mid rows for a few lanes; the legacy
 // heavy path one round more), each a row of 11..34 words at k <= 63 and up
-// to 52 at k = 255; the arithmetic is a few 64-bit multiplies. The design
-// reads each row in place through L1 and keeps every intermediate in
-// registers; nothing but the result fields is written. Kmers of 1..8 words
-// are templates whose word arrays (the kmer, its RC, the candidate read)
-// stay in registers; 9..16 words (k <= 255) run the wide form of
-// packed.cuh, whose arrays may spill to local memory.
+// to 52 at k = 255; the lookup kernel adds kernel 1's integer work (k-m+1
+// windows a lane), which one warp's hashing can hide under another's row
+// wait. The row read: the head of the row (status, cw_a and the candidate-0
+// block) is copied into the thread's slot of shared memory with 16-byte
+// loads of the aligned segments that cover it (3 loads for a 12-word v1
+// row at k31, at most 4 for any row of <= 13 words), and every later read
+// of it (guard, valid bits, window words, the resolution quad) is a shared
+// memory read at a per-lane offset: a warp's word-at-a-time loads from 32
+// rows each cost 32 L1 wavefronts and find rows evicted between them;
+// registers would need a select chain per read at a runtime offset. Other
+// blocks (candidate 1, mid, heavy rows) are read in place, as before.
+// Kmers of 1..8 words are templates whose word arrays (the kmer, its RC,
+// the candidate read) stay in registers; 9..16 words (k <= 255) run the
+// wide form of packed.cuh, whose arrays may spill to local memory.
 //
 // Every table read clamps its index as jnp.take(..., mode="clip") does
 // after the JAX package's int32 cast, so a lane reads exactly the entries
 // the JAX program reads, for absent and inactive lanes too.
 //
-// Bucket shards (sshash_tpu/parallel/sharded.py _branchfree_lookup, the
-// owner masks of engine.py:778-784 and :904-911): a shard holds the rows of
-// MPHF slots [slot_lo, slot_hi), its own mid and legacy heavy rows (cw_a
-// local), and in hindex indexes the sk_hrows rows [hrow_lo, hrow_hi). A
-// lane whose slot is not the shard's is inactive there. Only the slot's
-// owner knows a heavy lane's global sk_hrows row, so an hindex probe splits
-// there: with hrow_out the heavy lanes write that row (0xFFFFFFFF
-// elsewhere) and verify nothing; the caller takes the unsigned min over the
-// shards; with hrow_in each shard verifies the rows it holds and reads no
-// minimizer table. An unsharded call passes the whole slot range.
+// Bucket shards (kernel 2 only; sshash_tpu/parallel/sharded.py
+// _branchfree_lookup, the owner masks of engine.py:778-784 and :904-911):
+// a shard holds the rows of MPHF slots [slot_lo, slot_hi), its own mid and
+// legacy heavy rows (cw_a local), and in hindex indexes the sk_hrows rows
+// [hrow_lo, hrow_hi). A lane whose slot is not the shard's is inactive
+// there. Only the slot's owner knows a heavy lane's global sk_hrows row, so
+// an hindex probe splits there: with hrow_out the heavy lanes write that
+// row (0xFFFFFFFF elsewhere) and verify nothing; the caller takes the
+// unsigned min over the shards; with hrow_in each shard verifies the rows
+// it holds and reads no minimizer table. An unsharded call passes the
+// whole slot range.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "minimizer.cuh"
 #include "packed.cuh"
 #include "tables.cuh"
 #include "u64.cuh"
@@ -97,8 +123,10 @@ struct ProbeParams {
   int64_t mphf_nbuckets, mphf_table, pilot_w, sk_pilot_w;
   int64_t slot_lo, slot_hi, hrow_lo, hrow_hi;  // this shard's slots and sk_hrows rows
   uint64_t mphf_seedmix;
+  uint64_t magic;  // the minimizer hash's (the lookup kernel's kernel-1 work)
 };
 
+// The lookup kernel reads kmers and active only.
 struct ProbeIO {
   const uint32_t* kmers;     // (B, W)
   const uint32_t* kmers_rc;  // (B, W), canonical only
@@ -211,9 +239,7 @@ __device__ __forceinline__ Hit verify_block(const uint32_t* blk, const ProbePara
     const uint32_t pos = tries[t];
     if (ext0 < pos) continue;
     const uint32_t j = kmw - pos;
-    uint32_t vword = 0;
-    for (int w = 0; w < Wv; ++w)
-      if ((j >> 5) == (uint32_t)w) vword = vbw[w];
+    const uint32_t vword = (j >> 5) < (uint32_t)Wv ? vbw[j >> 5] : 0u;
     if (!((vword >> (j & 31u)) & 1u)) continue;
     uint32_t read[W];
     extract_kmer_dyn(win, Ww, (ext0 - pos) * 2u, (int)p.k, (int)p.max_start_word,
@@ -239,17 +265,179 @@ __device__ __forceinline__ Hit verify_block(const uint32_t* blk, const ProbePara
   return h;
 }
 
-// V2: rebased rows (ids only); v1 rows write the string fields too when
-// p.full (a uniform branch at the end, so the two field forms share one
-// instantiation and the build stays short)
+// Words of a thread's shared-memory slot for a row head of n words: the
+// 16-byte segments covering it (at most (n + 6) / 4 of them, the row
+// starting at any word of a segment) and 3 words of slack before them;
+// odd, so that the slots of a warp's threads start on 32 different banks.
+__host__ __device__ __forceinline__ int stage_stride(int n) {
+  return (3 + 4 * ((n + 6) >> 2)) | 1;
+}
+
+// The most segments a row head takes at kernel width W: status, cw_a and
+// a candidate block of 1 + Wv + Ww + 4 words, with Wv <= (16W + 31) / 32
+// and Ww <= 2W + 1 for any k of W words and m >= 1 (layout.py StaticCfg).
+__host__ __device__ constexpr int head_segments(int W) {
+  return (8 + 2 * W + (16 * W + 31) / 32 + 6) >> 2;
+}
+
+// Copy the first n words of the row at g into this thread's slot with
+// 16-byte loads of the aligned segments that cover them (every load
+// issued before the first store); returns the slot's view of the row,
+// word i at [i]. A segment holding one byte of the table lies in its
+// allocation, so the words it carries before or after the row read
+// nothing out of bounds.
+template <int NQ>
+__device__ __forceinline__ const uint32_t* stage_head(const uint32_t* g, int n, uint32_t* slot) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(g);
+  const int o = (int)((a >> 2) & 3u);  // the row's first word in its segment
+  const uint4* src = reinterpret_cast<const uint4*>(a - 4u * o);
+  const int nq = (o + n + 3) >> 2;
+  uint32_t* dst = slot + 3 - o;
+#pragma unroll
+  for (int q0 = 0; q0 < NQ; q0 += 4) {
+    uint4 c[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q0 + q < NQ && q0 + q < nq) c[q] = __ldg(src + q0 + q);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q0 + q < NQ && q0 + q < nq) {
+        uint32_t* d = dst + 4 * (q0 + q);
+        d[0] = c[q].x;
+        d[1] = c[q].y;
+        d[2] = c[q].z;
+        d[3] = c[q].w;
+      }
+  }
+  return slot + 3;
+}
+
+struct Lane {
+  bool found, mfound;
+  Hit res;
+};
+
+// The fused row of MPHF slot s in this shard's cw_row.
+__device__ __forceinline__ const uint32_t* slot_row(const ProbeTables& t, const ProbeParams& p,
+                                                    uint32_t s) {
+  return t.cw_row + clip_row(s - (uint32_t)p.slot_lo, t.cw_rows) * p.row_w;
+}
+
+// One lane's probe of its fused row grow, whose head is staged at row:
+// guard, candidate 0, the skew index for heavy lanes, candidate 1 and the
+// mid sweep. hrow non-null: a heavy lane writes its sk_hrows row there and
+// verifies nothing (the hand-off's first pass).
+template <int W, bool CANON, bool V2>
+__device__ __forceinline__ Lane probe_row(const ProbeTables& t, const ProbeParams& p,
+                                          const uint32_t* grow, const uint32_t* row,
+                                          const uint32_t (&km)[W], const uint32_t (&kr)[W],
+                                          uint64_t minval, const uint32_t (&tries)[kMaxTries],
+                                          int ntries, uint32_t* hrow) {
+  Lane L{false, true, Hit{false, 0, kForward, 0, 0, 0}};
+  const uint32_t sb = row[0], cw_a = row[1];
+  const uint32_t status = sb & 3u, cw_b = sb >> 2;
+  const bool heavy = status == 2, midload = status == 1;
+  const uint32_t size = midload ? cw_b : 1u;
+  const uint32_t* c0 = row + 2;
+
+  // minimizer guard on the candidate-0 window (spss:47-65)
+  const int Wv = (int)p.vbits_words, Ww = (int)p.win_words;
+  const uint32_t gext0 = ext_off<V2>(c0[0], (uint32_t)(p.k - p.m));
+  const uint64_t gv = extract_window_dyn(c0 + 1 + Wv, Ww, gext0 * 2u, (int)(2 * p.m),
+                                         (int)p.max_start_word);
+  bool guard_ok = gv == minval;
+  if (CANON) guard_ok |= gv == revcomp_mmer64(minval, (int)p.m);
+
+  if (!heavy) {
+    L.res = verify_block<W, CANON, V2>(c0, p, km, kr, tries, ntries);
+  } else if (p.has_skew) {
+    uint32_t canon[W];
+    const bool use_rc = CANON && kmer_less(kr, km);
+#pragma unroll
+    for (int w = 0; w < W; ++w) canon[w] = use_rc ? kr[w] : km[w];
+    const uint32_t hidx = skp(t, kPosOff, cw_b) + skew_slot(t, p, canon, cw_b);
+    if (hrow) {
+      *hrow = hidx;  // verified by the shard holding that row
+    } else {
+      const uint32_t* blk;
+      if (p.skew_hrows) {
+        blk = t.sk_hrows + clip_row(hidx, t.sk_hrows_n) * p.blk_w;
+      } else {
+        // engine.skew_eval: slot -> position in the bucket -> heavy row
+        const uint32_t pos = t.sk_positions[clip_row(hidx, t.sk_positions_n)];
+        blk = t.heavy_rows + clip_row(cw_a + pos, t.heavy_rows_n) * p.blk_w;
+      }
+      L.res = verify_block<W, CANON, V2>(blk, p, km, kr, tries, ntries);
+    }
+  }
+  L.found = L.res.match;
+  L.mfound = guard_ok || heavy;
+  // a failed guard proves the bucket belongs to another minimizer: no
+  // further candidate can match
+  if (L.mfound && midload && !L.found) {
+    if (p.c1_in_row && size >= 2) {
+      L.res = verify_block<W, CANON, V2>(grow + 2 + p.blk_w, p, km, kr, tries, ntries);
+      L.found = L.res.match;
+    }
+    for (uint32_t j = p.c1_in_row ? 2u : 1u; !L.found && j < size; ++j) {
+      const uint32_t* mrow = t.mid_rows + clip_row(cw_a + j, t.mid_n) * p.blk_w;
+      L.res = verify_block<W, CANON, V2>(mrow, p, km, kr, tries, ntries);
+      L.found = L.res.match;
+    }
+  }
+  return L;
+}
+
+// One lane's probe from its minimizer: its MPHF slot (a lane whose slot is
+// not this shard's is inactive here), then probe_row on the row, its head
+// staged in slot.
+template <int W, bool CANON, bool V2>
+__device__ __forceinline__ Lane probe_lane(const ProbeTables& t, const ProbeParams& p,
+                                           uint32_t* slot, const uint32_t (&km)[W],
+                                           const uint32_t (&kr)[W], uint64_t minval,
+                                           const uint32_t (&tries)[kMaxTries], int ntries,
+                                           uint32_t* hrow) {
+  const uint32_t s = mphf_slot(t, p, minval);
+  if (s < p.slot_lo || s >= p.slot_hi) return Lane{false, true, Hit{false, 0, kForward, 0, 0, 0}};
+  const uint32_t* grow = slot_row(t, p, s);
+  const uint32_t* row = stage_head<head_segments(W)>(grow, 2 + (int)p.blk_w, slot);
+  return probe_row<W, CANON, V2>(t, p, grow, row, km, kr, minval, tries, ntries, hrow);
+}
+
+// The result fields of lane i. V2: rebased rows (ids only); v1 rows write
+// the string fields too when p.full (a uniform branch, so the two field
+// forms share one instantiation and the build stays short).
+template <bool V2>
+__device__ __forceinline__ void write_result(const ProbeIO& io, const ProbeParams& p, int64_t i,
+                                             const Lane& L, int32_t orient) {
+  const bool FULL = !V2 && p.full;
+  const bool found = L.found;
+  const Hit& res = L.res;
+  const uint32_t off = found ? res.off : 0u;
+  io.kmer_id[i] = !found ? kInvalid32 : V2 ? off : off - res.sid * (uint32_t)(p.k - 1);
+  io.kmer_orientation[i] = orient;
+  io.minimizer_found[i] = L.mfound;
+  io.found[i] = found;
+  if (FULL) {
+    io.kmer_offset[i] = found ? off : kInvalid32;
+    io.string_id[i] = found ? res.sid : kInvalid32;
+    io.string_begin[i] = found ? res.begin : kInvalid32;
+    io.string_end[i] = found ? res.end : kInvalid32;
+    io.kmer_id_in_string[i] = found ? off - res.begin : kInvalid32;
+  }
+}
+
+__device__ __forceinline__ uint32_t* thread_slot(uint32_t* stage, const ProbeParams& p) {
+  return stage + threadIdx.x * stage_stride(2 + (int)p.blk_w);
+}
+
 template <int W, bool CANON, bool V2>
 __global__ void probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
-  const bool FULL = !V2 && p.full;
+  extern __shared__ uint32_t stage[];
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
-  bool found = false, mfound = true;
+  Lane L{false, true, Hit{false, 0, kForward, 0, 0, 0}};
   uint32_t hrow = kInvalid32;
-  Hit res{false, 0, kForward, 0, 0, 0};
   if (!io.active || io.active[i]) {
     const int nw = used_words<W>(p.W);
     uint32_t km[W], kr[W];
@@ -257,7 +445,6 @@ __global__ void probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
 #pragma unroll
     for (int w = 0; w < W; ++w) kr[w] = 0u;
     if (CANON) load_kmer(io.kmers_rc, i, nw, kr);
-    const uint64_t minval = io.minval[i];
     const uint32_t kmw = (uint32_t)(p.k - p.m);
     uint32_t tries[kMaxTries];
     int ntries = 1;
@@ -277,119 +464,177 @@ __global__ void probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
       if (r >= p.hrow_lo && r < p.hrow_hi) {
         const uint32_t* blk =
             t.sk_hrows + clip_row(r - (uint32_t)p.hrow_lo, t.sk_hrows_n) * p.blk_w;
-        res = verify_block<W, CANON, V2>(blk, p, km, kr, tries, ntries);
-        found = res.match;
+        L.res = verify_block<W, CANON, V2>(blk, p, km, kr, tries, ntries);
+        L.found = L.res.match;
       }
     } else {
-      const uint32_t slot = mphf_slot(t, p, minval);
-      if (slot >= p.slot_lo && slot < p.slot_hi) {
-        const uint32_t* row = t.cw_row + clip_row(slot - (uint32_t)p.slot_lo, t.cw_rows) * p.row_w;
-        const uint32_t sb = row[0], cw_a = row[1];
-        const uint32_t status = sb & 3u, cw_b = sb >> 2;
-        const bool heavy = status == 2, midload = status == 1;
-        const uint32_t size = midload ? cw_b : 1u;
-        const uint32_t* c0 = row + 2;
+      L = probe_lane<W, CANON, V2>(t, p, thread_slot(stage, p), km, kr, io.minval[i], tries,
+                                   ntries, io.hrow_out ? &hrow : nullptr);
+    }
+  }
+  write_result<V2>(io, p, i, L, L.found ? L.res.orient : kForward);
+  if (io.hrow_out) io.hrow_out[i] = hrow;
+}
 
-        // minimizer guard on the candidate-0 window (spss:47-65)
-        const int Wv = (int)p.vbits_words, Ww = (int)p.win_words;
-        const uint32_t cand0 = c0[0];
-        const uint32_t gext0 = ext_off<V2>(cand0, kmw);
-        const uint64_t gv = extract_window_dyn(c0 + 1 + Wv, Ww, gext0 * 2u, (int)(2 * p.m),
-                                               (int)p.max_start_word);
-        bool guard_ok = gv == minval;
-        if (CANON) guard_ok |= gv == revcomp_mmer64(minval, (int)p.m);
-
-        if (!heavy) {
-          res = verify_block<W, CANON, V2>(c0, p, km, kr, tries, ntries);
-          found = res.match;
-        } else if (p.has_skew) {
-          uint32_t canon[W];
-          const bool use_rc = CANON && kmer_less(kr, km);
+// Registers for 4 blocks of 256 threads an SM (half the SM's threads)
+// where the lane's state fits 64 registers without a spill (canonical
+// widths 1..7, regular 1..3), else 3 blocks (80 registers); none asked of
+// the wide form. The regular mode's two probes in one thread hold more.
+template <int W, bool CANON, bool V2>
+__global__ void __launch_bounds__(256, W > kMaxFixedW ? 1 : (CANON ? W <= 7 : W <= 3) ? 4 : 3)
+    lookup_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
+  extern __shared__ uint32_t stage[];
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.B) return;
+  Lane L{false, true, Hit{false, 0, kForward, 0, 0, 0}};
+  int32_t orient = kForward;
+  if (!io.active || io.active[i]) {
+    const int nw = used_words<W>(p.W);
+    const int k = (int)p.k;
+    uint32_t km[W];
+    load_kmer(io.kmers, i, nw, km);
+    const Minimizers mz = kmer_minimizers<W, true>(km, k, (int)p.m, p.magic);
+    const uint32_t kmw = (uint32_t)(p.k - p.m);
+    uint32_t* slot = thread_slot(stage, p);
+    uint32_t tries[kMaxTries];
+    if (CANON) {
+      // engine.canonical_fold: the smaller minimizer value and its
+      // position; on a tie the other strand's position too (a repeated
+      // position adds nothing: its tries failed already)
+      const bool rc_first = mz.mv_r < mz.mv_f;
+      const uint32_t mp1 = (uint32_t)(rc_first ? mz.mp_r : mz.mp_f);
+      const uint32_t mp2 = mz.mv_r == mz.mv_f ? (uint32_t)mz.mp_r : mp1;
+      uint32_t kr[W];
+      revcomp_words(km, k, nw, kr);
+      tries[0] = mp1;
+      tries[1] = kmw - mp1;
+      tries[2] = mp2;
+      tries[3] = kmw - mp2;
+      L = probe_lane<W, true, V2>(t, p, slot, km, kr, rc_first ? mz.mv_r : mz.mv_f, tries,
+                                  mp2 == mp1 ? 2 : 4, nullptr);
+      orient = L.found ? L.res.orient : kForward;
+    } else {
+      // the forward strand, then on a miss the RC kmer (formed only then,
+      // in place) with the RC strand's minimizer (engine._merge: BACKWARD
+      // on every lane that missed forward, minimizer_found over both
+      // probes)
+#pragma unroll 1
+      for (int strand = 0; strand < 2; ++strand) {
+        tries[0] = (uint32_t)(strand ? mz.mp_r : mz.mp_f);
+        const Lane R = probe_lane<W, false, V2>(t, p, slot, km, km,
+                                                strand ? mz.mv_r : mz.mv_f, tries, 1, nullptr);
+        L.found = R.found;
+        L.res = R.res;
+        L.mfound = strand ? L.mfound || R.mfound : R.mfound;
+        orient = strand ? kBackward : R.found ? R.res.orient : kForward;
+        if (R.found || strand) break;
+        uint32_t rc[W];
+        revcomp_words(km, k, nw, rc);
 #pragma unroll
-          for (int w = 0; w < W; ++w) canon[w] = use_rc ? kr[w] : km[w];
-          const uint32_t hidx = skp(t, kPosOff, cw_b) + skew_slot(t, p, canon, cw_b);
-          if (io.hrow_out) {
-            hrow = hidx;  // verified by the shard holding that row
-          } else {
-            const uint32_t* blk;
-            if (p.skew_hrows) {
-              blk = t.sk_hrows + clip_row(hidx, t.sk_hrows_n) * p.blk_w;
-            } else {
-              // engine.skew_eval: slot -> position in the bucket -> heavy row
-              const uint32_t pos = t.sk_positions[clip_row(hidx, t.sk_positions_n)];
-              blk = t.heavy_rows + clip_row(cw_a + pos, t.heavy_rows_n) * p.blk_w;
-            }
-            res = verify_block<W, CANON, V2>(blk, p, km, kr, tries, ntries);
-            found = res.match;
-          }
-        }
-        mfound = guard_ok || heavy;
-        // a failed guard proves the bucket belongs to another minimizer: no
-        // further candidate can match
-        if (mfound && midload && !found) {
-          if (p.c1_in_row && size >= 2) {
-            res = verify_block<W, CANON, V2>(c0 + p.blk_w, p, km, kr, tries, ntries);
-            found = res.match;
-          }
-          for (uint32_t j = p.c1_in_row ? 2u : 1u; !found && j < size; ++j) {
-            const uint32_t* mrow = t.mid_rows + clip_row(cw_a + j, t.mid_n) * p.blk_w;
-            res = verify_block<W, CANON, V2>(mrow, p, km, kr, tries, ntries);
-            found = res.match;
-          }
-        }
+        for (int w = 0; w < W; ++w) km[w] = rc[w];
       }
     }
   }
-  const uint32_t off = found ? res.off : 0u;
-  io.kmer_id[i] = !found ? kInvalid32 : V2 ? off : off - res.sid * (uint32_t)(p.k - 1);
-  io.kmer_orientation[i] = found ? res.orient : kForward;
-  io.minimizer_found[i] = mfound;
-  io.found[i] = found;
-  if (FULL) {
-    io.kmer_offset[i] = found ? off : kInvalid32;
-    io.string_id[i] = found ? res.sid : kInvalid32;
-    io.string_begin[i] = found ? res.begin : kInvalid32;
-    io.string_end[i] = found ? res.end : kInvalid32;
-    io.kmer_id_in_string[i] = found ? off - res.begin : kInvalid32;
-  }
-  if (io.hrow_out) io.hrow_out[i] = hrow;
+  write_result<V2>(io, p, i, L, orient);
+}
+
+// Threads a block of kernel 2 or the lookup kernel: 256 while their slots
+// fit the 48 KB of static shared memory, else 128 (row heads past 47
+// words, k > 190).
+inline int stage_threads(const ProbeParams& p) {
+  return 256 * stage_stride(2 + (int)p.blk_w) * 4 <= 48 * 1024 ? 256 : 128;
 }
 
 template <int W, bool CANON>
 cudaError_t launch_probe(const ProbeTables& t, const ProbeParams& p, const ProbeIO& io,
-                         cudaStream_t stream) {
-  const int threads = 256;
+                         bool lookup, cudaStream_t stream) {
+  const int threads = stage_threads(p);
+  const size_t smem = (size_t)threads * stage_stride(2 + (int)p.blk_w) * 4;
   const unsigned blocks = (unsigned)((p.B + threads - 1) / threads);
-  if (p.row_v2)
-    probe_kernel<W, CANON, true><<<blocks, threads, 0, stream>>>(t, p, io);
+  if (lookup && p.row_v2)
+    lookup_kernel<W, CANON, true><<<blocks, threads, smem, stream>>>(t, p, io);
+  else if (lookup)
+    lookup_kernel<W, CANON, false><<<blocks, threads, smem, stream>>>(t, p, io);
+  else if (p.row_v2)
+    probe_kernel<W, CANON, true><<<blocks, threads, smem, stream>>>(t, p, io);
   else
-    probe_kernel<W, CANON, false><<<blocks, threads, 0, stream>>>(t, p, io);
+    probe_kernel<W, CANON, false><<<blocks, threads, smem, stream>>>(t, p, io);
   return cudaGetLastError();
+}
+
+// The parameters both entries check: widths, row and block widths of the
+// table layout, the skew form's tables, the field form, the shard ranges.
+inline bool bad_params(const ProbeTables& t, const ProbeParams& p, const ProbeIO& io) {
+  const int W = p.W <= kMaxFixedW ? (int)p.W : kWideW;
+  return p.k > kMaxK || p.m < 1 || p.m > 31 || p.W != (2 * p.k + 31) / 32 ||
+         (p.full && !io.kmer_offset) || (p.full && p.row_v2) ||
+         p.blk_w != 1 + p.vbits_words + p.win_words + (p.row_v2 ? 3 : 4) ||
+         p.row_w != 2 + (p.c1_in_row ? 2 : 1) * p.blk_w ||
+         (2 + p.blk_w + 6) >> 2 > head_segments(W) ||
+         (p.has_skew && (p.skew_hrows ? !t.sk_hrows : !t.heavy_rows || !t.sk_positions)) ||
+         (p.has_skew && p.skew_partitioned && !t.sk_seedrows) || p.slot_lo < 0 ||
+         p.slot_hi > (1ll << 32) || p.hrow_lo < 0 || p.hrow_hi > (1ll << 32);
+}
+
+template <typename F>
+cudaError_t dispatch_probe(const ProbeParams& p, F&& f) {
+  const bool c = p.canonical != 0;
+  return dispatch_width(p.W, [&](auto w) {
+    constexpr int W = decltype(w)::value;
+    return c ? f(std::integral_constant<int, W>{}, std::true_type{})
+             : f(std::integral_constant<int, W>{}, std::false_type{});
+  });
 }
 
 }  // namespace sshash
 
-// C entry for ctypes. Returns the launch's cudaError_t (0 on success).
+// C entries for ctypes. Each returns the launch's cudaError_t (0 on
+// success).
 extern "C" int sshash_probe(const sshash::ProbeTables* t, const sshash::ProbeParams* p,
                             const sshash::ProbeIO* io, void* stream) {
   using namespace sshash;
   if (p->B <= 0) return (int)cudaGetLastError();
-  if (p->k > kMaxK || p->m < 1 || p->m > 31 || p->W != (2 * p->k + 31) / 32 ||
-      (p->canonical && !io->kmers_rc) || (p->full && !io->kmer_offset) ||
-      (p->full && p->row_v2) ||
-      p->blk_w != 1 + p->vbits_words + p->win_words + (p->row_v2 ? 3 : 4) ||
-      p->row_w != 2 + (p->c1_in_row ? 2 : 1) * p->blk_w ||
-      (p->has_skew && (p->skew_hrows ? !t->sk_hrows : !t->heavy_rows || !t->sk_positions)) ||
-      (p->has_skew && p->skew_partitioned && !t->sk_seedrows) ||
+  if (bad_params(*t, *p, *io) || (p->canonical && !io->kmers_rc) ||
       ((io->hrow_out || io->hrow_in) && !(p->has_skew && p->skew_hrows)) ||
-      (io->hrow_out && io->hrow_in) || p->slot_lo < 0 || p->slot_hi > (1ll << 32) ||
-      p->hrow_lo < 0 || p->hrow_hi > (1ll << 32))
+      (io->hrow_out && io->hrow_in))
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
-  const bool c = p->canonical != 0;
-  return (int)dispatch_width(p->W, [&](auto w) {
-    constexpr int W = decltype(w)::value;
-    return c ? launch_probe<W, true>(*t, *p, *io, s) : launch_probe<W, false>(*t, *p, *io, s);
+  return (int)dispatch_probe(*p, [&](auto w, auto c) {
+    return launch_probe<decltype(w)::value, decltype(c)::value>(*t, *p, *io, false, s);
   });
 }
 
+// The lookup kernel: io carries kmers, active (or null) and the result
+// fields; the minimizer inputs, the RC kmers and the hand-off stay null,
+// and the slot range is the whole table.
+extern "C" int sshash_lookup(const sshash::ProbeTables* t, const sshash::ProbeParams* p,
+                             const sshash::ProbeIO* io, void* stream) {
+  using namespace sshash;
+  if (p->B <= 0) return (int)cudaGetLastError();
+  if (bad_params(*t, *p, *io) || io->kmers_rc || io->minval || io->minpos || io->minpos2 ||
+      io->hrow_out || io->hrow_in || p->slot_lo != 0 || p->slot_hi != (1ll << 32))
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  return (int)dispatch_probe(*p, [&](auto w, auto c) {
+    return launch_probe<decltype(w)::value, decltype(c)::value>(*t, *p, *io, true, s);
+  });
+}
+
+// Resident blocks an SM of the lookup kernel (lookup != 0) or kernel 2 for
+// these parameters, and the threads a block: the occupancy that the
+// registers and the staging slots allow.
+extern "C" int sshash_probe_occupancy(const sshash::ProbeParams* p, int64_t lookup,
+                                      int* blocks_per_sm, int* threads) {
+  using namespace sshash;
+  *threads = stage_threads(*p);
+  const size_t smem = (size_t)*threads * stage_stride(2 + (int)p->blk_w) * 4;
+  return (int)dispatch_probe(*p, [&](auto w, auto c) {
+    constexpr int W = decltype(w)::value;
+    constexpr bool C = decltype(c)::value;
+    const void* fn = lookup ? (p->row_v2 ? (const void*)lookup_kernel<W, C, true>
+                                          : (const void*)lookup_kernel<W, C, false>)
+                            : (p->row_v2 ? (const void*)probe_kernel<W, C, true>
+                                          : (const void*)probe_kernel<W, C, false>);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, *threads, smem);
+  });
+}

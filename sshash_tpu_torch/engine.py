@@ -5,8 +5,8 @@ Counterpart of sshash_tpu/engine.py's query paths (mphf_eval_minimizer,
 _pilot_read, skew_slot, lookup_with_info, make_lookup, _merge,
 make_neighbours, make_access with _acc_resolve and _acc_read_window,
 make_iterator, make_weight, DeviceEngine) for indexes of k <= 255
-(layout.MAX_K), in either row format (layout.py) and either skew form. One lookup is two
-kernels and some elementwise glue:
+(layout.MAX_K), in either row format (layout.py) and either skew form. A
+lookup is the work of two kernels:
 
   1. kernel 1 (ops.packed.minimizer): both strands' minimizers, and the
      reverse-complemented kmers, in one launch;
@@ -21,6 +21,13 @@ Regular mode probes forward, then probes the reverse complement of the
 lanes that missed; a lane that missed forward reports BACKWARD orientation
 whether or not the RC probe finds it, and ORs minimizer_found over both
 strands (src/dictionary.cpp:71-76).
+
+On the card the engine's lookup, lookup_ids and navigation run all of it
+in one launch of the lookup kernel (`lookup`: both strands' minimizers,
+the fold or the RC retry, and the probe, per thread, in csrc/probe.cu),
+whose plain version `lookup_plain` is the two-kernel form over the plain
+versions. The bucket-sharded engine (its own probe) and the stream (kernel
+1's outputs in hand) keep the two-kernel form (make_lookup).
 
 The plain versions here (`probe_plain` and its helpers) hold u32 values in
 int64 tensors and run on any device; `probe` sends CPU tensors to them and
@@ -310,6 +317,7 @@ def _result(cfg, fields, hit, minimizer_found):
 
 
 probe = kernels.by_device(kernels.probe_kernel, probe_plain, "probe", arg=2)
+_probe_entry = probe  # make_lookup's default; its parameter `probe` hides the name
 
 
 def _merge(res_a, res_b, use_b, use_b_flags):
@@ -336,36 +344,65 @@ def canonical_fold(mv_f, mp_f, mv_r, mp_r):
             torch.where(mv_r == mv_f, mp_r, mp1))
 
 
-def make_lookup(cfg, fields="full", minimizer=P.minimizer, probe=probe):
+def _lookup_two_kernels(cfg, tables, kmers32, mins, active, fields, minimizer, probe):
+    """Kernel 1 (or mins), the canonical fold or the regular mode's RC
+    retry with _merge, and kernel 2, as separate calls."""
+    if mins is None:
+        mins = minimizer(kmers32, cfg.k, cfg.m, cfg.magic, both=True)
+    mv_f, mp_f, kmers_rc32, mv_r, mp_r = mins
+    if cfg.canonical:
+        mv1, mp1, mp2 = canonical_fold(mv_f, mp_f, mv_r, mp_r)
+        return probe(cfg, tables, kmers32, kmers_rc32, mv1, mp1, mp2, active, fields)
+    res = probe(cfg, tables, kmers32, None, mv_f, mp_f, None, active, fields)
+    miss = ~res["found"] if active is None else active & ~res["found"]
+    res2 = probe(cfg, tables, kmers_rc32, None, mv_r, mp_r, None, miss, fields)
+    merged = _merge(res, res2, miss & res2["found"], miss)
+    merged["minimizer_found"] = torch.where(
+        miss, res["minimizer_found"] | res2["minimizer_found"], res["minimizer_found"])
+    merged["kmer_orientation"] = torch.where(
+        miss, BACKWARD_ORIENTATION, merged["kmer_orientation"]).to(torch.int32)
+    return merged
+
+
+def lookup_plain(cfg, tables, kmers32, active=None, fields="full"):
+    """Plain version of the lookup kernel (csrc/probe.cu sshash_lookup):
+    the batched lookup of (B, W) int32 kmers through the plain versions of
+    kernel 1, the fold (or the RC retry and _merge) and kernel 2. Same
+    contract as kernels.lookup_kernel."""
+    check_fields(cfg, fields)
+    return _lookup_two_kernels(cfg, tables, kmers32, None, active, fields, P.minimizer_plain,
+                               probe_plain)
+
+
+lookup = kernels.by_device(kernels.lookup_kernel, lookup_plain, "lookup", arg=2)
+
+
+def make_lookup(cfg, fields="full", minimizer=None, probe=None):
     """Batched lookup over (B, W) int32 kmers (src/dictionary.cpp:58-78
     semantics). fields="ids" returns only kmer_id / kmer_orientation /
-    minimizer_found (the reference's plain lookup()). `minimizer` and
-    `probe` default to the kernel entry points; passing the plain versions
-    runs the same lookup without kernels on any device. v2 rows serve
+    minimizer_found (the reference's plain lookup()). v2 rows serve
     fields="ids" only.
 
     fn(tables, kmers32, mins=None, active=None): mins are kernel 1's five
     outputs for these kmers where the caller has them; active (bool) limits
-    the probes to those lanes, the others report not found."""
+    the probes to those lanes, the others report not found.
+
+    With minimizer and probe left None and no mins, a call is one `lookup`
+    (one launch of the lookup kernel on a CUDA tensor, lookup_plain on a
+    CPU one). Otherwise it is the two-kernel form: `minimizer` (default the
+    kernel 1 entry) unless mins are given, the fold or the RC retry, and
+    `probe` (default the kernel 2 entry): the stream passes mins, the
+    sharded engine its own probe, and passing the plain versions runs the
+    same lookup without kernels on any device."""
     check_fields(cfg, fields)
-    k, m, magic = cfg.k, cfg.m, cfg.magic
+    one_launch = minimizer is None and probe is None
+    minimizer = minimizer or P.minimizer
+    probe = probe or _probe_entry
 
     def fn(tables, kmers32, mins=None, active=None):
-        if mins is None:
-            mins = minimizer(kmers32, k, m, magic, both=True)
-        mv_f, mp_f, kmers_rc32, mv_r, mp_r = mins
-        if cfg.canonical:
-            mv1, mp1, mp2 = canonical_fold(mv_f, mp_f, mv_r, mp_r)
-            return probe(cfg, tables, kmers32, kmers_rc32, mv1, mp1, mp2, active, fields)
-        res = probe(cfg, tables, kmers32, None, mv_f, mp_f, None, active, fields)
-        miss = ~res["found"] if active is None else active & ~res["found"]
-        res2 = probe(cfg, tables, kmers_rc32, None, mv_r, mp_r, None, miss, fields)
-        merged = _merge(res, res2, miss & res2["found"], miss)
-        merged["minimizer_found"] = torch.where(
-            miss, res["minimizer_found"] | res2["minimizer_found"], res["minimizer_found"])
-        merged["kmer_orientation"] = torch.where(
-            miss, BACKWARD_ORIENTATION, merged["kmer_orientation"]).to(torch.int32)
-        return merged
+        if one_launch and mins is None:
+            return lookup(cfg, tables, kmers32, active, fields)
+        return _lookup_two_kernels(cfg, tables, kmers32, mins, active, fields, minimizer, probe)
 
     return fn
 
@@ -373,8 +410,9 @@ def make_lookup(cfg, fields="full", minimizer=P.minimizer, probe=probe):
 def make_neighbours(cfg, fields="full", variants=P.neighbour_variants, **lookup_kw):
     """Batched navigation (src/dictionary.cpp:112-128): one lookup over the
     8 one-char variants of each kmer, 4 forward then 4 backward; result
-    fields are (B, 8). `variants` and `lookup_kw` (make_lookup's
-    `minimizer` and `probe`) default to the kernel entry points."""
+    fields are (B, 8). `variants` defaults to the kernel entry point and
+    `lookup_kw` (make_lookup's `minimizer` and `probe`) to the one-launch
+    lookup."""
     lookup = make_lookup(cfg, fields, **lookup_kw)
 
     def fn(tables, kmers32):

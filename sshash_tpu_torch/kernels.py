@@ -1,7 +1,10 @@
 """Build and bind the port's CUDA kernels (csrc/), with launch counters.
 
-Twelve CUDA sources: minimizer (kernel 1) and probe (kernel 2) carry
-lookup; access, iterator, weight and neighbours the other point queries;
+Twelve CUDA sources: probe carries lookup, as one launch of the lookup
+kernel (kernel 1's minimizers, the canonical fold or the RC retry, and the
+probe, per thread) and as kernel 2 alone, which the bucket-sharded engine
+and the stream call after minimizer (kernel 1); access, iterator, weight
+and neighbours the other point queries;
 scan, stream_anchor, stream_chain and stream_derive the stream step; check
 the sanitizer's postconditions (debug.py) and read_at2 the read over the
 interleaved (NW, 2) table (ops/packed.read_kmers_at2). A source may hold
@@ -25,8 +28,8 @@ Each launch wrapper checks its tensors, allocates its outputs with
 torch.empty, launches on the current stream without synchronising, raises
 if the launch returned a CUDA error, and adds one to its `launches` count.
 The wrappers take CUDA tensors only; each entry point (ops/packed.minimizer,
-.neighbour_variants, .scan_ex, .compact and .read_kmers_at2; engine.probe,
-.access, .access_read, .iterate and .weight; streaming.stream_masks,
+.neighbour_variants, .scan_ex, .compact and .read_kmers_at2; engine.lookup,
+.probe, .access, .access_read, .iterate and .weight; streaming.stream_masks,
 .stream_kmers, .stream_chain, .stream_swin, .stream_heads, .stream_round2,
 .stream_merge and .stream_count; debug.check) is made by `by_device`, which
 chooses between a wrapper and its plain version by the device of one
@@ -57,7 +60,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("minimizer.cu", "probe.cu", "access.cu", "iterator.cu", "weight.cu",
            "neighbours.cu", "scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu",
            "check.cu", "read_at2.cu")
-HEADERS = ("packed.cuh", "tables.cuh", "u64.cuh")
+HEADERS = ("minimizer.cuh", "packed.cuh", "tables.cuh", "u64.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sshash_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -149,7 +152,7 @@ _PARAM_NAMES = ("B", "W", "k", "m", "canonical", "full", "win_words",
 
 class ProbeParams(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int64) for n in _PARAM_NAMES] \
-        + [("mphf_seedmix", ctypes.c_uint64)]
+        + [("mphf_seedmix", ctypes.c_uint64), ("magic", ctypes.c_uint64)]
 
 
 _IO_NAMES = ("kmers", "kmers_rc", "minval", "minpos", "minpos2", "active",
@@ -184,6 +187,12 @@ def library():
                                      ctypes.POINTER(ProbeParams),
                                      ctypes.POINTER(ProbeIO), p]
         lib.sshash_probe.restype = ctypes.c_int
+        lib.sshash_lookup.argtypes = lib.sshash_probe.argtypes
+        lib.sshash_lookup.restype = ctypes.c_int
+        lib.sshash_probe_occupancy.argtypes = [ctypes.POINTER(ProbeParams), i64,
+                                               ctypes.POINTER(ctypes.c_int),
+                                               ctypes.POINTER(ctypes.c_int)]
+        lib.sshash_probe_occupancy.restype = ctypes.c_int
         lib.sshash_access.argtypes = [p, p, ctypes.POINTER(AccessParams), p, p, p, p, p]
         lib.sshash_iterate.argtypes = [p, i64, p, i64, i64, p, p]
         lib.sshash_weight.argtypes = [p, i64, p, i64, p, i64, p, i64, i64, p, p]
@@ -302,33 +311,17 @@ def minimizer_kernel(kmers32, k, m, magic, both=False):
 minimizer_kernel.launches = 0
 
 
-def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
-                 active=None, fields="full", shard=None, hrows=None):
-    """Kernel 2: the fused-row probe, in either row format and either skew
-    form, over the whole table or one bucket shard's (layout.ProbeShard).
-    Same contract as engine.probe_plain: returns kmer_id /
-    kmer_orientation / minimizer_found / found and, with fields="full" (v1
-    rows only), the string fields (u32 fields as int32 bits); a sharded
-    hindex probe also "hrow", and with hrows it runs the hand-off's second
-    pass."""
+def _probe_launch(cfg, tables, kmers32, active, fields, shard=None):
+    """What both probe entries check and pass: the kmers' and tables'
+    shapes, types and device; returns (B, device, ProbeTables, ProbeParams,
+    the result tensors)."""
     check_fields(cfg, fields)
-    handoff = check_probe_shard(cfg, shard, hrows)
     if kmers32.dim() != 2:
         raise ValueError(f"kmers32 must be (B, {cfg.W}), got {tuple(kmers32.shape)}")
     B = kmers32.shape[0]
     _check(kmers32, "kmers32", torch.int32, (B, cfg.W))
-    if (kmers_rc32 is not None) != cfg.canonical:
-        raise ValueError("kmers_rc32 is required in canonical mode and only there")
-    if kmers_rc32 is not None:
-        _check(kmers_rc32, "kmers_rc32", torch.int32, (B, cfg.W))
-    _check(minval, "minval", torch.int64, (B,))
-    _check(minpos, "minpos", torch.int32, (B,))
-    if minpos2 is not None:
-        _check(minpos2, "minpos2", torch.int32, (B,))
     if active is not None:
         _check(active, "active", torch.bool, (B,))
-    if hrows is not None:
-        _check(hrows, "hrows", torch.int32, (B,))
     dev = kmers32.device
     t = {}
     for name in _TABLE_NAMES + ("sk_params",):
@@ -344,7 +337,6 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
             raise ValueError(f"{name} must have {blk_w} columns")
     if tuple(t["sk_params"].shape) != (8, 8):
         raise ValueError("sk_params must be (8, 8)")
-    lib = library()
 
     full = fields == "full"
     u32_out = lambda: torch.empty(B, dtype=torch.int32, device=dev)  # noqa: E731
@@ -356,17 +348,19 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         for name in ("kmer_id_in_string", "kmer_offset", "string_id",
                      "string_begin", "string_end"):
             out[name] = u32_out()
-    if handoff and hrows is None:
-        out["hrow"] = u32_out()
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     tab = ProbeTables(*(v for n in _TABLE_NAMES
                         for v in (t[n].data_ptr(), t[n].shape[0])),
                       t["sk_params"].data_ptr())
+    return B, dev, tab, probe_params(cfg, B, fields, shard), out
+
+
+def probe_params(cfg, B, fields="ids", shard=None):
+    """The ProbeParams of csrc/probe.cu for B lanes of cfg's layout."""
     sh = shard or WHOLE_TABLE
-    prm = ProbeParams(
-        B=B, W=cfg.W, k=cfg.k, m=cfg.m, canonical=int(cfg.canonical), full=int(full),
-        win_words=cfg.win_words, vbits_words=cfg.vbits_words,
-        max_start_word=cfg.max_start_word, row_w=row_w, blk_w=blk_w,
+    return ProbeParams(
+        B=B, W=cfg.W, k=cfg.k, m=cfg.m, canonical=int(cfg.canonical),
+        full=int(fields == "full"), win_words=cfg.win_words, vbits_words=cfg.vbits_words,
+        max_start_word=cfg.max_start_word, row_w=row_width(cfg), blk_w=cand_block_width(cfg),
         c1_in_row=int(cfg.c1_in_row), has_skew=int(cfg.has_skew), row_v2=int(cfg.row_v2),
         skew_hrows=int(cfg.skew_hrows), skew_partitioned=int(cfg.skew_partitioned),
         mphf_partitioned=int(cfg.mphf_partitioned), mphf_P=cfg.mphf_P,
@@ -374,18 +368,78 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         mphf_nbuckets=cfg.mphf_nbuckets, mphf_table=cfg.mphf_table,
         pilot_w=cfg.pilot_w, sk_pilot_w=cfg.sk_pilot_w, slot_lo=sh.slot_lo,
         slot_hi=sh.slot_hi, hrow_lo=sh.hrow_lo, hrow_hi=sh.hrow_hi,
-        mphf_seedmix=cfg.mphf_seedmix)
-    io = ProbeIO(kmers32.data_ptr(), ptr(kmers_rc32), minval.data_ptr(),
-                 minpos.data_ptr(), ptr(minpos2), ptr(active),
-                 *(ptr(out.get(n)) for n in _IO_NAMES[6:-1]), ptr(hrows))
-    err = lib.sshash_probe(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
-                           _stream(dev))
+        mphf_seedmix=cfg.mphf_seedmix, magic=cfg.magic & (2 ** 64 - 1))
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
+                 active=None, fields="full", shard=None, hrows=None):
+    """Kernel 2: the fused-row probe, in either row format and either skew
+    form, over the whole table or one bucket shard's (layout.ProbeShard).
+    Same contract as engine.probe_plain: returns kmer_id /
+    kmer_orientation / minimizer_found / found and, with fields="full" (v1
+    rows only), the string fields (u32 fields as int32 bits); a sharded
+    hindex probe also "hrow", and with hrows it runs the hand-off's second
+    pass."""
+    handoff = check_probe_shard(cfg, shard, hrows)
+    B, dev, tab, prm, out = _probe_launch(cfg, tables, kmers32, active, fields, shard)
+    if (kmers_rc32 is not None) != cfg.canonical:
+        raise ValueError("kmers_rc32 is required in canonical mode and only there")
+    if kmers_rc32 is not None:
+        _check(kmers_rc32, "kmers_rc32", torch.int32, (B, cfg.W))
+    _check(minval, "minval", torch.int64, (B,))
+    _check(minpos, "minpos", torch.int32, (B,))
+    if minpos2 is not None:
+        _check(minpos2, "minpos2", torch.int32, (B,))
+    if hrows is not None:
+        _check(hrows, "hrows", torch.int32, (B,))
+    if handoff and hrows is None:
+        out["hrow"] = torch.empty(B, dtype=torch.int32, device=dev)
+    io = ProbeIO(kmers32.data_ptr(), _ptr(kmers_rc32), minval.data_ptr(),
+                 minpos.data_ptr(), _ptr(minpos2), _ptr(active),
+                 *(_ptr(out.get(n)) for n in _IO_NAMES[6:-1]), _ptr(hrows))
+    err = library().sshash_probe(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
+                                 _stream(dev))
     _raise_on(err, "probe_kernel")
     probe_kernel.launches += 1
     return out
 
 
 probe_kernel.launches = 0
+
+
+def lookup_kernel(cfg, tables, kmers32, active=None, fields="full"):
+    """The lookup kernel: the whole batched lookup of (B, W) int32 kmers in
+    one launch (both strands' minimizers, the canonical fold or the
+    regular mode's RC retry, and the probe, per thread), in either row
+    format and either skew form. Same contract as engine.lookup_plain:
+    kmer_id / kmer_orientation / minimizer_found / found and, with
+    fields="full" (v1 rows only), the string fields; active (bool) limits
+    the lookup to those lanes, the others report not found."""
+    B, dev, tab, prm, out = _probe_launch(cfg, tables, kmers32, active, fields)
+    io = ProbeIO(kmers32.data_ptr(), None, None, None, None, _ptr(active),
+                 *(_ptr(out.get(n)) for n in _IO_NAMES[6:-1]), None)
+    err = library().sshash_lookup(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
+                                  _stream(dev))
+    _raise_on(err, "lookup_kernel")
+    lookup_kernel.launches += 1
+    return out
+
+
+lookup_kernel.launches = 0
+
+
+def probe_occupancy(cfg, lookup=True):
+    """(resident blocks an SM, threads a block) of the lookup kernel (or of
+    kernel 2) on the current card for cfg's layout."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    err = library().sshash_probe_occupancy(ctypes.byref(probe_params(cfg, 1)), int(lookup),
+                                           ctypes.byref(blocks), ctypes.byref(threads))
+    _raise_on(err, "probe_occupancy")
+    return blocks.value, threads.value
 
 
 def access_kernel(cfg, tables, ids, blocks=None):
@@ -825,13 +879,13 @@ def read_at2_kernel(table, offsets, k):
 read_at2_kernel.launches = 0
 
 
-KERNELS = (minimizer_kernel, probe_kernel, access_kernel, access_read_kernel, iterate_kernel,
+KERNELS = (minimizer_kernel, probe_kernel, lookup_kernel, access_kernel, access_read_kernel, iterate_kernel,
            weight_kernel, neighbours_kernel, scan_kernel, compact_kernel, stream_masks_kernel,
            stream_kmers_kernel, stream_chain_kernel, stream_swin_kernel, stream_heads_kernel,
            stream_round2_kernel, stream_merge_kernel, stream_count_kernel, check_kernel,
            read_at2_kernel)
 # the wrappers of each CUDA source
-SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel",), "probe.cu": ("probe_kernel",),
+SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel",), "probe.cu": ("probe_kernel", "lookup_kernel"),
                   "access.cu": ("access_kernel", "access_read_kernel"),
                   "iterator.cu": ("iterate_kernel",),
                   "weight.cu": ("weight_kernel",), "neighbours.cu": ("neighbours_kernel",),

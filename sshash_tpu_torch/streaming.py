@@ -26,7 +26,8 @@ derive_full by miss counts for the TPU's sake; here one path runs:
   1. masks: segment-start and read-start bits from the per-read position
      counts (one exclusive scan over R, csrc/scan.cu), group popcounts and
      their scan;
-  2. anchors: the kmer at every 16th lane, looked up (kernels 1-2);
+  2. anchors: the kmer at every 16th lane, looked up (one launch of the
+     lookup kernel);
   3. chains: per anchor, its 15 followers resolve with one string-char
      compare each (prefix-AND), giving per-lane (found, string_id,
      kmer_id, orientation) and the lanes that still need a lookup;
@@ -34,7 +35,8 @@ derive_full by miss counts for the TPU's sake; here one path runs:
      kmers read and run through kernel 1 once; the negative-minimizer
      run-skip (JAX's gate: more than P/64 misses) marks run heads from
      kernel 1's (mv_f, mv_r) pairs; the heads are probed, then the run
-     members whose head found its minimizer; results scatter back;
+     members whose head found its minimizer (kernel 2, given kernel 1's
+     outputs); results scatter back;
   5. count: one P-wide adjacency pass gives the counters, lane 0 and the
      last lane.
 
