@@ -12,7 +12,7 @@ line):
   1. card: nvidia-smi name and power limit; no CUDA card -> exit 1
   2. build: one nvcc per csrc/ source, in parallel, for sm_90a (timed,
      registers per kernel, any spills; none allowed in the lookup kernel
-     at widths 1..8)
+     and the access kernel at widths 1..8, nor in the chain kernel)
   3. kernel == plain on the card, exactly: kernel 1 at B = 2^20 for
      (k, m) in (31, 17), (31, 21), (63, 25), (65, 25), (127, 31), (129,
      31), (255, 31); on every small configuration of
@@ -63,7 +63,8 @@ line):
      kernel equals its plain version on all lanes; times
   9. access and iteration at 100M kmers, on phase 7's index: 2^24 ids,
      access/lookup round trip on every lane, a 2^20 oracle sample, count
-     equals num_kmers, kernel == plain; times
+     equals num_kmers, kernel == plain; times; the 32-byte sectors the
+     access kernel's lanes touch beside its byte bound, its occupancy
  10. streaming membership through streaming_query_from_file's pipeline, on
      phase 4's and phase 7's indexes: a high-hit genome (the 5M index's 50
      strings as one multiline record, every other one reverse-complemented,
@@ -75,7 +76,8 @@ line):
      prefix); each chunk's kernel step equals the plain step (the first at
      100M); every stream kernel and kernels 1-2 launch, and the run-skip
      skips lookups in the low-hit run; device and wall k-mers/s; each stream
-     source timed against its plain version at the 100M chunk's shapes
+     source timed against its plain version at the 100M chunk's shapes; the
+     chain kernel's occupancy
   Times are device times from CUDA events around windows of back-to-back
   calls, median of 7 windows after a warm-up; kernel and plain run in turns.
   A stream run's device time replays its chunks' steps from one CUDA graph,
@@ -122,7 +124,8 @@ line):
      lookup kernel == lookup_plain == the two-kernel form (both indexes);
      the lookup in its three forms in turns; kernels 1-2, access,
      iteration, the variants, the stream's kmer read, the check and the
-     read timed against their plain versions
+     read timed against their plain versions; access's sectors and
+     occupancy as in phase 9
  14. one JSON line of per-source results (launches, max |err|, ms, plain ms,
      bound ms and what bounds it, library-call ms; kernel 2 once per
      variant: v1, v2 rows, legacy skew; the lookup kernel (phase 7, bound
@@ -401,6 +404,15 @@ def build(tag, **kw):
     return idx, host
 
 
+# kernels that must not spill (their fixed widths keep their arrays in
+# registers): ptxas's mangled-name pattern and the instantiations it
+# reports
+NO_SPILL = {"lookup_kernel at widths 1..8": (r"13lookup_kernelILi[1-8]E", 32),
+            "access_kernel at widths 1..4": (r"13access_kernelILi[1-4]E", 4),
+            "access_staged_kernel at widths 5..8": (r"20access_staged_kernelILi[5-8]E", 4),
+            "chain_kernel": (r"12chain_kernelE", 1)}
+
+
 def phase_card():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA card: torch.cuda.is_available() is False")
@@ -427,15 +439,16 @@ def phase_build():
             log(f"  ptxas: {entry.split(chr(39))[1] if chr(39) in entry else ''}: {ln.strip()}")
     spills = [ln.strip() for ln in lines if "spill" in ln and " 0 bytes spill stores" not in ln]
     log(f"  spills: {spills or 'none'}")
-    # the lookup kernel's fixed widths 1..8 keep their arrays in registers
-    fixed = [(ln, nxt) for ln, nxt in zip(lines, lines[1:]) if "Function properties for" in ln
-             and re.search(r"13lookup_kernelILi[1-8]E", ln)]
-    bad = [ln for ln, nxt in fixed if not re.search(r" 0 bytes spill stores, 0 bytes spill loads",
-                                                   nxt)]
-    if out:  # compiled by this run (a library built earlier leaves no ptxas output)
-        require(len(fixed) == 32 and not bad, f"lookup kernel at widths 1..8: {len(fixed)} "
-                f"instantiations reported, spills in {bad}")
-        log(f"  lookup_kernel at widths 1..8: {len(fixed)} instantiations, no spills")
+    if not out:  # a library built earlier leaves no ptxas output
+        return
+    for what, (pattern, n) in NO_SPILL.items():
+        fixed = [(ln, nxt) for ln, nxt in zip(lines, lines[1:]) if "Function properties for" in ln
+                 and re.search(pattern, ln)]
+        bad = [ln for ln, nxt in fixed
+               if not re.search(r" 0 bytes spill stores, 0 bytes spill loads", nxt)]
+        require(len(fixed) == n and not bad, f"{what}: {len(fixed)} instantiations reported, "
+                f"spills in {bad}")
+        log(f"  {what}: {len(fixed)} instantiations, no spills")
 
 
 def point_queries_equal_plain(eng, idx, rng, errs):
@@ -1028,6 +1041,8 @@ def phase_scale_point_queries(idx, eng, errs):
     acc["bytes"] = access_bytes(eng.cfg, id_tensor(ids, eng.device))
     log(f"  canonical: access bound {bound(acc['bytes'])[0]:.4f} ms ({acc['bytes']} bytes: ids, "
         f"kmers and {SCALE_B} lanes' distinct access rows)")
+    log_access_sectors(eng.cfg, eng.tables, id_tensor(ids, eng.device), acc["kernel"])
+    log_access_occupancy(eng)
     log(f"  peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     return launches, {"access_kernel": acc, "iterate_kernel": itr}
 
@@ -1141,6 +1156,33 @@ def log_sectors(cfg, tables, kt, args, b):
         + ", ".join(f"{name} {(tb + n) / HBM_BPS * 1e3:.4f} ms" for name, n in lanes.items())
         + f" at 3.35 TB/s (bounds: kernel 2 {b['probe.cu'][0]:.4f} ms ({b['probe.cu'][1]}), "
         f"the lookup kernel {b['lookup'][0]:.4f} ms ({b['lookup'][1]}))")
+
+
+def log_access_sectors(cfg, tables, ids, ms):
+    """The 32-byte sectors the access kernel's lanes touch in acc_rows (the
+    span of the row each reads), per lane and distinct over the batch,
+    beside the byte bound (each distinct row once) and the kernel's ms."""
+    B, rw = ids.shape[0], 4 * acc_width(cfg)
+    row = (u.u32(ids) >> 5).clamp(max=tables["acc_rows"].shape[0] - 1)
+    first, last = (row * rw) >> 5, (row * rw + rw - 1) >> 5
+    span = last - first + 1
+    secs = first[:, None] + torch.arange(int(span.max()), device=ids.device)
+    distinct = int(torch.unique(secs[secs <= last[:, None]]).numel())
+    own = B * (4 + 4 * cfg.W)  # each lane's id in, kmer out
+    per_lane = int(span.sum())
+    log(f"  access sectors: a lane's row ({rw} bytes) spans {float(span.double().mean()):.4f} "
+        f"sectors (mean); distinct over {B} lanes {distinct} = {32 * distinct} bytes, "
+        f"{(32 * distinct + own) / HBM_BPS * 1e3:.4f} ms at 3.35 TB/s with the lanes' own "
+        f"bytes; every lane's sectors from HBM (no L2 hit) {32 * per_lane} bytes, "
+        f"{(32 * per_lane + own) / HBM_BPS * 1e3:.4f} ms; byte bound "
+        f"{bound(access_bytes(cfg, ids))[0]:.4f} ms; kernel {ms:.4f} ms")
+
+
+def log_access_occupancy(eng):
+    blocks, threads = kernels.access_occupancy(eng.cfg, eng.tables)
+    log(f"  access_kernel occupancy at k{eng.cfg.k} (W={eng.cfg.W}, {acc_width(eng.cfg)}-word "
+        f"rows): {blocks} blocks of {threads} threads an SM = {blocks * threads / 2048:.0%} of "
+        f"the SM's 2048 threads")
 
 
 def bound(nbytes, int_ops=0):
@@ -1432,6 +1474,9 @@ def phase_streaming(dev, built, idx200, eng200, tmp, errs):
     log(f"  peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     av, packed = chunks[0]
     per = time_stages(eng200, packed, stream.P, stream.R, stream.CW, av, errs)
+    blocks, threads = kernels.chain_occupancy()
+    log(f"  chain_kernel occupancy: {blocks} blocks of {threads} threads an SM = "
+        f"{blocks * threads / 2048:.0%} of the SM's 2048 threads (one thread a lane)")
     log(f"  100M canonical, chunk 0: the four stream sources {sum(v['kernel'] for v in per.values()):.4f} ms "
         f"of the step's {dev_ms / len(chunks):.4f} ms per chunk (graph replay, mean)")
     return launches, per, read_sets
@@ -2141,6 +2186,8 @@ def phase_wide(dev, tmp, errs, k31):
             f"{k2['kernel'] * 1e6 / MAIN_B / ns['probe_kernel']:.3f}")
         acc, itr = time_access_iteration(eng, idx, ids, t)
         times["access_wide"] = {**acc, "bound": bound(access_bytes(cfg, it))}
+        log_access_sectors(cfg, eng.tables, it, acc["kernel"])
+        log_access_occupancy(eng)
         times["iterator_wide"] = {**itr, "bound": bound(
             sum(eng.tables[x].numel() * 4 for x in ("strings32", "vstart32")) + 8)}
         nb = time_turns(t, "neighbour variants alone", NAV_B,

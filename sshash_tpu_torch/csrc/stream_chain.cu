@@ -1,5 +1,5 @@
 // Stream chain extension: the 15 followers of every anchor, one thread per
-// anchor.
+// lane.
 //
 // Replaces sshash_tpu/streaming.py make_stream_step's phase 2 (:390-435:
 // win16 on strings32 and on the packed chunk, charok, instr, the `under`
@@ -7,18 +7,29 @@
 // derive_full (:493-503). Plain version: sshash_tpu_torch/streaming.py
 // stream_chain_plain.
 //
-// The anchor's 16 string chars and 16 read chars are consecutive, so the
-// thread reads one aligned 2-word window of each (the batched analog of
-// the reference's extension cache, streaming_query.hpp:86-100). Follower t
-// extends the chain iff it is valid, starts no read or segment, its string
-// char equals the read's (complemented on the backward strand) and its
-// kmer stays inside the anchor's string; the chain is the prefix-AND. The
-// thread writes its 16 lanes: found, string id, kmer id akid +- t (mod
-// 2^32), orientation, and need = valid & ~found.
+// Thread 16g + t is lane t of anchor g: a half-warp holds one anchor's 16
+// lanes. Every thread reads its anchor's fields and the two aligned 2-word
+// windows of its 16 string chars and 16 read chars (the batched analog of
+// the reference's extension cache, streaming_query.hpp:86-100); within a
+// half-warp these are the same addresses, so each load is one broadcast
+// (lane 0's loads passed on by shuffles measured no faster:
+// access_chain_ab.py).
+// It computes its own follower's condition: follower t > 0 extends the
+// chain iff it is valid, starts no read or segment, its string char
+// equals the read's (complemented on the backward strand) and its kmer
+// stays inside the anchor's string; lane 0's is the anchor's own hit. The
+// chain is the prefix-AND over the half-warp, one ballot: lane t is found
+// iff lanes 0..t all hold. Each thread writes its own lane's found, string
+// id, kmer id akid +- t (mod 2^32), orientation and need = valid & ~found,
+// so consecutive threads write consecutive bytes and words and every store
+// instruction is coalesced.
 //
 // Bound: bytes. Per anchor it reads 7 lookup fields, 4 mask halves and 4
 // window words, and writes 14 bytes per lane (about 1 byte read and 14
-// written per lane, against a few dozen integer operations).
+// written per lane, against a few dozen integer operations). One thread
+// per anchor, writing its 16 lanes, would make each store instruction
+// write 32 addresses 16 lanes apart: 32 sectors for 32-128 bytes (10.5x
+// the bound at a 2^22-lane chunk on the H100, PERF.md).
 //
 // Bucket shards (sshash_tpu/parallel/sharded.py ShardedStream, its swin at
 // :431-438): strings32 is split by word range, so the string window comes
@@ -90,54 +101,80 @@ __global__ void swin_kernel(const uint32_t* __restrict__ aoff, const int32_t* __
                : 0u;
 }
 
-__global__ void chain_kernel(ChainIO io, int64_t A, int k) {
-  const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= A) return;
-  const uint32_t vh = half16(io.valid, g), fh = half16(io.fbits, g), sh = half16(io.sbits, g);
-  const int32_t r_a = io.cum_g[g] + (int32_t)(sh & 1u) - 1;
+// What a lane needs of its anchor: the group's valid, first and start
+// halves, the lookup fields and the two 16-char windows.
+struct Anchor {
+  uint32_t vh, fh, sh, aoff, asid, akid, abeg, aend, saw, raw;
+  int32_t aori;
+  bool afound;
+};
+
+__device__ __forceinline__ Anchor load_anchor(const ChainIO& io, int64_t g, int k) {
+  Anchor a;
+  a.vh = half16(io.valid, g);
+  a.fh = half16(io.fbits, g);
+  a.sh = half16(io.sbits, g);
+  const int32_t r_a = io.cum_g[g] + (int32_t)(a.sh & 1u) - 1;
   const uint32_t apos = (uint32_t)(16 * g) + (uint32_t)r_a * (uint32_t)(k - 1);
-  const uint32_t aoff = io.aoff[g], asid = io.asid[g], akid = io.akid[g];
-  const uint32_t abeg = io.abeg[g], aend = io.aend[g];
-  const int32_t aori = io.aori[g];
-  const bool fwd = aori == 1;
-  const uint32_t k1 = (uint32_t)(k - 1);
-  const uint32_t base_s = window_base(aoff, aori, k);
-  const uint32_t saw = io.swin ? io.swin[g] : win16(io.strings, io.strings_n, base_s);
-  const uint32_t raw = win16(io.words, io.words_n, apos + k1);
-  bool m = io.afound[g] && (vh & 1u);
-  for (uint32_t t = 0; t < 16; ++t) {
-    const bool vt = (vh >> t) & 1u;
-    if (t > 0) {
-      const uint32_t og = fwd ? aoff + t : aoff - t;
-      const bool under = !fwd && aoff < t;
-      const uint32_t idx_s = fwd ? t : og - base_s;
-      const uint32_t schar = (saw >> ((idx_s & 15u) * 2)) & 3u;
-      const uint32_t rchar = (raw >> (2 * t)) & 3u;
-      const bool charok = fwd ? schar == rchar : schar == (rchar ^ 2u);
-      const bool instr = og >= abeg && og + (uint32_t)k <= aend;
-      m = m && vt && !((fh >> t) & 1u) && !((sh >> t) & 1u) && charok && instr && !under;
-    }
-    const int64_t lane = 16 * g + t;
-    io.found[lane] = m;
-    io.sid[lane] = asid;
-    io.kid[lane] = fwd ? akid + t : akid - t;
-    io.ori[lane] = aori;
-    io.need[lane] = vt && !m;
+  a.aoff = io.aoff[g];
+  a.asid = io.asid[g];
+  a.akid = io.akid[g];
+  a.abeg = io.abeg[g];
+  a.aend = io.aend[g];
+  a.aori = io.aori[g];
+  a.afound = io.afound[g];
+  a.saw = io.swin ? io.swin[g] : win16(io.strings, io.strings_n, window_base(a.aoff, a.aori, k));
+  a.raw = win16(io.words, io.words_n, apos + (uint32_t)(k - 1));
+  return a;
+}
+
+// Launched with a multiple of 32 threads a block, so that each half-warp
+// is one anchor's; threads past the last anchor join the ballot with a
+// false condition and store nothing.
+__global__ void __launch_bounds__(256) chain_kernel(ChainIO io, int64_t A, int k) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t g = lane >> 4;
+  const uint32_t t = threadIdx.x & 15u;
+  const bool in = g < A;
+  const Anchor a = in ? load_anchor(io, g, k) : Anchor{};
+  const bool fwd = a.aori == 1;
+  const bool vt = (a.vh >> t) & 1u;
+  bool cond;
+  if (t == 0) {
+    cond = a.afound && vt;
+  } else {
+    const uint32_t og = fwd ? a.aoff + t : a.aoff - t;
+    const bool under = !fwd && a.aoff < t;
+    const uint32_t idx_s = fwd ? t : og - window_base(a.aoff, a.aori, k);
+    const uint32_t schar = (a.saw >> ((idx_s & 15u) * 2)) & 3u;
+    const uint32_t rchar = (a.raw >> (2 * t)) & 3u;
+    const bool charok = fwd ? schar == rchar : schar == (rchar ^ 2u);
+    const bool instr = og >= a.abeg && og + (uint32_t)k <= a.aend;
+    cond = vt && !((a.fh >> t) & 1u) && !((a.sh >> t) & 1u) && charok && instr && !under;
   }
+  // the prefix-AND: lanes 0..t of this half-warp all hold
+  const uint32_t h = (__ballot_sync(0xFFFFFFFFu, in && cond) >> (threadIdx.x & 16u)) & 0xFFFFu;
+  const bool m = (~h & ((2u << t) - 1u)) == 0u;
+  if (!in) return;
+  io.found[lane] = m;
+  io.sid[lane] = a.asid;
+  io.kid[lane] = fwd ? a.akid + t : a.akid - t;
+  io.ori[lane] = a.aori;
+  io.need[lane] = vt && !m;
 }
 
 }  // namespace sshash
 
-// C entry for ctypes: A anchors, lanes 16*A. Returns the launch's
-// cudaError_t (0 on success).
+// C entry for ctypes: A anchors, lanes 16*A, one thread a lane. Returns
+// the launch's cudaError_t (0 on success).
 extern "C" int sshash_stream_chain(const sshash::ChainIO* io, int64_t A, int64_t k, void* stream) {
   using namespace sshash;
   if (A <= 0) return (int)cudaGetLastError();
   if (k < 1 || k > kMaxK || io->words_n < 1 || (!io->swin && (!io->strings || io->strings_n < 1)))
     return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  chain_kernel<<<(unsigned)((A + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
-      *io, A, (int)k);
+  chain_kernel<<<(unsigned)((16 * A + threads - 1) / threads), threads, 0,
+                 (cudaStream_t)stream>>>(*io, A, (int)k);
   return (int)cudaGetLastError();
 }
 
@@ -154,4 +191,12 @@ extern "C" int sshash_stream_swin(const void* aoff, const void* aori, int64_t A,
       (const uint32_t*)aoff, (const int32_t*)aori, A, (const uint32_t*)strings, strings_n,
       (int)k, word_lo, word_hi, (uint32_t*)out);
   return (int)cudaGetLastError();
+}
+
+// C entry for ctypes: resident blocks an SM of the chain kernel, and the
+// threads a block.
+extern "C" int sshash_chain_occupancy(int* blocks_per_sm, int* threads) {
+  *threads = 256;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, sshash::chain_kernel,
+                                                            *threads, 0);
 }

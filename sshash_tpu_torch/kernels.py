@@ -60,10 +60,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("minimizer.cu", "probe.cu", "access.cu", "iterator.cu", "weight.cu",
            "neighbours.cu", "scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu",
            "check.cu", "read_at2.cu")
-HEADERS = ("minimizer.cuh", "packed.cuh", "tables.cuh", "u64.cuh")
+HEADERS = ("minimizer.cuh", "packed.cuh", "stage.cuh", "tables.cuh", "u64.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sshash_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+
+# an unsharded access: every id block and string word
+WHOLE_ACCESS = AccessShard(0, 1 << 32, 0, 1 << 32)
 
 _lib = None
 # debug.debug_mode: wait for every launch and raise on any CUDA error
@@ -194,6 +197,11 @@ def library():
                                                ctypes.POINTER(ctypes.c_int)]
         lib.sshash_probe_occupancy.restype = ctypes.c_int
         lib.sshash_access.argtypes = [p, p, ctypes.POINTER(AccessParams), p, p, p, p, p]
+        lib.sshash_access_occupancy.argtypes = [ctypes.POINTER(AccessParams),
+                                                ctypes.POINTER(ctypes.c_int),
+                                                ctypes.POINTER(ctypes.c_int)]
+        lib.sshash_chain_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                               ctypes.POINTER(ctypes.c_int)]
         lib.sshash_iterate.argtypes = [p, i64, p, i64, i64, p, p]
         lib.sshash_weight.argtypes = [p, i64, p, i64, p, i64, p, i64, i64, p, p]
         lib.sshash_neighbours.argtypes = [p, i64, i64, i64, p, p]
@@ -212,7 +220,8 @@ def library():
         lib.sshash_check.argtypes = [p, p, p, p, p, i64, i64, i64, p, p]
         lib.sshash_read_at2.argtypes = [p, i64, p, i64, i64, p, p, p]
         lib.sshash_last_error.argtypes = []
-        for name in ("sshash_access", "sshash_iterate", "sshash_weight", "sshash_neighbours",
+        for name in ("sshash_access", "sshash_access_occupancy", "sshash_chain_occupancy",
+                     "sshash_iterate", "sshash_weight", "sshash_neighbours",
                      "sshash_scan", "sshash_compact", "sshash_stream_masks",
                      "sshash_stream_kmers", "sshash_stream_chain", "sshash_stream_swin",
                      "sshash_stream_heads", "sshash_stream_round2", "sshash_stream_merge",
@@ -269,6 +278,15 @@ def _check_table(t, name, dev, cols=None):
         raise ValueError(f"table {name} is on {t.device}, queries on {dev}")
     if t.shape[0] < 1 or (cols is not None and tuple(t.shape[1:]) != (cols,)):
         raise ValueError(f"table {name} has shape {tuple(t.shape)}")
+
+
+def _check_staged(t, name):
+    """A table the access kernel stages (kmers of 5 or more words) with
+    16-byte loads of the aligned segments that cover a row: such a segment
+    lies in the table's allocation only if its storage starts 16-byte
+    aligned (a slice of a PyTorch allocation does)."""
+    if t.untyped_storage().data_ptr() % 16:
+        raise ValueError(f"table {name}: its storage must start 16-byte aligned")
 
 
 def _ids(ids):
@@ -450,18 +468,16 @@ def access_kernel(cfg, tables, ids, blocks=None):
     check_access(cfg)
     B = _ids(ids)
     dev = ids.device
-    C = cfg.access_C
-    windowed = acc_windowed(cfg.k, C)
+    windowed = acc_windowed(cfg.k, cfg.access_C)
     rows, s32 = tables["acc_rows"], tables["strings32"]
     _check_table(rows, "acc_rows", dev, acc_width(cfg))
     _check_table(s32, "strings32", dev)
+    _check_staged(rows, "acc_rows")
+    _check_staged(s32, "strings32")
     offsets = blocks is not None and not windowed
     out = torch.empty((B,) if offsets else (B, cfg.W), dtype=torch.int32, device=dev)
-    sh = blocks or AccessShard(0, 1 << 32, 0, 1 << 32)
-    prm = AccessParams(B=B, W=cfg.W, k=cfg.k, C=C, windowed=int(windowed),
-                       win_words=acc_win_words(cfg.k, C), row_w=rows.shape[1],
-                       rows_n=rows.shape[0], strings_n=s32.shape[0], blk_lo=sh.blk_lo,
-                       blk_hi=sh.blk_hi, word_lo=sh.word_lo, word_hi=sh.word_hi)
+    sh = blocks or WHOLE_ACCESS
+    prm = access_params(cfg, B, rows, s32, sh)
     err = library().sshash_access(rows.data_ptr(), s32.data_ptr(), ctypes.byref(prm),
                                   ids.data_ptr(), None, None if offsets else out.data_ptr(),
                                   out.data_ptr() if offsets else None, _stream(dev))
@@ -471,6 +487,27 @@ def access_kernel(cfg, tables, ids, blocks=None):
 
 
 access_kernel.launches = 0
+
+
+def access_params(cfg, B, rows, s32, shard):
+    """The access kernel's parameters (AccessParams) for B lanes over the
+    tables rows and s32 and one layout.AccessShard."""
+    C = cfg.access_C
+    return AccessParams(B=B, W=cfg.W, k=cfg.k, C=C, windowed=int(acc_windowed(cfg.k, C)),
+                        win_words=acc_win_words(cfg.k, C), row_w=rows.shape[1],
+                        rows_n=rows.shape[0], strings_n=s32.shape[0], blk_lo=shard.blk_lo,
+                        blk_hi=shard.blk_hi, word_lo=shard.word_lo, word_hi=shard.word_hi)
+
+
+def access_occupancy(cfg, tables):
+    """(resident blocks an SM, threads a block) of the access kernel on the
+    current card for cfg's rows."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    prm = access_params(cfg, 1, tables["acc_rows"], tables["strings32"], WHOLE_ACCESS)
+    err = library().sshash_access_occupancy(ctypes.byref(prm), ctypes.byref(blocks),
+                                            ctypes.byref(threads))
+    _raise_on(err, "access_occupancy")
+    return blocks.value, threads.value
 
 
 def access_read_kernel(cfg, tables, offsets, words):
@@ -483,14 +520,11 @@ def access_read_kernel(cfg, tables, offsets, words):
     rows, s32 = tables["acc_rows"], tables["strings32"]
     _check_table(rows, "acc_rows", dev, acc_width(cfg))
     _check_table(s32, "strings32", dev)
-    C = cfg.access_C
-    if acc_windowed(cfg.k, C):
+    _check_staged(s32, "strings32")
+    if acc_windowed(cfg.k, cfg.access_C):
         raise ValueError("the windowed access form has no second round")
     out = torch.empty((B, cfg.W), dtype=torch.int32, device=dev)
-    prm = AccessParams(B=B, W=cfg.W, k=cfg.k, C=C, windowed=0, win_words=acc_win_words(cfg.k, C),
-                       row_w=rows.shape[1], rows_n=rows.shape[0], strings_n=s32.shape[0],
-                       blk_lo=words.blk_lo, blk_hi=words.blk_hi, word_lo=words.word_lo,
-                       word_hi=words.word_hi)
+    prm = access_params(cfg, B, rows, s32, words)
     err = library().sshash_access(rows.data_ptr(), s32.data_ptr(), ctypes.byref(prm), None,
                                   offsets.data_ptr(), out.data_ptr(), None, _stream(dev))
     _raise_on(err, "access_read_kernel")
@@ -712,6 +746,15 @@ def stream_chain_kernel(ares, words32, strings32, valid_bits, sbits, fbits, cum_
 
 
 stream_chain_kernel.launches = 0
+
+
+def chain_occupancy():
+    """(resident blocks an SM, threads a block) of the chain kernel on the
+    current card."""
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    err = library().sshash_chain_occupancy(ctypes.byref(blocks), ctypes.byref(threads))
+    _raise_on(err, "chain_occupancy")
+    return blocks.value, threads.value
 
 
 def stream_swin_kernel(aoff, aori, strings32, k, words):

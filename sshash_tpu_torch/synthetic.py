@@ -87,6 +87,25 @@ WIDE_CONFIGS = {
 }
 
 
+# Access rows of every width residue: strings of n kmers put up to
+# floor(31 / n) + 1 string starts in a 32-id block, so C = 2 at 20 kmers a
+# string, 3 at 11-12, 4 at 9. The windowed rows (1 + C + Wa words, C >= 2)
+# are 12, 13, 14, 15 and 16 words wide, so a row starts at every word of a
+# 16-byte segment and takes up to 5 segments; k31 gives only 12 and 15 at C
+# >= 2, hence k29, k35 (W = 3) and k51 (W = 4, the widest windowed row).
+# Beside them the two-round form at C = 4 and a windowed W = 5 row. Each
+# num_kmers leaves a partial last block.
+ACCESS_CONFIGS = {
+    "acc_k31_c2": dict(k=31, m=13, canonical=False, num_strings=61, string_len=50, seed=21),
+    "acc_k35_c2": dict(k=35, m=13, canonical=True, num_strings=47, string_len=54, seed=22),
+    "acc_k29_c3": dict(k=29, m=13, canonical=False, num_strings=83, string_len=40, seed=23),
+    "acc_k31_c3": dict(k=31, m=13, canonical=True, num_strings=90, string_len=41, seed=24),
+    "acc_k51_c2": dict(k=51, m=17, canonical=False, num_strings=53, string_len=70, seed=27),
+    "acc_k31_two_round": dict(k=31, m=13, canonical=False, num_strings=111, string_len=39,
+                              seed=25),
+    "acc_k65_w5": dict(k=65, m=23, canonical=False, num_strings=25, string_len=104, seed=26),
+}
+
 def low_hash_mmers(n, m, seed, sample=1 << 20, rng=None):
     """The n m-mers (as 2-bit code arrays) of smallest minimizer hash among
     `sample` random ones, for an index built with `seed`."""
@@ -185,7 +204,8 @@ def build_index(**kw):
 
 
 def small_index(name):
-    return build_index(**(SMALL_CONFIGS.get(name) or WIDE_CONFIGS[name]))
+    return build_index(**(SMALL_CONFIGS.get(name) or WIDE_CONFIGS.get(name)
+                          or ACCESS_CONFIGS[name]))
 
 
 def path_kmer_ids(idx, rng, n):

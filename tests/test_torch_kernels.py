@@ -107,6 +107,44 @@ def test_point_query_kernels_equal_plain_on_card(card, name, tmp_path):
         assert after[kern] > before[kern], kern
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(synthetic.ACCESS_CONFIGS))
+def test_access_rows_equal_plain_on_card(card, name, tmp_path):
+    """The access kernel on rows of every width residue, C >= 2, the
+    two-round form and W = 5 (synthetic.ACCESS_CONFIGS): every id of the
+    index (every position of every 32-id block, the last block partial)
+    and random ids past it equal the plain version, the in-range ones the
+    oracle; on three shards cut unevenly (slices that start at any word of
+    a segment), each round equals its plain version and the shards
+    combine to the unsharded kernel's."""
+    idx = synthetic.small_index(name)
+    eng = TorchEngine(idx, card)
+    cfg, t = eng.cfg, eng.tables
+    n = idx.num_kmers
+    ids = np.concatenate([np.arange(n), np.random.default_rng(9).integers(0, 1 << 32, 999)])
+    it = torch.from_numpy(ids.astype(np.uint32).view(np.int32)).to(card)
+    before = kernels.counts()["access_kernel"]
+    got = E.access(cfg, t, it)
+    assert kernels.counts()["access_kernel"] == before + 1
+    assert torch.equal(got, E.access_plain(cfg, t, it))
+    assert np.array_equal(eng.access(ids[:n]), oracle.access(jax_index(idx, tmp_path), ids[:n]))
+    bc, wc = _cuts(t["acc_rows"].shape[0]), _cuts(t["strings32"].shape[0])
+    ash = [AccessShard(a, b, c, d) for a, b, c, d in zip(bc, bc[1:], wc, wc[1:])]
+    atabs = [dict(t, acc_rows=t["acc_rows"][s.blk_lo:s.blk_hi],
+                  strings32=t["strings32"][s.word_lo:s.word_hi + cfg.W + 1]) for s in ash]
+    firsts = []
+    for sh, tab in zip(ash, atabs):
+        firsts.append(E.access(cfg, tab, it, sh))
+        assert torch.equal(firsts[-1], E.access_plain(cfg, tab, it, sh))
+    if firsts[0].dim() == 1:
+        off = _combine(firsts, "pmin")
+        firsts = []
+        for sh, tab in zip(ash, atabs):
+            firsts.append(E.access_read(cfg, tab, off, sh))
+            assert torch.equal(firsts[-1], E.access_read_plain(cfg, tab, off, sh))
+    assert torch.equal(_combine(firsts, "pmax")[:n], got[:n])
+
+
 BASE = (1 << 31) + 12345  # rebase_ids: every found id lands at or above 2^31
 
 
