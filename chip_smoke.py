@@ -12,7 +12,8 @@ line):
   1. card: nvidia-smi name and power limit; no CUDA card -> exit 1
   2. build: one nvcc per csrc/ source, in parallel, for sm_90a (timed,
      registers per kernel, any spills; none allowed in the lookup kernel
-     and the access kernel at widths 1..8, nor in the chain kernel)
+     and the access kernel at widths 1..8, nor in the chain kernel, the
+     scan and compaction kernel or the derive kernels)
   3. kernel == plain on the card, exactly: kernel 1 at B = 2^20 for
      (k, m) in (31, 17), (31, 21), (63, 25), (65, 25), (127, 31), (129,
      31), (255, 31); on every small configuration of
@@ -76,8 +77,10 @@ line):
      prefix); each chunk's kernel step equals the plain step (the first at
      100M); every stream kernel and kernels 1-2 launch, and the run-skip
      skips lookups in the low-hit run; device and wall k-mers/s; each stream
-     source timed against its plain version at the 100M chunk's shapes; the
-     chain kernel's occupancy
+     stage timed against its plain version and its bound, with its count,
+     at the first low-hit chunk's shapes (the run-skip on, misses near P)
+     and the 100M chunk's (misses few), each source summed over the
+     latter; the chain kernel's occupancy
   Times are device times from CUDA events around windows of back-to-back
   calls, median of 7 windows after a warm-up; kernel and plain run in turns.
   A stream run's device time replays its chunks' steps from one CUDA graph,
@@ -410,7 +413,12 @@ def build(tag, **kw):
 NO_SPILL = {"lookup_kernel at widths 1..8": (r"13lookup_kernelILi[1-8]E", 32),
             "access_kernel at widths 1..4": (r"13access_kernelILi[1-4]E", 4),
             "access_staged_kernel at widths 5..8": (r"20access_staged_kernelILi[5-8]E", 4),
-            "chain_kernel": (r"12chain_kernelE", 1)}
+            "chain_kernel": (r"12chain_kernelE", 1),
+            "scan_kernel (scan, compaction)": (r"11scan_kernelILb[01]E", 2),
+            "heads_kernel": (r"12heads_kernelE", 1),
+            "round2_kernel": (r"13round2_kernelE", 1),
+            "merge_kernel": (r"12merge_kernelE", 1),
+            "count_kernel (vector, lane by lane)": (r"12count_kernelILb[01]E", 2)}
 
 
 def phase_card():
@@ -1247,7 +1255,9 @@ def stage_bytes(name, args, out):
     if name == "scan":
         return 2 * nb(args[0])
     if name == "compact":
-        return nb(args[0]) + 4 * _n(out[1]) + 4
+        # the flags; a lane id at each rank below the count and a zero past
+        # it (the contract's fill); the count
+        return nb(args[0]) + nb(out[0]) + 4
     if name == "masks":
         _, rfirst, nreads, _ = args
         return 4 * _n(nreads) + nb(rfirst) + sum(nb(t) for t in out)
@@ -1260,14 +1270,17 @@ def stage_bytes(name, args, out):
         return (4 * n * (2 * W + 1) + (4 * n + 4 if lanes else 0)
                 + min(4 * n, nb(cum_g)) + min(4 * n, nb(sbits)))
     if name == "heads":
-        # per rank: both strands' minimizers, the lane, its start bit; one
-        # byte out
-        fbits = args[4]
-        return 21 * n + min(4 * n, nb(fbits)) + 4
+        # with the skip on, per rank below the count: both strands'
+        # minimizers, the lane, its start bit; off, nothing. One flag out a
+        # lane (the lookup's active lanes)
+        mv_f, _, _, _, fbits, gate = args
+        P_ = mv_f.shape[0]
+        on = n > P_ // 64 if gate < 0 else bool(gate)
+        return (20 * n + min(4 * n, nb(fbits)) if on else 0) + 4 + P_
     if name == "round2":
-        # per rank: head flag, head scan, the run head's minimizer flag; one
-        # byte out
-        return 7 * n + 4
+        # per rank below the count: its head flag and the first round's
+        # found and minimizer_found; one flag out a lane
+        return 3 * n + 4 + args[0].shape[0]
     if name == "chain":
         ares, words32, _, valid, sbits, fbits, cum_g, _ = args
         A = ares["found"].shape[0]
@@ -1277,7 +1290,9 @@ def stage_bytes(name, args, out):
         _, count, r1, r2, _ = args
         n = _n(count)
         hit = int(((r1["found"][:n]) | (r2["found"][:n])).sum())
-        return 4 * n + 2 * n + hit * (12 + 13)
+        # both rounds' found flags below the count; at a found rank its lane
+        # and one round's three fields in, four fields out
+        return 2 * n + hit * (4 + 12 + 13)
     if name == "count":
         state, valid, fbits, count = args
         return sum(nb(state[f]) for f in ST.MERGE_FIELDS) + nb(valid) + nb(fbits) + 48
@@ -1327,8 +1342,8 @@ def time_stages(eng, packed, Pn, R, CW, av, errs, timed=True):
     ST.make_stream_step(eng.cfg, Pn, R, CW, lookup, all_valid=av, ops=ops)(eng.tables, packed)
     src_of = {"scan": "scan.cu", "compact": "scan.cu", "masks": "stream_anchor.cu",
               "kmers": "stream_anchor.cu", "chain": "stream_chain.cu"}
-    per = {src: {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bytes": 0, "calls": 0}
-           for src in STREAM_SOURCES}
+    per = {src: {"kernel": 0.0, "kernel10": 0.0, "plain": 0.0, "library": 0.0, "bytes": 0,
+                 "calls": 0} for src in STREAM_SOURCES}
     for name, args, out in calls:
         if name == "minimizer":
             continue
@@ -1350,20 +1365,29 @@ def time_stages(eng, packed, Pn, R, CW, av, errs, timed=True):
         # plain version reads counts on the host and cannot be captured
         a = fresh(args)
         ms, pms = graph_ms(lambda: kern(*a)), median_ms(lambda: plain(*a))
-        log(f"  stage {name}: kernel {ms:.4f} ms (graph replay), plain {pms:.4f} ms")
+        # a call replayed alone pays the graph's launch: also 10 back to back
+        ms10 = graph_ms(lambda: [kern(*a) for _ in range(10)]) / 10
+        nbytes = stage_bytes(name, args, out)
+        n = (_n(args[1]) if name == "merge" else _n(out[1]) if name == "compact"
+             else _rows(name, args))
+        log(f"  stage {name}: kernel {ms:.4f} ms (graph replay; {ms10:.4f} a call of 10 in one "
+            f"graph), plain {pms:.4f} ms, bound {nbytes / HBM_BPS * 1e3:.4f} ms ({nbytes} bytes)"
+            f"{'' if n is None else f', n {n}'}")
         per[src]["kernel"] += ms
+        per[src]["kernel10"] += ms10
         per[src]["plain"] += pms
         lib = library_ms(name, args)
         if lib is not None:
             per[src]["library"] += lib
-        per[src]["bytes"] += stage_bytes(name, args, out)
+        per[src]["bytes"] += nbytes
         per[src]["calls"] += 1
     for src, v in per.items():
         if not timed:
             break
         v["bound_ms"] = v["bytes"] / HBM_BPS * 1e3
-        log(f"  {src}: {v['calls']} calls, kernel {v['kernel']:.4f} ms, plain {v['plain']:.4f} ms, "
-            f"bound {v['bound_ms']:.4f} ms ({v['bytes']} bytes)"
+        log(f"  {src}: {v['calls']} calls, kernel {v['kernel']:.4f} ms ({v['kernel10']:.4f} at 10 "
+            f"calls a graph), plain {v['plain']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+            f"({v['bytes']} bytes)"
             f"{', library %.4f ms' % v['library'] if v['library'] else ''}")
     return per
 
@@ -1441,10 +1465,17 @@ def phase_streaming(dev, built, idx200, eng200, tmp, errs):
     reads = synthetic.with_n([reads[i] for i in rng.permutation(len(reads))], 0.01, rng)
     path = f"{tmp}/lowhit.fq"
     synthetic.write_reads(path, reads)
-    rep, _, c, _, _ = stream_run(eng, path, False, 1 << 22, "low-hit 5M regular",
-                                 need_runskip=True)
+    rep, chunks, c, dev_ms, stream = stream_run(eng, path, False, 1 << 22, "low-hit 5M regular",
+                                                need_runskip=True)
     add_counts(launches, c)
     check_host(idx, rep, path, False, "low-hit 5M regular")
+    log("  low-hit 5M regular, chunk 0 (the run-skip on, misses near P): the stages")
+    av, packed = chunks[0]
+    low = time_stages(eng, packed, stream.P, stream.R, stream.CW, av, errs)
+    log(f"  low-hit 5M regular, chunk 0: the four stream sources "
+        f"{sum(v['kernel'] for v in low.values()):.4f} ms of the step's "
+        f"{dev_ms / len(chunks):.4f} ms per chunk (graph replay, mean)")
+    del chunks, stream
     read_sets = {"low-hit": ("regular", path, rep)}
     idx, eng = built["canonical"][:2]
     strings = synthetic.index_strings(idx)

@@ -7,161 +7,201 @@
 // Plain versions: sshash_tpu_torch/ops/packed.py prefix_sum_ex and
 // compact_plain.
 //
-// Three launches per call: each block of 512 threads sums a tile of 4096
-// elements (8 consecutive per thread); one block scans the tile sums in
-// place (a loop of 512-wide block scans with a running carry); each block
-// then rescans its tile from its base and writes the exclusive sums, or,
-// for a compaction, the lane of every flagged element at its rank and the
-// total count. Block scans are warp shuffles plus one shared-memory step.
-// Sums are u32 and wrap, as JAX's int32 cumsum does.
+// One launch a call, plus one memset of the scratch: a single pass with
+// decoupled look-back (scan.cuh). A tile is 256 threads x 4 vectors of 16
+// bytes: 4096 int32 or 16384 flags, loaded once with 16-byte loads in
+// striped order. The scan stores each vector's four exclusive sums with one
+// 16-byte store; the compaction writes the lane of every flagged element at
+// its rank (a warp's 512 flags in 16 ballot rounds, so set lanes store side
+// by side), the block of the last tile writes the count, and then every
+// block, once the last tile has published the total, zero-fills its share
+// of the positions past the count (part of the contract: compact_plain
+// gives them), so the fill needs no launch of its own. An input that does
+// not start 16-byte aligned (a slice) is read from the aligned address
+// below it, the elements outside it masked; vectors at either end load
+// element by element. Sums are u32 and wrap, as JAX's int32 cumsum does.
 //
-// Bound: bytes. The input is read twice (tile sums, rescan) and the output
-// written once: 12 bytes per element for a scan, 2 (+4 per flagged
-// element) for a compaction; integer work is a few adds per element.
-#include <cuda_runtime.h>
-
-#include <cstdint>
+// Bound: bytes. 8 bytes per element for a scan (4 in, 4 out); 1 per flag,
+// 4 per flagged lane and 4 per zero past the count for a compaction. The
+// integer work is a few operations per element.
+#include "scan.cuh"
 
 namespace sshash {
 
-constexpr int kScanThreads = 512;
-constexpr int kScanItems = 8;
-constexpr int kScanTile = kScanThreads * kScanItems;
+constexpr int kScanVecs = 4;                                  // 16-byte vectors a thread
+constexpr int kScanTile = kScanThreads * kScanVecs * 4;      // int32
+constexpr int kCompactTile = kScanThreads * kScanVecs * 16;  // flags
 
-// Exclusive scan of x over the block; *total (shared) gets the block sum.
-// warp_sums holds 32 words of shared memory. Ends with a barrier, so the
-// caller may reuse warp_sums and read *total.
-__device__ __forceinline__ uint32_t block_scan_ex(uint32_t x, uint32_t* warp_sums,
-                                                  uint32_t* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  uint32_t inc = x;
+// Vector k of the input in the element space that starts at the aligned
+// address `base` (the input's element e is element e + off there): its
+// 16 bytes, with the bytes of elements outside [off, off + n) zero.
+template <int BYTES>
+__device__ __forceinline__ uint4 load_vec(const uint8_t* base, int64_t k, int64_t off, int64_t n) {
+  constexpr int kPer = 16 / BYTES;
+  const int64_t e0 = k * kPer;
+  if (e0 >= off && e0 + kPer <= off + n) return __ldg(reinterpret_cast<const uint4*>(base) + k);
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
-    if (lane >= d) inc += y;
-  }
-  if (lane == 31) warp_sums[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const uint32_t s = lane < nwarps ? warp_sums[lane] : 0u;
-    uint32_t si = s;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, si, d);
-      if (lane >= d) si += y;
+  for (int j = 0; j < kPer; ++j) {
+    const int64_t e = e0 + j;
+    if (e >= off && e < off + n) {
+      const uint32_t x = BYTES == 4 ? *reinterpret_cast<const uint32_t*>(base + 4 * e)
+                                    : (uint32_t)base[e];
+      w[(j * BYTES) >> 2] |= BYTES == 4 ? x : x << (8 * (j & 3));
     }
-    warp_sums[lane] = si - s;
-    if (lane == 31) *total = si;
   }
-  __syncthreads();
-  const uint32_t out = warp_sums[warp] + inc - x;
-  __syncthreads();
-  return out;
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-template <bool COMPACT>
-__device__ __forceinline__ uint32_t load_item(const int32_t* v, const uint8_t* flags, int64_t e,
-                                              int64_t n) {
-  if (e >= n) return 0u;
-  return COMPACT ? (flags[e] != 0) : (uint32_t)v[e];
+// Bit 7 of each nonzero byte of w.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  return (((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u;
 }
 
-template <bool COMPACT>
-__global__ void __launch_bounds__(kScanThreads)
-    tile_sums_kernel(const int32_t* __restrict__ v, const uint8_t* __restrict__ flags, int64_t n,
-                     uint32_t* __restrict__ sums) {
-  __shared__ uint32_t ws[32];
-  __shared__ uint32_t total;
-  const int64_t base = (int64_t)blockIdx.x * kScanTile + (int64_t)threadIdx.x * kScanItems;
-  uint32_t s = 0;
-#pragma unroll
-  for (int i = 0; i < kScanItems; ++i) s += load_item<COMPACT>(v, flags, base + i, n);
-  block_scan_ex(s, ws, &total);
-  if (threadIdx.x == 0) sums[blockIdx.x] = total;
-}
-
-// One block: sums[0..nb) -> exclusive scan in place; *count = the total.
-__global__ void __launch_bounds__(kScanThreads)
-    scan_sums_kernel(uint32_t* __restrict__ sums, int64_t nb, int32_t* __restrict__ count) {
-  __shared__ uint32_t ws[32];
-  __shared__ uint32_t total;
-  uint32_t carry = 0;
-  for (int64_t b0 = 0; b0 < nb; b0 += blockDim.x) {
-    const int64_t i = b0 + threadIdx.x;
-    const uint32_t x = i < nb ? sums[i] : 0u;
-    const uint32_t ex = block_scan_ex(x, ws, &total);
-    if (i < nb) sums[i] = carry + ex;
-    carry += total;
-    __syncthreads();
+// A warp's row of 32 flag vectors (512 consecutive flags, lane t's x from
+// element e0): the lane ids of the flagged ones at their ranks, from ex,
+// the exclusive count of lane 0's vector. 16 rounds of 32 flags in order:
+// each lane takes its flag from the vector's owner by shuffles, one ballot
+// ranks the round, and the set lanes store side by side (a lane storing
+// its own vector's ranks would scatter a warp's stores over 32 lines).
+__device__ __forceinline__ void compact_row(const uint4 x, uint32_t ex, int64_t e0,
+                                            int32_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const unsigned full = 0xFFFFFFFFu, below = (1u << lane) - 1u;
+  uint32_t rank = __shfl_sync(full, ex, 0);
+  const int64_t first = __shfl_sync(full, e0, 0);  // lane t's e0 is first + 16 t
+  const int q = (lane & 15) >> 2, sh = 8 * (lane & 3);
+#pragma unroll 4
+  for (int r = 0; r < 16; ++r) {
+    const int owner = 2 * r + (lane >> 4);
+    const uint32_t w0 = __shfl_sync(full, x.x, owner), w1 = __shfl_sync(full, x.y, owner);
+    const uint32_t w2 = __shfl_sync(full, x.z, owner), w3 = __shfl_sync(full, x.w, owner);
+    const uint32_t w = q == 0 ? w0 : q == 1 ? w1 : q == 2 ? w2 : w3;
+    const bool set = (w >> sh) & 0xFFu;
+    const unsigned m = __ballot_sync(full, set);
+    if (set) out[rank + __popc(m & below)] = (int32_t)(first + 32 * r + lane);
+    rank += __popc(m);
   }
-  if (threadIdx.x == 0 && count) *count = (int32_t)carry;
 }
 
 template <bool COMPACT>
 __global__ void __launch_bounds__(kScanThreads)
-    tile_scan_kernel(const int32_t* __restrict__ v, const uint8_t* __restrict__ flags, int64_t n,
-                     const uint32_t* __restrict__ sums, int32_t* __restrict__ out) {
-  __shared__ uint32_t ws[32];
-  __shared__ uint32_t total;
-  const int64_t base = (int64_t)blockIdx.x * kScanTile + (int64_t)threadIdx.x * kScanItems;
-  uint32_t x[kScanItems];
-  uint32_t s = 0;
+    scan_kernel(const uint8_t* __restrict__ base, int64_t off, int64_t n,
+                unsigned long long* __restrict__ scratch, int64_t ntiles,
+                int32_t* __restrict__ out, int32_t* __restrict__ count) {
+  __shared__ uint32_t wsum[33];
+  __shared__ int64_t slot;
+  constexpr int kTile = COMPACT ? kCompactTile : kScanTile;
+  constexpr int kPer = COMPACT ? 16 : 4;
+  unsigned long long* status = scratch + 1;
+  for (int64_t tile; (tile = next_tile(scratch, &slot, ntiles)) >= 0;) {
+    const int64_t k0 = tile * (kTile / kPer) + threadIdx.x;  // vector i: k0 + i * threads
+    uint4 x[kScanVecs];
+    uint32_t s[kScanVecs], ex[kScanVecs];
 #pragma unroll
-  for (int i = 0; i < kScanItems; ++i) {
-    x[i] = load_item<COMPACT>(v, flags, base + i, n);
-    s += x[i];
-  }
-  uint32_t run = sums[blockIdx.x] + block_scan_ex(s, ws, &total);
+    for (int i = 0; i < kScanVecs; ++i)
+      x[i] = load_vec<COMPACT ? 1 : 4>(base, k0 + i * kScanThreads, off, n);
 #pragma unroll
-  for (int i = 0; i < kScanItems; ++i) {
-    const int64_t e = base + i;
-    if (e < n) {
+    for (int i = 0; i < kScanVecs; ++i) {
       if (COMPACT) {
-        if (x[i]) out[run] = (int32_t)e;
+        s[i] = __popc(nonzero_bytes(x[i].x)) + __popc(nonzero_bytes(x[i].y)) +
+               __popc(nonzero_bytes(x[i].z)) + __popc(nonzero_bytes(x[i].w));
       } else {
-        out[e] = (int32_t)run;
+        s[i] = x[i].x + x[i].y + x[i].z + x[i].w;
       }
     }
-    run += x[i];
+    tile_scan<SumOp, kScanVecs>(s, ex, wsum, status, tile);
+    if (COMPACT && tile == ntiles - 1 && threadIdx.x == 0) *count = (int32_t)wsum[32];
+#pragma unroll
+    for (int i = 0; i < kScanVecs; ++i) {
+      const int64_t e0 = (k0 + i * kScanThreads) * kPer - off;  // the vector's first element
+      if (COMPACT) {
+        compact_row(x[i], ex[i], e0, out);
+      } else {
+        const uint32_t p0 = ex[i], p1 = p0 + x[i].x, p2 = p1 + x[i].y, p3 = p2 + x[i].z;
+        if (off == 0 && e0 + 4 <= n) {
+          *reinterpret_cast<int4*>(out + e0) = make_int4((int)p0, (int)p1, (int)p2, (int)p3);
+        } else {
+          const uint32_t p[4] = {p0, p1, p2, p3};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (e0 + j >= 0 && e0 + j < n) out[e0 + j] = (int32_t)p[j];
+        }
+      }
+    }
   }
+  if (!COMPACT) return;
+  // every tile is taken: wait for the total, then zero out[total, n) over
+  // the grid, 16-byte stores between the 4-element boundaries
+  __shared__ uint32_t total;
+  if (threadIdx.x == 0) {
+    unsigned long long st;
+    while (((st = load_status(status + ntiles - 1)) >> 32) != kStatusInclusive) {
+    }
+    total = (uint32_t)st;
+  }
+  __syncthreads();
+  const int64_t lo = total, lo4 = (lo + 3) & ~int64_t(3), hi4 = n & ~int64_t(3);
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  if (lo4 >= hi4) {
+    for (int64_t e = lo + tid; e < n; e += stride) out[e] = 0;
+    return;
+  }
+  if (tid < lo4 - lo) out[lo + tid] = 0;
+  if (tid < n - hi4) out[hi4 + tid] = 0;
+  for (int64_t v = lo4 / 4 + tid; v < hi4 / 4; v += stride)
+    reinterpret_cast<int4*>(out)[v] = make_int4(0, 0, 0, 0);
 }
 
 template <bool COMPACT>
-cudaError_t launch_scan(const int32_t* v, const uint8_t* flags, int64_t n, uint32_t* sums,
-                        int32_t* out, int32_t* count, cudaStream_t stream) {
-  const int64_t nb = (n + kScanTile - 1) / kScanTile;
-  tile_sums_kernel<COMPACT><<<(unsigned)nb, kScanThreads, 0, stream>>>(v, flags, n, sums);
-  cudaError_t err = cudaGetLastError();
+int64_t tiles_of(const void* in, int64_t n) {
+  constexpr int kTile = COMPACT ? kCompactTile : kScanTile;
+  const int64_t off = ((uintptr_t)in & 15) / (COMPACT ? 1 : 4);
+  return (n + off + kTile - 1) / kTile;
+}
+
+template <bool COMPACT>
+cudaError_t launch_scan(const void* in, int64_t n, unsigned long long* scratch, int32_t* out,
+                        int32_t* count, cudaStream_t stream) {
+  static int per_sm = 0;
+  const int64_t ntiles = tiles_of<COMPACT>(in, n);
+  int64_t blocks = 0;
+  cudaError_t err = card_blocks(scan_kernel<COMPACT>, kScanThreads, &per_sm, &blocks);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) * (ntiles + 1), stream);
   if (err != cudaSuccess) return err;
-  scan_sums_kernel<<<1, kScanThreads, 0, stream>>>(sums, nb, count);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  tile_scan_kernel<COMPACT><<<(unsigned)nb, kScanThreads, 0, stream>>>(v, flags, n, sums, out);
+  if (blocks > ntiles) blocks = ntiles;
+  const uint8_t* base = (const uint8_t*)((uintptr_t)in & ~(uintptr_t)15);
+  const int64_t off = ((const uint8_t*)in - base) / (COMPACT ? 1 : 4);
+  scan_kernel<COMPACT><<<(unsigned)blocks, kScanThreads, 0, stream>>>(base, off, n, scratch,
+                                                                       ntiles, out, count);
   return cudaGetLastError();
 }
 
 }  // namespace sshash
 
-// Tile sums scratch: one u32 per 4096 elements.
-extern "C" int64_t sshash_scan_scratch(int64_t n) {
-  return (n + sshash::kScanTile - 1) / sshash::kScanTile;
+// Scratch of a call on n elements: u64 words, the most any start address
+// needs (the tile counter, then one status word a tile).
+extern "C" int64_t sshash_scan_scratch(int64_t n, int64_t compact) {
+  const int64_t tile = compact ? sshash::kCompactTile : sshash::kScanTile;
+  return 1 + (n + 15 + tile - 1) / tile;
 }
 
-// C entry for ctypes: out[i] = v[0] + ... + v[i-1] (mod 2^32), int32 (n,).
-// Returns the last launch's cudaError_t (0 on success).
-extern "C" int sshash_scan(const void* v, int64_t n, void* sums, void* out, void* stream) {
+// C entry for ctypes: out[i] = v[0] + ... + v[i-1] (mod 2^32), int32 (n,);
+// out starts 16-byte aligned. Returns the first CUDA error (0 on success).
+extern "C" int sshash_scan(const void* v, int64_t n, void* scratch, void* out, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  return (int)sshash::launch_scan<false>((const int32_t*)v, nullptr, n, (uint32_t*)sums,
-                                         (int32_t*)out, nullptr, (cudaStream_t)stream);
+  return (int)sshash::launch_scan<false>(v, n, (unsigned long long*)scratch, (int32_t*)out,
+                                         nullptr, (cudaStream_t)stream);
 }
 
 // C entry for ctypes: idx[rank] = i for every i with flags[i] != 0 (uint8
-// (n,)), in order; *count = the number of flags set. idx positions past the
-// count are left as they were. Returns the last launch's cudaError_t.
-extern "C" int sshash_compact(const void* flags, int64_t n, void* sums, void* idx, void* count,
+// (n,)), in order, and idx[*count:] = 0; *count = the number of flags set.
+// idx starts 16-byte aligned. Returns the first CUDA error.
+extern "C" int sshash_compact(const void* flags, int64_t n, void* scratch, void* idx, void* count,
                               void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  return (int)sshash::launch_scan<true>(nullptr, (const uint8_t*)flags, n, (uint32_t*)sums,
-                                        (int32_t*)idx, (int32_t*)count, (cudaStream_t)stream);
+  return (int)sshash::launch_scan<true>(flags, n, (unsigned long long*)scratch, (int32_t*)idx,
+                                        (int32_t*)count, (cudaStream_t)stream);
 }

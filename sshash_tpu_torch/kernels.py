@@ -60,13 +60,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("minimizer.cu", "probe.cu", "access.cu", "iterator.cu", "weight.cu",
            "neighbours.cu", "scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu",
            "check.cu", "read_at2.cu")
-HEADERS = ("minimizer.cuh", "packed.cuh", "stage.cuh", "tables.cuh", "u64.cuh")
+HEADERS = ("minimizer.cuh", "packed.cuh", "scan.cuh", "stage.cuh", "tables.cuh", "u64.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sshash_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 # an unsharded access: every id block and string word
 WHOLE_ACCESS = AccessShard(0, 1 << 32, 0, 1 << 32)
+# the single-pass scans' tiles (csrc/scan.cu, stream_derive.cu): int32
+# elements of a scan tile, flags of a compaction tile, ranks of a round-2
+# tile
+SCAN_TILE, COMPACT_TILE, ROUND2_TILE = 4096, 16384, 8192
 
 _lib = None
 # debug.debug_mode: wait for every launch and raise on any CUDA error
@@ -205,8 +209,10 @@ def library():
         lib.sshash_iterate.argtypes = [p, i64, p, i64, i64, p, p]
         lib.sshash_weight.argtypes = [p, i64, p, i64, p, i64, p, i64, i64, p, p]
         lib.sshash_neighbours.argtypes = [p, i64, i64, i64, p, p]
-        lib.sshash_scan_scratch.argtypes = [i64]
+        lib.sshash_scan_scratch.argtypes = [i64, i64]
         lib.sshash_scan_scratch.restype = i64
+        lib.sshash_round2_scratch.argtypes = [i64]
+        lib.sshash_round2_scratch.restype = i64
         lib.sshash_scan.argtypes = [p, i64, p, p, p]
         lib.sshash_compact.argtypes = [p, i64, p, p, p, p]
         lib.sshash_stream_masks.argtypes = [p, p, p, i64, i64, p, p, p, p]
@@ -595,8 +601,11 @@ def neighbours_kernel(kmers32, k):
 neighbours_kernel.launches = 0
 
 
-def _scratch_sums(n, dev):
-    return torch.empty(max(1, library().sshash_scan_scratch(n)), dtype=torch.int32, device=dev)
+def _scan_scratch(n, compact, dev):
+    """The single-pass scan's tile counter and status words (u64), zeroed by
+    the C entry."""
+    return torch.empty(library().sshash_scan_scratch(n, int(compact)), dtype=torch.int64,
+                       device=dev)
 
 
 def _vec(t, name, dtype):
@@ -610,8 +619,10 @@ def scan_kernel(v):
     """Exclusive scan of (B,) int32 (u32 sums, wrapping) -> (B,) int32. Same
     contract as ops.packed.prefix_sum_ex."""
     n = _vec(v, "v", torch.int32)
-    out = torch.empty_like(v)
-    err = library().sshash_scan(v.data_ptr(), n, _scratch_sums(n, v.device).data_ptr(),
+    out = torch.empty(n, dtype=torch.int32, device=v.device)
+    if n == 0:
+        return out
+    err = library().sshash_scan(v.data_ptr(), n, _scan_scratch(n, False, v.device).data_ptr(),
                                 out.data_ptr(), _stream(v.device))
     _raise_on(err, "scan_kernel")
     scan_kernel.launches += 1
@@ -627,9 +638,13 @@ def compact_kernel(flags):
     ops.packed.compact_plain."""
     n = _vec(flags, "flags", torch.uint8)
     dev = flags.device
-    idx = torch.zeros(n, dtype=torch.int32, device=dev)
-    count = torch.zeros(1, dtype=torch.int32, device=dev)
-    err = library().sshash_compact(flags.data_ptr(), n, _scratch_sums(n, dev).data_ptr(),
+    if n == 0:
+        return (torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+    # the kernel writes every position: the lanes, the zeros past them, the count
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    count = torch.empty(1, dtype=torch.int32, device=dev)
+    err = library().sshash_compact(flags.data_ptr(), n, _scan_scratch(n, True, dev).data_ptr(),
                                    idx.data_ptr(), count.data_ptr(), _stream(dev))
     _raise_on(err, "compact_kernel")
     compact_kernel.launches += 1
@@ -777,8 +792,20 @@ def stream_swin_kernel(aoff, aori, strings32, k, words):
 stream_swin_kernel.launches = 0
 
 
+def _rank_space(P):
+    """The rank-space stages take P a multiple of 32 (the step's chunk)."""
+    if P % 32 or P <= 0 or P >= 1 << 30:
+        raise ValueError(f"P={P} must be a positive multiple of 32 below 2^30")
+
+
+def _aligned(t, name):
+    """A flag array read or written with 16-byte vectors."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start 16-byte aligned")
+
+
 def stream_heads_kernel(mv_f, mv_r, lanes, count, fbits, gate):
-    """Run-skip heads in rank space -> (P,) uint8. Same contract as
+    """Run-skip heads in rank space -> (P,) bool. Same contract as
     streaming.stream_heads_plain."""
     P = _vec(lanes, "lanes", torch.int32)
     dev = lanes.device
@@ -786,7 +813,8 @@ def stream_heads_kernel(mv_f, mv_r, lanes, count, fbits, gate):
     _check(mv_r, "mv_r", torch.int64, (P,))
     _scalar(count, "count")
     _check(fbits, "fbits", torch.int32, (P // 32 + 1,))
-    head = torch.empty(P, dtype=torch.uint8, device=dev)
+    _rank_space(P)
+    head = torch.empty(P, dtype=torch.bool, device=dev)
     err = library().sshash_stream_heads(mv_f.data_ptr(), mv_r.data_ptr(), lanes.data_ptr(),
                                         count.data_ptr(), fbits.data_ptr(), P, int(gate),
                                         head.data_ptr(), _stream(dev))
@@ -798,19 +826,24 @@ def stream_heads_kernel(mv_f, mv_r, lanes, count, fbits, gate):
 stream_heads_kernel.launches = 0
 
 
-def stream_round2_kernel(head, hs, mf, count):
-    """Second-round lanes in rank space -> (P,) uint8. Same contract as
-    streaming.stream_round2_plain."""
-    P = _vec(head, "head", torch.uint8)
+def stream_round2_kernel(head, found, minimizer_found, count):
+    """Second-round lanes in rank space -> (P,) bool, from the heads and
+    the first round's found and minimizer_found (bool (P,)). Same contract
+    as streaming.stream_round2_plain."""
+    P = _vec(head, "head", torch.bool)
     dev = head.device
-    _check(hs, "hs", torch.int32, (P,))
-    _check(mf, "mf", torch.uint8, (P,))
+    _check(found, "found", torch.bool, (P,))
+    _check(minimizer_found, "minimizer_found", torch.bool, (P,))
     _scalar(count, "count")
-    head_mf = torch.zeros(P + 1, dtype=torch.uint8, device=dev)
-    out = torch.empty(P, dtype=torch.uint8, device=dev)
-    err = library().sshash_stream_round2(head.data_ptr(), hs.data_ptr(), mf.data_ptr(),
-                                         count.data_ptr(), P, head_mf.data_ptr(),
-                                         out.data_ptr(), _stream(dev))
+    _rank_space(P)
+    for t, name in ((head, "head"), (found, "found"), (minimizer_found, "minimizer_found")):
+        _aligned(t, name)
+    lib = library()
+    scratch = torch.empty(lib.sshash_round2_scratch(P), dtype=torch.int64, device=dev)
+    out = torch.empty(P, dtype=torch.bool, device=dev)
+    err = lib.sshash_stream_round2(head.data_ptr(), found.data_ptr(), minimizer_found.data_ptr(),
+                                   count.data_ptr(), P, scratch.data_ptr(), out.data_ptr(),
+                                   _stream(dev))
     _raise_on(err, "stream_round2_kernel")
     stream_round2_kernel.launches += 1
     return out
@@ -834,6 +867,7 @@ def stream_merge_kernel(lanes, count, r1, r2, state):
     fields = ("string_id", "kmer_id", "kmer_orientation")
     for r in (r1, r2):
         _check(r["found"], "found", torch.bool, (P,))
+        _aligned(r["found"], "found")
         for name in fields:
             _check(r[name], name, torch.int32, (P,))
     _check(state["found"], "found", torch.uint8, (P,))
@@ -861,7 +895,7 @@ def stream_count_kernel(state, valid_bits, fbits, count):
     _check(valid_bits, "valid_bits", torch.int32, (P // 32 + 1,))
     _check(fbits, "fbits", torch.int32, (P // 32 + 1,))
     _scalar(count, "count")
-    out = torch.zeros((3, 4), dtype=torch.int32, device=dev)
+    out = torch.empty((3, 4), dtype=torch.int32, device=dev)  # zeroed by the C entry
     err = library().sshash_stream_count(
         state["found"].data_ptr(), state["string_id"].data_ptr(), state["kmer_id"].data_ptr(),
         state["kmer_orientation"].data_ptr(), valid_bits.data_ptr(), fbits.data_ptr(),

@@ -35,8 +35,9 @@ derive_full by miss counts for the TPU's sake; here one path runs:
      kmers read and run through kernel 1 once; the negative-minimizer
      run-skip (JAX's gate: more than P/64 misses) marks run heads from
      kernel 1's (mv_f, mv_r) pairs; the heads are probed, then the run
-     members whose head found its minimizer (kernel 2, given kernel 1's
-     outputs); results scatter back;
+     members whose head found its minimizer (each rank's run head carried
+     forward in one pass; kernel 2, given kernel 1's outputs); results
+     scatter back;
   5. count: one P-wide adjacency pass gives the counters, lane 0 and the
      last lane.
 
@@ -502,10 +503,11 @@ def stream_heads_plain(mv_f, mv_r, lanes, count, fbits, gate):
     count (lane lanes[j]) is a head unless the skip is on, the previous
     rank is the previous lane, neither strand's minimizer changed and the
     lane starts no read. gate: 1 on, 0 off, -1 JAX's gate (on iff count >
-    P/64). mv_f / mv_r int64 (P,) from kernel 1. Returns uint8 (P,)."""
+    P/64). mv_f / mv_r int64 (P,) from kernel 1. Returns bool (P,), the
+    lookup's active lanes."""
     P = lanes.shape[0]
     n = int(count[0])
-    head = torch.zeros(P, dtype=torch.uint8, device=lanes.device)
+    head = torch.zeros(P, dtype=torch.bool, device=lanes.device)
     on = n > P // 64 if gate < 0 else bool(gate)
     ln = lanes[:n].to(torch.int64)
     h = torch.ones(n, dtype=torch.bool, device=lanes.device)
@@ -513,7 +515,7 @@ def stream_heads_plain(mv_f, mv_r, lanes, count, fbits, gate):
         same = ((ln[1:] == ln[:-1] + 1) & (mv_f[1:n] == mv_f[: n - 1])
                 & (mv_r[1:n] == mv_r[: n - 1]) & ~_bit(fbits, ln[1:]))
         h[1:] = ~same
-    head[:n] = h.to(torch.uint8)
+    head[:n] = h
     return head
 
 
@@ -521,18 +523,21 @@ stream_heads = kernels.by_device(kernels.stream_heads_kernel, stream_heads_plain
                                  arg=2)
 
 
-def stream_round2_plain(head, hs, mf, count):
-    """Second-round lanes: rank j < count that is no head and whose run's
-    head (rank hs[j] - 1 among the heads, hs = exclusive scan of head)
-    found its kmer or its minimizer (mf uint8). Returns uint8 (P,)."""
+def stream_round2_plain(head, found, minimizer_found, count):
+    """Second-round lanes (streaming.py:541-545, 598-601 of the JAX package:
+    round2 = need & ~head & head_mf[seg]): rank j < count that is no head
+    and whose run head, the last head at or before j, found its kmer or
+    its minimizer in the first round (found, minimizer_found: bool (P,)).
+    Rank 0 is a head whenever count > 0 (stream_heads makes it one); a rank
+    before every head is not a round-2 lane. Returns bool (P,)."""
     P = head.shape[0]
     n = int(count[0])
-    hd = head[:n] != 0
-    head_mf = torch.zeros(P + 1, dtype=torch.bool, device=head.device)
-    head_mf[hs[:n].to(torch.int64)[hd]] = mf[:n][hd] != 0
-    out = torch.zeros(P, dtype=torch.uint8, device=head.device)
-    run = (hs[:n].to(torch.int64) - 1).clamp(min=0)
-    out[:n] = (~hd & head_mf[run]).to(torch.uint8)
+    hd = head[:n]
+    mf = found[:n] | minimizer_found[:n]
+    ranks = torch.arange(n, device=head.device)
+    run = torch.where(hd, ranks, -1).cummax(0).values
+    out = torch.zeros(P, dtype=torch.bool, device=head.device)
+    out[:n] = ~hd & (run >= 0) & mf[run.clamp(min=0)]
     return out
 
 
@@ -687,13 +692,12 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
         km = ops.kmers(words32, sbits, cum_g, k, P, lanes, n_need)
         mins = ops.minimizer(km, k, cfg.m, cfg.magic, both=True)
         head = ops.heads(mins[0], mins[3], lanes, n_need, fbits, gate)
-        r1 = lookup(tables, km, mins, head != 0)
-        mf = (r1["minimizer_found"] | r1["found"]).to(torch.uint8)
-        round2 = ops.round2(head, ops.scan(head.to(torch.int32)), mf, n_need)
-        r2 = lookup(tables, km, mins, round2 != 0)
+        r1 = lookup(tables, km, mins, head)
+        round2 = ops.round2(head, r1["found"], r1["minimizer_found"], n_need)
+        r2 = lookup(tables, km, mins, round2)
         state = ops.merge(lanes, n_need, r1, r2, state)
         if stats is not None:
-            stats.update(need=n_need[0], heads=(head != 0).sum(), round2=(round2 != 0).sum())
+            stats.update(need=n_need[0], heads=head.sum(), round2=round2.sum())
         return ops.count(state, valid_bits, fbits, count)
 
     return fn

@@ -465,6 +465,144 @@ def test_check_and_read_kernels_equal_plain_on_card(card, name):
         assert torch.equal(g, w)
 
 
+def _tile_sizes(tile):
+    return [1, tile - 1, tile, tile + 1, 37 * tile + 5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", _tile_sizes(kernels.SCAN_TILE))
+def test_scan_kernel_equals_plain_on_card(card, n):
+    """One-pass scan: sums that wrap 2^32, inputs that start 0-3 words off
+    16 bytes; calls on one scratch (the C entry's memset resets its tile
+    counter and status words between them) give each input's own sums."""
+    rng = np.random.default_rng(n)
+    v = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n + 3, dtype=np.int64)
+                         .astype(np.int32)).to(card)
+    before = kernels.counts()["scan_kernel"]
+    for lo in (0, 1, 2, 3):
+        x = v[lo:lo + n]
+        assert torch.equal(P.scan_ex(x), P.prefix_sum_ex(x)), lo
+    assert kernels.counts()["scan_kernel"] == before + 4
+    lib = kernels.library()
+    scratch = torch.empty(lib.sshash_scan_scratch(n, 0), dtype=torch.int64, device=card)
+    for rep in range(3):
+        x = v[rep:rep + n]
+        out = torch.empty(n, dtype=torch.int32, device=card)
+        assert lib.sshash_scan(x.data_ptr(), n, scratch.data_ptr(), out.data_ptr(),
+                               kernels._stream(card)) == 0
+        assert torch.equal(out, P.prefix_sum_ex(x)), rep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["random", "all", "none", "sparse"])
+@pytest.mark.parametrize("n", _tile_sizes(kernels.COMPACT_TILE))
+def test_compact_kernel_equals_plain_on_card(card, n, fill):
+    """One-pass compaction: any nonzero flag is set, the positions past the
+    count are zeros (the kernel fills them over memory that held other
+    values), flags that start 0-15 bytes off 16; repeated calls on one
+    scratch."""
+    rng = np.random.default_rng(n)
+    f = {"random": rng.integers(0, 256, n + 15) * (rng.random(n + 15) < 0.3),
+         "all": rng.integers(1, 256, n + 15), "none": np.zeros(n + 15),
+         "sparse": rng.random(n + 15) < 1e-4}[fill]
+    flags = torch.from_numpy(f.astype(np.uint8)).to(card)
+    lib = kernels.library()
+    scratch = torch.empty(lib.sshash_scan_scratch(n, 1), dtype=torch.int64, device=card)
+    for lo in (0, 1, 7, 15):
+        x = flags[lo:lo + n]
+        want = P.compact_plain(x)
+        got = P.compact(x)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), lo
+        idx = torch.full((n,), -1, dtype=torch.int32, device=card)
+        cnt = torch.full((1,), -1, dtype=torch.int32, device=card)
+        assert lib.sshash_compact(x.data_ptr(), n, scratch.data_ptr(), idx.data_ptr(),
+                                  cnt.data_ptr(), kernels._stream(card)) == 0
+        assert torch.equal(idx, want[0]) and torch.equal(cnt, want[1]), lo
+
+
+def _round2_case(case, Pn, rng):
+    """head, found, minimizer_found (bool (Pn,)) and the count: heads below
+    the count as stream_heads makes them (rank 0 whenever it is > 0),
+    other values past it."""
+    n = {"random": int(rng.integers(1, Pn)), "n0": 0, "n1": 1,
+         "mid_tile": 3 * kernels.ROUND2_TILE + 77}.get(case, Pn)
+    p = {"one_run": 0.0, "one_run_miss": 0.0, "all_heads": 1.1, "sparse": 1e-5}.get(case, 0.2)
+    head = rng.random(Pn) < p
+    head[n:] = rng.random(Pn - n) < 0.5
+    head[0] |= n > 0
+    found, mfound = rng.random(Pn) < 0.3, rng.random(Pn) < 0.5
+    if case.startswith("one_run"):
+        found[0], mfound[0] = False, case == "one_run"
+    return head, found, mfound, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "one_run", "one_run_miss", "n0", "n1", "nP",
+                                  "all_heads", "sparse", "mid_tile"])
+def test_round2_kernel_equals_plain_on_card(card, case):
+    """The copy-forward over 64 tiles: a run over every rank (its head
+    finding its minimizer and not), no ranks, one, every rank a head, runs
+    that span tiles; repeated calls on one scratch."""
+    Pn = 1 << 20
+    rng = np.random.default_rng(len(case))
+    head, found, mfound, n = (torch.from_numpy(x).to(card) if isinstance(x, np.ndarray) else x
+                              for x in _round2_case(case, Pn, rng))
+    count = torch.tensor([n], dtype=torch.int32, device=card)
+    want = ST.stream_round2_plain(head, found, mfound, count)
+    got = ST.stream_round2(head, found, mfound, count)
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    if case == "one_run":
+        assert int(got.sum()) == Pn - 1
+    lib = kernels.library()
+    scratch = torch.empty(lib.sshash_round2_scratch(Pn), dtype=torch.int64, device=card)
+    for shift in (0, 1, 2):
+        h = torch.roll(head, 16 * shift)
+        h[0] |= n > 0
+        out = torch.ones(Pn, dtype=torch.bool, device=card)
+        assert lib.sshash_stream_round2(h.data_ptr(), found.data_ptr(), mfound.data_ptr(),
+                                        count.data_ptr(), Pn, scratch.data_ptr(),
+                                        out.data_ptr(), kernels._stream(card)) == 0
+        assert torch.equal(out, ST.stream_round2_plain(h, found, mfound, count)), shift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [-1, 0, 1])
+def test_heads_and_count_kernels_equal_plain_on_card(card, gate):
+    """Heads over runs of equal minimizer pairs on consecutive lanes, at
+    counts around the gate's P/64, 0 and P; the count kernel at lane counts
+    that are no multiple of 16 and on fields that start off 16 bytes (a
+    sharded engine's rows), as well as the step's."""
+    Pn = 1 << 16
+    rng = np.random.default_rng(gate + 1)
+    # increasing lanes below P, mostly consecutive
+    lanes = (np.minimum(np.cumsum(1 + (rng.random(Pn) < 0.02)), Pn) - 1).astype(np.int32)
+    run = np.cumsum(rng.random(Pn) < 0.05)
+    mv = [torch.from_numpy(run * 7919 + k).to(card) for k in (1, 2)]
+    lt = torch.from_numpy(lanes).to(card)
+    fbits = torch.from_numpy(rng.integers(0, 1 << 32, Pn // 32 + 1, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32) & 0x01010101).to(card)
+    for n in (0, 1, Pn // 64, Pn // 64 + 1, Pn // 2 + 3, Pn):
+        count = torch.tensor([n], dtype=torch.int32, device=card)
+        got = ST.stream_heads(mv[0], mv[1], lt, count, fbits, gate)
+        want = ST.stream_heads_plain(mv[0], mv[1], lt, count, fbits, gate)
+        assert got.dtype == torch.bool and torch.equal(got, want), n
+    for L, off in ((Pn, 0), (Pn - 5, 0), (1000, 1), (17, 3), (1, 2)):
+        st = {"found": torch.from_numpy((rng.random(L + off) < 0.7).astype(np.uint8)).to(card)}
+        kid = np.cumsum(rng.integers(0, 2, L + off)).astype(np.int32)
+        st["kmer_id"] = torch.from_numpy(kid).to(card)
+        st["string_id"] = torch.from_numpy(kid // 50).to(card)
+        st["kmer_orientation"] = torch.from_numpy(
+            np.where(rng.random(L + off) < 0.9, 1, -1).astype(np.int32)).to(card)
+        st = {key: v[off:] for key, v in st.items()}
+        vb = torch.from_numpy(rng.integers(0, 1 << 32, L // 32 + 1, dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32) | 0x7FFFFFF7).to(card)
+        for cnt in (0, 1, L):
+            count = torch.tensor([cnt], dtype=torch.int32, device=card)
+            got = ST.stream_count(st, vb, fbits[: L // 32 + 1].contiguous(), count)
+            want = ST.stream_count_plain(st, vb, fbits[: L // 32 + 1].contiguous(), count)
+            assert torch.equal(got, want), (L, off, cnt)
+
+
 def test_wrappers_take_cuda_tensors_only():
     idx = synthetic.small_index("m9_c1")
     eng = TorchEngine(idx, "cpu")
@@ -499,6 +637,9 @@ def test_wrappers_take_cuda_tensors_only():
                                     torch.zeros(4, dtype=torch.int32), cfg.k, 4)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.stream_heads_kernel(mv, mv, mp, mp[:1], mp[:1], -1)
+    flags = torch.zeros(64, dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stream_round2_kernel(flags, flags, flags, mp[:1])
     with pytest.raises(ValueError, match="CUDA"):
         kernels.access_read_kernel(cfg, eng.tables, ids, AccessShard(0, 1, 0, 1))
     with pytest.raises(ValueError, match="CUDA"):
