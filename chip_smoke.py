@@ -13,7 +13,8 @@ line):
   2. build: one nvcc per csrc/ source, in parallel, for sm_90a (timed,
      registers per kernel, any spills; none allowed in the lookup kernel
      and the access kernel at widths 1..8, nor in the chain kernel, the
-     scan and compaction kernel or the derive kernels)
+     scan and compaction kernel, the derive kernels or the neighbours
+     kernel)
   3. kernel == plain on the card, exactly: kernel 1 at B = 2^20 for
      (k, m) in (31, 17), (31, 21), (63, 25), (65, 25), (127, 31), (129,
      31), (255, 31); on every small configuration of
@@ -61,7 +62,13 @@ line):
      kmers equals the oracle's Dictionary.kmer_neighbours on a 2^14 sample;
      weight of 2^23 ids on a weighted 5M build (weight runs as long as in
      the reference's E. coli Sakai example) equals index.weights; each
-     kernel equals its plain version on all lanes; times
+     kernel equals its plain version on all lanes; times (the variants
+     and the weight replay from a CUDA graph; the weight beside
+     searchsorted and two index_selects, its library row); the weight
+     kernel on synthetic tables of 2^20 and 2^22 runs over ids below
+     2^31 - 1, past its staged sample (both levels of its search), equal
+     to its plain version on 2^23 random ids, every endpoint and every
+     endpoint - 1, unsharded and on one shard of 4, and timed
   9. access and iteration at 100M kmers, on phase 7's index: 2^24 ids,
      access/lookup round trip on every lane, a 2^20 oracle sample, count
      equals num_kmers, kernel == plain; times; the 32-byte sectors the
@@ -183,7 +190,7 @@ from sshash_tpu_torch.ops import packed as P  # noqa: E402
 from sshash_tpu_torch.ops import u64 as u  # noqa: E402
 from sshash_tpu_torch.parallel import (DistMesh, LocalMesh, ShardedEngine,  # noqa: E402
                                        ShardedStream)
-from sshash_tpu_torch.parallel.sharded import _pack, _unpack  # noqa: E402
+from sshash_tpu_torch.parallel.sharded import _pack, _unpack, split_weight_runs  # noqa: E402
 
 INVALID = np.uint64(2 ** 64 - 1)
 REPS = 7
@@ -418,7 +425,9 @@ NO_SPILL = {"lookup_kernel at widths 1..8": (r"13lookup_kernelILi[1-8]E", 32),
             "heads_kernel": (r"12heads_kernelE", 1),
             "round2_kernel": (r"13round2_kernelE", 1),
             "merge_kernel": (r"12merge_kernelE", 1),
-            "count_kernel (vector, lane by lane)": (r"12count_kernelILb[01]E", 2)}
+            "count_kernel (vector, lane by lane)": (r"12count_kernelILb[01]E", 2),
+            "neighbours kernels (a word, four words a thread)":
+                (r"(17neighbours_kernel|22neighbours_vec4_kernel)E", 2)}
 
 
 def phase_card():
@@ -1007,7 +1016,7 @@ def phase_point_queries(dev, built, errs):
                    lambda: eng.kmer_neighbours_device(kt), lambda: plain_nav(eng.tables, kt))
         per_kernel["neighbours_kernel"] = time_turns(
             mode, "neighbour variants alone", NAV_B, lambda: P.neighbour_variants(kt, idx.k),
-            lambda: P.neighbour_variants_plain(kt, idx.k))
+            lambda: P.neighbour_variants_plain(kt, idx.k), graph=("kernel",))
     idx, host = build("weighted regular", k=31, m=17, canonical=False, num_strings=MAIN_STRINGS,
                       string_len=STRING_LEN, seed=41, threads=8,
                       weights=synthetic.ECOLI_SAKAI_MEAN_RUN)
@@ -1029,12 +1038,83 @@ def phase_point_queries(dev, built, errs):
     require(err == 0, "weight kernel != plain")
     log(f"  weighted: weight of {MAIN_B} ids equals index.weights on every lane "
         f"(uint64 through TorchEngine.weight on {SAMPLE}); kernel == plain")
-    per_kernel["weight_kernel"] = time_turns("weighted", "weight", MAIN_B,
-                                             lambda: eng.weight_device(it),
-                                             lambda: E.weight_plain(eng.tables, it))
+    log_weight_plan("weighted", eng.tables)
+    require(torch.equal(weight_library(eng.tables, it), w), "weighted: the library call != weight")
+    per_kernel["weight_kernel"] = time_sides(
+        "weighted", "weight", MAIN_B, {"kernel": lambda: eng.weight_device(it),
+                                       "plain": lambda: E.weight_plain(eng.tables, it),
+                                       "library": lambda: weight_library(eng.tables, it)},
+        graph=("kernel", "library"))
     # ids in, weights out, the weight tables read once
     per_kernel["weight_kernel"]["bytes"] = MAIN_B * 8 + eng.table_bytes()["weight"]
+    weight_past_stage(dev, rng, errs)
     return launches, per_kernel, (idx, eng)
+
+
+def weight_library(t, ids):
+    """The weight as PyTorch calls (the yardstick of the kernels line's
+    weight row; the port never calls it): searchsorted(right) over the
+    endpoints, then two index_selects. Int32 compares signed, so it holds
+    for tables and ids below 2^31, and ids below the last endpoint."""
+    run = torch.searchsorted(t["w_endpoints"], ids, right=True).sub_(1).clamp_(min=0)
+    return t["w_dictionary"].index_select(0, t["w_value_ids"].index_select(0, run))
+
+
+def log_weight_plan(tag, t):
+    n_ep, n_runs = t["w_endpoints"].shape[0], t["w_value_ids"].shape[0]
+    p = kernels.weight_plan(n_ep, n_runs)
+    log(f"  {tag}: weight plan at {n_ep} endpoints: sample stride {p['s']}, {p['ns']} entries "
+        f"in {p['nb']} buckets, value ids "
+        f"{'staged' if p['stage_vids'] else 'in global memory'}, {p['smem']} bytes of shared "
+        f"memory a block, {p['per_sm']} blocks of 512 an SM")
+    return p
+
+
+# weight tables past the staged sample (fewer than kernels.WEIGHT_SAMPLE
+# entries): runs over [0, 2^31 - 1), so that both levels of the search run
+WEIGHT_PAST_RUNS = (1 << 20, 1 << 22)
+WEIGHT_SPAN = (1 << 31) - 1
+
+
+def weight_past_stage(dev, rng, errs):
+    """The weight kernel on synthetic tables of 2^20 and 2^22 runs (no index
+    build: the kernel takes raw tables), unsharded and on one shard of 4:
+    equal to weight_plain on MAIN_B random ids, on every endpoint and on
+    every endpoint - 1; then timed against its plain version, the library
+    call and its bound."""
+    ids = id_tensor(rng.integers(0, WEIGHT_SPAN, MAIN_B), dev)
+    for n_runs in WEIGHT_PAST_RUNS:
+        tag = f"weight, {n_runs} runs"
+        host = synthetic.weight_tables(n_runs, WEIGHT_SPAN, rng)
+        t = {key: id_tensor(v, dev) for key, v in host.items()}
+        eps, vids = split_weight_runs(host["w_endpoints"], host["w_value_ids"], 4)
+        n_ep, n_iv = len(eps) // 4, len(vids) // 4
+        shard = {"w_endpoints": id_tensor(eps[n_ep: 2 * n_ep], dev),
+                 "w_value_ids": id_tensor(vids[n_iv: 2 * n_iv], dev),
+                 "w_dictionary": t["w_dictionary"]}
+        ep = t["w_endpoints"]
+        edges = torch.cat([ids, ep, ep - 1])
+        for owned, tab in ((False, t), (True, shard)):
+            err = max_abs_err([E.weight(tab, edges, owned=owned)],
+                              [E.weight_plain(tab, edges, owned=owned)])
+            errs["weight_kernel"] = max(errs["weight_kernel"], err)
+            require(err == 0, f"{tag}: weight kernel != plain (owned={owned})")
+        w = E.weight(t, ids)
+        require(torch.equal(weight_library(t, ids), w), f"{tag}: the library call != weight")
+        p = log_weight_plan(tag, t)
+        require(p["s"] > 1, f"{tag}: the table fits the sample, one level searched")
+        log(f"  {tag}: kernel == plain on {MAIN_B} random ids, every endpoint and every "
+            f"endpoint - 1, unsharded and on shard 1 of 4 ({shard['w_endpoints'].shape[0]} "
+            f"endpoints)")
+        ms = time_sides(tag, "weight", MAIN_B,
+                        {"kernel": lambda: E.weight(t, ids),
+                         "plain": lambda: E.weight_plain(t, ids),
+                         "library": lambda: weight_library(t, ids)},
+                        graph=("kernel", "library"))
+        b = bound(MAIN_B * 8 + sum(v.numel() * 4 for v in t.values()))
+        log(f"  {tag}: kernel {ms['kernel']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+            f"{b[0] / ms['kernel']:.0%} of it; library {ms['library']:.4f} ms")
+        del t, shard, edges, w
 
 
 def phase_scale_point_queries(idx, eng, errs):
@@ -2223,7 +2303,7 @@ def phase_wide(dev, tmp, errs, k31):
             sum(eng.tables[x].numel() * 4 for x in ("strings32", "vstart32")) + 8)}
         nb = time_turns(t, "neighbour variants alone", NAV_B,
                         lambda: P.neighbour_variants(kn, idx.k),
-                        lambda: P.neighbour_variants_plain(kn, idx.k))
+                        lambda: P.neighbour_variants_plain(kn, idx.k), graph=("kernel",))
         times["neighbours_wide"] = {**nb, "bound": bound(NAV_B * 9 * 4 * cfg.W)}
         for name in ("access_wide", "iterator_wide", "neighbours_wide"):
             werrs[name] = errs[WIDE_ROWS[name][2]]

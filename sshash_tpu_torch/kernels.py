@@ -9,12 +9,14 @@ scan, stream_anchor, stream_chain and stream_derive the stream step; check
 the sanitizer's postconditions (debug.py) and read_at2 the read over the
 interleaved (NW, 2) table (ops/packed.read_kmers_at2). A source may hold
 several wrappers, each with its own count; SOURCE_KERNELS maps them. The
-sources that take kmers are templates on the kmer's width in u32 words:
-1..8 one by one, and one runtime-width form for 9..16 (k <= 255,
-layout.MAX_K). Kernel 2, access, weight and the chain also serve the
-shards of the bucket-sharded engine (parallel/): each takes its shard's
-range, and access_read and stream_swin are the second round and the
-window read that its split tables need.
+sources that hold a kmer a thread are templates on the kmer's width in
+u32 words: 1..8 one by one, and one runtime-width form for 9..16 (k <=
+255, layout.MAX_K); the neighbours kernels take four output words a
+thread (one where B*W is not a multiple of 4) and have none. Kernel 2,
+access, weight and the chain also serve the shards of the
+bucket-sharded engine (parallel/): each takes its shard's range, and
+access_read and stream_swin are the second round and the window read
+that its split tables need.
 
 The sources compile with nvcc for sm_90a, one nvcc process per source, all
 started together, and link into one shared library with a plain C
@@ -71,6 +73,9 @@ WHOLE_ACCESS = AccessShard(0, 1 << 32, 0, 1 << 32)
 # elements of a scan tile, flags of a compaction tile, ranks of a round-2
 # tile
 SCAN_TILE, COMPACT_TILE, ROUND2_TILE = 4096, 16384, 8192
+# the weight kernel's staged sample (csrc/weight.cu kWeightSample): its
+# stride s is the smallest power of two that leaves fewer entries
+WEIGHT_SAMPLE = 16384
 
 _lib = None
 # debug.debug_mode: wait for every launch and raise on any CUDA error
@@ -208,6 +213,7 @@ def library():
                                                ctypes.POINTER(ctypes.c_int)]
         lib.sshash_iterate.argtypes = [p, i64, p, i64, i64, p, p]
         lib.sshash_weight.argtypes = [p, i64, p, i64, p, i64, p, i64, i64, p, p]
+        lib.sshash_weight_plan.argtypes = [i64, i64, ctypes.POINTER(ctypes.c_int64)]
         lib.sshash_neighbours.argtypes = [p, i64, i64, i64, p, p]
         lib.sshash_scan_scratch.argtypes = [i64, i64]
         lib.sshash_scan_scratch.restype = i64
@@ -227,7 +233,7 @@ def library():
         lib.sshash_read_at2.argtypes = [p, i64, p, i64, i64, p, p, p]
         lib.sshash_last_error.argtypes = []
         for name in ("sshash_access", "sshash_access_occupancy", "sshash_chain_occupancy",
-                     "sshash_iterate", "sshash_weight", "sshash_neighbours",
+                     "sshash_iterate", "sshash_weight", "sshash_weight_plan", "sshash_neighbours",
                      "sshash_scan", "sshash_compact", "sshash_stream_masks",
                      "sshash_stream_kmers", "sshash_stream_chain", "sshash_stream_swin",
                      "sshash_stream_heads", "sshash_stream_round2", "sshash_stream_merge",
@@ -580,6 +586,16 @@ def weight_kernel(tables, ids, owned=False):
 
 
 weight_kernel.launches = 0
+
+
+def weight_plan(n_ep, n_runs):
+    """The weight kernel's search on a table of n_ep endpoints and n_runs
+    runs: {s: the sample's stride, ns: its entries, nb: its buckets,
+    stage_vids: the value ids staged too, smem: shared memory a block
+    (bytes), per_sm: blocks resident on one SM}. Needs the card."""
+    out = (ctypes.c_int64 * 6)()
+    _raise_on(library().sshash_weight_plan(n_ep, n_runs, out), "weight_plan")
+    return dict(zip(("s", "ns", "nb", "stage_vids", "smem", "per_sm"), out))
 
 
 def neighbours_kernel(kmers32, k):

@@ -149,18 +149,8 @@ def shard_tables(host, cfg, nb):
     acc_pad[: len(acc)] = acc
     sharded["acc_rows"] = acc_pad
     if "w_endpoints" in host:
-        ep = host["w_endpoints"]
-        n_iv = len(ep) - 1
-        per_iv = max(1, -(-n_iv // nb))
-        eps, vids = [], []
-        for j in range(nb):
-            lo, hi = j * per_iv, min(n_iv, (j + 1) * per_iv)
-            e = ep[lo: hi + 1] if hi > lo else np.array([ep[-1]], ep.dtype)
-            eps.append(np.pad(e, (0, per_iv + 1 - len(e)), constant_values=ep[-1]))
-            v = host["w_value_ids"][lo:hi]
-            vids.append(np.pad(v, (0, per_iv - len(v))))
-        sharded["w_endpoints"] = np.concatenate(eps)
-        sharded["w_value_ids"] = np.concatenate(vids)
+        sharded["w_endpoints"], sharded["w_value_ids"] = split_weight_runs(
+            host["w_endpoints"], host["w_value_ids"], nb)
 
     shards = []
     for j in range(nb):
@@ -172,6 +162,24 @@ def shard_tables(host, cfg, nb):
     geometry = {"per_shard": per_shard, "per_shard_hrows": per_hr, "per_shard_swords": per_sw,
                 "per_shard_blocks": per_blk}
     return shards, geometry
+
+
+def split_weight_runs(ep, value_ids, nb):
+    """The weight runs split by run into nb equal parts, as the JAX
+    ShardedEngine splits them: (endpoints, value ids), each nb parts end
+    to end. Part j holds its runs' endpoints (one more than its runs),
+    padded with the last endpoint, so an id outside [first, last) of the
+    part is not its own; an empty part is the last endpoint alone."""
+    n_iv = len(ep) - 1
+    per_iv = max(1, -(-n_iv // nb))
+    eps, vids = [], []
+    for j in range(nb):
+        lo, hi = j * per_iv, min(n_iv, (j + 1) * per_iv)
+        e = ep[lo: hi + 1] if hi > lo else np.array([ep[-1]], ep.dtype)
+        eps.append(np.pad(e, (0, per_iv + 1 - len(e)), constant_values=ep[-1]))
+        v = value_ids[lo:hi]
+        vids.append(np.pad(v, (0, per_iv - len(v))))
+    return np.concatenate(eps), np.concatenate(vids)
 
 
 def _pack(res):

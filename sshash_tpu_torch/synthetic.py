@@ -149,6 +149,26 @@ def weight_runs(n, rng, mean_run):
     return np.repeat(vals, lens)[:n]
 
 
+def weight_tables(n_runs, span, rng):
+    """The three weight tables of an index whose n_runs weight runs cover
+    ids [0, span), without building one: endpoints 0, n_runs - 1 distinct
+    random cuts and span (uint32[n_runs + 1]); Zipf(1.5) run values as
+    weight_runs draws them, kept as index.Weights keeps them (the sorted
+    distinct values, and each run's index into them). Returns a host dict
+    of uint32 arrays under the layout's names."""
+    if not 1 <= n_runs <= span < 1 << 32:
+        raise ValueError(f"{n_runs} runs cannot cover [0, {span})")
+    cuts = np.zeros(0, np.int64)
+    while len(cuts) < n_runs - 1:
+        cuts = np.unique(np.concatenate([cuts, rng.integers(1, span, n_runs + 16)]))
+    cuts = np.sort(rng.choice(cuts, n_runs - 1, replace=False))
+    ep = np.concatenate([[0], cuts, [span]]).astype(np.uint32)
+    vals = np.minimum(rng.zipf(1.5, n_runs), (1 << 32) - 1).astype(np.uint64)
+    dictionary, vids = np.unique(vals, return_inverse=True)
+    return {"w_endpoints": ep, "w_value_ids": vids.astype(np.uint32),
+            "w_dictionary": dictionary.astype(np.uint32)}
+
+
 def write_fasta(path, codes, k=None, weights=None):
     """One record per row of codes; with weights (one per kmer, string by
     string), weighted headers '>i LN:i:len ab:Z:w0 w1 ...'."""

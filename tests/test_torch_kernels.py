@@ -29,7 +29,7 @@ from sshash_tpu_torch.engine import canonical_fold, probe, probe_plain
 from sshash_tpu_torch.layout import AccessShard, ProbeShard
 from sshash_tpu_torch.ops import packed as P
 from sshash_tpu_torch.parallel import LocalMesh
-from sshash_tpu_torch.parallel.sharded import _pack, _unpack
+from sshash_tpu_torch.parallel.sharded import _pack, _unpack, split_weight_runs
 
 
 @pytest.fixture
@@ -427,6 +427,73 @@ def test_wide_minimizer_and_variants_equal_plain_on_card(card, k, m):
                                                                              both)):
             assert torch.equal(g, w)
     assert torch.equal(P.neighbour_variants(kt, k), P.neighbour_variants_plain(kt, k))
+
+
+# k = 16w - 1 and 16w at every width w of 1..16 u32 words (k <= 255)
+NEIGHBOUR_KS = [k for w in range(1, 17) for k in (16 * w - 1, 16 * w) if k <= 255]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3, 255, 257, 4099])
+@pytest.mark.parametrize("k", NEIGHBOUR_KS)
+def test_neighbours_kernel_equals_plain_at_every_width_on_card(card, k, B):
+    """The neighbours kernels (four output words a thread where B*W is a
+    multiple of 4, else one) at every width and at batch sizes around
+    their blocks of 256 threads."""
+    rng = np.random.default_rng(k * 10007 + B)
+    k32 = K.kmers_to_u32(synthetic.random_kmers(k, rng, B), k)
+    kt = torch.from_numpy(np.ascontiguousarray(k32).view(np.int32)).to(card)
+    got = P.neighbour_variants(kt, k)
+    assert got.shape == (8, B, (2 * k + 31) // 32)
+    assert torch.equal(got, P.neighbour_variants_plain(kt, k))
+
+
+def _weight_case(n_runs, card):
+    """Synthetic weight tables of n_runs runs, their 4 shards (the JAX
+    ShardedEngine's split) and ids at every endpoint, endpoint - 1 and + 1
+    and at random, all on the card."""
+    S = kernels.WEIGHT_SAMPLE
+    span = 1000 if n_runs < 4 else 5_000_000 if n_runs < S - 1 else 1 << 31
+    rng = np.random.default_rng(n_runs)
+    host = synthetic.weight_tables(n_runs, span, rng)
+    ep = host["w_endpoints"].astype(np.int64)
+    ids = np.concatenate([[0, 2 ** 31, 2 ** 32 - 2, 2 ** 32 - 1], ep, ep - 1, ep + 1,
+                          rng.integers(0, 2 ** 32, 5000)]) % 2 ** 32
+    on = lambda d: {key: torch.from_numpy(v.view(np.int32)).to(card)  # noqa: E731
+                    for key, v in d.items()}
+    eps, vids = split_weight_runs(host["w_endpoints"], host["w_value_ids"], 4)
+    parts = [on({"w_endpoints": eps[j * (len(eps) // 4): (j + 1) * (len(eps) // 4)].copy(),
+                 "w_value_ids": vids[j * (len(vids) // 4): (j + 1) * (len(vids) // 4)].copy(),
+                 "w_dictionary": host["w_dictionary"]}) for j in range(4)]
+    return on(host), parts, torch.from_numpy(ids.astype(np.uint32).view(np.int32)).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_runs", [1, 2, 4307, 16382, 16383, 16384, 1 << 20])
+def test_weight_kernel_equals_plain_on_card(card, n_runs):
+    """The weight kernel, unsharded and on each of 4 shards (owned), at run
+    counts around the staged sample's capacity (fewer than
+    kernels.WEIGHT_SAMPLE entries: the stride s goes from 1 to 2 at that
+    many endpoints) and past it; its plan is the smallest stride that
+    leaves fewer sample entries than that."""
+    t, parts, ids = _weight_case(n_runs, card)
+    assert torch.equal(E.weight(t, ids), E.weight_plain(t, ids))
+    # the unsigned max over the shards is the unsharded weight below the
+    # last endpoint
+    combined = torch.zeros(ids.shape[0], dtype=torch.int64, device=card)
+    for j, part in enumerate(parts):
+        got = E.weight(part, ids, owned=True)
+        assert torch.equal(got, E.weight_plain(part, ids, owned=True)), f"shard {j}"
+        combined = torch.maximum(combined, got.to(torch.int64) & 0xFFFFFFFF)
+    inside = (ids.to(torch.int64) & 0xFFFFFFFF) < int(t["w_endpoints"][-1]) & 0xFFFFFFFF
+    want = E.weight_plain(t, ids).to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(combined[inside], want[inside])
+    n_ep = t["w_endpoints"].shape[0]
+    plan = kernels.weight_plan(n_ep, n_runs)
+    S = kernels.WEIGHT_SAMPLE
+    assert plan["ns"] == -(-n_ep // plan["s"]) < S
+    assert plan["s"] == 1 or -(-n_ep // (plan["s"] // 2)) >= S
+    assert plan["nb"] >= min(plan["ns"], 8192) and plan["per_sm"] >= 1
 
 
 @pytest.mark.cuda

@@ -20,7 +20,7 @@ from sshash_tpu_torch.ops import packed as P
 from test_torch_host import jax_index
 
 
-@pytest.mark.parametrize("k", [15, 16, 31, 47, 63])
+@pytest.mark.parametrize("k", [15, 16, 31, 47, 63, 64, 65, 127, 129, 255])
 def test_variants_match_jax_ops(k):
     rng = np.random.default_rng(k)
     k32 = K.kmers_to_u32(synthetic.random_kmers(k, rng, 513), k)
