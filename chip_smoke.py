@@ -10,11 +10,11 @@ sanitizer (SSHASH_DEBUG) and read_kmers_at2, and check them end to end.
 Phases (each prints its lines; any failure exits non-zero before the last
 line):
   1. card: nvidia-smi name and power limit; no CUDA card -> exit 1
-  2. build: one nvcc per csrc/ source, in parallel, for sm_90a (timed,
-     registers per kernel, any spills; none allowed in the lookup kernel
-     and the access kernel at widths 1..8, nor in the chain kernel, the
-     scan and compaction kernel, the derive kernels or the neighbours
-     kernel)
+  2. build: one nvcc per csrc/ source, in parallel, for sm_90a (timed
+     per source, registers per kernel, any spills; none allowed in the
+     lookup kernel, the access kernel, kernel 1's rank form and the
+     rank-space lookup at widths 1..8, nor in the chain kernel, the scan
+     and compaction kernel, the derive kernels or the neighbours kernel)
   3. kernel == plain on the card, exactly: kernel 1 at B = 2^20 for
      (k, m) in (31, 17), (31, 21), (63, 25), (65, 25), (127, 31), (129,
      31), (255, 31); on every small configuration of
@@ -82,12 +82,17 @@ line):
      100M high-hit genome of 168 strings in chunks of 2^22. Each report
      equals the host _Batcher's (oracle lookups; at 100M on a 2^21-position
      prefix); each chunk's kernel step equals the plain step (the first at
-     100M); every stream kernel and kernels 1-2 launch, and the run-skip
-     skips lookups in the low-hit run; device and wall k-mers/s; each stream
-     stage timed against its plain version and its bound, with its count,
-     at the first low-hit chunk's shapes (the run-skip on, misses near P)
-     and the 100M chunk's (misses few), each source summed over the
-     latter; the chain kernel's occupancy
+     100M); every stream kernel, the lookup kernel (the anchors), kernel
+     1's rank form and the rank-space lookup (the misses) launch, the
+     P-wide kernel 1 and kernel 2 never, and the run-skip skips lookups in
+     the low-hit run; device and wall k-mers/s and the step's ms a chunk;
+     each stream stage, kernel 1's rank form and each round of the
+     rank-space lookup timed against its plain version and its bound (bytes
+     or integer operations at the chunk's count and active ranks), with
+     its count and a launch's floor, at the first low-hit chunk's shapes
+     (the run-skip on, misses near P) and the 100M chunk's (misses few),
+     each source summed over the latter, beside the step from a CUDA
+     graph; the chain kernel's occupancy
   Times are device times from CUDA events around windows of back-to-back
   calls, median of 7 windows after a warm-up; kernel and plain run in turns.
   A stream run's device time replays its chunks' steps from one CUDA graph,
@@ -127,8 +132,9 @@ line):
      (positives, tie lanes that hit and that miss, random kmers) equals
      the oracle in every field; access (2^23 ids), iteration and navigation
      (2^20 kmers) as in phase 8; on the canonical index a mixed-read stream
-     equals the host _Batcher, the (1, 4) LocalMesh lookup equals the
-     unsharded one, the SSHASH_DEBUG lookup (the check kernel, K13) passes
+     equals the host _Batcher, the (1, 4) LocalMesh lookup (the k65 path
+     of kernels 1-2 over all lanes) equals the unsharded one, the
+     SSHASH_DEBUG lookup (the check kernel, K13) passes
      and equals the unchecked one while num_kmers_bound=1 raises, and
      read_kmers_at2 (K7) at every positive's offset equals access; the
      lookup kernel == lookup_plain == the two-kernel form (both indexes);
@@ -139,9 +145,12 @@ line):
  14. one JSON line of per-source results (launches, max |err|, ms, plain ms,
      bound ms and what bounds it, library-call ms; kernel 2 once per
      variant: v1, v2 rows, legacy skew; the lookup kernel (phase 7, bound
-     by kernel 1's operations or the lookup's own bytes); the sharded rows of kernel 2,
-     access, weight and the chain; the wide forms' rows at k65), then the
-     ok line.
+     by kernel 1's operations or the lookup's own bytes); kernel 1's rank
+     form and the rank-space lookup (the 100M chunk, launches on the
+     stream paths); kernels 1-2 over all lanes counted on the sharded
+     paths, which alone launch them; the sharded rows of kernel 2, access,
+     weight and the chain; the wide forms' rows at k65), then the ok
+     line.
 
 Data is random, drawn from fixed seeds. Nothing here imports JAX or the
 JAX package (sshash_tpu): a finder refuses both.
@@ -427,7 +436,10 @@ NO_SPILL = {"lookup_kernel at widths 1..8": (r"13lookup_kernelILi[1-8]E", 32),
             "merge_kernel": (r"12merge_kernelE", 1),
             "count_kernel (vector, lane by lane)": (r"12count_kernelILb[01]E", 2),
             "neighbours kernels (a word, four words a thread)":
-                (r"(17neighbours_kernel|22neighbours_vec4_kernel)E", 2)}
+                (r"(17neighbours_kernel|22neighbours_vec4_kernel)E", 2),
+            "minimizer_ranks_kernel at widths 1..8": (r"22minimizer_ranks_kernelILi[1-8]E", 8),
+            # two modes; at widths 1..4 also the form that walks the windows
+            "lookup_ranks_kernel at widths 1..8": (r"19lookup_ranks_kernelILi[1-8]E", 24)}
 
 
 def phase_card():
@@ -1153,7 +1165,11 @@ SOURCES = {"minimizer.cu": "sshash_tpu/ops/packed.py:263",
            "stream_chain.cu": "sshash_tpu/streaming.py:390",
            "stream_derive.cu": "sshash_tpu/streaming.py:460",
            "check.cu": "sshash_tpu/debug.py:44",
-           "read_at2.cu": "sshash_tpu/ops/packed.py:33"}
+           "read_at2.cu": "sshash_tpu/ops/packed.py:33",
+           "lookup_ranks.cu": "sshash_tpu/streaming.py:551"}
+# kernel 1's rank form (minimizer.cu sshash_minimizer_ranks): the misses'
+# windows of streaming.py run_windows
+MINIMIZER_RANKS_REPLACES = "sshash_tpu/streaming.py:551"
 # the lookup kernel (probe.cu sshash_lookup): make_lookup.fn with _merge
 LOOKUP_REPLACES = "sshash_tpu/engine.py:1079"
 
@@ -1281,6 +1297,11 @@ def bound(nbytes, int_ops=0):
 
 
 STREAM_SOURCES = ("scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu")
+# the misses' rank-space kernels, timed as stages beside the stream sources:
+# kernel 1's rank form (its own row of the kernels line, in minimizer.cu) and
+# the rank-space lookup
+RANK_SOURCES = ("minimizer_ranks", "lookup_ranks.cu")
+RANK_WRAPPERS = ("minimizer_ranks_kernel", "lookup_ranks_kernel")
 # the unsharded stream's wrappers (the window read serves a bucket-sharded
 # stream only)
 STREAM_WRAPPERS = tuple(n for src in STREAM_SOURCES for n in kernels.SOURCE_KERNELS[src]
@@ -1317,13 +1338,39 @@ def _n(t):
 
 def _rows(name, args):
     """Rows of a stage's output that the step reads: a k-mer read of
-    compacted lanes, the run-skip heads and the round-2 lanes hold results
-    only below the misses' count (device count); None where all are."""
+    compacted lanes, the run-skip heads, the round-2 lanes, kernel 1's rank
+    form and the rank-space lookup hold results only below the misses'
+    count (device count); None where all are."""
     if name == "kmers":
         return _n(args[6]) if len(args) > 5 else None
     if name in ("heads", "round2"):
         return _n(args[3])
+    if name == "minimizer_ranks":
+        return _n(args[1])
+    if name == "lookup_ranks":
+        return _n(args[5])
     return None
+
+
+# the stages whose outputs are defined below the count only (the rest of
+# their rows are not written)
+COUNTED_ROWS = ("kmers", "minimizer_ranks", "lookup_ranks")
+
+
+def _active(args):
+    """The rank-space lookup's active ranks below the count."""
+    return args[4][: _n(args[5])].nonzero()[:, 0]
+
+
+def stage_ops(name, args):
+    """Integer operations a stage must do on this input: kernel 1's window
+    walk (MINIMIZER_OPS_PER_WINDOW a window of both strands) for every rank
+    below the count in its rank form; 0 for the byte-bound stages (the
+    rank-space lookup reads kernel 1's minimizers)."""
+    if name == "minimizer_ranks":
+        _, count, k, m, _ = args
+        return _n(count) * MINIMIZER_OPS_PER_WINDOW * (k - m + 1)
+    return 0
 
 
 def stage_bytes(name, args, out):
@@ -1376,6 +1423,21 @@ def stage_bytes(name, args, out):
     if name == "count":
         state, valid, fbits, count = args
         return sum(nb(state[f]) for f in ST.MERGE_FIELDS) + nb(valid) + nb(fbits) + 48
+    if name == "minimizer_ranks":
+        # per rank below the count: its kmer in, both strands' minimizers
+        # out (24 bytes); the count
+        return n * (4 * args[0].shape[1] + 24) + 4
+    if name == "lookup_ranks":
+        # the active ranks' lookup (probe_bytes of the lookup kernel: kmer
+        # in, table rows; its 10 bytes out a lane replaced by what the rank
+        # form writes) and their minimizers (24 bytes), and at every rank
+        # below the count its active flag in and the five stream fields out
+        # (14 bytes); the count
+        cfg, tables, km = args[:3]
+        kt = km[_active(args)]
+        rows = (probe_bytes(cfg, tables, kt, probe_args(cfg, kt, P.minimizer), fused=True)
+                + 14 * kt.shape[0]) if kt.shape[0] else 0
+        return rows + 15 * n + 4
     raise ValueError(name)
 
 
@@ -1416,25 +1478,26 @@ def time_stages(eng, packed, Pn, R, CW, av, errs, timed=True):
     chunk's shapes: outputs equal (max |err| per source) and, when timed,
     device ms of the kernel (from a CUDA graph), the plain version and the
     library call (summed over a source's calls), and the bound from the
-    bytes each call must move."""
+    bytes and the integer operations each call must move; beside kernel 1's
+    rank form, a launch's floor (that kernel on a count of 0)."""
     ops, calls = record_ops(ST.KERNEL_OPS)
     lookup = make_lookup(eng.cfg, "full")
     ST.make_stream_step(eng.cfg, Pn, R, CW, lookup, all_valid=av, ops=ops)(eng.tables, packed)
     src_of = {"scan": "scan.cu", "compact": "scan.cu", "masks": "stream_anchor.cu",
-              "kmers": "stream_anchor.cu", "chain": "stream_chain.cu"}
+              "kmers": "stream_anchor.cu", "chain": "stream_chain.cu",
+              "minimizer_ranks": "minimizer_ranks", "lookup_ranks": "lookup_ranks.cu"}
     per = {src: {"kernel": 0.0, "kernel10": 0.0, "plain": 0.0, "library": 0.0, "bytes": 0,
-                 "calls": 0} for src in STREAM_SOURCES}
+                 "ops": 0, "bound_ms": 0.0, "by": {"bytes": 0.0, "operations": 0.0},
+                 "calls": 0} for src in STREAM_SOURCES + RANK_SOURCES}
     for name, args, out in calls:
-        if name == "minimizer":
-            continue
         src = src_of.get(name, "stream_derive.cu")
         kern, plain = getattr(ST.KERNEL_OPS, name), getattr(ST.PLAIN_OPS, name)
         fresh = _clone_state if name == "merge" else list
-        got, want = kern(*fresh(args)), plain(*fresh(args))
-        if name == "kmers" and _rows(name, args) is not None:
+        got, want = _flat(kern(*fresh(args))), _flat(plain(*fresh(args)))
+        if name in COUNTED_ROWS and _rows(name, args) is not None:
             # the kernel leaves the rows past the count unwritten
-            got, want = got[:_rows(name, args)], want[:_rows(name, args)]
-        err = max_abs_err(_flat(got), _flat(want))
+            got, want = [g[:_rows(name, args)] for g in got], [w[:_rows(name, args)] for w in want]
+        err = max_abs_err(got, want)
         errs[src] = max(errs.get(src, 0), err)
         require(err == 0, f"stream stage {name}: kernel != plain")
         if not timed:
@@ -1447,12 +1510,23 @@ def time_stages(eng, packed, Pn, R, CW, av, errs, timed=True):
         ms, pms = graph_ms(lambda: kern(*a)), median_ms(lambda: plain(*a))
         # a call replayed alone pays the graph's launch: also 10 back to back
         ms10 = graph_ms(lambda: [kern(*a) for _ in range(10)]) / 10
-        nbytes = stage_bytes(name, args, out)
+        nbytes, n_ops = stage_bytes(name, args, out), stage_ops(name, args)
+        b_ms, b_by = bound(nbytes, n_ops)
         n = (_n(args[1]) if name == "merge" else _n(out[1]) if name == "compact"
              else _rows(name, args))
+        act = f", active {_active(args).numel()}" if name == "lookup_ranks" else ""
         log(f"  stage {name}: kernel {ms:.4f} ms (graph replay; {ms10:.4f} a call of 10 in one "
-            f"graph), plain {pms:.4f} ms, bound {nbytes / HBM_BPS * 1e3:.4f} ms ({nbytes} bytes)"
-            f"{'' if n is None else f', n {n}'}")
+            f"graph), plain {pms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} bytes, {n_ops} "
+            f"operations){'' if n is None else f', n {n}'}{act}")
+        if name == "minimizer_ranks":
+            # a launch's floor: the same kernel on a count of 0
+            zero = torch.zeros(1, dtype=torch.int32, device=args[1].device)
+            per[src]["floor"] = graph_ms(lambda: kern(args[0], zero, *args[2:]))
+            log(f"  a launch's floor (kernel 1's rank form on a count of 0, graph replay): "
+                f"{per[src]['floor']:.4f} ms")
+        per[src]["bound_ms"] += b_ms
+        per[src]["by"][b_by] += b_ms
+        per[src]["ops"] += n_ops
         per[src]["kernel"] += ms
         per[src]["kernel10"] += ms10
         per[src]["plain"] += pms
@@ -1464,22 +1538,23 @@ def time_stages(eng, packed, Pn, R, CW, av, errs, timed=True):
     for src, v in per.items():
         if not timed:
             break
-        v["bound_ms"] = v["bytes"] / HBM_BPS * 1e3
+        v["bound_by"] = max(v["by"], key=v["by"].get)
         log(f"  {src}: {v['calls']} calls, kernel {v['kernel']:.4f} ms ({v['kernel10']:.4f} at 10 "
             f"calls a graph), plain {v['plain']:.4f} ms, bound {v['bound_ms']:.4f} ms "
-            f"({v['bytes']} bytes)"
+            f"({v['bound_by']}: {v['bytes']} bytes, {v['ops']} operations)"
             f"{', library %.4f ms' % v['library'] if v['library'] else ''}")
     return per
 
 
 def stream_run(eng, path, multiline, chunk, tag, need_runskip=False, check_chunks=None):
     """Stream one file through the port: the step launches every stream
-    kernel, the lookup kernel (the anchors' lookup) and kernels 1-2 (the
-    missed lanes' lookups, given kernel 1's outputs; counts set to 0 just
-    before, read just after),
+    kernel, the lookup kernel (the anchors' lookup), kernel 1's rank form
+    and the rank-space lookup (the missed lanes), and neither the P-wide
+    kernel 1 nor kernel 2 (counts set to 0 just before, read just after);
     each checked chunk's kernel step equals the plain step on the card
-    (rows_equal), and device and wall rates. Returns (report, captured
-    chunks, launches, device ms of the resident steps)."""
+    (rows_equal); device and wall rates, and the step's device ms per
+    chunk. Returns (report, captured chunks, launches, device ms of the
+    resident steps, the stream)."""
     idx = eng.index
     stream = ST._DeviceStream(eng, idx.k, pmax=chunk, rmax_shift=12 if multiline else 4)
     stream.capture = []
@@ -1488,8 +1563,9 @@ def stream_run(eng, path, multiline, chunk, tag, need_runskip=False, check_chunk
         stream.add_read(seq)
     rep = stream.finalize()
     torch.cuda.synchronize()
-    c = path_counts(f"{tag} stream path", STREAM_WRAPPERS + ("minimizer_kernel", "probe_kernel",
-                                                              "lookup_kernel"))
+    c = path_counts(f"{tag} stream path", STREAM_WRAPPERS + RANK_WRAPPERS + ("lookup_kernel",))
+    require(c["probe_kernel"] == 0 and c["minimizer_kernel"] == 0,
+            f"{tag}: the unsharded stream launched a P-wide kernel 1 or kernel 2")
     chunks = stream.capture
     positions = rep["num_kmers"]
     Pn, R, CW = stream.P, stream.R, stream.CW
@@ -1513,7 +1589,8 @@ def stream_run(eng, path, multiline, chunk, tag, need_runskip=False, check_chunk
     log(f"  {tag}: {positions} positions in {len(chunks)} chunks of P={Pn} (R={R}); report {rep}; "
         f"kernel step == plain step on {checked} chunks; run-skip skipped {skipped} lookups")
     log(f"  {tag}: device {dev_ms:.4f} ms = {positions / dev_ms * 1e3:.4g} kmers/s (the steps on "
-        f"resident chunks, replayed from a CUDA graph); queued {queued_ms:.4f} ms = "
+        f"resident chunks, replayed from a CUDA graph; {dev_ms / len(chunks):.4f} ms a chunk); "
+        f"queued {queued_ms:.4f} ms = "
         f"{positions / queued_ms * 1e3:.4g} kmers/s (the same steps launched back to back from "
         f"the host: host-enqueue-bound); wall {wall['elapsed_millisec']:.1f} ms = "
         f"{positions / wall['elapsed_millisec'] * 1e3:.4g} kmers/s (parse, encode, upload, steps)")
@@ -1545,16 +1622,14 @@ def phase_streaming(dev, built, idx200, eng200, tmp, errs):
     reads = synthetic.with_n([reads[i] for i in rng.permutation(len(reads))], 0.01, rng)
     path = f"{tmp}/lowhit.fq"
     synthetic.write_reads(path, reads)
-    rep, chunks, c, dev_ms, stream = stream_run(eng, path, False, 1 << 22, "low-hit 5M regular",
+    rep, chunks, c, _, stream = stream_run(eng, path, False, 1 << 22, "low-hit 5M regular",
                                                 need_runskip=True)
     add_counts(launches, c)
     check_host(idx, rep, path, False, "low-hit 5M regular")
     log("  low-hit 5M regular, chunk 0 (the run-skip on, misses near P): the stages")
     av, packed = chunks[0]
     low = time_stages(eng, packed, stream.P, stream.R, stream.CW, av, errs)
-    log(f"  low-hit 5M regular, chunk 0: the four stream sources "
-        f"{sum(v['kernel'] for v in low.values()):.4f} ms of the step's "
-        f"{dev_ms / len(chunks):.4f} ms per chunk (graph replay, mean)")
+    log_step_split("low-hit 5M regular, chunk 0", low, eng, packed, stream, av)
     del chunks, stream
     read_sets = {"low-hit": ("regular", path, rep)}
     idx, eng = built["canonical"][:2]
@@ -1572,7 +1647,7 @@ def phase_streaming(dev, built, idx200, eng200, tmp, errs):
                                                          replace=False))
     path = f"{tmp}/genome200m.fa"
     synthetic.write_genome(path, strings, rng)
-    rep, chunks, c, dev_ms, stream = stream_run(eng200, path, True, 1 << 22,
+    rep, chunks, c, _, stream = stream_run(eng200, path, True, 1 << 22,
                                                 "high-hit 100M canonical", check_chunks=1)
     add_counts(launches, c)
     prefix = f"{tmp}/genome200m_prefix.fa"
@@ -1588,9 +1663,25 @@ def phase_streaming(dev, built, idx200, eng200, tmp, errs):
     blocks, threads = kernels.chain_occupancy()
     log(f"  chain_kernel occupancy: {blocks} blocks of {threads} threads an SM = "
         f"{blocks * threads / 2048:.0%} of the SM's 2048 threads (one thread a lane)")
-    log(f"  100M canonical, chunk 0: the four stream sources {sum(v['kernel'] for v in per.values()):.4f} ms "
-        f"of the step's {dev_ms / len(chunks):.4f} ms per chunk (graph replay, mean)")
+    log_step_split("100M canonical, chunk 0", per, eng200, packed, stream, av)
     return launches, per, read_sets
+
+
+def log_step_split(tag, per, eng, packed, stream, av):
+    """One chunk's step from a CUDA graph, beside the time of its stages:
+    the four stream sources, and the misses' kernel 1 rank form and
+    rank-space lookup, each summed over its calls (each replayed alone)."""
+    step = ST.make_stream_step(eng.cfg, stream.P, stream.R, stream.CW,
+                               make_lookup(eng.cfg, "full"), all_valid=av)
+    ms = graph_ms(lambda: step(eng.tables, packed))
+    srcs = sum(per[x]["kernel"] for x in STREAM_SOURCES)
+    k1, lk = per["minimizer_ranks"], per["lookup_ranks.cu"]
+    log(f"  {tag}: the step {ms:.4f} ms (graph replay); the four stream sources {srcs:.4f} ms, "
+        f"kernel 1's rank form {k1['kernel']:.4f} ms (floor {k1['floor']:.4f}), the rank-space "
+        f"lookup's two rounds {lk['kernel']:.4f} ms (bounds {k1['bound_ms']:.4f}, "
+        f"{lk['bound_ms']:.4f}); the rest (the anchors' lookup, gaps) "
+        f"{ms - srcs - k1['kernel'] - lk['kernel']:.4f} ms")
+    return ms
 
 
 def raises(fn, what):
@@ -1981,7 +2072,11 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
             f"lanes equals LocalMesh((1, 1)) in all {len(got)} fields and the report")
     finally:
         dist.destroy_process_group()
-    launches = {"probe_sharded": launches.get("probe_kernel", 0),
+    # kernels 1 and 2 over all lanes launch on the sharded paths only: their
+    # rows of the kernels line count them here
+    launches = {"minimizer_kernel": launches.get("minimizer_kernel", 0),
+                "probe_kernel": launches.get("probe_kernel", 0),
+                "probe_sharded": launches.get("probe_kernel", 0),
                 "access_sharded": launches.get("access_kernel", 0)
                 + launches.get("access_read_kernel", 0),
                 "weight_sharded": launches.get("weight_kernel", 0),
@@ -2118,7 +2213,11 @@ WIDE_ROWS = {"minimizer_wide": ("minimizer.cu", "sshash_tpu/ops/packed.py:263",
              "neighbours_wide": ("neighbours.cu", "sshash_tpu/engine.py:1412",
                                  "neighbours_kernel"),
              "stream_anchor_wide": ("stream_anchor.cu", "sshash_tpu/streaming.py:334",
-                                    "stream_kmers_kernel")}
+                                    "stream_kmers_kernel"),
+             "minimizer_ranks_wide": ("minimizer.cu", MINIMIZER_RANKS_REPLACES,
+                                      "minimizer_ranks_kernel"),
+             "lookup_ranks_wide": ("lookup_ranks.cu", "sshash_tpu/streaming.py:551",
+                                   "lookup_ranks_kernel")}
 
 
 def read2_bytes(table, offsets, W):
@@ -2199,8 +2298,19 @@ def phase_wide(dev, tmp, errs, k31):
         times["stream_anchor_wide"] = {"kernel": s["kernel"], "plain": s["plain"],
                                        "bound": (s["bound_ms"], "bytes")}
         werrs["stream_anchor_wide"] = errs.get("stream_anchor.cu", 0)
+        for name, src in (("minimizer_ranks_wide", "minimizer_ranks"),
+                          ("lookup_ranks_wide", "lookup_ranks.cu")):
+            times[name] = {"kernel": per[src]["kernel"], "plain": per[src]["plain"],
+                           "bound": (per[src]["bound_ms"], per[src]["bound_by"])}
+            werrs[name] = errs.get(src, 0)
         seng = ShardedEngine(idx, LocalMesh((1, 4), dev), host_arrs=host)
-        equal_fields(seng.lookup_ids_device(kt), eng.lookup_ids_device(kt), f"{t} (1, 4)")
+        # the wide forms of kernels 1-2 over all lanes: the sharded lookup's
+        kernels.reset_counts()
+        sres = seng.lookup_ids_device(kt)
+        add_counts(launches, path_counts(f"{t} (1, 4) sharded lookup path",
+                                         ("minimizer_kernel", "probe_kernel")))
+        equal_fields(sres, eng.lookup_ids_device(kt), f"{t} (1, 4)")
+        del sres
         log(f"  {t}: the (1, 4) LocalMesh lookup of {MAIN_B} lanes equals the unsharded "
             f"engine's in every field")
         del seng
@@ -2360,15 +2470,20 @@ def main():
     log(f"[14] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
     csrc = "sshash_tpu_torch/csrc/"
     rows = []
+    sh_launches, sh_times = sharded
+    for name in ("minimizer_kernel", "probe_kernel"):
+        launches[name] = sh_launches[name]
     for src, rep in SOURCES.items():
-        # the lookup kernel, in probe.cu beside kernel 2, has a row of its own
-        names = ("probe_kernel",) if src == "probe.cu" else kernels.SOURCE_KERNELS[src]
+        # the lookup kernel, in probe.cu beside kernel 2, and kernel 1's rank
+        # form, in minimizer.cu, have rows of their own
+        names = {"probe.cu": ("probe_kernel",),
+                 "minimizer.cu": ("minimizer_kernel",)}.get(src, kernels.SOURCE_KERNELS[src])
         n_launch = sum(launches.get(name, 0) for name in names)
         require(n_launch > 0, f"{src}: no launch on the main path ({launches})")
         if src in stream_times:
             t = stream_times[src]
             ms, pms, lib = t["kernel"], t["plain"], t["library"] or None
-            b_ms, b_by = t["bound_ms"], "bytes"
+            b_ms, b_by = t["bound_ms"], t["bound_by"]
             err = errs.get(src, 0)
         else:
             ms, pms = times[names[0]]["kernel"], times[names[0]]["plain"]
@@ -2377,6 +2492,15 @@ def main():
         rows.append({"name": src.split(".")[0], "route": "cuda", "source": csrc + src,
                      "replaces": rep, "launches": n_launch, "max_abs_err": err, "ms": ms,
                      "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+        if src == "minimizer.cu":
+            n_launch = launches.get("minimizer_ranks_kernel", 0)
+            require(n_launch > 0, "minimizer_ranks_kernel: no launch on the stream paths")
+            t = stream_times["minimizer_ranks"]
+            rows.append({"name": "minimizer_ranks", "route": "cuda", "source": csrc + src,
+                         "replaces": MINIMIZER_RANKS_REPLACES, "launches": n_launch,
+                         "max_abs_err": errs.get("minimizer_ranks", 0), "ms": t["kernel"],
+                         "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+                         "bound_by": t["bound_by"], "library_ms": None})
         if src != "probe.cu":
             continue
         require(launches.get("lookup_kernel", 0) > 0, "lookup_kernel: no launch on the main path")
@@ -2396,7 +2520,6 @@ def main():
                          "plain_ms": t["plain"], "bound_ms": t["bound"][0],
                          "bound_by": t["bound"][1], "library_ms": None})
     # the sharded variants, each counted on the sharded paths
-    sh_launches, sh_times = sharded
     for name, (src, rep) in SHARDED_ROWS.items():
         require(sh_launches[name] > 0, f"{name}: no launch on the sharded paths")
         t = sh_times[name]

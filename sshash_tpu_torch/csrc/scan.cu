@@ -161,13 +161,15 @@ int64_t tiles_of(const void* in, int64_t n) {
   return (n + off + kTile - 1) / kTile;
 }
 
+// static: its occupancy cache stays this library's (a template's static
+// locals are one object across every library of the process)
 template <bool COMPACT>
-cudaError_t launch_scan(const void* in, int64_t n, unsigned long long* scratch, int32_t* out,
+static cudaError_t launch_scan(const void* in, int64_t n, unsigned long long* scratch, int32_t* out,
                         int32_t* count, cudaStream_t stream) {
-  static int per_sm = 0;
+  static PerDevice per_sm;
   const int64_t ntiles = tiles_of<COMPACT>(in, n);
   int64_t blocks = 0;
-  cudaError_t err = card_blocks(scan_kernel<COMPACT>, kScanThreads, &per_sm, &blocks);
+  cudaError_t err = card_blocks(scan_kernel<COMPACT>, kScanThreads, per_sm, &blocks);
   if (err == cudaSuccess)
     err = cudaMemsetAsync(scratch, 0, sizeof(unsigned long long) * (ntiles + 1), stream);
   if (err != cudaSuccess) return err;

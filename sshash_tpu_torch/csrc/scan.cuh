@@ -26,6 +26,8 @@
 
 #include <cstdint>
 
+#include "grid.cuh"
+
 namespace sshash {
 
 constexpr int kScanThreads = 256;
@@ -161,19 +163,6 @@ __device__ __forceinline__ int64_t next_tile(unsigned long long* counter, int64_
   __syncthreads();
   const int64_t t = *slot;
   return t < ntiles ? t : -1;
-}
-
-// Blocks of `threads` that fill the card: SMs x resident blocks an SM
-// (*per_sm caches the latter for the kernel: 0 until first asked).
-template <class K>
-inline cudaError_t card_blocks(K kernel, int threads, int* per_sm, int64_t* blocks) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && *per_sm == 0)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, 0);
-  *blocks = (int64_t)sms * (*per_sm > 0 ? *per_sm : 1);
-  return err;
 }
 
 }  // namespace sshash

@@ -57,11 +57,6 @@ __device__ __forceinline__ bool bit_at(const uint32_t* bits, int64_t i) {
   return (bits[i >> 5] >> (i & 31)) & 1u;
 }
 
-__device__ __forceinline__ int64_t misses(const int32_t* count, int64_t P) {
-  const int64_t n = *count;
-  return n < 0 ? 0 : (n > P ? P : n);
-}
-
 // Zero flags [from, P) of a P-flag array (16-byte aligned, from and P
 // multiples of 16) over the grid.
 __device__ __forceinline__ void zero_flags(uint8_t* flags, int64_t from, int64_t P) {
@@ -312,16 +307,6 @@ __global__ void __launch_bounds__(kCountThreads)
   }
 }
 
-// Blocks for a pass over `work` elements, one a thread: the card's, or
-// fewer when the work needs fewer.
-template <class K>
-cudaError_t pass_blocks(K kernel, int threads, int* per_sm, int64_t work, int64_t* blocks) {
-  const cudaError_t err = card_blocks(kernel, threads, per_sm, blocks);
-  const int64_t need = (work + threads - 1) / threads;
-  if (*blocks > need) *blocks = need > 0 ? need : 1;
-  return err;
-}
-
 }  // namespace sshash
 
 // C entry for ctypes: head (P,) bool over rank space, P a multiple of 32,
@@ -331,10 +316,10 @@ extern "C" int sshash_stream_heads(const void* mv_f, const void* mv_r, const voi
                                    const void* count, const void* fbits, int64_t P, int64_t gate,
                                    void* head, void* stream) {
   using namespace sshash;
-  static int per_sm = 0;
+  static PerDevice per_sm;
   if (P <= 0 || P % 32) return (int)cudaErrorInvalidValue;
   int64_t blocks = 0;
-  const cudaError_t err = pass_blocks(heads_kernel, kDeriveThreads, &per_sm, P, &blocks);
+  const cudaError_t err = pass_blocks(heads_kernel, kDeriveThreads, per_sm, P, &blocks);
   if (err != cudaSuccess) return (int)err;
   heads_kernel<<<(unsigned)blocks, kDeriveThreads, 0, (cudaStream_t)stream>>>(
       (const unsigned long long*)mv_f, (const unsigned long long*)mv_r, (const int32_t*)lanes,
@@ -356,11 +341,11 @@ extern "C" int sshash_stream_round2(const void* head, const void* found, const v
                                     const void* count, int64_t P, void* scratch, void* round2,
                                     void* stream) {
   using namespace sshash;
-  static int per_sm = 0;
+  static PerDevice per_sm;
   if (P <= 0 || P % 32 || P >= (int64_t(1) << 30)) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   int64_t blocks = 0;
-  cudaError_t err = pass_blocks(round2_kernel, kScanThreads, &per_sm, P / 16, &blocks);
+  cudaError_t err = pass_blocks(round2_kernel, kScanThreads, per_sm, P / 16, &blocks);
   if (err == cudaSuccess)
     err = cudaMemsetAsync(scratch, 0, 8 * sshash_round2_scratch(P), s);
   if (err != cudaSuccess) return (int)err;
@@ -374,10 +359,10 @@ extern "C" int sshash_stream_round2(const void* head, const void* found, const v
 // their lane (round 1 first). Returns the first CUDA error.
 extern "C" int sshash_stream_merge(const sshash::MergeIO* io, int64_t P, void* stream) {
   using namespace sshash;
-  static int per_sm = 0;
+  static PerDevice per_sm;
   if (P <= 0) return (int)cudaGetLastError();
   int64_t blocks = 0;
-  const cudaError_t err = pass_blocks(merge_kernel, kDeriveThreads, &per_sm, P / 16, &blocks);
+  const cudaError_t err = pass_blocks(merge_kernel, kDeriveThreads, per_sm, P / 16, &blocks);
   if (err != cudaSuccess) return (int)err;
   merge_kernel<<<(unsigned)blocks, kDeriveThreads, 0, (cudaStream_t)stream>>>(*io, P);
   return (int)cudaGetLastError();
@@ -390,15 +375,15 @@ extern "C" int sshash_stream_count(const void* found, const void* sid, const voi
                                    const void* ori, const void* valid, const void* fbits,
                                    const void* count, int64_t P, void* out, void* stream) {
   using namespace sshash;
-  static int per_sm[2] = {0, 0};
+  static PerDevice per_sm[2];
   if (P <= 0) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   const bool vec = !(((uintptr_t)found | (uintptr_t)sid | (uintptr_t)kid | (uintptr_t)ori) & 15);
   const int64_t groups = (P + kCountLanes - 1) / kCountLanes;
   int64_t blocks = 0;
   cudaError_t err =
-      vec ? pass_blocks(count_kernel<true>, kCountThreads, &per_sm[1], groups, &blocks)
-          : pass_blocks(count_kernel<false>, kCountThreads, &per_sm[0], groups, &blocks);
+      vec ? pass_blocks(count_kernel<true>, kCountThreads, per_sm[1], groups, &blocks)
+          : pass_blocks(count_kernel<false>, kCountThreads, per_sm[0], groups, &blocks);
   if (err == cudaSuccess) err = cudaMemsetAsync(out, 0, 12 * sizeof(uint32_t), s);
   if (err != cudaSuccess) return (int)err;
   auto fn = vec ? count_kernel<true> : count_kernel<false>;

@@ -38,6 +38,7 @@
 
 #include <cstdint>
 
+#include "grid.cuh"
 #include "tables.cuh"
 
 namespace sshash {
@@ -176,30 +177,32 @@ __global__ void __launch_bounds__(kWeightThreads, kTwoLevel ? kWeightBlocksTwo :
   }
 }
 
-// Blocks of the kernel resident on one SM at this plan's shared memory,
-// rounded up to a KB. The first call raises both forms' limit to the most a
-// plan asks for (above the default 48 KB), and each count is asked once:
-// a call captured in a CUDA graph then makes neither request. Static, so
+// Blocks of the kernel resident on one SM of the current card at this
+// plan's shared memory, rounded up to a KB. The first call on a card raises
+// both forms' limit there to the most a plan asks for (above the default 48
+// KB; the attribute is the card's), and each count is asked once a card: a
+// call captured in a CUDA graph then makes neither request. Static, so
 // that its state stays this library's: an inline function's static locals
 // are one object across every library of the process that defines it.
 static cudaError_t weight_blocks_per_sm(const WeightPlan& p, int* per_sm) {
-  static bool raised = false;
-  static int per_kb[2][kWeightMaxSmem / 1024 + 1] = {};
+  static bool raised[kMaxDevices] = {};
+  static int per_kb[kMaxDevices][2][kWeightMaxSmem / 1024 + 1] = {};
   const int kb = (int)((p.smem + 1023) / 1024), two = p.s > 1;
-  cudaError_t err = cudaSuccess;
-  if (!raised) {
+  int dev = 0;
+  cudaError_t err = current_device(&dev);
+  if (err == cudaSuccess && !raised[dev]) {
     err = cudaFuncSetAttribute(weight_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kWeightMaxSmem);
     if (err == cudaSuccess)
       err = cudaFuncSetAttribute(weight_kernel<true>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kWeightMaxSmem);
-    raised = err == cudaSuccess;
+    raised[dev] = err == cudaSuccess;
   }
-  if (err == cudaSuccess && per_kb[two][kb] == 0)
+  if (err == cudaSuccess && per_kb[dev][two][kb] == 0)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_kb[two][kb], two ? weight_kernel<true> : weight_kernel<false>, kWeightThreads,
-        1024 * (size_t)kb);
-  *per_sm = per_kb[two][kb];
+        &per_kb[dev][two][kb], two ? weight_kernel<true> : weight_kernel<false>,
+        kWeightThreads, 1024 * (size_t)kb);
+  *per_sm = err == cudaSuccess ? per_kb[dev][two][kb] : 0;
   return err;
 }
 
@@ -215,7 +218,7 @@ extern "C" int sshash_weight(const void* endpoints, int64_t n_ep, const void* va
   if (n_ep < 1 || n_runs < 1 || n_dict < 1) return (int)cudaErrorInvalidValue;
   const WeightPlan p = weight_plan(n_ep, n_runs);
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = current_device(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = weight_blocks_per_sm(p, &per_sm);
   if (err != cudaSuccess) return (int)err;

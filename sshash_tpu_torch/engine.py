@@ -26,8 +26,10 @@ On the card the engine's lookup, lookup_ids and navigation run all of it
 in one launch of the lookup kernel (`lookup`: both strands' minimizers,
 the fold or the RC retry, and the probe, per thread, in csrc/probe.cu),
 whose plain version `lookup_plain` is the two-kernel form over the plain
-versions. The bucket-sharded engine (its own probe) and the stream (kernel
-1's outputs in hand) keep the two-kernel form (make_lookup).
+versions. The stream's missed lanes run the lookup kernel's lane in rank
+space, up to their count on the device (`lookup_ranks`,
+csrc/lookup_ranks.cu). The bucket-sharded engine and its stream (their own
+probe) keep the two-kernel form (make_lookup).
 
 The plain versions here (`probe_plain` and its helpers) hold u32 values in
 int64 tensors and run on any device; `probe` sends CPU tensors to them and
@@ -377,6 +379,40 @@ def lookup_plain(cfg, tables, kmers32, active=None, fields="full"):
 lookup = kernels.by_device(kernels.lookup_kernel, lookup_plain, "lookup", arg=2)
 
 
+def lookup_ranks_plain(cfg, tables, kmers32, mins, active, count):
+    """Plain version of the rank-space lookup (csrc/lookup_ranks.cu): the
+    ranks below count (int32 (1,), read on the host here) of the (P, W)
+    int32 kmers, looked up where active (bool (P,)) from their minimizers
+    mins = (mv_f, mp_f, mv_r, mp_r) (kernel 1's rank form) through the
+    plain two-kernel form (the fold or the RC retry, then probe_plain); the
+    others below the count report not found (found and minimizer_found
+    False, ids 0xFFFFFFFF, orientation FORWARD). Returns
+    kernels.STREAM_FIELDS, each (P,); ranks at or past the count are not
+    part of the result (the kernel leaves them unwritten; they read not
+    found here)."""
+    Pn, dev = kmers32.shape[0], kmers32.device
+    n = min(max(int(count[0]), 0), Pn)
+    km = kmers32[:n]
+    mv_f, mp_f, mv_r, mp_r = (t[:n] for t in mins)
+    rc = u.to_i32(P.revcomp_kmers(u.u32(km), cfg.k))
+    on = active[:n]
+    res = _lookup_two_kernels(cfg, tables, km, (mv_f, mp_f, rc, mv_r, mp_r), on, "full",
+                              P.minimizer_plain, probe_plain)
+    out = {"found": torch.zeros(Pn, dtype=torch.bool, device=dev),
+           "minimizer_found": torch.zeros(Pn, dtype=torch.bool, device=dev),
+           "string_id": torch.full((Pn,), -1, dtype=torch.int32, device=dev),
+           "kmer_id": torch.full((Pn,), -1, dtype=torch.int32, device=dev),
+           "kmer_orientation": torch.full((Pn,), FORWARD_ORIENTATION, dtype=torch.int32,
+                                          device=dev)}
+    for name, v in out.items():
+        v[:n] = torch.where(on, res[name], v[:n])
+    return out
+
+
+lookup_ranks = kernels.by_device(kernels.lookup_ranks_kernel, lookup_ranks_plain,
+                                 "lookup-ranks", arg=2)
+
+
 def make_lookup(cfg, fields="full", minimizer=None, probe=None):
     """Batched lookup over (B, W) int32 kmers (src/dictionary.cpp:58-78
     semantics). fields="ids" returns only kmer_id / kmer_orientation /
@@ -391,8 +427,8 @@ def make_lookup(cfg, fields="full", minimizer=None, probe=None):
     (one launch of the lookup kernel on a CUDA tensor, lookup_plain on a
     CPU one). Otherwise it is the two-kernel form: `minimizer` (default the
     kernel 1 entry) unless mins are given, the fold or the RC retry, and
-    `probe` (default the kernel 2 entry): the stream passes mins, the
-    sharded engine its own probe, and passing the plain versions runs the
+    `probe` (default the kernel 2 entry): the bucket-sharded stream passes
+    mins, the sharded engine its own probe, and passing the plain versions runs the
     same lookup without kernels on any device."""
     check_fields(cfg, fields)
     one_launch = minimizer is None and probe is None

@@ -1,9 +1,11 @@
 """Build and bind the port's CUDA kernels (csrc/), with launch counters.
 
-Twelve CUDA sources: probe carries lookup, as one launch of the lookup
+Thirteen CUDA sources: probe carries lookup, as one launch of the lookup
 kernel (kernel 1's minimizers, the canonical fold or the RC retry, and the
 probe, per thread) and as kernel 2 alone, which the bucket-sharded engine
-and the stream call after minimizer (kernel 1); access, iterator, weight
+and its stream call after minimizer (kernel 1); lookup_ranks the lookup
+kernel's lane over the stream's missed lanes in rank space, up to their
+count on the device, after minimizer's rank form; access, iterator, weight
 and neighbours the other point queries;
 scan, stream_anchor, stream_chain and stream_derive the stream step; check
 the sanitizer's postconditions (debug.py) and read_at2 the read over the
@@ -27,15 +29,18 @@ CUDA lookup. Nothing builds or loads at import: machines without nvcc
 import this module and run the plain versions.
 
 Each launch wrapper checks its tensors, allocates its outputs with
-torch.empty, launches on the current stream without synchronising, raises
-if the launch returned a CUDA error, and adds one to its `launches` count.
-The wrappers take CUDA tensors only; each entry point (ops/packed.minimizer,
-.neighbour_variants, .scan_ex, .compact and .read_kmers_at2; engine.lookup,
-.probe, .access, .access_read, .iterate and .weight; streaming.stream_masks,
-.stream_kmers, .stream_chain, .stream_swin, .stream_heads, .stream_round2,
-.stream_merge and .stream_count; debug.check) is made by `by_device`, which
-chooses between a wrapper and its plain version by the device of one
-argument.
+torch.empty, launches on the current stream of its tensors' card without
+synchronising, raises if the launch returned a CUDA error, and adds one to
+its `launches` count. The wrappers take CUDA tensors only; each entry
+point (ops/packed.minimizer, .minimizer_ranks, .neighbour_variants,
+.scan_ex, .compact and .read_kmers_at2; engine.lookup, .lookup_ranks,
+.probe, .access, .access_read, .iterate and .weight;
+streaming.stream_masks, .stream_kmers, .stream_chain, .stream_swin,
+.stream_heads, .stream_round2, .stream_merge and .stream_count;
+debug.check) is made by `by_device`, which chooses between a wrapper and
+its plain version by the device of one argument and runs the wrapper with
+that card current (the C entries launch on the current card, and cache
+their occupancy per card).
 
 Synchronous launches (`sync_launches`, on inside debug.debug_mode): every
 wrapper then waits for its kernel and raises on any CUDA error, so a fault
@@ -59,10 +64,11 @@ from .layout import (WHOLE_TABLE, AccessShard, acc_width, acc_win_words, acc_win
                      cand_block_width, check_access, check_fields, check_probe_shard, row_width)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("minimizer.cu", "probe.cu", "access.cu", "iterator.cu", "weight.cu",
-           "neighbours.cu", "scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu",
-           "check.cu", "read_at2.cu")
-HEADERS = ("minimizer.cuh", "packed.cuh", "scan.cuh", "stage.cuh", "tables.cuh", "u64.cuh")
+SOURCES = ("minimizer.cu", "probe.cu", "lookup_ranks.cu", "access.cu", "iterator.cu",
+           "weight.cu", "neighbours.cu", "scan.cu", "stream_anchor.cu", "stream_chain.cu",
+           "stream_derive.cu", "check.cu", "read_at2.cu")
+HEADERS = ("grid.cuh", "minimizer.cuh", "packed.cuh", "probe.cuh", "scan.cuh", "stage.cuh",
+           "tables.cuh", "u64.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sshash_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -170,7 +176,9 @@ class ProbeParams(ctypes.Structure):
 _IO_NAMES = ("kmers", "kmers_rc", "minval", "minpos", "minpos2", "active",
              "kmer_id", "kmer_orientation", "minimizer_found", "found",
              "kmer_id_in_string", "kmer_offset", "string_id", "string_begin",
-             "string_end", "hrow", "hrow_in")
+             "string_end", "hrow", "hrow_in", "count", "minval_r", "minpos_r")
+# the result fields of ProbeIO, in order (the hand-off's "hrow" out last)
+_OUT_NAMES = _IO_NAMES[6:16]
 
 
 class ProbeIO(ctypes.Structure):
@@ -195,12 +203,17 @@ def library():
         lib.sshash_minimizer.argtypes = [p, i64, i64, i64, i64, ctypes.c_uint64,
                                          p, p, p, p, p, p]
         lib.sshash_minimizer.restype = ctypes.c_int
+        lib.sshash_minimizer_ranks.argtypes = [p, i64, i64, i64, i64, ctypes.c_uint64,
+                                               p, p, p, p, p, p]
+        lib.sshash_minimizer_ranks.restype = ctypes.c_int
         lib.sshash_probe.argtypes = [ctypes.POINTER(ProbeTables),
                                      ctypes.POINTER(ProbeParams),
                                      ctypes.POINTER(ProbeIO), p]
         lib.sshash_probe.restype = ctypes.c_int
         lib.sshash_lookup.argtypes = lib.sshash_probe.argtypes
         lib.sshash_lookup.restype = ctypes.c_int
+        lib.sshash_lookup_ranks.argtypes = lib.sshash_probe.argtypes
+        lib.sshash_lookup_ranks.restype = ctypes.c_int
         lib.sshash_probe_occupancy.argtypes = [ctypes.POINTER(ProbeParams), i64,
                                                ctypes.POINTER(ctypes.c_int),
                                                ctypes.POINTER(ctypes.c_int)]
@@ -244,22 +257,32 @@ def library():
     return _lib
 
 
+# every entry point by_device made, for the tests: each has .kernel,
+# .plain and .arg
+ENTRY_POINTS = []
+
+
 def by_device(kernel, plain, what, arg=0):
     """The entry point of one kernel: a call runs `kernel` (a wrapper
-    below) when positional argument `arg` is a CUDA tensor, `plain` when
-    it is a CPU tensor, and raises on any other device. Both take the
-    entry's arguments."""
+    below) when positional argument `arg` is a CUDA tensor, inside
+    torch.cuda.device(its card) so that the C entry launches there, `plain`
+    when it is a CPU tensor, and raises on any other device. Both take the
+    entry's arguments. The entry keeps kernel and plain as its attributes
+    and calls them from there."""
 
     def entry(*args, **kw):
         dev = args[arg].device
         if dev.type == "cuda":
-            return kernel(*args, **kw)
+            with torch.cuda.device(dev):
+                return entry.kernel(*args, **kw)
         if dev.type == "cpu":
-            return plain(*args, **kw)
+            return entry.plain(*args, **kw)
         raise ValueError(f"no {what} kernel for device {dev}")
 
+    entry.kernel, entry.plain, entry.arg = kernel, plain, arg
     entry.__doc__ = (f"{what} entry: {kernel.__name__} on a CUDA tensor, {plain.__name__} "
                      f"on a CPU tensor; any other device raises.")
+    ENTRY_POINTS.append(entry)
     return entry
 
 
@@ -339,6 +362,35 @@ def minimizer_kernel(kmers32, k, m, magic, both=False):
 
 
 minimizer_kernel.launches = 0
+
+
+# kernel 1's rank form's outputs: mv_f, mp_f, mv_r, mp_r
+_RANK_MINS = (torch.int64, torch.int32, torch.int64, torch.int32)
+
+
+def minimizer_ranks_kernel(kmers32, count, k, m, magic):
+    """Kernel 1's rank form on (P, W) int32 kmers (u32 bits) compacted in
+    rank order, up to the int32 (1,) device count: (mv_f int64, mp_f int32,
+    mv_r int64, mp_r int32), each (P,), both strands' minimizers at the
+    rows below the count; the rows past it are not written. Same contract
+    as ops.packed.minimizer_ranks_plain."""
+    W = (2 * k + 31) // 32
+    if kmers32.dim() != 2:
+        raise ValueError(f"kmers32 must be (P, {W}), got {tuple(kmers32.shape)}")
+    Pn = kmers32.shape[0]
+    _check(kmers32, "kmers32", torch.int32, (Pn, W))
+    _scalar(count, "count")
+    dev = kmers32.device
+    out = [torch.empty(Pn, dtype=dt, device=dev) for dt in _RANK_MINS]
+    err = library().sshash_minimizer_ranks(kmers32.data_ptr(), Pn, W, k, m, magic & (2 ** 64 - 1),
+                                           count.data_ptr(), *(t.data_ptr() for t in out),
+                                           _stream(dev))
+    _raise_on(err, "minimizer_ranks_kernel")
+    minimizer_ranks_kernel.launches += 1
+    return tuple(out)
+
+
+minimizer_ranks_kernel.launches = 0
 
 
 def _probe_launch(cfg, tables, kmers32, active, fields, shard=None):
@@ -430,7 +482,7 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         out["hrow"] = torch.empty(B, dtype=torch.int32, device=dev)
     io = ProbeIO(kmers32.data_ptr(), _ptr(kmers_rc32), minval.data_ptr(),
                  minpos.data_ptr(), _ptr(minpos2), _ptr(active),
-                 *(_ptr(out.get(n)) for n in _IO_NAMES[6:-1]), _ptr(hrows))
+                 *(_ptr(out.get(n)) for n in _OUT_NAMES), _ptr(hrows))
     err = library().sshash_probe(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
                                  _stream(dev))
     _raise_on(err, "probe_kernel")
@@ -451,7 +503,7 @@ def lookup_kernel(cfg, tables, kmers32, active=None, fields="full"):
     the lookup to those lanes, the others report not found."""
     B, dev, tab, prm, out = _probe_launch(cfg, tables, kmers32, active, fields)
     io = ProbeIO(kmers32.data_ptr(), None, None, None, None, _ptr(active),
-                 *(_ptr(out.get(n)) for n in _IO_NAMES[6:-1]), None)
+                 *(_ptr(out.get(n)) for n in _OUT_NAMES))
     err = library().sshash_lookup(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
                                   _stream(dev))
     _raise_on(err, "lookup_kernel")
@@ -460,6 +512,42 @@ def lookup_kernel(cfg, tables, kmers32, active=None, fields="full"):
 
 
 lookup_kernel.launches = 0
+
+# the rank-space lookup's result fields: those the stream reads
+STREAM_FIELDS = ("found", "minimizer_found", "string_id", "kmer_id", "kmer_orientation")
+
+
+def lookup_ranks_kernel(cfg, tables, kmers32, mins, active, count):
+    """The lookup kernel's lane over the ranks below the int32 (1,) device
+    count of (P, W) int32 kmers (the stream's missed lanes, compacted),
+    from their minimizers mins = (mv_f, mp_f, mv_r, mp_r) (kernel 1's rank
+    form): STREAM_FIELDS, each (P,) (u32 fields as int32 bits; found and
+    minimizer_found bool). An active rank below the count is looked up; an
+    inactive one reports not found (found and minimizer_found False, ids
+    0xFFFFFFFF, orientation FORWARD); ranks past the count are not written.
+    v1 rows only (streaming needs them). Same contract as
+    engine.lookup_ranks_plain."""
+    if cfg.row_v2:
+        raise ValueError("the rank-space lookup serves v1 rows (streaming) only")
+    if active is None:
+        raise ValueError("the rank-space lookup takes an active mask")
+    B, dev, tab, prm, out = _probe_launch(cfg, tables, kmers32, active, "ids")
+    _scalar(count, "count")
+    for t, name, dt in zip(mins, ("mv_f", "mp_f", "mv_r", "mp_r"), _RANK_MINS):
+        _check(t, name, dt, (B,))
+    out["string_id"] = torch.empty(B, dtype=torch.int32, device=dev)
+    io = ProbeIO(kmers=kmers32.data_ptr(), active=active.data_ptr(), count=count.data_ptr(),
+                 **dict(zip(("minval", "minpos", "minval_r", "minpos_r"),
+                            (t.data_ptr() for t in mins))),
+                 **{n: out[n].data_ptr() for n in STREAM_FIELDS})
+    err = library().sshash_lookup_ranks(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
+                                        _stream(dev))
+    _raise_on(err, "lookup_ranks_kernel")
+    lookup_ranks_kernel.launches += 1
+    return {n: out[n] for n in STREAM_FIELDS}
+
+
+lookup_ranks_kernel.launches = 0
 
 
 def probe_occupancy(cfg, lookup=True):
@@ -972,13 +1060,16 @@ def read_at2_kernel(table, offsets, k):
 read_at2_kernel.launches = 0
 
 
-KERNELS = (minimizer_kernel, probe_kernel, lookup_kernel, access_kernel, access_read_kernel, iterate_kernel,
+KERNELS = (minimizer_kernel, minimizer_ranks_kernel, probe_kernel, lookup_kernel,
+           lookup_ranks_kernel, access_kernel, access_read_kernel, iterate_kernel,
            weight_kernel, neighbours_kernel, scan_kernel, compact_kernel, stream_masks_kernel,
            stream_kmers_kernel, stream_chain_kernel, stream_swin_kernel, stream_heads_kernel,
            stream_round2_kernel, stream_merge_kernel, stream_count_kernel, check_kernel,
            read_at2_kernel)
 # the wrappers of each CUDA source
-SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel",), "probe.cu": ("probe_kernel", "lookup_kernel"),
+SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel", "minimizer_ranks_kernel"),
+                  "probe.cu": ("probe_kernel", "lookup_kernel"),
+                  "lookup_ranks.cu": ("lookup_ranks_kernel",),
                   "access.cu": ("access_kernel", "access_read_kernel"),
                   "iterator.cu": ("iterate_kernel",),
                   "weight.cu": ("weight_kernel",), "neighbours.cu": ("neighbours_kernel",),

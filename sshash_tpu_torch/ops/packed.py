@@ -325,3 +325,24 @@ def minimizer_plain(kmers32, k, m, magic, both=False):
 
 
 minimizer = kernels.by_device(kernels.minimizer_kernel, minimizer_plain, "minimizer")
+
+
+def minimizer_ranks_plain(kmers32, count, k, m, magic):
+    """Plain version of kernel 1's rank form: both strands' minimizers of
+    the (P, W) int32 kmers' rows below count (int32 (1,), read on the host
+    here) -> (mv_f int64, mp_f int32, mv_r int64, mp_r int32), each (P,).
+    Rows at or past the count are not part of the result (the kernel leaves
+    them unwritten; they are zero here)."""
+    Pn = kmers32.shape[0]
+    n = min(max(int(count[0]), 0), Pn)
+    mv_f, mp_f, _, mv_r, mp_r = minimizer_plain(kmers32[:n], k, m, magic, both=True)
+    out = []
+    for t in (mv_f, mp_f, mv_r, mp_r):
+        full = torch.zeros(Pn, dtype=t.dtype, device=kmers32.device)
+        full[:n] = t
+        out.append(full)
+    return tuple(out)
+
+
+minimizer_ranks = kernels.by_device(kernels.minimizer_ranks_kernel, minimizer_ranks_plain,
+                                    "minimizer-ranks")

@@ -32,17 +32,25 @@ derive_full by miss counts for the TPU's sake; here one path runs:
      compare each (prefix-AND), giving per-lane (found, string_id,
      kmer_id, orientation) and the lanes that still need a lookup;
   4. misses: the needing lanes compacted in rank order (csrc/scan.cu), their
-     kmers read and run through kernel 1 once; the negative-minimizer
-     run-skip (JAX's gate: more than P/64 misses) marks run heads from
-     kernel 1's (mv_f, mv_r) pairs; the heads are probed, then the run
-     members whose head found its minimizer (each rank's run head carried
-     forward in one pass; kernel 2, given kernel 1's outputs); results
-     scatter back;
+     kmers read and run through kernel 1's rank form once (both strands'
+     minimizers of the ranks below the misses' count, which stays on the
+     device); the negative-minimizer run-skip (JAX's gate: more than P/64
+     misses) marks run heads from kernel 1's (mv_f, mv_r) pairs; the heads
+     are looked up, then the run members whose head found its minimizer
+     (each rank's run head carried forward in one pass), each round one
+     launch of the rank-space lookup (csrc/lookup_ranks.cu: the lookup
+     kernel's lane over the ranks below the count, the five fields the
+     stream reads); results scatter back. Both kernels run grids sized to
+     the card that stride up to the count, so their work is the misses'
+     (JAX's run_windows loops windows up to it). The bucket-sharded stream,
+     whose lookup has its own probe and combine, keeps kernel 1 over all P
+     rows and kernel 2 given its outputs;
   5. count: one P-wide adjacency pass gives the counters, lane 0 and the
      last lane.
 
 Each stage is one kernel entry (csrc/stream_anchor.cu, stream_chain.cu,
-stream_derive.cu) with a plain PyTorch version beside it here; a CPU
+stream_derive.cu; minimizer.cu and lookup_ranks.cu for the misses) with a
+plain PyTorch version beside it; a CPU
 tensor runs the plain version, a CUDA tensor the kernel. The plain
 versions hold u32 values in int64 (or their bits in int32 tensors), as the
 rest of the port does.
@@ -59,7 +67,7 @@ from . import kernels
 from . import kmer as K
 from . import native, oracle
 from .constants import INVALID_UINT64
-from .engine import TorchEngine, make_lookup
+from .engine import TorchEngine, lookup_ranks, lookup_ranks_plain, make_lookup
 from .ops import packed as Pk
 from .ops import u64 as u
 from .ops.u64 import M32
@@ -606,14 +614,17 @@ class StepOps(NamedTuple):
     merge: object
     count: object
     minimizer: object
+    minimizer_ranks: object
+    lookup_ranks: object
 
 
 KERNEL_OPS = StepOps(Pk.scan_ex, Pk.compact, stream_masks, stream_kmers, stream_chain,
-                     stream_heads, stream_round2, stream_merge, stream_count, Pk.minimizer)
+                     stream_heads, stream_round2, stream_merge, stream_count, Pk.minimizer,
+                     Pk.minimizer_ranks, lookup_ranks)
 PLAIN_OPS = StepOps(Pk.prefix_sum_ex, Pk.compact_plain, stream_masks_plain,
                     stream_kmers_plain, stream_chain_plain, stream_heads_plain,
                     stream_round2_plain, stream_merge_plain, stream_count_plain,
-                    Pk.minimizer_plain)
+                    Pk.minimizer_plain, Pk.minimizer_ranks_plain, lookup_ranks_plain)
 
 
 def packed_offsets(P, R):
@@ -644,15 +655,21 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
     fn(tables, packed) -> (3, 4) int32 of u32 counters, lane 0 and the last
     lane, computed on the buffer's device without a host round trip.
 
-    lookup: make_lookup(cfg, "full", ...) fn(tables, kmers32, mins, active);
-    ops: KERNEL_OPS (entry points: kernels on the card, plain versions on
-    the CPU) or PLAIN_OPS (plain versions on any device; pass a plain
-    lookup with them). runskip: None for JAX's gate (on when more than P/64
-    lanes miss their chain), True / False to force it.
+    lookup: make_lookup(cfg, "full", ...) fn(tables, kmers32, mins, active),
+    the anchors' lookup; ops: KERNEL_OPS (entry points: kernels on the
+    card, plain versions on the CPU) or PLAIN_OPS (plain versions on any
+    device; pass a plain lookup with them). runskip: None for JAX's gate
+    (on when more than P/64 lanes miss their chain), True / False to force
+    it.
 
     swin: None (the chain reads tables["strings32"]) or fn(tables, ares) ->
     the anchors' string windows, for tables split by string range (the
-    bucket-sharded stream).
+    bucket-sharded stream). Without swin the missed lanes run in rank space
+    up to their device count: ops.minimizer_ranks, then both lookup rounds
+    through ops.lookup_ranks from its minimizers, on the whole tables. With
+    it, kernel 1 (ops.minimizer) runs over all P rows and both rounds go
+    through `lookup` given its outputs, masked: the bucket-sharded
+    stream's lookup has its own probe and combine.
 
     fn(tables, packed, stats=None): a dict passed as stats receives, as
     device tensors, the lanes that missed their chain ("need"), the lookup
@@ -690,11 +707,18 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
                               swin=swin(tables, ares))
         lanes, n_need = ops.compact(state["need"])
         km = ops.kmers(words32, sbits, cum_g, k, P, lanes, n_need)
-        mins = ops.minimizer(km, k, cfg.m, cfg.magic, both=True)
-        head = ops.heads(mins[0], mins[3], lanes, n_need, fbits, gate)
-        r1 = lookup(tables, km, mins, head)
-        round2 = ops.round2(head, r1["found"], r1["minimizer_found"], n_need)
-        r2 = lookup(tables, km, mins, round2)
+        if swin is None:
+            mins = ops.minimizer_ranks(km, n_need, k, cfg.m, cfg.magic)
+            head = ops.heads(mins[0], mins[2], lanes, n_need, fbits, gate)
+            r1 = ops.lookup_ranks(cfg, tables, km, mins, head, n_need)
+            round2 = ops.round2(head, r1["found"], r1["minimizer_found"], n_need)
+            r2 = ops.lookup_ranks(cfg, tables, km, mins, round2, n_need)
+        else:
+            mins = ops.minimizer(km, k, cfg.m, cfg.magic, both=True)
+            head = ops.heads(mins[0], mins[3], lanes, n_need, fbits, gate)
+            r1 = lookup(tables, km, mins, head)
+            round2 = ops.round2(head, r1["found"], r1["minimizer_found"], n_need)
+            r2 = lookup(tables, km, mins, round2)
         state = ops.merge(lanes, n_need, r1, r2, state)
         if stats is not None:
             stats.update(need=n_need[0], heads=head.sum(), round2=round2.sum())
@@ -854,7 +878,7 @@ class _DeviceStream:
         packed = host_buf.to(dev, non_blocking=True, copy=True)
         if dev.type == "cuda":
             self._copied = torch.cuda.Event()
-            self._copied.record()
+            self._copied.record(torch.cuda.current_stream(dev))
         if self.capture is not None:
             self.capture.append((all_valid, packed))
         return self._run(all_valid, packed)

@@ -1,52 +1,68 @@
 #!/usr/bin/env python3
-"""Time an earlier tree's scan and stream-derivation kernels
-(csrc/scan.cu, csrc/stream_derive.cu) and its whole stream step against
-this tree's, in turns on one card (chip_smoke.py's timing: CUDA events
-around windows of calls, median of 7, sides run backwards then forwards;
-every side's calls replay from a CUDA graph, as they take microseconds).
+"""Time an earlier tree's stream step against this tree's, and this tree's
+stream kernels against their losing designs, in turns on one card
+(chip_smoke.py's timing: CUDA events around windows of calls, median of 7,
+sides run backwards then forwards; every side's calls replay from a CUDA
+graph, as they take microseconds).
 
-    python3 stream_ab.py --baseline DIR [--strings 1000] [--chunks high-hit,low-hit]
-                         [--stages]
+    python3 stream_ab.py --baseline DIR [--strings 1000]
+                         [--chunks high-hit,low-hit,mixed,k65-mixed] [--stages]
 
 DIR is an unpacked earlier tree (`git archive <commit> | tar -x -C DIR`),
 for instance under .chip_scratch/ (gitignored). Sides:
 
   tree         this tree's kernel library (kernels.build)
-  fill_memset  this tree's scan.cu with the compaction's zero fill as a
-               memset of its output before the kernel (the tree writes the
-               zeros from the kernel, once the last tile has its total)
-  rank_stores  this tree's scan.cu with each lane storing the ranks of its
-               own vector's flags (the tree ranks a warp's 512 flags in 16
-               ballot rounds, so set lanes store side by side)
-  scan_vecs2   this tree's scan.cu at 2 vectors of 16 bytes a thread (tiles
-               of 2048 int32 and 8192 flags; the tree's 4)
-  round2_vecs4 this tree's stream_derive.cu with round 2 at 4 vectors of 16
-               ranks a thread (tiles of 16384 ranks; the tree's 2)
-  count16      this tree's stream_derive.cu with the count kernel at 16
-               lanes a thread a pass (the tree's 8)
   baseline     DIR's own package, loaded under another name, with its own
-               kernel library built from its csrc: its step and its stages
+               kernel library built from its csrc: its step (before this
+               tree, the misses ran kernel 1 over all P lanes and kernel 2
+               twice, given kernel 1's outputs)
+  walk         this tree with the rank-space lookup walking its active
+               ranks' windows again (kernel 1's, minimizer.cuh) at every
+               k (lookup_ranks.cu patched; the tree walks at most 24
+               windows and reads kernel 1's rank-form minimizers past that)
+  read         the same, reading kernel 1's minimizers at every k
+  strided      this tree with the rank-space lookup a thread a rank over
+               a grid-stride loop, the active ranks looked up where they
+               fall (lookup_ranks.cu patched; the tree queues a warp's
+               active ranks and looks them up 32 at a time)
+  k1_grid_p    this tree with kernel 1's rank form on a grid of P lanes
+               whose threads past the count exit (minimizer.cu patched;
+               the tree's grid fits the card and strides up to the count)
+  fill_memset, rank_stores, scan_vecs2, round2_vecs4, count16
+               the losing designs of scan.cu and stream_derive.cu (PR 9):
+               the compaction's zero fill as a memset; each lane storing
+               its own vector's ranks; 2 vectors a thread in the scans; 4
+               in round 2; the count at 16 lanes a thread
 
-The variants are built from their two sources alone (nvcc for sm_90a
-into build/stream_ab/) and serve those entries; every other entry of the
-step runs from this tree's library. Chunks: the first 2^22-position chunk
-of a 168-string high-hit genome against phase 7's 100M k31 m21 canonical
-build (--strings strings of 100,030 chars; few misses), and the first
-chunk of phase 10's low-hit reads (100,000 of 76 chars, 10 cut from the
-index, 1% with an N) on phase 4's 5M k31 m17 regular build (the run-skip
-on, misses near P). On each chunk every side's step equals the tree's
-and its stages' outputs equal the tree's stage by stage, checked before
-timing; then, in turns, each side's scan.cu calls, its stream_derive.cu
-calls (each source's calls of one step replayed together) and its whole
-step, and with --stages each stage of the tree's step (the baseline's
-stage of the same name and rank beside it), STAGE_CALLS calls of it
-replayed from one graph. Prints the card, each side's
-registers and spills (ptxas) and the ms of each side.
+A variant is built from its patched sources alone (nvcc for sm_90a into
+build/stream_ab/) and serves their entries; every other entry runs from
+this tree's library. Chunks, each the first 2^22-position chunk of:
+  high-hit  a 168-string genome against phase 7's 100M k31 m21 canonical
+            build (--strings strings of 100,030 chars; few misses)
+  low-hit   phase 10's low-hit reads (100,000 of 76 chars, 10 cut from
+            the index, 1% with an N) on phase 4's 5M k31 m17 regular build
+            (the run-skip on, misses near P)
+  mixed     phase 10's mixed reads (2^16 of 150 chars, half cut with RC and
+            1% substitutions, half random) on phase 4's 5M canonical build
+  k65-mixed phase 13's mixed reads (2^12 of 150) on a k65 m25 canonical
+            build of 5M kmers (phase 13 streams them over 60M: cut to 5M
+            for the run's time)
+On each chunk every side's step equals the tree's and its stages' outputs
+equal the tree's (the baseline's in the stages both trees have), checked
+before timing; then, in turns, the whole step, the misses' kernels (kernel
+1's rank form and both rounds of the rank-space lookup) of the sides that
+have them, the scan.cu and stream_derive.cu calls, and with --stages each
+stage. Beside the high-hit chunk: the engine's lookup of 2^24 positives
+(ids) at 100M, tree against DIR; beside the low-hit chunk: the
+bucket-sharded stream's step, (1, 4) LocalMesh, tree against DIR. Prints
+the card, each side's registers and spills (ptxas) and the ms of each
+side.
 """
 
 import argparse
 import contextlib
 import ctypes
+import functools
 import importlib
 import importlib.util
 import os
@@ -55,6 +71,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import types
 from pathlib import Path
 
 import chip_smoke as S  # its import finder keeps JAX out; its build and timing helpers
@@ -62,21 +79,28 @@ import numpy as np
 import torch
 
 from sshash_tpu_torch import kernels, synthetic
+from sshash_tpu_torch import engine as E
 from sshash_tpu_torch import streaming as ST
+from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine, ShardedStream
 
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "sshash_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "stream_ab"
-# the stages of the two sources, and the C entries they serve
+# the stages compared and timed by source, and the C entries each source serves
 SOURCE_OF = {"scan": "scan.cu", "compact": "scan.cu", "heads": "stream_derive.cu",
              "round2": "stream_derive.cu", "merge": "stream_derive.cu",
-             "count": "stream_derive.cu"}
+             "count": "stream_derive.cu", "minimizer_ranks": "misses",
+             "lookup_ranks": "misses"}
+ENTRIES = {"scan.cu": ("sshash_scan", "sshash_scan_scratch", "sshash_compact"),
+           "stream_derive.cu": ("sshash_stream_heads", "sshash_stream_round2",
+                                "sshash_round2_scratch", "sshash_stream_merge",
+                                "sshash_stream_count"),
+           "minimizer.cu": ("sshash_minimizer", "sshash_minimizer_ranks"),
+           "lookup_ranks.cu": ("sshash_lookup_ranks",)}
 # a stage's calls back to back in one graph when timed alone: one call
 # replayed alone costs about as much in graph launch as on the card
 STAGE_CALLS = 10
-ENTRIES = ("sshash_scan", "sshash_scan_scratch", "sshash_compact", "sshash_stream_heads",
-           "sshash_stream_round2", "sshash_round2_scratch", "sshash_stream_merge",
-           "sshash_stream_count")
+MIXED_K65_STRINGS = 50
 
 
 # the compaction's first design: each lane stores the ranks of its own
@@ -89,6 +113,28 @@ RANK_STORES = r'''        uint32_t rank = ex[i];
             out[rank++] = (int32_t)(e0 + 4 * q + (__ffs(m) >> 3) - 1);
         }
 '''
+# the rank-space lookup's cut between walking an active rank's windows and
+# reading kernel 1's minimizers, and the widest kernel that walks
+WALK_CUT = "constexpr int kWalkWindows = 24;"
+WALK_W = "constexpr int kWalkMaxW = 4;"
+# ... and a thread a rank, the active ranks looked up where they fall
+QUEUED = re.compile(r"  int held = 0;.*?\n}\n", re.S)
+STRIDED = """  (void)lane;
+  (void)queue;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += warps * 32) {
+    if (io.active[i])
+      lookup_rank<W, CANON, WALK>(t, p, io, slot, i);
+    else
+      write_not_found(io, i);
+  }
+}
+"""
+GRID = """    const cudaError_t err = pass_blocks(minimizer_ranks_kernel<WW>, kRankThreads,
+                                        per_sm[WW <= kMaxFixedW ? WW - 1 : kMaxFixedW], P,
+                                        &blocks);
+    if (err != cudaSuccess) return err;
+"""
 
 
 def patch(src, old, new):
@@ -98,91 +144,102 @@ def patch(src, old, new):
 
 
 def variant_sources():
-    """{side: directory of its patched sources}."""
-    scan, derive = ((CSRC / n).read_text() for n in ("scan.cu", "stream_derive.cu"))
+    """{side: (directory of its patched sources, the sources it builds)}."""
+    text = {n: (CSRC / n).read_text()
+            for n in ("scan.cu", "stream_derive.cu", "minimizer.cu", "lookup_ranks.cu")}
+    scan, derive = text["scan.cu"], text["stream_derive.cu"]
     sides = {
-        "fill_memset": {
-            "scan.cu": patch(patch(scan, "  if (!COMPACT) return;\n", "  return;\n"),
-                             "  if (err != cudaSuccess) return err;\n  if (blocks > ntiles)",
-                             "  if (err == cudaSuccess && COMPACT)\n"
-                             "    err = cudaMemsetAsync(out, 0, 4 * n, stream);\n"
-                             "  if (err != cudaSuccess) return err;\n  if (blocks > ntiles)"),
-            "stream_derive.cu": derive},
+        "walk": {"lookup_ranks.cu": patch(patch(text["lookup_ranks.cu"], WALK_CUT,
+                                                "constexpr int kWalkWindows = 1 << 30;"),
+                                          WALK_W, "constexpr int kWalkMaxW = kWideW;")},
+        "read": {"lookup_ranks.cu": patch(text["lookup_ranks.cu"], WALK_CUT,
+                                          "constexpr int kWalkWindows = 0;")},
+        "strided": {"lookup_ranks.cu": QUEUED.sub(lambda _: STRIDED, text["lookup_ranks.cu"],
+                                                  count=1)},
+        "k1_grid_p": {"minimizer.cu": patch(
+            text["minimizer.cu"], GRID,
+            "    (void)per_sm;\n    blocks = (P + kRankThreads - 1) / kRankThreads;\n")},
+        "fill_memset": {"scan.cu": patch(patch(scan, "  if (!COMPACT) return;\n", "  return;\n"),
+                                         "  if (err != cudaSuccess) return err;\n  if (blocks > "
+                                         "ntiles)",
+                                         "  if (err == cudaSuccess && COMPACT)\n"
+                                         "    err = cudaMemsetAsync(out, 0, 4 * n, stream);\n"
+                                         "  if (err != cudaSuccess) return err;\n  if (blocks > "
+                                         "ntiles)")},
         "rank_stores": {"scan.cu": patch(scan, "        compact_row(x[i], ex[i], e0, out);\n",
-                                         RANK_STORES),
-                        "stream_derive.cu": derive},
+                                         RANK_STORES)},
         "scan_vecs2": {"scan.cu": patch(scan, "constexpr int kScanVecs = 4;",
-                                        "constexpr int kScanVecs = 2;"),
-                       "stream_derive.cu": derive},
-        "round2_vecs4": {"scan.cu": scan,
-                         "stream_derive.cu": patch(derive, "constexpr int kRound2Vecs = 2;",
+                                        "constexpr int kScanVecs = 2;")},
+        "round2_vecs4": {"stream_derive.cu": patch(derive, "constexpr int kRound2Vecs = 2;",
                                                    "constexpr int kRound2Vecs = 4;")},
-        "count16": {"scan.cu": scan,
-                    "stream_derive.cu": patch(derive, "constexpr int kCountLanes = 8;",
+        "count16": {"stream_derive.cu": patch(derive, "constexpr int kCountLanes = 8;",
                                               "constexpr int kCountLanes = 16;")},
     }
     dirs = {}
     for side, files in sides.items():
         d = OUT / side
         d.mkdir(parents=True, exist_ok=True)
-        for name, text in files.items():
-            (d / name).write_text(text)
-        dirs[side] = d
+        for name, t in files.items():
+            (d / name).write_text(t)
+        dirs[side] = (d, tuple(files))
     return dirs
 
 
 def ptxas_lines(side, log):
-    """Registers and spills of the scan and derive kernels in nvcc's
-    -Xptxas -v log (empty when the library was built earlier)."""
+    """Registers and spills of the stream's kernels in nvcc's -Xptxas -v
+    log (empty when the library was built earlier)."""
     lines, out = log.splitlines(), []
     for ln, nxt, reg in zip(lines, lines[1:], lines[2:]):
         m = re.search(r"Function properties for _ZN6sshash\d+(scan_kernel|heads_kernel|"
-                      r"round2_kernel|merge_kernel|count_kernel)(?:ILb([01])E)?", ln)
+                      r"round2_kernel|merge_kernel|count_kernel|minimizer_ranks_kernel|"
+                      r"lookup_ranks_kernel)(?:IL[ib](\d+)E(?:Lb([01])E)?)?", ln)
         if m and re.search(r"Used \d+ registers", reg):
-            out.append(f"{side} {m.group(1)}{'<' + m.group(2) + '>' if m.group(2) else ''}: "
+            args = ",".join(x for x in m.groups()[1:] if x)
+            out.append(f"{side} {m.group(1)}{'<' + args + '>' if args else ''}: "
                        f"{re.search(r'Used \d+ registers', reg).group(0)}, {nxt.strip()}")
     return out
 
 
 def load_baseline(root):
     """DIR's sshash_tpu_torch as the package `baseline_sshash_tpu_torch`
-    (its modules import each other relatively): (streaming, kernels)."""
+    (its modules import each other relatively): a namespace of its
+    streaming, kernels, engine and parallel modules."""
     name, pkg = "baseline_sshash_tpu_torch", Path(root) / "sshash_tpu_torch"
     spec = importlib.util.spec_from_file_location(name, pkg / "__init__.py",
                                                   submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module(name + ".streaming"),
-            importlib.import_module(name + ".kernels"))
+    return types.SimpleNamespace(**{m: importlib.import_module(f"{name}.{m}")
+                                    for m in ("streaming", "kernels", "engine", "parallel")})
 
 
 class Mixed:
-    """A kernel library whose scan and derive entries come from a variant
-    and every other entry from the tree's."""
+    """A kernel library whose named entries come from a variant and every
+    other entry from the tree's."""
 
-    def __init__(self, tree, variant):
-        self.tree, self.variant = tree, variant
-        for name in ENTRIES:
+    def __init__(self, tree, variant, entries):
+        self.tree, self.variant, self.entries = tree, variant, entries
+        for name in entries:
             fn, ref = getattr(variant, name), getattr(tree, name)
             fn.argtypes, fn.restype = ref.argtypes, ref.restype
 
     def __getattr__(self, name):
-        return getattr(self.variant if name in ENTRIES else self.tree, name)
+        return getattr(self.variant if name in self.entries else self.tree, name)
 
 
 def build(baseline_kernels):
-    """The tree's library, DIR's and each variant's two sources, all nvcc
+    """The tree's library, DIR's and each variant's sources, all nvcc
     processes started together. Returns ({side: library}, ptxas lines)."""
     nvcc = kernels._nvcc()
     jobs = {}
-    for side, d in variant_sources().items():
-        for src in ("scan.cu", "stream_derive.cu"):
+    for side, (d, srcs) in variant_sources().items():
+        for src in srcs:
             obj = OUT / f"{side}_{src}.o"
-            cmd = [nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c",
-                   str(d / src), "-o", str(obj)]
-            jobs[(side, obj)] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True)
+            cmd = [nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(d), "-I", str(CSRC),
+                   "-c", str(d / src), "-o", str(obj)]
+            jobs[(side, src, obj)] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                      stderr=subprocess.STDOUT, text=True)
     base = {}
     t = threading.Thread(target=lambda: base.setdefault("log", baseline_kernels.build()[2]))
     t.start()
@@ -192,17 +249,18 @@ def build(baseline_kernels):
         raise RuntimeError("the baseline's kernels did not build")
     libs = {"tree": kernels.library(), "baseline": baseline_kernels.library()}
     regs = ptxas_lines("tree", tree_log) + ptxas_lines("baseline", base["log"])
-    objs = {}
-    for (side, obj), proc in jobs.items():
+    objs, entries = {}, {}
+    for (side, src, obj), proc in jobs.items():
         out = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"{side}: nvcc failed ({proc.returncode}):\n{out[-3000:]}")
         regs += ptxas_lines(side, out)
         objs.setdefault(side, []).append(str(obj))
+        entries.setdefault(side, []).extend(ENTRIES[src])
     for side, o in objs.items():
         so = OUT / f"lib{side}.so"
         subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", str(so), *o], check=True)
-        libs[side] = Mixed(libs["tree"], ctypes.CDLL(str(so)))
+        libs[side] = Mixed(libs["tree"], ctypes.CDLL(str(so)), entries[side])
     return libs, regs
 
 
@@ -234,29 +292,32 @@ def recorded_step(st, cfg, P, R, CW, av):
     return st.make_stream_step(cfg, P, R, CW, lookup, all_valid=av, ops=ops), calls
 
 
-def _values(x):
-    """A stage's output as a list of int64 tensors (flags as 0/1)."""
+def _values(name, args, x):
+    """A stage's output as a list of int64 tensors (flags as 0/1), the
+    rank-space stages' rows below their count only."""
+    n = {"minimizer_ranks": lambda: int(args[1][0]),
+         "lookup_ranks": lambda: int(args[4][0])}.get(name, lambda: None)()
     if isinstance(x, dict):
-        return [x[key].to(torch.int64) for key in sorted(x)]
-    if isinstance(x, (tuple, list)):
-        return [t.to(torch.int64) for t in x]
-    return [(x != 0).to(torch.int64) if x.dtype in (torch.bool, torch.uint8)
-            else x.to(torch.int64)]
+        x = [x[key] for key in sorted(x)]
+    elif not isinstance(x, (tuple, list)):
+        x = [(x != 0) if x.dtype in (torch.bool, torch.uint8) else x]
+    return [t[:n].to(torch.int64) for t in x]
 
 
 def stage_outputs(calls):
-    """{(stage, its k-th call): values} of the two sources' stages."""
+    """{(stage, its k-th call): values} of the compared stages."""
     out, seen = {}, {}
-    for name, _, o in calls:
+    for name, a, o in calls:
         if name in SOURCE_OF:
             i = seen[name] = seen.get(name, -1) + 1
-            out[(name, i)] = _values(o)
+            out[(name, i)] = _values(name, a, o)
     return out
 
 
 def compare_chunk(tag, sides, eng, packed, P, R, CW, av, stages=False):
     """Every side's step and stages on one chunk equal the tree's; then the
-    two sources, each stage when `stages`, and the whole step in turns."""
+    whole step, the misses' kernels, the two sources and, with `stages`,
+    each stage in turns."""
     runs = {}
     for side, (st, lib) in sides.items():
         with using(lib):
@@ -269,15 +330,16 @@ def compare_chunk(tag, sides, eng, packed, P, R, CW, av, stages=False):
         S.require(S.rows_equal(out, ref), f"{tag}: the {side} step != the tree's")
         got = stage_outputs(calls)
         for key, v in want.items():
+            if side == "baseline" and SOURCE_OF[key[0]] == "misses":
+                continue  # the baseline ran its misses over all P lanes
             S.require(key in got and all(torch.equal(a, b) for a, b in zip(got[key], v)),
                       f"{tag}: {side} stage {key} != the tree's")
-    counts = {side: {src: sum(SOURCE_OF.get(n) == src for n, _, _ in r[1])
-                     for src in ("scan.cu", "stream_derive.cu")} for side, r in runs.items()}
     n_need = [int(o[1][0]) for n, _, o in runs["tree"][1] if n == "compact"][0]
+    active = [int(a[4][:n_need].sum()) for n, a, _ in runs["tree"][1] if n == "lookup_ranks"]
     S.log(f"  {tag}: every side's step and stages equal the tree's ({', '.join(sides)}); "
-          f"misses {n_need} of P {P}; calls a step {counts}")
+          f"misses {n_need} of P {P}; active ranks in the two lookup rounds {active}")
 
-    def source_fn(side, src):
+    def calls_fn(side, src):
         st, lib = sides[side]
         sel = [(getattr(st.KERNEL_OPS, n), a) for n, a, _ in runs[side][1]
                if SOURCE_OF.get(n) == src]
@@ -310,20 +372,24 @@ def compare_chunk(tag, sides, eng, packed, P, R, CW, av, stages=False):
         return run
 
     graph = tuple(sides)
+    S.time_sides(tag, "the step", P, {side: step_fn(side) for side in sides}, unit="lane",
+                 graph=graph)
+    ranked = [side for side in sides if side != "baseline"]
+    S.time_sides(tag, "the misses' kernels (kernel 1's rank form, both lookup rounds)", P,
+                 {side: calls_fn(side, "misses") for side in ranked}, unit="lane", graph=ranked)
     for src in ("scan.cu", "stream_derive.cu"):
-        S.time_sides(tag, src, P, {side: source_fn(side, src) for side in sides}, unit="lane",
+        S.time_sides(tag, src, P, {side: calls_fn(side, src) for side in sides}, unit="lane",
                      graph=graph)
     if stages:
         for key in want:
-            fns = {side: stage_fn(side, key) for side in sides}
+            fns = {side: stage_fn(side, key) for side in sides
+                   if not (side == "baseline" and SOURCE_OF[key[0]] == "misses")}
             S.time_sides(tag, f"stage {key[0]} #{key[1]}, {STAGE_CALLS} calls", P * STAGE_CALLS,
-                         fns, unit="lane", graph=graph)
-    S.time_sides(tag, "the step", P, {side: step_fn(side) for side in sides}, unit="lane",
-                 graph=graph)
+                         fns, unit="lane", graph=tuple(fns))
 
 
-def first_chunk(eng, path, multiline):
-    st = ST._DeviceStream(eng, eng.cfg.k, pmax=1 << 22, rmax_shift=12 if multiline else 4)
+def first_chunk(stream_cls, eng, path, multiline, **kw):
+    st = stream_cls(eng, pmax=1 << 22, rmax_shift=12 if multiline else 4, **kw)
     st.capture = []
     for seq in ST.parse_reads(path, multiline=multiline):
         st.add_read(seq)
@@ -332,36 +398,40 @@ def first_chunk(eng, path, multiline):
     return packed, st.P, st.R, st.CW, av
 
 
+def unsharded_chunk(eng, path, multiline):
+    return first_chunk(lambda e, **kw: ST._DeviceStream(e, e.cfg.k, **kw), eng, path, multiline)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True, help="an unpacked earlier tree")
     ap.add_argument("--strings", type=int, default=S.SCALE_STRINGS)
-    ap.add_argument("--chunks", default="high-hit,low-hit",
-                    help="the chunks to run, of high-hit and low-hit")
+    ap.add_argument("--chunks", default="high-hit,low-hit,mixed,k65-mixed",
+                    help="the chunks to run, of high-hit, low-hit, mixed and k65-mixed")
     ap.add_argument("--stages", action="store_true", help="also time each stage in turns")
     a = ap.parse_args()
     chunks = a.chunks.split(",")
     S.phase_card()
     dev = torch.device("cuda", 0)
-    base_st, base_kernels = load_baseline(a.baseline)
-    libs, regs = build(base_kernels)
+    base = load_baseline(a.baseline)
+    libs, regs = build(base.kernels)
     for ln in regs:
         S.log(f"  ptxas {ln}")
     # the baseline's wrappers launch through its own library (its side swaps
     # nothing in this tree's)
     sides = {name: (ST, lib) for name, lib in libs.items() if name != "baseline"}
-    sides["baseline"] = (base_st, libs["tree"])
+    sides["baseline"] = (base.streaming, libs["tree"])
     rng = np.random.default_rng(6)
     with tempfile.TemporaryDirectory() as tmp:
-        if "high-hit" in chunks:
-            high_hit(a, sides, dev, rng, tmp)
-        if "low-hit" in chunks:
-            low_hit(a, sides, dev, rng, tmp)
+        for name in ("high-hit", "low-hit", "mixed", "k65-mixed"):
+            if name in chunks:
+                globals()[name.replace("-", "_")](a, sides, base, dev, rng, tmp)
     S.log(f"card: {torch.cuda.get_device_name(0)}")
 
 
-def high_hit(a, sides, dev, rng, tmp):
-    """The first chunk of a 168-string genome against the 100M build."""
+def high_hit(a, sides, base, dev, rng, tmp):
+    """The first chunk of a 168-string genome against the 100M build, and
+    the engine's lookup there against DIR's."""
     idx, host = S.build("canonical", k=31, m=21, canonical=True, num_strings=a.strings,
                         string_len=S.STRING_LEN, seed=60, threads=8)
     eng = S.TorchEngine(idx, dev, host_arrs=host)
@@ -370,25 +440,94 @@ def high_hit(a, sides, dev, rng, tmp):
                                                       replace=False))
     path = os.path.join(tmp, "genome.fa")
     synthetic.write_genome(path, strings, rng)
-    chunk = first_chunk(eng, path, True)
+    chunk = unsharded_chunk(eng, path, True)
     compare_chunk(f"100M high-hit chunk (P={chunk[1]})", sides, eng, *chunk, stages=a.stages)
-    del eng, idx, chunk
+    del chunk
+    _, km = S.positives(idx, rng, S.SCALE_B)
+    kt = eng.kmers32(km)
+    del km
+    got = E.lookup(eng.cfg, eng.tables, kt, None, "ids")
+    want = base.engine.lookup(eng.cfg, eng.tables, kt, None, "ids")
+    S.require(all(torch.equal(got[key], want[key]) for key in want), "100M lookup: tree != DIR")
+    S.time_sides("100M canonical", "the engine's lookup (ids)", S.SCALE_B,
+                 {"tree": lambda: E.lookup(eng.cfg, eng.tables, kt, None, "ids"),
+                  "baseline": lambda: base.engine.lookup(eng.cfg, eng.tables, kt, None, "ids")})
+    del eng, idx, kt, got, want
     torch.cuda.empty_cache()
 
 
-def low_hit(a, sides, dev, rng, tmp):
-    """The first chunk of phase 10's low-hit reads on the 5M regular build."""
-    idx, host = S.build("regular", k=31, m=17, canonical=False, num_strings=S.MAIN_STRINGS,
-                        string_len=S.STRING_LEN, seed=40, threads=8)
-    eng = S.TorchEngine(idx, dev, host_arrs=host)
+def _lowhit_path(idx, rng, tmp):
     strings = synthetic.index_strings(idx)
     reads = synthetic.cut_reads(strings, S.LOWHIT_TRUE, S.LOWHIT_LEN, rng)
     reads += synthetic.random_reads(S.LOWHIT_READS - S.LOWHIT_TRUE, S.LOWHIT_LEN, rng)
     reads = synthetic.with_n([reads[i] for i in rng.permutation(len(reads))], 0.01, rng)
     path = os.path.join(tmp, "lowhit.fq")
     synthetic.write_reads(path, reads)
-    chunk = first_chunk(eng, path, False)
+    return path
+
+
+def low_hit(a, sides, base, dev, rng, tmp):
+    """The first chunk of phase 10's low-hit reads on the 5M regular
+    build, and the (1, 4) sharded stream's step there against DIR's."""
+    idx, host = S.build("regular", k=31, m=17, canonical=False, num_strings=S.MAIN_STRINGS,
+                        string_len=S.STRING_LEN, seed=40, threads=8)
+    eng = S.TorchEngine(idx, dev, host_arrs=host)
+    path = _lowhit_path(idx, rng, tmp)
+    chunk = unsharded_chunk(eng, path, False)
     compare_chunk(f"low-hit 5M chunk (P={chunk[1]})", sides, eng, *chunk, stages=a.stages)
+    steps = {}
+    for side, (par, stream_cls) in {"tree": (ShardedEngine, ShardedStream),
+                                    "baseline": (base.parallel.ShardedEngine,
+                                                 base.parallel.ShardedStream)}.items():
+        seng = par(idx, LocalMesh((1, 4), dev) if side == "tree"
+                   else base.parallel.LocalMesh((1, 4), dev), host_arrs=host)
+        packed, *_, av = first_chunk(lambda e, **kw: stream_cls(e, **kw), seng, path, False)
+        st = stream_cls(seng, pmax=1 << 22, rmax_shift=4)
+        steps[side] = functools.partial(st._steps[(0, av)], None, packed)
+    S.require(S.rows_equal(steps["tree"](), steps["baseline"]()),
+              "sharded low-hit step: tree != DIR")
+    S.time_sides("low-hit 5M (1, 4) sharded", "the step", 1 << 22, steps, unit="lane",
+                 graph=tuple(steps))
+    del eng, idx, host, steps
+    torch.cuda.empty_cache()
+
+
+def mixed(a, sides, base, dev, rng, tmp):
+    """The first chunk of phase 10's mixed reads on the 5M canonical build."""
+    idx, host = S.build("canonical", k=31, m=17, canonical=True, num_strings=S.MAIN_STRINGS,
+                        string_len=S.STRING_LEN, seed=40, threads=8)
+    eng = S.TorchEngine(idx, dev, host_arrs=host)
+    strings = synthetic.index_strings(idx)
+    half = S.MIXED_READS // 2
+    reads = synthetic.cut_reads(strings, half, S.MIXED_LEN, rng, rc=0.5, subst=0.01)
+    reads += synthetic.random_reads(half, S.MIXED_LEN, rng)
+    path = os.path.join(tmp, "mixed.fq")
+    synthetic.write_reads(path, [reads[i] for i in rng.permutation(len(reads))])
+    chunk = unsharded_chunk(eng, path, False)
+    compare_chunk(f"mixed 5M canonical chunk (P={chunk[1]})", sides, eng, *chunk,
+                  stages=a.stages)
+    del eng, idx, host, chunk
+    torch.cuda.empty_cache()
+
+
+def k65_mixed(a, sides, base, dev, rng, tmp):
+    """The first chunk of phase 13's mixed reads on a k65 m25 canonical
+    build of 5M kmers."""
+    idx, host = S.build("k65 canonical", k=S.WIDE_K, m=S.WIDE_M, canonical=True,
+                        num_strings=MIXED_K65_STRINGS, string_len=S.WIDE_STRING_LEN, seed=65,
+                        threads=8)
+    eng = S.TorchEngine(idx, dev, host_arrs=host)
+    strings = synthetic.index_strings(idx)
+    half = S.WIDE_READS // 2
+    reads = synthetic.cut_reads(strings, half, S.MIXED_LEN, rng, rc=0.5, subst=0.01)
+    reads += synthetic.random_reads(half, S.MIXED_LEN, rng)
+    path = os.path.join(tmp, "k65_mixed.fq")
+    synthetic.write_reads(path, [reads[i] for i in rng.permutation(len(reads))])
+    chunk = unsharded_chunk(eng, path, False)
+    compare_chunk(f"k65 mixed canonical chunk (P={chunk[1]})", sides, eng, *chunk,
+                  stages=a.stages)
+    del eng, idx, host, chunk
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
