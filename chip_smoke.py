@@ -12,9 +12,10 @@ line):
   1. card: nvidia-smi name and power limit; no CUDA card -> exit 1
   2. build: one nvcc per csrc/ source, in parallel, for sm_90a (timed
      per source, registers per kernel, any spills; none allowed in the
-     lookup kernel, the access kernel, kernel 1's rank form and the
-     rank-space lookup at widths 1..8, nor in the chain kernel, the scan
-     and compaction kernel, the derive kernels or the neighbours kernel)
+     lookup kernel, the access kernel, kernel 1's rank form, the
+     rank-space lookup and kernel 2's shard form at widths 1..8, nor in
+     the chain kernel, the scan and compaction kernel, the derive kernels,
+     the neighbours kernel or the combine kernel)
   3. kernel == plain on the card, exactly: kernel 1 at B = 2^20 for
      (k, m) in (31, 17), (31, 21), (63, 25), (65, 25), (127, 31), (129,
      31), (255, 31); on every small configuration of
@@ -118,11 +119,18 @@ line):
      the unsharded engine's, with the heavy lanes handed to another shard
      counted (> 0); on phase 7's 100M index in (1, 4) 2^24 lanes equal the
      unsharded ids, with shard_tables' host time, per-shard table bytes,
-     the sharded and unsharded lookups in turns, kernel 2 per shard against
-     its bound and the combine; the 5M lookup on one NCCL rank
-     (DistMesh((1, 1))) equals LocalMesh((1, 1)). Kernel 2 (both hand-off
-     passes), access, weight, the chain given windows and the window read
-     equal their plain versions on every shard.
+     the sharded and unsharded lookups in turns, kernel 2's shard form
+     (owned stores) per shard against its bound, and the combine kernel
+     (csrc/combine.cu) on the 4 shards' packed buffers against its plain
+     version and torch.stack().amin(0) (CUDA-graph replays); the 5M lookup
+     on one NCCL rank (DistMesh((1, 1)): kernel 2's packed form)
+     equals LocalMesh((1, 1)). Kernel 2's shard form (owned stores over a
+     sentinel, after every launch, through both rounds and both hand-off
+     passes; the packed form), access, weight, the chain given windows and
+     the window read equal their plain versions on every shard, and the
+     combine kernel its plain version on the packed buffers and on the
+     inputs of every combine the 5M sharded paths and the two-round
+     access run.
   Each path's launch counts are set to 0 just before it and read just
   after; every kernel of the path must have launched.
  13. k > 63 at scale: k65 m25 (the reference's m for its widest k), 5M
@@ -148,7 +156,8 @@ line):
      by kernel 1's operations or the lookup's own bytes); kernel 1's rank
      form and the rank-space lookup (the 100M chunk, launches on the
      stream paths); kernels 1-2 over all lanes counted on the sharded
-     paths, which alone launch them; the sharded rows of kernel 2, access,
+     paths, which alone launch them; the combine kernel (counted on the
+     sharded paths, timed at 100M); the sharded rows of kernel 2, access,
      weight and the chain; the wide forms' rows at k65), then the ok
      line.
 
@@ -156,6 +165,7 @@ Data is random, drawn from fixed seeds. Nothing here imports JAX or the
 JAX package (sshash_tpu): a finder refuses both.
 """
 
+import contextlib
 import functools
 import importlib.abc
 import json
@@ -191,7 +201,7 @@ from sshash_tpu_torch import streaming as ST  # noqa: E402
 from sshash_tpu_torch.index import decode_codeword  # noqa: E402
 from sshash_tpu_torch.engine import (_neighbours_to_host, _to_host_result,  # noqa: E402
                                      canonical_fold, lookup_plain, make_lookup,
-                                     make_neighbours, probe, probe_plain)
+                                     make_neighbours, probe, probe_plain, unpack_result)
 from sshash_tpu_torch.kernels import lookup_kernel  # noqa: E402
 from sshash_tpu_torch.layout import (acc_width, acc_windowed, cand_block_width,  # noqa: E402
                                      device_arrays, row_width, take_rows)
@@ -199,7 +209,10 @@ from sshash_tpu_torch.ops import packed as P  # noqa: E402
 from sshash_tpu_torch.ops import u64 as u  # noqa: E402
 from sshash_tpu_torch.parallel import (DistMesh, LocalMesh, ShardedEngine,  # noqa: E402
                                        ShardedStream)
-from sshash_tpu_torch.parallel.sharded import _pack, _unpack, split_weight_runs  # noqa: E402
+from sshash_tpu_torch.layout import packed_rows  # noqa: E402
+from sshash_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
+from sshash_tpu_torch.parallel.mesh import combine, combine_plain  # noqa: E402
+from sshash_tpu_torch.parallel.sharded import split_weight_runs  # noqa: E402
 
 INVALID = np.uint64(2 ** 64 - 1)
 REPS = 7
@@ -345,6 +358,30 @@ def require(cond, what):
         raise AssertionError(what)
 
 
+@contextlib.contextmanager
+def combines_checked(errs, forms):
+    """Inside, every combine a LocalMesh runs launches the combine kernel
+    as the path does and is held to combine_plain on the same inputs; each
+    call's form (op, unsigned, dtype, group size) is added to forms."""
+    launch = mesh_mod.combine
+
+    def checked(op, unsigned, *ts):
+        got = launch(op, unsigned, *ts)
+        err = max_abs_err([got], [combine_plain(op, unsigned, *ts)])
+        errs["combine_kernel"] = max(errs["combine_kernel"], err)
+        form = (op, "u32" if unsigned else "signed", str(ts[0].dtype).split(".")[-1], len(ts))
+        require(err == 0, f"the combine kernel != plain on a path's inputs: {form}, "
+                f"{tuple(ts[0].shape)}")
+        forms.add(form)
+        return got
+
+    mesh_mod.combine = checked
+    try:
+        yield
+    finally:
+        mesh_mod.combine = launch
+
+
 def id_tensor(ids, dev):
     """Kmer ids -> (B,) int32 tensor of their u32 bits on dev."""
     return torch.from_numpy(np.ascontiguousarray(ids, dtype=np.uint32).view(np.int32)).to(dev)
@@ -439,7 +476,11 @@ NO_SPILL = {"lookup_kernel at widths 1..8": (r"13lookup_kernelILi[1-8]E", 32),
                 (r"(17neighbours_kernel|22neighbours_vec4_kernel)E", 2),
             "minimizer_ranks_kernel at widths 1..8": (r"22minimizer_ranks_kernelILi[1-8]E", 8),
             # two modes; at widths 1..4 also the form that walks the windows
-            "lookup_ranks_kernel at widths 1..8": (r"19lookup_ranks_kernelILi[1-8]E", 24)}
+            "lookup_ranks_kernel at widths 1..8": (r"19lookup_ranks_kernelILi[1-8]E", 24),
+            # both modes, v1 and v2 rows
+            "shard_probe_kernel at widths 1..8": (r"18shard_probe_kernelILi[1-8]E", 32),
+            # min and max signed and unsigned, sums, of int32 and int64
+            "combine_kernel": (r"14combine_kernelILi[0-2]E", 10)}
 
 
 def phase_card():
@@ -751,7 +792,7 @@ def access_bytes(cfg, ids, shard=None):
     return ids.shape[0] * (4 + 4 * cfg.W) + rows * 4 * acc_width(cfg)
 
 
-def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None, fused=False):
+def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None, fused=False, slots=None):
     """Bytes kernel 2 must move on these lanes (kt and probe_args' args),
     each input read once: per lane its kmer (and reverse complement),
     minimizer and position tries in (fused: the lookup kernel's work, the
@@ -761,9 +802,15 @@ def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None, fused=False):
     candidate blocks; pilot and seed words one a lane, capped at their
     table's size. Rows of mid buckets past the fused row (a few lanes) are
     not counted: a lower bound. With shard (a ProbeShard, tables the
-    shard's), only the lanes whose slot the shard holds read a fused row;
-    in an hindex index their heavy lanes write their row instead of
-    reading it (the hand-off's first pass)."""
+    shard's: kernel 2's owned shard form), every lane's minimizer is read
+    (its slot decides the owner), and only the lanes whose slot the shard
+    holds read the rest of their inputs, a fused row and write their
+    result; in an hindex index their heavy lanes write their row instead
+    of reading it (the hand-off's first pass). slots as kernel 2's shard
+    form takes it: "store" (the row's first shard) also writes every lane's
+    slot; "read" (the others) reads every lane's slot in place of its
+    minimizer and the MPHF's pilot and seed words, and only the lanes it
+    owns read their minimizer."""
     B, canon = kt.shape[0], 2 if cfg.canonical else 1
     nb = lambda name: tables[name].numel() * tables[name].element_size()  # noqa: E731
 
@@ -771,15 +818,22 @@ def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None, fused=False):
         return int(torch.unique(idx.clamp(max=tables[name].shape[0] - 1)).numel())
 
     lane_in = 4 * cfg.W if fused else 4 * cfg.W * canon + 8 + 4 * canon
-    total = B * (lane_in + 10 + (20 if fields == "full" else 0))
-    total += min(4 * B, nb("pilots"))
-    total += min(8 * B, nb("mphf_seedrows")) if cfg.mphf_partitioned else 0
+    lane_out = 10 + (20 if fields == "full" else 0)
+    total = 0
+    if slots != "read":  # the MPHF's evaluation
+        total += min(4 * B, nb("pilots"))
+        total += min(8 * B, nb("mphf_seedrows")) if cfg.mphf_partitioned else 0
     slot = E.mphf_eval_minimizer(cfg, tables, u.from_i64(args[1]))
     sel = torch.arange(B, device=kt.device)
     if shard is not None:
         sel = ((slot >= shard.slot_lo) & (slot < shard.slot_hi)).nonzero()[:, 0]
         slot = slot[sel] - shard.slot_lo
-    total += distinct(slot, "cw_row") * 4 * row_width(cfg)
+        if slots == "read":
+            total += 4 * B  # every lane's slot; the owned lanes' minimizers below
+        else:
+            total += 8 * B + (4 * B if slots == "store" else 0)  # every lane's minimizer (slot)
+            lane_in -= 8
+    total += sel.numel() * (lane_in + lane_out) + distinct(slot, "cw_row") * 4 * row_width(cfg)
     if not cfg.has_skew:
         return total
     head = take_rows(tables["cw_row"][:, :2], slot)  # (status | class << 2, cw_a)
@@ -795,7 +849,7 @@ def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None, fused=False):
     total += nb("sk_params") + min(4 * nh, nb("sk_pilots"))
     total += min(8 * nh, nb("sk_seedrows")) if cfg.skew_partitioned else 0
     if shard is not None and cfg.skew_hrows:
-        return total + 4 * B  # the rows handed on
+        return total + 4 * sel.numel()  # the rows handed on
     if cfg.skew_hrows:
         blocks = distinct(hidx, "sk_hrows")
     else:
@@ -1166,7 +1220,8 @@ SOURCES = {"minimizer.cu": "sshash_tpu/ops/packed.py:263",
            "stream_derive.cu": "sshash_tpu/streaming.py:460",
            "check.cu": "sshash_tpu/debug.py:44",
            "read_at2.cu": "sshash_tpu/ops/packed.py:33",
-           "lookup_ranks.cu": "sshash_tpu/streaming.py:551"}
+           "lookup_ranks.cu": "sshash_tpu/streaming.py:551",
+           "combine.cu": "sshash_tpu/parallel/sharded.py:103"}
 # kernel 1's rank form (minimizer.cu sshash_minimizer_ranks): the misses'
 # windows of streaming.py run_windows
 MINIMIZER_RANKS_REPLACES = "sshash_tpu/streaming.py:551"
@@ -1799,38 +1854,82 @@ def straddling_positions(idx, rng, B, read_len):
     return km, rng.random(B) > 0.02, first
 
 
-def shard_probes_equal_plain(seng, kt, tag, errs):
-    """Kernel 2 on every bucket shard of seng equals its plain version, in
-    an hindex index in both passes of the hand-off. Returns (heavy lanes,
-    those whose sk_hrows row another shard holds)."""
-    cfg = seng.cfg
-    args = probe_args(cfg, kt, P.minimizer)
-    outs = []
-    for j, sh in enumerate(seng.probe_shards):
-        got = probe(cfg, seng.tables[j], kt, *args, None, seng.fields, shard=sh)
-        want = probe_plain(cfg, seng.tables[j], kt, *args, None, seng.fields, shard=sh)
-        err = max_abs_err([got[f] for f in want], list(want.values()))
+def shard_rounds(cfg, kt):
+    """A lookup's kernel-2 rounds after kernel 1: [(kernel 2's args from the
+    kmers on, rc_round)]: the canonical fold's one, or the regular mode's
+    forward round and RC round."""
+    mv, mp, rc, mv_r, mp_r = P.minimizer(kt, cfg.k, cfg.m, cfg.magic, both=True)
+    if cfg.canonical:
+        return [((kt, rc, *canonical_fold(mv, mp, mv_r, mp_r)), False)]
+    return [((kt, None, mv, mp, None), False), ((rc, None, mv_r, mp_r, None), True)]
+
+
+SENTINEL = 0x5A5A5A5A  # no result field holds it
+
+
+def sentinel_out(seng, B, fields, packed=False):
+    """Kernel 2's shard-form output holding a sentinel: the owned form's
+    result tensors (ids SENTINEL, orientation 7) and the lanes' slots, or a
+    packed buffer, plus the hand-off's rows."""
+    dev = seng.device
+    if packed:
+        out = {"packed": torch.full((packed_rows(fields), B), SENTINEL, dtype=torch.int32,
+                                    device=dev)}
+    else:
+        out = {name: torch.full((B,), SENTINEL, dtype=dt, device=dev) if dt == torch.int32
+               else torch.zeros(B, dtype=dt, device=dev)
+               for name, dt in kernels.result_dtypes(fields).items()}
+        out["kmer_orientation"].fill_(7)
+        out["slot"] = torch.full((B,), SENTINEL, dtype=torch.int32, device=dev)
+    if seng.handoff:
+        out["hrow"] = torch.full((B,), SENTINEL, dtype=torch.int32, device=dev)
+    return out
+
+
+def shard_probes_equal_plain(seng, kt, want, tag, errs):
+    """Kernel 2's shard form on every bucket shard of seng equals its plain
+    version: the owned stores (kernel and plain version each on their own
+    sentinel-filled result tensors, equal after every launch, through
+    every round and, in an hindex index, both hand-off passes; no lane
+    keeps the sentinel, and the stores make want, the unsharded lookup's
+    fields) and each shard's packed buffer. Returns (heavy lanes, those
+    whose sk_hrows row another shard holds), of the first round."""
+    cfg, fields, B = seng.cfg, seng.fields, kt.shape[0]
+    outs = [sentinel_out(seng, B, fields) for _ in range(2)]
+
+    def same(a, b, what):
+        err = max_abs_err([a[f] for f in b], list(b.values()))
         errs["probe_sharded"] = max(errs["probe_sharded"], err)
-        require(err == 0 and got.keys() == want.keys(), f"{tag} shard {j}: kernel 2 != plain")
-        outs.append(got)
-    if not seng.handoff:
-        return 0, 0
-    hrow = LocalMesh((1, len(outs)), kt.device).pmin(
-        {(0, j): o["hrow"] for j, o in enumerate(outs)}, "bucket", unsigned=True)[(0, 0)]
-    for j, sh in enumerate(seng.probe_shards):
-        got = probe(cfg, seng.tables[j], kt, *args, None, seng.fields, shard=sh, hrows=hrow)
-        want = probe_plain(cfg, seng.tables[j], kt, *args, None, seng.fields, shard=sh,
-                           hrows=hrow)
-        err = max_abs_err([got[f] for f in want], list(want.values()))
-        errs["probe_sharded"] = max(errs["probe_sharded"], err)
-        require(err == 0, f"{tag} shard {j}: kernel 2's second pass != plain")
-    per_hr = seng.geometry["per_shard_hrows"]
+        require(err == 0 and a.keys() == b.keys(), f"{tag} {what}: kernel 2 != plain")
+
+    rounds = shard_rounds(cfg, kt)
+    for args, rc in rounds:
+        for j, sh in enumerate(seng.probe_shards):
+            for fn, out in zip((probe, probe_plain), outs):
+                fn(cfg, seng.tables[j], *args, None, fields, sh, out=out, fill=j == 0 and not rc,
+                   rc_round=rc, slots="read" if j else "store")
+            same(*outs, f"shard {j}{' RC round' if rc else ''}")
+        if seng.handoff:
+            for j, sh in enumerate(seng.probe_shards):
+                for fn, out in zip((probe, probe_plain), outs):
+                    fn(cfg, seng.tables[j], *args, None, fields, sh, hrows=out["hrow"], out=out,
+                       rc_round=rc)
+                same(*outs, f"shard {j} second pass{' RC round' if rc else ''}")
+    require(not (outs[0]["kmer_orientation"] == 7).any(), f"{tag}: a lane kept the sentinel")
+    outs[0].pop("hrow", None)
+    outs[0].pop("slot")
+    equal_fields(outs[0], want, f"{tag} owned stores")
+    # the packed form (a DistMesh rank's), shard by shard
     heavy = moved = 0
-    for j, o in enumerate(outs):
-        h = u.u32(o["hrow"])
-        mine = h != M32
-        heavy += int(mine.sum())
-        moved += int((mine & (h // per_hr != j)).sum())
+    per_hr = seng.geometry["per_shard_hrows"]
+    for j, sh in enumerate(seng.probe_shards):
+        pair = [fn(cfg, seng.tables[j], *rounds[0][0], None, fields, sh,
+                   out=sentinel_out(seng, B, fields, packed=True)) for fn in (probe, probe_plain)]
+        same(*pair, f"shard {j} packed")
+        if seng.handoff:
+            h = u.u32(pair[0]["hrow"])
+            heavy += int((h != M32).sum())
+            moved += int(((h != M32) & (h // per_hr != j)).sum())
     return heavy, moved
 
 
@@ -1870,26 +1969,30 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
     wids = id_tensor(rng.integers(0, widx.num_kmers, MAIN_B), dev)
     wengines = {shape: ShardedEngine(widx, LocalMesh(shape, dev)) for shape in SHARD_SHAPES}
     kernels.reset_counts()
-    results = {}
-    for (mode, shape), seng in engines.items():
-        kt, it, skt, _, sv, sf = inputs[mode]
-        results[(mode, shape)] = (
-            seng.lookup_device(kt), seng.access_device(it),
-            seng.kmer_neighbours_device(kt[:NAV_B]),
-            seng.stream_report_device(skt, torch.from_numpy(sv).to(dev),
-                                      torch.from_numpy(sf).to(dev)))
-    weights = {shape: w.weight_device(wids) for shape, w in wengines.items()}
-    streams = {}
-    for name, (mode, path, _) in read_sets.items():
-        for shape in SHARD_SHAPES:
-            st = ShardedStream(engines[(mode, shape)], pmax=1 << 22, rmax_shift=4)
-            for seq in ST.parse_reads(path):
-                st.add_read(seq)
-            streams[(name, shape)] = (st.finalize(), st.chunks)
-    torch.cuda.synchronize()
+    results, forms = {}, set()
+    # each combine these paths run is also held to its plain version on its
+    # own inputs (the plain version launches nothing)
+    with combines_checked(errs, forms):
+        for (mode, shape), seng in engines.items():
+            kt, it, skt, _, sv, sf = inputs[mode]
+            results[(mode, shape)] = (
+                seng.lookup_device(kt), seng.access_device(it),
+                seng.kmer_neighbours_device(kt[:NAV_B]),
+                seng.stream_report_device(skt, torch.from_numpy(sv).to(dev),
+                                          torch.from_numpy(sf).to(dev)))
+        weights = {shape: w.weight_device(wids) for shape, w in wengines.items()}
+        streams = {}
+        for name, (mode, path, _) in read_sets.items():
+            for shape in SHARD_SHAPES:
+                st = ShardedStream(engines[(mode, shape)], pmax=1 << 22, rmax_shift=4)
+                for seq in ST.parse_reads(path):
+                    st.add_read(seq)
+                streams[(name, shape)] = (st.finalize(), st.chunks)
+        torch.cuda.synchronize()
     add_counts(launches, path_counts(
         "5M sharded paths", ("minimizer_kernel", "probe_kernel", "access_kernel",
-                             "neighbours_kernel", "weight_kernel", "stream_swin_kernel")
+                             "neighbours_kernel", "weight_kernel", "stream_swin_kernel",
+                             "combine_kernel")
         + STREAM_WRAPPERS))
     for (mode, shape), (lk, acc, nav, srep) in results.items():
         idx, eng = built[mode][:2]
@@ -1911,6 +2014,10 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
             f"positions (reads of {STREAM_READ} straddling the rows) equals derive_report: {got}")
     for shape, w in weights.items():
         require(torch.equal(w, weng.weight_device(wids)), f"weighted {shape}: weight")
+    require({("max", "u32", "int32")} <= {f[:3] for f in forms},
+            f"the 5M sharded paths ran no u32 max combine: {sorted(forms)}")
+    log(f"  5M sharded paths: the combine kernel == plain on every call's inputs, in the forms "
+        f"(op, order, dtype, tensors) {sorted(forms)}")
     log(f"  weighted {SHARD_SHAPES}: weight of {MAIN_B} ids equals TorchEngine's")
     for (name, shape), (rep, chunks) in streams.items():
         want = read_sets[name][2]
@@ -1979,7 +2086,7 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
                 add_counts(launches, path_counts(f"1M {mode} {form} {shape} sharded lookup",
                                                  ("minimizer_kernel", "probe_kernel")))
                 equal_fields(got, ref, f"1M {mode} {form} {shape}")
-            heavy, moved = shard_probes_equal_plain(seng, kt, f"1M {mode} {form}", errs)
+            heavy, moved = shard_probes_equal_plain(seng, kt, ref, f"1M {mode} {form}", errs)
             if form == "hindex":
                 require(moved > 0, f"1M {mode}: no heavy lane's row is another shard's")
             log(f"  1M {mode} {form}: {len(q)} lanes equal TorchEngine's in all {len(ref)} "
@@ -2012,39 +2119,59 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
                         lambda: seng.lookup_ids_device(kt), lambda: eng.lookup_ids_device(kt),
                         sides=("sharded, 4 shards in turn", "unsharded"))
     args = probe_args(cfg, kt, P.minimizer)
-    shard_probes_equal_plain(seng, kt, "100M", errs)
+    shard_probes_equal_plain(seng, kt, eng.lookup_device(kt), "100M", errs)
+    # each shard's owned stores into one set of result tensors, as the
+    # lookup launches them
+    outs = [sentinel_out(seng, SCALE_B, "ids") for _ in range(2)]
+    probe(cfg, seng.tables[0], kt, *args, None, "ids", seng.probe_shards[0], out=outs[0],
+          slots="store")
+    outs[1]["slot"].copy_(outs[0]["slot"])  # the later shards read shard 0's slots
+    slots = lambda j: "read" if j else "store"  # noqa: E731
     timed["probe_sharded"] = time_shards(
-        "100M canonical (1, 4)", "kernel 2 (ids)", SCALE_B,
-        lambda j: probe(cfg, seng.tables[j], kt, *args, None, "ids", shard=seng.probe_shards[j]),
-        lambda j: probe_plain(cfg, seng.tables[j], kt, *args, None, "ids",
-                              shard=seng.probe_shards[j]),
-        [probe_bytes(cfg, seng.tables[j], kt, args, shard=sh)
+        "100M canonical (1, 4)", "kernel 2's shard form (ids, owned stores)", SCALE_B,
+        lambda j: probe(cfg, seng.tables[j], kt, *args, None, "ids", seng.probe_shards[j],
+                        out=outs[0], slots=slots(j)),
+        lambda j: probe_plain(cfg, seng.tables[j], kt, *args, None, "ids", seng.probe_shards[j],
+                              out=outs[1], slots=slots(j)),
+        [probe_bytes(cfg, seng.tables[j], kt, args, shard=sh, slots=slots(j))
          for j, sh in enumerate(seng.probe_shards)])
-    outs = {(0, j): probe(cfg, seng.tables[j], kt, *args, None, "ids", shard=sh)
-            for j, sh in enumerate(seng.probe_shards)}
-    comb = median_ms(lambda: _unpack(seng.mesh.pmin({s: _pack(o) for s, o in outs.items()},
-                                                    "bucket")[(0, 0)], "ids"))
+    # the combine kernel on what the stacked combine reduced: the 4 shards'
+    # packed buffers (kernel 2's packed form, a DistMesh rank's)
+    bufs = [probe(cfg, seng.tables[j], kt, *args, None, "ids", sh,
+                  out=sentinel_out(seng, SCALE_B, "ids", packed=True))["packed"]
+            for j, sh in enumerate(seng.probe_shards)]
+    got = combine("min", False, *bufs)
+    err = max_abs_err([got], [combine_plain("min", False, *bufs)])
+    errs["combine_kernel"] = max(errs["combine_kernel"], err)
+    require(err == 0, "100M: the combine kernel != plain")
+    equal_fields(unpack_result(got, "ids"), res, "100M: the packed buffers' combine")
+    cb = time_turns("100M canonical (1, 4)", "the combine of 4 packed (4, B) buffers", SCALE_B,
+                    lambda: combine("min", False, *bufs),
+                    lambda: combine_plain("min", False, *bufs), graph=("kernel",))
+    lib = graph_ms(lambda: torch.stack(bufs).amin(0))
+    cbytes = (len(bufs) + 1) * bufs[0].numel() * 4
+    timed["combine"] = {"kernel": cb["kernel"], "plain": cb["plain"], "library": lib,
+                        "bound": bound(cbytes)}
+    log(f"  100M (1, 4): combine.cu {cb['kernel']:.4f} ms against torch.stack().amin(0) "
+        f"{lib:.4f} ms (graph replays) and its bound {bound(cbytes)[0]:.4f} ms ({cbytes} bytes)")
     # the whole sharded lookup through the plain versions, and its bound on
-    # one card: kernel 1, the 4 shards' kernel 2, the fold's glue, and the
-    # combine reading each shard's 10 result bytes a lane and writing 10
+    # one card: kernel 1, the 4 shards' kernel 2 and the fold's glue
     require(not seng.handoff, "100M: the plain sharded lookup has no hand-off pass")
     plain = median_ms(lambda: plain_sharded_lookup(seng, kt), reps=3)
-    nbytes = [probe_bytes(cfg, seng.tables[j], kt, args, shard=sh)
+    nbytes = [probe_bytes(cfg, seng.tables[j], kt, args, shard=sh, slots=slots(j))
               for j, sh in enumerate(seng.probe_shards)]
     lb = lookup_bounds(cfg, SCALE_B, sum(nbytes))  # the two-kernel form's parts
-    whole = sum(ms for ms, _ in lb.values()) + bound(SCALE_B * 10 * 5)[0]
+    whole = sum(ms for ms, _ in lb.values())
     timed["sharded_lookup"] = {"kernel": lookup["sharded, 4 shards in turn"], "plain": plain,
                                "bound": whole}
     log(f"  100M (1, 4): the sharded lookup through the plain versions {plain:.4f} ms; its "
         f"bound on one card {whole:.4f} ms (kernel 1 {lb['minimizer.cu'][0]:.4f}, the 4 "
-        f"shards' kernel 2 {lb['probe.cu'][0]:.4f}, the fold {lb['fold'][0]:.4f}, the "
-        f"combine's bytes {bound(SCALE_B * 50)[0]:.4f})")
-    log(f"  100M (1, 4): the combine of the 4 shards' kernel 2 outputs {comb:.4f} ms; the "
-        f"slowest shard's kernel 2 {timed['probe_sharded']['kernel']:.4f} ms; the sharded lookup "
-        f"runs the 4 shards in turn: {lookup['sharded, 4 shards in turn']:.4f} ms against "
+        f"shards' kernel 2 {lb['probe.cu'][0]:.4f}, the fold {lb['fold'][0]:.4f})")
+    log(f"  100M (1, 4): the slowest shard's kernel 2 {timed['probe_sharded']['kernel']:.4f} ms; "
+        f"the sharded lookup runs the 4 shards in turn into one set of result tensors, no "
+        f"combine: {lookup['sharded, 4 shards in turn']:.4f} ms against "
         f"{lookup['unsharded']:.4f} unsharded")
-    timed["combine_ms"] = comb
-    del seng, outs, res
+    del seng, outs, bufs, got, res
     # ---- one NCCL rank
     import torch.distributed as dist
 
@@ -2076,6 +2203,7 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
     # rows of the kernels line count them here
     launches = {"minimizer_kernel": launches.get("minimizer_kernel", 0),
                 "probe_kernel": launches.get("probe_kernel", 0),
+                "combine_kernel": launches.get("combine_kernel", 0),
                 "probe_sharded": launches.get("probe_kernel", 0),
                 "access_sharded": launches.get("access_kernel", 0)
                 + launches.get("access_read_kernel", 0),
@@ -2100,8 +2228,12 @@ def sharded_two_round_access(dev, rng, errs):
     ids = rng.integers(0, idx.num_kmers, MAIN_B)
     it = id_tensor(ids, dev)
     kernels.reset_counts()
-    acc = seng.access_device(it)
-    torch.cuda.synchronize()
+    forms = set()
+    with combines_checked(errs, forms):
+        acc = seng.access_device(it)
+        torch.cuda.synchronize()
+    require(("min", "u32", "int32", 4) in forms,
+            f"short strings: the offsets' u32 min did not combine: {sorted(forms)}")
     c = path_counts("5M short strings (1, 4) sharded access", ("access_kernel",
                                                                "access_read_kernel"))
     require(torch.equal(acc, eng.access_device(it)), "short strings: sharded access != unsharded")
@@ -2136,14 +2268,16 @@ def sharded_two_round_access(dev, rng, errs):
 
 def plain_sharded_lookup(seng, kt):
     """A canonical sharded lookup (ids) of an index without hand-off, all
-    through the plain versions: kernel 1's, the canonical fold, each
-    shard's kernel 2 and the combine."""
+    through the plain versions: kernel 1's, the canonical fold and each
+    shard's owned stores into one set of result tensors."""
     cfg = seng.cfg
     mv, mp, rc, mv_r, mp_r = P.minimizer_plain(kt, cfg.k, cfg.m, cfg.magic, both=True)
     args = (rc, *canonical_fold(mv, mp, mv_r, mp_r))
-    outs = {(0, j): _pack(probe_plain(cfg, seng.tables[j], kt, *args, None, "ids", shard=sh))
-            for j, sh in enumerate(seng.probe_shards)}
-    return _unpack(seng.mesh.pmin(outs, "bucket")[(0, 0)], "ids")
+    out = seng._result_tensors(kt.shape[0], "ids")
+    for j, sh in enumerate(seng.probe_shards):
+        probe_plain(cfg, seng.tables[j], kt, *args, None, "ids", sh, out=out, fill=j == 0,
+                    slots="read" if j else "store")
+    return out
 
 
 def time_sharded_chain(seng, path, errs):
@@ -2471,8 +2605,10 @@ def main():
     csrc = "sshash_tpu_torch/csrc/"
     rows = []
     sh_launches, sh_times = sharded
-    for name in ("minimizer_kernel", "probe_kernel"):
+    for name in ("minimizer_kernel", "probe_kernel", "combine_kernel"):
         launches[name] = sh_launches[name]
+    times["combine_kernel"] = sh_times["combine"]
+    bounds["combine.cu"] = sh_times["combine"]["bound"]
     for src, rep in SOURCES.items():
         # the lookup kernel, in probe.cu beside kernel 2, and kernel 1's rank
         # form, in minimizer.cu, have rows of their own

@@ -159,8 +159,8 @@ extern "C" int sshash_lookup_ranks(const sshash::ProbeTables* t, const sshash::P
   if (p->B <= 0) return (int)cudaGetLastError();
   if (bad_params(*t, *p, *io) || p->row_v2 || p->full || !io->count || !io->active ||
       !io->string_id || !io->minval || !io->minpos || !io->minval_r || !io->minpos_r ||
-      io->kmers_rc || io->minpos2 || io->hrow_out || io->hrow_in || p->slot_lo != 0 ||
-      p->slot_hi != (1ll << 32))
+      io->kmers_rc || io->minpos2 || io->hrow_out || io->hrow_in || p->store != kStoreAll ||
+      p->slot_lo != 0 || p->slot_hi != (1ll << 32))
     return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
   const bool walk = p->k - p->m + 1 <= kWalkWindows;

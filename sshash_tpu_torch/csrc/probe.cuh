@@ -66,17 +66,16 @@
 // after the JAX package's int32 cast, so a lane reads exactly the entries
 // the JAX program reads, for absent and inactive lanes too.
 //
-// Bucket shards (kernel 2 only; sshash_tpu/parallel/sharded.py
-// _branchfree_lookup, the owner masks of engine.py:778-784 and :904-911):
-// a shard holds the rows of MPHF slots [slot_lo, slot_hi), its own mid and
-// legacy heavy rows (cw_a local), and in hindex indexes the sk_hrows rows
-// [hrow_lo, hrow_hi). A lane whose slot is not the shard's is inactive
-// there. Only the slot's owner knows a heavy lane's global sk_hrows row, so
-// an hindex probe splits there: with hrow_out the heavy lanes write that
-// row (0xFFFFFFFF elsewhere) and verify nothing; the caller takes the
-// unsigned min over the shards; with hrow_in each shard verifies the rows
-// it holds and reads no minimizer table. An unsharded call passes the
-// whole slot range.
+// Bucket shards (kernel 2's shard form, probe.cu shard_probe_kernel;
+// sshash_tpu/parallel/sharded.py _branchfree_lookup, the owner masks of
+// engine.py:778-784 and :904-911): a shard holds the rows of MPHF slots
+// [slot_lo, slot_hi), its own mid and legacy heavy rows (cw_a local), and
+// in hindex indexes the sk_hrows rows [hrow_lo, hrow_hi). Only the slot's
+// owner knows a heavy lane's global sk_hrows row, so an hindex probe
+// splits there: with hrow_out the heavy lanes write that row and verify
+// nothing; with hrow_in each shard verifies the rows it holds. probe.cu
+// sets out where each lane is stored. An unsharded call passes the whole
+// slot range and stores every lane.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -128,6 +127,9 @@ struct ProbeParams {
   int64_t mphf_partitioned, mphf_P, mphf_part_table, mphf_part_buckets;
   int64_t mphf_nbuckets, mphf_table, pilot_w, sk_pilot_w;
   int64_t slot_lo, slot_hi, hrow_lo, hrow_hi;  // this shard's slots and sk_hrows rows
+  int64_t store;     // StoreMode: every lane, or the shard form's owned or packed stores
+  int64_t fill;      // kStoreOwned: this launch also stores the inactive lanes
+  int64_t rc_round;  // kStoreOwned: the regular mode's RC round, merged in place
   uint64_t mphf_seedmix;
   uint64_t magic;  // the minimizer hash's (the lookup kernel's kernel-1 work)
 };
@@ -157,7 +159,19 @@ struct ProbeIO {
   const int32_t* count;
   const uint64_t* minval_r;
   const int32_t* minpos_r;
+  // kStorePacked only, null elsewhere: the (F, B) combine buffer
+  int32_t* packed;
+  // kStoreOwned only, or null: the lanes' MPHF slots, stored by a mesh
+  // row's first shard as it evaluates them, read by the others
+  uint32_t* slot_out;
+  const uint32_t* slot_in;
 };
+
+// Where kernel 2 stores its lanes (probe.cu): every lane (unsharded), or
+// in its shard form the lanes this shard owns into result tensors every
+// shard of a mesh row shares, or every lane into a packed buffer whose
+// signed min over the shards is their combine.
+enum StoreMode { kStoreAll = 0, kStoreOwned = 1, kStorePacked = 2 };
 
 // engine._pilot_read: field `bucket` of a table packed at width w (4..32)
 __device__ __forceinline__ uint32_t pilot_read(int w, const uint32_t* words, int64_t n,
@@ -369,26 +383,41 @@ __device__ __forceinline__ Lane probe_lane(const ProbeTables& t, const ProbePara
   return probe_row<W, CANON, V2>(t, p, grow, row, km, kr, minval, tries, ntries, hrow);
 }
 
-// The result fields of lane i. V2: rebased rows (ids only); v1 rows write
-// the string fields too when p.full (a uniform branch, so the two field
-// forms share one instantiation and the build stays short).
+// A lane's u32 result fields (0xFFFFFFFF where not found).
+struct Fields {
+  uint32_t kid, kis, off, sid, begin, end;
+};
+
 template <bool V2>
-__device__ __forceinline__ void write_result(const ProbeIO& io, const ProbeParams& p, int64_t i,
-                                             const Lane& L, int32_t orient) {
-  const bool FULL = !V2 && p.full;
+__device__ __forceinline__ Fields lane_fields(const ProbeParams& p, const Lane& L) {
   const bool found = L.found;
   const Hit& res = L.res;
   const uint32_t off = found ? res.off : 0u;
-  io.kmer_id[i] = !found ? kInvalid32 : V2 ? off : off - res.sid * (uint32_t)(p.k - 1);
+  return Fields{!found ? kInvalid32 : V2 ? off : off - res.sid * (uint32_t)(p.k - 1),
+                found ? off - res.begin : kInvalid32, found ? off : kInvalid32,
+                found ? res.sid : kInvalid32, found ? res.begin : kInvalid32,
+                found ? res.end : kInvalid32};
+}
+
+// The result fields of lane i (minimizer_found only with mf). V2: rebased
+// rows (ids only); v1 rows write the string fields too when p.full (a
+// uniform branch, so the two field forms share one instantiation and the
+// build stays short).
+template <bool V2>
+__device__ __forceinline__ void write_result(const ProbeIO& io, const ProbeParams& p, int64_t i,
+                                             const Lane& L, int32_t orient, bool mf = true) {
+  const bool FULL = !V2 && p.full;
+  const Fields f = lane_fields<V2>(p, L);
+  io.kmer_id[i] = f.kid;
   io.kmer_orientation[i] = orient;
-  io.minimizer_found[i] = L.mfound;
-  io.found[i] = found;
+  if (mf) io.minimizer_found[i] = L.mfound;
+  io.found[i] = L.found;
   if (FULL) {
-    io.kmer_offset[i] = found ? off : kInvalid32;
-    io.string_id[i] = found ? res.sid : kInvalid32;
-    io.string_begin[i] = found ? res.begin : kInvalid32;
-    io.string_end[i] = found ? res.end : kInvalid32;
-    io.kmer_id_in_string[i] = found ? off - res.begin : kInvalid32;
+    io.kmer_offset[i] = f.off;
+    io.string_id[i] = f.sid;
+    io.string_begin[i] = f.begin;
+    io.string_end[i] = f.end;
+    io.kmer_id_in_string[i] = f.kis;
   }
 }
 
@@ -481,7 +510,12 @@ inline int stage_threads(const ProbeParams& p) {
 inline bool bad_params(const ProbeTables& t, const ProbeParams& p, const ProbeIO& io) {
   const int W = p.W <= kMaxFixedW ? (int)p.W : kWideW;
   return p.k > kMaxK || p.m < 1 || p.m > 31 || p.W != (2 * p.k + 31) / 32 ||
-         (p.full && !io.kmer_offset) || (p.full && p.row_v2) ||
+         (p.full && !io.kmer_offset && !io.packed) || (p.full && p.row_v2) ||
+         p.store < kStoreAll || p.store > kStorePacked || (p.store == kStorePacked) != !!io.packed ||
+         (p.store != kStorePacked && (!io.kmer_id || !io.found || !io.minimizer_found)) ||
+         ((p.fill || p.rc_round) && p.store != kStoreOwned) || (p.rc_round && p.canonical) ||
+         ((io.slot_out || io.slot_in) && (p.store != kStoreOwned || io.hrow_in)) ||
+         (io.slot_out && io.slot_in) ||
          p.blk_w != 1 + p.vbits_words + p.win_words + (p.row_v2 ? 3 : 4) ||
          p.row_w != 2 + (p.c1_in_row ? 2 : 1) * p.blk_w ||
          (2 + p.blk_w + 6) >> 2 > head_segments(W) ||

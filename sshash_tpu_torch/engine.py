@@ -28,8 +28,12 @@ the fold or the RC retry, and the probe, per thread, in csrc/probe.cu),
 whose plain version `lookup_plain` is the two-kernel form over the plain
 versions. The stream's missed lanes run the lookup kernel's lane in rank
 space, up to their count on the device (`lookup_ranks`,
-csrc/lookup_ranks.cu). The bucket-sharded engine and its stream (their own
-probe) keep the two-kernel form (make_lookup).
+csrc/lookup_ranks.cu). The bucket-sharded engine and its stream keep
+kernel 1 and kernel 2 as separate launches: on a LocalMesh kernel 1 once
+a data row, then kernel 2's shard form on each shard, storing the lanes
+it owns into the row's shared result tensors (`probe` given a shard and
+`out`; parallel/sharded.py), on a DistMesh the two-kernel form
+(make_lookup) over kernel 2's packed form and a collective.
 
 The plain versions here (`probe_plain` and its helpers) hold u32 values in
 int64 tensors and run on any device; `probe` sends CPU tensors to them and
@@ -186,7 +190,8 @@ def _verify(cfg, blk, active, km, kr, tries):
 
 
 def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
-                active=None, fields="full", shard=None, hrows=None):
+                active=None, fields="full", shard=None, hrows=None, out=None, fill=False,
+                rc_round=False, slots=None):
     """Plain version of kernel 2 (csrc/probe.cu), same contract as
     kernels.probe_kernel: kmers32 / kmers_rc32 (canonical only) (B, W)
     int32, minval int64, minpos / minpos2 int32, active bool or None (every
@@ -198,15 +203,77 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
     through the skew index, candidate 1 rides the row when c1_in_row, and
     the remaining mid-bucket candidates are tried in a masked loop.
 
-    shard (a layout.ProbeShard): the tables are one bucket shard's, and
-    lanes whose MPHF slot is another shard's are inactive here
-    (engine.py:778-784 of the JAX package). In an hindex index the heavy
-    lanes then verify nothing: the result's "hrow" holds each one's global
-    sk_hrows row (0xFFFFFFFF elsewhere), and a second call with hrows (the
-    unsigned min of "hrow" over the shards) verifies the rows this shard
-    holds (:904-911)."""
+    The shard form (shard: a layout.ProbeShard, the tables one bucket
+    shard's; engine.py:778-784 and :904-911 of the JAX package) probes the
+    lanes whose MPHF slot the shard owns and stores into out, which it
+    returns (layout.check_probe_shard):
+      - the owned form (the result tensors a mesh row's shards share)
+        stores those lanes and, with fill, the inactive lanes as not
+        found; with rc_round (the regular mode's RC round) only the lanes
+        out does not hold as found, merged as _merge merges: BACKWARD,
+        minimizer_found ORed with out's, the hit's fields where found;
+      - the packed form ({"packed": (F, B) int32}) stores every lane in the
+        mesh combine's order (pack_result), the combine's identity on the
+        lanes the shard does not own.
+    In an hindex index the owner's heavy lanes verify nothing: out["hrow"]
+    gets their global sk_hrows row (0xFFFFFFFF on the other lanes it
+    stores), and a second call given hrows stores the hits of the rows this
+    shard holds (of the lanes out does not hold as found, in the owned
+    form), without minimizer_found. slots="store": the probed lanes' MPHF
+    slots go to out["slot"] (a mesh row's first shard); "read": they are
+    taken from there."""
     check_fields(cfg, fields)
-    handoff = check_probe_shard(cfg, shard, hrows)
+    handoff, packed = check_probe_shard(cfg, shard, hrows, out, fill, rc_round, slots)
+    B, dev = kmers32.shape[0], kmers32.device
+    active = torch.ones(B, dtype=torch.bool, device=dev) if active is None else active
+    if shard is None:
+        return _probe_lanes(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2, active,
+                            fields)[0]
+    act = active & ~out["found"] if not packed and (rc_round or hrows is not None) else active
+    res, own = _probe_lanes(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2, act,
+                            fields, shard, hrows, handoff,
+                            out["slot"] if slots == "read" else None)
+    slot = res.pop("slot", None)
+    if slots == "store":
+        _store(out, {"slot": slot}, act)
+    if packed:
+        pk = pack_result(res)
+        if hrows is None:
+            _store(out, {"packed": pk, "hrow": res.get("hrow")}, None)
+        else:  # the hits over the first pass's rows, minimizer_found kept
+            rows = torch.arange(pk.shape[0], device=dev) != pk.shape[0] - 2
+            _store(out, {"packed": pk}, (own & res["found"])[None] & rows[:, None])
+        return out
+    hit = own & res["found"]
+    if rc_round:
+        res["kmer_orientation"] = torch.full_like(res["kmer_orientation"], BACKWARD_ORIENTATION)
+    if hrows is not None:
+        res.pop("minimizer_found")
+        _store(out, res, hit)
+    elif rc_round:
+        res["minimizer_found"] = res["minimizer_found"] | out["minimizer_found"]
+        _store(out, {key: res.pop(key) for key in ("kmer_orientation", "minimizer_found", "hrow")
+                     if key in res}, own)
+        _store(out, res, hit)
+    else:
+        _store(out, res, own | (~active & fill))
+    return out
+
+
+def _store(out, res, mask):
+    """out[key] = res[key] where mask (every element when mask is None), in
+    place, for the keys both hold."""
+    for key, v in res.items():
+        if v is not None and key in out:
+            out[key].copy_(v if mask is None else torch.where(mask, v, out[key]))
+
+
+def _probe_lanes(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2, active, fields,
+                 shard=None, hrows=None, handoff=False, slot=None):
+    """probe_plain's probe of the active lanes, on a shard of those whose
+    slot (given hrows: whose handed row) it owns: (the result fields, not
+    found on every lane not probed, and on a shard "slot", each lane's MPHF
+    slot (int32 bits); the lanes probed). slot: the lanes' slots, given."""
     B, dev = kmers32.shape[0], kmers32.device
     km = u.u32(kmers32)
     kr = u.u32(kmers_rc32) if kmers_rc32 is not None else None
@@ -218,19 +285,20 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         if minpos2 is not None:
             mp2 = minpos2.to(torch.int64)
             tries += [mp2, cfg.kmw - mp2]
-    active = torch.ones(B, dtype=torch.bool, device=dev) if active is None else active
 
     if hrows is not None:  # the hand-off's second pass
         r = u.u32(hrows)
         own = active & (r >= shard.hrow_lo) & (r < shard.hrow_hi)
         blk = take_rows(tables["sk_hrows"], torch.where(own, r - shard.hrow_lo, 0))
         return _result(cfg, fields, _verify(cfg, blk, own, km, kr, tries),
-                       torch.ones_like(active))
-    slot = mphf_eval_minimizer(cfg, tables, mv)
+                       torch.ones_like(active)), own
+    slot = mphf_eval_minimizer(cfg, tables, mv) if slot is None else u.u32(slot)
+    slots = u.to_i32(slot)
     if shard is not None:
-        own = (slot >= shard.slot_lo) & (slot < shard.slot_hi)
-        active = active & own
-        slot = torch.where(own, slot - shard.slot_lo, 0)
+        in_range = (slot >= shard.slot_lo) & (slot < shard.slot_hi)
+        active = active & in_range
+        slot = torch.where(in_range, slot - shard.slot_lo, 0)
+    own = active
     row = take_rows(tables["cw_row"], slot)
     sb, cw_a = row[:, 0], row[:, 1]
     status, cw_b = sb & 3, sb >> 2
@@ -297,7 +365,9 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
     res = _result(cfg, fields, state, minimizer_found)
     if hrow is not None:
         res["hrow"] = u.to_i32(hrow)
-    return res
+    if shard is not None:
+        res["slot"] = slots
+    return res, own
 
 
 def _result(cfg, fields, hit, minimizer_found):
@@ -319,6 +389,34 @@ def _result(cfg, fields, hit, minimizer_found):
 
 
 probe = kernels.by_device(kernels.probe_kernel, probe_plain, "probe", arg=2)
+
+# kernel 2's packed combine buffer (its shard form on a DistMesh): the u32
+# fields with the top bit flipped, so that a signed min orders them as
+# unsigned, then kmer_orientation (FORWARD, 1, is the identity),
+# minimizer_found and -found; its elementwise signed min over the shards
+# is their combine
+PACKED_U32 = ("kmer_id", "kmer_id_in_string", "kmer_offset", "string_id", "string_begin",
+              "string_end")
+_TOP = -(1 << 31)
+
+
+def pack_result(res):
+    """A probe result as kernel 2's packed (F, B) int32 buffer."""
+    rows = [res[f] ^ _TOP for f in PACKED_U32 if f in res]
+    rows += [res["kmer_orientation"], res["minimizer_found"].to(torch.int32),
+             -res["found"].to(torch.int32)]
+    return torch.stack(rows)
+
+
+def unpack_result(packed, fields):
+    """The result fields of a packed (F, B) buffer (pack_result's)."""
+    names = [f for f in PACKED_U32 if fields == "full" or f == "kmer_id"]
+    out = {f: packed[n] ^ _TOP for n, f in enumerate(names)}
+    n = len(names)
+    out["kmer_orientation"] = packed[n]
+    out["minimizer_found"] = packed[n + 1] != 0
+    out["found"] = packed[n + 2] != 0
+    return out
 _probe_entry = probe  # make_lookup's default; its parameter `probe` hides the name
 
 
@@ -443,13 +541,15 @@ def make_lookup(cfg, fields="full", minimizer=None, probe=None):
     return fn
 
 
-def make_neighbours(cfg, fields="full", variants=P.neighbour_variants, **lookup_kw):
+def make_neighbours(cfg, fields="full", variants=P.neighbour_variants, lookup=None,
+                    **lookup_kw):
     """Batched navigation (src/dictionary.cpp:112-128): one lookup over the
     8 one-char variants of each kmer, 4 forward then 4 backward; result
-    fields are (B, 8). `variants` defaults to the kernel entry point and
-    `lookup_kw` (make_lookup's `minimizer` and `probe`) to the one-launch
-    lookup."""
-    lookup = make_lookup(cfg, fields, **lookup_kw)
+    fields are (B, 8). `variants` defaults to the kernel entry point;
+    `lookup` (a make_lookup fn, the bucket-sharded engine's own) to
+    make_lookup(cfg, fields, **lookup_kw) (its `minimizer` and `probe`;
+    the one-launch lookup by default)."""
+    lookup = lookup or make_lookup(cfg, fields, **lookup_kw)
 
     def fn(tables, kmers32):
         B = kmers32.shape[0]

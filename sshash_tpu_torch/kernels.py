@@ -1,24 +1,26 @@
 """Build and bind the port's CUDA kernels (csrc/), with launch counters.
 
-Thirteen CUDA sources: probe carries lookup, as one launch of the lookup
+Fourteen CUDA sources: probe carries lookup, as one launch of the lookup
 kernel (kernel 1's minimizers, the canonical fold or the RC retry, and the
-probe, per thread) and as kernel 2 alone, which the bucket-sharded engine
-and its stream call after minimizer (kernel 1); lookup_ranks the lookup
-kernel's lane over the stream's missed lanes in rank space, up to their
-count on the device, after minimizer's rank form; access, iterator, weight
-and neighbours the other point queries;
-scan, stream_anchor, stream_chain and stream_derive the stream step; check
-the sanitizer's postconditions (debug.py) and read_at2 the read over the
-interleaved (NW, 2) table (ops/packed.read_kmers_at2). A source may hold
-several wrappers, each with its own count; SOURCE_KERNELS maps them. The
-sources that hold a kmer a thread are templates on the kmer's width in
-u32 words: 1..8 one by one, and one runtime-width form for 9..16 (k <=
-255, layout.MAX_K); the neighbours kernels take four output words a
-thread (one where B*W is not a multiple of 4) and have none. Kernel 2,
-access, weight and the chain also serve the shards of the
-bucket-sharded engine (parallel/): each takes its shard's range, and
-access_read and stream_swin are the second round and the window read
-that its split tables need.
+probe, per thread) and kernel 2 alone, over the whole table or in its
+shard form, which the bucket-sharded engine and its stream call after
+minimizer (kernel 1); lookup_ranks the lookup kernel's lane over the
+stream's missed lanes in rank space, up to their count on the device,
+after minimizer's rank form; access, iterator, weight and neighbours the
+other point queries; scan, stream_anchor, stream_chain and stream_derive
+the stream step; check the sanitizer's postconditions (debug.py);
+read_at2 the read over the interleaved (NW, 2) table
+(ops/packed.read_kmers_at2); combine the elementwise reductions of a
+LocalMesh (parallel/mesh.py). A source may hold several wrappers, each
+with its own count; SOURCE_KERNELS maps them. The sources that hold a
+kmer a thread are templates on the kmer's width in u32 words: 1..8 one by
+one, and one runtime-width form for 9..16 (k <= 255, layout.MAX_K); the
+neighbours kernels take four output words a thread (one where B*W is not
+a multiple of 4) and have none. Kernel 2, access, weight and the chain
+also serve the shards of the bucket-sharded engine (parallel/): each
+takes its shard's range (kernel 2's shard form stores only the lanes the
+shard owns), and access_read and stream_swin are the second round and
+the window read that its split tables need.
 
 The sources compile with nvcc for sm_90a, one nvcc process per source, all
 started together, and link into one shared library with a plain C
@@ -37,10 +39,10 @@ point (ops/packed.minimizer, .minimizer_ranks, .neighbour_variants,
 .probe, .access, .access_read, .iterate and .weight;
 streaming.stream_masks, .stream_kmers, .stream_chain, .stream_swin,
 .stream_heads, .stream_round2, .stream_merge and .stream_count;
-debug.check) is made by `by_device`, which chooses between a wrapper and
-its plain version by the device of one argument and runs the wrapper with
-that card current (the C entries launch on the current card, and cache
-their occupancy per card).
+debug.check; parallel.mesh.combine) is made by `by_device`, which
+chooses between a wrapper and its plain version by the device of one
+argument and runs the wrapper with that card current (the C entries
+launch on the current card, and cache their occupancy per card).
 
 Synchronous launches (`sync_launches`, on inside debug.debug_mode): every
 wrapper then waits for its kernel and raises on any CUDA error, so a fault
@@ -61,12 +63,13 @@ from pathlib import Path
 import torch
 
 from .layout import (WHOLE_TABLE, AccessShard, acc_width, acc_win_words, acc_windowed,
-                     cand_block_width, check_access, check_fields, check_probe_shard, row_width)
+                     cand_block_width, check_access, check_fields, check_probe_shard, packed_rows,
+                     row_width)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("minimizer.cu", "probe.cu", "lookup_ranks.cu", "access.cu", "iterator.cu",
            "weight.cu", "neighbours.cu", "scan.cu", "stream_anchor.cu", "stream_chain.cu",
-           "stream_derive.cu", "check.cu", "read_at2.cu")
+           "stream_derive.cu", "check.cu", "read_at2.cu", "combine.cu")
 HEADERS = ("grid.cuh", "minimizer.cuh", "packed.cuh", "probe.cuh", "scan.cuh", "stage.cuh",
            "tables.cuh", "u64.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sshash_tpu_torch"
@@ -165,7 +168,7 @@ _PARAM_NAMES = ("B", "W", "k", "m", "canonical", "full", "win_words",
                 "has_skew", "row_v2", "skew_hrows", "skew_partitioned",
                 "mphf_partitioned", "mphf_P", "mphf_part_table", "mphf_part_buckets",
                 "mphf_nbuckets", "mphf_table", "pilot_w", "sk_pilot_w",
-                "slot_lo", "slot_hi", "hrow_lo", "hrow_hi")
+                "slot_lo", "slot_hi", "hrow_lo", "hrow_hi", "store", "fill", "rc_round")
 
 
 class ProbeParams(ctypes.Structure):
@@ -176,7 +179,8 @@ class ProbeParams(ctypes.Structure):
 _IO_NAMES = ("kmers", "kmers_rc", "minval", "minpos", "minpos2", "active",
              "kmer_id", "kmer_orientation", "minimizer_found", "found",
              "kmer_id_in_string", "kmer_offset", "string_id", "string_begin",
-             "string_end", "hrow", "hrow_in", "count", "minval_r", "minpos_r")
+             "string_end", "hrow", "hrow_in", "count", "minval_r", "minpos_r", "packed",
+             "slot_out", "slot_in")
 # the result fields of ProbeIO, in order (the hand-off's "hrow" out last)
 _OUT_NAMES = _IO_NAMES[6:16]
 
@@ -244,6 +248,8 @@ def library():
         lib.sshash_stream_count.argtypes = [p, p, p, p, p, p, p, i64, p, p]
         lib.sshash_check.argtypes = [p, p, p, p, p, i64, i64, i64, p, p]
         lib.sshash_read_at2.argtypes = [p, i64, p, i64, i64, p, p, p]
+        lib.sshash_combine.argtypes = [ctypes.POINTER(ctypes.c_void_p), i64, i64, i64, i64, i64,
+                                       p, p]
         lib.sshash_last_error.argtypes = []
         for name in ("sshash_access", "sshash_access_occupancy", "sshash_chain_occupancy",
                      "sshash_iterate", "sshash_weight", "sshash_weight_plan", "sshash_neighbours",
@@ -251,7 +257,7 @@ def library():
                      "sshash_stream_kmers", "sshash_stream_chain", "sshash_stream_swin",
                      "sshash_stream_heads", "sshash_stream_round2", "sshash_stream_merge",
                      "sshash_stream_count", "sshash_check", "sshash_read_at2",
-                     "sshash_last_error"):
+                     "sshash_combine", "sshash_last_error"):
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -393,10 +399,11 @@ def minimizer_ranks_kernel(kmers32, count, k, m, magic):
 minimizer_ranks_kernel.launches = 0
 
 
-def _probe_launch(cfg, tables, kmers32, active, fields, shard=None):
+def _probe_launch(cfg, tables, kmers32, active, fields, shard=None, store=0, fill=False,
+                  rc_round=False):
     """What both probe entries check and pass: the kmers' and tables'
     shapes, types and device; returns (B, device, ProbeTables, ProbeParams,
-    the result tensors)."""
+    the result tensors, new unless store is the shard form's)."""
     check_fields(cfg, fields)
     if kmers32.dim() != 2:
         raise ValueError(f"kmers32 must be (B, {cfg.W}), got {tuple(kmers32.shape)}")
@@ -420,23 +427,29 @@ def _probe_launch(cfg, tables, kmers32, active, fields, shard=None):
     if tuple(t["sk_params"].shape) != (8, 8):
         raise ValueError("sk_params must be (8, 8)")
 
-    full = fields == "full"
-    u32_out = lambda: torch.empty(B, dtype=torch.int32, device=dev)  # noqa: E731
-    out = {"kmer_id": u32_out(),
-           "kmer_orientation": torch.empty(B, dtype=torch.int32, device=dev),
-           "minimizer_found": torch.empty(B, dtype=torch.bool, device=dev),
-           "found": torch.empty(B, dtype=torch.bool, device=dev)}
-    if full:
-        for name in ("kmer_id_in_string", "kmer_offset", "string_id",
-                     "string_begin", "string_end"):
-            out[name] = u32_out()
+    out = None if store else {name: torch.empty(B, dtype=dt, device=dev)
+                              for name, dt in result_dtypes(fields).items()}
     tab = ProbeTables(*(v for n in _TABLE_NAMES
                         for v in (t[n].data_ptr(), t[n].shape[0])),
                       t["sk_params"].data_ptr())
-    return B, dev, tab, probe_params(cfg, B, fields, shard), out
+    return B, dev, tab, probe_params(cfg, B, fields, shard, store, fill, rc_round), out
 
 
-def probe_params(cfg, B, fields="ids", shard=None):
+def result_dtypes(fields):
+    """Kernel 2's and the lookup kernel's result fields and their dtypes."""
+    out = {"kmer_id": torch.int32, "kmer_orientation": torch.int32,
+           "minimizer_found": torch.bool, "found": torch.bool}
+    if fields == "full":
+        out.update((name, torch.int32) for name in ("kmer_id_in_string", "kmer_offset",
+                                                     "string_id", "string_begin", "string_end"))
+    return out
+
+
+# csrc/probe.cuh StoreMode
+STORE_ALL, STORE_OWNED, STORE_PACKED = 0, 1, 2
+
+
+def probe_params(cfg, B, fields="ids", shard=None, store=STORE_ALL, fill=False, rc_round=False):
     """The ProbeParams of csrc/probe.cu for B lanes of cfg's layout."""
     sh = shard or WHOLE_TABLE
     return ProbeParams(
@@ -449,7 +462,8 @@ def probe_params(cfg, B, fields="ids", shard=None):
         mphf_part_table=cfg.mphf_part_table, mphf_part_buckets=cfg.mphf_part_buckets,
         mphf_nbuckets=cfg.mphf_nbuckets, mphf_table=cfg.mphf_table,
         pilot_w=cfg.pilot_w, sk_pilot_w=cfg.sk_pilot_w, slot_lo=sh.slot_lo,
-        slot_hi=sh.slot_hi, hrow_lo=sh.hrow_lo, hrow_hi=sh.hrow_hi,
+        slot_hi=sh.slot_hi, hrow_lo=sh.hrow_lo, hrow_hi=sh.hrow_hi, store=store,
+        fill=int(fill), rc_round=int(rc_round),
         mphf_seedmix=cfg.mphf_seedmix, magic=cfg.magic & (2 ** 64 - 1))
 
 
@@ -458,16 +472,24 @@ def _ptr(x):
 
 
 def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
-                 active=None, fields="full", shard=None, hrows=None):
+                 active=None, fields="full", shard=None, hrows=None, out=None, fill=False,
+                 rc_round=False, slots=None):
     """Kernel 2: the fused-row probe, in either row format and either skew
-    form, over the whole table or one bucket shard's (layout.ProbeShard).
-    Same contract as engine.probe_plain: returns kmer_id /
+    form. Over the whole table it returns new result tensors: kmer_id /
     kmer_orientation / minimizer_found / found and, with fields="full" (v1
-    rows only), the string fields (u32 fields as int32 bits); a sharded
-    hindex probe also "hrow", and with hrows it runs the hand-off's second
-    pass."""
-    handoff = check_probe_shard(cfg, shard, hrows)
-    B, dev, tab, prm, out = _probe_launch(cfg, tables, kmers32, active, fields, shard)
+    rows only), the string fields (u32 fields as int32 bits). Its shard
+    form (shard: a layout.ProbeShard, tables the shard's) stores into out
+    and returns it: the lanes the shard owns into the result tensors a
+    mesh row's shards share, or every lane into {"packed": (F, B) int32}
+    (layout.check_probe_shard has the forms; slots="store" / "read": the
+    lanes' MPHF slots into / from out["slot"]). Same contract as
+    engine.probe_plain."""
+    handoff, packed = check_probe_shard(cfg, shard, hrows, out, fill, rc_round, slots)
+    store = STORE_ALL if shard is None else STORE_PACKED if packed else STORE_OWNED
+    B, dev, tab, prm, new = _probe_launch(cfg, tables, kmers32, active, fields, shard, store,
+                                          fill, rc_round)
+    if B >= 1 << 32:
+        raise ValueError(f"kernel 2 takes fewer than 2^32 lanes, got {B}")
     if (kmers_rc32 is not None) != cfg.canonical:
         raise ValueError("kmers_rc32 is required in canonical mode and only there")
     if kmers_rc32 is not None:
@@ -478,16 +500,32 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
         _check(minpos2, "minpos2", torch.int32, (B,))
     if hrows is not None:
         _check(hrows, "hrows", torch.int32, (B,))
+    res = new if out is None else out
+    if packed:
+        _check(out["packed"], "packed", torch.int32, (packed_rows(fields), B))
+    elif out is not None:
+        for name, dt in result_dtypes(fields).items():
+            _check(out[name], name, dt, (B,))
     if handoff and hrows is None:
-        out["hrow"] = torch.empty(B, dtype=torch.int32, device=dev)
+        _check(res["hrow"], "hrow", torch.int32, (B,))
+    if slots:
+        _check(res["slot"], "slot", torch.int32, (B,))
+    for name, t in res.items():
+        if t.device != dev:
+            raise ValueError(f"out[{name!r}] is on {t.device}, queries on {dev}")
+    fields_out = {} if packed else res
     io = ProbeIO(kmers32.data_ptr(), _ptr(kmers_rc32), minval.data_ptr(),
                  minpos.data_ptr(), _ptr(minpos2), _ptr(active),
-                 *(_ptr(out.get(n)) for n in _OUT_NAMES), _ptr(hrows))
+                 *(_ptr(fields_out.get(n)) for n in _OUT_NAMES[:-1]),
+                 _ptr(res.get("hrow")) if handoff and hrows is None else None, _ptr(hrows),
+                 packed=_ptr(res.get("packed")),
+                 slot_out=_ptr(res["slot"]) if slots == "store" else None,
+                 slot_in=_ptr(res["slot"]) if slots == "read" else None)
     err = library().sshash_probe(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
                                  _stream(dev))
     _raise_on(err, "probe_kernel")
     probe_kernel.launches += 1
-    return out
+    return res
 
 
 probe_kernel.launches = 0
@@ -1059,13 +1097,55 @@ def read_at2_kernel(table, offsets, k):
 
 read_at2_kernel.launches = 0
 
+# csrc/combine.cu: the most tensors one launch takes, and its ops
+MAX_COMBINE = 8
+COMBINE_OPS = ("min", "max", "sum")
+
+
+def combine_kernel(op, unsigned, *ts):
+    """The elementwise min, max or sum (op) of the CUDA tensors ts (one
+    shape, int32 or int64, one card), min and max ordered as unsigned with
+    unsigned=True (u32 bits in int32), sums wrapping: one launch a group of
+    up to MAX_COMBINE tensors, folded in groups past that. Returns a new
+    tensor. Same contract as parallel.mesh.combine_plain."""
+    if op not in COMBINE_OPS:
+        raise ValueError(f"op must be one of {COMBINE_OPS}, got {op!r}")
+    if not ts:
+        raise ValueError("combine takes at least one tensor")
+    t0 = ts[0]
+    if t0.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"combine takes int32 or int64 tensors, got {t0.dtype}")
+    if unsigned and t0.dtype != torch.int32:
+        raise ValueError("the unsigned order is that of u32 bits in int32 tensors")
+    for t in ts:
+        _check(t, "a combined tensor", t0.dtype, t0.shape)
+        if t.device != t0.device:
+            raise ValueError(f"combined tensors on {t.device} and {t0.device}")
+    lib, dev = library(), t0.device
+    acc, rest = None, list(ts)
+    while rest:
+        group = ([acc] if acc is not None else []) + rest[:MAX_COMBINE - (acc is not None)]
+        rest = rest[len(group) - (acc is not None):]
+        out = torch.empty_like(t0)
+        ptrs = (ctypes.c_void_p * len(group))(*(t.data_ptr() for t in group))
+        err = lib.sshash_combine(ptrs, len(group), t0.numel(), t0.element_size(),
+                                 COMBINE_OPS.index(op), int(unsigned), out.data_ptr(),
+                                 _stream(dev))
+        _raise_on(err, "combine_kernel")
+        combine_kernel.launches += 1
+        acc = out
+    return acc
+
+
+combine_kernel.launches = 0
+
 
 KERNELS = (minimizer_kernel, minimizer_ranks_kernel, probe_kernel, lookup_kernel,
            lookup_ranks_kernel, access_kernel, access_read_kernel, iterate_kernel,
            weight_kernel, neighbours_kernel, scan_kernel, compact_kernel, stream_masks_kernel,
            stream_kmers_kernel, stream_chain_kernel, stream_swin_kernel, stream_heads_kernel,
            stream_round2_kernel, stream_merge_kernel, stream_count_kernel, check_kernel,
-           read_at2_kernel)
+           read_at2_kernel, combine_kernel)
 # the wrappers of each CUDA source
 SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel", "minimizer_ranks_kernel"),
                   "probe.cu": ("probe_kernel", "lookup_kernel"),
@@ -1078,7 +1158,8 @@ SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel", "minimizer_ranks_kernel")
                   "stream_chain.cu": ("stream_chain_kernel", "stream_swin_kernel"),
                   "stream_derive.cu": ("stream_heads_kernel", "stream_round2_kernel",
                                        "stream_merge_kernel", "stream_count_kernel"),
-                  "check.cu": ("check_kernel",), "read_at2.cu": ("read_at2_kernel",)}
+                  "check.cu": ("check_kernel",), "read_at2.cu": ("read_at2_kernel",),
+                  "combine.cu": ("combine_kernel",)}
 
 
 def reset_counts():

@@ -84,16 +84,50 @@ class ProbeShard(NamedTuple):
 WHOLE_TABLE = ProbeShard(0, 1 << 32)  # an unsharded probe: every slot
 
 
-def check_probe_shard(cfg, shard, hrows):
-    """True when a probe on `shard` hands its heavy lanes on: a shard of an
-    index whose skew classes carry hindex, where only the slot's owner
-    knows a heavy lane's sk_hrows row. hrows (the hand-off's second pass)
-    needs such a shard."""
-    handoff = shard is not None and cfg.skew_hrows
+def packed_rows(fields):
+    """Rows of kernel 2's packed combine buffer (its shard form on a
+    DistMesh): the u32 result fields of `fields`, then kmer_orientation,
+    minimizer_found and -found."""
+    return (6 if fields == "full" else 1) + 3
+
+
+def check_probe_shard(cfg, shard, hrows, out=None, fill=False, rc_round=False, slots=None):
+    """Kernel 2's call form; returns (handoff, packed). Unsharded (shard
+    None) it stores every lane in new tensors. Its shard form stores into
+    `out`: the result tensors a mesh row's shards share (the lanes the
+    shard owns; fill: the inactive lanes too; rc_round: the regular mode's
+    RC round, merged in place) or {"packed": the (F, B) combine buffer},
+    every lane. handoff: a shard of an index whose skew classes carry
+    hindex, where only the slot's owner knows a heavy lane's sk_hrows row,
+    so the first pass writes it to out["hrow"] and a second pass given
+    hrows verifies the rows the shard holds. slots (owned form, first
+    passes): "store" the lanes' MPHF slots the call evaluates into
+    out["slot"] (a mesh row's first shard), or "read" them from there (the
+    others), so that a row's shards evaluate each lane's slot once."""
+    if shard is None:
+        if hrows is not None or out is not None or fill or rc_round or slots:
+            raise ValueError("hrows, out, fill, rc_round and slots belong to kernel 2's shard "
+                             "form: pass a shard")
+        return False, False
+    if out is None:
+        raise ValueError("kernel 2's shard form stores into out: the mesh row's result tensors "
+                         "or {'packed': its combine buffer}")
+    handoff = bool(cfg.skew_hrows)
     if hrows is not None and not handoff:
         raise ValueError("hrows (the heavy-row hand-off's second pass) needs a shard of an "
                          "index whose skew classes carry hindex")
-    return handoff
+    packed = "packed" in out
+    if packed and (fill or rc_round):
+        raise ValueError("fill and rc_round belong to the owned stores, not the packed buffer")
+    if rc_round and cfg.canonical:
+        raise ValueError("rc_round is the regular mode's RC round")
+    if handoff and hrows is None and "hrow" not in out:
+        raise ValueError("the hand-off's first pass writes out['hrow']")
+    if slots not in (None, "store", "read"):
+        raise ValueError(f"slots must be None, 'store' or 'read', got {slots!r}")
+    if slots and (packed or hrows is not None or "slot" not in out):
+        raise ValueError("slots belong to the owned form's first passes, with out['slot']")
+    return handoff, packed
 
 
 class AccessShard(NamedTuple):

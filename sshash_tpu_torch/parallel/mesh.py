@@ -20,7 +20,12 @@ differ only along that axis, and every shard of the group gets the result:
 Two implementations:
 
   LocalMesh(shape, device)  every shard in this process, on one device; a
-      combine stacks the group's tensors and reduces them.
+      combine of a group of two or more is one launch of the combine
+      kernel (csrc/combine.cu: one pass over the group's tensors, 16-byte
+      loads, the u32 order in the kernel), whose plain version
+      (combine_plain, what the CPU runs) stacks them and reduces. The
+      bucket-sharded lookup has no combine here: kernel 2's shard form
+      stores each lane once, from the shard that owns it (sharded.py).
   DistMesh(shape)           one shard per rank of a torch.distributed group
       (rank r is shard (r // NB, r % NB)), a sub-group per data row and per
       bucket column; a combine is one all_reduce (MIN, MAX, SUM) on the
@@ -31,6 +36,8 @@ Two implementations:
 
 import torch
 
+from .. import kernels
+
 AXES = ("data", "bucket")
 _TOP = -(1 << 31)  # the int32 with only the top bit set
 
@@ -38,6 +45,20 @@ _TOP = -(1 << 31)  # the int32 with only the top bit set
 def _flip(t):
     """u32 bits in int32 <-> an int32 of the same unsigned order."""
     return t ^ _TOP
+
+
+def combine_plain(op, unsigned, *ts):
+    """Plain version of the combine kernel (csrc/combine.cu): the
+    elementwise min, max or sum (op) of the tensors ts (one shape and
+    dtype), min and max ordered as unsigned with unsigned=True (u32 bits in
+    int32), sums in the tensors' dtype (wrapping): a stack and a
+    reduction."""
+    x = torch.stack([_flip(t) for t in ts] if unsigned else list(ts))
+    r = x.amin(0) if op == "min" else x.amax(0) if op == "max" else x.sum(0, dtype=x.dtype)
+    return _flip(r) if unsigned else r
+
+
+combine = kernels.by_device(kernels.combine_kernel, combine_plain, "combine", arg=2)
 
 
 class _Mesh:
@@ -75,19 +96,13 @@ class _Mesh:
         return AXES.index(axis)
 
     def pmin(self, values, axis, unsigned=False):
-        return self._ordered(values, axis, "min", unsigned)
+        return self._reduce(values, self._axis(axis), "min", unsigned)
 
     def pmax(self, values, axis, unsigned=False):
-        return self._ordered(values, axis, "max", unsigned)
+        return self._reduce(values, self._axis(axis), "max", unsigned)
 
     def psum(self, values, axis):
-        return self._reduce(values, self._axis(axis), "sum")
-
-    def _ordered(self, values, axis, op, unsigned):
-        if not unsigned:
-            return self._reduce(values, self._axis(axis), op)
-        out = self._reduce({s: _flip(v) for s, v in values.items()}, self._axis(axis), op)
-        return {s: _flip(v) for s, v in out.items()}
+        return self._reduce(values, self._axis(axis), "sum", False)
 
 
 class LocalMesh(_Mesh):
@@ -98,14 +113,14 @@ class LocalMesh(_Mesh):
         D, NB = self.shape
         self.local = [(i, j) for i in range(D) for j in range(NB)]
 
-    def _reduce(self, values, ax, op):
+    def _reduce(self, values, ax, op, unsigned):
         groups = {}
         for s in values:
             groups.setdefault(s[1 - ax], []).append(s)
         out = {}
         for members in groups.values():
-            t = torch.stack([values[s] for s in members])
-            r = t.amin(0) if op == "min" else t.amax(0) if op == "max" else t.sum(0)
+            ts = [values[s] for s in members]
+            r = ts[0] if len(ts) == 1 else combine(op, unsigned, *ts)
             for s in members:
                 out[s] = r
         return out
@@ -145,13 +160,15 @@ class DistMesh(_Mesh):
         # reverse
         self._groups = (cols[j], rows[i])
 
-    def _reduce(self, values, ax, op):
+    def _reduce(self, values, ax, op, unsigned):
         (s, v), = values.items()
         dist = self._dist
         red = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}[op]
         t = v.to(torch.int32) if v.dtype == torch.bool else v.clone()
+        if unsigned:
+            t = _flip(t)
         dist.all_reduce(t, op=red, group=self._groups[ax])
-        return {s: t.to(v.dtype)}
+        return {s: (_flip(t) if unsigned else t).to(v.dtype)}
 
     def ppermute(self, values):
         ((i, j), v), = values.items()

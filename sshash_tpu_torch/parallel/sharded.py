@@ -11,22 +11,28 @@ words; the access rows by id block; the weight runs by run. The query
 batch splits over the data axis by rows. Each shard answers the lanes it
 owns through the kernels given its range (kernel 2's slot and heavy-row
 owners, the access kernel's block and word owners, the weight kernel's
-run owner, the stream window read), and the mesh combines the answers
-(mesh.py): unsigned min for ids and offsets, max for `found`, min for
-`minimizer_found` and the orientation (FORWARD, 1, is the identity), an
-unsigned max for kmers, weights and string windows.
+run owner, the stream window read).
 
-Where the JAX engine probes branch-free, this one keeps the port's own
-schedule, which gives the same fields: a canonical lookup folds the tie
-retry into one probe (a tie probes the same bucket, hence the same owner)
-and combines once; a regular one combines the forward probe, probes the
-reverse complement of the lanes that missed everywhere, and combines
-again. In an index whose skew classes carry hindex, only the owner of a
-heavy lane's slot knows its sk_hrows row: kernel 2 hands the row on, the
-mesh takes its unsigned min, and each shard verifies the rows it holds.
+A lookup needs no combine on a LocalMesh: a lane's MPHF slot has one
+owner among the bucket shards, so kernel 2's shard form stores each lane
+once, from its owner, into result tensors the data row's shards share
+(their launches run in stream order). Kernel 1 runs once over the row's
+lanes; a canonical lookup folds the tie retry into one probe (a tie
+probes the same bucket, hence the same owner); a regular one runs a
+forward round, then an RC round whose owners merge in place into the
+lanes the forward round left unfound (BACKWARD, minimizer_found ORed).
+In an index whose skew classes carry hindex, only the owner of a heavy
+lane's slot knows its sk_hrows row: it writes the row into the row's
+shared hand-off tensor, and the shard that holds the row stores the hit.
+On a DistMesh each rank's kernel 2 writes every lane into one packed
+buffer in the combine's order (the identity where another rank owns the
+lane), the hand-off's row and the buffer each take one all_reduce MIN,
+and the regular mode's two rounds merge as engine._merge does.
 
-On a LocalMesh every shard runs in turn on one device; on a DistMesh each
-rank runs its shard and the combines are collectives.
+The other answers combine over the bucket axis (mesh.py; on a LocalMesh
+one launch of the combine kernel): the access's kmers, the weights and
+the string windows by unsigned max, the two-round access's char offsets
+by unsigned min, the per-row counters by sum.
 """
 
 import functools
@@ -36,18 +42,17 @@ import numpy as np
 import torch
 
 from .. import kmer as K
-from ..engine import (_neighbours_to_host, _to_host_result, access, access_read, make_lookup,
-                      make_neighbours, probe, weight)
-from ..layout import (AccessShard, ProbeShard, StaticCfg, device_arrays, row_width,
-                      tables_from_host, with_access_tables)
+from ..engine import (_neighbours_to_host, _to_host_result, access, access_read,
+                      canonical_fold, make_lookup, make_neighbours, probe, unpack_result,
+                      weight)
+from ..kernels import result_dtypes
+from ..layout import (AccessShard, ProbeShard, StaticCfg, device_arrays, packed_rows,
+                      row_width, tables_from_host, with_access_tables)
+from ..ops import packed as P
 from ..streaming import (_bits, _DeviceStream, check_streamable, make_stream_step, stream_count,
                          stream_swin)
-from .mesh import LocalMesh, _flip
+from .mesh import LocalMesh
 
-# the result fields a combine reduces, in their packed order; u32 fields
-# order as unsigned, `found` reduces as -found
-_U32_FIELDS = ("kmer_id", "kmer_id_in_string", "kmer_offset", "string_id", "string_begin",
-               "string_end")
 REPORT_KEYS = ("num_kmers", "num_positive_kmers", "num_extensions", "num_searches",
                "num_invalid_kmers", "num_negative_kmers")
 
@@ -182,25 +187,6 @@ def split_weight_runs(ep, value_ids, nb):
     return np.concatenate(eps), np.concatenate(vids)
 
 
-def _pack(res):
-    """A probe result as one (F, B) int32 tensor whose elementwise signed
-    min over shards is the combine of every field."""
-    rows = [_flip(res[f]) for f in _U32_FIELDS if f in res]
-    rows += [res["kmer_orientation"], res["minimizer_found"].to(torch.int32),
-             -res["found"].to(torch.int32)]
-    return torch.stack(rows)
-
-
-def _unpack(packed, fields):
-    names = [f for f in _U32_FIELDS if fields == "full" or f == "kmer_id"]
-    out = {f: _flip(packed[n]) for n, f in enumerate(names)}
-    n = len(names)
-    out["kmer_orientation"] = packed[n]
-    out["minimizer_found"] = packed[n + 1] != 0
-    out["found"] = packed[n + 2] != 0
-    return out
-
-
 class ShardedEngine:
     """An index split over the bucket axis of a mesh (mesh.LocalMesh or
     mesh.DistMesh; LocalMesh((1, 2)) on the card by default), and the
@@ -271,28 +257,84 @@ class ShardedEngine:
 
     def _probe_row(self, row, cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
                    active=None, fields="full"):
-        """Kernel 2 on every shard of data row `row`, combined over the
-        bucket axis (engine.probe's contract; `tables` is unused: each shard
-        reads its own)."""
-        shards = self._row_shards(row)
-        args = (kmers32, kmers_rc32, minval, minpos, minpos2)
-        outs = {s: probe(cfg, self.tables[s[1]], *args, active, fields,
-                         shard=self.probe_shards[s[1]]) for s in shards}
-        packed = {s: _pack(o) for s, o in outs.items()}
+        """Kernel 2 on this rank's shard of data row `row` (a DistMesh),
+        combined over the bucket axis (engine.probe's contract; `tables` is
+        unused): every lane into one packed buffer, the hand-off's rows and
+        the buffer each one all_reduce MIN."""
+        (s,) = self._row_shards(row)
+        B = kmers32.shape[0]
+        args = (cfg, self.tables[s[1]], kmers32, kmers_rc32, minval, minpos, minpos2)
+        shard = self.probe_shards[s[1]]
+        out = {"packed": torch.empty((packed_rows(fields), B), dtype=torch.int32,
+                                     device=self.device)}
         if self.handoff:
-            hrow = self.mesh.pmin({s: o["hrow"] for s, o in outs.items()}, "bucket",
-                                  unsigned=True)
+            out["hrow"] = torch.empty(B, dtype=torch.int32, device=self.device)
+        probe(*args, active, fields, shard, out=out)
+        if self.handoff:
+            hrow = self.mesh.pmin({s: out.pop("hrow")}, "bucket", unsigned=True)[s]
+            probe(*args, active, fields, shard, hrows=hrow, out=out)
+        return unpack_result(self.mesh.pmin({s: out["packed"]}, "bucket")[s], fields)
+
+    def _probe_pass(self, row, out, args, active, fields, rc_round=False):
+        """One lookup round on a LocalMesh: kernel 2's shard form on every
+        shard of data row `row`, each storing into out the lanes it owns
+        (the first shard also the inactive lanes, in the first round; it
+        stores each lane's MPHF slot, which the others read), then in an
+        hindex index the hand-off's second pass."""
+        shards = self._row_shards(row)
+        for n, s in enumerate(shards):
+            probe(self.cfg, self.tables[s[1]], *args, active, fields, self.probe_shards[s[1]],
+                  out=out, fill=n == 0 and not rc_round, rc_round=rc_round,
+                  slots=None if len(shards) == 1 else "read" if n else "store")
+        if self.handoff:
             for s in shards:
-                second = probe(cfg, self.tables[s[1]], *args, None, fields,
-                               shard=self.probe_shards[s[1]], hrows=hrow[s])
-                packed[s] = torch.minimum(packed[s], _pack(second))
-        return _unpack(self.mesh.pmin(packed, "bucket")[shards[0]], fields)
+                probe(self.cfg, self.tables[s[1]], *args, active, fields,
+                      self.probe_shards[s[1]], hrows=out["hrow"], out=out, rc_round=rc_round)
+
+    def _result_tensors(self, B, fields):
+        """A LocalMesh lookup's result tensors, uninitialised: every lane is
+        stored by its owner (and "hrow", the hand-off's rows in an hindex
+        index; "slot", the lanes' MPHF slots, with more than one shard)."""
+        out = {name: torch.empty(B, dtype=dt, device=self.device)
+               for name, dt in result_dtypes(fields).items()}
+        for name in ("hrow",) * self.handoff + ("slot",) * (self.mesh.shape[1] > 1):
+            out[name] = torch.empty(B, dtype=torch.int32, device=self.device)
+        return out
+
+    def _owned_lookup(self, row, fields):
+        """make_lookup's fn(tables, kmers32, mins=None, active=None) for
+        data row `row` of a LocalMesh: kernel 1 (unless mins are given) over
+        the row's lanes, the canonical fold or the regular mode's two
+        rounds, each lane's fields stored once by its owner into one set of
+        result tensors."""
+        cfg = self.cfg
+
+        def fn(tables, kmers32, mins=None, active=None):
+            if mins is None:
+                mins = P.minimizer(kmers32, cfg.k, cfg.m, cfg.magic, both=True)
+            mv_f, mp_f, rc, mv_r, mp_r = mins
+            out = self._result_tensors(kmers32.shape[0], fields)
+            if cfg.canonical:
+                self._probe_pass(row, out, (kmers32, rc, *canonical_fold(mv_f, mp_f, mv_r, mp_r)),
+                                 active, fields)
+            else:
+                self._probe_pass(row, out, (kmers32, None, mv_f, mp_f, None), active, fields)
+                self._probe_pass(row, out, (rc, None, mv_r, mp_r, None), active, fields,
+                                 rc_round=True)
+            out.pop("hrow", None)
+            out.pop("slot", None)
+            return out
+
+        return fn
 
     def _lookup_fn(self, row, fields):
         key = (row, fields)
         if key not in self._lookups:
-            self._lookups[key] = make_lookup(self.cfg, fields,
-                                             probe=functools.partial(self._probe_row, row))
+            if isinstance(self.mesh, LocalMesh):
+                self._lookups[key] = self._owned_lookup(row, fields)
+            else:
+                self._lookups[key] = make_lookup(self.cfg, fields,
+                                                 probe=functools.partial(self._probe_row, row))
         return self._lookups[key]
 
     def _row_values(self, per_row):
@@ -447,7 +489,7 @@ class ShardedEngine:
         for row, part in self._split(kmers32).items():
             if row not in self._neighbours:
                 self._neighbours[row] = make_neighbours(
-                    self.cfg, self.fields, probe=functools.partial(self._probe_row, row))
+                    self.cfg, self.fields, lookup=self._lookup_fn(row, self.fields))
             out[row] = self._neighbours[row](None, part)
         return {key: self._gather({i: r[key] for i, r in out.items()})
                 for key in out[self.mesh.rows[0]]}

@@ -42,9 +42,9 @@ derive_full by miss counts for the TPU's sake; here one path runs:
      kernel's lane over the ranks below the count, the five fields the
      stream reads); results scatter back. Both kernels run grids sized to
      the card that stride up to the count, so their work is the misses'
-     (JAX's run_windows loops windows up to it). The bucket-sharded stream,
-     whose lookup has its own probe and combine, keeps kernel 1 over all P
-     rows and kernel 2 given its outputs;
+     (JAX's run_windows loops windows up to it). The bucket-sharded stream
+     keeps kernel 1 over all P rows and its engine's sharded lookup given
+     kernel 1's outputs (kernel 2's shard form on each shard);
   5. count: one P-wide adjacency pass gives the counters, lane 0 and the
      last lane.
 
@@ -669,7 +669,7 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
     through ops.lookup_ranks from its minimizers, on the whole tables. With
     it, kernel 1 (ops.minimizer) runs over all P rows and both rounds go
     through `lookup` given its outputs, masked: the bucket-sharded
-    stream's lookup has its own probe and combine.
+    stream's lookup runs kernel 2's shard form on each shard.
 
     fn(tables, packed, stats=None): a dict passed as stats receives, as
     device tensors, the lanes that missed their chain ("need"), the lookup

@@ -25,11 +25,12 @@ from sshash_tpu_torch import TorchEngine, debug, kernels, synthetic
 from sshash_tpu_torch import kmer as K
 from sshash_tpu_torch import engine as E
 from sshash_tpu_torch import streaming as ST
-from sshash_tpu_torch.engine import canonical_fold, probe, probe_plain
-from sshash_tpu_torch.layout import AccessShard, ProbeShard
+from sshash_tpu_torch.engine import canonical_fold, probe, probe_plain, unpack_result
+from sshash_tpu_torch.layout import AccessShard, ProbeShard, packed_rows
 from sshash_tpu_torch.ops import packed as P
-from sshash_tpu_torch.parallel import LocalMesh
-from sshash_tpu_torch.parallel.sharded import _pack, _unpack, split_weight_runs
+from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine
+from sshash_tpu_torch.parallel.mesh import combine, combine_plain
+from sshash_tpu_torch.parallel.sharded import split_weight_runs
 
 
 @pytest.fixture
@@ -153,6 +154,32 @@ def _probe_args(cfg, kt):
     return (rc, *canonical_fold(mv, mp, mv_r, mp_r)) if cfg.canonical else (None, mv, mp, None)
 
 
+def shard_rounds(cfg, kt):
+    """A lookup's kernel-2 rounds after kernel 1: [(kernel 2's args from
+    the kmers on, rc_round)]: the canonical fold's one, or the regular
+    mode's forward round and RC round."""
+    mv, mp, rc, mv_r, mp_r = P.minimizer_plain(kt, cfg.k, cfg.m, cfg.magic, both=True)
+    if cfg.canonical:
+        return [((kt, rc, *canonical_fold(mv, mp, mv_r, mp_r)), False)]
+    return [((kt, None, mv, mp, None), False), ((rc, None, mv_r, mp_r, None), True)]
+
+
+MARK = 0x5A5A5A5A  # a sentinel no result field holds
+
+
+def sentinel_result(fields, B, handoff, device):
+    """Result tensors of the owned shard form holding a sentinel (ids MARK,
+    orientation 7), plus "hrow" for the hand-off and "slot" for the lanes'
+    MPHF slots."""
+    out = {name: torch.full((B,), MARK, dtype=dt, device=device) if dt == torch.int32
+           else torch.zeros(B, dtype=dt, device=device)
+           for name, dt in kernels.result_dtypes(fields).items()}
+    out["kmer_orientation"].fill_(7)
+    for name in ("hrow",) * bool(handoff) + ("slot",):
+        out[name] = torch.full((B,), MARK, dtype=torch.int32, device=device)
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["m3_skew", "m3_skew_canonical", "partitioned", "k63",
                                   "k65_canonical", "k129_canonical"])
@@ -219,42 +246,73 @@ def _equal(got, want):
 @pytest.mark.parametrize("name", ["m3_skew", "m3_skew_canonical", "m9_c1", "short_strings",
                                   "weighted", "k63", "k65", "k129_canonical"])
 def test_sharded_kernels_equal_plain_on_card(card, name):
-    """Kernel 2, access (both rounds), weight and the stream window read on
-    three shards cut unevenly (1/7, then to 1/2, then the rest of the
-    slots, heavy rows, id blocks, string words and weight runs): each
-    kernel equals its plain version, with the hand-off's rows and on lanes
-    of other shards, and the shards' answers combine to the unsharded
-    kernels' (the chain given the combined windows equals the chain that
+    """Kernel 2's shard form, access (both rounds), weight and the stream
+    window read on three shards cut unevenly (1/7, then to 1/2, then the
+    rest of the slots, heavy rows, id blocks, string words and weight
+    runs): each kernel equals its plain version (kernel 2's owned stores
+    after every launch, over a sentinel, through both rounds of a regular
+    lookup and the hand-off's passes; its packed buffers), and the shards'
+    answers combine to the unsharded kernels' (the owned stores to the
+    lookup's; the chain given the combined windows equals the chain that
     reads strings32)."""
     idx = synthetic.small_index(name)
     eng = TorchEngine(idx, card)
     cfg, t = eng.cfg, eng.tables
     q, _ = synthetic.query_batch(idx)
     kt = eng.kmers32(q)
-    args = _probe_args(cfg, kt)
     active = torch.from_numpy(np.random.default_rng(6).random(kt.shape[0]) < 0.9).to(card)
     sc = _cuts(t["cw_row"].shape[0])
     hc = _cuts(t["sk_hrows"].shape[0]) if cfg.skew_hrows else [0, 0, 0, 0]
+    shards = [ProbeShard(a, b, c, d) for a, b, c, d in zip(sc, sc[1:], hc, hc[1:])]
+    tabs = [dict(t, cw_row=t["cw_row"][s.slot_lo:s.slot_hi],
+                 sk_hrows=t["sk_hrows"][s.hrow_lo:s.hrow_hi] if cfg.skew_hrows
+                 else t["sk_hrows"]) for s in shards]
+    rounds = shard_rounds(cfg, kt)
+    B = kt.shape[0]
     for fields in ("full", "ids"):
-        shards = [ProbeShard(a, b, c, d) for a, b, c, d in zip(sc, sc[1:], hc, hc[1:])]
-        tabs = [dict(t, cw_row=t["cw_row"][s.slot_lo:s.slot_hi],
-                     sk_hrows=t["sk_hrows"][s.hrow_lo:s.hrow_hi] if cfg.skew_hrows
-                     else t["sk_hrows"]) for s in shards]
-        outs = []
+        # the owned form: kernel and plain version each on its own result
+        # tensors, equal after every launch; the lookup they make equals
+        # the unsharded lookup's
+        outs = [sentinel_result(fields, B, cfg.skew_hrows, card) for _ in range(2)]
+        for args, rc in rounds:
+            for n, (sh, tab) in enumerate(zip(shards, tabs)):
+                for fn, out in zip((probe, probe_plain), outs):
+                    fn(cfg, tab, *args, active, fields, sh, out=out, fill=n == 0 and not rc,
+                       rc_round=rc, slots="read" if n else "store")
+                _equal(*outs)
+            if cfg.skew_hrows:
+                assert (outs[0]["hrow"] != -1).any()
+                for sh, tab in zip(shards, tabs):
+                    for fn, out in zip((probe, probe_plain), outs):
+                        fn(cfg, tab, *args, active, fields, sh, hrows=out["hrow"], out=out,
+                           rc_round=rc)
+                    _equal(*outs)
+        outs[0].pop("hrow", None)
+        outs[0].pop("slot")
+        _equal(outs[0], E.lookup(cfg, t, kt, active, fields))
+        # the packed form: every lane, a buffer a shard; their signed min is
+        # the unsharded kernel 2's result
+        args = rounds[0][0]
+        bufs = []
         for sh, tab in zip(shards, tabs):
-            got = probe(cfg, tab, kt, *args, active, fields, shard=sh)
-            _equal(got, probe_plain(cfg, tab, kt, *args, active, fields, shard=sh))
-            outs.append(got)
-        packed = [_pack(o) for o in outs]
+            pair = []
+            for fn in (probe, probe_plain):
+                out = {"packed": torch.full((packed_rows(fields), B), MARK, dtype=torch.int32,
+                                            device=card)}
+                if cfg.skew_hrows:
+                    out["hrow"] = torch.full((B,), MARK, dtype=torch.int32, device=card)
+                pair.append(fn(cfg, tab, *args, active, fields, sh, out=out))
+            _equal(*pair)
+            bufs.append(pair)
         if cfg.skew_hrows:
-            hrow = _combine([o["hrow"] for o in outs], "pmin")
-            assert (hrow != -1).any()
-            for i, (sh, tab) in enumerate(zip(shards, tabs)):
-                got = probe(cfg, tab, kt, *args, None, fields, shard=sh, hrows=hrow)
-                _equal(got, probe_plain(cfg, tab, kt, *args, None, fields, shard=sh, hrows=hrow))
-                packed[i] = torch.minimum(packed[i], _pack(got))
-        want = probe(cfg, t, kt, *args, active, fields)
-        _equal(_unpack(torch.stack(packed).amin(0), fields), want)
+            hrow = _combine([b[0].pop("hrow") for b in bufs], "pmin")
+            for (sh, tab), pair in zip(zip(shards, tabs), bufs):
+                for fn, out in zip((probe, probe_plain), pair):
+                    fn(cfg, tab, *args, None, fields, sh, hrows=hrow, out=out)
+                pair[1].pop("hrow")
+                _equal(*pair)
+        want = probe(cfg, t, *args, active, fields)
+        _equal(unpack_result(torch.stack([b[0]["packed"] for b in bufs]).amin(0), fields), want)
     # access: id blocks and string words cut unevenly, the strings' slices
     # with their halo
     ids = torch.arange(idx.num_kmers, dtype=torch.int32, device=card)
@@ -326,6 +384,62 @@ def test_sharded_kernels_equal_plain_on_card(card, name):
         for key in ("string_id", "kmer_id", "kmer_orientation"):
             assert torch.equal(got[key], want[key]), key
         assert found.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+@pytest.mark.parametrize("name", ["m13_regular", "m3_skew", "m3_skew_canonical", "partitioned",
+                                  "k65_canonical", "k129_canonical"])
+def test_owner_written_lookup_on_card(card, name, shape, monkeypatch):
+    """The LocalMesh lookup on the card: result tensors filled with a
+    sentinel, no lane keeps it, every field equals the unsharded engine's;
+    the path launches kernel 1 once a data row and kernel 2's shard form
+    once a shard, round and pass, and no combine but the report's sum over
+    the data rows."""
+    idx = synthetic.small_index(name)
+    eng = ShardedEngine(idx, LocalMesh(shape, card))
+    monkeypatch.setattr(eng, "_result_tensors",
+                        lambda B, fields: sentinel_result(fields, B, eng.handoff, card))
+    q, _ = synthetic.query_batch(idx)
+    kt = eng.kmers32(q[: len(q) // 2 * 2])
+    kernels.reset_counts()
+    got = eng.lookup_device(kt)[0]
+    c = kernels.counts()
+    rounds = 1 if eng.cfg.canonical else 2
+    assert c["minimizer_kernel"] == shape[0]
+    assert c["probe_kernel"] == shape[0] * rounds * shape[1] * (2 if eng.handoff else 1)
+    assert c["combine_kernel"] == (2 if shape[0] > 1 else 0)
+    assert not (got["kmer_orientation"] == 7).any() and not (got["kmer_id"] == MARK).any()
+    _equal(got, TorchEngine(idx, card).lookup_device(kt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("nb", [1, 2, 3, 8, 11])
+def test_combine_kernel_equals_plain_on_card(card, dtype, nb):
+    """The combine kernel against its plain version (a stack and a
+    reduction): min and max signed and (int32) in u32 order with values at
+    and above 2^31, wrapping sums; lengths around its 16-byte vectors,
+    views that are not 16-byte aligned (the scalar loop), groups past its
+    eight inputs (folded)."""
+    rng = np.random.default_rng(nb)
+    u32s = np.array([0, 1, 5, 0x7FFFFFFF, 1 << 31, 0x80000001, 0xFFFFFFFE, 0xFFFFFFFF],
+                    dtype=np.uint32)
+    for n in (1, 3, 4, 5, 1027, 1 << 16):
+        if dtype == torch.int32:
+            base = [torch.from_numpy(rng.choice(u32s, n + 1).view(np.int32).copy())
+                    for _ in range(nb)]
+        else:
+            base = [torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n + 1)) for _ in range(nb)]
+        for ts in ([b[:n].to(card) for b in base], [b.to(card)[1:] for b in base]):
+            for op in ("min", "max", "sum"):
+                for unsigned in ((False, True) if dtype == torch.int32 and op != "sum"
+                                 else (False,)):
+                    before = kernels.combine_kernel.launches
+                    got = kernels.combine_kernel(op, unsigned, *ts)
+                    assert kernels.combine_kernel.launches - before == 1 + max(0, nb - 2) // 7
+                    assert torch.equal(got, combine_plain(op, unsigned, *ts)), (n, op, unsigned)
+                    assert torch.equal(combine(op, unsigned, *ts), got)
 
 
 def _rows_equal(got, want):
@@ -717,6 +831,8 @@ def test_wrappers_take_cuda_tensors_only():
         kernels.check_kernel(found, ids, ids, ids, ids, 1, 1)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.read_at2_kernel(torch.zeros((4, 2), dtype=torch.int32), ids, cfg.k)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.combine_kernel("min", True, ids, ids)
     assert kernels.counts() == before
     meta = torch.empty((4, cfg.W), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="minimizer"):
@@ -742,7 +858,7 @@ ENTRIES = {"minimizer": (P.minimizer, 0), "neighbours": (P.neighbour_variants, 0
            "chain": (ST.stream_chain, 1), "run-skip": (ST.stream_heads, 2),
            "round-2": (ST.stream_round2, 0), "merge": (ST.stream_merge, 0),
            "count": (ST.stream_count, 1), "check": (debug.check, 0),
-           "read-at2": (P.read_kmers_at2, 1)}
+           "read-at2": (P.read_kmers_at2, 1), "combine": (combine, 2)}
 
 
 @pytest.mark.parametrize("what", sorted(ENTRIES))

@@ -22,12 +22,14 @@ import numpy as np
 import pytest
 import torch
 
-# debug registers its entry point (debug.check) when imported
+# debug and parallel.mesh register their entry points (debug.check,
+# mesh.combine) when imported
 from sshash_tpu_torch import TorchEngine, debug, kernels, synthetic  # noqa: F401
 from sshash_tpu_torch import engine as E
 from sshash_tpu_torch import kmer as K
 from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.ops import packed as P
+from sshash_tpu_torch.parallel import mesh  # noqa: F401
 
 INVALID = np.uint64(2 ** 64 - 1)
 P_RANKS = 256
