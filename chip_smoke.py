@@ -480,7 +480,11 @@ NO_SPILL = {"lookup_kernel at widths 1..8": (r"13lookup_kernelILi[1-8]E", 32),
             # both modes, v1 and v2 rows
             "shard_probe_kernel at widths 1..8": (r"18shard_probe_kernelILi[1-8]E", 32),
             # min and max signed and unsigned, sums, of int32 and int64
-            "combine_kernel": (r"14combine_kernelILi[0-2]E", 10)}
+            "combine_kernel": (r"14combine_kernelILi[0-2]E", 10),
+            # the stream's anchor stage and the misses' read; K7
+            "anchors_kernel at widths 1..8": (r"14anchors_kernelILi[1-8]E", 8),
+            "kmers_kernel at widths 1..8": (r"12kmers_kernelILi[1-8]E", 8),
+            "read_at2_kernel at widths 1..8": (r"15read_at2_kernelILi[1-8]E", 8)}
 
 
 def phase_card():
@@ -647,6 +651,59 @@ def small_stream_equal_plain(eng, idx, rng, tmp, errs):
     return rep
 
 
+# kmer widths 1..16 words (k = 16W - 1), and last words cut short
+WIDTH_KS = [16 * w - 1 for w in range(1, 17)] + [9, 40, 65, 129, 200]
+
+
+def anchor_reads_equal_plain(dev, errs):
+    """The stream's anchor stage, the misses' read and K7 at every kmer
+    width (WIDTH_KS), each bit for bit equal to its plain version: the
+    anchor stage on every synthetic edge case (synthetic.stream_chunk, 512
+    lanes) and a random chunk of 2^16 lanes; the misses' read at counts 0,
+    1, 31, 32, 257, P/2 and P (2^14 lanes), each over a compacted lane
+    list (synthetic.miss_lanes: rising lanes in runs and gaps); K7 at batch sizes off the block and
+    the 16-byte store, with offsets in a random table's last rows (reads
+    clip) and past its end."""
+    rng = np.random.default_rng(16)
+    n = 4096
+    table = id_tensor(rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64), dev)
+    e_anchor = e_miss = e_read = 0
+    for k in WIDTH_KS:
+        chunks = [(c, 512, 64) for c in synthetic.STREAM_CHUNK_CASES] + [("random", 1 << 16, 4096)]
+        for case, Pn, R in chunks:
+            args = [a.to(dev) for a in synthetic.stream_chunk(case, k, rng, Pn, R)]
+            e_anchor = max(e_anchor, max_abs_err(ST.stream_anchors(*args, Pn, k),
+                                                 ST.stream_anchors_plain(*args, Pn, k)))
+        Pn = 1 << 14
+        pstart, rfirst, nreads, words = (a.to(dev) for a in synthetic.stream_chunk(
+            "random", k, rng, Pn, 1024))
+        sbits, _, cum_g, _ = ST.stream_anchors(pstart, rfirst, nreads, words, Pn, k)
+        for cnt in (0, 1, 31, 32, 257, Pn // 2, Pn):
+            lanes = synthetic.miss_lanes(rng, Pn, cnt).to(dev)
+            c = torch.tensor([cnt], dtype=torch.int32, device=dev)
+            got = ST.stream_kmers(words, sbits, cum_g, k, lanes, c)[:cnt]
+            if cnt:  # a count of 0 launches and writes nothing
+                e_miss = max(e_miss, max_abs_err(
+                    [got], [ST.stream_kmers_plain(words, sbits, cum_g, k, lanes, c)[:cnt]]))
+        for B in (1, 3, 255, 257, 4099):
+            offs = rng.integers(16 * (n - P.num_words32(k) - 2), 16 * n + 64, B)
+            offs[: B // 2] = rng.integers(0, 16 * n, B // 2)
+            ot = id_tensor(offs, dev)
+            e_read = max(e_read, max_abs_err(P.read_kmers_at2(table, ot, k),
+                                             P.read_kmers_at2_plain(table, ot, k)))
+    errs["stream_anchor.cu"] = max(errs.get("stream_anchor.cu", 0), e_anchor)
+    errs[KMER_READ] = max(errs.get(KMER_READ, 0), e_miss)
+    errs["read_at2_kernel"] = max(errs["read_at2_kernel"], e_read)
+    require(e_anchor == 0, "the anchor stage: kernel != plain")
+    require(e_miss == 0, "the misses' kmer read: kernel != plain")
+    require(e_read == 0, "read_at2: kernel != plain")
+    log(f"  stream_anchors_kernel, stream_kmers_kernel, read_at2_kernel at k {WIDTH_KS} (W = "
+        f"1..16): equal to plain on {len(synthetic.STREAM_CHUNK_CASES)} edge-case chunks and a "
+        f"2^16-lane chunk, misses' counts 0, 1, 31, 32, 257, 2^13, 2^14 over compacted lane "
+        f"lists, and 5 batch sizes with "
+        f"offsets in the last rows")
+
+
 def phase_kernels_equal_plain(dev, errs):
     log("[3] kernel == plain on the card")
     forms = set()
@@ -662,6 +719,7 @@ def phase_kernels_equal_plain(dev, errs):
             errs["minimizer_kernel"] = max(errs["minimizer_kernel"], err)
             require(err == 0, f"minimizer k{k} m{m} both={both}: kernel != plain")
         log(f"  minimizer_kernel k{k} m{m} B={SAMPLE}: equal (both strands and forward)")
+    anchor_reads_equal_plain(dev, errs)
     for name in sorted(synthetic.SMALL_CONFIGS) + sorted(synthetic.WIDE_CONFIGS):
         idx = synthetic.small_index(name)
         eng = TorchEngine(idx, dev)
@@ -1026,8 +1084,22 @@ def time_access_iteration(eng, idx, ids, tag):
     acc = time_turns(tag, "access", len(ids), lambda: eng.access_device(it),
                      lambda: E.access_plain(eng.cfg, t, it))
     itr = time_turns(tag, "iteration", idx.num_kmers, eng.iterator_device,
-                     lambda: E.iterate_plain(k, t["strings32"], t["vstart32"]))
+                     lambda: E.iterate_plain(k, t["strings32"], t["vstart32"]), graph=("kernel",))
     return acc, itr
+
+
+def iterator_bound(eng, itr, tag):
+    """The iteration's least time: strings32 and vstart32 read once and the
+    pair written, or its integer operations (iterator_ops), whichever is
+    longer; logged beside the kernel's time (itr, from time_turns)."""
+    nw = eng.tables["strings32"].numel()
+    nbytes = sum(eng.tables[x].numel() * 4 for x in ("strings32", "vstart32")) + 8
+    n_ops = iterator_ops(nw, eng.cfg.W)
+    b = bound(nbytes, n_ops)
+    log(f"  {tag}: iteration bound {b[0]:.4f} ms ({b[1]}: {n_ops} operations over {nw} words "
+        f"at W={eng.cfg.W}; its {nbytes} bytes alone {bound(nbytes)[0]:.4f} ms); kernel "
+        f"{itr['kernel']:.4f} ms = {b[0] / itr['kernel']:.0%} of it")
+    return b
 
 
 def drive_navigation(eng, idx, ids, rng, tag, errs):
@@ -1192,6 +1264,7 @@ def phase_scale_point_queries(idx, eng, errs):
                                       sample=np.sort(rng.choice(SCALE_B, SAMPLE, replace=False))))
     add_counts(launches, drive_iterator(eng, idx, "canonical", errs))
     acc, itr = time_access_iteration(eng, idx, ids, "canonical")
+    itr["bound"] = iterator_bound(eng, itr, "canonical")
     acc["bytes"] = access_bytes(eng.cfg, id_tensor(ids, eng.device))
     log(f"  canonical: access bound {bound(acc['bytes'])[0]:.4f} ms ({acc['bytes']} bytes: ids, "
         f"kmers and {SCALE_B} lanes' distinct access rows)")
@@ -1208,6 +1281,16 @@ INT32_OPS = 132 * 64 * 1.98e9
 # IMADs and an XOR each), the m-mer's reverse complement (~10), the 128-bit
 # window shift and mask (~4), two compare-and-selects (~4 each)
 MINIMIZER_OPS_PER_WINDOW = 32
+
+
+def iterator_ops(nwords, W):
+    """Integer operations of the iterator (csrc/iterator.cu's loop) over
+    nwords packed words at kmer width W: for each of a word's 16 char
+    offsets, a funnel shift for each of the kmer's W words, the last
+    word's mask, W - 1 XORs into the fold, the valid bit's shift and test
+    and the predicated add (2W + 3); per word its loads' addresses, the
+    popcount and the loop (8)."""
+    return nwords * (16 * (2 * W + 3) + 8)
 SOURCES = {"minimizer.cu": "sshash_tpu/ops/packed.py:263",
            "probe.cu": "sshash_tpu/engine.py:739",
            "access.cu": "sshash_tpu/engine.py:1304",
@@ -1352,6 +1435,16 @@ def bound(nbytes, int_ops=0):
 
 
 STREAM_SOURCES = ("scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu")
+# the misses' kmer read, timed apart from the anchor stage beside it in
+# stream_anchor.cu (its own row of the kernels line)
+KMER_READ = "stream_kmers"
+# the rows of the kernels line beside their sources' that the stream paths
+# count: kernel 1's rank form and the misses' kmer read (row, wrapper, TPU
+# code replaced)
+STREAM_ROWS = {"minimizer.cu": ("minimizer_ranks", "minimizer_ranks_kernel",
+                                MINIMIZER_RANKS_REPLACES),
+               "stream_anchor.cu": (KMER_READ, "stream_kmers_kernel",
+                                    "sshash_tpu/streaming.py:557")}
 # the misses' rank-space kernels, timed as stages beside the stream sources:
 # kernel 1's rank form (its own row of the kernels line, in minimizer.cu) and
 # the rank-space lookup
@@ -1397,7 +1490,7 @@ def _rows(name, args):
     form and the rank-space lookup hold results only below the misses'
     count (device count); None where all are."""
     if name == "kmers":
-        return _n(args[6]) if len(args) > 5 else None
+        return _n(args[5])
     if name in ("heads", "round2"):
         return _n(args[3])
     if name == "minimizer_ranks":
@@ -1428,6 +1521,21 @@ def stage_ops(name, args):
     return 0
 
 
+def chunk_words_read(words, lanes, sbits, cum_g, k, nw):
+    """Distinct words of a packed chunk (words32) that the kmer reads at
+    these lanes touch: nw + 1 words from each lane's char position, clipped
+    to the last word, as the kernels read them. Neighbouring lanes' reads
+    share words, and the chunk sits in L2, so each counts once."""
+    NW = words.shape[0]
+    if not lanes.numel():
+        return 0
+    pos = ST.lane_positions(lanes, sbits, cum_g, k)
+    rows = ((pos >> 4)[:, None] + torch.arange(nw + 1, device=pos.device)).clamp(max=NW - 1)
+    seen = torch.zeros(NW, dtype=torch.bool, device=pos.device)
+    seen[rows.reshape(-1)] = True
+    return int(seen.sum())
+
+
 def stage_bytes(name, args, out):
     """Bytes a stage must move on this input: each input it needs read
     once, each output row the step reads written once (data-dependent
@@ -1440,17 +1548,24 @@ def stage_bytes(name, args, out):
         # the flags; a lane id at each rank below the count and a zero past
         # it (the contract's fill); the count
         return nb(args[0]) + nb(out[0]) + 4
-    if name == "masks":
-        _, rfirst, nreads, _ = args
-        return 4 * _n(nreads) + nb(rfirst) + sum(nb(t) for t in out)
+    if name == "anchors":
+        # pstart's entries below nreads, rfirst and nreads in; the bit
+        # arrays and the group scan out; the chunk words that the anchors'
+        # reads touch, once, and W words out an anchor
+        _, rfirst, nreads, words, _, k = args
+        sbits, fbits, cum_g, km = out
+        lanes = 16 * torch.arange(km.shape[0], device=km.device)
+        return (4 * _n(nreads) + nb(rfirst) + 4 + nb(sbits) + nb(fbits) + nb(cum_g)
+                + 4 * chunk_words_read(words, lanes, sbits, cum_g, k, km.shape[1])
+                + nb(km))
     if name == "kmers":
-        # per row: W+1 words of the chunk, its lane id (compacted lanes),
-        # its group's scan entry and start-bit word, W words out
-        words32, sbits, cum_g, _, n_out = args[:5]
-        W, lanes = out.shape[1], n is not None
-        n = n_out if n is None else n
-        return (4 * n * (2 * W + 1) + (4 * n + 4 if lanes else 0)
-                + min(4 * n, nb(cum_g)) + min(4 * n, nb(sbits)))
+        # the chunk words that the rows below the count touch, once; per
+        # row its lane id, its group's scan entry and start-bit word, W
+        # words out; the count
+        words, sbits, cum_g, k, lanes = args[:5]
+        return (4 * chunk_words_read(words, lanes[:n].long(), sbits, cum_g, k, out.shape[1])
+                + 4 * n * out.shape[1] + 4 * n + 4 + min(4 * n, nb(cum_g))
+                + min(4 * n, nb(sbits)))
     if name == "heads":
         # with the skip on, per rank below the count: both strands'
         # minimizers, the lane, its start bit; off, nothing. One flag out a
@@ -1538,12 +1653,12 @@ def time_stages(eng, packed, Pn, R, CW, av, errs, timed=True):
     ops, calls = record_ops(ST.KERNEL_OPS)
     lookup = make_lookup(eng.cfg, "full")
     ST.make_stream_step(eng.cfg, Pn, R, CW, lookup, all_valid=av, ops=ops)(eng.tables, packed)
-    src_of = {"scan": "scan.cu", "compact": "scan.cu", "masks": "stream_anchor.cu",
-              "kmers": "stream_anchor.cu", "chain": "stream_chain.cu",
+    src_of = {"scan": "scan.cu", "compact": "scan.cu", "anchors": "stream_anchor.cu",
+              "kmers": KMER_READ, "chain": "stream_chain.cu",
               "minimizer_ranks": "minimizer_ranks", "lookup_ranks": "lookup_ranks.cu"}
     per = {src: {"kernel": 0.0, "kernel10": 0.0, "plain": 0.0, "library": 0.0, "bytes": 0,
                  "ops": 0, "bound_ms": 0.0, "by": {"bytes": 0.0, "operations": 0.0},
-                 "calls": 0} for src in STREAM_SOURCES + RANK_SOURCES}
+                 "calls": 0} for src in STREAM_SOURCES + (KMER_READ,) + RANK_SOURCES}
     for name, args, out in calls:
         src = src_of.get(name, "stream_derive.cu")
         kern, plain = getattr(ST.KERNEL_OPS, name), getattr(ST.PLAIN_OPS, name)
@@ -1724,14 +1839,16 @@ def phase_streaming(dev, built, idx200, eng200, tmp, errs):
 
 def log_step_split(tag, per, eng, packed, stream, av):
     """One chunk's step from a CUDA graph, beside the time of its stages:
-    the four stream sources, and the misses' kernel 1 rank form and
-    rank-space lookup, each summed over its calls (each replayed alone)."""
+    the four stream sources with the misses' kmer read, and the misses'
+    kernel 1 rank form and rank-space lookup, each summed over its calls
+    (each replayed alone)."""
     step = ST.make_stream_step(eng.cfg, stream.P, stream.R, stream.CW,
                                make_lookup(eng.cfg, "full"), all_valid=av)
     ms = graph_ms(lambda: step(eng.tables, packed))
-    srcs = sum(per[x]["kernel"] for x in STREAM_SOURCES)
+    srcs = sum(per[x]["kernel"] for x in STREAM_SOURCES + (KMER_READ,))
     k1, lk = per["minimizer_ranks"], per["lookup_ranks.cu"]
-    log(f"  {tag}: the step {ms:.4f} ms (graph replay); the four stream sources {srcs:.4f} ms, "
+    log(f"  {tag}: the step {ms:.4f} ms (graph replay); the four stream sources (the misses' "
+        f"kmer read with them) {srcs:.4f} ms, "
         f"kernel 1's rank form {k1['kernel']:.4f} ms (floor {k1['floor']:.4f}), the rank-space "
         f"lookup's two rounds {lk['kernel']:.4f} ms (bounds {k1['bound_ms']:.4f}, "
         f"{lk['bound_ms']:.4f}); the rest (the anchors' lookup, gaps) "
@@ -2347,7 +2464,7 @@ WIDE_ROWS = {"minimizer_wide": ("minimizer.cu", "sshash_tpu/ops/packed.py:263",
              "neighbours_wide": ("neighbours.cu", "sshash_tpu/engine.py:1412",
                                  "neighbours_kernel"),
              "stream_anchor_wide": ("stream_anchor.cu", "sshash_tpu/streaming.py:334",
-                                    "stream_kmers_kernel"),
+                                    ("stream_anchors_kernel", "stream_kmers_kernel")),
              "minimizer_ranks_wide": ("minimizer.cu", MINIMIZER_RANKS_REPLACES,
                                       "minimizer_ranks_kernel"),
              "lookup_ranks_wide": ("lookup_ranks.cu", "sshash_tpu/streaming.py:551",
@@ -2428,10 +2545,11 @@ def phase_wide(dev, tmp, errs, k31):
         check_host(idx, rep, path, False, f"mixed {t}")
         av, packed = chunks[0]
         per = time_stages(eng, packed, stream.P, stream.R, stream.CW, av, errs)
-        s = per["stream_anchor.cu"]
-        times["stream_anchor_wide"] = {"kernel": s["kernel"], "plain": s["plain"],
-                                       "bound": (s["bound_ms"], "bytes")}
-        werrs["stream_anchor_wide"] = errs.get("stream_anchor.cu", 0)
+        both = [per[x] for x in ("stream_anchor.cu", KMER_READ)]
+        times["stream_anchor_wide"] = {key: sum(x[key] for x in both) for key in ("kernel",
+                                                                                 "plain")}
+        times["stream_anchor_wide"]["bound"] = (sum(x["bound_ms"] for x in both), "bytes")
+        werrs["stream_anchor_wide"] = max(errs.get(x, 0) for x in ("stream_anchor.cu", KMER_READ))
         for name, src in (("minimizer_ranks_wide", "minimizer_ranks"),
                           ("lookup_ranks_wide", "lookup_ranks.cu")):
             times[name] = {"kernel": per[src]["kernel"], "plain": per[src]["plain"],
@@ -2543,8 +2661,7 @@ def phase_wide(dev, tmp, errs, k31):
         times["access_wide"] = {**acc, "bound": bound(access_bytes(cfg, it))}
         log_access_sectors(cfg, eng.tables, it, acc["kernel"])
         log_access_occupancy(eng)
-        times["iterator_wide"] = {**itr, "bound": bound(
-            sum(eng.tables[x].numel() * 4 for x in ("strings32", "vstart32")) + 8)}
+        times["iterator_wide"] = {**itr, "bound": iterator_bound(eng, itr, t)}
         nb = time_turns(t, "neighbour variants alone", NAV_B,
                         lambda: P.neighbour_variants(kn, idx.k),
                         lambda: P.neighbour_variants_plain(kn, idx.k), graph=("kernel",))
@@ -2590,11 +2707,10 @@ def main():
         times[name] = wide_times[name]
         bounds[name.split("_kernel")[0] + ".cu"] = times[name]["bound"]
     # the least time of each kernel's work at the shapes timed above
-    cfg, W5 = eng.cfg, built["canonical"][1].cfg.W
+    W5 = built["canonical"][1].cfg.W
     bounds.update({
         "access.cu": bound(scale_times["access_kernel"]["bytes"]),
-        "iterator.cu": bound(sum(eng.tables[n].numel() * 4 for n in ("strings32", "vstart32"))
-                             + 8),
+        "iterator.cu": scale_times["iterate_kernel"]["bound"],
         "weight.cu": bound(point_times["weight_kernel"]["bytes"]),
         "neighbours.cu": bound(NAV_B * 9 * 4 * W5),
     })
@@ -2610,10 +2726,12 @@ def main():
     times["combine_kernel"] = sh_times["combine"]
     bounds["combine.cu"] = sh_times["combine"]["bound"]
     for src, rep in SOURCES.items():
-        # the lookup kernel, in probe.cu beside kernel 2, and kernel 1's rank
-        # form, in minimizer.cu, have rows of their own
-        names = {"probe.cu": ("probe_kernel",),
-                 "minimizer.cu": ("minimizer_kernel",)}.get(src, kernels.SOURCE_KERNELS[src])
+        # the lookup kernel, in probe.cu beside kernel 2, kernel 1's rank
+        # form, in minimizer.cu, and the misses' kmer read, in
+        # stream_anchor.cu beside the anchor stage, have rows of their own
+        names = {"probe.cu": ("probe_kernel",), "minimizer.cu": ("minimizer_kernel",),
+                 "stream_anchor.cu": ("stream_anchors_kernel",)}.get(
+                     src, kernels.SOURCE_KERNELS[src])
         n_launch = sum(launches.get(name, 0) for name in names)
         require(n_launch > 0, f"{src}: no launch on the main path ({launches})")
         if src in stream_times:
@@ -2628,14 +2746,14 @@ def main():
         rows.append({"name": src.split(".")[0], "route": "cuda", "source": csrc + src,
                      "replaces": rep, "launches": n_launch, "max_abs_err": err, "ms": ms,
                      "plain_ms": pms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
-        if src == "minimizer.cu":
-            n_launch = launches.get("minimizer_ranks_kernel", 0)
-            require(n_launch > 0, "minimizer_ranks_kernel: no launch on the stream paths")
-            t = stream_times["minimizer_ranks"]
-            rows.append({"name": "minimizer_ranks", "route": "cuda", "source": csrc + src,
-                         "replaces": MINIMIZER_RANKS_REPLACES, "launches": n_launch,
-                         "max_abs_err": errs.get("minimizer_ranks", 0), "ms": t["kernel"],
-                         "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
+        if src in STREAM_ROWS:
+            row, wrapper, rep = STREAM_ROWS[src]
+            n_launch = launches.get(wrapper, 0)
+            require(n_launch > 0, f"{wrapper}: no launch on the stream paths")
+            t = stream_times[row]
+            rows.append({"name": row, "route": "cuda", "source": csrc + src, "replaces": rep,
+                         "launches": n_launch, "max_abs_err": errs.get(row, 0),
+                         "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound_ms"],
                          "bound_by": t["bound_by"], "library_ms": None})
         if src != "probe.cu":
             continue
@@ -2664,11 +2782,14 @@ def main():
                      "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1], "library_ms": None})
     # the wide forms (W >= 5), each counted on the k65 paths
-    for name, (src, rep, wrapper) in WIDE_ROWS.items():
-        require(wide_launches.get(wrapper, 0) > 0, f"{name}: no launch on the k65 paths")
+    for name, (src, rep, wrappers) in WIDE_ROWS.items():
+        wrappers = (wrappers,) if isinstance(wrappers, str) else wrappers
+        n_launch = sum(wide_launches.get(w, 0) for w in wrappers)
+        require(all(wide_launches.get(w, 0) > 0 for w in wrappers),
+                f"{name}: no launch on the k65 paths")
         t = wide_times[name]
         rows.append({"name": name, "route": "cuda", "source": csrc + src, "replaces": rep,
-                     "launches": wide_launches[wrapper], "max_abs_err": wide_errs[name],
+                     "launches": n_launch, "max_abs_err": wide_errs[name],
                      "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1], "library_ms": None})
     log(json.dumps({"kernels": rows}))

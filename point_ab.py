@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time an earlier tree's weight and neighbours kernels (csrc/weight.cu,
-csrc/neighbours.cu) against this tree's, in turns on one card
+"""Time an earlier tree's weight, neighbours and K7 read kernels
+(csrc/weight.cu, csrc/neighbours.cu, csrc/read_at2.cu) against this
+tree's, in turns on one card
 (chip_smoke.py's timing: CUDA events around windows of calls, median of
 7, sides run backwards then forwards; every side replays from a CUDA
 graph, as its calls take tens of microseconds).
@@ -29,14 +30,23 @@ for instance under .chip_scratch/ (gitignored). Sides:
   words1       this tree's neighbours.cu with its 16-byte vector kernel off:
                one word a thread at every size (the tree takes four
                consecutive words a thread where B * W is a multiple of 4)
+  at2_row_stores  this tree's read_at2.cu with each kmer row stored a
+               thread a row, word by word, W words at a stride of 4W bytes
+               (packed.cuh's store_rows patched; the tree stores rows of 1,
+               2, 4 and 8 words as vectors and stages the others in shared
+               memory)
+  at2_column_reads  this tree's read_at2.cu reading the table's word
+               column at a stride of 8 bytes and each offset's bits apart
+               (the tree reads the first row as one 8-byte pair, word and
+               bits together, and the next rows' words from their pairs)
   baseline     DIR's own package, loaded under another name, with its own
                kernel library built from its csrc
 
 Each variant is built from its one source (nvcc for sm_90a into
 build/point_ab/) and serves that source's entries; every other entry
 runs from this tree's library, so the weight variants appear in the
-weight cases and words1 in the neighbour cases. Cases, all on synthetic
-tables and kmers (no index build):
+weight cases, words1 in the neighbour cases and the at2_ sides in K7's.
+Cases, all on synthetic tables and kmers (no index build):
 
   weight at 4,307 runs over ids [0, 5M) (the count of chip_smoke's
   weighted 5M build; Zipf values), 2^23 random ids; at 2^20 runs over
@@ -44,9 +54,12 @@ tables and kmers (no index build):
   of 4 of the 4,307-run tables (the JAX ShardedEngine's split) on the
   random ids and on them sorted, beside the unsharded weight of the tree
   and of DIR on the same ids; the neighbour variants at k31, k65 and
-  k129 on 2^20 random kmers. Each side's output equals the tree's (and
-  the tree's its plain version) before it is timed. Prints the card,
-  each side's registers and spills (ptxas) and the ms of each side.
+  k129 on 2^20 random kmers; K7 at k31, k65 and k129 over a random
+  interleaved table of the 100M k31 index's 6,251,875 words (k31) or
+  the 60M k65 index's 3,752,400 (k65, k129), 2^23 random offsets. Each
+  side's output equals the tree's (and the tree's its plain version)
+  before it is timed. Prints the card, each side's registers and spills
+  (ptxas) and the ms of each side.
 """
 
 import argparse
@@ -62,6 +75,7 @@ from pathlib import Path
 import chip_smoke as S  # its import finder keeps JAX out; its build and timing helpers
 import numpy as np
 import torch
+from stream_ab import ROW_STORES, STAGED, sub
 
 from sshash_tpu_torch import engine as E
 from sshash_tpu_torch import kernels, synthetic
@@ -72,7 +86,24 @@ from sshash_tpu_torch.parallel.sharded import split_weight_runs
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "sshash_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "point_ab"
-# weight.cu's patches: side -> (the tree's text, the side's)
+# read_at2.cu's reads of a lane's table rows: the first row's word and
+# bits as one 8-byte pair and the next rows' words from their pairs (the
+# tree), and the word column read at a stride of 8 bytes, the bits apart
+AT2_COLUMN_READS = """    uint32_t g[W + 1];
+#pragma unroll
+    for (int j = 0; j <= W; ++j)
+      g[j] = j <= nw ? table[2 * (w0 + j < last ? w0 + j : last)] : 0u;
+    const uint32_t bits = table[2 * (w0 < last ? w0 : last) + 1];
+"""
+AT2_PAIR_READ = """    const uint2* pairs = reinterpret_cast<const uint2*>(table);
+    const uint2 first = pairs[w0 < last ? w0 : last];
+    uint32_t g[W + 1];
+    g[0] = first.x;
+#pragma unroll
+    for (int j = 1; j <= W; ++j) g[j] = j <= nw ? pairs[w0 + j < last ? w0 + j : last].x : 0u;
+    const uint32_t bits = first.y;
+"""
+
 # a source's variants: side -> (source, [(the tree's text, the side's)])
 VARIANTS = {
     "no_table": ("weight.cu", [("  const int steps = 32 - __clz(fullest);",
@@ -88,22 +119,29 @@ VARIANTS = {
     "two_ids4": ("weight.cu", [("kWeightIdsTwo = 1,", "kWeightIdsTwo = 4,")]),
     "two_blocks3": ("weight.cu", [("kWeightBlocksTwo = 2;", "kWeightBlocksTwo = 3;")]),
     "words1": ("neighbours.cu", [("  if (n % 4 == 0 &&", "  if (false &&")]),
+    "at2_row_stores": ("read_at2.cu", []),
+    "at2_column_reads": ("read_at2.cu", [(AT2_PAIR_READ, AT2_COLUMN_READS)]),
 }
+# variants that also patch a header, written beside their source
+HEADER_VARIANTS = {"at2_row_stores": ("packed.cuh", STAGED, ROW_STORES)}
 ENTRIES = {"weight.cu": ("sshash_weight", "sshash_weight_plan"),
-           "neighbours.cu": ("sshash_neighbours",)}
+           "neighbours.cu": ("sshash_neighbours",), "read_at2.cu": ("sshash_read_at2",)}
 WEIGHT_RUNS, WEIGHT_KMERS = 4307, 5_000_000
 PAST_RUNS, PAST_SPAN = 1 << 20, (1 << 31) - 1
 NAV_KS = (31, 65, 129)
+# K7's tables: the strings32 words of chip_smoke's 100M k31 build (1,000
+# strings of 100,030 chars) and of its 60M k65 build (600 of 100,064)
+AT2_ROWS = {31: 6_251_875, 65: 3_752_400, 129: 3_752_400}
 
 
 def ptxas_lines(side, log):
-    """Registers and spills of the weight and neighbours kernels in nvcc's
+    """Registers and spills of the weight, neighbours and K7 kernels in nvcc's
     -Xptxas -v log (empty when the library was built earlier); <0> and <1>
     are the weight kernel's one- and two-level forms."""
     lines, out = log.splitlines(), []
     for ln, nxt, reg in zip(lines, lines[1:], lines[2:]):
         m = re.search(r"Function properties for _ZN6sshash\d+(weight_kernel|neighbours_kernel|"
-                      r"neighbours_vec4_kernel)(?:IL[bi](\d+)E)?", ln)
+                      r"neighbours_vec4_kernel|read_at2_kernel)(?:IL[bi](\d+)E)?", ln)
         if m and re.search(r"Used \d+ registers", reg):
             out.append(f"{side} {m.group(1)}{'<' + m.group(2) + '>' if m.group(2) else ''}: "
                        f"{re.search(r'Used \d+ registers', reg).group(0)}, {nxt.strip()}")
@@ -150,6 +188,9 @@ def build(baseline_kernels):
         d = OUT / side
         d.mkdir(parents=True, exist_ok=True)
         (d / name).write_text(src)
+        if side in HEADER_VARIANTS:
+            header, old, new = HEADER_VARIANTS[side]
+            (d / header).write_text(sub(old, new, (CSRC / header).read_text()))
         obj = OUT / f"{side}.o"
         cmd = [nvcc, *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-c",
                str(d / name), "-o", str(obj)]
@@ -197,9 +238,14 @@ def checked(fns, want, tag):
         except RuntimeError as e:
             S.log(f"  {tag}: {side} raised, left out: {e}")
             continue
-        S.require(torch.equal(got, want), f"{tag}: {side} != the tree")
+        S.require(all(torch.equal(g, w) for g, w in zip(_tuple(got), _tuple(want))),
+                  f"{tag}: {side} != the tree")
         out[side] = fn
     return out
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
 
 
 def compare(tag, n, fns):
@@ -279,6 +325,20 @@ def neighbour_cases(libs, base, dev, rng):
         compare(f"variants, k{k} (W={kt.shape[1]})", S.NAV_B, fns)
 
 
+def read_at2_cases(libs, base, dev, rng):
+    for k, n in AT2_ROWS.items():
+        table = S.id_tensor(rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64), dev)
+        ot = S.id_tensor(rng.integers(0, 16 * n, S.MAIN_B), dev)
+        got, want = kernels.read_at2_kernel(table, ot, k), P.read_kmers_at2_plain(table, ot, k)
+        S.require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"k{k}: read_at2 kernel != plain")
+        fns = {"tree": lambda: kernels.read_at2_kernel(table, ot, k)}
+        fns.update(variant_sides(libs, "read_at2.cu", fns["tree"]))
+        fns["baseline"] = lambda: base.read_at2_kernel(table, ot, k)
+        compare(f"read_kmers_at2, k{k} (W={P.num_words32(k)}), {n} rows", S.MAIN_B, fns)
+        del table, ot, got, want
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True, help="an unpacked earlier tree")
@@ -292,6 +352,7 @@ def main():
     rng = np.random.default_rng(10)
     weight_cases(libs, base, dev, rng)
     neighbour_cases(libs, base, dev, rng)
+    read_at2_cases(libs, base, dev, rng)
     S.log(f"card: {torch.cuda.get_device_name(0)}")
 
 

@@ -95,6 +95,71 @@ __device__ __forceinline__ void store_kmer(uint32_t* __restrict__ rows, int64_t 
     if (j < nw) rows[i * nw + j] = x[j];
 }
 
+// Threads of a block that writes its kmer rows through store_rows.
+constexpr int kRowThreads = 256;
+
+// Widths whose row is one or two 4-, 8- or 16-byte vectors.
+template <int W>
+constexpr bool kVectorRow = W == 1 || W == 2 || W == 4 || W == 8;
+
+// Shared memory of store_rows at width W: 32 rows for each warp of a block,
+// 16-byte aligned (a placeholder at the widths stored as vectors).
+template <int W>
+struct RowStage {
+  uint4 v[kVectorRow<W> ? 1 : (kRowThreads * W + 3) / 4];
+};
+
+// The rows row0 .. row0 + n - 1 (n <= 32) of a (B, nw) array that starts
+// 16-byte aligned, lane t of a warp holding row row0 + t (`have`: t < n),
+// written so that each store instruction of the warp covers contiguous
+// bytes. At 1, 2, 4 and 8 words a row goes out as one or two vectors,
+// neighbouring lanes on neighbouring addresses. At the other widths (3,
+// 5-7 and the runtime-width form) each lane puts its row into the warp's
+// slice of the stage, then the warp writes the n * nw words out as
+// 16-byte vectors, and the last n * nw % 4 a word a lane. (A lane storing
+// its nw words one by one makes each store instruction a set of words at
+// a stride of 4nw bytes.) Every lane of the warp calls it with the same
+// row0 and n; only the warp waits (__syncwarp), so no block barrier holds
+// the warps back for the slowest one's loads, and no register stays live
+// across one.
+template <int W>
+__device__ __forceinline__ void store_rows(uint32_t* __restrict__ rows, int64_t row0, int n,
+                                           int nw, bool have, const uint32_t (&x)[W],
+                                           RowStage<W>& stage) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (kVectorRow<W>) {
+    if (!have) return;
+    uint32_t* dst = rows + (row0 + lane) * W;
+    if constexpr (W == 1) {
+      *dst = x[0];
+    } else if constexpr (W == 2) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(x[0], x[1]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < W; j += 4)
+        reinterpret_cast<uint4*>(dst)[j / 4] = make_uint4(x[j], x[j + 1], x[j + 2], x[j + 3]);
+    }
+  } else {
+    uint32_t* s = reinterpret_cast<uint32_t*>(stage.v) + (threadIdx.x >> 5) * 32 * nw;
+    if (have) {
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        if (j < nw) s[lane * nw + j] = x[j];
+    }
+    __syncwarp();
+    const int total = n * nw;
+    uint32_t* dst = rows + row0 * nw;
+    int i = lane;
+    if (((uintptr_t)dst & 15) == 0) {  // the warp's slice starts 16-byte aligned too
+      for (; i < total / 4; i += 32)
+        reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(s)[i];
+      i = total / 4 * 4 + lane;
+    }
+    for (; i < total; i += 32) dst[i] = s[i];
+    __syncwarp();
+  }
+}
+
 // Reverse complement of a k-char kmer of nw words (revcomp_kmers): word i
 // of the reversal is the RC of word nw-1-i, then the 32*nw - 2k bits past
 // the kmer's end (the complements of the zero padding) shift out. The word

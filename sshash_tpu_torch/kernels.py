@@ -37,7 +37,7 @@ its `launches` count. The wrappers take CUDA tensors only; each entry
 point (ops/packed.minimizer, .minimizer_ranks, .neighbour_variants,
 .scan_ex, .compact and .read_kmers_at2; engine.lookup, .lookup_ranks,
 .probe, .access, .access_read, .iterate and .weight;
-streaming.stream_masks, .stream_kmers, .stream_chain, .stream_swin,
+streaming.stream_anchors, .stream_kmers, .stream_chain, .stream_swin,
 .stream_heads, .stream_round2, .stream_merge and .stream_count;
 debug.check; parallel.mesh.combine) is made by `by_device`, which
 chooses between a wrapper and its plain version by the device of one
@@ -238,7 +238,7 @@ def library():
         lib.sshash_round2_scratch.restype = i64
         lib.sshash_scan.argtypes = [p, i64, p, p, p]
         lib.sshash_compact.argtypes = [p, i64, p, p, p, p]
-        lib.sshash_stream_masks.argtypes = [p, p, p, i64, i64, p, p, p, p]
+        lib.sshash_stream_anchors.argtypes = [p, p, p, i64, i64, p, i64, i64, p, p, p, p, p]
         lib.sshash_stream_kmers.argtypes = [p, i64, p, p, p, p, i64, i64, p, p]
         lib.sshash_stream_chain.argtypes = [ctypes.POINTER(ChainIO), i64, i64, p]
         lib.sshash_stream_swin.argtypes = [p, p, i64, p, i64, i64, i64, i64, p, p]
@@ -253,7 +253,7 @@ def library():
         lib.sshash_last_error.argtypes = []
         for name in ("sshash_access", "sshash_access_occupancy", "sshash_chain_occupancy",
                      "sshash_iterate", "sshash_weight", "sshash_weight_plan", "sshash_neighbours",
-                     "sshash_scan", "sshash_compact", "sshash_stream_masks",
+                     "sshash_scan", "sshash_compact", "sshash_stream_anchors",
                      "sshash_stream_kmers", "sshash_stream_chain", "sshash_stream_swin",
                      "sshash_stream_heads", "sshash_stream_round2", "sshash_stream_merge",
                      "sshash_stream_count", "sshash_check", "sshash_read_at2",
@@ -800,32 +800,38 @@ def _scalar(t, name):
     _check(t, name, torch.int32, (1,))
 
 
-def stream_masks_kernel(pstart, rfirst, nreads, P):
-    """Segment / read-start bits and group counts of a chunk. Same contract
-    as streaming.stream_masks_plain."""
+def stream_anchors_kernel(pstart, rfirst, nreads, words32, P, k):
+    """The anchor stage of a chunk: segment / read-start bits, the group
+    scan and the anchors' kmers, in one launch. Needs pstart[:nreads]
+    strictly rising (rnpos[:nreads] >= 1, as the packer writes it). Same
+    contract as streaming.stream_anchors_plain."""
     R = _vec(pstart, "pstart", torch.int32)
     dev = pstart.device
     _check(rfirst, "rfirst", torch.int32, (R // 32 + 1,))
     _scalar(nreads, "nreads")
+    nw = _vec(words32, "words32", torch.int32)
     if P % 32 or P <= 0:
         raise ValueError(f"P={P} must be a positive multiple of 32")
-    sbits = torch.zeros(P // 32 + 1, dtype=torch.int32, device=dev)
-    fbits = torch.zeros_like(sbits)
-    gcnt = torch.empty(P // 16, dtype=torch.int32, device=dev)
-    err = library().sshash_stream_masks(pstart.data_ptr(), rfirst.data_ptr(), nreads.data_ptr(),
-                                        R, P, sbits.data_ptr(), fbits.data_ptr(),
-                                        gcnt.data_ptr(), _stream(dev))
-    _raise_on(err, "stream_masks_kernel")
-    stream_masks_kernel.launches += 1
-    return sbits, fbits, gcnt
+    # every word of the bit arrays and every row is written by the kernel
+    sbits = torch.empty(P // 32 + 1, dtype=torch.int32, device=dev)
+    fbits = torch.empty_like(sbits)
+    cum_g = torch.empty(P // 16, dtype=torch.int32, device=dev)
+    out = torch.empty((P // 16, (2 * k + 31) // 32), dtype=torch.int32, device=dev)
+    err = library().sshash_stream_anchors(pstart.data_ptr(), rfirst.data_ptr(),
+                                          nreads.data_ptr(), R, P, words32.data_ptr(), nw, k,
+                                          sbits.data_ptr(), fbits.data_ptr(), cum_g.data_ptr(),
+                                          out.data_ptr(), _stream(dev))
+    _raise_on(err, "stream_anchors_kernel")
+    stream_anchors_kernel.launches += 1
+    return sbits, fbits, cum_g, out
 
 
-stream_masks_kernel.launches = 0
+stream_anchors_kernel.launches = 0
 
 
-def stream_kmers_kernel(words32, sbits, cum_g, k, n_out, lanes=None, count=None):
-    """The kmer at each listed lane of a chunk -> (n_out, W) int32. Same
-    contract as streaming.stream_kmers_plain."""
+def stream_kmers_kernel(words32, sbits, cum_g, k, lanes, count):
+    """The kmer at each listed lane of a chunk -> (P, W) int32, rows below
+    the count only. Same contract as streaming.stream_kmers_plain."""
     nw = _vec(words32, "words32", torch.int32)
     dev = words32.device
     _check(sbits, "sbits", torch.int32)
@@ -833,18 +839,12 @@ def stream_kmers_kernel(words32, sbits, cum_g, k, n_out, lanes=None, count=None)
     P = (sbits.shape[0] - 1) * 32
     if cum_g.shape != (P // 16,):
         raise ValueError(f"cum_g must be ({P // 16},), got {tuple(cum_g.shape)}")
-    if (lanes is None) != (count is None):
-        raise ValueError("lanes and count go together")
-    if lanes is not None:
-        _check(lanes, "lanes", torch.int32, (n_out,))
-        _scalar(count, "count")
-    elif n_out > P // 16:
-        raise ValueError(f"{n_out} anchors for {P} lanes")
+    n_out = _vec(lanes, "lanes", torch.int32)
+    _scalar(count, "count")
     out = torch.empty((n_out, (2 * k + 31) // 32), dtype=torch.int32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = library().sshash_stream_kmers(words32.data_ptr(), nw, sbits.data_ptr(),
-                                        cum_g.data_ptr(), ptr(lanes), ptr(count), n_out, k,
-                                        out.data_ptr(), _stream(dev))
+                                        cum_g.data_ptr(), lanes.data_ptr(), count.data_ptr(),
+                                        n_out, k, out.data_ptr(), _stream(dev))
     _raise_on(err, "stream_kmers_kernel")
     stream_kmers_kernel.launches += 1
     return out
@@ -1086,6 +1086,8 @@ def read_at2_kernel(table, offsets, k):
     _check_table(table, "table", dev, 2)
     if table.dim() != 2:
         raise ValueError(f"table must be (NW, 2), got {tuple(table.shape)}")
+    if table.data_ptr() % 8:
+        raise ValueError("table: its rows are read as 8-byte pairs; it must start 8-byte aligned")
     out = torch.empty((B, (2 * k + 31) // 32), dtype=torch.int32, device=dev)
     vbit = torch.empty(B, dtype=torch.bool, device=dev)
     err = library().sshash_read_at2(table.data_ptr(), table.shape[0], offsets.data_ptr(), B, k,
@@ -1142,7 +1144,7 @@ combine_kernel.launches = 0
 
 KERNELS = (minimizer_kernel, minimizer_ranks_kernel, probe_kernel, lookup_kernel,
            lookup_ranks_kernel, access_kernel, access_read_kernel, iterate_kernel,
-           weight_kernel, neighbours_kernel, scan_kernel, compact_kernel, stream_masks_kernel,
+           weight_kernel, neighbours_kernel, scan_kernel, compact_kernel, stream_anchors_kernel,
            stream_kmers_kernel, stream_chain_kernel, stream_swin_kernel, stream_heads_kernel,
            stream_round2_kernel, stream_merge_kernel, stream_count_kernel, check_kernel,
            read_at2_kernel, combine_kernel)
@@ -1154,7 +1156,7 @@ SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel", "minimizer_ranks_kernel")
                   "iterator.cu": ("iterate_kernel",),
                   "weight.cu": ("weight_kernel",), "neighbours.cu": ("neighbours_kernel",),
                   "scan.cu": ("scan_kernel", "compact_kernel"),
-                  "stream_anchor.cu": ("stream_masks_kernel", "stream_kmers_kernel"),
+                  "stream_anchor.cu": ("stream_anchors_kernel", "stream_kmers_kernel"),
                   "stream_chain.cu": ("stream_chain_kernel", "stream_swin_kernel"),
                   "stream_derive.cu": ("stream_heads_kernel", "stream_round2_kernel",
                                        "stream_merge_kernel", "stream_count_kernel"),

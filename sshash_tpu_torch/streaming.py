@@ -23,24 +23,26 @@ sshash_tpu's step_packed / step_packed_av. It is held to the same
 function, not to the same schedule: JAX picks derive_fast, derive_corr or
 derive_full by miss counts for the TPU's sake; here one path runs:
 
-  1. masks: segment-start and read-start bits from the per-read position
-     counts (one exclusive scan over R, csrc/scan.cu), group popcounts and
-     their scan;
-  2. anchors: the kmer at every 16th lane, looked up (one launch of the
-     lookup kernel);
+  1. segments: one exclusive scan of the per-read position counts over R
+     (csrc/scan.cu) gives each read's first lane;
+  2. anchors: one launch (csrc/stream_anchor.cu) gives the segment-start
+     and read-start bits, each group of 16 lanes' segment count before it
+     (the group scan) and the kmer at every 16th lane, which one launch
+     of the lookup kernel looks up;
   3. chains: per anchor, its 15 followers resolve with one string-char
      compare each (prefix-AND), giving per-lane (found, string_id,
      kmer_id, orientation) and the lanes that still need a lookup;
   4. misses: the needing lanes compacted in rank order (csrc/scan.cu), their
-     kmers read and run through kernel 1's rank form once (both strands'
-     minimizers of the ranks below the misses' count, which stays on the
-     device); the negative-minimizer run-skip (JAX's gate: more than P/64
-     misses) marks run heads from kernel 1's (mv_f, mv_r) pairs; the heads
+     kmers read (on a grid sized to the card, up to the count) and run
+     through kernel 1's rank form once (both strands' minimizers of the
+     ranks below the misses' count, which stays on the device); the
+     negative-minimizer run-skip (JAX's gate: more than P/64 misses)
+     marks run heads from kernel 1's (mv_f, mv_r) pairs; the heads
      are looked up, then the run members whose head found its minimizer
      (each rank's run head carried forward in one pass), each round one
      launch of the rank-space lookup (csrc/lookup_ranks.cu: the lookup
      kernel's lane over the ranks below the count, the five fields the
-     stream reads); results scatter back. Both kernels run grids sized to
+     stream reads); results scatter back. These kernels run grids sized to
      the card that stride up to the count, so their work is the misses'
      (JAX's run_windows loops windows up to it). The bucket-sharded stream
      keeps kernel 1 over all P rows and its engine's sharded lookup given
@@ -57,6 +59,7 @@ rest of the port does.
 """
 
 import gzip
+import os
 import time
 from typing import NamedTuple
 
@@ -379,9 +382,6 @@ def stream_masks_plain(pstart, rfirst, nreads, P):
     return _bits(sb, nwords), _bits(fb, nwords), gcnt
 
 
-stream_masks = kernels.by_device(kernels.stream_masks_kernel, stream_masks_plain, "masks")
-
-
 def lane_positions(lanes, sbits, cum_g, k):
     """Char position of each lane (int64 of u32): lane + r*(k-1), r the
     lane's segment, counted by the group scan cum_g and the group's
@@ -399,23 +399,43 @@ def _popcount16(v):
     return (v + (v >> 8)) & 0x1F
 
 
-def stream_kmers_plain(words32, sbits, cum_g, k, n_out, lanes=None, count=None):
-    """The read's kmer at each listed lane: row j < count reads at lane
-    lanes[j] (16*j without a list, the anchors), count int32 (1,) (n_out
-    without). Returns (n_out, W) int32. Rows at or past count are not
-    part of the result: nothing downstream reads them (the kernel leaves
-    them unwritten; they are zero here)."""
+def stream_kmers_plain(words32, sbits, cum_g, k, lanes, count):
+    """The read's kmer at each listed lane: row j < count (int32 (1,),
+    clamped to [0, n_out]) reads at lane lanes[j] (int32 (n_out,)).
+    Returns (n_out, W) int32. Rows at or past count are not part of the
+    result: nothing downstream reads them (the kernel leaves them
+    unwritten; they are zero here)."""
     dev = words32.device
-    n = n_out if count is None else int(count[0])
-    lane = (torch.arange(n, device=dev) * S if lanes is None
-            else lanes[:n].to(torch.int64))
+    n_out = lanes.shape[0]
+    n = min(max(int(count[0]), 0), n_out)
     out = torch.zeros((n_out, Pk.num_words32(k)), dtype=torch.int32, device=dev)
-    pos = lane_positions(lane, sbits, cum_g, k)
+    pos = lane_positions(lanes[:n].to(torch.int64), sbits, cum_g, k)
     out[:n] = u.to_i32(Pk.read_kmers_at(u.u32(words32), pos, k))
     return out
 
 
 stream_kmers = kernels.by_device(kernels.stream_kmers_kernel, stream_kmers_plain, "kmer-read")
+
+
+def stream_anchors_plain(pstart, rfirst, nreads, words32, P, k):
+    """The anchor stage of a chunk of P lanes: (sbits, fbits, cum_g,
+    anchors). sbits, fbits and the group counts are stream_masks_plain's;
+    cum_g int32 (P//16,) is the exclusive scan of the group counts (the
+    segment starts before each group of 16 lanes); anchors (P//16, W) int32
+    the kmer at each group's first lane (stream_kmers_plain at lanes 16g).
+    The kernel takes pstart[:nreads] strictly rising (rnpos[:nreads] >= 1,
+    as _DeviceStream's packer writes every read); this version does not
+    need it."""
+    sbits, fbits, gcnt = stream_masks_plain(pstart, rfirst, nreads, P)
+    cum_g = Pk.prefix_sum_ex(gcnt)
+    A = P // S
+    lanes = torch.arange(A, dtype=torch.int32, device=pstart.device) * S
+    count = torch.tensor([A], dtype=torch.int32, device=pstart.device)
+    return sbits, fbits, cum_g, stream_kmers_plain(words32, sbits, cum_g, k, lanes, count)
+
+
+stream_anchors = kernels.by_device(kernels.stream_anchors_kernel, stream_anchors_plain,
+                                   "anchors")
 
 
 def _win16(words, base):
@@ -606,7 +626,7 @@ class StepOps(NamedTuple):
 
     scan: object
     compact: object
-    masks: object
+    anchors: object
     kmers: object
     chain: object
     heads: object
@@ -618,10 +638,10 @@ class StepOps(NamedTuple):
     lookup_ranks: object
 
 
-KERNEL_OPS = StepOps(Pk.scan_ex, Pk.compact, stream_masks, stream_kmers, stream_chain,
+KERNEL_OPS = StepOps(Pk.scan_ex, Pk.compact, stream_anchors, stream_kmers, stream_chain,
                      stream_heads, stream_round2, stream_merge, stream_count, Pk.minimizer,
                      Pk.minimizer_ranks, lookup_ranks)
-PLAIN_OPS = StepOps(Pk.prefix_sum_ex, Pk.compact_plain, stream_masks_plain,
+PLAIN_OPS = StepOps(Pk.prefix_sum_ex, Pk.compact_plain, stream_anchors_plain,
                     stream_kmers_plain, stream_chain_plain, stream_heads_plain,
                     stream_round2_plain, stream_merge_plain, stream_count_plain,
                     Pk.minimizer_plain, Pk.minimizer_ranks_plain, lookup_ranks_plain)
@@ -645,6 +665,17 @@ def check_streamable(cfg):
                          "chain-extension in-string test) and char-offset cursors; rebased "
                          "v2-row indexes (>= 2^32 chars) serve point queries only - shard the "
                          "input into < 2^32-char sub-indexes to stream")
+
+
+def check_read_positions(rnpos, nreads):
+    """Raise unless every packed read has a position (rnpos[:nreads] >= 1,
+    so that pstart[:nreads] rises strictly): the anchors kernel's
+    precondition, which _DeviceStream's packer meets by dropping reads
+    under k chars. Reads the buffer on the host."""
+    n = min(max(int(nreads[0]), 0), rnpos.shape[0])
+    if n and bool((rnpos[:n] == 0).any()):
+        raise ValueError("packed chunk: a read below nreads has no position (rnpos 0); the "
+                         "anchor stage needs rnpos[:nreads] >= 1")
 
 
 def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, runskip=None,
@@ -673,11 +704,17 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
 
     fn(tables, packed, stats=None): a dict passed as stats receives, as
     device tensors, the lanes that missed their chain ("need"), the lookup
-    heads ("heads") and the round-2 lanes ("round2")."""
+    heads ("heads") and the round-2 lanes ("round2").
+
+    The packed buffer must give every read below nreads at least one
+    position (rnpos >= 1), as _DeviceStream's packer does: the anchors
+    kernel relies on it (the plain version does not). With SSHASH_DEBUG=1
+    in the environment when the step is made, each call checks it on the
+    host (check_read_positions) and raises on a buffer that breaks it."""
     check_streamable(cfg)
+    debug = os.environ.get("SSHASH_DEBUG", "") not in ("", "0")
     if P % 32 or P < 32:
         raise ValueError(f"P={P} must be a positive multiple of 32")
-    A = P // S
     o0, o1, o2, o3 = packed_offsets(P, R)
     gate = -1 if runskip is None else int(bool(runskip))
     k = cfg.k
@@ -686,6 +723,8 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
         dev = packed.device
         count, nreads = packed[0:1], packed[1:2]
         rnpos, rfirst = packed[o0:o1], packed[o1:o2]
+        if debug:
+            check_read_positions(rnpos, nreads)
         if all_valid:
             words32 = packed[o2:o2 + CW]
             w = torch.arange(P // 32 + 1, device=dev)
@@ -696,9 +735,8 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
         else:
             valid_bits, words32 = packed[o2:o3], packed[o3:o3 + CW]
         pstart = ops.scan(rnpos)
-        sbits, fbits, gcnt = ops.masks(pstart, rfirst, nreads, P)
-        cum_g = ops.scan(gcnt)
-        ares = lookup(tables, ops.kmers(words32, sbits, cum_g, k, A))
+        sbits, fbits, cum_g, akm = ops.anchors(pstart, rfirst, nreads, words32, P, k)
+        ares = lookup(tables, akm)
         if swin is None:
             state = ops.chain(ares, words32, tables["strings32"], valid_bits, sbits, fbits,
                               cum_g, k)
@@ -706,7 +744,7 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
             state = ops.chain(ares, words32, None, valid_bits, sbits, fbits, cum_g, k,
                               swin=swin(tables, ares))
         lanes, n_need = ops.compact(state["need"])
-        km = ops.kmers(words32, sbits, cum_g, k, P, lanes, n_need)
+        km = ops.kmers(words32, sbits, cum_g, k, lanes, n_need)
         if swin is None:
             mins = ops.minimizer_ranks(km, n_need, k, cfg.m, cfg.magic)
             head = ops.heads(mins[0], mins[2], lanes, n_need, fbits, gate)

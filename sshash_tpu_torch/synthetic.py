@@ -378,6 +378,67 @@ def with_n(reads, frac, rng):
     return out
 
 
+# the stream anchor stage's edge cases (stream_chunk)
+STREAM_CHUNK_CASES = ("exact_k", "split", "last_lane", "last_group", "n0", "nR", "random")
+
+
+def stream_chunk(case, k, rng, P, R):
+    """The anchor stage's inputs of a synthetic chunk of P lanes and R read
+    slots: (pstart, rfirst, nreads, words32) as int32 tensors of u32 bits,
+    pstart the exclusive scan of rnpos. rnpos[:nreads] >= 1 sums to at most
+    P, as the stream's packer writes it; past nreads it holds garbage.
+    case: "exact_k" (R reads of one position each), "split" (a long read's
+    middle segment, then its last), "last_lane" (a read starting at lane
+    P - 1), "last_group" (the first segment runs into the last group of 16
+    lanes), "n0" (no reads), "nR" (R reads) or "random"."""
+    rnpos = rng.integers(0, 1 << 20, R)
+    if case == "exact_k":
+        n = R
+        rnpos[:n] = 1
+    elif case == "split":
+        n = 2
+        rnpos[:n] = (P - 40, 40)
+    elif case == "last_lane":
+        n = R // 2
+        cut = np.sort(rng.choice(np.arange(1, P - 1), n - 2, replace=False))
+        rnpos[:n] = np.diff(np.concatenate([[0], cut, [P - 1, P]]))
+    elif case == "last_group":
+        n = 4
+        rnpos[:n] = (P - 10, 3, 3, 4)
+    elif case == "n0":
+        n = 0
+    else:
+        n = R if case == "nR" else int(rng.integers(1, R))
+        cut = np.sort(rng.choice(np.arange(1, P), n - 1, replace=False))
+        total = int(rng.integers(cut[-1] + 1 if n > 1 else 1, P + 1))
+        rnpos[:n] = np.diff(np.concatenate([[0], cut, [total]]))
+    if not ((rnpos[:n] >= 1).all() and rnpos[:n].sum() <= P):
+        raise ValueError(f"{case}: P={P}, R={R} too small for the case")
+    pstart = (np.cumsum(rnpos) - rnpos).astype(np.uint32)
+    rfirst = rng.integers(0, 1 << 32, R // 32 + 1, dtype=np.uint64).astype(np.uint32)
+    # the chars of P positions in R segments of k - 1 overlap, 16 a word
+    words = rng.integers(0, 1 << 32, (P + R * (k - 1)) // 16 + 2, dtype=np.uint64)
+    t = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32))  # noqa: E731
+    return t(pstart), t(rfirst), torch.tensor([n], dtype=torch.int32), t(words)
+
+
+def miss_lanes(rng, P, m):
+    """A compacted lane list of a chunk of P lanes, as the stream's
+    compaction leaves it: m distinct lanes of [0, P), rising, in runs of 1
+    to 33 adjacent lanes with random gaps between, and zeros past m. int32
+    (P,)."""
+    lens = []
+    while sum(lens) < m:
+        lens.append(min(int(rng.integers(1, 34)), m - sum(lens)))
+    # the free lanes before each run, rising: the runs never touch back
+    free = np.sort(rng.integers(0, P - m + 1, len(lens)))
+    starts = free + np.cumsum([0] + lens[:-1])
+    out = np.zeros(P, np.int32)
+    if lens:
+        out[:m] = np.concatenate([s + np.arange(n) for s, n in zip(starts, lens)])
+    return torch.from_numpy(out)
+
+
 def random_kmers(k, rng, n):
     """n random packed k-mers (almost surely absent from an index)."""
     W64 = K.num_words64(k)

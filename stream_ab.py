@@ -33,6 +33,25 @@ for instance under .chip_scratch/ (gitignored). Sides:
                the compaction's zero fill as a memset; each lane storing
                its own vector's ranks; 2 vectors a thread in the scans; 4
                in round 2; the count at 16 lanes a thread
+  kmers_grid_p this tree with the misses' kmer read on a grid of P lanes
+               whose blocks past the count exit (stream_anchor.cu
+               patched; the tree's grid fits the card and strides up to
+               the count)
+  row_stores   this tree with every kmer row stored a thread a row, word
+               by word, W words at a stride of 4W bytes (packed.cuh's
+               store_rows patched; the tree stores rows of 1, 2, 4 and 8
+               words as vectors and stages the other widths in shared
+               memory, a warp's rows written as 16-byte vectors)
+  warp_search  this tree with the anchor stage's search in two levels: a
+               warp finds the reads before its first lane by a 32-ary
+               search, a probe a lane and a ballot, then each thread
+               searches its warp's run (stream_anchor.cu patched; in the
+               tree each thread searches all of pstart[:nreads],
+               log2(nreads) + 1 dependent steps from L2)
+  masks_atomic (the anchor stage only) the parent's design: DIR's masks
+               kernel (a zero fill, atomicOr a read, then a group
+               popcount launch), the tree's scan of the group counts and
+               the tree's kmer read at the anchors' lanes
 
 A variant is built from its patched sources alone (nvcc for sm_90a into
 build/stream_ab/) and serves their entries; every other entry runs from
@@ -51,9 +70,12 @@ On each chunk every side's step equals the tree's and its stages' outputs
 equal the tree's (the baseline's in the stages both trees have), checked
 before timing; then, in turns, the whole step, the misses' kernels (kernel
 1's rank form and both rounds of the rank-space lookup) of the sides that
-have them, the scan.cu and stream_derive.cu calls, and with --stages each
-stage. Beside the high-hit chunk: the engine's lookup of 2^24 positives
-(ids) at 100M, tree against DIR; beside the low-hit chunk: the
+have them, the scan.cu and stream_derive.cu calls, the anchor stage (the
+tree's one launch; the baseline's masks, scan of the group counts and
+anchors' read; masks_atomic) and the misses' kmer read, and with
+--stages each stage. Beside the high-hit chunk: the engine's lookup of 2^24 positives
+(ids) at 100M, tree against DIR; beside the k65 chunk, that of 2^23
+positives on its 5M index; beside the low-hit chunk: the
 bucket-sharded stream's step, (1, 4) LocalMesh, tree against DIR. Prints
 the card, each side's registers and spills (ptxas) and the ms of each
 side.
@@ -90,13 +112,20 @@ OUT = ROOT / "build" / "stream_ab"
 SOURCE_OF = {"scan": "scan.cu", "compact": "scan.cu", "heads": "stream_derive.cu",
              "round2": "stream_derive.cu", "merge": "stream_derive.cu",
              "count": "stream_derive.cu", "minimizer_ranks": "misses",
-             "lookup_ranks": "misses"}
+             "lookup_ranks": "misses", "anchors": "stream_anchor.cu",
+             "kmers": "stream_anchor.cu"}
 ENTRIES = {"scan.cu": ("sshash_scan", "sshash_scan_scratch", "sshash_compact"),
            "stream_derive.cu": ("sshash_stream_heads", "sshash_stream_round2",
                                 "sshash_round2_scratch", "sshash_stream_merge",
                                 "sshash_stream_count"),
            "minimizer.cu": ("sshash_minimizer", "sshash_minimizer_ranks"),
-           "lookup_ranks.cu": ("sshash_lookup_ranks",)}
+           "lookup_ranks.cu": ("sshash_lookup_ranks",),
+           "stream_anchor.cu": ("sshash_stream_anchors", "sshash_stream_kmers")}
+# the anchor stage and the misses' kmer read, as (stage, its k-th call) of
+# the tree's step and of the baseline's (masks, the group scan, the anchors'
+# read; the misses' read its second kmer read)
+ANCHOR_CALLS = {"tree": [("anchors", 0)], "baseline": [("masks", 0), ("scan", 1), ("kmers", 0)]}
+MISS_CALLS = {"tree": [("kmers", 0)], "baseline": [("kmers", 1)]}
 # a stage's calls back to back in one graph when timed alone: one call
 # replayed alone costs about as much in graph launch as on the card
 STAGE_CALLS = 10
@@ -135,6 +164,44 @@ GRID = """    const cudaError_t err = pass_blocks(minimizer_ranks_kernel<WW>, kR
                                         &blocks);
     if (err != cudaSuccess) return err;
 """
+KMERS_GRID = """    const cudaError_t err = pass_blocks(kmers_kernel<WW>, kRowThreads,
+                                        per_sm[WW <= kMaxFixedW ? WW - 1 : kMaxFixedW], P,
+                                        &blocks);
+    if (err != cudaSuccess) return err;
+"""
+# the anchor stage's search of pstart: each thread's binary search of all
+# of it, and the two-level search that lost to it (a warp's 32-ary search
+# for its first lane, then each thread's search of its warp's run)
+THREAD_SEARCH = re.compile(r"  const int lane = threadIdx.x & 31;\n  // a: the reads that start "
+                           r"before lane v.*?(?=  uint32_t sh = 0, fh = 0;)", re.S)
+WARP_SEARCH = """  // lo: the reads that start before the warp's first lane v0 (pstart[:nr]
+  // rises strictly): 32 probes a step; the first that is not below v0
+  // bounds the next step's range
+  const int lane = threadIdx.x & 31;
+  const uint32_t v0 = v - 16u * lane;
+  int64_t lo = 0, hi = nr;
+  while (lo < hi) {
+    const int64_t step = (hi - lo + 31) >> 5, idx = lo + step * (lane + 1) - 1;
+    const bool less = idx < hi && pstart[idx] < v0;
+    lo += (int64_t)__popc(__ballot_sync(0xFFFFFFFFu, less)) * step;
+    hi = lo + step - 1 < hi ? lo + step - 1 : hi;
+  }
+  // a: the reads that start before lane v, at most v - v0 past lo
+  int64_t a = lo;
+  const int64_t span = nr - lo < 16 * lane ? nr - lo : 16 * lane;
+  if (live) {
+    for (int64_t step = span ? (int64_t)1 << (63 - __clzll(span)) : 0; step; step >>= 1)
+      if (a - lo + step <= span && pstart[a + step - 1] < v) a += step;
+  }
+"""
+# store_rows' body, and a thread a row storing its own words one by one
+STAGED = re.compile(r"  const int lane = threadIdx.x & 31;\n"
+                    r"  if constexpr \(kVectorRow<W>\).*?\n}\n", re.S)
+ROW_STORES = """  (void)n;
+  (void)stage;
+  if (have) store_kmer(rows, row0 + (threadIdx.x & 31), nw, x);
+}
+"""
 
 
 def patch(src, old, new):
@@ -143,10 +210,19 @@ def patch(src, old, new):
     return src.replace(old, new)
 
 
+def sub(pattern, new, src):
+    """src with the one match of pattern replaced by new."""
+    out, n = pattern.subn(lambda _: new, src, count=1)
+    if not n:
+        raise RuntimeError(f"not found in the source: {pattern.pattern}")
+    return out
+
+
 def variant_sources():
     """{side: (directory of its patched sources, the sources it builds)}."""
     text = {n: (CSRC / n).read_text()
-            for n in ("scan.cu", "stream_derive.cu", "minimizer.cu", "lookup_ranks.cu")}
+            for n in ("scan.cu", "stream_derive.cu", "minimizer.cu", "lookup_ranks.cu",
+                      "stream_anchor.cu", "packed.cuh")}
     scan, derive = text["scan.cu"], text["stream_derive.cu"]
     sides = {
         "walk": {"lookup_ranks.cu": patch(patch(text["lookup_ranks.cu"], WALK_CUT,
@@ -174,6 +250,13 @@ def variant_sources():
                                                    "constexpr int kRound2Vecs = 4;")},
         "count16": {"stream_derive.cu": patch(derive, "constexpr int kCountLanes = 8;",
                                               "constexpr int kCountLanes = 16;")},
+        "kmers_grid_p": {"stream_anchor.cu": patch(
+            text["stream_anchor.cu"], KMERS_GRID,
+            "    (void)per_sm;\n    blocks = (P + kRowThreads - 1) / kRowThreads;\n")},
+        "warp_search": {"stream_anchor.cu": sub(THREAD_SEARCH, WARP_SEARCH,
+                                                text["stream_anchor.cu"])},
+        "row_stores": {"stream_anchor.cu": text["stream_anchor.cu"],
+                       "packed.cuh": sub(STAGED, ROW_STORES, text["packed.cuh"])},
     }
     dirs = {}
     for side, files in sides.items():
@@ -181,7 +264,7 @@ def variant_sources():
         d.mkdir(parents=True, exist_ok=True)
         for name, t in files.items():
             (d / name).write_text(t)
-        dirs[side] = (d, tuple(files))
+        dirs[side] = (d, tuple(n for n in files if n.endswith(".cu")))  # headers beside them
     return dirs
 
 
@@ -192,7 +275,8 @@ def ptxas_lines(side, log):
     for ln, nxt, reg in zip(lines, lines[1:], lines[2:]):
         m = re.search(r"Function properties for _ZN6sshash\d+(scan_kernel|heads_kernel|"
                       r"round2_kernel|merge_kernel|count_kernel|minimizer_ranks_kernel|"
-                      r"lookup_ranks_kernel)(?:IL[ib](\d+)E(?:Lb([01])E)?)?", ln)
+                      r"lookup_ranks_kernel|anchors_kernel|kmers_kernel)"
+                      r"(?:IL[ib](\d+)E(?:Lb([01])E)?)?", ln)
         if m and re.search(r"Used \d+ registers", reg):
             args = ",".join(x for x in m.groups()[1:] if x)
             out.append(f"{side} {m.group(1)}{'<' + args + '>' if args else ''}: "
@@ -294,9 +378,10 @@ def recorded_step(st, cfg, P, R, CW, av):
 
 def _values(name, args, x):
     """A stage's output as a list of int64 tensors (flags as 0/1), the
-    rank-space stages' rows below their count only."""
-    n = {"minimizer_ranks": lambda: int(args[1][0]),
-         "lookup_ranks": lambda: int(args[4][0])}.get(name, lambda: None)()
+    rank-space stages' and the misses' read's rows below their count
+    only."""
+    n = {"minimizer_ranks": lambda: int(args[1][0]), "lookup_ranks": lambda: int(args[4][0]),
+         "kmers": lambda: int(args[5][0])}.get(name, lambda: None)()
     if isinstance(x, dict):
         x = [x[key] for key in sorted(x)]
     elif not isinstance(x, (tuple, list)):
@@ -304,14 +389,36 @@ def _values(name, args, x):
     return [t[:n].to(torch.int64) for t in x]
 
 
-def stage_outputs(calls):
-    """{(stage, its k-th call): values} of the compared stages."""
+def stage_outputs(calls, skip=()):
+    """{(stage, its k-th call): values} of the compared stages, but those
+    of the sources in skip."""
     out, seen = {}, {}
     for name, a, o in calls:
-        if name in SOURCE_OF:
+        if name in SOURCE_OF and SOURCE_OF[name] not in skip:
             i = seen[name] = seen.get(name, -1) + 1
             out[(name, i)] = _values(name, a, o)
     return out
+
+
+def masks_atomic(base_st, calls, want):
+    """The parent's anchor stage feeding this tree's read: DIR's masks
+    kernel (base_st: DIR's streaming module), this tree's scan of the group
+    counts and its kmer read at the anchors' lanes, on the tree's
+    recorded anchor-stage inputs (calls); checked equal to want, the
+    tree's stage. Returns the stage as a function."""
+    (pstart, rfirst, nreads, words32, Pn, k), = [a for n, a, _ in calls if n == "anchors"]
+    A = Pn // ST.S
+    lanes = torch.arange(A, dtype=torch.int32, device=pstart.device) * ST.S
+    count = torch.tensor([A], dtype=torch.int32, device=pstart.device)
+
+    def run():
+        sbits, fbits, gcnt = base_st.stream_masks(pstart, rfirst, nreads, Pn)
+        cum_g = ST.KERNEL_OPS.scan(gcnt)
+        return sbits, fbits, cum_g, ST.stream_kmers(words32, sbits, cum_g, k, lanes, count)
+
+    S.require(all(torch.equal(g, w) for g, w in zip(run(), want)),
+              "masks_atomic: the anchor stage != the tree's")
+    return run
 
 
 def compare_chunk(tag, sides, eng, packed, P, R, CW, av, stages=False):
@@ -326,11 +433,14 @@ def compare_chunk(tag, sides, eng, packed, P, R, CW, av, stages=False):
         runs[side] = (step, calls, out)
     _, calls, ref = runs["tree"]
     want = stage_outputs(calls)
+    # the baseline's anchor stage and reads are other stages (masks, kmers
+    # of the anchors and of the misses); they are held to the tree's below
+    base_skip = ("stream_anchor.cu",)
     for side, (_, calls, out) in runs.items():
         S.require(S.rows_equal(out, ref), f"{tag}: the {side} step != the tree's")
-        got = stage_outputs(calls)
+        got = stage_outputs(calls, base_skip if side == "baseline" else ())
         for key, v in want.items():
-            if side == "baseline" and SOURCE_OF[key[0]] == "misses":
+            if side == "baseline" and SOURCE_OF[key[0]] in ("misses",) + base_skip:
                 continue  # the baseline ran its misses over all P lanes
             S.require(key in got and all(torch.equal(a, b) for a, b in zip(got[key], v)),
                       f"{tag}: {side} stage {key} != the tree's")
@@ -349,6 +459,48 @@ def compare_chunk(tag, sides, eng, packed, P, R, CW, av, stages=False):
                 for fn, a in sel:
                     fn(*a)
         return run
+
+    def picked(side, keys):
+        """The side's calls of keys ((stage, k-th call)), as one function,
+        and their outputs."""
+        st, lib = sides[side]
+        seen, sel, outs = {}, [], []
+        for n, a, o in runs[side][1]:
+            i = seen[n] = seen.get(n, -1) + 1
+            if (n, i) in keys:
+                sel.append((getattr(st.KERNEL_OPS, n), a))
+                outs.append(o)
+
+        def run():
+            with using(lib):
+                for fn, a in sel:
+                    fn(*a)
+        return run, outs
+
+    # the anchor stage: every side's (sbits, fbits, cum_g, anchors) equal the
+    # tree's (the baseline's from its masks, group scan and anchors' read),
+    # then the sides in turns
+    tree_anchor = picked("tree", ANCHOR_CALLS["tree"])[1][0]
+    anchor_fns = {}
+    for side in sides:
+        fn, outs = picked(side, ANCHOR_CALLS.get(side, ANCHOR_CALLS["tree"]))
+        got = outs[0] if side != "baseline" else (*outs[0][:2], outs[1], outs[2])
+        S.require(all(torch.equal(g, w) for g, w in zip(got, tree_anchor)),
+                  f"{tag}: the {side} anchor stage != the tree's")
+        anchor_fns[side] = fn
+    anchor_fns["masks_atomic"] = masks_atomic(sides["baseline"][0], runs["tree"][1], tree_anchor)
+    S.time_sides(tag, "the anchor stage", P, anchor_fns, unit="lane", graph=tuple(anchor_fns))
+    # the misses' kmer read: rows below the count equal the tree's
+    n_miss = int([a for n, a, _ in runs["tree"][1] if n == "kmers"][0][5][0])
+    tree_miss = picked("tree", MISS_CALLS["tree"])[1][0][:n_miss]
+    miss_fns = {}
+    for side in sides:
+        fn, outs = picked(side, MISS_CALLS.get(side, MISS_CALLS["tree"]))
+        S.require(torch.equal(outs[0][:n_miss], tree_miss),
+                  f"{tag}: the {side} misses' read != the tree's")
+        miss_fns[side] = fn
+    S.time_sides(tag, f"the misses' kmer read (n {n_miss})", P, miss_fns, unit="lane",
+                 graph=tuple(miss_fns))
 
     def step_fn(side):
         step, lib = runs[side][0], sides[side][1]
@@ -383,7 +535,7 @@ def compare_chunk(tag, sides, eng, packed, P, R, CW, av, stages=False):
     if stages:
         for key in want:
             fns = {side: stage_fn(side, key) for side in sides
-                   if not (side == "baseline" and SOURCE_OF[key[0]] == "misses")}
+                   if not (side == "baseline" and SOURCE_OF[key[0]] in ("misses",) + base_skip)}
             S.time_sides(tag, f"stage {key[0]} #{key[1]}, {STAGE_CALLS} calls", P * STAGE_CALLS,
                          fns, unit="lane", graph=tuple(fns))
 
@@ -526,7 +678,16 @@ def k65_mixed(a, sides, base, dev, rng, tmp):
     chunk = unsharded_chunk(eng, path, False)
     compare_chunk(f"k65 mixed canonical chunk (P={chunk[1]})", sides, eng, *chunk,
                   stages=a.stages)
-    del eng, idx, host, chunk
+    del chunk
+    _, km = S.positives(idx, rng, S.MAIN_B)
+    kt = eng.kmers32(km)
+    got = E.lookup(eng.cfg, eng.tables, kt, None, "ids")
+    want = base.engine.lookup(eng.cfg, eng.tables, kt, None, "ids")
+    S.require(all(torch.equal(got[key], want[key]) for key in want), "k65 lookup: tree != DIR")
+    S.time_sides("k65 5M canonical", "the engine's lookup (ids)", S.MAIN_B,
+                 {"tree": lambda: E.lookup(eng.cfg, eng.tables, kt, None, "ids"),
+                  "baseline": lambda: base.engine.lookup(eng.cfg, eng.tables, kt, None, "ids")})
+    del eng, idx, host, kt, got, want
     torch.cuda.empty_cache()
 
 

@@ -811,11 +811,11 @@ def test_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.compact_kernel(v.to(torch.uint8))
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.stream_masks_kernel(v, torch.zeros(3, dtype=torch.int32),
-                                    torch.zeros(1, dtype=torch.int32), 64)
+        kernels.stream_anchors_kernel(v, torch.zeros(3, dtype=torch.int32),
+                                      torch.zeros(1, dtype=torch.int32), v, 64, cfg.k)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.stream_kmers_kernel(v, torch.zeros(3, dtype=torch.int32),
-                                    torch.zeros(4, dtype=torch.int32), cfg.k, 4)
+                                    torch.zeros(4, dtype=torch.int32), cfg.k, mp, mp[:1])
     with pytest.raises(ValueError, match="CUDA"):
         kernels.stream_heads_kernel(mv, mv, mp, mp[:1], mp[:1], -1)
     flags = torch.zeros(64, dtype=torch.bool)
@@ -844,17 +844,17 @@ def test_wrappers_take_cuda_tensors_only():
         P.scan_ex(mv)
     with pytest.raises(ValueError, match="compaction"):
         P.compact(mv)
-    with pytest.raises(ValueError, match="masks"):
-        ST.stream_masks(mv, mv, mv, 64)
+    with pytest.raises(ValueError, match="anchors"):
+        ST.stream_anchors(mv, mv, mv, mv, 64, cfg.k)
     with pytest.raises(ValueError, match="kmer-read"):
-        ST.stream_kmers(mv, mv, mv, cfg.k, 4)
+        ST.stream_kmers(mv, mv, mv, cfg.k, mv, mv[:1])
 
 
 ENTRIES = {"minimizer": (P.minimizer, 0), "neighbours": (P.neighbour_variants, 0),
            "scan": (P.scan_ex, 0), "compaction": (P.compact, 0), "probe": (E.probe, 2),
            "access": (E.access, 2), "access-read": (E.access_read, 2),
            "iterator": (E.iterate, 1), "weight": (E.weight, 1), "window": (ST.stream_swin, 0),
-           "masks": (ST.stream_masks, 0), "kmer-read": (ST.stream_kmers, 0),
+           "anchors": (ST.stream_anchors, 0), "kmer-read": (ST.stream_kmers, 0),
            "chain": (ST.stream_chain, 1), "run-skip": (ST.stream_heads, 2),
            "round-2": (ST.stream_round2, 0), "merge": (ST.stream_merge, 0),
            "count": (ST.stream_count, 1), "check": (debug.check, 0),

@@ -190,6 +190,46 @@ def test_stream_equals_jax_and_host(case, reads):
         assert rep["num_positive_kmers"] > 0 and rep["num_invalid_kmers"] > 0
 
 
+@pytest.mark.parametrize("reads", READ_SETS)
+def test_anchor_stage_gives_the_jax_masks_sum(case, reads):
+    """On every chunk, the fused anchor stage's outputs give the sum that
+    JAX's step returns at debug_stage="masks" (streaming.py:380-383: the
+    anchors' char positions and the valid, read-start and segment-start
+    bits of the P lanes), and its anchor kmers are the kmers at those
+    positions."""
+    _, idx, jeng, paths, (Pn, R, CW) = case
+    masks = jax.jit(JS.make_stream_step(jeng.cfg, jax_make_lookup(jeng.cfg), Pn, R,
+                                        packed_cw=CW, debug_stage="masks"))
+    s = ST._DeviceStream(TorchEngine(idx, "cpu"), idx.k, pmax=Pn, rmax_shift=RSHIFT)
+    s._run = lambda all_valid, packed: None  # the chunks alone
+    s.capture = []
+    for seq in ST.parse_reads(paths[reads], multiline=reads == "genome"):
+        s.add_read(seq)
+    s.flush()
+    assert len(s.capture) >= 2
+    o0, o1, o2, o3 = ST.packed_offsets(Pn, R)
+    lanes = torch.arange(Pn // 16) * 16
+
+    def bits(b):  # set bits of lanes < P
+        return int(np.bitwise_count(np.asarray(b, dtype=np.uint32)[: Pn // 32]).sum())
+
+    for av, packed in s.capture:
+        buf = packed.numpy().view(np.uint32)
+        if av:  # the valid bits written out, as the all-valid step derives them
+            vb = np.packbits(np.arange(Pn // 32 * 32 + 32) < int(buf[0]),
+                             bitorder="little").view(np.uint32)
+            buf = np.concatenate([buf[:o2], vb, buf[o2:]])
+        words32 = torch.from_numpy(buf[o3:o3 + CW].view(np.int32))
+        sbits, fbits, cum_g, akm = ST.stream_anchors(P.prefix_sum_ex(packed[o0:o1]),
+                                                     packed[o1:o2], packed[1:2], words32, Pn,
+                                                     idx.k)
+        apos = ST.lane_positions(lanes, sbits, cum_g, idx.k)
+        got = (int(apos.sum()) + bits(buf[o2:o3]) + bits(u.u32(fbits).numpy())
+               + bits(u.u32(sbits).numpy())) & 0xFFFFFFFF
+        assert got == int(np.asarray(masks(jeng.arrs, buf))[0, 0])
+        assert torch.equal(akm, u.to_i32(P.read_kmers_at(u.u32(words32), apos, idx.k)))
+
+
 def test_runskip_forced_on_and_off_gives_the_same_report(case):
     _, idx, _, paths, _ = case
     eng = TorchEngine(idx, "cpu")
