@@ -16,7 +16,16 @@ host modules, under the same names. Nothing here imports JAX or sshash_tpu.
 
 from .builder.build import BuildConfig, build
 from .dictionary import Dictionary, to_device
-from .engine import TorchEngine
 from .index import Index
 
 __all__ = ["BuildConfig", "build", "Dictionary", "Index", "TorchEngine", "to_device"]
+
+
+def __getattr__(name):
+    # the device engine imports torch on first use: the host-only paths
+    # (build, permute, the builders' scan workers) never load it
+    if name == "TorchEngine":
+        from .engine import TorchEngine
+
+        return TorchEngine
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

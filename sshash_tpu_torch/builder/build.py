@@ -4,8 +4,8 @@ Host-side pipeline mirroring the reference's 7 steps
 (include/builder/dictionary_builder.hpp:17-79), with per-step timing emitted
 as json-compatible stats. The external-memory sort/merge machinery of the
 reference (builder/util.hpp:157-300) is replaced by in-memory vectorized
-NumPy. The JAX package's out-of-core and multi-process builds are not part
-of this package: every build here is in memory.
+NumPy; out-of-core sharding by minimizer-hash range is the multi-host path
+(builder/external.py, builder/distributed.py).
 """
 
 import json
@@ -42,6 +42,19 @@ class BuildConfig:
     # minimizer key sets beyond this build a partitioned MPHF (reference
     # avg_partition_size, constants.hpp:11); None = constants default
     avg_partition_size: int = None
+    # out-of-core build (builder/external.py): tuples spill to hash-range
+    # tmp files; assembly runs one MPHF partition at a time (the reference's
+    # -d/-g flags, tools/build.cpp:34-44); a RAM budget selects it
+    ram_limit_mb: int = None
+    tmp_dir: str = None
+    # multi-host analog: shard the minimizer-tuple scan over N worker
+    # PROCESSES spilling to a shared directory, then assemble out-of-core
+    # (builder/distributed.py; reference contrast: threads of one machine,
+    # src/builder/compute_minimizer_tuples.cpp:19-117). scan_dir points the
+    # assembly at a directory ALREADY spilled by scan_procs ranks of the
+    # worker CLI (the real multi-host recipe; meta files are verified)
+    scan_procs: int = 1
+    scan_dir: str = None
 
     def validate(self):
         if self.k < 1 or self.m < 1 or self.m > self.k:
@@ -52,6 +65,8 @@ class BuildConfig:
             raise ValueError("k - m + 1 must fit in 8 bits")
         if self.threads < 1:
             raise ValueError("threads must be >= 1")
+        if self.scan_procs < 1:
+            raise ValueError("scan_procs must be >= 1")
 
 
 def build(input_path, config: BuildConfig):
@@ -69,6 +84,26 @@ def build(input_path, config: BuildConfig):
         if config.verbose:
             print(f"=== {name}: {dt:.3f} [sec]")
         return out
+
+    if (config.scan_procs > 1 or config.scan_dir is not None
+            or config.ram_limit_mb is not None):
+        if config.scan_procs > 1 or config.scan_dir is not None:
+            from .distributed import build_distributed
+
+            index = build_distributed(input_path, config, stats, timed,
+                                      config.scan_procs)
+        else:
+            from .external import build_external
+
+            index = build_external(input_path, config, stats, timed)
+        stats["total_build_time_sec"] = time.perf_counter() - t_total
+        stats["num_kmers"] = index.num_kmers
+        stats.update(index.stats)
+        index.stats = stats
+        if config.verbose:
+            print(json.dumps({kk: vv for kk, vv in stats.items()
+                              if not kk.startswith("step")}))
+        return index
 
     magic = mixer_magic(config.seed)
 

@@ -12,7 +12,6 @@ import numpy as np
 from . import kmer as K
 from . import oracle
 from .constants import INVALID_UINT64
-from .engine import TorchEngine
 from .index import Index
 
 INVALID = np.uint64(INVALID_UINT64)
@@ -21,6 +20,8 @@ INVALID = np.uint64(INVALID_UINT64)
 def to_device(dictionary_or_index, device="cuda"):
     """TorchEngine for a Dictionary or Index on `device` (the card unless
     the caller names another)."""
+    from .engine import TorchEngine
+
     index = getattr(dictionary_or_index, "index", dictionary_or_index)
     return TorchEngine(index, device)
 
@@ -49,6 +50,8 @@ class Dictionary:
 
     def to_device(self, device="cuda"):
         """The TorchEngine on `device`, built once per device."""
+        from .engine import TorchEngine
+
         key = str(device)
         if key not in self._engines:
             self._engines[key] = TorchEngine(self.index, device)
@@ -199,6 +202,16 @@ class Dictionary:
 
     def num_bits(self):
         return self.index.num_bits()
+
+    def print_info(self):
+        from .info import print_info
+
+        print_info(self.index)
+
+    def print_space_breakdown(self):
+        from .info import print_space_breakdown
+
+        print_space_breakdown(self.index)
 
 
 def _drop_one_char(packed, k):

@@ -132,6 +132,14 @@ class Index:
             bits += self.weights.num_bits()
         return bits
 
+    def num_bits_actual(self):
+        """Bits actually held in host RAM (dense arrays counted dense,
+        CompactVectors at their real width) — the real single-number
+        companion to the reference-format :meth:`num_bits`."""
+        from .info import actual_space_breakdown
+
+        return sum(actual_space_breakdown(self).values())
+
     # ------------------------------------------------------------ save / load
 
     def save(self, path):
