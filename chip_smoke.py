@@ -5,7 +5,8 @@ membership over reads, the capacity formats (legacy skew indexes, rebased
 v2 rows, ids above 2^31), the bucket-sharded engine, and k > 63 with the
 sanitizer (SSHASH_DEBUG) and read_kmers_at2, then the host tooling (the
 out-of-core and multi-process builders, check, query, bench, permute and
-the CLI), and check them end to end.
+the CLI) and capacity_run.py's tables and serve checks, and check them
+end to end.
 
     python3 chip_smoke.py
 
@@ -168,7 +169,18 @@ line):
      (the 2-process build's workers, which run
      sshash_tpu_torch.builder.distributed) loads neither module. Its
      launches add to the kernels line's counts.
- 15. one JSON line of per-source results (launches, max |err|, ms, plain ms,
+ 15. capacity_run.py's tables stage and serve checks on phase 7's 100M
+     index (the capacity path's code, on every run): its tables written
+     in 8 or more pieces a table and loaded with mmap_mode="r" equal
+     device_arrays(index); then v1 rows and forced v2 rows rebased by 2^31
+     + 12345 served from them through TorchEngine, each held to ground
+     truth from write_input's strings on 2^22 lanes: ids and orientations
+     (every field on v1), random k-mers, is_member, access, navigation
+     (a 2^12 sample against the oracle), iteration count and checksum,
+     streaming (v1; v2 refuses it) against the host _Batcher; the v2
+     lookups' and navigation's ids all at or above 2^31; each entry point
+     timed; launches counted on both paths
+ 16. one JSON line of per-source results (launches, max |err|, ms, plain ms,
      bound ms and what bounds it, library-call ms; kernel 2 once per
      variant: v1, v2 rows, legacy skew; the lookup kernel (phase 7, bound
      by kernel 1's operations or the lookup's own bytes); kernel 1's rank
@@ -250,6 +262,7 @@ PROBE_VARIANTS = {"probe_v2": "sshash_tpu/engine.py:824",
                   "probe_legacy_skew": "sshash_tpu/engine.py:713"}
 STRING_LEN = 100_030  # 100,000 k31 kmers per string
 MAIN_STRINGS, PATH_STRINGS, SCALE_STRINGS = 50, 10, 1000  # 5M, 1M, 100M kmers
+SCALE_SEED = 60
 
 
 T_START = time.perf_counter()
@@ -1006,7 +1019,7 @@ def phase_scale(dev):
     rng = np.random.default_rng(6)
     torch.cuda.reset_peak_memory_stats()
     idx, host = build("canonical", k=31, m=21, canonical=True, num_strings=SCALE_STRINGS,
-                      string_len=STRING_LEN, seed=60, threads=8)
+                      string_len=STRING_LEN, seed=SCALE_SEED, threads=8)
     t0 = time.perf_counter()
     eng = TorchEngine(idx, dev, host_arrs=host)
     torch.cuda.synchronize()
@@ -2951,6 +2964,66 @@ def phase_tools(dev, smi):
     return launches
 
 
+CAPACITY_B = 1 << 22
+CAPACITY_READS = 1 << 10
+CAPACITY_PIECES = 8
+# the kernels each capacity engine's checks must launch
+CAPACITY_KERNELS = {"v1": ("lookup_kernel", "access_kernel", "neighbours_kernel",
+                           "iterate_kernel") + STREAM_WRAPPERS,
+                    "v2": ("lookup_kernel", "access_kernel", "neighbours_kernel",
+                           "iterate_kernel")}
+
+
+def phase_capacity(dev, idx, host, tmp):
+    """capacity_run.py's tables stage and serve checks on phase 7's 100M
+    index: the tables written in 8 or more pieces a table equal
+    device_arrays(index), then v1 rows and forced v2 rows (rebased by BASE,
+    so every lookup answer lies at or above 2^31) served from them, held to
+    the strings write_input drew. Returns the launches of both."""
+    import capacity_run as CR
+
+    log(f"[15] capacity_run.py's tables and serve checks on phase 7's 100M index: v1, then v2 "
+        f"rows rebased by {BASE}, {CAPACITY_B} lanes")
+    t0 = time.perf_counter()
+    threads = os.cpu_count() or 1
+    chunk = -(-int(idx.num_chars) // CAPACITY_PIECES)
+    arrs = CR.tables_stage(idx, f"{tmp}/capacity_v1", None, chunk, threads)
+    require(set(arrs) == set(host) and all(np.array_equal(arrs[key], v)
+                                           for key, v in host.items()),
+            "capacity: the chunked tables differ from device_arrays(index)")
+    t1 = time.perf_counter()
+    src = CR.Strings(SCALE_STRINGS, STRING_LEN, lambda: iter([
+        (0, synthetic.string_codes(SCALE_STRINGS, STRING_LEN, SCALE_SEED)[1])]))
+    gt = CR.ground_truth(src, idx.k, CAPACITY_B, CAPACITY_READS, threads=threads)
+    require(gt["num_kmers"] == idx.num_kmers, "capacity: the strings' k-mers != num_kmers")
+    log(f"  tables stage in {CAPACITY_PIECES}+ pieces a table == device_arrays ({t1 - t0:.1f} s); "
+        f"ground truth {time.perf_counter() - t1:.1f} s")
+    launches = {}
+    for name, rf, base, above in (("v1", None, 0, ()),
+                                  ("v2", "v2", BASE, ("positives", "navigation"))):
+        if rf:
+            arrs = CR.tables_stage(idx, f"{tmp}/capacity_{name}", rf, chunk, threads)
+        rss0 = CR.rss_now_mb()
+        eng = TorchEngine(idx, dev, host_arrs=arrs, row_format=rf)
+        log(f"  100M {name} upload: resident MB before {rss0}, after {CR.rss_now_mb()} (the "
+            f"upload releases a memory-mapped table's pages as its pieces land)")
+        if base:
+            eng.tables = synthetic.rebase_ids(eng.cfg, eng.tables, base)
+        kernels.reset_counts()
+        summary, checks, _ = CR.serve_checks(
+            eng, gt, src, id_base=base, nav_lanes=NAV_B, workdir=tmp,
+            threads=threads, tag=f"100M {name}", above=above,
+            log=lambda rec: log("  " + json.dumps(rec)))
+        add_counts(launches, path_counts(f"capacity {name} path", CAPACITY_KERNELS[name]))
+        checks.raise_any()
+        log(f"  100M {name} ms: " + json.dumps(CR.time_entry_points(eng, gt, (median_ms, graph_ms),
+                                                                   NAV_B)))
+        del eng
+    del arrs
+    log(f"  capacity phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
@@ -2978,9 +3051,12 @@ def main():
         variants["probe_v2"] = phase_v2(idx, eng, ids, kt, tmp, errs)
         sharded = phase_sharded(dev, built, paths, weighted, (idx, eng, ids, kt, host200),
                                 read_sets, errs)
-        del host200, paths, weighted
+        del paths, weighted
         wide_launches, wide_times, wide_errs = phase_wide(dev, tmp, errs, per_kernel)
     tool_launches = phase_tools(dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        capacity_launches = phase_capacity(dev, idx, host200, tmp)
+    del host200
     add_counts(launches, stream_launches)
     for name in ("check_kernel", "read_at2_kernel"):
         launches[name] = wide_launches.get(name, 0)
@@ -2997,7 +3073,7 @@ def main():
     del built, idx, eng, kt
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sshash_tpu"))
     require(not loaded, f"JAX or the JAX package was imported: {loaded}")
-    log(f"[15] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
+    log(f"[16] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
     csrc = "sshash_tpu_torch/csrc/"
     rows = []
     sh_launches, sh_times = sharded
@@ -3005,6 +3081,7 @@ def main():
         launches[name] = sh_launches[name]
     times["combine_kernel"] = sh_times["combine"]
     add_counts(launches, tool_launches)
+    add_counts(launches, capacity_launches)
     bounds["combine.cu"] = sh_times["combine"]["bound"]
     for src, rep in SOURCES.items():
         # the lookup kernel, in probe.cu beside kernel 2, kernel 1's rank

@@ -137,7 +137,8 @@ def scan_shard(input_path, k, m, seed, canonical, wid, nworkers, shared_dir,
     meta = {"wid": wid, "nworkers": int(nworkers), "k": int(k), "m": int(m),
             "seed": int(seed), "canonical": bool(canonical),
             "block_chars": int(block_chars),
-            "tuples": int(router.total), "chars_seen": int(base)}
+            "tuples": int(router.total), "flushes": int(router.flushes),
+            "chars_seen": int(base)}
     with open(os.path.join(shared_dir, f"meta_w{wid}.json"), "w") as f:
         json.dump(meta, f)
     return router.total
@@ -249,6 +250,8 @@ def _build_distributed(input_path, config, stats, timed, k, m, ram_bytes,
     want = {"nworkers": nprocs, "k": k, "m": m, "seed": seed0,
             "canonical": bool(config.canonical), "block_chars": block_chars,
             "chars_seen": total_chars}
+    # the ranks' routers' flushes that wrote tuples, summed
+    stats["spill_flushes"] = 0
     for w in range(nprocs):
         mpath = os.path.join(tmpdir, f"meta_w{w}.json")
         if not os.path.exists(mpath):
@@ -268,6 +271,7 @@ def _build_distributed(input_path, config, stats, timed, k, m, ram_bytes,
             raise RuntimeError(
                 f"scan rank {w} ran with different parameters than this "
                 f"assembly: {bad} (got, want)")
+        stats["spill_flushes"] += meta.get("flushes", 0)
     extra = sorted(p for p in os.listdir(tmpdir)
                    if p.startswith("meta_w") and p.endswith(".json")
                    and not any(p == f"meta_w{w}.json" for w in range(nprocs)))

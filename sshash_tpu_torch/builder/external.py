@@ -27,6 +27,7 @@ from ..constants import MAX_L, MIN_L, SKEW_LAMBDA_BOOST, LAMBDA
 from ..compact import CompactVector
 from ..index import Index, SkewPartition
 from ..mphf import MPHFBuildError, PartitionedMPHF
+from ..pool import ordered_map
 from .assemble import _kmer_less, build_weights
 from .parse import SequenceReader
 
@@ -199,6 +200,113 @@ def _build_external(input_path, config, stats, timed, k, m, magic, ram_bytes,
     raise MPHFBuildError("external build failed after 16 global seeds")
 
 
+def _partition(p, router, c, pb, seed, base, codewords, min_size):
+    """Phase C for MPHF partition p (hash ranges [p*c, (p+1)*c)): its MPHF
+    solution, its singleton codewords (written into codewords[base:], the
+    partition's own slice), and what the caller places in partition order:
+    its mid buckets (ids, sizes, rank within their size, position
+    segments), heavy buckets and counts. None for an empty partition."""
+    rec = np.concatenate([router.load(r) for r in range(p * c, (p + 1) * c)])
+    if not len(rec):
+        return None
+    mn = rec["mn"].astype(U64)
+    distinct_vals = np.unique(mn)
+    sol = pb.solve_partition(p, H.hash64_u64(distinct_vals, U64(seed)))
+    local = sol[4]
+    tid = local[np.searchsorted(distinct_vals, mn)]
+    pos_all = rec["pos"].astype(np.int64)
+    order = np.lexsort((pos_all, tid))
+    bid = tid[order]
+    pos = pos_all[order]
+    pik = rec["pik"][order].astype(np.int64)
+    cnt = rec["cnt"][order].astype(np.int64)
+    del rec, mn, tid, pos_all, order
+    n_p = len(distinct_vals)
+
+    distinct = np.ones(len(bid), dtype=bool)
+    distinct[1:] = (bid[1:] != bid[:-1]) | (pos[1:] != pos[:-1])
+    dbid = bid[distinct]
+    dpos = pos[distinct]
+    sizes = np.bincount(dbid, minlength=n_p)
+    out = {"sol": sol, "tuples": len(bid), "max_size": int(sizes.max()),
+           "positions": int(sizes.sum()),
+           "hist": np.bincount(np.minimum(sizes, 4096), minlength=4097),
+           "mid_ids": None, "heavy": {}}
+    dstarts = np.zeros(n_p, dtype=np.int64)
+    np.cumsum(sizes[:-1], out=dstarts[1:])
+
+    singleton = sizes == 1
+    codewords[base + np.flatnonzero(singleton)] = (
+        dpos[dstarts[singleton]].astype(U64) << U64(1))
+
+    big_ids = np.flatnonzero(sizes >= 2)
+    big_order = big_ids[np.lexsort((big_ids, sizes[big_ids]))]
+    bucket_rank = np.full(n_p, -1, dtype=np.int64)
+    bucket_rank[big_order] = np.arange(len(big_order))
+    is_big_entry = sizes[dbid] >= 2
+    e_ids = np.flatnonzero(is_big_entry)
+    e_rank = bucket_rank[dbid[e_ids]]
+    e_sorted = e_ids[np.lexsort((e_ids, e_rank))]
+    big_sizes = sizes[big_order]
+    mid_mask_b = big_sizes <= min_size
+    num_mid = int(mid_mask_b.sum())
+    n_mid_entries = int(big_sizes[mid_mask_b].sum())
+    mid_entries = e_sorted[:n_mid_entries]
+    heavy_entries = e_sorted[n_mid_entries:]
+
+    if num_mid:
+        msizes = big_sizes[:num_mid]
+        mb_start = np.zeros(num_mid, dtype=np.int64)
+        np.cumsum(msizes[:-1], out=mb_start[1:])
+        new_size = np.ones(num_mid, dtype=bool)
+        new_size[1:] = msizes[1:] != msizes[:-1]
+        class_first_idx = np.flatnonzero(new_size)
+        out["mid_ids"] = base + big_order[:num_mid]
+        out["msizes"] = msizes
+        out["local_rank"] = np.arange(num_mid) - np.repeat(
+            class_first_idx, np.diff(np.concatenate([class_first_idx, [num_mid]])))
+        mpos = dpos[mid_entries].astype(U64)
+        segs = []
+        for i in class_first_idx:
+            s = int(msizes[i])
+            cnt_s = int((msizes == s).sum())
+            segs.append((s, cnt_s, mpos[mb_start[i]: mb_start[i] + cnt_s * s]))
+        out["mid_segs"] = segs
+
+    if len(heavy_entries):
+        heavy = out["heavy"] = {"gid": [], "size": [], "dpos": [], "koffs": [], "kpib": []}
+        heavy_ids = big_order[num_mid:]
+        hsizes = big_sizes[num_mid:]
+        hb_start = np.zeros(len(heavy_ids), dtype=np.int64)
+        np.cumsum(hsizes[:-1], out=hb_start[1:])
+        hpos = dpos[heavy_entries]
+        heavy_set = np.zeros(n_p, dtype=bool)
+        heavy_set[heavy_ids] = True
+        ht = np.flatnonzero(heavy_set[bid])
+        within = np.cumsum(distinct) - 1
+        pos_in_bucket = within[ht] - dstarts[bid[ht]]
+        starts_h = pos[ht] - pik[ht]
+        counts_h = cnt[ht]
+        total_h = int(counts_h.sum())
+        kbase = np.repeat(starts_h, counts_h)
+        t_in_run = np.arange(total_h) - np.repeat(
+            np.concatenate([[0], np.cumsum(counts_h)[:-1]]), counts_h)
+        koffs_all = kbase + t_in_run
+        kpib_all = np.repeat(pos_in_bucket, counts_h)
+        kbid_all = np.repeat(bid[ht], counts_h)
+        # split per heavy bucket: kbid_all is non-decreasing, so each
+        # bucket's member kmers are one contiguous segment
+        lo_h = np.searchsorted(kbid_all, heavy_ids, side="left")
+        hi_h = np.searchsorted(kbid_all, heavy_ids, side="right")
+        for j, hid in enumerate(heavy_ids):
+            heavy["gid"].append(base + int(hid))
+            heavy["size"].append(int(hsizes[j]))
+            heavy["dpos"].append(hpos[hb_start[j]: hb_start[j] + hsizes[j]].astype(U64))
+            heavy["koffs"].append(koffs_all[lo_h[j]: hi_h[j]])
+            heavy["kpib"].append(kpib_all[lo_h[j]: hi_h[j]].astype(U32))
+    return out
+
+
 def _assemble_ranged(parsed, router, words64, k, m, seed0, seed, config, stats):
     from ..constants import AVG_PARTITION_SIZE
 
@@ -206,15 +314,15 @@ def _assemble_ranged(parsed, router, words64, k, m, seed0, seed, config, stats):
     min_size = 1 << MIN_L
     R = router.R
     avg = config.avg_partition_size or AVG_PARTITION_SIZE
+    threads = max(1, int(config.threads or 1))
 
     # ---- phase B: distinct minimizers per range
-    range_n = np.zeros(R, dtype=np.int64)
-    range_tuples = np.zeros(R, dtype=np.int64)
-    for r in range(R):
+    def range_counts(r):
         rec = router.load(r)
-        range_tuples[r] = len(rec)
-        if len(rec):
-            range_n[r] = len(np.unique(rec["mn"]))
+        return len(np.unique(rec["mn"])) if len(rec) else 0
+
+    range_n = np.fromiter(ordered_map(range_counts, range(R), threads), dtype=np.int64,
+                          count=R)
     n = int(range_n.sum())
     if n == 0:
         raise ValueError("empty input (no minimizers)")
@@ -222,11 +330,14 @@ def _assemble_ranged(parsed, router, words64, k, m, seed0, seed, config, stats):
     P = min(PartitionedMPHF.num_partitions_for(n, avg), R)
     c = R // P
     part_n = range_n.reshape(P, c).sum(axis=1)
+    bases = np.concatenate([[0], np.cumsum(part_n)])
     nmax = int(part_n.max())
     lmb = config.lmbda if getattr(config, "lmbda", None) is not None else LAMBDA
     pb = PartitionedMPHF.incremental(n, seed, P, nmax, lmbda=lmb)
 
-    # ---- phase C: per-partition sort + MPHF + bucket layout
+    # ---- phase C: per-partition sort + MPHF + bucket layout. Partitions
+    # run concurrently (_partition); what depends on the partitions before
+    # (MPHF commits, mid list ids, heavy order) is done here in order.
     codewords = np.zeros(n, dtype=U64)
     mid_chunks = {}          # size -> [position arrays], in partition order
     mid_counts = np.zeros(min_size + 1, dtype=np.int64)
@@ -235,109 +346,30 @@ def _assemble_ranged(parsed, router, words64, k, m, seed0, seed, config, stats):
     total_positions = 0
     total_tuples = 0
     hist = np.zeros(4097, dtype=np.int64)
-    base = 0
-    for p in range(P):
-        rec = np.concatenate([router.load(r) for r in range(p * c, (p + 1) * c)])
-        if not len(rec):
+
+    def partition(p):
+        return _partition(p, router, c, pb, seed, int(bases[p]), codewords, min_size)
+
+    for p, part in enumerate(ordered_map(partition, range(P), threads)):
+        if part is None:
             pb.add_partition(p, np.zeros(0, dtype=U64))
             continue
-        mn = rec["mn"].astype(U64)
-        distinct_vals = np.unique(mn)
-        local = pb.add_partition(p, H.hash64_u64(distinct_vals, U64(seed)))
-        tid = local[np.searchsorted(distinct_vals, mn)]
-        pos_all = rec["pos"].astype(np.int64)
-        order = np.lexsort((pos_all, tid))
-        bid = tid[order]
-        pos = pos_all[order]
-        pik = rec["pik"][order].astype(np.int64)
-        cnt = rec["cnt"][order].astype(np.int64)
-        n_p = len(distinct_vals)
-        total_tuples += len(bid)
-
-        distinct = np.ones(len(bid), dtype=bool)
-        distinct[1:] = (bid[1:] != bid[:-1]) | (pos[1:] != pos[:-1])
-        dbid = bid[distinct]
-        dpos = pos[distinct]
-        sizes = np.bincount(dbid, minlength=n_p)
-        max_bucket_size = max(max_bucket_size, int(sizes.max()))
-        total_positions += int(sizes.sum())
-        hist += np.bincount(np.minimum(sizes, 4096), minlength=4097)
-        dstarts = np.zeros(n_p, dtype=np.int64)
-        np.cumsum(sizes[:-1], out=dstarts[1:])
-
-        singleton = sizes == 1
-        codewords[base + np.flatnonzero(singleton)] = (
-            dpos[dstarts[singleton]].astype(U64) << U64(1))
-
-        big_ids = np.flatnonzero(sizes >= 2)
-        big_order = big_ids[np.lexsort((big_ids, sizes[big_ids]))]
-        bucket_rank = np.full(n_p, -1, dtype=np.int64)
-        bucket_rank[big_order] = np.arange(len(big_order))
-        is_big_entry = sizes[dbid] >= 2
-        e_ids = np.flatnonzero(is_big_entry)
-        e_rank = bucket_rank[dbid[e_ids]]
-        e_sorted = e_ids[np.lexsort((e_ids, e_rank))]
-        big_sizes = sizes[big_order]
-        mid_mask_b = big_sizes <= min_size
-        num_mid = int(mid_mask_b.sum())
-        n_mid_entries = int(big_sizes[mid_mask_b].sum())
-        mid_entries = e_sorted[:n_mid_entries]
-        heavy_entries = e_sorted[n_mid_entries:]
-
-        if num_mid:
-            mid_ids = big_order[:num_mid]
-            msizes = big_sizes[:num_mid]
-            mb_start = np.zeros(num_mid, dtype=np.int64)
-            np.cumsum(msizes[:-1], out=mb_start[1:])
-            new_size = np.ones(num_mid, dtype=bool)
-            new_size[1:] = msizes[1:] != msizes[:-1]
-            class_first_idx = np.flatnonzero(new_size)
-            local_rank = np.arange(num_mid) - np.repeat(
-                class_first_idx,
-                np.diff(np.concatenate([class_first_idx, [num_mid]])))
-            list_id = mid_counts[msizes] + local_rank
-            codewords[base + mid_ids] = (
+        pb.commit_partition(p, part["sol"])
+        total_tuples += part["tuples"]
+        max_bucket_size = max(max_bucket_size, part["max_size"])
+        total_positions += part["positions"]
+        hist += part["hist"]
+        if part["mid_ids"] is not None:
+            msizes = part["msizes"]
+            list_id = mid_counts[msizes] + part["local_rank"]
+            codewords[part["mid_ids"]] = (
                 ((list_id.astype(U64) << U64(MIN_L)) | (msizes.astype(U64) - U64(2)))
                 << U64(2)) | U64(1)
-            mpos = dpos[mid_entries].astype(U64)
-            for i in np.flatnonzero(new_size):
-                s = int(msizes[i])
-                cnt_s = int((msizes == s).sum())
-                seg = mpos[mb_start[i] : mb_start[i] + cnt_s * s]
+            for s, cnt_s, seg in part["mid_segs"]:
                 mid_chunks.setdefault(s, []).append(seg)
                 mid_counts[s] += cnt_s
-
-        if len(heavy_entries):
-            heavy_ids = big_order[num_mid:]
-            hsizes = big_sizes[num_mid:]
-            hb_start = np.zeros(len(heavy_ids), dtype=np.int64)
-            np.cumsum(hsizes[:-1], out=hb_start[1:])
-            hpos = dpos[heavy_entries]
-            heavy_set = np.zeros(n_p, dtype=bool)
-            heavy_set[heavy_ids] = True
-            ht = np.flatnonzero(heavy_set[bid])
-            within = np.cumsum(distinct) - 1
-            pos_in_bucket = within[ht] - dstarts[bid[ht]]
-            starts_h = pos[ht] - pik[ht]
-            counts_h = cnt[ht]
-            total_h = int(counts_h.sum())
-            kbase = np.repeat(starts_h, counts_h)
-            t_in_run = np.arange(total_h) - np.repeat(
-                np.concatenate([[0], np.cumsum(counts_h)[:-1]]), counts_h)
-            koffs_all = kbase + t_in_run
-            kpib_all = np.repeat(pos_in_bucket, counts_h)
-            kbid_all = np.repeat(bid[ht], counts_h)
-            # split per heavy bucket: kbid_all is non-decreasing, so each
-            # bucket's member kmers are one contiguous segment
-            lo_h = np.searchsorted(kbid_all, heavy_ids, side="left")
-            hi_h = np.searchsorted(kbid_all, heavy_ids, side="right")
-            for j, hid in enumerate(heavy_ids):
-                heavy["gid"].append(base + int(hid))
-                heavy["size"].append(int(hsizes[j]))
-                heavy["dpos"].append(hpos[hb_start[j] : hb_start[j] + hsizes[j]].astype(U64))
-                heavy["koffs"].append(koffs_all[lo_h[j] : hi_h[j]])
-                heavy["kpib"].append(kpib_all[lo_h[j] : hi_h[j]].astype(U32))
-        base += n_p
+        for key, vals in part["heavy"].items():
+            heavy[key].extend(vals)
 
     f = pb.finish()
 

@@ -43,16 +43,17 @@ chars holds exact values (the JAX package casts candidate offsets to
 uint32 first, which wraps there).
 """
 
+import mmap
+import os
 from typing import NamedTuple
 
 import numpy as np
-import torch
 
 from . import hashing as H
-from . import kmer as K
 from .compact import CompactVector
 from .index import decode_codeword
 from .mphf import PartitionedMPHF, _get
+from .pool import ordered_map
 
 NUM_SKEW = 8
 SKEW_PARAMS = ("table", "nbuckets", "seedmix_hi", "seedmix_lo", "pilot_off",
@@ -297,41 +298,31 @@ def check_access(cfg):
                          f"< 2^32-char sub-indexes")
 
 
-def acc_rows(sidk32, kmer_cum, C, s32, k):
+def acc_rows(sidk32, kmer_cum, C, s32, k, first=0):
     """Per-32-id-block access rows [sid hint, kmer_cum[hint+1..hint+C],
     (window)] (engine._acc_rows): the string of an id is the hint plus
     the row entries <= the id, and in the windowed form the row also
     holds the Wa words from floor(o_min/16), o_min = 32*b + hint*(k-1).
-    Reads clip to the ends of kmer_cum and s32."""
+    Reads clip to the ends of kmer_cum and s32. sidk32 holds the hints of
+    blocks first, first + 1, ..."""
     hint = sidk32.astype(np.int64)
     kidx = np.clip(hint[:, None] + np.arange(1, C + 1, dtype=np.int64)[None, :],
                    0, len(kmer_cum) - 1)
     cols = [sidk32[:, None], kmer_cum[kidx].astype(np.uint32)]
     if acc_windowed(k, C):
         Wa = acc_win_words(k, C)
-        ws = (np.arange(len(sidk32), dtype=np.int64) * 32 + hint * (k - 1)) >> 4
+        blk = np.arange(first, first + len(sidk32), dtype=np.int64)
+        ws = (blk * 32 + hint * (k - 1)) >> 4
         widx = np.clip(ws[:, None] + np.arange(Wa, dtype=np.int64)[None, :],
                        0, len(s32) - 1)
         cols.append(s32[widx])
     return np.concatenate(cols, axis=1)
 
 
-def _vstart_words(vstart, nwords32):
-    """Valid-start bits packed 32 to a u32 word, zero-padded to cover every
-    char of the nwords32 packed-string words."""
-    vpad = np.zeros(-(-16 * nwords32 // 32) * 32, dtype=bool)
-    vpad[: len(vstart)] = vstart
-    return np.packbits(vpad, bitorder="little").view(np.uint32)
-
-
 def vstart32_from_index(index):
     """vstart32 alone, for a table cache written without it."""
-    nW = len(K.pack_words_to_u32(index.strings64))
-    v = np.ones(index.num_chars, dtype=bool)
-    ep = index.string_endpoints.astype(np.int64)[1:]
-    for j in range(1, index.k):
-        v[ep - j] = False
-    return _vstart_words(v, nW)
+    n = -(-16 * 2 * len(index.strings64) // 32)
+    return _vstart_fill(index, int(index.num_chars))(0, n)
 
 
 def with_access_tables(index, cfg, host_arrs):
@@ -460,34 +451,43 @@ def _bit_range(lo, hi, n):
     return (one << b.astype(np.uint64)) - (one << a.astype(np.uint64))
 
 
-def lookup_tables(index, cfg, rows):
-    """The probe's tables (cw_row, mid_rows, pilots, mphf_seedrows and the
-    skew tables) from the index's codewords, with rows(dpos) -> candidate
-    blocks for int64 candidate char offsets (fused_rows bound to the
-    index's strings)."""
-    status, a, b = decode_codeword(index.codewords)
+class _Spec(NamedTuple):
+    """A table to build: its shape and dtype, and fill(lo, hi) -> its rows
+    [lo, hi). whole: built in one call, whatever the chunk size."""
+
+    shape: tuple
+    dtype: type
+    fill: object
+    whole: bool = False
+
+
+def _small(arr):
+    return _Spec(arr.shape, arr.dtype, lambda lo, hi: arr[lo:hi], True)
+
+
+def _cw_rows(index, cfg, rows, ids, mid_arr):
+    """cw_row rows of the minimizers `ids` (int64): [status | b<<2, a, the
+    candidate-0 block, (the candidate-1 block)]. A heavy codeword's a is
+    its bucket's begin in heavy_load_buckets."""
+    status, a, b = decode_codeword(index.codewords.get(ids))
     mid = status == 1
     msize = b.astype(np.int64)
     a = a.astype(np.int64)
     a = np.where(mid, index.begin_buckets_of_size[np.where(mid, msize, 0)].astype(np.int64)
                  + a * msize, a)
-    mid_arr = np.asarray(index.mid_load_buckets).astype(np.int64)
-    heavy_arr = np.asarray(index.heavy_load_buckets).astype(np.int64)
     cand0 = a
     if len(mid_arr):
         cand0 = np.where(mid, mid_arr[np.clip(a, 0, len(mid_arr) - 1)], cand0)
     R1 = cand_block_width(cfg)
-    empty_rows = np.zeros((1, R1), np.uint32)
-    f = index.minimizer_mphf
-    sb = status.astype(np.uint32) | (b.astype(np.uint32) << 2)
-
+    out = np.empty((len(ids), row_width(cfg)), np.uint32)
+    out[:, 0] = status.astype(np.uint32) | (b.astype(np.uint32) << 2)
+    out[:, 1] = (a & 0xFFFFFFFF).astype(np.uint32)
     heavym = status == 2
     c0rows = rows(np.where(heavym, 0, cand0))
-    # a heavy codeword's a is its bucket's begin in heavy_load_buckets
     c0rows[heavym, 1:] = 0
     c0rows[heavym, 0] = cand0[heavym]
-    cols = [sb, (a & 0xFFFFFFFF).astype(np.uint32)] + [c0rows[:, i] for i in range(R1)]
-    c1rows = None
+    out[:, 2: 2 + R1] = c0rows
+    del c0rows
     if cfg.c1_in_row:
         has2 = mid & (b >= 2)
         cand1 = np.zeros_like(cand0)
@@ -495,21 +495,31 @@ def lookup_tables(index, cfg, rows):
             cand1 = np.where(has2, mid_arr[np.clip(a + 1, 0, len(mid_arr) - 1)], 0)
         c1rows = rows(cand1)
         c1rows[~has2, :] = 0
-        cols += [c1rows[:, i] for i in range(R1)]
-    # column by column into a preallocated table: a stacked copy would
-    # double the largest host array
-    col0 = _expand_to_slots(cols[0], f)
-    cw_row = np.empty((len(col0), len(cols)), np.uint32)
-    cw_row[:, 0] = col0
-    del col0
-    for j in range(1, len(cols)):
-        cw_row[:, j] = _expand_to_slots(cols[j], f)
-    del cols, c0rows, c1rows
-    arrs = {"cw_row": cw_row,
-            "mid_rows": rows(mid_arr) if len(mid_arr) else empty_rows,
-            "pilots": _nz(_pack_pilots(_pilots_u32(f), pilot_width(f)))}
+        out[:, 2 + R1:] = c1rows
+    return out
+
+
+def _lookup_specs(index, cfg, rows):
+    """The probe's tables (cw_row, mid_rows, pilots, mphf_seedrows and the
+    skew tables) from the index's codewords, as _Spec's, with rows(dpos)
+    -> candidate blocks for int64 candidate char offsets (fused_rows bound
+    to the index's strings). cw_row is keyed by raw MPHF slot: slot s
+    holds minimizer src[s]'s row (_expand_to_slots of the minimizer ids)."""
+    mid_arr = np.asarray(index.mid_load_buckets).astype(np.int64)
+    heavy_arr = np.asarray(index.heavy_load_buckets).astype(np.int64)
+    R1 = cand_block_width(cfg)
+    f = index.minimizer_mphf
+    src = _expand_to_slots(np.arange(len(index.codewords), dtype=np.int64), f)
+    specs = {"cw_row": _Spec((len(src), row_width(cfg)), np.uint32,
+                             lambda lo, hi: _cw_rows(index, cfg, rows, src[lo:hi], mid_arr))}
+    if len(mid_arr):
+        specs["mid_rows"] = _Spec((len(mid_arr), R1), np.uint32,
+                                  lambda lo, hi: rows(mid_arr[lo:hi]))
+    else:
+        specs["mid_rows"] = _small(np.zeros((1, R1), np.uint32))
+    specs["pilots"] = _small(_nz(_pack_pilots(_pilots_u32(f), pilot_width(f))))
     if isinstance(f, PartitionedMPHF):
-        arrs["mphf_seedrows"] = _seedrows(f.seedmixes())
+        specs["mphf_seedrows"] = _small(_seedrows(f.seedmixes()))
 
     # skew size classes: concatenated pilots, 8 per-class parameter slots,
     # and per slot either an hindex-keyed heavy row (sk_hrows) or, for the
@@ -542,61 +552,180 @@ def lookup_tables(index, cfg, rows):
         sk_pilots.append(_pack_pilots(_pilots_u32(fp), cfg.sk_pilot_w))
         sk_aux.append(_expand_to_slots(part.hindex if cfg.skew_hrows else part.positions, fp))
     if cfg.skew_partitioned:
-        arrs["sk_seedrows"] = (np.concatenate(sk_seedrows) if sk_seedrows
-                               else np.zeros((1, 2), np.uint32))
-    arrs["sk_pilots"] = _nz(np.concatenate(sk_pilots) if sk_pilots else np.zeros(0, np.uint32))
+        specs["sk_seedrows"] = _small(np.concatenate(sk_seedrows) if sk_seedrows
+                                      else np.zeros((1, 2), np.uint32))
+    specs["sk_pilots"] = _small(_nz(np.concatenate(sk_pilots) if sk_pilots
+                                    else np.zeros(0, np.uint32)))
     allh = np.concatenate(sk_aux) if sk_aux else np.zeros(0, np.uint32)
-    if cfg.skew_hrows:
+    if cfg.skew_hrows and len(allh):
         gidx = np.clip(allh.astype(np.int64), 0, max(0, len(heavy_arr) - 1))
-        arrs["sk_hrows"] = rows(heavy_arr[gidx]) if len(allh) else empty_rows
+        specs["sk_hrows"] = _Spec((len(gidx), R1), np.uint32,
+                                  lambda lo, hi: rows(heavy_arr[gidx[lo:hi]]))
+    elif cfg.skew_hrows:
+        specs["sk_hrows"] = _small(np.zeros((1, R1), np.uint32))
     else:
-        arrs["heavy_rows"] = rows(heavy_arr) if len(heavy_arr) else empty_rows
-        arrs["sk_positions"] = _nz(allh)
+        specs["heavy_rows"] = (_Spec((len(heavy_arr), R1), np.uint32,
+                                     lambda lo, hi: rows(heavy_arr[lo:hi]))
+                               if len(heavy_arr) else _small(np.zeros((1, R1), np.uint32)))
+        specs["sk_positions"] = _small(_nz(allh))
     for name, v in params.items():
-        arrs[f"sk_{name}"] = v
-    return arrs
+        specs[f"sk_{name}"] = _small(v)
+    return specs
 
 
-def device_arrays(index, row_format=None):
-    """Host Index -> dict of numpy uint32 tables (see module doc), in the
-    row format StaticCfg(index, row_format) picks."""
+def _vstart_fill(index, nchars):
+    """fill(lo, hi) of vstart32: the valid-start bits of chars [32 lo,
+    32 hi), a kmer starting at char o iff o + k <= the end of o's string,
+    counted as (string starts <= o) - (string ends - (k-1) <= o) > 0
+    (zero past num_chars)."""
+    ep = index.string_endpoints.astype(np.int64)
+    starts, ends = ep[:-1], ep[1:] - (index.k - 1)
+
+    def fill(lo, hi):
+        c0, c1 = 32 * lo, min(32 * hi, nchars)
+        v = np.zeros(32 * (hi - lo), dtype=bool)
+        if c1 > c0:
+            n = c1 - c0
+            acc = np.zeros(n, dtype=np.int64)
+            acc[0] = np.searchsorted(starts, c0) - np.searchsorted(ends, c0)
+            for pos, d in ((starts, 1), (ends, -1)):
+                sel = pos[(pos >= c0) & (pos < c1)] - c0
+                acc += d * np.bincount(sel, minlength=n)
+            v[:n] = np.cumsum(acc) > 0
+        return np.packbits(v, bitorder="little").view(np.uint32)
+
+    return fill
+
+
+def table_specs(index, row_format=None):
+    """Every table of device_arrays as a _Spec, in the row format
+    StaticCfg(index, row_format) picks."""
     cfg = StaticCfg(index, row_format)
     k, m = index.k, index.m
-    # valid-start bits: a kmer may start at char offset o iff o+k <= the end
-    # of o's string
     ep = index.string_endpoints.astype(np.int64)
-    delta = np.zeros(index.num_chars + 1, dtype=np.int32)
-    np.add.at(delta, ep[:-1], 1)
-    np.add.at(delta, ep[1:] - (k - 1), -1)
-    vstart = np.cumsum(delta[:-1]) > 0
-    del delta
     kmer_cum64 = ep - np.arange(len(ep)) * (k - 1)
-    nkb = (index.num_kmers + 31) // 32 + 1
-    sidk32 = (np.searchsorted(kmer_cum64, np.arange(nkb, dtype=np.int64) * 32,
-                              side="right") - 1).astype(np.uint32)
     kmer_cum32 = kmer_cum64.astype(np.uint32)
-    s32 = K.pack_words_to_u32(index.strings64)
-    arrs = {
-        "strings32": s32,
-        "vstart32": _vstart_words(vstart, len(s32)),
-        "sidk32": sidk32,
-        "kmer_cum": kmer_cum32,
-        "acc_rows": acc_rows(sidk32, kmer_cum32, cfg.access_C, s32, k),
+    nkb = (index.num_kmers + 31) // 32 + 1
+    # the packed strings as u32 words, little word first: the u64 words'
+    # own bytes (kmer.pack_words_to_u32 without the copy)
+    s32 = np.ascontiguousarray(index.strings64, dtype=np.uint64).view(np.uint32)
+
+    def sidk(lo, hi):
+        return (np.searchsorted(kmer_cum64, np.arange(lo, hi, dtype=np.int64) * 32,
+                                side="right") - 1).astype(np.uint32)
+
+    specs = {
+        "strings32": _Spec(s32.shape, np.uint32, lambda lo, hi: s32[lo:hi]),
+        "vstart32": _Spec((-(-16 * len(s32) // 32),), np.uint32,
+                          _vstart_fill(index, int(index.num_chars))),
+        "sidk32": _Spec((nkb,), np.uint32, sidk),
+        "kmer_cum": _small(kmer_cum32),
+        "acc_rows": _Spec((nkb, acc_width(cfg)), np.uint32,
+                          lambda lo, hi: acc_rows(sidk(lo, hi), kmer_cum32, cfg.access_C, s32,
+                                                  k, first=lo)),
     }
-    del vstart
-    arrs.update(lookup_tables(index, cfg,
-                              lambda dpos: fused_rows(dpos, s32, ep, k, m, cfg.row_v2)))
+    specs.update(_lookup_specs(index, cfg,
+                               lambda dpos: fused_rows(dpos, s32, ep, k, m, cfg.row_v2)))
     w = index.weights
     if w is not None:  # check_supported refuses weights that u32 would wrap
-        arrs["w_value_ids"] = w.interval_value_ids.astype(np.uint32)
-        arrs["w_endpoints"] = w.interval_endpoints.astype(np.uint32)
-        arrs["w_dictionary"] = w.dictionary.astype(np.uint32)
+        specs["w_value_ids"] = _small(w.interval_value_ids.astype(np.uint32))
+        specs["w_endpoints"] = _small(w.interval_endpoints.astype(np.uint32))
+        specs["w_dictionary"] = _small(w.dictionary.astype(np.uint32))
     # the kernels address rows with int32
-    for name, t in arrs.items():
-        if t.shape[0] >= 1 << 31:
-            raise ValueError(f"table {name!r} has {t.shape[0]} rows (>= 2^31); "
+    for name, spec in specs.items():
+        if spec.shape[0] >= 1 << 31:
+            raise ValueError(f"table {name!r} has {spec.shape[0]} rows (>= 2^31); "
                              f"rows are int32-addressed")
-    return arrs
+    return specs
+
+
+def fill_tables(specs, out, nchars=None, chunk=None, threads=1):
+    """Write every spec's rows into out[name] (anything that takes
+    out[name][lo:hi] = rows), a range of rows at a time: each table in
+    pieces of about chunk / nchars of its rows (chunk None: whole), on a
+    pool of `threads` threads (pool.ordered_map: 2 * threads pieces in
+    flight). Returns out."""
+    jobs = []
+    for name, spec in specs.items():
+        n = spec.shape[0]
+        step = max(1, n if spec.whole or chunk is None else -(-n * chunk // max(1, nchars)))
+        jobs += [(name, lo, min(n, lo + step)) for lo in range(0, max(n, 1), step)]
+
+    def run(job):
+        name, lo, hi = job
+        out[name][lo:hi] = specs[name].fill(lo, hi)
+
+    for _ in ordered_map(run, jobs, threads):
+        pass
+    return out
+
+
+def device_arrays(index, row_format=None, chunk=None, threads=1):
+    """Host Index -> dict of numpy uint32 tables (see module doc), in the
+    row format StaticCfg(index, row_format) picks. chunk: build each table
+    about chunk chars' worth of rows at a time (None: at once), on
+    `threads` threads; the arrays are the same at any chunk and thread
+    count. write_tables writes them to .npy files instead."""
+    specs = table_specs(index, row_format)
+    out = {name: np.empty(spec.shape, spec.dtype) for name, spec in specs.items()}
+    return fill_tables(specs, out, int(index.num_chars), chunk, threads)
+
+
+def lookup_tables(index, cfg, rows):
+    """The probe's tables alone from the index's codewords, with rows(dpos)
+    -> candidate blocks for int64 candidate char offsets: a caller's own
+    rows over device_arrays' probe tables (the tests' tables past 2^32
+    chars, on views)."""
+    specs = _lookup_specs(index, cfg, rows)
+    out = {name: np.empty(spec.shape, spec.dtype) for name, spec in specs.items()}
+    return fill_tables(specs, out)
+
+
+class _NpyRows:
+    """Rows of a .npy file made by np.lib.format.open_memmap, written in
+    place with positional writes (no mapping held, so the writer's
+    resident memory stays that of one piece)."""
+
+    def __init__(self, path, shape, dtype):
+        mm = np.lib.format.open_memmap(path, mode="w+", dtype=dtype, shape=shape)
+        self.offset = mm.offset
+        self.row_bytes = mm.dtype.itemsize * int(np.prod(shape[1:], dtype=np.int64))
+        del mm
+        self.fd = os.open(path, os.O_WRONLY)
+
+    def __setitem__(self, sl, rows):
+        buf = memoryview(np.ascontiguousarray(rows)).cast("B")
+        pos = self.offset + sl.start * self.row_bytes
+        while len(buf):
+            n = os.pwrite(self.fd, buf, pos)
+            buf, pos = buf[n:], pos + n
+
+    def close(self):
+        os.close(self.fd)
+
+
+def write_tables(index, directory, row_format=None, chunk=1 << 24, threads=1):
+    """device_arrays' tables written to directory/<name>.npy, each built
+    and written chunk chars' worth of rows at a time on `threads`
+    threads, so that the host holds pieces of them, not the tables.
+    Returns the tables loaded with mmap_mode="r"."""
+    specs = table_specs(index, row_format)
+    os.makedirs(directory, exist_ok=True)
+    out = {name: _NpyRows(os.path.join(directory, name + ".npy"), spec.shape, spec.dtype)
+           for name, spec in specs.items()}
+    try:
+        fill_tables(specs, out, int(index.num_chars), chunk, threads)
+    finally:
+        for w in out.values():
+            w.close()
+    return load_tables(directory)
+
+
+def load_tables(directory):
+    """Every directory/<name>.npy (write_tables' output), loaded with
+    mmap_mode="r": a host_arrs dict whose tables stay on disk until read."""
+    return {f[:-4]: np.load(os.path.join(directory, f), mmap_mode="r")
+            for f in sorted(os.listdir(directory)) if f.endswith(".npy")}
 
 
 def take_rows(table, idx):
@@ -604,6 +733,8 @@ def take_rows(table, idx):
     idx the way the JAX package's jnp.take(..., idx.astype(int32),
     mode="clip") does: an index >= 2^31 turns negative there and clips to
     row 0."""
+    import torch
+
     n = table.shape[0]
     i = torch.where(idx >= 1 << 31, torch.zeros_like(idx), idx.clamp(max=n - 1))
     return table.index_select(0, i).to(torch.int64) & 0xFFFFFFFF
@@ -617,6 +748,8 @@ def tables_from_host(host_arrs, device):
     dict get one zero row, the eight sk_* parameter vectors become one
     (8, 8) `sk_params` table in SKEW_PARAMS order, and the weight tables
     come along when the dict has them."""
+    import torch
+
     R1 = host_arrs["mid_rows"].shape[1]
     fill = {"mphf_seedrows": np.zeros((1, 2), np.uint32),
             "sk_seedrows": np.zeros((1, 2), np.uint32),
@@ -629,9 +762,52 @@ def tables_from_host(host_arrs, device):
     host.update({name: host_arrs[name] for name in ACCESS_KEYS})
     host.update({name: host_arrs[name] for name in WEIGHT_KEYS if name in host_arrs})
     out = {}
+    device = torch.device(device)
+    stage = None
+    if device.type == "cuda":
+        # one pinned piece for every table's copies
+        stage = torch.empty(UPLOAD_PIECE // 4, dtype=torch.int32, pin_memory=True)
     for name, arr in host.items():
-        arr = np.ascontiguousarray(arr)
         if arr.dtype != np.uint32:
             raise ValueError(f"table {name!r} is {arr.dtype}, expected uint32")
-        out[name] = torch.from_numpy(arr.view(np.int32)).to(device)
+        out[name] = upload(arr, device, stage)
+    return out
+
+
+UPLOAD_PIECE = 1 << 28  # bytes a piece
+
+
+def upload(arr, device, stage=None):
+    """A uint32 table as an int32 tensor of its bits on `device`. To a card
+    it goes a piece at a time through `stage` (a pinned int32 buffer of at
+    least one row; tables_from_host's holds UPLOAD_PIECE bytes); the
+    pieces of a table loaded with mmap_mode are released from this
+    process as they land (madvise DONTNEED on their pages, which stay in
+    the page cache), so the host holds the file once, not a copy beside
+    it. On the CPU an array the tensor may share is shared; a read-only
+    one (a memory map) is copied."""
+    import torch
+
+    if device.type != "cuda":
+        arr = np.ascontiguousarray(arr) if arr.flags.writeable else np.array(arr)
+        return torch.from_numpy(arr.view(np.int32))
+    out = torch.empty(arr.shape, dtype=torch.int32, device=device)
+    if not arr.size:
+        return out
+    row_bytes = arr.nbytes // len(arr)
+    rows = max(1, stage.numel() * 4 // row_bytes)
+    buf = stage.numpy()
+    mm = getattr(arr, "_mmap", None)
+    head = arr.offset % mmap.ALLOCATIONGRANULARITY if mm is not None else 0
+    done = 0
+    for lo in range(0, len(arr), rows):
+        part = arr[lo: lo + rows]
+        n = part.size
+        np.copyto(buf[:n].reshape(part.shape), part.view(np.int32), casting="no")
+        out[lo: lo + len(part)].copy_(stage[:n].view(out[lo: lo + len(part)].shape))
+        if mm is not None:
+            end = (head + (lo + len(part)) * row_bytes) // mmap.PAGESIZE * mmap.PAGESIZE
+            if end > done:
+                mm.madvise(mmap.MADV_DONTNEED, done, end - done)
+                done = end
     return out

@@ -24,6 +24,7 @@ import numpy as np
 from . import hashing as H
 from .compact import CompactVector
 from .constants import ALPHA, LAMBDA
+from .pool import ordered_map
 
 U64 = np.uint64
 U32 = np.uint32
@@ -318,31 +319,15 @@ class PartitionedMPHF:
         nmax = int(part_n.max()) if P else 0
         b = cls.incremental(n, seed, P, nmax, lmbda, alpha)
         parts = [h_sorted[starts[p] : starts[p + 1]] for p in range(P)]
-        if threads > 1 and P > 1:
-            # partitions solve independently (reference builds PTHash
-            # partitions multi-threaded); commits stay ordered. Results are
-            # bit-identical to the serial build: per-partition sub-seeds
-            # don't depend on execution order.
-            from concurrent.futures import ThreadPoolExecutor
-
-            # bounded in-flight window: commit (and free) solutions in
-            # order as they complete instead of materializing all P pilot/
-            # remap solutions first — peak memory stays ~serial + window
-            with ThreadPoolExecutor(max_workers=threads) as ex:
-                window = max(2 * threads, 2)
-                futs = {}
-                nextp = 0
-                for p in range(P):
-                    futs[p] = ex.submit(b.solve_partition, p, parts[p])
-                    if len(futs) >= window:
-                        b.commit_partition(nextp, futs.pop(nextp).result())
-                        nextp += 1
-                while nextp < P:
-                    b.commit_partition(nextp, futs.pop(nextp).result())
-                    nextp += 1
-        else:
-            for p in range(P):
-                b.add_partition(p, parts[p])
+        # partitions solve independently (reference builds PTHash partitions
+        # multi-threaded); commits stay ordered, and the results are
+        # bit-identical to the serial build: per-partition sub-seeds don't
+        # depend on execution order. The pool's bounded window commits (and
+        # frees) solutions as they complete: peak memory stays ~serial
+        # + window
+        sols = ordered_map(lambda p: b.solve_partition(p, parts[p]), range(P), threads)
+        for p, sol in enumerate(sols):
+            b.commit_partition(p, sol)
         return b.finish()
 
 

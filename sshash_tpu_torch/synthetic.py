@@ -18,16 +18,12 @@ import os
 import tempfile
 
 import numpy as np
-import torch
 
 from . import hashing as H
 from . import kmer as K
 from . import oracle
 from .builder.build import BuildConfig, build
-from .layout import cand_block_width
 from .mphf import MPHF
-from .ops import packed as P
-from .ops import u64 as u
 
 # code -> char under the index's 2-bit map (kmer.NUCLEOTIDES)
 _CHARS = np.frombuffer(b"ACTG", dtype=np.uint8)
@@ -169,6 +165,65 @@ def weight_tables(n_runs, span, rng):
             "w_dictionary": dictionary.astype(np.uint32)}
 
 
+# The out-of-core soak's synthetic collection (the JAX package's
+# scripts/soak_external.py generate): strings of SOAK_STRING_LEN random
+# ACGT chars from SOAK_SEED, each record '>i'. The capacity run's input.
+SOAK_STRING_LEN = 100_000
+SOAK_SEED = 7
+_ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def soak_count(num_kmers, k):
+    """Strings the soak writes for num_kmers k-mers: as many as cover them."""
+    return -(-num_kmers // (SOAK_STRING_LEN - k + 1))
+
+
+def soak_strings(num_kmers, k, seed=SOAK_SEED):
+    """The soak's strings in file order, one at a time, as ACGT bytes
+    (uint8 arrays): the same draws as soak_external.generate."""
+    rng = np.random.default_rng(seed)
+    for _ in range(soak_count(num_kmers, k)):
+        yield _ACGT[rng.integers(0, 4, SOAK_STRING_LEN, dtype=np.uint8)]
+
+
+def write_soak(path, num_kmers, k, seed=SOAK_SEED):
+    """Write the soak's FASTA to path, byte for byte as
+    soak_external.generate does, one string at a time. Returns its k-mer
+    count."""
+    n = 0
+    with open(path, "wb") as f:
+        for i, seq in enumerate(soak_strings(num_kmers, k, seed)):
+            f.write(b">" + str(i).encode() + b"\n")
+            f.write(seq.tobytes() + b"\n")
+            n += len(seq) - k + 1
+    return n
+
+
+def window_words(codes, k):
+    """(N, W64) uint64 packed k-mers at every offset of one string's codes
+    (N = len - k + 1), in the index's packing (char j at bits 2j of word
+    j // 32): each word is a window of up to 32 chars, built by doubling
+    windows of 1, 2, 4, ... chars."""
+    c = np.asarray(codes, dtype=np.uint64)
+    n = len(c) - k + 1
+    wins = {1: c}
+    span = 1
+    while span < min(k, 32):
+        w = wins[span]
+        wins[2 * span] = w[: len(w) - span] | (w[span:] << np.uint64(2 * span))
+        span *= 2
+    out = np.empty((n, K.num_words64(k)), dtype=np.uint64)
+    for j in range(out.shape[1]):
+        length, start, acc, shift = min(32, k - 32 * j), 32 * j, None, 0
+        for p in sorted(wins, reverse=True):  # length in binary, high part first
+            if length & p:
+                part = wins[p][start + shift: start + shift + n] << np.uint64(2 * shift)
+                acc = part if acc is None else acc | part
+                shift += p
+        out[:, j] = acc
+    return out
+
+
 def write_fasta(path, codes, k=None, weights=None):
     """One record per row of codes; with weights (one per kmer, string by
     string), weighted headers '>i LN:i:len ab:Z:w0 w1 ...'."""
@@ -192,6 +247,14 @@ def tie_pair(mmer, rng):
     return np.concatenate([mmer, rng.integers(0, 4, 3, dtype=np.uint8), (mmer ^ 2)[::-1]])
 
 
+def string_codes(num_strings, string_len, seed):
+    """(rng, codes): write_input's random strings, as (num_strings,
+    string_len) codes in the index's 2-bit map, before any planting, and
+    the generator that draws the rest of its input."""
+    rng = np.random.default_rng(seed)
+    return rng, rng.integers(0, 4, (num_strings, string_len), dtype=np.uint8)
+
+
 def write_input(path, k, m, canonical, num_strings, string_len, seed,
                 avg_partition_size=None, planted=None, threads=1, weights=None, ties=None):
     """Write the FASTA of random strings drawn from `seed` to path and
@@ -199,8 +262,7 @@ def write_input(path, k, m, canonical, num_strings, string_len, seed,
     m-mer per entry. ties: list of plant counts of tie_pair units, one
     low-hash m-mer per entry. weights: the mean run length of a weighted
     build, with weight_runs drawn from the same seed."""
-    rng = np.random.default_rng(seed)
-    codes = rng.integers(0, 4, (num_strings, string_len), dtype=np.uint8)
+    rng, codes = string_codes(num_strings, string_len, seed)
     cfg = BuildConfig(k=k, m=m, canonical=canonical, verbose=False, threads=threads,
                       avg_partition_size=avg_partition_size, weighted=bool(weights))
     if planted or ties:
@@ -285,6 +347,9 @@ def rebase_ids(cfg, tables, base):
     find then comes back as its id + base mod 2^32, so ids at and above
     2^31 run through the probe without an index of that size. Tensors not
     changed are shared."""
+    from .layout import cand_block_width
+    from .ops import u64 as u
+
     if not cfg.row_v2:
         raise ValueError("kid0 exists in v2 rows only")
     R1 = cand_block_width(cfg)
@@ -391,6 +456,8 @@ def stream_chunk(case, k, rng, P, R):
     middle segment, then its last), "last_lane" (a read starting at lane
     P - 1), "last_group" (the first segment runs into the last group of 16
     lanes), "n0" (no reads), "nR" (R reads) or "random"."""
+    import torch
+
     rnpos = rng.integers(0, 1 << 20, R)
     if case == "exact_k":
         n = R
@@ -427,6 +494,8 @@ def miss_lanes(rng, P, m):
     compaction leaves it: m distinct lanes of [0, P), rising, in runs of 1
     to 33 adjacent lanes with random gaps between, and zeros past m. int32
     (P,)."""
+    import torch
+
     lens = []
     while sum(lens) < m:
         lens.append(min(int(rng.integers(1, 34)), m - sum(lens)))
@@ -477,6 +546,8 @@ def tie_lanes(engine, kmers32):
     """Mask of the (B, W) int32 kmers on a TorchEngine's device whose two
     strands' minimizer values are equal: kernel 1 on a CUDA tensor, its
     plain version on a CPU one."""
+    from .ops import packed as P
+
     cfg = engine.cfg
     mv, _, _, mv_r, _ = P.minimizer(kmers32, cfg.k, cfg.m, cfg.magic, both=True)
     return mv == mv_r
@@ -490,6 +561,8 @@ def tie_batch(idx, rng, n, engine=None, chunk=1 << 23):
     read, tested for the tie and looked up through the oracle or, given a
     TorchEngine over idx, through its access (chunk ids at a time),
     tie_lanes and lookup on its device."""
+    import torch
+
     if engine is None:
         km = oracle.access(idx, np.arange(idx.num_kmers))
         hits = km[tie_kmers(idx, km)]
