@@ -5,8 +5,8 @@ membership over reads, the capacity formats (legacy skew indexes, rebased
 v2 rows, ids above 2^31), the bucket-sharded engine, and k > 63 with the
 sanitizer (SSHASH_DEBUG) and read_kmers_at2, then the host tooling (the
 out-of-core and multi-process builders, check, query, bench, permute and
-the CLI) and capacity_run.py's tables and serve checks, and check them
-end to end.
+the CLI), capacity_run.py's tables and serve checks and the bucket-sharded
+engine across rank processes sharing the card, and check them end to end.
 
     python3 chip_smoke.py
 
@@ -52,7 +52,9 @@ line):
      microseconds, so the kernels' sides replay from a CUDA graph
   7. scale, 100M kmers k31 m21 canonical (the repo's human-config scale
      bench, 200M, cut to half for the run's time; its lookup tables are
-     still about 20 times the 50 MB L2): 2^24 lanes round-trip, 2^20-lane
+     still about 20 times the 50 MB L2; built, with phase 13's 60M, in a
+     child process that runs beside phases 3-6 and saves it for this
+     phase to load memory-mapped): 2^24 lanes round-trip, 2^20-lane
      oracle sample, the lookup kernel == lookup_plain == the two-kernel
      form in every field, the lookup in its three forms in turns and each
      of kernels 1-2 alone against its plain version and its bound, the
@@ -180,21 +182,52 @@ line):
      streaming (v1; v2 refuses it) against the host _Batcher; the v2
      lookups' and navigation's ids all at or above 2^31; each entry point
      timed; launches counted on both paths
- 16. one JSON line of per-source results (launches, max |err|, ms, plain ms,
+ 16. the bucket-sharded engine across processes (K12 across ranks) on this
+     card: up to 8 rank processes (rank_run.py, each started like phase 14's
+     children, unable to import JAX or the JAX package) share the card and
+     combine over gloo (NCCL refuses two ranks of a group on one device),
+     each a DistMesh rank on cuda:0 with its own bucket column's tables;
+     legs: the dryrun's tiny index (64 strings of 101, weighted) at (4, 2)
+     (64 positives found with exact ids, 64 random kmers none, access,
+     weight, a per-position stream, a packed stream held to the host
+     _Batcher, bytes per device at bucket 2 and 8) and (1, 8), its m3 form
+     (hindex) at (4, 2); phase 4's 5M regular and canonical and phase 8's
+     weighted 5M at (1, 2), (2, 1), (1, 4) and (2, 2) (lookup of 2^20
+     lanes in every field, lookup_multiprocess and is_member of 2^18 lanes
+     (50%-RC positives, random kmers over all 2k bits), access of 2^20 ids,
+     weight, navigation of 2^16 kmers, a per-position stream report over
+     2^18 positions straddling the rows, and the packed ShardedStream over
+     each data row's own reads of a mixed set of 2^15 reads of 150); phase
+     5's 1M planted indexes (hindex) at (1, 4), with the heavy lanes handed
+     to another rank counted (> 0); phase 7's 100M at (1, 4) from
+     memory-mapped tables (each rank uploads its column only): 2^22 lanes'
+     ids and 2^22 ids' access, every positive round-tripping. Every rank's
+     rows equal a LocalMesh of the same shape on this card in every field
+     and report (tolerance 0); the positives' ids equal the ids drawn.
+     Per rank and leg: launches (each rank at least one of kernel 1,
+     kernel 2's packed form, access, weight and the chain), its kernels'
+     device ms (CUDA events around each launch) and its collectives' ms
+     (gloo through host memory on one card: no figure of a deployment over
+     cards); on the 100M leg each rank's kernels alone and with the 4 ranks
+     at once. A rank that fails, hangs past the phase's timeout (then
+     killed) or prints no RANK_OK line fails the run.
+ 17. one JSON line of per-source results (launches, max |err|, ms, plain ms,
      bound ms and what bounds it, library-call ms; kernel 2 once per
      variant: v1, v2 rows, legacy skew; the lookup kernel (phase 7, bound
      by kernel 1's operations or the lookup's own bytes); kernel 1's rank
      form and the rank-space lookup (the 100M chunk, launches on the
      stream paths); kernels 1-2 over all lanes counted on the sharded
-     paths, which alone launch them; the combine kernel (counted on the
-     sharded paths, timed at 100M); the sharded rows of kernel 2, access,
-     weight and the chain; the wide forms' rows at k65), then the ok
+     paths, which alone launch them, phase 16's ranks included; the
+     combine kernel (counted on the sharded paths, timed at 100M); the
+     sharded rows of kernel 2, access, weight and the chain (with phase
+     16's ranks' launches); the wide forms' rows at k65), then the ok
      line.
 
 Data is random, drawn from fixed seeds. Nothing here imports JAX or the
 JAX package (sshash_tpu): a finder refuses both.
 """
 
+import atexit
 import contextlib
 import functools
 import importlib.abc
@@ -490,6 +523,76 @@ def build(tag, **kw):
     log(f"  {tag}: {idx.num_kmers} kmers, build {t1 - t0:.1f} s, tables {t2 - t1:.1f} s, "
         f"buckets singleton/mid/heavy {status.tolist()}")
     return idx, host
+
+
+PREBUILD_TIMEOUT = 900  # seconds a phase waits for its index (PREBUILT, Prebuilt)
+
+
+def prebuild_main(out, names):
+    """The child: build each named index of PREBUILT in turn into
+    out/<name> and mark it done with its seconds."""
+    for name in names:
+        t0 = time.perf_counter()
+        idx = synthetic.build_index(**PREBUILT[name])
+        t1 = time.perf_counter()
+        host = device_arrays(idx)
+        t2 = time.perf_counter()
+        d = os.path.join(out, name)
+        idx.save(os.path.join(d, "index"))
+        os.makedirs(os.path.join(d, "tables"))
+        for key, v in host.items():
+            np.save(os.path.join(d, "tables", key + ".npy"), v)
+        del idx, host
+        with open(os.path.join(d, "done.json"), "w") as f:
+            json.dump({"build_s": t1 - t0, "tables_s": t2 - t1,
+                       "save_s": time.perf_counter() - t2}, f)
+
+
+class Prebuilt:
+    """The child that builds PREBUILT's indexes (prebuild_main), and their
+    loads: get(name) waits for the index, fails the run if the child
+    failed or the wait passes PREBUILD_TIMEOUT, and returns (index, table
+    dict), both memory-mapped."""
+
+    def __init__(self, tmp):
+        self.out = tmp
+        self.log = open(os.path.join(tmp, "prebuild.log"), "w")
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--prebuild",
+                                      tmp, *PREBUILT], cwd=REPO, stdout=self.log,
+                                     stderr=subprocess.STDOUT)
+        atexit.register(self.close)  # a run that fails leaves no child behind
+
+    def get(self, name, tag):
+        from sshash_tpu_torch.index import Index
+        from sshash_tpu_torch.layout import load_tables
+
+        d = os.path.join(self.out, name)
+        t0 = time.perf_counter()
+        while not os.path.exists(os.path.join(d, "done.json")):
+            if self.proc.poll() is not None or time.perf_counter() - t0 > PREBUILD_TIMEOUT:
+                self.close()
+                with open(os.path.join(self.out, "prebuild.log")) as f:
+                    raise AssertionError(f"{tag}: the index build failed or timed out:\n"
+                                         f"{f.read()[-3000:]}")
+            time.sleep(0.5)
+        waited = time.perf_counter() - t0
+        with open(os.path.join(d, "done.json")) as f:
+            secs = json.load(f)
+        idx = Index.load(os.path.join(d, "index"))
+        host = load_tables(os.path.join(d, "tables"))
+        status = np.bincount(decode_codeword(idx.codewords)[0], minlength=3)
+        log(f"  {tag}: {idx.num_kmers} kmers, build {secs['build_s']:.1f} s, tables "
+            f"{secs['tables_s']:.1f} s, saved in {secs['save_s']:.1f} s (in a child process "
+            f"started after phase 2; waited {waited:.1f} s for it), buckets singleton/mid/heavy "
+            f"{status.tolist()}")
+        return idx, host
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.log.close()
+        atexit.unregister(self.close)
 
 
 # kernels that must not spill (their fixed widths keep their arrays in
@@ -1014,12 +1117,11 @@ def phase_legacy(built, errs):
     return launches, timed
 
 
-def phase_scale(dev):
+def phase_scale(dev, pre):
     log("[7] scale: 100M kmers k31 m21 canonical, B=2^24, 50% RC")
     rng = np.random.default_rng(6)
     torch.cuda.reset_peak_memory_stats()
-    idx, host = build("canonical", k=31, m=21, canonical=True, num_strings=SCALE_STRINGS,
-                      string_len=STRING_LEN, seed=SCALE_SEED, threads=8)
+    idx, host = pre.get("scale", "canonical")
     t0 = time.perf_counter()
     eng = TorchEngine(idx, dev, host_arrs=host)
     torch.cuda.synchronize()
@@ -2485,6 +2587,15 @@ WIDE_K, WIDE_M = 65, 25
 WIDE_STRING_LEN = 100_064
 WIDE_STRINGS = {"regular": 50, "canonical": 600}
 WIDE_TIES = [16] * 64
+# the two largest indexes, phase 7's 100M and phase 13's k65 60M, are built
+# in a child process started after phase 2, while phases 3-6 (mostly one
+# host thread beside the card) run; each lands in a directory of its own
+# (Index.save, its tables as .npy) that its phase loads memory-mapped
+PREBUILT = {"scale": dict(k=31, m=21, canonical=True, num_strings=SCALE_STRINGS,
+                          string_len=STRING_LEN, seed=SCALE_SEED, threads=8),
+            "wide": dict(k=WIDE_K, m=WIDE_M, canonical=True, num_strings=WIDE_STRINGS["canonical"],
+                         string_len=WIDE_STRING_LEN, seed=130 + WIDE_STRINGS["canonical"],
+                         threads=8, ties=WIDE_TIES)}
 WIDE_READS, WIDE_CHUNK = 1 << 12, 1 << 22
 L2_BYTES = 50 << 20
 # the wide forms' rows of the kernels line: (source, TPU code replaced, wrapper)
@@ -2511,17 +2622,19 @@ def read2_bytes(table, offsets, W):
     return offsets.shape[0] * (4 + 4 * W + 1) + 8 * n
 
 
-def phase_wide(dev, tmp, errs, k31):
+def phase_wide(dev, tmp, errs, k31, pre):
     """k31: phase 7's {kernel: (ms, plain ms)} at SCALE_B, printed beside
     the k65 times per kmer."""
     log(f"[13] k > 63: k{WIDE_K} m{WIDE_M}, 5M regular and 60M canonical, B=2^23, 50% RC")
     rng = np.random.default_rng(13)
     built = {}
     for mode, n in WIDE_STRINGS.items():
-        canon = mode == "canonical"
-        idx, host = build(f"k{WIDE_K} {mode}", k=WIDE_K, m=WIDE_M, canonical=canon,
-                          num_strings=n, string_len=WIDE_STRING_LEN, seed=130 + n, threads=8,
-                          ties=WIDE_TIES if canon else None)
+        if mode == "canonical":
+            idx, host = pre.get("wide", f"k{WIDE_K} {mode}")
+        else:
+            idx, host = build(f"k{WIDE_K} {mode}", k=WIDE_K, m=WIDE_M, canonical=False,
+                              num_strings=n, string_len=WIDE_STRING_LEN, seed=130 + n,
+                              threads=8)
         eng = TorchEngine(idx, dev, host_arrs=host)
         tb = eng.table_bytes()
         log(f"  k{WIDE_K} {mode}: W={eng.cfg.W}, tables on the card: {table_line(eng, idx)}; "
@@ -3024,18 +3137,402 @@ def phase_capacity(dev, idx, host, tmp):
     return launches
 
 
+# phase 16: the bucket-sharded engine across processes, R rank processes
+# (rank_run.py) sharing this card over gloo. The legs' batch sizes: the 5M
+# indexes' lookup, multi-process, navigation and per-position stream
+# batches; the 100M lookup's and access's lanes a data row
+RANK_RUN = os.path.join(REPO, "rank_run.py")
+RANK_SHAPES = ((1, 2), (2, 1), (1, 4), (2, 2))
+RANK_B, RANK_MP, RANK_NAV, RANK_STREAM = 1 << 20, 1 << 18, 1 << 16, 1 << 18
+RANK_SCALE_B = 1 << 22
+RANK_PMAX = 1 << 20  # the packed streams' chunk
+RANK_READS = 1 << 15  # the mixed read set's reads of MIXED_LEN, dealt to the data rows
+RANK_TIMEOUT = 480  # seconds for every rank of the phase, after which each is killed
+# the dryrun's tiny index (the JAX package's __graft_entry__._tiny_index:
+# 64 strings of 101, k31 m13, about 4.5K kmers), weighted so that its ranks
+# run the weight kernel too, and its m3 form, whose skew classes carry hindex
+TINY = dict(k=31, m=13, canonical=False, num_strings=64, string_len=101, seed=7, weights=16)
+TINY_M3 = dict(TINY, m=3, seed=11, weights=None)
+TINY_B = 16  # lanes a data row, positives and as many negatives
+# every rank must launch each of these on its legs
+RANK_KERNELS = ("minimizer_kernel", "probe_kernel", "access_kernel", "weight_kernel",
+                "stream_chain_kernel")
+
+
+def free_ports(n, rng):
+    """n distinct localhost ports free now and below the kernel's ephemeral
+    range, so that no connection of an earlier leg takes one before its
+    leg listens on it."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            top = int(f.read().split()[0])
+    except (OSError, ValueError):
+        top = 32768
+    ports = []
+    for port in rng.permutation(np.arange(max(1024, top - 12000), top)):
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", int(port)))
+            except OSError:
+                continue
+        ports.append(int(port))
+        if len(ports) == n:
+            return ports
+    raise RuntimeError(f"fewer than {n} free ports below {top}")
+
+
+def save_or_same(ref, name, arr, tag):
+    """Save a LocalMesh result as the legs' reference, or, where a mesh of
+    another shape saved it already, require it equal."""
+    path = os.path.join(ref, name + ".npy")
+    if os.path.exists(path):
+        require(np.array_equal(np.load(path), arr), f"{tag}: LocalMesh {name} differs between "
+                f"shapes")
+    else:
+        np.save(path, arr)
+
+
+def rank_refs(dev, idx, shape, ref, ops, fields="full", host=None, reads=None):
+    """The LocalMesh results of one leg's entry points at its shape (on this
+    card), saved under ref for its ranks; returns (the reports its ranks
+    must give, the LocalMesh engine)."""
+    tag = f"LocalMesh {shape}"
+    leng = ShardedEngine(idx, LocalMesh(shape, dev), host_arrs=host)
+    load = lambda name: np.load(os.path.join(ref, name + ".npy"))  # noqa: E731
+    want = {}
+    if "lookup" in ops:
+        res, rep = leng.lookup_device(leng.kmers32(load("q")), fields)
+        for key, v in res.items():
+            save_or_same(ref, f"lookup_{key}", v.cpu().numpy(), tag)
+        want["lookup_report"] = {key: int(v) for key, v in rep.items()}
+    if "multiprocess" in ops:
+        mp = load("mp")
+        res, rep = leng.lookup(mp)
+        for key, v in res.items():
+            save_or_same(ref, f"mp_{key}", v, tag)
+        want["mp_report"] = rep
+        save_or_same(ref, "member", leng.is_member(mp), tag)
+    if "access" in ops or "weight" in ops:
+        it = id_tensor(load("ids"), dev)
+        if "access" in ops:
+            save_or_same(ref, "access", leng.access_device(it).cpu().numpy(), tag)
+        if "weight" in ops:
+            save_or_same(ref, "weight", leng.weight_device(it).cpu().numpy(), tag)
+    if "navigation" in ops:
+        for key, v in leng.kmer_neighbours_device(leng.kmers32(load("nav"))).items():
+            save_or_same(ref, f"nav_{key}", v.cpu().numpy(), tag)
+    if "stream_report" in ops:
+        want["stream_report"] = leng.stream_report(load("skm"), load("sv"), load("sf"))
+    if "stream" in ops:
+        st = ShardedStream(leng, pmax=RANK_PMAX)
+        for path in reads:
+            for seq in ST.parse_reads(path):
+                st.add_read(seq)
+        want["stream"] = st.finalize()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return want, leng
+
+
+def packed_probe_bytes(cfg, tables, kt, args, shard):
+    """probe_bytes (ids) of kernel 2's packed form on a shard, a DistMesh
+    rank's: the owned form's bytes, with every lane's packed result
+    written (packed_rows("ids") words) in place of the owned lanes' id
+    fields."""
+    slot = E.mphf_eval_minimizer(cfg, tables, u.from_i64(args[1]))
+    owned = int(((slot >= shard.slot_lo) & (slot < shard.slot_hi)).sum())
+    return (probe_bytes(cfg, tables, kt, args, shard=shard) - owned * 10
+            + kt.shape[0] * 4 * packed_rows("ids"))
+
+
+def lookup_batch(idx, rng, n_pos, n_neg):
+    """n_pos positives (50% reverse-complemented) then n_neg random kmers:
+    (kmers64, each lane's id, -1 for a random kmer)."""
+    ids, km = positives(idx, rng, n_pos)
+    q = np.concatenate([km, synthetic.random_kmers(idx.k, rng, n_neg)])
+    return q, np.concatenate([ids, np.full(n_neg, -1)])
+
+
+def row_reads(reads, D, ref):
+    """The read set dealt to D data rows, one FASTQ each (read i to row i
+    mod D)."""
+    paths = []
+    for row in range(D):
+        paths.append(os.path.join(ref, f"reads_{D}_{row}.fq"))
+        synthetic.write_reads(paths[-1], reads[row::D])
+    return paths
+
+
+def five_m_case(idx, rng, ref):
+    """The 5M legs' inputs in ref: the lookup batch (3/4 positives), the
+    multi-process batch (50%-RC positives and random kmers over all 2k
+    bits), ids, navigation kmers, a per-position stream straddling the
+    rows and the mixed read set (reads of 150, half cut with RC and 1%
+    substitutions, half random). Returns the reads."""
+    q, qids = lookup_batch(idx, rng, RANK_B * 3 // 4, RANK_B // 4)
+    mp, _ = lookup_batch(idx, rng, RANK_MP // 2, RANK_MP // 2)
+    skm, sv, sf = straddling_positions(idx, rng, RANK_STREAM, STREAM_READ)
+    for key, v in {"q": q, "qids": qids, "mp": mp, "ids": rng.integers(0, idx.num_kmers, RANK_B),
+                   "nav": q[:RANK_NAV], "skm": skm, "sv": sv, "sf": sf}.items():
+        np.save(os.path.join(ref, key + ".npy"), v)
+    strings = synthetic.index_strings(idx)
+    half = RANK_READS // 2
+    reads = synthetic.cut_reads(strings, half, MIXED_LEN, rng, rc=0.5, subst=0.01)
+    reads += synthetic.random_reads(half, MIXED_LEN, rng)
+    return [reads[i] for i in rng.permutation(len(reads))]
+
+
+def tiny_case(idx, rng, ref, D):
+    """The dryrun's inputs: TINY_B positives a data row (half RC) and as
+    many random kmers (the lookup and multi-process batch), their ids (the
+    positives' for access and weight), the positives for navigation, a
+    per-position stream of 32 positions a row (reads of 32), and 3 reads a
+    row (two strings joined, a cut of 80, 64 random chars)."""
+    q, qids = lookup_batch(idx, rng, TINY_B * D, TINY_B * D)
+    sids = np.arange(32 * D) % idx.num_kmers
+    sf = np.zeros(32 * D, dtype=bool)
+    sf[::32] = True
+    for key, v in {"q": q, "qids": qids, "mp": q, "ids": qids[: TINY_B * D],
+                   "nav": q[: TINY_B * D], "skm": oracle.access(idx, sids),
+                   "sv": np.ones(32 * D, dtype=bool), "sf": sf}.items():
+        np.save(os.path.join(ref, key + ".npy"), v)
+    s = synthetic.index_strings(idx)
+    return [r for row in range(D) for r in (s[3 * row] + s[3 * row + 1], s[3 * row + 2][10:90],
+                                           synthetic.random_reads(1, 64, rng)[0])]
+
+
+def spawn_ranks(plan_path, n, tmp):
+    """Start n rank_run.py processes, each in an interpreter that cannot
+    import JAX or the JAX package (PROBE) and in a session of its own, wait
+    for all of them up to RANK_TIMEOUT, and kill every one still running.
+    Returns (each rank's exit code or None if it was killed, its output,
+    each rank process's record, wall seconds)."""
+    probe_dir, records = f"{tmp}/probe", f"{tmp}/records"
+    os.makedirs(probe_dir)
+    os.makedirs(records)
+    with open(f"{probe_dir}/sitecustomize.py", "w") as f:
+        f.write(PROBE % (BLOCKED, BLOCKED, records))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([probe_dir, REPO]))
+    logs = [open(f"{tmp}/rank{r}.log", "w") for r in range(n)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-S", "-c", SPAWN, sys.executable, RANK_RUN,
+                               plan_path, str(r)], env=env, cwd=REPO, stdout=logs[r],
+                              stderr=subprocess.STDOUT, start_new_session=True)
+             for r in range(n)]
+    codes = [None] * n
+    try:
+        for r, p in enumerate(procs):
+            try:
+                codes[r] = p.wait(timeout=max(0.0, RANK_TIMEOUT - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:  # the rank is the wrapper's child: kill the session
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(p.pid, 9)
+            p.wait()
+        for f in logs:
+            f.close()
+    secs = time.perf_counter() - t0
+    outs = [open(f"{tmp}/rank{r}.log").read() for r in range(n)]
+    recs = [json.load(open(os.path.join(records, r))) for r in sorted(os.listdir(records))]
+    return codes, outs, recs, secs
+
+
+def phase_ranks(dev, smi, five_m, planted, scale, tmp):
+    """Phase 16: the bucket-sharded engine across processes. five_m: {name:
+    (5M index, ops)}, planted: {mode: (1M planted index, its lanes, their
+    kmer ids as the oracle gives them)}, scale: (100M index, its table
+    dict). Returns each kernel's launches summed over every rank."""
+    import rank_run
+
+    log(f"[16] K12 across processes on one card: up to 8 gloo ranks (rank_run.py), DistMesh "
+        f"on {dev}; 5M at {RANK_SHAPES}, 1M planted (1, 4), the dryrun's (4, 2) and (1, 8), "
+        f"100M (1, 4)")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(16)
+    if dev.type == "cuda":
+        require(kernels.library_path().exists(), "phase 16: the kernel library is not built")
+    legs = []
+
+    def leg(name, shape, index_dir, ref, ops, fields="full", tables=None, reads=None,
+            want=None):
+        legs.append({"name": name, "shape": list(shape), "index": index_dir, "tables": tables,
+                     "ref": ref, "ops": list(ops), "fields": fields, "reads": reads,
+                     "pmax": RANK_PMAX, "want": want or {}})
+
+    def saved(name, idx):
+        d = os.path.join(tmp, "index_" + name)
+        idx.save(d)
+        ref = os.path.join(tmp, "ref_" + name)
+        os.makedirs(ref)
+        return d, ref
+
+    t0 = time.perf_counter()
+    # the dryrun's legs first: every rank takes part
+    tiny = {"tiny": synthetic.build_index(**TINY), "tiny m3": synthetic.build_index(**TINY_M3)}
+    for name, idx in tiny.items():
+        d, ref = saved(name.replace(" ", "_"), idx)
+        reads = tiny_case(idx, rng, ref, 4)
+        ops = ("lookup", "multiprocess", "member", "access", "weight", "navigation",
+               "stream_report", "stream") if name == "tiny" else ("lookup",)
+        paths = row_reads(reads, 4, ref)
+        want, _ = rank_refs(dev, idx, (4, 2), ref, ops, reads=paths)
+        res = {key: np.load(os.path.join(ref, f"lookup_{key}.npy")) for key in ("kmer_id",
+                                                                               "found")}
+        qids = np.load(os.path.join(ref, "qids.npy"))
+        n = TINY_B * 4
+        require(res["found"][:n].all() and np.array_equal(
+            res["kmer_id"][:n].view(np.uint32), qids[:n].astype(np.uint32))
+            and not res["found"][n:].any(), f"{name} (4, 2): LocalMesh positives or negatives")
+        if "stream" in ops:
+            all_reads = f"{ref}/reads_all.fq"
+            synthetic.write_reads(all_reads, reads)
+            host = ST.host_report(idx, all_reads)
+            require(want["stream"] == host, f"{name}: LocalMesh stream {want['stream']} != "
+                    f"host _Batcher {host}")
+        leg(f"dryrun {name} (4, 2)", (4, 2), d, ref, ops, reads=paths, want=want)
+        if name == "tiny":
+            want8, leng8 = rank_refs(dev, idx, (1, 8), ref, ("lookup",))
+            leg("dryrun tiny (1, 8)", (1, 8), d, ref, ("lookup",), want=want8)
+            tiny_bytes = {2: ShardedEngine(idx, LocalMesh((4, 2), dev)).per_device_bytes(),
+                          8: leng8.per_device_bytes()}
+    log(f"  the dryrun's indexes, inputs and LocalMesh results: {time.perf_counter() - t0:.1f} s")
+    # 5M at every shape
+    for name, (idx, ops) in five_m.items():
+        t1 = time.perf_counter()
+        d, ref = saved(name, idx)
+        reads = five_m_case(idx, rng, ref)
+        t2 = time.perf_counter()
+        for shape in RANK_SHAPES:
+            paths = row_reads(reads, shape[0], ref)
+            want, _ = rank_refs(dev, idx, shape, ref, ops, reads=paths)
+            leg(f"5M {name} {shape}", shape, d, ref, ops, reads=paths, want=want)
+        log(f"  5M {name}: index saved and inputs drawn in {t2 - t1:.1f} s, LocalMesh results "
+            f"at {len(RANK_SHAPES)} shapes in {time.perf_counter() - t2:.1f} s")
+    # 1M planted, hindex: the hand-off between 4 ranks
+    for mode, (idx, q, kid) in planted.items():
+        d, ref = saved(f"planted_{mode}", idx)
+        q, kid = q[: len(q) - len(q) % 4], kid[: len(q) - len(q) % 4]
+        np.save(f"{ref}/q.npy", q)
+        np.save(f"{ref}/qids.npy", np.where(kid != INVALID, kid.astype(np.int64), -1))
+        want, _ = rank_refs(dev, idx, (1, 4), ref, ("lookup",))
+        leg(f"1M planted {mode} (1, 4)", (1, 4), d, ref, ("lookup",), want=want)
+    # 100M canonical at (1, 4): the tables written once, memory-mapped by the ranks
+    t2 = time.perf_counter()
+    idx, host = scale
+    d, ref = saved("100M", idx)
+    tables = os.path.join(tmp, "tables_100M")
+    os.makedirs(tables)
+    for key, v in host.items():
+        np.save(os.path.join(tables, key + ".npy"), v)
+    ids, km = positives(idx, rng, RANK_SCALE_B)
+    np.save(f"{ref}/q.npy", km)
+    np.save(f"{ref}/qids.npy", ids)
+    np.save(f"{ref}/ids.npy", rng.integers(0, idx.num_kmers, RANK_SCALE_B))
+    t1 = time.perf_counter()
+    want, leng = rank_refs(dev, idx, (1, 4), ref, ("lookup", "access"), fields="ids",
+                           host=host)
+    log(f"  100M: index and tables saved, inputs drawn in {t1 - t2:.1f} s, LocalMesh results in "
+        f"{time.perf_counter() - t1:.1f} s")
+    # the least time of each rank's kernels in rank_run.rank_kernels: kernel 1
+    # over its row's lanes, the fold, kernel 2's packed form on its shard
+    scale_bytes, cfg, kt = leng.per_device_bytes(), leng.cfg, leng.kmers32(km)
+    args = probe_args(cfg, kt, P.minimizer)
+    rank_bounds = [sum(ms for ms, _ in lookup_bounds(cfg, RANK_SCALE_B, packed_probe_bytes(
+        cfg, leng.tables[j], kt, args, sh)).values()) for j, sh in enumerate(leng.probe_shards)]
+    # and their plain versions (column 0's), timed here on the card
+    rank_plain = median_ms(lambda: rank_run.rank_kernels(leng, kt, 0, P.minimizer_plain,
+                                                         probe_plain), reps=3) \
+        if dev.type == "cuda" else float("nan")
+    del leng, kt, args
+    leg("100M (1, 4)", (1, 4), d, ref, ("lookup", "access", "timing"), fields="ids",
+        tables=tables, want=want)
+    log(f"  inputs, indexes and the LocalMesh results of {len(legs)} legs in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the ranks
+    for lg, port in zip(legs, free_ports(len(legs), rng)):
+        lg["port"] = port
+    out_dir = os.path.join(tmp, "out")
+    os.makedirs(out_dir)
+    plan_path = os.path.join(tmp, "plan.json")
+    with open(plan_path, "w") as f:
+        json.dump({"out": out_dir, "device": str(dev), "legs": legs}, f)
+    n = max(lg["shape"][0] * lg["shape"][1] for lg in legs)
+    codes, outs, recs, secs = spawn_ranks(plan_path, n, tmp)
+    for r, (code, out) in enumerate(zip(codes, outs)):
+        require(code == 0 and f"RANK_OK {r}" in out,
+                f"rank {r}: " + ("killed after " + str(RANK_TIMEOUT) + " s" if code is None
+                                 else f"exit code {code}") + f"; its output:\n{out[-3000:]}")
+    require(len(recs) == n and all(not rec["loaded"] for rec in recs),
+            f"rank processes loaded {[rec['loaded'] for rec in recs]}")
+    rss = {int(rec["argv"][-1]): round(rec["maxrss_kib"] / 1024) for rec in recs}
+    log(f"  {n} ranks ran {len(legs)} legs in {secs:.1f} s wall; no rank loaded jax or "
+        f"sshash_tpu; peak RSS MB by rank {[rss[r] for r in sorted(rss)]}")
+
+    # each rank's record of each leg
+    launches, per_rank = {}, {r: {} for r in range(n)}
+    for i, lg in enumerate(legs):
+        R = lg["shape"][0] * lg["shape"][1]
+        got = [json.load(open(os.path.join(out_dir, f"{i}_{r}.json"))) for r in range(R)]
+        for rec in got:
+            add_counts(launches, rec["launches"])
+            add_counts(per_rank[rec["rank"]], rec["launches"])
+        kms = [sum(rec["kernel_ms"].values()) for rec in got]
+        log(f"  {lg['name']}: every rank == LocalMesh ({'; '.join(got[0]['checks'])}); "
+            f"per rank: kernels {[f'{x:.4f}' for x in kms]} ms (CUDA events), collectives "
+            f"{[round(rec['collective_ms'], 3) for rec in got]} ms in "
+            f"{[rec['collectives'] for rec in got]} calls (gloo through host memory, {R} "
+            f"ranks on one card: not a figure of {R} cards), leg {max(rec['leg_s'] for rec in got):.1f} s")
+        if got[0]["handoff"] and "lookup" in lg["ops"]:
+            moved = [rec["handoff_lanes"] for rec in got]
+            require(sum(moved) > 0 or not lg["name"].startswith("1M"),
+                    f"{lg['name']}: no heavy lane's row went to another rank")
+            log(f"  {lg['name']}: heavy lanes handed to another rank's shard, per rank {moved}")
+        if lg["name"].startswith("100M"):
+            for rec in got:
+                log(f"  100M (1, 4) rank {rec['rank']}: table bytes {rec['table_bytes']} (its "
+                    f"column only; LocalMesh((1, 4)).per_device_bytes {scale_bytes}), "
+                    f"per_device_bytes {rec['per_device_bytes']}, engine {rec['engine_s']:.1f} s "
+                    f"(shard_tables {rec['shard_s']:.1f}), peak {rec.get('peak_mb', 0):.0f} MB; "
+                    f"kernel ms {json.dumps({k: round(v, 4) for k, v in rec['kernel_ms'].items()})}"
+                    f"; launches {rec['launches']}; its kernels (kernel 1, fold, kernel 2's "
+                    f"packed form) alone {rec['alone_ms']:.4f} ms, with the 4 ranks at once "
+                    f"{rec['together_ms']:.4f} ms, bound {rank_bounds[rec['rank']]:.4f} ms, "
+                    f"the plain versions (column 0's, in this process) {rank_plain:.4f} ms "
+                    f"({smi})")
+        if lg["name"] == "dryrun tiny (4, 2)":
+            log(f"  dryrun (4, 2): {TINY_B * 4}/{TINY_B * 4} positives, ids exact; 0 of "
+                f"{TINY_B * 4} negatives found; {got[0]['checks'][-2]}; "
+                f"{got[0]['checks'][-1]} (== the host _Batcher); bytes per device: bucket 2 "
+                f"{got[0]['per_device_bytes']} (LocalMesh {tiny_bytes[2]}), bucket 8 "
+                f"{tiny_bytes[8]}")
+        if lg["name"] == "dryrun tiny (1, 8)":
+            require(got[0]["per_device_bytes"] == tiny_bytes[8], "(1, 8) bytes per device")
+    for r, c in per_rank.items():  # (the plain versions on the CPU launch nothing)
+        require(dev.type != "cuda" or all(c.get(name, 0) > 0 for name in RANK_KERNELS),
+                f"rank {r}: a kernel of the path never launched {c}")
+    if dev.type == "cuda":
+        log(f"  every rank launched {RANK_KERNELS}; launches over every rank {launches}")
+    log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches
+
+
 def main():
     smi = phase_card()
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     phase_build()
+    prebuild_dir = tempfile.TemporaryDirectory()
+    pre = Prebuilt(prebuild_dir.name)
     errs = {name: 0 for name in kernels.counts()}
     errs.update({name: 0 for name in list(PROBE_VARIANTS) + list(SHARDED_ROWS)})
     phase_kernels_equal_plain(dev, errs)
     launches, built = phase_main(dev, errs)
     paths = phase_paths(dev)
     variants = {"probe_legacy_skew": phase_legacy(paths, errs)}
-    per_kernel, scale_errs, idx, eng, ids, kt, bounds, host200 = phase_scale(dev)
+    per_kernel, scale_errs, idx, eng, ids, kt, bounds, host200 = phase_scale(dev, pre)
     times = {name: {"kernel": ms, "plain": pms} for name, (ms, pms) in per_kernel.items()}
     for name, err in scale_errs.items():
         errs[name] = max(errs[name], err)
@@ -3051,12 +3548,25 @@ def main():
         variants["probe_v2"] = phase_v2(idx, eng, ids, kt, tmp, errs)
         sharded = phase_sharded(dev, built, paths, weighted, (idx, eng, ids, kt, host200),
                                 read_sets, errs)
+        # phase 16's indexes and lanes (the engines go)
+        ops = ("lookup", "multiprocess", "member", "access", "navigation", "stream_report",
+               "stream")
+        five_m = {mode: (built[mode][0], ops) for mode in ("regular", "canonical")}
+        five_m["weighted"] = (weighted[0], ops + ("weight",))
+        # phase 5's lanes with the unsharded engine's ids (phase 5 held them
+        # to the oracle)
+        planted = {mode: (idx5, q5, eng5.lookup(q5)["kmer_id"])
+                   for mode, (idx5, eng5, q5) in paths.items()}
         del paths, weighted
-        wide_launches, wide_times, wide_errs = phase_wide(dev, tmp, errs, per_kernel)
+        wide_launches, wide_times, wide_errs = phase_wide(dev, tmp, errs, per_kernel, pre)
+    pre.close()
     tool_launches = phase_tools(dev, smi)
     with tempfile.TemporaryDirectory() as tmp:
         capacity_launches = phase_capacity(dev, idx, host200, tmp)
-    del host200
+    with tempfile.TemporaryDirectory() as tmp:
+        rank_launches = phase_ranks(dev, smi, five_m, planted, (idx, host200), tmp)
+    del host200, five_m, planted
+    prebuild_dir.cleanup()
     add_counts(launches, stream_launches)
     for name in ("check_kernel", "read_at2_kernel"):
         launches[name] = wide_launches.get(name, 0)
@@ -3073,10 +3583,19 @@ def main():
     del built, idx, eng, kt
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sshash_tpu"))
     require(not loaded, f"JAX or the JAX package was imported: {loaded}")
-    log(f"[16] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
+    log(f"[17] done in {time.perf_counter() - t0:.0f} s; card: {smi}")
     csrc = "sshash_tpu_torch/csrc/"
     rows = []
     sh_launches, sh_times = sharded
+    # phase 16's ranks ran kernels 1-2 over all lanes and the sharded forms
+    for name, wrappers in {"minimizer_kernel": ("minimizer_kernel",),
+                           "probe_kernel": ("probe_kernel",),
+                           "probe_sharded": ("probe_kernel",),
+                           "access_sharded": ("access_kernel", "access_read_kernel"),
+                           "weight_sharded": ("weight_kernel",),
+                           "stream_chain_sharded": ("stream_chain_kernel",
+                                                    "stream_swin_kernel")}.items():
+        sh_launches[name] += sum(rank_launches.get(w, 0) for w in wrappers)
     for name in ("minimizer_kernel", "probe_kernel", "combine_kernel"):
         launches[name] = sh_launches[name]
     times["combine_kernel"] = sh_times["combine"]
@@ -3157,4 +3676,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--prebuild"]:
+        prebuild_main(sys.argv[2], sys.argv[3:])
+    else:
+        main()

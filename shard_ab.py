@@ -323,17 +323,22 @@ def lookup100m(a, libs, base, dev, rng, tmp):
     # lane on either grid, 4 blocks an SM) against the baseline's every-lane
     # stores
     out = seng._result_tensors(S.SCALE_B, "ids")
+    bout = bseng._result_tensors(S.SCALE_B, "ids")
     for j, sh in enumerate(seng.probe_shards):
         def tree(lib=libs["tree"]):  # as the lookup launches it: shard 0 stores the slots
             with SA.using(lib):
                 return E.probe(cfg, seng.tables[j], kt, *args, None, "ids", sh, out=out,
                                slots="read" if j else "store")
+
+        def baseline():  # DIR's owner-written contract, as its lookup launches it
+            return base.engine.probe(bseng.cfg, bseng.tables[j], kt, *args, None, "ids",
+                                     bseng.probe_shards[j], out=bout,
+                                     slots="read" if j else "store")
         S.time_sides(tag, f"kernel 2 on shard {j} (ids)", S.SCALE_B,
                      {"tree": tree, "exit": functools.partial(tree, libs["exit"]),
                       "simple": functools.partial(tree, libs["simple"]),
                       "blocks4": functools.partial(tree, libs["blocks4"]),
-                      "baseline": lambda: base.engine.probe(bseng.cfg, bseng.tables[j], kt,
-                                                            *args, None, "ids", shard=sh)})
+                      "baseline": baseline})
     got = E.lookup(cfg, eng.tables, kt, None, "ids")
     want = base.engine.lookup(cfg, eng.tables, kt, None, "ids")
     same(got, want, "100M unsharded lookup")

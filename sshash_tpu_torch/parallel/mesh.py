@@ -26,13 +26,21 @@ Two implementations:
       (combine_plain, what the CPU runs) stacks them and reduces. The
       bucket-sharded lookup has no combine here: kernel 2's shard form
       stores each lane once, from the shard that owns it (sharded.py).
-  DistMesh(shape)           one shard per rank of a torch.distributed group
+  DistMesh(shape, device)   one shard per rank of a torch.distributed group
       (rank r is shard (r // NB, r % NB)), a sub-group per data row and per
       bucket column; a combine is one all_reduce (MIN, MAX, SUM) on the
       sub-group, ppermute an all_gather of the column (its payloads are a
-      few words, and every backend has all_gather on every device). gloo
-      on the CPU, NCCL on CUDA; a world of one rank runs the same calls.
+      few words, and every backend has all_gather on every device). The
+      rank's tensors live on cuda:<rank mod cards> unless the caller
+      passes a device ("cpu" runs the plain versions). NCCL combines
+      between cards; gloo takes card tensors too, staging each combine
+      through host memory, so ranks that share one card run over gloo
+      (NCCL refuses two ranks of a communicator on one device, and
+      DistMesh raises before it does). A world of one rank runs the same
+      calls.
 """
+
+import socket
 
 import torch
 
@@ -130,11 +138,37 @@ class LocalMesh(_Mesh):
                 for (i, j), v in values.items()}
 
 
+def shared_devices(places):
+    """The ranks that share a card with another rank: places[r] is rank r's
+    (host name, card index), None for a rank off the cards. Returns
+    {(host, card): [ranks]} for each card that two or more ranks hold."""
+    held = {}
+    for r, place in enumerate(places):
+        if place is not None:
+            held.setdefault(tuple(place), []).append(r)
+    return {place: ranks for place, ranks in held.items() if len(ranks) > 1}
+
+
+def default_device(rank):
+    """A rank's card when the caller names none: cuda:<rank mod cards>. With
+    no card visible it raises: the plain versions run only where the
+    caller asks for the CPU."""
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        raise RuntimeError("DistMesh: no CUDA card is visible; pass device='cpu' to run the "
+                           "shards' plain versions on the CPU")
+    return torch.device("cuda", rank % n)
+
+
 class DistMesh(_Mesh):
     """One shard of a (D, NB) mesh per rank of the default torch.distributed
     group (initialised by the caller, e.g. multihost.initialize), whose
     world size must be D * NB. device: the rank's tensors' device; by
-    default cuda:<rank mod cards> under NCCL, else the CPU."""
+    default cuda:<rank mod cards> under either backend (default_device),
+    "cpu" for the plain versions. A card becomes the process's current
+    device. Under NCCL the ranks first exchange their (host, card) over a
+    gloo side group and raise if two share a card: NCCL would fail on it
+    at the first collective."""
 
     def __init__(self, shape, device=None):
         import torch.distributed as dist
@@ -146,11 +180,21 @@ class DistMesh(_Mesh):
         D, NB = (int(x) for x in shape)
         if D * NB != world:
             raise ValueError(f"mesh {shape} needs {D * NB} ranks, the group has {world}")
-        if device is None:
-            nccl = dist.get_backend() == "nccl"
-            device = (torch.device("cuda", rank % torch.cuda.device_count()) if nccl
-                      else torch.device("cpu"))
-        super().__init__(shape, device)
+        super().__init__(shape, default_device(rank) if device is None else device)
+        if self.device.type == "cuda":
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+            torch.cuda.set_device(self.device)
+        if dist.get_backend() == "nccl":
+            places = [None] * world
+            place = (socket.gethostname(), self.device.index) if self.device.type == "cuda" \
+                else None
+            dist.all_gather_object(places, place, group=dist.new_group(backend="gloo"))
+            shared = shared_devices(places)
+            if shared:
+                raise RuntimeError(f"DistMesh: NCCL cannot put two ranks of one group on one "
+                                   f"card, and ranks share cards {shared}; initialise the group "
+                                   f"with backend='gloo' to run them on a shared card")
         self.local = [(rank // NB, rank % NB)]
         # every rank creates every group, in the same order
         rows = [dist.new_group([i * NB + j for j in range(NB)]) for i in range(D)]

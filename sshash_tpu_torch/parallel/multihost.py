@@ -15,7 +15,12 @@ a program of its cluster, so the address, world size and rank are given:
     # or eng.lookup_multiprocess(kmers64) with the global batch
 
 The bucket ranks of a data row answer the same lanes, so they are fed the
-same rows.
+same rows. Each rank runs its shard on cuda:<rank mod cards> (DistMesh's
+default; device="cpu" for the plain versions). NCCL combines between
+cards; ranks that share one card initialise the group with
+backend="gloo", which stages each combine through host memory. Build the
+kernel library (kernels.library()) in the parent before starting the
+ranks, so that they load it instead of each running nvcc.
 """
 
 import numpy as np
@@ -25,9 +30,10 @@ import torch
 def initialize(address=None, world_size=None, rank=None, backend="nccl"):
     """torch.distributed.init_process_group over tcp://address; a no-op
     (False) without an address and a world of more than one, or when a
-    group exists already. backend: NCCL on the cards by default (it raises
-    without CUDA); "gloo" runs the shards on the CPU, on their plain
-    versions."""
+    group exists already. backend: NCCL between cards by default (it raises
+    without CUDA); "gloo" for ranks that share a card, or for CPU ranks.
+    Either way the mesh's device, not the backend, picks where the shards
+    run (DistMesh)."""
     import torch.distributed as dist
 
     if dist.is_initialized() or (address is None and world_size in (None, 1)):
@@ -44,7 +50,8 @@ def initialize(address=None, world_size=None, rank=None, backend="nccl"):
 
 def global_mesh(bucket=None, device=None):
     """DistMesh over every rank: bucket columns (2 where the world size is
-    even, else 1), the rest data rows."""
+    even, else 1), the rest data rows; device as DistMesh's (a card unless
+    "cpu" is given)."""
     import torch.distributed as dist
 
     from .mesh import DistMesh
@@ -70,20 +77,25 @@ def local_row_range(mesh, n):
 
 
 def host_local_batch(global_array, mesh):
-    """This process's rows of a batch every process holds."""
+    """This process's rows of a batch every process holds (a NumPy array or
+    a tensor on any device; a slice of it, where it lies)."""
     lo, hi = local_row_range(mesh, len(global_array))
     return global_array[lo:hi]
 
 
 def make_global_batch(local_rows, mesh, global_shape):
     """This process's part of a global batch, as the engine's device entry
-    points take it: a tensor of its rows on the mesh's device (the rows
-    stay where they are: the mesh has no global array)."""
+    points take it: a contiguous tensor of its rows on the mesh's device
+    (the rows stay where they are: the mesh has no global array).
+    local_rows: a NumPy array (uint32 rows as their int32 bits) or a
+    tensor on any device."""
     lo, hi = local_row_range(mesh, global_shape[0])
-    local_rows = np.asarray(local_rows)
-    if local_rows.shape != (hi - lo,) + tuple(global_shape[1:]):
-        raise ValueError(f"rows of shape {local_rows.shape} are not rows [{lo}, {hi}) of "
-                         f"a batch of {tuple(global_shape)}")
-    if local_rows.dtype == np.uint32:
-        local_rows = local_rows.view(np.int32)
-    return torch.from_numpy(np.ascontiguousarray(local_rows)).to(mesh.device)
+    if not isinstance(local_rows, torch.Tensor):
+        local_rows = np.asarray(local_rows)
+        if local_rows.dtype == np.uint32:
+            local_rows = local_rows.view(np.int32)
+        local_rows = torch.from_numpy(np.ascontiguousarray(local_rows))
+    if tuple(local_rows.shape) != (hi - lo,) + tuple(global_shape[1:]):
+        raise ValueError(f"rows of shape {tuple(local_rows.shape)} are not rows [{lo}, {hi}) "
+                         f"of a batch of {tuple(global_shape)}")
+    return local_rows.to(mesh.device).contiguous()

@@ -234,13 +234,15 @@ class ShardedEngine:
     # ---------------------------------------------------------------- helpers
 
     def per_device_bytes(self):
-        """Index bytes one device holds: bucket shard 0's tables, as the JAX
-        ShardedEngine counts them (sharded tables their slice, replicated
-        ones whole)."""
-        return self.shard_bytes[0]
+        """Index bytes one device holds: the host tables of this process's
+        first bucket column (shard 0 on a LocalMesh, the rank's own column
+        on a DistMesh), as the JAX ShardedEngine counts them (sharded
+        tables their slice, replicated ones whole)."""
+        return self.shard_bytes[self.mesh.columns[0]]
 
     def table_bytes(self):
-        """Device bytes of each bucket column's tables this process holds."""
+        """Device bytes of each bucket column's tables this process holds (a
+        DistMesh rank: its own column only)."""
         return {j: sum(t.numel() * t.element_size() for t in tab.values())
                 for j, tab in self.tables.items()}
 
