@@ -16,7 +16,8 @@ line):
   2. build: one nvcc per csrc/ source, in parallel, for sm_90a (timed
      per source, registers per kernel, any spills; none allowed in the
      lookup kernel, the access kernel, kernel 1's rank form, the
-     rank-space lookup and kernel 2's shard form at widths 1..8, nor in
+     rank-space lookup and kernel 2's shard form and its rank form at
+     widths 1..8, nor in
      the chain kernel, the scan and compaction kernel, the derive kernels,
      the neighbours kernel or the combine kernel)
   3. kernel == plain on the card, exactly: kernel 1 at B = 2^20 for
@@ -119,7 +120,14 @@ line):
      ids (phase 8's weighted build) equal the unsharded engine's, the
      per-position stream report over 2^20 positions (reads straddling the
      data rows) equals derive_report, and ShardedStream on phase 10's
-     low-hit and mixed reads equals its host _Batcher reports; on phase 5's
+     low-hit and mixed reads equals its host _Batcher reports, its
+     lookups (the anchors' and both rounds over the misses) all in rank
+     space: kernel 1's rank form twice a chunk, kernel 2's rank form once
+     a shard, round and pass of each, neither lane form launched; at (1, 4)
+     every rank-form launch equals its plain version on a copy of its
+     output, each shard's launch of the first low-hit chunk's first round
+     is timed against its plain version and its bound, and the chunks'
+     sharded steps are timed from a CUDA graph; on phase 5's
      1M planted indexes (hindex, and both legacy forms) every field equals
      the unsharded engine's, with the heavy lanes handed to another shard
      counted (> 0); on phase 7's 100M index in (1, 4) 2^24 lanes equal the
@@ -210,7 +218,8 @@ line):
      (gloo through host memory on one card: no figure of a deployment over
      cards); on the 100M leg each rank's kernels alone and with the 4 ranks
      at once. A rank that fails, hangs past the phase's timeout (then
-     killed) or prints no RANK_OK line fails the run.
+     killed) or prints no RANK_OK line fails the run. A rank's packed
+     ShardedStream runs kernel 2's rank form in its packed form.
  17. one JSON line of per-source results (launches, max |err|, ms, plain ms,
      bound ms and what bounds it, library-call ms; kernel 2 once per
      variant: v1, v2 rows, legacy skew; the lookup kernel (phase 7, bound
@@ -220,8 +229,9 @@ line):
      paths, which alone launch them, phase 16's ranks included; the
      combine kernel (counted on the sharded paths, timed at 100M); the
      sharded rows of kernel 2, access, weight and the chain (with phase
-     16's ranks' launches); the wide forms' rows at k65), then the ok
-     line.
+     16's ranks' launches); kernel 2's rank form (the ShardedStream runs
+     of phases 12 and 16, timed on the first low-hit chunk's slowest
+     shard); the wide forms' rows at k65), then the ok line.
 
 Data is random, drawn from fixed seeds. Nothing here imports JAX or the
 JAX package (sshash_tpu): a finder refuses both.
@@ -612,8 +622,8 @@ NO_SPILL = {"lookup_kernel at widths 1..8": (r"13lookup_kernelILi[1-8]E", 32),
             "minimizer_ranks_kernel at widths 1..8": (r"22minimizer_ranks_kernelILi[1-8]E", 8),
             # two modes; at widths 1..4 also the form that walks the windows
             "lookup_ranks_kernel at widths 1..8": (r"19lookup_ranks_kernelILi[1-8]E", 24),
-            # both modes, v1 and v2 rows
-            "shard_probe_kernel at widths 1..8": (r"18shard_probe_kernelILi[1-8]E", 32),
+            # both modes, v1 and v2 rows; the rank form: both modes, v1 rows
+            "shard_probe_kernel at widths 1..8": (r"18shard_probe_kernelILi[1-8]E", 48),
             # min and max signed and unsigned, sums, of int32 and int64
             "combine_kernel": (r"14combine_kernelILi[0-2]E", 10),
             # the stream's anchor stage and the misses' read; K7
@@ -2078,7 +2088,7 @@ STREAM_B, STREAM_READ = 1 << 20, 150  # the per-position stream report's lanes, 
 # 7 strings start in a 32-id block, so access takes the two-round form
 SHORT_STRINGS, SHORT_LEN = 1_000_000, 35
 # the sharded rows of the kernels line: (source, TPU code replaced)
-SHARDED_ROWS = {"probe_sharded": ("probe.cu", "sshash_tpu/parallel/sharded.py:134"),
+SHARDED_ROWS = {"probe_sharded": ("shard.cuh", "sshash_tpu/parallel/sharded.py:134"),
                 "access_sharded": ("access.cu", "sshash_tpu/parallel/sharded.py:228"),
                 "weight_sharded": ("weight.cu", "sshash_tpu/parallel/sharded.py:269"),
                 "stream_chain_sharded": ("stream_chain.cu",
@@ -2201,6 +2211,143 @@ def time_shards(tag, what, n, kernel, plain, nbytes, graph=False):
     return out
 
 
+# kernel 2's rank form's row of the kernels line: the TPU code it replaces
+# on a shard, ShardedStream's step over its bucket-sharded lookup
+PROBE_RANKS_REPLACES = "sshash_tpu/parallel/sharded.py:447"
+
+
+@contextlib.contextmanager
+def ranks_checked(errs, keep=None, first=0):
+    """Inside, every launch of kernel 2's rank form (engine.probe_ranks on
+    a card tensor) is held to its plain version run on a copy of its output
+    taken before the launch (max |err| 0 over every tensor of the output).
+    With keep, the first `first` launches of the misses' first round
+    (fields "stream", the forward pass) go to keep as (args, kw, the output
+    before the launch), for timing."""
+    entry = E.probe_ranks
+    launch = entry.kernel
+
+    def checked(*a, **kw):
+        a, kw = a[:8], dict(kw, **({"out": a[8]} if len(a) > 8 else {}))
+        before = {key: v.clone() for key, v in kw["out"].items()}
+        got = launch(*a, **kw)
+        want = entry.plain(*a, **dict(kw, out={key: v.clone() for key, v in before.items()}))
+        err = max_abs_err([got[key] for key in want], list(want.values()))
+        errs["probe_ranks"] = max(errs["probe_ranks"], err)
+        require(err == 0 and got.keys() == want.keys(), "kernel 2's rank form != plain on a "
+                f"ShardedStream's launch (fields {a[6]}, rc_round {kw.get('rc_round')}, hand-off "
+                f"pass {kw.get('hrows') is not None})")
+        if (keep is not None and len(keep) < first and a[6] == "stream"
+                and not kw.get("rc_round") and kw.get("hrows") is None):
+            keep.append((a, kw, before))
+        return got
+
+    entry.kernel = checked
+    try:
+        yield
+    finally:
+        entry.kernel = launch
+
+
+def rank_probe_bytes(cfg, tables, a, kw):
+    """Bytes one launch of kernel 2's rank form (args a, kw) must move, a
+    lower bound: probe_bytes of the active ranks below the count on its
+    shard (every such rank's minimizer or slot; the owned ranks' kmers,
+    fields and distinct table rows; kernel 2's RC kmer read standing for
+    the second strand's minimizer that the rank form reads instead), each
+    rank's active flag below the count, the not-found stores of the
+    inactive ranks where the launch fills them, and the count."""
+    km, mins, active, count, _, shard = a[2:8]
+    n = _n(count)
+    act = active[:n]
+    kt = km[:n][act]
+    moved = n + 4 + (14 * int((~act).sum()) if kw.get("fill") else 0)
+    if not kt.shape[0]:
+        return moved
+    return moved + probe_bytes(cfg, tables, kt, probe_args(cfg, kt, P.minimizer),
+                               shard=shard, slots=kw.get("slots"))
+
+
+def time_rank_probe(keep):
+    """Each shard's launch of kernel 2's rank form kept by ranks_checked
+    (one chunk's misses, first round), replayed from a CUDA graph on a copy
+    of its output, against its bound; the slowest shard's plain version.
+    Returns that shard's {kernel, plain, bound}."""
+    # each launch stores into a copy of its output taken once: its stores
+    # (a first round's) repeat the same values
+    outs = [{key: v.clone() for key, v in before.items()} for _, _, before in keep]
+
+    def call(fn, i):
+        a, kw, _ = keep[i]
+        return fn(*a, **dict(kw, out=outs[i]))
+
+    ms = [graph_ms(functools.partial(call, E.probe_ranks, i)) for i in range(len(keep))]
+    nbytes = [rank_probe_bytes(a[0], a[1], a, kw) for a, kw, _ in keep]
+    j = int(np.argmax(ms))
+    a = keep[j][0]
+    out = {"kernel": ms[j], "plain": median_ms(functools.partial(call, E.probe_ranks_plain, j)),
+           "bound": bound(nbytes[j])}
+    log(f"  low-hit 5M (1, 4), chunk 0: kernel 2's rank form, the misses' first round, per shard "
+        f"{['%.4f' % x for x in ms]} ms (graph replay) over {_n(a[5])} ranks, "
+        f"{int(a[4][:_n(a[5])].sum())} active; bounds {['%.4f' % bound(b)[0] for b in nbytes]} "
+        f"ms; slowest shard {j}: plain {out['plain']:.4f} ms")
+    return out
+
+
+def sharded_streams(engines, read_sets, errs, forms):
+    """ShardedStream over each read set ({name: (mode, path, report)}) on
+    the 5M engines ({(mode, shape): ShardedEngine}), its lookups in rank
+    space, counted on their own: kernel 1's rank form twice a chunk, kernel
+    2's rank form once a shard of the chunk's row, round and hand-off pass,
+    for the anchors and each of the misses' two lookups, neither lane form;
+    at (1, 4) every rank-form launch held to its plain version; the low-hit
+    (1, 4) run's first-round launches and its steps timed. Returns (launch
+    counts, kernel 2's rank form's {kernel, plain, bound}, {(name, shape):
+    (report, chunks)})."""
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    streams, keep, want_k1, want_k2 = {}, [], 0, 0
+    with combines_checked(errs, forms):
+        for name, (mode, path, _) in read_sets.items():
+            for shape in SHARD_SHAPES:
+                seng = engines[(mode, shape)]
+                timed_run = (name, shape) == ("low-hit", (1, 4))
+                with (ranks_checked(errs, keep if timed_run else None, shape[1])
+                      if shape == (1, 4) else contextlib.nullcontext()):
+                    st = ShardedStream(seng, pmax=1 << 22, rmax_shift=4)
+                    st.capture = []
+                    for seq in ST.parse_reads(path):
+                        st.add_read(seq)
+                    streams[(name, shape)] = (st.finalize(), st.chunks)
+                want_k1 += 2 * st.chunks
+                want_k2 += (3 * st.chunks * shape[1] * (1 if seng.cfg.canonical else 2)
+                            * (2 if seng.handoff else 1))
+                if timed_run:
+                    low_st = st
+                else:
+                    del st
+        torch.cuda.synchronize()
+    c = path_counts("5M ShardedStream", STREAM_WRAPPERS + (
+        "stream_swin_kernel", "minimizer_ranks_kernel", "probe_ranks_kernel"))
+    require(c["minimizer_kernel"] == 0 and c["probe_kernel"] == 0 and c["lookup_kernel"] == 0
+            and c["lookup_ranks_kernel"] == 0, "a ShardedStream launched kernel 1's or kernel 2's "
+            "lane form, or an unsharded lookup")
+    require(c["minimizer_ranks_kernel"] == want_k1 and c["probe_ranks_kernel"] == want_k2,
+            f"ShardedStream: {c['minimizer_ranks_kernel']} launches of kernel 1's rank form "
+            f"(expected {want_k1}), {c['probe_ranks_kernel']} of kernel 2's (expected {want_k2})")
+    log(f"  5M ShardedStream: every lookup in rank space (kernel 1's rank form "
+        f"{want_k1} launches, kernel 2's {want_k2}), neither lane form launched; at (1, 4) every "
+        f"rank-form launch == plain (max |err| {errs['probe_ranks']})")
+    timed = time_rank_probe(keep)
+    steps = {av: low_st.step(0, av) for av in (False, True)}
+    run_steps = lambda: [steps[av](None, b) for av, b in low_st.capture]  # noqa: E731
+    dev_ms = graph_ms(run_steps)
+    log(f"  low-hit 5M (1, 4): ShardedStream's steps {dev_ms:.4f} ms over "
+        f"{len(low_st.capture)} chunks (graph replay), {dev_ms / len(low_st.capture):.4f} ms a "
+        f"chunk; the ShardedStream runs and checks took {time.perf_counter() - t0:.1f} s")
+    return c, timed, streams
+
+
 def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
     log("[12] bucket-sharded engine, every shard on this card (LocalMesh): 5M in shapes "
         f"{SHARD_SHAPES}, 1M planted (hindex and both legacy forms), 100M (1, 4), one NCCL rank")
@@ -2232,19 +2379,14 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
                 seng.stream_report_device(skt, torch.from_numpy(sv).to(dev),
                                           torch.from_numpy(sf).to(dev)))
         weights = {shape: w.weight_device(wids) for shape, w in wengines.items()}
-        streams = {}
-        for name, (mode, path, _) in read_sets.items():
-            for shape in SHARD_SHAPES:
-                st = ShardedStream(engines[(mode, shape)], pmax=1 << 22, rmax_shift=4)
-                for seq in ST.parse_reads(path):
-                    st.add_read(seq)
-                streams[(name, shape)] = (st.finalize(), st.chunks)
         torch.cuda.synchronize()
     add_counts(launches, path_counts(
         "5M sharded paths", ("minimizer_kernel", "probe_kernel", "access_kernel",
-                             "neighbours_kernel", "weight_kernel", "stream_swin_kernel",
-                             "combine_kernel")
-        + STREAM_WRAPPERS))
+                             "neighbours_kernel", "weight_kernel", "stream_count_kernel",
+                             "combine_kernel")))
+    stream_launches, timed["probe_ranks"], streams = sharded_streams(engines, read_sets, errs,
+                                                                     forms)
+    add_counts(launches, stream_launches)
     for (mode, shape), (lk, acc, nav, srep) in results.items():
         idx, eng = built[mode][:2]
         kt, it, skt, skm, sv, sf = inputs[mode]
@@ -2454,6 +2596,7 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
     # rows of the kernels line count them here
     launches = {"minimizer_kernel": launches.get("minimizer_kernel", 0),
                 "probe_kernel": launches.get("probe_kernel", 0),
+                "probe_ranks": launches.get("probe_ranks_kernel", 0),
                 "combine_kernel": launches.get("combine_kernel", 0),
                 "probe_sharded": launches.get("probe_kernel", 0),
                 "access_sharded": launches.get("access_kernel", 0)
@@ -2549,9 +2692,7 @@ def time_sharded_chain(seng, path, errs):
         calls.append((a, kw, out))
         return out
 
-    ST.make_stream_step(seng.cfg, st.P, st.R, st.CW, seng._lookup_fn(0, "full"), all_valid=av,
-                        ops=ST.KERNEL_OPS._replace(chain=chain),
-                        swin=functools.partial(st._swin, 0))(None, packed)
+    st.step(0, av, ops=ST.KERNEL_OPS._replace(chain=chain))(None, packed)
     a, kw, out = calls[0]
     ares, k = a[0], seng.cfg.k
     A = ares["found"].shape[0]
@@ -3527,7 +3668,8 @@ def main():
     prebuild_dir = tempfile.TemporaryDirectory()
     pre = Prebuilt(prebuild_dir.name)
     errs = {name: 0 for name in kernels.counts()}
-    errs.update({name: 0 for name in list(PROBE_VARIANTS) + list(SHARDED_ROWS)})
+    errs.update({name: 0 for name in list(PROBE_VARIANTS) + list(SHARDED_ROWS)
+                 + ["probe_ranks"]})
     phase_kernels_equal_plain(dev, errs)
     launches, built = phase_main(dev, errs)
     paths = phase_paths(dev)
@@ -3590,6 +3732,7 @@ def main():
     # phase 16's ranks ran kernels 1-2 over all lanes and the sharded forms
     for name, wrappers in {"minimizer_kernel": ("minimizer_kernel",),
                            "probe_kernel": ("probe_kernel",),
+                           "probe_ranks": ("probe_ranks_kernel",),
                            "probe_sharded": ("probe_kernel",),
                            "access_sharded": ("access_kernel", "access_read_kernel"),
                            "weight_sharded": ("weight_kernel",),
@@ -3604,9 +3747,11 @@ def main():
     bounds["combine.cu"] = sh_times["combine"]["bound"]
     for src, rep in SOURCES.items():
         # the lookup kernel, in probe.cu beside kernel 2, kernel 1's rank
-        # form, in minimizer.cu, and the misses' kmer read, in
-        # stream_anchor.cu beside the anchor stage, have rows of their own
+        # form, in minimizer.cu, the misses' kmer read, in stream_anchor.cu
+        # beside the anchor stage, and kernel 2's rank form, whose entry is
+        # in lookup_ranks.cu, have rows of their own
         names = {"probe.cu": ("probe_kernel",), "minimizer.cu": ("minimizer_kernel",),
+                 "lookup_ranks.cu": ("lookup_ranks_kernel",),
                  "stream_anchor.cu": ("stream_anchors_kernel",)}.get(
                      src, kernels.SOURCE_KERNELS[src])
         n_launch = sum(launches.get(name, 0) for name in names)
@@ -3658,6 +3803,13 @@ def main():
                      "launches": sh_launches[name], "max_abs_err": errs[name],
                      "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1], "library_ms": None})
+    # kernel 2's rank form, counted on the ShardedStream runs (phases 12, 16)
+    require(sh_launches["probe_ranks"] > 0, "probe_ranks: no launch on the sharded streams")
+    t = sh_times["probe_ranks"]
+    rows.append({"name": "probe_ranks", "route": "cuda", "source": csrc + "shard.cuh",
+                 "replaces": PROBE_RANKS_REPLACES, "launches": sh_launches["probe_ranks"],
+                 "max_abs_err": errs["probe_ranks"], "ms": t["kernel"], "plain_ms": t["plain"],
+                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None})
     # the wide forms (W >= 5), each counted on the k65 paths
     for name, (src, rep, wrappers) in WIDE_ROWS.items():
         wrappers = (wrappers,) if isinstance(wrappers, str) else wrappers

@@ -6,7 +6,7 @@ median of 7, sides run backwards then forwards; calls under a millisecond
 replay from a CUDA graph).
 
     python3 shard_ab.py --baseline DIR [--strings 1000]
-                        [--cells lookup100m,regular5m,handoff,lowhit]
+                        [--cells lookup100m,regular5m,handoff,lowhit,highhit100m]
 
 DIR is an unpacked earlier tree (`git archive <commit> | tar -x -C DIR`),
 for instance under .chip_scratch/ (gitignored). Sides:
@@ -38,8 +38,9 @@ for instance under .chip_scratch/ (gitignored). Sides:
             stores the lanes whose slot it owns (probe.cu and probe.cuh
             patched)
 
-A variant is built from its patched sources alone (nvcc for sm_90a into
-build/shard_ab/) and serves their entries; every other entry runs from
+A variant is built from its patched sources alone (probe.cu with its
+probe.cuh and shard.cuh; nvcc for sm_90a into build/shard_ab/) and serves
+their entries; every other entry runs from
 this tree's library. Cells, each on the sides that have it, every side's
 result equal to the tree's before timing:
   lookup100m  phase 7's 100M k31 m21 canonical build in (1, 4): the lookup
@@ -54,14 +55,21 @@ result equal to the tree's before timing:
               lookup (all fields) of 2^20 lanes, half of them drawn from
               the heavy and mid paths, half reverse-complemented
   lowhit      phase 10's low-hit reads on phase 4's 5M regular build: the
-              (1, 4) ShardedStream's step on its first chunk
-Prints the card, each side's registers and spills (ptxas) and the ms of
-each side.
+              (1, 4) ShardedStream's step on its first chunk, tree against
+              DIR (this tree's stream runs kernel 2's rank form, which the
+              exit and simple sides do not change)
+  highhit100m phase 10's high-hit genome of 168 of the 100M build's strings
+              (phase 7's build): the (1, 4) ShardedStream's step on its
+              first chunk, tree against DIR
+Prints the card, each side's registers and spills (ptxas), the ms of each
+side and, for the stream cells, each side's launches in one step and the
+chunk's misses.
 """
 
 import argparse
 import ctypes
 import functools
+import os
 import re
 import subprocess
 import sys
@@ -81,7 +89,7 @@ from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine, ShardedStream
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "sshash_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "shard_ab"
-CELLS = ("lookup100m", "regular5m", "handoff", "lowhit")
+CELLS = ("lookup100m", "regular5m", "handoff", "lowhit", "highhit100m")
 # the 1M planted build's heavy and mid buckets (chip_smoke phase 5)
 PLANTED = [100, 150, 200, 300] + [3, 4, 5, 8, 10, 20, 30, 40] * 8
 
@@ -91,7 +99,8 @@ QUEUED = "  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
 GRID_STRIDE = """\
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < p.B; i += 32 * warps) {
     uint32_t key[1];
-    if (shard_owns<V2, 1>(t, p, io, i, 0, key)) shard_lane<W, CANON, V2>(t, p, io, slot, i, key[0]);
+    if (shard_owns<CANON, V2, false, 1>(t, p, io, i, 0, p.B, key))
+      shard_lane<W, CANON, V2, false>(t, p, io, slot, i, key[0]);
   }
   return;
 """
@@ -100,10 +109,10 @@ LAUNCH = """\
   const int threads = shard_threads(p);
   const size_t smem = shard_smem(p, threads);
   int64_t blocks = 0;
-  const cudaError_t err =
-      pass_blocks(shard_probe_kernel<W, CANON, V2>, threads, per_sm, p.B, &blocks, smem);
+  const cudaError_t err = pass_blocks(shard_probe_kernel<W, CANON, V2, RANKS>, threads, per_sm,
+                                      p.B, &blocks, smem);
   if (err != cudaSuccess) return err;
-  shard_probe_kernel<W, CANON, V2><<<(unsigned)blocks, threads, smem, stream>>>(t, p, io);
+  shard_probe_kernel<W, CANON, V2, RANKS><<<(unsigned)blocks, threads, smem, stream>>>(t, p, io);
 """
 SIMPLE_LAUNCH = """\
   const int threads = stage_threads(p);
@@ -119,8 +128,8 @@ __global__ void shard_simple_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
   uint32_t key[1];
-  if (shard_owns<V2, 1>(t, p, io, i, 0, key))
-    shard_lane<W, CANON, V2>(t, p, io, thread_slot(stage, p), i, key[0]);
+  if (shard_owns<CANON, V2, false, 1>(t, p, io, i, 0, p.B, key))
+    shard_lane<W, CANON, V2, false>(t, p, io, thread_slot(stage, p), i, key[0]);
 }
 
 """
@@ -134,14 +143,17 @@ WHOLE = "p->store != kStoreAll || p->slot_lo != 0 || p->slot_hi != (1ll << 32))"
 
 
 def variant_sources():
-    """{side: (directory of its patched sources, the source it builds, its
-    entries)}."""
-    cu, cuh = (CSRC / "probe.cu").read_text(), (CSRC / "probe.cuh").read_text()
+    """{side: (directory of its patched sources, its entries)}: each
+    directory holds probe.cu, probe.cuh and shard.cuh (kernel 2's shard
+    form), patched as the side asks, so that every include resolves to the
+    side's own copy."""
+    names = ("probe.cu", "probe.cuh", "shard.cuh")
+    cu, cuh, sh = ((CSRC / n).read_text() for n in names)
     sides = {
-        "exit": ({"probe.cu": SA.patch(cu, QUEUED, QUEUED + GRID_STRIDE)}, ("sshash_probe",)),
-        "simple": ({"probe.cu": SA.patch(SA.patch(cu, LAUNCH, SIMPLE_LAUNCH), BEFORE_LAUNCH,
-                                         SIMPLE_KERNEL + BEFORE_LAUNCH)}, ("sshash_probe",)),
-        "blocks4": ({"probe.cu": SA.patch(cu, BOUNDS, BOUNDS.replace(": 3)", ": 4)"))},
+        "exit": ({"shard.cuh": SA.patch(sh, QUEUED, QUEUED + GRID_STRIDE)}, ("sshash_probe",)),
+        "simple": ({"shard.cuh": SA.patch(SA.patch(sh, LAUNCH, SIMPLE_LAUNCH), BEFORE_LAUNCH,
+                                          SIMPLE_KERNEL + BEFORE_LAUNCH)}, ("sshash_probe",)),
+        "blocks4": ({"shard.cuh": SA.patch(sh, BOUNDS, BOUNDS.replace(": 3)", ": 4)"))},
                     ("sshash_probe",)),
         "lane": ({"probe.cu": SA.patch(SA.patch(cu, STORE, "  if (L.res.orient != 0) "
                                                 "write_result<V2>(io, p, i, L, orient);\n}\n"),
@@ -153,8 +165,8 @@ def variant_sources():
     for side, (files, entries) in sides.items():
         d = OUT / side
         d.mkdir(parents=True, exist_ok=True)
-        for name, text in files.items():
-            (d / name).write_text(text)
+        for name, text in zip(names, (cu, cuh, sh)):
+            (d / name).write_text(files.get(name, text))
         dirs[side] = (d, entries)
     return dirs
 
@@ -378,30 +390,51 @@ def handoff(a, libs, base, dev, rng, tmp):
     torch.cuda.empty_cache()
 
 
+def stream_sides(tag, base, sides_engines, path, multiline):
+    """The (1, 4) ShardedStream's step on the first chunk of path, this
+    tree's against DIR's: equal counters, each side's launches in one step,
+    then in turns from CUDA graphs."""
+    steps = {}
+    for side, stream_cls, seng in zip(("tree", "baseline"), (ShardedStream,
+                                                             base.parallel.ShardedStream),
+                                      sides_engines):
+        packed, *_, av = SA.first_chunk(lambda e, **kw: stream_cls(e, **kw), seng, path,
+                                        multiline)
+        st = stream_cls(seng, pmax=1 << 22, rmax_shift=12 if multiline else 4)
+        steps[side] = functools.partial(st._steps[(0, av)], None, packed)
+    stats = {}
+    want = steps["tree"](stats)
+    S.require(S.rows_equal(steps["baseline"](), want), f"{tag}: DIR's step != the tree's")
+    for side, kern in (("tree", kernels), ("baseline", base.kernels)):
+        torch.cuda.synchronize()
+        kern.reset_counts()
+        steps[side]()
+        torch.cuda.synchronize()
+        S.log(f"  {tag}: {side} launches in one step "
+              f"{ {n: c for n, c in kern.counts().items() if c} }")
+    S.log(f"  {tag}: chunk 0 misses {int(stats['need'])}, lookup heads {int(stats['heads'])}, "
+          f"round-2 ranks {int(stats['round2'])}; the steps' counters equal")
+    S.time_sides(tag, "the step", 1 << 22, {side: (lambda fn=fn: fn()) for side, fn in
+                                             steps.items()}, unit="lane", graph=tuple(steps))
+
+
 def lowhit(a, libs, base, dev, rng, tmp):
     idx, host = S.build("regular", k=31, m=17, canonical=False, num_strings=S.MAIN_STRINGS,
                         string_len=S.STRING_LEN, seed=40, threads=8)
     path = SA._lowhit_path(idx, rng, tmp)
-    steps = {}
-    for side, stream_cls, seng in zip(("tree", "baseline"), (ShardedStream,
-                                                             base.parallel.ShardedStream),
-                                      engines(idx, host, base, dev)):
-        packed, *_, av = SA.first_chunk(lambda e, **kw: stream_cls(e, **kw), seng, path, False)
-        st = stream_cls(seng, pmax=1 << 22, rmax_shift=4)
-        steps[side] = functools.partial(st._steps[(0, av)], None, packed)
+    stream_sides("low-hit 5M (1, 4) sharded", base, engines(idx, host, base, dev), path, False)
+    torch.cuda.empty_cache()
 
-    def side_step(side):
-        with SA.using(libs[side]):
-            return steps["tree"]()
 
-    for side in ("exit", "simple"):
-        steps[side] = functools.partial(side_step, side)
-    want = steps["tree"]()
-    for side, fn in steps.items():
-        S.require(S.rows_equal(fn(), want), f"sharded low-hit step: {side} != the tree's")
-    S.time_sides("low-hit 5M (1, 4) sharded", "the step", 1 << 22, steps, unit="lane",
-                 graph=tuple(steps))
-    del steps
+def highhit100m(a, libs, base, dev, rng, tmp):
+    idx, host = S.build("canonical", k=31, m=21, canonical=True, num_strings=a.strings,
+                        string_len=S.STRING_LEN, seed=60, threads=8)
+    strings = synthetic.index_strings(idx, rng.choice(idx.num_strings, S.SCALE_STREAM_STRINGS,
+                                                      replace=False))
+    path = os.path.join(tmp, "genome100m.fa")
+    synthetic.write_genome(path, strings, rng)
+    del strings
+    stream_sides("high-hit 100M (1, 4) sharded", base, engines(idx, host, base, dev), path, True)
     torch.cuda.empty_cache()
 
 

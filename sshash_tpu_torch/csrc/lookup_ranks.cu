@@ -49,6 +49,7 @@
 // form is built.
 #include "grid.cuh"
 #include "probe.cuh"
+#include "shard.cuh"
 
 namespace sshash {
 
@@ -172,5 +173,33 @@ extern "C" int sshash_lookup_ranks(const sshash::ProbeTables* t, const sshash::P
       if (walk) return launch_ranks<W, C, true>(*t, *p, *io, cache[1], s);
     }
     return launch_ranks<W, C, false>(*t, *p, *io, cache[0], s);
+  });
+}
+
+// Kernel 2's rank form: its shard form (p->store kStoreOwned or
+// kStorePacked, one shard's ranges, the hand-off's rows in or out in an
+// hindex index) over the ranks below *io->count of the (B, W) kmers (B the
+// stream's P, or its anchors' count); io carries kmers, kernel 1's
+// rank-form minimizers of both strands (minval, minpos, minval_r,
+// minpos_r), active (or null: every rank), count and the fields (owned:
+// the lookup's with p->full, else the ids fields and string_id; packed:
+// the buffer); the RC kmers and minpos2 stay null. v1 rows only.
+extern "C" int sshash_probe_ranks(const sshash::ProbeTables* t, const sshash::ProbeParams* p,
+                                  const sshash::ProbeIO* io, void* stream) {
+  using namespace sshash;
+  static PerDevice per_sm[kMaxFixedW + 1][2];  // by width, mode
+  if (p->B <= 0) return (int)cudaGetLastError();
+  if (bad_params(*t, *p, *io) || p->row_v2 || p->store == kStoreAll || !io->count ||
+      !io->minval || !io->minpos || !io->minval_r || !io->minpos_r || io->kmers_rc ||
+      io->minpos2 || ((io->hrow_out || io->hrow_in) && !(p->has_skew && p->skew_hrows)) ||
+      (io->hrow_out && io->hrow_in) ||
+      (p->store == kStoreOwned && !p->full && !io->string_id) || p->B >= (1ll << 32))
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  return (int)dispatch_probe(*p, [&](auto w, auto c) {
+    constexpr int W = decltype(w)::value;
+    constexpr bool C = decltype(c)::value;
+    return launch_shard<W, C, false, true>(*t, *p, *io,
+                                           per_sm[W <= kMaxFixedW ? W - 1 : kMaxFixedW][C], s);
   });
 }

@@ -26,7 +26,9 @@
 //
 // sshash_lookup_ranks (lookup_ranks.cu): the lookup kernel's lane
 // (lookup_lane) over the ranks below a device count, the stream's missed
-// lanes, writing the stream's fields only.
+// lanes, writing the stream's fields only. sshash_probe_ranks
+// (lookup_ranks.cu, from shard.cuh): kernel 2's shard form over such ranks,
+// for the bucket-sharded stream.
 //
 // Per lane: minimizer -> raw MPHF slot (one pilot read, one seed-row read
 // when partitioned) -> one cw_row read carrying the candidate-0 block (and
@@ -66,7 +68,7 @@
 // after the JAX package's int32 cast, so a lane reads exactly the entries
 // the JAX program reads, for absent and inactive lanes too.
 //
-// Bucket shards (kernel 2's shard form, probe.cu shard_probe_kernel;
+// Bucket shards (kernel 2's shard form, shard.cuh shard_probe_kernel;
 // sshash_tpu/parallel/sharded.py _branchfree_lookup, the owner masks of
 // engine.py:778-784 and :904-911): a shard holds the rows of MPHF slots
 // [slot_lo, slot_hi), its own mid and legacy heavy rows (cw_a local), and
@@ -129,13 +131,15 @@ struct ProbeParams {
   int64_t slot_lo, slot_hi, hrow_lo, hrow_hi;  // this shard's slots and sk_hrows rows
   int64_t store;     // StoreMode: every lane, or the shard form's owned or packed stores
   int64_t fill;      // kStoreOwned: this launch also stores the inactive lanes
-  int64_t rc_round;  // kStoreOwned: the regular mode's RC round, merged in place
+  int64_t rc_round;  // the regular mode's RC round: kStoreOwned merges it in place;
+                     // the rank form's kStorePacked probes the RC strand
   uint64_t mphf_seedmix;
   uint64_t magic;  // the minimizer hash's (the lookup kernel's kernel-1 work)
 };
 
 // The lookup kernel reads kmers and active only; the rank-space lookup
-// (lookup_ranks.cu) kmers, both strands' minimizers, active and count.
+// (lookup_ranks.cu) and kernel 2's rank form (shard.cuh) kmers, both
+// strands' minimizers, active and count.
 struct ProbeIO {
   const uint32_t* kmers;     // (B, W)
   const uint32_t* kmers_rc;  // (B, W), canonical only
@@ -154,8 +158,9 @@ struct ProbeIO {
   uint32_t* string_end;
   uint32_t* hrow_out;       // (B,) or null: hand the heavy lanes' rows on
   const uint32_t* hrow_in;  // (B,) or null: verify the handed rows held here
-  // the rank-space lookup (lookup_ranks.cu) only, null elsewhere: the
-  // device count, and the RC strand's minimizers beside minval / minpos
+  // the rank-space lookup (lookup_ranks.cu) and kernel 2's rank form only,
+  // null elsewhere: the device count, and the RC strand's minimizers beside
+  // minval / minpos
   const int32_t* count;
   const uint64_t* minval_r;
   const int32_t* minpos_r;
@@ -402,8 +407,11 @@ __device__ __forceinline__ Fields lane_fields(const ProbeParams& p, const Lane& 
 // The result fields of lane i (minimizer_found only with mf). V2: rebased
 // rows (ids only); v1 rows write the string fields too when p.full (a
 // uniform branch, so the two field forms share one instantiation and the
-// build stays short).
-template <bool V2>
+// build stays short). SID (kernel 2's rank form, shard.cuh): the ids
+// fields' form also writes string_id where io.string_id is given (the
+// stream's fields); the other kernels leave it out at compile time, so
+// their ids form keeps no string id in registers.
+template <bool V2, bool SID = false>
 __device__ __forceinline__ void write_result(const ProbeIO& io, const ProbeParams& p, int64_t i,
                                              const Lane& L, int32_t orient, bool mf = true) {
   const bool FULL = !V2 && p.full;
@@ -418,6 +426,8 @@ __device__ __forceinline__ void write_result(const ProbeIO& io, const ProbeParam
     io.string_begin[i] = f.begin;
     io.string_end[i] = f.end;
     io.kmer_id_in_string[i] = f.kis;
+  } else if (SID && !V2 && io.string_id) {
+    io.string_id[i] = f.sid;
   }
 }
 
@@ -513,7 +523,8 @@ inline bool bad_params(const ProbeTables& t, const ProbeParams& p, const ProbeIO
          (p.full && !io.kmer_offset && !io.packed) || (p.full && p.row_v2) ||
          p.store < kStoreAll || p.store > kStorePacked || (p.store == kStorePacked) != !!io.packed ||
          (p.store != kStorePacked && (!io.kmer_id || !io.found || !io.minimizer_found)) ||
-         ((p.fill || p.rc_round) && p.store != kStoreOwned) || (p.rc_round && p.canonical) ||
+         (p.fill && p.store != kStoreOwned) || (p.rc_round && p.store == kStoreAll) ||
+         (p.rc_round && p.canonical) ||
          ((io.slot_out || io.slot_in) && (p.store != kStoreOwned || io.hrow_in)) ||
          (io.slot_out && io.slot_in) ||
          p.blk_w != 1 + p.vbits_words + p.win_words + (p.row_v2 ? 3 : 4) ||

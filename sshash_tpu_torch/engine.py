@@ -28,12 +28,14 @@ the fold or the RC retry, and the probe, per thread, in csrc/probe.cu),
 whose plain version `lookup_plain` is the two-kernel form over the plain
 versions. The stream's missed lanes run the lookup kernel's lane in rank
 space, up to their count on the device (`lookup_ranks`,
-csrc/lookup_ranks.cu). The bucket-sharded engine and its stream keep
-kernel 1 and kernel 2 as separate launches: on a LocalMesh kernel 1 once
-a data row, then kernel 2's shard form on each shard, storing the lanes
-it owns into the row's shared result tensors (`probe` given a shard and
-`out`; parallel/sharded.py), on a DistMesh the two-kernel form
-(make_lookup) over kernel 2's packed form and a collective.
+csrc/lookup_ranks.cu). The bucket-sharded engine keeps kernel 1 and
+kernel 2 as separate launches: on a LocalMesh kernel 1 once a data row,
+then kernel 2's shard form on each shard, storing the lanes it owns into
+the row's shared result tensors (`probe` given a shard and `out`;
+parallel/sharded.py), on a DistMesh the two-kernel form (make_lookup)
+over kernel 2's packed form and a collective. Its stream's anchors and
+missed lanes run kernel 1's rank form and the shard form's rank form
+(`probe_ranks`), up to a count on the device.
 
 The plain versions here (`probe_plain` and its helpers) hold u32 values in
 int64 tensors and run on any device; `probe` sends CPU tensors to them and
@@ -67,8 +69,9 @@ from . import debug, kernels
 from . import kmer as K
 from .constants import BACKWARD_ORIENTATION, FORWARD_ORIENTATION, INVALID_UINT64
 from .layout import (SKEW_PARAMS, TABLE_GROUPS, StaticCfg, acc_windowed, cand_block_width,
-                     check_access, check_fields, check_probe_shard, device_arrays, row_width,
-                     tables_from_host, take_rows, with_access_tables)
+                     check_access, check_fields, check_probe_shard, check_rank_probe,
+                     device_arrays, row_width, tables_from_host, take_rows,
+                     with_access_tables)
 from .ops import packed as P
 from .ops import u64 as u
 from .ops.u64 import M32
@@ -444,9 +447,28 @@ def canonical_fold(mv_f, mp_f, mv_r, mp_r):
             torch.where(mv_r == mv_f, mp_r, mp1))
 
 
+def rc_misses(res, active):
+    """The lanes the regular mode's RC round probes: the active ones the
+    forward round left unfound."""
+    return ~res["found"] if active is None else active & ~res["found"]
+
+
+def merge_rc(res, res2, miss):
+    """The regular mode's forward round res and RC round res2 (over the
+    lanes miss) merged as engine._merge of the JAX package: a lane of miss
+    reports BACKWARD whether or not the RC probe finds it, ORs
+    minimizer_found over both probes and takes the RC hit's fields."""
+    merged = _merge(res, res2, miss & res2["found"], miss)
+    merged["minimizer_found"] = torch.where(
+        miss, res["minimizer_found"] | res2["minimizer_found"], res["minimizer_found"])
+    merged["kmer_orientation"] = torch.where(
+        miss, BACKWARD_ORIENTATION, merged["kmer_orientation"]).to(torch.int32)
+    return merged
+
+
 def _lookup_two_kernels(cfg, tables, kmers32, mins, active, fields, minimizer, probe):
-    """Kernel 1 (or mins), the canonical fold or the regular mode's RC
-    retry with _merge, and kernel 2, as separate calls."""
+    """Kernel 1 (or mins, its five outputs), the canonical fold or the
+    regular mode's RC retry with _merge, and kernel 2, as separate calls."""
     if mins is None:
         mins = minimizer(kmers32, cfg.k, cfg.m, cfg.magic, both=True)
     mv_f, mp_f, kmers_rc32, mv_r, mp_r = mins
@@ -454,14 +476,9 @@ def _lookup_two_kernels(cfg, tables, kmers32, mins, active, fields, minimizer, p
         mv1, mp1, mp2 = canonical_fold(mv_f, mp_f, mv_r, mp_r)
         return probe(cfg, tables, kmers32, kmers_rc32, mv1, mp1, mp2, active, fields)
     res = probe(cfg, tables, kmers32, None, mv_f, mp_f, None, active, fields)
-    miss = ~res["found"] if active is None else active & ~res["found"]
-    res2 = probe(cfg, tables, kmers_rc32, None, mv_r, mp_r, None, miss, fields)
-    merged = _merge(res, res2, miss & res2["found"], miss)
-    merged["minimizer_found"] = torch.where(
-        miss, res["minimizer_found"] | res2["minimizer_found"], res["minimizer_found"])
-    merged["kmer_orientation"] = torch.where(
-        miss, BACKWARD_ORIENTATION, merged["kmer_orientation"]).to(torch.int32)
-    return merged
+    miss = rc_misses(res, active)
+    return merge_rc(res, probe(cfg, tables, kmers_rc32, None, mv_r, mp_r, None, miss, fields),
+                    miss)
 
 
 def lookup_plain(cfg, tables, kmers32, active=None, fields="full"):
@@ -511,32 +528,62 @@ lookup_ranks = kernels.by_device(kernels.lookup_ranks_kernel, lookup_ranks_plain
                                  "lookup-ranks", arg=2)
 
 
+def probe_ranks_plain(cfg, tables, kmers32, mins, active, count, fields, shard, out, fill=False,
+                      rc_round=False, slots=None, hrows=None):
+    """Plain version of kernel 2's rank form (csrc/shard.cuh, entry
+    sshash_probe_ranks), same contract as kernels.probe_ranks_kernel: the
+    shard form's masked owned (or packed) lookup through probe_plain,
+    limited to the ranks below count (int32 (1,), read on the host here) of
+    the (P, W) int32 kmers, from kernel 1's rank-form minimizers mins =
+    (mv_f, mp_f, mv_r, mp_r): the canonical fold with the RC kmers, or the
+    forward strand, or with rc_round the RC kmers and strand. Stores into
+    out (views of its first count ranks) and returns it; the ranks past the
+    count are left as they are."""
+    handoff, packed = check_rank_probe(cfg, fields, shard, hrows, out, fill, rc_round, slots)
+    n = min(max(int(count[0]), 0), kmers32.shape[0])
+    km = kmers32[:n]
+    mv_f, mp_f, mv_r, mp_r = (t[:n] for t in mins)
+    if cfg.canonical:
+        args = (km, u.to_i32(P.revcomp_kmers(u.u32(km), cfg.k)),
+                *canonical_fold(mv_f, mp_f, mv_r, mp_r))
+    elif rc_round:
+        args = (u.to_i32(P.revcomp_kmers(u.u32(km), cfg.k)), None, mv_r, mp_r, None)
+    else:
+        args = (km, None, mv_f, mp_f, None)
+    view = {key: v[:, :n] if key == "packed" else v[:n] for key, v in out.items()}
+    probe_plain(cfg, tables, *args, None if active is None else active[:n], "full", shard,
+                None if hrows is None else hrows[:n], view, fill, rc_round and not packed, slots)
+    return out
+
+
+probe_ranks = kernels.by_device(kernels.probe_ranks_kernel, probe_ranks_plain, "probe-ranks",
+                                arg=2)
+
+
 def make_lookup(cfg, fields="full", minimizer=None, probe=None):
     """Batched lookup over (B, W) int32 kmers (src/dictionary.cpp:58-78
     semantics). fields="ids" returns only kmer_id / kmer_orientation /
     minimizer_found (the reference's plain lookup()). v2 rows serve
     fields="ids" only.
 
-    fn(tables, kmers32, mins=None, active=None): mins are kernel 1's five
-    outputs for these kmers where the caller has them; active (bool) limits
-    the probes to those lanes, the others report not found.
+    fn(tables, kmers32, active=None): active (bool) limits the probes to
+    those lanes, the others report not found.
 
-    With minimizer and probe left None and no mins, a call is one `lookup`
-    (one launch of the lookup kernel on a CUDA tensor, lookup_plain on a
-    CPU one). Otherwise it is the two-kernel form: `minimizer` (default the
-    kernel 1 entry) unless mins are given, the fold or the RC retry, and
-    `probe` (default the kernel 2 entry): the bucket-sharded stream passes
-    mins, the sharded engine its own probe, and passing the plain versions runs the
-    same lookup without kernels on any device."""
+    With minimizer and probe left None, a call is one `lookup` (one launch
+    of the lookup kernel on a CUDA tensor, lookup_plain on a CPU one).
+    Otherwise it is the two-kernel form: `minimizer` (default the kernel 1
+    entry), the fold or the RC retry, and `probe` (default the kernel 2
+    entry): the sharded engine passes its own probe, and passing the plain
+    versions runs the same lookup without kernels on any device."""
     check_fields(cfg, fields)
     one_launch = minimizer is None and probe is None
     minimizer = minimizer or P.minimizer
     probe = probe or _probe_entry
 
-    def fn(tables, kmers32, mins=None, active=None):
-        if one_launch and mins is None:
+    def fn(tables, kmers32, active=None):
+        if one_launch:
             return lookup(cfg, tables, kmers32, active, fields)
-        return _lookup_two_kernels(cfg, tables, kmers32, mins, active, fields, minimizer, probe)
+        return _lookup_two_kernels(cfg, tables, kmers32, None, active, fields, minimizer, probe)
 
     return fn
 

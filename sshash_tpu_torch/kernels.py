@@ -3,11 +3,12 @@
 Fourteen CUDA sources: probe carries lookup, as one launch of the lookup
 kernel (kernel 1's minimizers, the canonical fold or the RC retry, and the
 probe, per thread) and kernel 2 alone, over the whole table or in its
-shard form, which the bucket-sharded engine and its stream call after
-minimizer (kernel 1); lookup_ranks the lookup kernel's lane over the
-stream's missed lanes in rank space, up to their count on the device,
-after minimizer's rank form; access, iterator, weight and neighbours the
-other point queries; scan, stream_anchor, stream_chain and stream_derive
+shard form, which the bucket-sharded engine calls after minimizer (kernel
+1); lookup_ranks the lookup kernel's lane over the stream's missed lanes
+in rank space, up to their count on the device, after minimizer's rank
+form, and kernel 2's rank form (its shard form over such ranks, shared
+with probe in shard.cuh), which the bucket-sharded stream calls; access,
+iterator, weight and neighbours the other point queries; scan, stream_anchor, stream_chain and stream_derive
 the stream step; check the sanitizer's postconditions (debug.py);
 read_at2 the read over the interleaved (NW, 2) table
 (ops/packed.read_kmers_at2); combine the elementwise reductions of a
@@ -36,7 +37,7 @@ synchronising, raises if the launch returned a CUDA error, and adds one to
 its `launches` count. The wrappers take CUDA tensors only; each entry
 point (ops/packed.minimizer, .minimizer_ranks, .neighbour_variants,
 .scan_ex, .compact and .read_kmers_at2; engine.lookup, .lookup_ranks,
-.probe, .access, .access_read, .iterate and .weight;
+.probe, .probe_ranks, .access, .access_read, .iterate and .weight;
 streaming.stream_anchors, .stream_kmers, .stream_chain, .stream_swin,
 .stream_heads, .stream_round2, .stream_merge and .stream_count;
 debug.check; parallel.mesh.combine) is made by `by_device`, which
@@ -63,15 +64,15 @@ from pathlib import Path
 import torch
 
 from .layout import (WHOLE_TABLE, AccessShard, acc_width, acc_win_words, acc_windowed,
-                     cand_block_width, check_access, check_fields, check_probe_shard, packed_rows,
-                     row_width)
+                     cand_block_width, check_access, check_fields, check_probe_shard,
+                     check_rank_probe, packed_rows, row_width)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("minimizer.cu", "probe.cu", "lookup_ranks.cu", "access.cu", "iterator.cu",
            "weight.cu", "neighbours.cu", "scan.cu", "stream_anchor.cu", "stream_chain.cu",
            "stream_derive.cu", "check.cu", "read_at2.cu", "combine.cu")
-HEADERS = ("grid.cuh", "minimizer.cuh", "packed.cuh", "probe.cuh", "scan.cuh", "stage.cuh",
-           "tables.cuh", "u64.cuh")
+HEADERS = ("grid.cuh", "minimizer.cuh", "packed.cuh", "probe.cuh", "scan.cuh", "shard.cuh",
+           "stage.cuh", "tables.cuh", "u64.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "sshash_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -218,6 +219,8 @@ def library():
         lib.sshash_lookup.restype = ctypes.c_int
         lib.sshash_lookup_ranks.argtypes = lib.sshash_probe.argtypes
         lib.sshash_lookup_ranks.restype = ctypes.c_int
+        lib.sshash_probe_ranks.argtypes = lib.sshash_probe.argtypes
+        lib.sshash_probe_ranks.restype = ctypes.c_int
         lib.sshash_probe_occupancy.argtypes = [ctypes.POINTER(ProbeParams), i64,
                                                ctypes.POINTER(ctypes.c_int),
                                                ctypes.POINTER(ctypes.c_int)]
@@ -436,9 +439,13 @@ def _probe_launch(cfg, tables, kmers32, active, fields, shard=None, store=0, fil
 
 
 def result_dtypes(fields):
-    """Kernel 2's and the lookup kernel's result fields and their dtypes."""
+    """Kernel 2's and the lookup kernel's result fields and their dtypes
+    ("full" or "ids"; "stream": the stream's fields, STREAM_FIELDS, of the
+    rank forms)."""
     out = {"kmer_id": torch.int32, "kmer_orientation": torch.int32,
            "minimizer_found": torch.bool, "found": torch.bool}
+    if fields == "stream":
+        out["string_id"] = torch.int32
     if fields == "full":
         out.update((name, torch.int32) for name in ("kmer_id_in_string", "kmer_offset",
                                                      "string_id", "string_begin", "string_end"))
@@ -471,6 +478,32 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _shard_io(res, fields, B, dev, handoff, packed, hrows, slots):
+    """Kernel 2's output checks, in every form (the result tensors of
+    fields, or the packed buffer; the hand-off's rows out or hrows in; the
+    lanes' slots), and the ProbeIO fields that point at them."""
+    if packed:
+        _check(res["packed"], "packed", torch.int32, (packed_rows(fields), B))
+    else:
+        for name, dt in result_dtypes(fields).items():
+            _check(res[name], name, dt, (B,))
+    if hrows is not None:
+        _check(hrows, "hrows", torch.int32, (B,))
+    elif handoff:
+        _check(res["hrow"], "hrow", torch.int32, (B,))
+    if slots:
+        _check(res["slot"], "slot", torch.int32, (B,))
+    for name, t in res.items():
+        if t.device != dev:
+            raise ValueError(f"out[{name!r}] is on {t.device}, queries on {dev}")
+    io = {} if packed else {n: res[n].data_ptr() for n in result_dtypes(fields)}
+    io.update(hrow=_ptr(res.get("hrow")) if handoff and hrows is None else None,
+              hrow_in=_ptr(hrows), packed=_ptr(res.get("packed")),
+              slot_out=_ptr(res["slot"]) if slots == "store" else None,
+              slot_in=_ptr(res["slot"]) if slots == "read" else None)
+    return io
+
+
 def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
                  active=None, fields="full", shard=None, hrows=None, out=None, fill=False,
                  rc_round=False, slots=None):
@@ -498,29 +531,10 @@ def probe_kernel(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
     _check(minpos, "minpos", torch.int32, (B,))
     if minpos2 is not None:
         _check(minpos2, "minpos2", torch.int32, (B,))
-    if hrows is not None:
-        _check(hrows, "hrows", torch.int32, (B,))
     res = new if out is None else out
-    if packed:
-        _check(out["packed"], "packed", torch.int32, (packed_rows(fields), B))
-    elif out is not None:
-        for name, dt in result_dtypes(fields).items():
-            _check(out[name], name, dt, (B,))
-    if handoff and hrows is None:
-        _check(res["hrow"], "hrow", torch.int32, (B,))
-    if slots:
-        _check(res["slot"], "slot", torch.int32, (B,))
-    for name, t in res.items():
-        if t.device != dev:
-            raise ValueError(f"out[{name!r}] is on {t.device}, queries on {dev}")
-    fields_out = {} if packed else res
-    io = ProbeIO(kmers32.data_ptr(), _ptr(kmers_rc32), minval.data_ptr(),
-                 minpos.data_ptr(), _ptr(minpos2), _ptr(active),
-                 *(_ptr(fields_out.get(n)) for n in _OUT_NAMES[:-1]),
-                 _ptr(res.get("hrow")) if handoff and hrows is None else None, _ptr(hrows),
-                 packed=_ptr(res.get("packed")),
-                 slot_out=_ptr(res["slot"]) if slots == "store" else None,
-                 slot_in=_ptr(res["slot"]) if slots == "read" else None)
+    io = ProbeIO(kmers=kmers32.data_ptr(), kmers_rc=_ptr(kmers_rc32), minval=minval.data_ptr(),
+                 minpos=minpos.data_ptr(), minpos2=_ptr(minpos2), active=_ptr(active),
+                 **_shard_io(res, fields, B, dev, handoff, packed, hrows, slots))
     err = library().sshash_probe(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
                                  _stream(dev))
     _raise_on(err, "probe_kernel")
@@ -586,6 +600,46 @@ def lookup_ranks_kernel(cfg, tables, kmers32, mins, active, count):
 
 
 lookup_ranks_kernel.launches = 0
+
+
+def probe_ranks_kernel(cfg, tables, kmers32, mins, active, count, fields, shard, out, fill=False,
+                       rc_round=False, slots=None, hrows=None):
+    """Kernel 2's rank form (csrc/lookup_ranks.cu sshash_probe_ranks, the
+    kernel in csrc/shard.cuh): its shard
+    form over the ranks below the int32 (1,) device count of (P, W) int32
+    kmers compacted in rank order (the bucket-sharded stream's missed lanes,
+    or its anchors), from kernel 1's rank-form minimizers mins = (mv_f,
+    mp_f, mv_r, mp_r): the canonical fold, or in regular mode the forward
+    strand, or with rc_round the RC strand (the RC kmer formed in the
+    thread). active: bool (P,) or None (every rank below the count). Stores
+    into out as the shard form does (layout.check_rank_probe has the forms):
+    the owned form's result tensors (fields "full", or "stream", the
+    stream's five), or {"packed": (packed_rows("full"), P)}, where rc_round
+    probes the RC strand and the merge follows the combine. Ranks at or
+    past the count are not written, nor hrows and out["slot"] read there.
+    v1 rows only. Same contract as engine.probe_ranks_plain."""
+    handoff, packed = check_rank_probe(cfg, fields, shard, hrows, out, fill, rc_round, slots)
+    store = STORE_PACKED if packed else STORE_OWNED
+    B, dev, tab, prm, _ = _probe_launch(cfg, tables, kmers32, active, "ids", shard, store, fill,
+                                        rc_round)
+    prm.full = int(fields == "full")
+    if B >= 1 << 32:
+        raise ValueError(f"kernel 2 takes fewer than 2^32 lanes, got {B}")
+    _scalar(count, "count")
+    for t, name, dt in zip(mins, ("mv_f", "mp_f", "mv_r", "mp_r"), _RANK_MINS):
+        _check(t, name, dt, (B,))
+    io = ProbeIO(kmers=kmers32.data_ptr(), active=_ptr(active), count=count.data_ptr(),
+                 **dict(zip(("minval", "minpos", "minval_r", "minpos_r"),
+                            (t.data_ptr() for t in mins))),
+                 **_shard_io(out, fields, B, dev, handoff, packed, hrows, slots))
+    err = library().sshash_probe_ranks(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
+                                       _stream(dev))
+    _raise_on(err, "probe_ranks_kernel")
+    probe_ranks_kernel.launches += 1
+    return out
+
+
+probe_ranks_kernel.launches = 0
 
 
 def probe_occupancy(cfg, lookup=True):
@@ -1143,15 +1197,15 @@ combine_kernel.launches = 0
 
 
 KERNELS = (minimizer_kernel, minimizer_ranks_kernel, probe_kernel, lookup_kernel,
-           lookup_ranks_kernel, access_kernel, access_read_kernel, iterate_kernel,
-           weight_kernel, neighbours_kernel, scan_kernel, compact_kernel, stream_anchors_kernel,
-           stream_kmers_kernel, stream_chain_kernel, stream_swin_kernel, stream_heads_kernel,
-           stream_round2_kernel, stream_merge_kernel, stream_count_kernel, check_kernel,
-           read_at2_kernel, combine_kernel)
+           probe_ranks_kernel, lookup_ranks_kernel, access_kernel, access_read_kernel,
+           iterate_kernel, weight_kernel, neighbours_kernel, scan_kernel, compact_kernel,
+           stream_anchors_kernel, stream_kmers_kernel, stream_chain_kernel, stream_swin_kernel,
+           stream_heads_kernel, stream_round2_kernel, stream_merge_kernel, stream_count_kernel,
+           check_kernel, read_at2_kernel, combine_kernel)
 # the wrappers of each CUDA source
 SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel", "minimizer_ranks_kernel"),
                   "probe.cu": ("probe_kernel", "lookup_kernel"),
-                  "lookup_ranks.cu": ("lookup_ranks_kernel",),
+                  "lookup_ranks.cu": ("lookup_ranks_kernel", "probe_ranks_kernel"),
                   "access.cu": ("access_kernel", "access_read_kernel"),
                   "iterator.cu": ("iterate_kernel",),
                   "weight.cu": ("weight_kernel",), "neighbours.cu": ("neighbours_kernel",),

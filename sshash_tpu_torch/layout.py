@@ -131,6 +131,27 @@ def check_probe_shard(cfg, shard, hrows, out=None, fill=False, rc_round=False, s
     return handoff, packed
 
 
+def check_rank_probe(cfg, fields, shard, hrows, out, fill=False, rc_round=False, slots=None):
+    """Kernel 2's rank form (the bucket-sharded stream's): its shard form's
+    call forms (check_probe_shard) on v1 rows, with fields "full" (the
+    anchors' lookup) or "stream" (the misses': kmer_id, kmer_orientation,
+    minimizer_found, found and string_id), "full" in the packed form, where
+    rc_round (regular mode) probes the RC strand and the merge follows the
+    combine. Returns (handoff, packed)."""
+    if cfg.row_v2:
+        raise ValueError("kernel 2's rank form serves v1 rows (streaming) only")
+    if fields not in ("full", "stream"):
+        raise ValueError(f"the rank form's fields are 'full' or 'stream', got {fields!r}")
+    if shard is None:
+        raise ValueError("kernel 2's rank form is its shard form: pass a shard")
+    packed = out is not None and "packed" in out
+    if packed and fields != "full":
+        raise ValueError("the rank form's packed buffer carries the full fields")
+    if rc_round and cfg.canonical:
+        raise ValueError("rc_round is the regular mode's RC round")
+    return check_probe_shard(cfg, shard, hrows, out, fill, rc_round and not packed, slots)
+
+
 class AccessShard(NamedTuple):
     """One bucket shard's part of the access tables: the acc_rows rows of
     id blocks [blk_lo, blk_hi) and the strings32 words [word_lo, word_hi)

@@ -29,6 +29,11 @@ buffer in the combine's order (the identity where another rank owns the
 lane), the hand-off's row and the buffer each take one all_reduce MIN,
 and the regular mode's two rounds merge as engine._merge does.
 
+ShardedStream's lookups (its anchors' and both rounds over its missed
+lanes) run in rank space, up to a count on the device, as the unsharded
+stream's do: kernel 1's rank form, then kernel 2's rank form
+(engine.probe_ranks) on each shard, in the same owned or packed form.
+
 The other answers combine over the bucket axis (mesh.py; on a LocalMesh
 one launch of the combine kernel): the access's kmers, the weights and
 the string windows by unsigned max, the two-round access's char offsets
@@ -43,14 +48,14 @@ import torch
 
 from .. import kmer as K
 from ..engine import (_neighbours_to_host, _to_host_result, access, access_read,
-                      canonical_fold, make_lookup, make_neighbours, probe, unpack_result,
-                      weight)
+                      canonical_fold, make_lookup, make_neighbours, merge_rc, probe,
+                      probe_ranks, rc_misses, unpack_result, weight)
 from ..kernels import result_dtypes
 from ..layout import (AccessShard, ProbeShard, StaticCfg, device_arrays, packed_rows,
                       row_width, tables_from_host, with_access_tables)
 from ..ops import packed as P
-from ..streaming import (_bits, _DeviceStream, check_streamable, make_stream_step, stream_count,
-                         stream_swin)
+from ..streaming import (KERNEL_OPS, _bits, _DeviceStream, check_streamable, make_stream_step,
+                         stream_count, stream_swin)
 from .mesh import LocalMesh
 
 REPORT_KEYS = ("num_kmers", "num_positive_kmers", "num_extensions", "num_searches",
@@ -230,6 +235,7 @@ class ShardedEngine:
         self.fields = "ids" if self.cfg.row_v2 else "full"
         self._lookups = {}
         self._neighbours = {}
+        self._counts = {}
 
     # ---------------------------------------------------------------- helpers
 
@@ -277,21 +283,20 @@ class ShardedEngine:
             probe(*args, active, fields, shard, hrows=hrow, out=out)
         return unpack_result(self.mesh.pmin({s: out["packed"]}, "bucket")[s], fields)
 
-    def _probe_pass(self, row, out, args, active, fields, rc_round=False):
-        """One lookup round on a LocalMesh: kernel 2's shard form on every
-        shard of data row `row`, each storing into out the lanes it owns
-        (the first shard also the inactive lanes, in the first round; it
-        stores each lane's MPHF slot, which the others read), then in an
-        hindex index the hand-off's second pass."""
+    def _probe_pass(self, row, out, call, rc_round=False):
+        """One lookup round on a LocalMesh: kernel 2's shard form (or its
+        rank form) on every shard of data row `row`, call(j, **kw) on shard
+        j, each storing into out the lanes it owns (the first shard also the
+        inactive lanes, in the first round; it stores each lane's MPHF slot,
+        which the others read), then in an hindex index the hand-off's
+        second pass."""
         shards = self._row_shards(row)
         for n, s in enumerate(shards):
-            probe(self.cfg, self.tables[s[1]], *args, active, fields, self.probe_shards[s[1]],
-                  out=out, fill=n == 0 and not rc_round, rc_round=rc_round,
-                  slots=None if len(shards) == 1 else "read" if n else "store")
+            call(s[1], out=out, fill=n == 0 and not rc_round, rc_round=rc_round,
+                 slots=None if len(shards) == 1 else "read" if n else "store")
         if self.handoff:
             for s in shards:
-                probe(self.cfg, self.tables[s[1]], *args, active, fields,
-                      self.probe_shards[s[1]], hrows=out["hrow"], out=out, rc_round=rc_round)
+                call(s[1], hrows=out["hrow"], out=out, rc_round=rc_round)
 
     def _result_tensors(self, B, fields):
         """A LocalMesh lookup's result tensors, uninitialised: every lane is
@@ -304,28 +309,116 @@ class ShardedEngine:
         return out
 
     def _owned_lookup(self, row, fields):
-        """make_lookup's fn(tables, kmers32, mins=None, active=None) for
-        data row `row` of a LocalMesh: kernel 1 (unless mins are given) over
-        the row's lanes, the canonical fold or the regular mode's two
-        rounds, each lane's fields stored once by its owner into one set of
-        result tensors."""
+        """make_lookup's fn(tables, kmers32, active=None) for data row `row`
+        of a LocalMesh: kernel 1 over the row's lanes, the canonical fold or
+        the regular mode's two rounds, each lane's fields stored once by its
+        owner into one set of result tensors."""
         cfg = self.cfg
 
-        def fn(tables, kmers32, mins=None, active=None):
-            if mins is None:
-                mins = P.minimizer(kmers32, cfg.k, cfg.m, cfg.magic, both=True)
-            mv_f, mp_f, rc, mv_r, mp_r = mins
+        def fn(tables, kmers32, active=None):
+            mv_f, mp_f, rc, mv_r, mp_r = P.minimizer(kmers32, cfg.k, cfg.m, cfg.magic, both=True)
             out = self._result_tensors(kmers32.shape[0], fields)
+
+            def shard_probe(args):
+                return lambda j, **kw: probe(cfg, self.tables[j], *args, active, fields,
+                                             self.probe_shards[j], **kw)
+
             if cfg.canonical:
-                self._probe_pass(row, out, (kmers32, rc, *canonical_fold(mv_f, mp_f, mv_r, mp_r)),
-                                 active, fields)
+                self._probe_pass(row, out, shard_probe(
+                    (kmers32, rc, *canonical_fold(mv_f, mp_f, mv_r, mp_r))))
             else:
-                self._probe_pass(row, out, (kmers32, None, mv_f, mp_f, None), active, fields)
-                self._probe_pass(row, out, (rc, None, mv_r, mp_r, None), active, fields,
+                self._probe_pass(row, out, shard_probe((kmers32, None, mv_f, mp_f, None)))
+                self._probe_pass(row, out, shard_probe((rc, None, mv_r, mp_r, None)),
                                  rc_round=True)
             out.pop("hrow", None)
             out.pop("slot", None)
             return out
+
+        return fn
+
+    def _owned_ranks(self, row, fields):
+        """The rank-space lookup of data row `row` on a LocalMesh:
+        kernel 2's rank form on each shard of the row, the owned stores of
+        _owned_lookup over the ranks below the count."""
+
+        def fn(cfg, tables, kmers32, mins, active, count):
+            out = self._result_tensors(kmers32.shape[0], fields)
+
+            def call(j, **kw):
+                probe_ranks(cfg, self.tables[j], kmers32, mins, active, count, fields,
+                            self.probe_shards[j], **kw)
+
+            self._probe_pass(row, out, call)
+            if not cfg.canonical:
+                self._probe_pass(row, out, call, rc_round=True)
+            out.pop("hrow", None)
+            out.pop("slot", None)
+            return out
+
+        return fn
+
+    def _packed_ranks(self, row, fields):
+        """The rank-space lookup of data row `row` on a DistMesh: kernel
+        2's rank form on this rank's shard into one packed (F, P) buffer;
+        the hand-off's rows and the buffer each take one all_reduce MIN,
+        whose sizes stay P's whatever the count (the ranks at or past it
+        are left unwritten, so they combine to values that nothing after
+        the combine reads); in regular mode the RC round follows, merged as
+        engine.merge_rc. No host read of the count."""
+        (s,) = self._row_shards(row)
+        tables, shard = self.tables[s[1]], self.probe_shards[s[1]]
+
+        def one_round(kmers32, mins, active, count, rc_round):
+            B = kmers32.shape[0]
+            out = {"packed": torch.empty((packed_rows("full"), B), dtype=torch.int32,
+                                         device=self.device)}
+            if self.handoff:
+                out["hrow"] = torch.empty(B, dtype=torch.int32, device=self.device)
+            call = functools.partial(probe_ranks, self.cfg, tables, kmers32, mins, active, count,
+                                     "full", shard, rc_round=rc_round)
+            call(out)
+            if self.handoff:
+                call(out, hrows=self.mesh.pmin({s: out.pop("hrow")}, "bucket", unsigned=True)[s])
+            return unpack_result(self.mesh.pmin({s: out["packed"]}, "bucket")[s], "full")
+
+        def fn(cfg, tables_, kmers32, mins, active, count):
+            res = one_round(kmers32, mins, active, count, False)
+            if not cfg.canonical:
+                miss = rc_misses(res, active)
+                res = merge_rc(res, one_round(kmers32, mins, miss, count, True), miss)
+            return {key: res[key] for key in result_dtypes(fields)}
+
+        return fn
+
+    def _ranks_fn(self, row, fields):
+        """engine.lookup_ranks's fn(cfg, tables, kmers32, mins, active,
+        count) for data row `row` (tables unused): kernel 2's rank form on
+        its shards, the ranks below the device count looked up where active
+        (every rank with active None) from kernel 1's rank-form minimizers,
+        the others below it not found; fields "stream" (the stream's five)
+        or "full". The ranks at or past the count are left unwritten."""
+        key = ("ranks", row, fields)
+        if key not in self._lookups:
+            make = self._owned_ranks if isinstance(self.mesh, LocalMesh) else self._packed_ranks
+            self._lookups[key] = make(row, fields)
+        return self._lookups[key]
+
+    def _count(self, n):
+        """A device count of n (int32 (1,)), made once for each n."""
+        if n not in self._counts:
+            self._counts[n] = torch.full((1,), n, dtype=torch.int32, device=self.device)
+        return self._counts[n]
+
+    def _anchor_lookup(self, row):
+        """fn(tables, kmers32), the full lookup of every lane of data row
+        `row` in rank space (ShardedStream's anchors): kernel 1's rank form
+        and kernel 2's rank form up to a device count of every lane."""
+        cfg, ranks = self.cfg, self._ranks_fn(row, "full")
+
+        def fn(tables, kmers32):
+            count = self._count(kmers32.shape[0])
+            mins = P.minimizer_ranks(kmers32, count, cfg.k, cfg.m, cfg.magic)
+            return ranks(cfg, tables, kmers32, mins, None, count)
 
         return fn
 
@@ -570,13 +663,19 @@ class ShardedStream(_DeviceStream):
         super().__init__(engine, engine.index.k, pmax=pmax, rmax_shift=rmax_shift,
                          runskip=runskip)
 
-    def _make_steps(self, runskip):
+    def step(self, row, all_valid, runskip=None, ops=KERNEL_OPS):
+        """Data row `row`'s step (streaming.make_stream_step): the anchors
+        and both rounds over the missed lanes in rank space on the row's
+        shards, the string windows from their owners."""
         eng = self.engine
-        return {(row, av): make_stream_step(eng.cfg, self.P, self.R, self.CW,
-                                            eng._lookup_fn(row, "full"), all_valid=av,
-                                            runskip=runskip,
-                                            swin=functools.partial(self._swin, row))
-                for row in eng.mesh.rows for av in (False, True)}
+        return make_stream_step(eng.cfg, self.P, self.R, self.CW, eng._anchor_lookup(row),
+                                all_valid=all_valid, ops=ops, runskip=runskip,
+                                swin=functools.partial(self._swin, row),
+                                lookup_ranks=eng._ranks_fn(row, "stream"))
+
+    def _make_steps(self, runskip):
+        return {(row, av): self.step(row, av, runskip)
+                for row in self.engine.mesh.rows for av in (False, True)}
 
     def _swin(self, row, tables, ares):
         eng = self.engine

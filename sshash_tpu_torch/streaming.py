@@ -45,8 +45,9 @@ derive_full by miss counts for the TPU's sake; here one path runs:
      stream reads); results scatter back. These kernels run grids sized to
      the card that stride up to the count, so their work is the misses'
      (JAX's run_windows loops windows up to it). The bucket-sharded stream
-     keeps kernel 1 over all P rows and its engine's sharded lookup given
-     kernel 1's outputs (kernel 2's shard form on each shard);
+     runs the same rank-space rounds through its engine's sharded lookup
+     (kernel 2's rank form on each shard, csrc/shard.cuh), and its anchors
+     through kernel 1's and kernel 2's rank forms too;
   5. count: one P-wide adjacency pass gives the counters, lane 0 and the
      last lane.
 
@@ -633,18 +634,17 @@ class StepOps(NamedTuple):
     round2: object
     merge: object
     count: object
-    minimizer: object
     minimizer_ranks: object
     lookup_ranks: object
 
 
 KERNEL_OPS = StepOps(Pk.scan_ex, Pk.compact, stream_anchors, stream_kmers, stream_chain,
-                     stream_heads, stream_round2, stream_merge, stream_count, Pk.minimizer,
+                     stream_heads, stream_round2, stream_merge, stream_count,
                      Pk.minimizer_ranks, lookup_ranks)
 PLAIN_OPS = StepOps(Pk.prefix_sum_ex, Pk.compact_plain, stream_anchors_plain,
                     stream_kmers_plain, stream_chain_plain, stream_heads_plain,
                     stream_round2_plain, stream_merge_plain, stream_count_plain,
-                    Pk.minimizer_plain, Pk.minimizer_ranks_plain, lookup_ranks_plain)
+                    Pk.minimizer_ranks_plain, lookup_ranks_plain)
 
 
 def packed_offsets(P, R):
@@ -679,28 +679,28 @@ def check_read_positions(rnpos, nreads):
 
 
 def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, runskip=None,
-                     swin=None):
+                     swin=None, lookup_ranks=None):
     """The per-chunk step on one packed int32 buffer (u32 bits) at the
     offsets of the JAX package's step_packed (step_packed_av when
     all_valid: no valid bits; lanes < count are valid). Returns
     fn(tables, packed) -> (3, 4) int32 of u32 counters, lane 0 and the last
     lane, computed on the buffer's device without a host round trip.
 
-    lookup: make_lookup(cfg, "full", ...) fn(tables, kmers32, mins, active),
-    the anchors' lookup; ops: KERNEL_OPS (entry points: kernels on the
-    card, plain versions on the CPU) or PLAIN_OPS (plain versions on any
-    device; pass a plain lookup with them). runskip: None for JAX's gate
-    (on when more than P/64 lanes miss their chain), True / False to force
-    it.
+    lookup: make_lookup(cfg, "full", ...) fn(tables, kmers32), the
+    anchors' lookup; ops: KERNEL_OPS (entry points: kernels on the card,
+    plain versions on the CPU) or PLAIN_OPS (plain versions on any device;
+    pass a plain lookup with them). runskip: None for JAX's gate (on when
+    more than P/64 lanes miss their chain), True / False to force it.
 
-    swin: None (the chain reads tables["strings32"]) or fn(tables, ares) ->
-    the anchors' string windows, for tables split by string range (the
-    bucket-sharded stream). Without swin the missed lanes run in rank space
-    up to their device count: ops.minimizer_ranks, then both lookup rounds
-    through ops.lookup_ranks from its minimizers, on the whole tables. With
-    it, kernel 1 (ops.minimizer) runs over all P rows and both rounds go
-    through `lookup` given its outputs, masked: the bucket-sharded
-    stream's lookup runs kernel 2's shard form on each shard.
+    The missed lanes run in rank space up to their device count:
+    ops.minimizer_ranks, then both lookup rounds through lookup_ranks(cfg,
+    tables, kmers32, mins, active, count) (STREAM_FIELDS, as
+    engine.lookup_ranks) from its minimizers; None: ops.lookup_ranks, on
+    the whole tables. swin: None (the chain reads tables["strings32"]) or
+    fn(tables, ares) -> the anchors' string windows, for tables split by
+    string range. The bucket-sharded stream passes both, with its anchors'
+    lookup: kernel 1's rank form and kernel 2's rank form on each shard
+    (parallel/sharded.py ShardedStream).
 
     fn(tables, packed, stats=None): a dict passed as stats receives, as
     device tensors, the lanes that missed their chain ("need"), the lookup
@@ -718,6 +718,7 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
     o0, o1, o2, o3 = packed_offsets(P, R)
     gate = -1 if runskip is None else int(bool(runskip))
     k = cfg.k
+    ranks = lookup_ranks or ops.lookup_ranks
 
     def fn(tables, packed, stats=None):
         dev = packed.device
@@ -745,18 +746,11 @@ def make_stream_step(cfg, P, R, CW, lookup, all_valid=False, ops=KERNEL_OPS, run
                               swin=swin(tables, ares))
         lanes, n_need = ops.compact(state["need"])
         km = ops.kmers(words32, sbits, cum_g, k, lanes, n_need)
-        if swin is None:
-            mins = ops.minimizer_ranks(km, n_need, k, cfg.m, cfg.magic)
-            head = ops.heads(mins[0], mins[2], lanes, n_need, fbits, gate)
-            r1 = ops.lookup_ranks(cfg, tables, km, mins, head, n_need)
-            round2 = ops.round2(head, r1["found"], r1["minimizer_found"], n_need)
-            r2 = ops.lookup_ranks(cfg, tables, km, mins, round2, n_need)
-        else:
-            mins = ops.minimizer(km, k, cfg.m, cfg.magic, both=True)
-            head = ops.heads(mins[0], mins[3], lanes, n_need, fbits, gate)
-            r1 = lookup(tables, km, mins, head)
-            round2 = ops.round2(head, r1["found"], r1["minimizer_found"], n_need)
-            r2 = lookup(tables, km, mins, round2)
+        mins = ops.minimizer_ranks(km, n_need, k, cfg.m, cfg.magic)
+        head = ops.heads(mins[0], mins[2], lanes, n_need, fbits, gate)
+        r1 = ranks(cfg, tables, km, mins, head, n_need)
+        round2 = ops.round2(head, r1["found"], r1["minimizer_found"], n_need)
+        r2 = ranks(cfg, tables, km, mins, round2, n_need)
         state = ops.merge(lanes, n_need, r1, r2, state)
         if stats is not None:
             stats.update(need=n_need[0], heads=head.sum(), round2=round2.sum())

@@ -207,7 +207,7 @@ def test_no_lane_keeps_the_sentinel(name, shape, monkeypatch):
     active = torch.from_numpy(np.random.default_rng(2).random(B) < 0.8)
     ref = TorchEngine(idx, "cpu", row_format=fmt)
     for row, part in eng._split(kt).items():
-        got = eng._lookup_fn(row, eng.fields)(None, part, None, active)
+        got = eng._lookup_fn(row, eng.fields)(None, part, active)
         assert not (got["kmer_orientation"] == 7).any()
         assert not (got["kmer_id"] == MARK).any()
         want = E.lookup(ref.cfg, ref.tables, part, active, eng.fields)

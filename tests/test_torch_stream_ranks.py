@@ -198,8 +198,7 @@ def _lane_form(eng, kt, active):
     versions."""
     cfg = eng.cfg
     lookup = E.make_lookup(cfg, "full", minimizer=P.minimizer_plain, probe=E.probe_plain)
-    return lookup(eng.tables, kt, P.minimizer_plain(kt, cfg.k, cfg.m, cfg.magic, both=True),
-                  active)
+    return lookup(eng.tables, kt, active)
 
 
 def _check_ranks(got, lanes, active, n):
