@@ -16,8 +16,8 @@ line):
   2. build: one nvcc per csrc/ source, in parallel, for sm_90a (timed
      per source, registers per kernel, any spills; none allowed in the
      lookup kernel, the access kernel, kernel 1's rank form, the
-     rank-space lookup and kernel 2's shard form and its rank form at
-     widths 1..8, nor in
+     rank-space lookup, kernel 2's shard form and its rank form's list
+     probe at widths 1..8, nor in its list pass, nor in
      the chain kernel, the scan and compaction kernel, the derive kernels,
      the neighbours kernel or the combine kernel)
   3. kernel == plain on the card, exactly: kernel 1 at B = 2^20 for
@@ -122,12 +122,16 @@ line):
      data rows) equals derive_report, and ShardedStream on phase 10's
      low-hit and mixed reads equals its host _Batcher reports, its
      lookups (the anchors' and both rounds over the misses) all in rank
-     space: kernel 1's rank form twice a chunk, kernel 2's rank form once
-     a shard, round and pass of each, neither lane form launched; at (1, 4)
-     every rank-form launch equals its plain version on a copy of its
-     output, each shard's launch of the first low-hit chunk's first round
-     is timed against its plain version and its bound, and the chunks'
-     sharded steps are timed from a CUDA graph; on phase 5's
+     space: kernel 1's rank form twice a chunk, kernel 2's rank form's
+     list pass and its list probe (every shard of the row in one launch)
+     once a round and pass (strand, hand-off pass), neither lane form
+     launched; at (1, 4) every list pass and list probe equals its plain
+     version on a copy of its output (a list pass's lists compared by
+     rank), the first low-hit chunk's first round is timed launch by launch
+     (each pass's list count and its ranks a shard, its launches summed
+     against the pass's bound, the round's against the round's) beside the
+     plain versions, and the chunks' sharded steps are timed from a CUDA
+     graph; on phase 5's
      1M planted indexes (hindex, and both legacy forms) every field equals
      the unsharded engine's, with the heavy lanes handed to another shard
      counted (> 0); on phase 7's 100M index in (1, 4) 2^24 lanes equal the
@@ -219,7 +223,9 @@ line):
      cards); on the 100M leg each rank's kernels alone and with the 4 ranks
      at once. A rank that fails, hangs past the phase's timeout (then
      killed) or prints no RANK_OK line fails the run. A rank's packed
-     ShardedStream runs kernel 2's rank form in its packed form.
+     ShardedStream runs kernel 2's rank form in its packed form (its list
+     pass on the rank's shard, then its list probe), every launch held
+     to its plain version in the rank's process (max |err| 0).
  17. one JSON line of per-source results (launches, max |err|, ms, plain ms,
      bound ms and what bounds it, library-call ms; kernel 2 once per
      variant: v1, v2 rows, legacy skew; the lookup kernel (phase 7, bound
@@ -229,9 +235,10 @@ line):
      paths, which alone launch them, phase 16's ranks included; the
      combine kernel (counted on the sharded paths, timed at 100M); the
      sharded rows of kernel 2, access, weight and the chain (with phase
-     16's ranks' launches); kernel 2's rank form (the ShardedStream runs
-     of phases 12 and 16, timed on the first low-hit chunk's slowest
-     shard); the wide forms' rows at k65), then the ok line.
+     16's ranks' launches); kernel 2's rank form (its list passes and
+     list probes on the ShardedStream runs of phases 12 and 16; ms, plain
+     ms and bound: the first low-hit chunk's first round, its launches
+     summed); the wide forms' rows at k65), then the ok line.
 
 Data is random, drawn from fixed seeds. Nothing here imports JAX or the
 JAX package (sshash_tpu): a finder refuses both.
@@ -283,10 +290,11 @@ from sshash_tpu_torch.ops import packed as P  # noqa: E402
 from sshash_tpu_torch.ops import u64 as u  # noqa: E402
 from sshash_tpu_torch.parallel import (DistMesh, LocalMesh, ShardedEngine,  # noqa: E402
                                        ShardedStream)
-from sshash_tpu_torch.layout import packed_rows  # noqa: E402
+from sshash_tpu_torch.layout import ProbeShard, packed_rows  # noqa: E402
 from sshash_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from sshash_tpu_torch.parallel.mesh import combine, combine_plain  # noqa: E402
 from sshash_tpu_torch.parallel.sharded import split_weight_runs  # noqa: E402
+from rank_run import held_to_plain, lists_by_rank  # noqa: E402
 
 INVALID = np.uint64(2 ** 64 - 1)
 REPS = 7
@@ -622,8 +630,11 @@ NO_SPILL = {"lookup_kernel at widths 1..8": (r"13lookup_kernelILi[1-8]E", 32),
             "minimizer_ranks_kernel at widths 1..8": (r"22minimizer_ranks_kernelILi[1-8]E", 8),
             # two modes; at widths 1..4 also the form that walks the windows
             "lookup_ranks_kernel at widths 1..8": (r"19lookup_ranks_kernelILi[1-8]E", 24),
-            # both modes, v1 and v2 rows; the rank form: both modes, v1 rows
-            "shard_probe_kernel at widths 1..8": (r"18shard_probe_kernelILi[1-8]E", 48),
+            # the lane form: both modes, v1 and v2 rows
+            "shard_probe_kernel at widths 1..8": (r"18shard_probe_kernelILi[1-8]E", 32),
+            # kernel 2's rank form: the list probe (both modes), the list pass
+            "shard_list_kernel at widths 1..8": (r"17shard_list_kernelILi[1-8]E", 16),
+            "rank_list_kernel (both modes)": (r"16rank_list_kernelILb[01]E", 2),
             # min and max signed and unsigned, sums, of int32 and int64
             "combine_kernel": (r"14combine_kernelILi[0-2]E", 10),
             # the stream's anchor stage and the misses' read; K7
@@ -2218,79 +2229,126 @@ PROBE_RANKS_REPLACES = "sshash_tpu/parallel/sharded.py:447"
 
 @contextlib.contextmanager
 def ranks_checked(errs, keep=None, first=0):
-    """Inside, every launch of kernel 2's rank form (engine.probe_ranks on
-    a card tensor) is held to its plain version run on a copy of its output
-    taken before the launch (max |err| 0 over every tensor of the output).
-    With keep, the first `first` launches of the misses' first round
-    (fields "stream", the forward pass) go to keep as (args, kw, the output
-    before the launch), for timing."""
-    entry = E.probe_ranks
-    launch = entry.kernel
+    """Inside, every launch of kernel 2's rank form on a card tensor (its
+    list pass, engine.rank_lists, and its list probe, engine.probe_ranks)
+    is held to its plain version run on a copy of its output taken before
+    the launch (max |err| 0 over every tensor of the output and, of a list
+    pass, its lists compared by rank; rank_run.held_to_plain). With keep,
+    the first `first` launches of the misses' lookups (fields "stream": the
+    first round's list passes and list probes) go to keep as (the entry,
+    args, kw, the output before the launch, the launch's result), for
+    timing."""
 
-    def checked(*a, **kw):
-        a, kw = a[:8], dict(kw, **({"out": a[8]} if len(a) > 8 else {}))
-        before = {key: v.clone() for key, v in kw["out"].items()}
-        got = launch(*a, **kw)
-        want = entry.plain(*a, **dict(kw, out={key: v.clone() for key, v in before.items()}))
-        err = max_abs_err([got[key] for key in want], list(want.values()))
-        errs["probe_ranks"] = max(errs["probe_ranks"], err)
-        require(err == 0 and got.keys() == want.keys(), "kernel 2's rank form != plain on a "
-                f"ShardedStream's launch (fields {a[6]}, rc_round {kw.get('rc_round')}, hand-off "
-                f"pass {kw.get('hrows') is not None})")
-        if (keep is not None and len(keep) < first and a[6] == "stream"
-                and not kw.get("rc_round") and kw.get("hrows") is None):
-            keep.append((a, kw, before))
-        return got
+    def seen(entry):
+        def check(err, a, kw, before):
+            errs["probe_ranks"] = max(errs["probe_ranks"], err)
+            require(err == 0, f"kernel 2's rank form ({entry.kernel.__name__}) != plain on a "
+                    f"ShardedStream's launch (fields {a[6]}, rc_round {kw.get('rc_round')}, "
+                    f"hand-off pass {kw.get('hrows') is not None})")
+            if keep is not None and len(keep) < first and a[6] == "stream":
+                keep.append((entry, a, kw, before))
+        return check
 
-    entry.kernel = checked
+    launches = {entry: held_to_plain(entry, seen(entry)) for entry in (E.rank_lists,
+                                                                      E.probe_ranks)}
     try:
         yield
     finally:
-        entry.kernel = launch
+        for entry, launch in launches.items():
+            entry.kernel = launch
 
 
-def rank_probe_bytes(cfg, tables, a, kw):
-    """Bytes one launch of kernel 2's rank form (args a, kw) must move, a
-    lower bound: probe_bytes of the active ranks below the count on its
-    shard (every such rank's minimizer or slot; the owned ranks' kmers,
-    fields and distinct table rows; kernel 2's RC kmer read standing for
-    the second strand's minimizer that the rank form reads instead), each
-    rank's active flag below the count, the not-found stores of the
-    inactive ranks where the launch fills them, and the count."""
-    km, mins, active, count, _, shard = a[2:8]
-    n = _n(count)
-    act = active[:n]
-    kt = km[:n][act]
-    moved = n + 4 + (14 * int((~act).sum()) if kw.get("fill") else 0)
-    if not kt.shape[0]:
-        return moved
-    return moved + probe_bytes(cfg, tables, kt, probe_args(cfg, kt, P.minimizer),
-                               shard=shard, slots=kw.get("slots"))
+def rank_pass_bytes(cfg, tables, a, kw, before, lists):
+    """Bytes one pass of kernel 2's rank form (a list pass, args a and kw,
+    and the list probes of its lists) must move, a lower bound that any
+    design of the pass shares: each rank's active flag (and found, where
+    read) below the count and the count; the inactive ranks' not-found
+    stores where the pass fills them; each active rank's minimizers (both
+    strands' in canonical mode), its MPHF evaluation (a pilot word, a seed
+    row when partitioned; its handed row in the hand-off's second pass);
+    each listed rank's kmer and position tries in and its fields out (10
+    bytes); the distinct fused rows (candidate blocks in the second pass)
+    each shard's list reads. The lists themselves are the design's, not
+    counted."""
+    n = _n(a[5])
+    active = a[4]
+    act = torch.ones(n, dtype=torch.bool, device=a[2].device) if active is None else active[:n]
+    second = kw.get("hrows") is not None
+    if kw.get("rc_round") or second:
+        act = act & ~before["found"][:n]
+    A, canon = int(act.sum()), 2 if cfg.canonical else 1
+    nb = lambda name: tables[name].numel() * tables[name].element_size()  # noqa: E731
+    total = n * (1 if active is not None else 0) + 4 + (n if kw.get("rc_round") or second else 0)
+    if kw.get("fill"):
+        total += 14 * (n - A)
+    if second:
+        total += 4 * A
+        width = 4 * cand_block_width(cfg)
+    else:
+        total += 8 * canon * A + min(4 * A, nb("pilots"))
+        total += min(8 * A, nb("mphf_seedrows")) if cfg.mphf_partitioned else 0
+        width = 4 * row_width(cfg)
+    for entries in lists_by_rank(lists):
+        total += entries.shape[0] * (4 * cfg.W + 4 * canon + 10)
+        total += int(torch.unique(entries[:, 1]).numel()) * width
+    return total
 
 
-def time_rank_probe(keep):
-    """Each shard's launch of kernel 2's rank form kept by ranks_checked
-    (one chunk's misses, first round), replayed from a CUDA graph on a copy
-    of its output, against its bound; the slowest shard's plain version.
-    Returns that shard's {kernel, plain, bound}."""
-    # each launch stores into a copy of its output taken once: its stores
-    # (a first round's) repeat the same values
-    outs = [{key: v.clone() for key, v in before.items()} for _, _, before in keep]
+def ranks_a_shard(lists, a, kw):
+    """The listed ranks each shard of a list probe's call (args a, kw)
+    takes: its shards' keys, slots or (in the hand-off's second pass)
+    sk_hrows rows, counted in the list pass's lists."""
+    shards = [a[7]] if isinstance(a[7], ProbeShard) else list(a[7])
+    second = kw.get("hrows") is not None
+    lo = shards[0].hrow_lo if second else shards[0].slot_lo
+    per = (shards[0].hrow_hi - lo) if second else shards[0].slot_hi - lo
+    keys = torch.cat(lists_by_rank(lists))[:, 1]
+    return torch.bincount((keys - lo) // per, minlength=len(shards)).tolist()
+
+
+def time_rank_round(keep, tag="low-hit 5M (1, 4), chunk 0"):
+    """The misses' first round of a (1, 4) sharded step, launch by launch
+    as ranks_checked kept them (each pass: its list pass, then the list
+    probe over the row's shards), each replayed from a CUDA graph on a copy
+    of its output; each pass's list count (and its ranks a shard), its
+    launches summed against its bound (rank_pass_bytes), and the round's;
+    the plain versions of the same launches summed. Returns the round's
+    {kernel, plain, bound, passes}."""
+    outs = [{key: v.clone() for key, v in before.items()} for _, _, _, before in keep]
 
     def call(fn, i):
-        a, kw, _ = keep[i]
+        _, a, kw, _ = keep[i]
         return fn(*a, **dict(kw, out=outs[i]))
 
-    ms = [graph_ms(functools.partial(call, E.probe_ranks, i)) for i in range(len(keep))]
-    nbytes = [rank_probe_bytes(a[0], a[1], a, kw) for a, kw, _ in keep]
-    j = int(np.argmax(ms))
-    a = keep[j][0]
-    out = {"kernel": ms[j], "plain": median_ms(functools.partial(call, E.probe_ranks_plain, j)),
-           "bound": bound(nbytes[j])}
-    log(f"  low-hit 5M (1, 4), chunk 0: kernel 2's rank form, the misses' first round, per shard "
-        f"{['%.4f' % x for x in ms]} ms (graph replay) over {_n(a[5])} ranks, "
-        f"{int(a[4][:_n(a[5])].sum())} active; bounds {['%.4f' % bound(b)[0] for b in nbytes]} "
-        f"ms; slowest shard {j}: plain {out['plain']:.4f} ms")
+    ms = [graph_ms(functools.partial(call, entry, i)) for i, (entry, *_) in enumerate(keep)]
+    plain = sum(median_ms(functools.partial(call, entry.plain, i))
+                for i, (entry, *_) in enumerate(keep))
+    passes, nbytes = [], 0
+    for i, (entry, a, kw, before) in enumerate(keep):
+        if entry is not E.rank_lists:
+            passes[-1]["probes"].append(ms[i])
+            passes[-1]["shards"] += ranks_a_shard(lists, a, kw)
+            continue
+        lists = call(entry.kernel, i)
+        b = rank_pass_bytes(a[0], a[1], a, kw, before, lists)
+        nbytes += b
+        passes.append({"lists": [int(c) for c in lists["count"]], "list_ms": ms[i],
+                       "shards": [], "probes": [], "bound": bound(b)[0],
+                       "what": "RC" if kw.get("rc_round") else "forward"})
+    for ps in passes:
+        total = ps["list_ms"] + sum(ps["probes"])
+        log(f"  {tag}, the misses' first round, {ps['what']} pass: list "
+            f"pass {ps['list_ms']:.4f} ms (graph replay), list count {ps['lists']} (ranks a "
+            f"shard {ps['shards']}), list probe {['%.4f' % x for x in ps['probes']]} ms; the "
+            f"pass's {1 + len(ps['probes'])} launches {total:.4f} ms against its bound "
+            f"{ps['bound']:.4f} ms")
+    a = keep[0][1]
+    out = {"kernel": sum(ms), "plain": plain, "bound": bound(nbytes), "passes": passes}
+    b_ms = out["bound"][0]
+    log(f"  {tag}: the misses' first round ({_n(a[5])} ranks, "
+        f"{int(a[4][:_n(a[5])].sum())} active): {len(keep)} launches {out['kernel']:.4f} ms "
+        f"against the round's bound {b_ms:.4f} ms ({out['kernel'] / max(b_ms, 1e-9):.1f}x); "
+        f"their plain versions {plain:.4f} ms")
     return out
 
 
@@ -2306,13 +2364,16 @@ def sharded_streams(engines, read_sets, errs, forms):
     (report, chunks)})."""
     t0 = time.perf_counter()
     kernels.reset_counts()
-    streams, keep, want_k1, want_k2 = {}, [], 0, 0
+    streams, keep, want_k1, want_k2, want_lists = {}, [], 0, 0, 0
     with combines_checked(errs, forms):
         for name, (mode, path, _) in read_sets.items():
             for shape in SHARD_SHAPES:
                 seng = engines[(mode, shape)]
                 timed_run = (name, shape) == ("low-hit", (1, 4))
-                with (ranks_checked(errs, keep if timed_run else None, shape[1])
+                # the first round's launches: a list pass and a list probe
+                # for the row, a pass a strand (and hand-off pass)
+                passes = (1 if seng.cfg.canonical else 2) * (2 if seng.handoff else 1)
+                with (ranks_checked(errs, keep if timed_run else None, 2 * passes)
                       if shape == (1, 4) else contextlib.nullcontext()):
                     st = ShardedStream(seng, pmax=1 << 22, rmax_shift=4)
                     st.capture = []
@@ -2320,25 +2381,29 @@ def sharded_streams(engines, read_sets, errs, forms):
                         st.add_read(seq)
                     streams[(name, shape)] = (st.finalize(), st.chunks)
                 want_k1 += 2 * st.chunks
-                want_k2 += (3 * st.chunks * shape[1] * (1 if seng.cfg.canonical else 2)
-                            * (2 if seng.handoff else 1))
+                want_k2 += 3 * st.chunks * passes
+                want_lists += 3 * st.chunks * passes
                 if timed_run:
                     low_st = st
                 else:
                     del st
         torch.cuda.synchronize()
     c = path_counts("5M ShardedStream", STREAM_WRAPPERS + (
-        "stream_swin_kernel", "minimizer_ranks_kernel", "probe_ranks_kernel"))
+        "stream_swin_kernel", "minimizer_ranks_kernel", "rank_lists_kernel",
+        "probe_ranks_kernel"))
     require(c["minimizer_kernel"] == 0 and c["probe_kernel"] == 0 and c["lookup_kernel"] == 0
             and c["lookup_ranks_kernel"] == 0, "a ShardedStream launched kernel 1's or kernel 2's "
             "lane form, or an unsharded lookup")
-    require(c["minimizer_ranks_kernel"] == want_k1 and c["probe_ranks_kernel"] == want_k2,
+    require(c["minimizer_ranks_kernel"] == want_k1 and c["probe_ranks_kernel"] == want_k2
+            and c["rank_lists_kernel"] == want_lists,
             f"ShardedStream: {c['minimizer_ranks_kernel']} launches of kernel 1's rank form "
-            f"(expected {want_k1}), {c['probe_ranks_kernel']} of kernel 2's (expected {want_k2})")
+            f"(expected {want_k1}), {c['rank_lists_kernel']} of kernel 2's list pass (expected "
+            f"{want_lists}), {c['probe_ranks_kernel']} of its list probe (expected {want_k2})")
     log(f"  5M ShardedStream: every lookup in rank space (kernel 1's rank form "
-        f"{want_k1} launches, kernel 2's {want_k2}), neither lane form launched; at (1, 4) every "
-        f"rank-form launch == plain (max |err| {errs['probe_ranks']})")
-    timed = time_rank_probe(keep)
+        f"{want_k1} launches, kernel 2's list pass {want_lists} and list probe {want_k2}), "
+        f"neither lane form launched; at (1, 4) every rank-form launch == plain (max |err| "
+        f"{errs['probe_ranks']})")
+    timed = time_rank_round(keep)
     steps = {av: low_st.step(0, av) for av in (False, True)}
     run_steps = lambda: [steps[av](None, b) for av, b in low_st.capture]  # noqa: E731
     dev_ms = graph_ms(run_steps)
@@ -2596,7 +2661,8 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
     # rows of the kernels line count them here
     launches = {"minimizer_kernel": launches.get("minimizer_kernel", 0),
                 "probe_kernel": launches.get("probe_kernel", 0),
-                "probe_ranks": launches.get("probe_ranks_kernel", 0),
+                "probe_ranks": launches.get("probe_ranks_kernel", 0)
+                + launches.get("rank_lists_kernel", 0),
                 "combine_kernel": launches.get("combine_kernel", 0),
                 "probe_sharded": launches.get("probe_kernel", 0),
                 "access_sharded": launches.get("access_kernel", 0)
@@ -3297,7 +3363,7 @@ TINY_M3 = dict(TINY, m=3, seed=11, weights=None)
 TINY_B = 16  # lanes a data row, positives and as many negatives
 # every rank must launch each of these on its legs
 RANK_KERNELS = ("minimizer_kernel", "probe_kernel", "access_kernel", "weight_kernel",
-                "stream_chain_kernel")
+                "stream_chain_kernel", "rank_lists_kernel", "probe_ranks_kernel")
 
 
 def free_ports(n, rng):
@@ -3614,12 +3680,21 @@ def phase_ranks(dev, smi, five_m, planted, scale, tmp):
 
     # each rank's record of each leg
     launches, per_rank = {}, {r: {} for r in range(n)}
+    rank_form = [0, 0]  # launches of kernel 2's rank form held to plain; their max |err|
     for i, lg in enumerate(legs):
         R = lg["shape"][0] * lg["shape"][1]
         got = [json.load(open(os.path.join(out_dir, f"{i}_{r}.json"))) for r in range(R)]
         for rec in got:
             add_counts(launches, rec["launches"])
             add_counts(per_rank[rec["rank"]], rec["launches"])
+            if dev.type == "cuda":
+                c = rec["launches"]
+                want = c.get("rank_lists_kernel", 0) + c.get("probe_ranks_kernel", 0)
+                require(rec["rank_form_checked"] == want and rec["rank_form_err"] == 0,
+                        f"{lg['name']} rank {rec['rank']}: {rec['rank_form_checked']} of {want} "
+                        f"rank-form launches held to plain, max |err| {rec['rank_form_err']}")
+                rank_form[0] += want
+                rank_form[1] = max(rank_form[1], rec["rank_form_err"])
         kms = [sum(rec["kernel_ms"].values()) for rec in got]
         log(f"  {lg['name']}: every rank == LocalMesh ({'; '.join(got[0]['checks'])}); "
             f"per rank: kernels {[f'{x:.4f}' for x in kms]} ms (CUDA events), collectives "
@@ -3655,7 +3730,9 @@ def phase_ranks(dev, smi, five_m, planted, scale, tmp):
         require(dev.type != "cuda" or all(c.get(name, 0) > 0 for name in RANK_KERNELS),
                 f"rank {r}: a kernel of the path never launched {c}")
     if dev.type == "cuda":
-        log(f"  every rank launched {RANK_KERNELS}; launches over every rank {launches}")
+        log(f"  every rank launched {RANK_KERNELS}; launches over every rank {launches}; every "
+            f"launch of kernel 2's rank form ({rank_form[0]}: list passes and list probes) == "
+            f"plain (max |err| {rank_form[1]})")
     log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s ({smi})")
     return launches
 
@@ -3732,7 +3809,7 @@ def main():
     # phase 16's ranks ran kernels 1-2 over all lanes and the sharded forms
     for name, wrappers in {"minimizer_kernel": ("minimizer_kernel",),
                            "probe_kernel": ("probe_kernel",),
-                           "probe_ranks": ("probe_ranks_kernel",),
+                           "probe_ranks": ("probe_ranks_kernel", "rank_lists_kernel"),
                            "probe_sharded": ("probe_kernel",),
                            "access_sharded": ("access_kernel", "access_read_kernel"),
                            "weight_sharded": ("weight_kernel",),
@@ -3803,7 +3880,8 @@ def main():
                      "launches": sh_launches[name], "max_abs_err": errs[name],
                      "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": t["bound"][0],
                      "bound_by": t["bound"][1], "library_ms": None})
-    # kernel 2's rank form, counted on the ShardedStream runs (phases 12, 16)
+    # kernel 2's rank form (its list pass and list probe), counted on the
+    # ShardedStream runs (phases 12, 16); its times: the misses' first round
     require(sh_launches["probe_ranks"] > 0, "probe_ranks: no launch on the sharded streams")
     t = sh_times["probe_ranks"]
     rows.append({"name": "probe_ranks", "route": "cuda", "source": csrc + "shard.cuh",

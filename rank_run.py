@@ -21,7 +21,9 @@ DistMesh((D, NB), device), and writes <out>/<leg number>_<r>.json: its
 checks, kernel launches (kernels.counts), each kernel's device ms (CUDA
 events around every launch), its collectives' ms and calls (a synchronise
 on each side: gloo stages them through host memory), its tables' bytes and
-peak device memory. Every comparison is exact; the first that fails raises
+peak device memory, and on a card the launches of kernel 2's rank form
+(its list pass and list probe) each held to its plain version on a copy
+of its output (their count and max |err|). Every comparison is exact; the first that fails raises
 and the process exits non-zero. The last line of a rank that finished is
 RANK_OK <r>. Inputs in <ref>: q.npy (the lookup batch, (B, W64) uint64),
 qids.npy (each lane's kmer id, -1 for a random kmer), mp.npy (the
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from sshash_tpu_torch import engine as E
 from sshash_tpu_torch import kernels
 from sshash_tpu_torch import kmer as K
 from sshash_tpu_torch import streaming as ST
@@ -108,6 +111,68 @@ class Timers:
         return {"launches": {n: c for n, c in kernels.counts().items() if c},
                 "kernel_ms": ms, "collective_ms": self.coll_s * 1e3,
                 "collectives": self.coll_n}
+
+
+def lists_by_rank(lists):
+    """A list pass's lists (engine.rank_lists) as int64 (rank, key) rows in
+    rank order, list by list."""
+    out = []
+    for j in range(lists["count"].shape[0]):
+        e = lists["entries"][j, :int(lists["count"][j])].to(torch.int64)
+        out.append(e[torch.argsort(e[:, 0])])
+    return out
+
+
+def rank_form_err(got, want, got_lists=None, want_lists=None):
+    """Max |err| between two outputs of kernel 2's rank form: every tensor
+    of its out dict, and a list pass's lists compared by rank (a list of
+    another length: inf)."""
+    err = max((int((g.to(torch.int64) - want[key].to(torch.int64)).abs().max())
+               for key, g in got.items() if g.numel()), default=0)
+    if got_lists is not None:
+        for g, w in zip(lists_by_rank(got_lists), lists_by_rank(want_lists)):
+            err = max(err, float("inf") if g.shape != w.shape
+                      else int((g - w).abs().max()) if g.numel() else 0)
+    return err
+
+
+def held_to_plain(entry, check):
+    """Set entry.kernel (engine.rank_lists or engine.probe_ranks) to its
+    launch held to entry.plain, which runs on a copy of the output taken
+    before the launch; check(err, args, kw, before) sees each launch (args:
+    the first eight, out in kw). Returns the launch it wraps."""
+    launch, lists = entry.kernel, entry is E.rank_lists
+
+    def run(*a, **kw):
+        a, kw = a[:8], dict(kw, **({"out": a[8]} if len(a) > 8 else {}))
+        before = {key: v.clone() for key, v in kw["out"].items()}
+        got = launch(*a, **kw)
+        want_out = {key: v.clone() for key, v in before.items()}
+        want = entry.plain(*a, **dict(kw, out=want_out))
+        check(rank_form_err(kw["out"], want_out, got if lists else None,
+                            want if lists else None), a, kw, before)
+        return got
+
+    entry.kernel = run
+    return launch
+
+
+class RankFormChecks:
+    """On a card, every launch of kernel 2's rank form held to its plain
+    version (held_to_plain): the launches checked and their max |err|."""
+
+    def __init__(self):
+        self.n, self.err = 0, 0
+        for entry in (E.rank_lists, E.probe_ranks):
+            held_to_plain(entry, self._seen)
+
+    def _seen(self, err, *_):
+        self.n += 1
+        self.err = max(self.err, err)
+
+    def read(self):
+        out, self.n, self.err = {"rank_form_checked": self.n, "rank_form_err": self.err}, 0, 0
+        return out
 
 
 def npy(leg, name):
@@ -190,7 +255,7 @@ def alone_and_together(eng, kt, world, rank):
     return {"alone_ms": alone, "together_ms": together}
 
 
-def run_leg(leg, rank, timers, dev):
+def run_leg(leg, rank, timers, dev, checks=None):
     D, NB = leg["shape"]
     world = D * NB
     t0 = time.perf_counter()
@@ -287,6 +352,8 @@ def run_leg(leg, rank, timers, dev):
         rec["checks"].append(f"packed ShardedStream over row {mesh.rows[0]}'s reads ({st.chunks} "
                              f"chunks), summed == LocalMesh {got}")
     rec.update(timers.read())
+    if checks is not None:
+        rec.update(checks.read())
     if dev.type == "cuda":
         rec["peak_mb"] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     if "timing" in ops:
@@ -311,10 +378,11 @@ def main(plan_path, rank):
     else:
         torch.set_num_threads(1)
     timers = Timers(dev)
+    checks = RankFormChecks() if dev.type == "cuda" else None
     for n, leg in enumerate(plan["legs"]):
         if rank >= leg["shape"][0] * leg["shape"][1]:
             continue
-        rec = run_leg(leg, rank, timers, dev)
+        rec = run_leg(leg, rank, timers, dev, checks)
         with open(os.path.join(plan["out"], f"{n}_{rank}.json"), "w") as f:
             json.dump(rec, f)
         print(f"rank {rank} {leg['name']}: {len(rec['checks'])} checks in {rec['leg_s']:.1f} s",

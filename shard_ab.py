@@ -6,7 +6,8 @@ median of 7, sides run backwards then forwards; calls under a millisecond
 replay from a CUDA graph).
 
     python3 shard_ab.py --baseline DIR [--strings 1000]
-                        [--cells lookup100m,regular5m,handoff,lowhit,highhit100m]
+                        [--cells lookup100m,regular5m,handoff,lowhit,highhit100m,
+                                 handoffstream]
 
 DIR is an unpacked earlier tree (`git archive <commit> | tar -x -C DIR`),
 for instance under .chip_scratch/ (gitignored). Sides:
@@ -37,10 +38,30 @@ for instance under .chip_scratch/ (gitignored). Sides:
             probe in the thread, probe.cuh lookup_lane) over every lane and
             stores the lanes whose slot it owns (probe.cu and probe.cuh
             patched)
+  queued    (the stream cells) kernel 2's rank form as it was first
+            written: no list pass; each shard's launch walks every rank
+            below the count with the shard form's warp queue (lookup_ranks.cu
+            patched: sshash_probe_ranks launches shard_probe_kernel<RANKS>),
+            the row's first shard storing the active ranks' slots for the
+            others and filling the inactive ranks (QueuedEngine); the
+            tree's list pass a round and list probe a shard lose to it
+            where a side's time is lower
+  pershard  (the stream cells) the tree's kernels with a list a shard: the
+            list pass deals the ranks to the shards' lists and each shard's
+            list probe takes its own, one launch a shard (PerShardEngine;
+            the tree lists a mesh row's ranks once and probes them in one
+            launch, each on its owner shard's tables)
+  list3     (the stream cells) the tree's rank form with its list probe at
+            3 blocks of 256 an SM at every width (shard.cuh patched; the
+            tree asks the lookup kernel's 4 where they fit)
+  warpatomic (the stream cells) the tree's rank form with its list pass
+            taking each warp's places in a list with one atomicAdd on the
+            list's device count (shard.cuh patched; the tree gathers a
+            block's tile in shared memory first, one atomicAdd a tile)
 
-A variant is built from its patched sources alone (probe.cu with its
-probe.cuh and shard.cuh; nvcc for sm_90a into build/shard_ab/) and serves
-their entries; every other entry runs from
+A variant is built from its patched sources alone (probe.cu, or
+lookup_ranks.cu for "queued", with probe.cuh and shard.cuh; nvcc for sm_90a
+into build/shard_ab/) and serves their entries; every other entry runs from
 this tree's library. Cells, each on the sides that have it, every side's
 result equal to the tree's before timing:
   lookup100m  phase 7's 100M k31 m21 canonical build in (1, 4): the lookup
@@ -61,9 +82,16 @@ result equal to the tree's before timing:
   highhit100m phase 10's high-hit genome of 168 of the 100M build's strings
               (phase 7's build): the (1, 4) ShardedStream's step on its
               first chunk, tree against DIR
+  handoffstream the handoff cell's index and reads cut from it (half RC,
+              1% substitutions) and random reads: the (1, 4)
+              ShardedStream's step on its first chunk, whose heavy misses
+              take the hand-off's second pass, tree against DIR
+  (the stream cells also run the queued, pershard, list3 and warpatomic
+  sides, and time the tree's first round launch by launch)
 Prints the card, each side's registers and spills (ptxas), the ms of each
-side and, for the stream cells, each side's launches in one step and the
-chunk's misses.
+side and, for the stream cells, each side's launches in one step, the
+chunk's misses and, for the tree, each round's list pass and list probes
+timed alone from CUDA graphs beside the round's bound.
 """
 
 import argparse
@@ -84,12 +112,17 @@ import torch
 
 from sshash_tpu_torch import kernels, synthetic
 from sshash_tpu_torch import engine as E
+from sshash_tpu_torch.layout import check_rank_probe
 from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine, ShardedStream
 
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "sshash_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "shard_ab"
-CELLS = ("lookup100m", "regular5m", "handoff", "lowhit", "highhit100m")
+CELLS = ("lookup100m", "regular5m", "handoff", "lowhit", "highhit100m", "handoffstream")
+# the stream cells' sides that run the tree's engine through their own library
+LIB_SIDES = ("list3", "warpatomic")
+# the stream cells' sides with engines of their own
+ENGINE_SIDES = ("tree", "baseline", "queued", "pershard")
 # the 1M planted build's heavy and mid buckets (chip_smoke phase 5)
 PLANTED = [100, 150, 200, 300] + [3, 4, 5, 8, 10, 20, 30, 40] * 8
 
@@ -140,6 +173,34 @@ UNOWNED = ("  if (s < p.slot_lo || s >= p.slot_hi) return Lane{false, true, Hit{
            "kForward, 0, 0, 0}};")
 STORE = "  write_result<V2>(io, p, i, L, orient);\n}\n"
 WHOLE = "p->store != kStoreAll || p->slot_lo != 0 || p->slot_hi != (1ll << 32))"
+# side "queued": kernel 2's rank form without lists, each shard walking every
+# rank below the count (the shard form's kernel with RANKS), through the
+# tree's C entry's signature (one shard)
+PROBE_ENTRY = re.compile(r'extern "C" int sshash_probe_ranks\(.*', re.S)
+QUEUED_ENTRY = """extern "C" int sshash_probe_ranks(const sshash::ProbeTables* t, int64_t n, int64_t lo,
+                                  int64_t per, const sshash::ProbeParams* p,
+                                  const sshash::ProbeIO* io, void* stream) {
+  using namespace sshash;
+  static PerDevice per_sm[kMaxFixedW + 1][2];  // by width, mode
+  (void)lo;
+  (void)per;
+  if (p->B <= 0) return (int)cudaGetLastError();
+  if (n != 1 || bad_rank_form(*t, *p, *io)) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  return (int)dispatch_probe(*p, [&](auto w, auto c) {
+    constexpr int W = decltype(w)::value;
+    constexpr bool C = decltype(c)::value;
+    return launch_shard<W, C, false, true>(*t, *p, *io,
+                                           per_sm[W <= kMaxFixedW ? W - 1 : kMaxFixedW][C], s);
+  });
+}
+"""
+# side "list3": the list probe's launch bounds
+LIST_BLOCKS = "canon && (W == 3 || W == 4 || W == 6 || W == 7) ? 3"
+# side "warpatomic": each warp's places taken on the list's device count,
+# no tile gathered in shared memory first
+TILE_ADD = "base = atomicAdd(&tile_n[owner[g]], __popc(peers));"
+TILE_PLACE = "tile_at[j] = tile_n[j] ? atomicAdd(L.counts + j, tile_n[j]) : 0;"
 
 
 def variant_sources():
@@ -147,8 +208,8 @@ def variant_sources():
     directory holds probe.cu, probe.cuh and shard.cuh (kernel 2's shard
     form), patched as the side asks, so that every include resolves to the
     side's own copy."""
-    names = ("probe.cu", "probe.cuh", "shard.cuh")
-    cu, cuh, sh = ((CSRC / n).read_text() for n in names)
+    names = ("probe.cu", "probe.cuh", "shard.cuh", "lookup_ranks.cu")
+    cu, cuh, sh, ranks = ((CSRC / n).read_text() for n in names)
     sides = {
         "exit": ({"shard.cuh": SA.patch(sh, QUEUED, QUEUED + GRID_STRIDE)}, ("sshash_probe",)),
         "simple": ({"shard.cuh": SA.patch(SA.patch(sh, LAUNCH, SIMPLE_LAUNCH), BEFORE_LAUNCH,
@@ -160,14 +221,24 @@ def variant_sources():
                                        WHOLE, "p->store != kStoreAll)"),
                   "probe.cuh": SA.patch(cuh, UNOWNED, UNOWNED.replace("kForward", "0"))},
                  ("sshash_lookup",)),
+        "queued": ({"lookup_ranks.cu": SA.sub(PROBE_ENTRY, QUEUED_ENTRY, ranks)},
+                   ("sshash_probe_ranks",)),
+        "list3": ({"shard.cuh": SA.patch(sh, LIST_BLOCKS, "true ? 3"), "lookup_ranks.cu": ranks},
+                  ("sshash_rank_lists", "sshash_probe_ranks")),
+        "warpatomic": ({"shard.cuh": SA.patch(SA.patch(sh, TILE_ADD, TILE_ADD.replace(
+                            "&tile_n[owner[g]]", "L.counts + owner[g]")), TILE_PLACE,
+                            "tile_at[j] = 0;"),
+                        "lookup_ranks.cu": ranks},
+                       ("sshash_rank_lists", "sshash_probe_ranks")),
     }
     dirs = {}
     for side, (files, entries) in sides.items():
         d = OUT / side
         d.mkdir(parents=True, exist_ok=True)
-        for name, text in zip(names, (cu, cuh, sh)):
+        for name, text in zip(names, (cu, cuh, sh, ranks)):
             (d / name).write_text(files.get(name, text))
-        dirs[side] = (d, entries)
+        dirs[side] = (d, "lookup_ranks.cu" if "lookup_ranks.cu" in files else "probe.cu",
+                      entries)
     return dirs
 
 
@@ -176,8 +247,9 @@ def ptxas_lines(side, log):
     in nvcc's -Xptxas -v log."""
     lines, out = log.splitlines(), []
     for ln, nxt, reg in zip(lines, lines[1:], lines[2:]):
-        if re.search(r"shard_(simple|probe)_kernel|13lookup_kernel", ln) and \
-                "Function properties" in ln and "Used" in reg and re.search(r"ILi[12]E|ILb", ln):
+        if re.search(r"shard_(simple|probe|list)_kernel|13lookup_kernel|rank_list_kernel", ln) \
+                and "Function properties" in ln and "Used" in reg \
+                and re.search(r"ILi[1-8]E|ILb", ln):
             out.append(f"{side} {ln.split('for ')[-1].strip()[:60]}: {reg.strip()[:60]}, "
                        f"{nxt.strip()}")
     return out
@@ -191,10 +263,10 @@ def build(baseline_kernels):
     # each library's C++ names in a namespace of its own: one process loads
     # four libraries whose kernels would otherwise share their names
     baseline_kernels.NVCC_FLAGS = (*baseline_kernels.NVCC_FLAGS, "-Dsshash=sshash_baseline")
-    for side, (d, entries) in variant_sources().items():
+    for side, (d, src, entries) in variant_sources().items():
         obj = OUT / f"{side}_probe.o"
         cmd = [nvcc, *kernels.NVCC_FLAGS, f"-Dsshash=sshash_{side}", "-Xptxas", "-v", "-I",
-               str(d), "-I", str(CSRC), "-c", str(d / "probe.cu"), "-o", str(obj)]
+               str(d), "-I", str(CSRC), "-c", str(d / src), "-o", str(obj)]
         jobs[side] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), obj, entries)
     base = {}
@@ -236,6 +308,81 @@ def same(got, want, tag):
     d = diff(got, want)
     S.require(got.keys() == want.keys() and not d,
               f"{tag}: a side's result differs from the tree's: {d}")
+
+
+def queued_probe(lib, cfg, tables, kmers32, mins, active, count, fields, shard, out, fill=False,
+                 rc_round=False, slots=None, hrows=None):
+    """Kernel 2's rank form as first written, through the queued side's
+    library: one launch, the shard's walk over every rank below the count
+    (its stores, fill and slots as engine.probe_ranks_plain's)."""
+    handoff, packed = check_rank_probe(cfg, fields, shard, hrows, out, fill, rc_round, slots)
+    store = kernels.STORE_PACKED if packed else kernels.STORE_OWNED
+    B, dev, tab, prm, io = kernels._rank_io(cfg, tables, kmers32, mins, active, count, shard,
+                                            store, fill, rc_round, fields)
+    io = kernels.ProbeIO(**io, **kernels._shard_io(out, fields, B, dev, handoff, packed, hrows,
+                                                   slots))
+    err = lib.sshash_probe_ranks(ctypes.byref(tab), 1, 0, 1, ctypes.byref(prm),
+                                 ctypes.byref(io), kernels._stream(dev))
+    S.require(err == 0, f"queued side: CUDA error {err}")
+    queued_probe.launches += 1
+    return out
+
+
+queued_probe.launches = 0
+
+
+class QueuedEngine(ShardedEngine):
+    """A LocalMesh ShardedEngine whose rank-space lookups run the queued
+    side: on each shard of the row one launch walking every rank below the
+    count (the first shard filling the inactive ranks and storing the
+    active ranks' slots, the others reading them), each round and hand-off
+    pass."""
+
+    lib = None
+
+    def _owned_ranks(self, row, fields):
+        def fn(cfg, tables, kmers32, mins, active, count):
+            out = self._result_tensors(kmers32.shape[0], fields)
+
+            def call(j, **kw):
+                queued_probe(self.lib, cfg, self.tables[j], kmers32, mins, active, count,
+                             fields, self.probe_shards[j], **kw)
+
+            self._probe_pass(row, out, call)
+            if not cfg.canonical:
+                self._probe_pass(row, out, call, rc_round=True)
+            out.pop("hrow", None)
+            out.pop("slot")
+            return out
+
+        return fn
+
+
+class PerShardEngine(ShardedEngine):
+    """A LocalMesh ShardedEngine whose rank-space lookups keep a list a
+    shard: each round and pass, one list pass dealing the active ranks to
+    the shards' lists, then one list probe a shard over its own."""
+
+    def _owned_ranks(self, row, fields):
+        shards = [s[1] for s in self._row_shards(row)]
+        ranges = [self.probe_shards[j] for j in shards]
+
+        def fn(cfg, tables, kmers32, mins, active, count):
+            out = self._result_tensors(kmers32.shape[0], fields)
+            out.pop("slot", None)
+            args = (kmers32, mins, active, count, fields)
+            for rc_round in (False,) if cfg.canonical else (False, True):
+                for hrows in (None, "hrow") if self.handoff else (None,):
+                    kw = dict(rc_round=rc_round, hrows=out[hrows] if hrows else None)
+                    lists = E.rank_lists(cfg, self.tables[shards[0]], *args, ranges, out,
+                                         fill=not (rc_round or hrows), **kw)
+                    for n, j in enumerate(shards):
+                        E.probe_ranks(cfg, self.tables[j], *args, ranges[n], out,
+                                      lists=(lists, n), **kw)
+            out.pop("hrow", None)
+            return out
+
+        return fn
 
 
 def lane_lookup(lib, seng, kt):
@@ -390,39 +537,111 @@ def handoff(a, libs, base, dev, rng, tmp):
     torch.cuda.empty_cache()
 
 
-def stream_sides(tag, base, sides_engines, path, multiline):
+def recorded_rounds(seng, calls):
+    """Set seng's rank-space lookup of the misses (data row 0) to record
+    its calls (a step's two rounds) into calls, before a stream makes its
+    steps; returns the lookup itself."""
+    fn = seng._ranks_fn(0, "stream")
+
+    def recorded(*a):
+        calls.append(a)
+        return fn(*a)
+
+    seng._lookups[("ranks", 0, "stream")] = recorded
+    return fn
+
+
+def stream_sides(tag, base, libs, sides_engines, path, multiline):
     """The (1, 4) ShardedStream's step on the first chunk of path, this
-    tree's against DIR's: equal counters, each side's launches in one step,
-    then in turns from CUDA graphs."""
-    steps = {}
-    for side, stream_cls, seng in zip(("tree", "baseline"), (ShardedStream,
-                                                             base.parallel.ShardedStream),
+    tree's against DIR's and the sides' (ENGINE_SIDES, LIB_SIDES): equal
+    counters, each side's launches in one step, then in turns from CUDA
+    graphs; the tree's first round launch by launch against its bound
+    (chip_smoke.time_rank_round); then each round of the misses' lookup
+    alone (the tree's list passes and list probes, the sides' forms, DIR's
+    walks), in turns from CUDA graphs."""
+    steps, rounds, lookups = {}, {}, {}
+    for side, stream_cls, seng in zip(ENGINE_SIDES, (ShardedStream, base.parallel.ShardedStream,
+                                                     ShardedStream, ShardedStream),
                                       sides_engines):
         packed, *_, av = SA.first_chunk(lambda e, **kw: stream_cls(e, **kw), seng, path,
                                         multiline)
+        rounds[side] = []
+        lookups[side] = recorded_rounds(seng, rounds[side])
         st = stream_cls(seng, pmax=1 << 22, rmax_shift=12 if multiline else 4)
         steps[side] = functools.partial(st._steps[(0, av)], None, packed)
     stats = {}
     want = steps["tree"](stats)
     S.require(S.rows_equal(steps["baseline"](), want), f"{tag}: DIR's step != the tree's")
-    for side, kern in (("tree", kernels), ("baseline", base.kernels)):
+    for side in LIB_SIDES:  # the tree's engine and step through a variant's library
+        steps[side], rounds[side], lookups[side] = steps["tree"], rounds["tree"], lookups["tree"]
+    for side in ("queued", "pershard") + LIB_SIDES:
+        with SA.using(libs.get(side, libs["tree"])):
+            S.require(S.rows_equal(steps[side](), want), f"{tag}: the {side} step != the tree's")
+    for side, kern in (("tree", kernels), ("baseline", base.kernels), ("queued", kernels),
+                       ("pershard", kernels), *((side, kernels) for side in LIB_SIDES)):
         torch.cuda.synchronize()
         kern.reset_counts()
-        steps[side]()
+        queued_probe.launches = 0
+        with SA.using(libs.get(side, libs["tree"]) if side != "baseline" else libs["tree"]):
+            steps[side]()
         torch.cuda.synchronize()
-        S.log(f"  {tag}: {side} launches in one step "
-              f"{ {n: c for n, c in kern.counts().items() if c} }")
+        got = {n: c for n, c in kern.counts().items() if c}
+        if side == "queued":
+            got["queued_probe"] = queued_probe.launches
+        S.log(f"  {tag}: {side} launches in one step {got}")
+        if side not in LIB_SIDES:
+            rounds[side] = rounds[side][-2:]  # this eager step's two rounds
     S.log(f"  {tag}: chunk 0 misses {int(stats['need'])}, lookup heads {int(stats['heads'])}, "
           f"round-2 ranks {int(stats['round2'])}; the steps' counters equal")
-    S.time_sides(tag, "the step", 1 << 22, {side: (lambda fn=fn: fn()) for side, fn in
-                                             steps.items()}, unit="lane", graph=tuple(steps))
+
+    for side in LIB_SIDES:
+        rounds[side] = rounds["tree"]
+
+    def under(side, fn):
+        def run():
+            with SA.using(libs.get(side, libs["tree"]) if side != "baseline" else libs["tree"]):
+                return fn()
+        return run
+
+    S.time_sides(tag, "the step", 1 << 22, {side: under(side, fn) for side, fn in steps.items()},
+                 unit="lane", graph=tuple(steps))
+    # the tree's first round launch by launch (its list passes and list
+    # probes, each held to its plain version first), against its bound
+    keep, errs = [], {"probe_ranks": 0}
+    seng = sides_engines[0]
+    passes = (1 if seng.cfg.canonical else 2) * (2 if seng.handoff else 1)
+    with S.ranks_checked(errs, keep, 2 * passes):
+        lookups["tree"](*rounds["tree"][0])
+    S.time_rank_round(keep, tag)
+    for r in range(2):
+        fns = {}
+        for side, calls in rounds.items():
+            fns[side] = under(side, functools.partial(lookups[side], *calls[r]))
+        got = {side: fn() for side, fn in fns.items()}
+        n = int(rounds["tree"][r][5][0])
+        act = int(rounds["tree"][r][4][:n].sum())
+        for side, res in got.items():
+            S.require(all(torch.equal(res[key][:n], got["tree"][key][:n]) for key in res),
+                      f"{tag}: the {side} round {r + 1} != the tree's")
+        S.time_sides(tag, f"the misses' round {r + 1} ({n} ranks, {act} active)", max(n, 1),
+                     fns, unit="rank", graph=tuple(fns))
+
+
+def side_engines(idx, host, libs, dev):
+    """The queued and pershard sides' (1, 4) engines on the same index and
+    tables."""
+    qeng = QueuedEngine(idx, LocalMesh((1, 4), dev), host_arrs=host)
+    qeng.lib = libs["queued"]
+    return qeng, PerShardEngine(idx, LocalMesh((1, 4), dev), host_arrs=host)
 
 
 def lowhit(a, libs, base, dev, rng, tmp):
     idx, host = S.build("regular", k=31, m=17, canonical=False, num_strings=S.MAIN_STRINGS,
                         string_len=S.STRING_LEN, seed=40, threads=8)
     path = SA._lowhit_path(idx, rng, tmp)
-    stream_sides("low-hit 5M (1, 4) sharded", base, engines(idx, host, base, dev), path, False)
+    stream_sides("low-hit 5M (1, 4) sharded", base, libs,
+                 (*engines(idx, host, base, dev), *side_engines(idx, host, libs, dev)), path,
+                 False)
     torch.cuda.empty_cache()
 
 
@@ -434,7 +653,26 @@ def highhit100m(a, libs, base, dev, rng, tmp):
     path = os.path.join(tmp, "genome100m.fa")
     synthetic.write_genome(path, strings, rng)
     del strings
-    stream_sides("high-hit 100M (1, 4) sharded", base, engines(idx, host, base, dev), path, True)
+    stream_sides("high-hit 100M (1, 4) sharded", base, libs,
+                 (*engines(idx, host, base, dev), *side_engines(idx, host, libs, dev)), path,
+                 True)
+    torch.cuda.empty_cache()
+
+
+def handoffstream(a, libs, base, dev, rng, tmp):
+    idx, host = S.build("regular planted", k=31, m=13, canonical=False,
+                        num_strings=S.PATH_STRINGS, string_len=S.STRING_LEN, seed=50,
+                        planted=PLANTED)
+    strings = synthetic.index_strings(idx)
+    reads = synthetic.cut_reads(strings, 20000, S.MIXED_LEN, rng, rc=0.5, subst=0.01)
+    reads += synthetic.random_reads(20000, S.MIXED_LEN, rng)
+    path = os.path.join(tmp, "handoff.fq")
+    synthetic.write_reads(path, [reads[i] for i in rng.permutation(len(reads))])
+    del strings, reads
+    seng, bseng = engines(idx, host, base, dev)
+    S.require(seng.handoff, "1M planted: no hand-off")
+    stream_sides("1M planted (1, 4) sharded, hand-off", base, libs,
+                 (seng, bseng, *side_engines(idx, host, libs, dev)), path, False)
     torch.cuda.empty_cache()
 
 

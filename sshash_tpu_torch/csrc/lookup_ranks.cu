@@ -28,8 +28,15 @@
 // takes 32 ranks at a time, writes the inactive ones at once, queues the
 // active ones in shared memory (a ballot and a prefix count) and runs the
 // lookup only when 32 are queued, every lane on an active rank; the last
-// partial queue runs at the end (a thread a rank over a grid-stride loop
-// measured slower at low hit and at k65: stream_ab.py's side "strided").
+// partial queue runs at the end. stream_ab.py keeps the designs that lost
+// to it at the low-hit, mixed and 100M high-hit chunks (PERF.md): a
+// block's tile of ranks compacted with one block-wide prefix, a thread an
+// entry, nothing carried between tiles ("tiles", and "tiles4" at 4 blocks
+// an SM); a warp's tile compacted by a ballot ("warptile"); a list pass
+// and a lookup launch over the list ("lists"); this queue at 4 blocks an
+// SM where the lookup kernel takes them ("queued4"); a thread a rank over
+// a grid-stride loop ("strided"). The queue's registers (3 blocks an SM)
+// do not hold it back: at 4 blocks it is no faster.
 //
 // Kernel 1's minimizers or the walk: an active rank's 24 bytes of
 // minimizers are a scattered read; walking its k-m+1 windows again costs
@@ -176,30 +183,77 @@ extern "C" int sshash_lookup_ranks(const sshash::ProbeTables* t, const sshash::P
   });
 }
 
-// Kernel 2's rank form: its shard form (p->store kStoreOwned or
-// kStorePacked, one shard's ranges, the hand-off's rows in or out in an
-// hindex index) over the ranks below *io->count of the (B, W) kmers (B the
-// stream's P, or its anchors' count); io carries kmers, kernel 1's
+// Kernel 2's rank form, in two entries (shard.cuh): the list pass, then
+// the list probe over a list. Both take its shard form's parameters
+// (p->store kStoreOwned or kStorePacked, the hand-off's rows in or out in
+// an hindex index) over the ranks below *io->count of the (B, W) kmers (B
+// the stream's P, or its anchors' count); io carries kmers, kernel 1's
 // rank-form minimizers of both strands (minval, minpos, minval_r,
 // minpos_r), active (or null: every rank), count and the fields (owned:
 // the lookup's with p->full, else the ids fields and string_id; packed:
 // the buffer); the RC kmers and minpos2 stay null. v1 rows only.
-extern "C" int sshash_probe_ranks(const sshash::ProbeTables* t, const sshash::ProbeParams* p,
+static bool bad_rank_form(const sshash::ProbeTables& t, const sshash::ProbeParams& p,
+                          const sshash::ProbeIO& io) {
+  using namespace sshash;
+  return bad_params(t, p, io) || p.row_v2 || p.store == kStoreAll || !io.count || !io.minval ||
+         !io.minpos || !io.minval_r || !io.minpos_r || io.kmers_rc || io.minpos2 ||
+         ((io.hrow_out || io.hrow_in) && !(p.has_skew && p.skew_hrows)) ||
+         (io.hrow_out && io.hrow_in) ||
+         (p.store == kStoreOwned && !p.full && !io.string_id) || p.B >= (1ll << 31);
+}
+
+// The list pass: *L's lists (its counts zeroed here), one a shard of
+// consecutive equal key ranges (one in the packed form); with fill the
+// inactive ranks' not found, in the packed form the combine's identity on
+// the ranks it lists nowhere; slot_out / slot_in the active ranks' MPHF
+// slots (the owned form's first passes); io->list stays null.
+extern "C" int sshash_rank_lists(const sshash::ProbeTables* t, const sshash::ProbeParams* p,
+                                 const sshash::ProbeIO* io, const sshash::RankLists* L,
+                                 void* stream) {
+  using namespace sshash;
+  static PerDevice per_sm[2];  // by mode
+  if (bad_rank_form(*t, *p, *io) || io->list || io->list_count || !L->entries || !L->counts ||
+      L->n < 1 || L->n > kMaxLists || L->cap < p->B || L->per < 1 || L->lo < 0 ||
+      (p->store == kStorePacked && L->n != 1))
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  if (p->B <= 0) return (int)cudaMemsetAsync(L->counts, 0, 4 * L->n, s);
+  return (int)(p->canonical ? launch_rank_lists<true>(*t, *p, *io, *L, per_sm[1], s)
+                            : launch_rank_lists<false>(*t, *p, *io, *L, per_sm[0], s));
+}
+
+// The list probe over the n shards of tables t[0..n) (n <= kMaxRowShards,
+// a mesh row's on one card, or one shard), whose keys are [lo + j * per, lo
+// + (j + 1) * per) (their slots, or their sk_hrows rows with io->hrow_in;
+// the ranges in p are not read): the entries of io->list below
+// *io->list_count, each probed on its key's shard and stored at its rank;
+// what the list pass stored (fill, identity, slots) it leaves, so fill and
+// the slots stay off. The packed form takes one shard.
+extern "C" int sshash_probe_ranks(const sshash::ProbeTables* t, int64_t n, int64_t lo,
+                                  int64_t per, const sshash::ProbeParams* p,
                                   const sshash::ProbeIO* io, void* stream) {
   using namespace sshash;
   static PerDevice per_sm[kMaxFixedW + 1][2];  // by width, mode
   if (p->B <= 0) return (int)cudaGetLastError();
-  if (bad_params(*t, *p, *io) || p->row_v2 || p->store == kStoreAll || !io->count ||
-      !io->minval || !io->minpos || !io->minval_r || !io->minpos_r || io->kmers_rc ||
-      io->minpos2 || ((io->hrow_out || io->hrow_in) && !(p->has_skew && p->skew_hrows)) ||
-      (io->hrow_out && io->hrow_in) ||
-      (p->store == kStoreOwned && !p->full && !io->string_id) || p->B >= (1ll << 32))
+  if (n < 1 || n > kMaxRowShards || lo < 0 || per < 1 || !io->list || !io->list_count ||
+      p->fill || io->slot_out || io->slot_in || (p->store == kStorePacked && n != 1))
     return (int)cudaErrorInvalidValue;
-  auto s = (cudaStream_t)stream;
-  return (int)dispatch_probe(*p, [&](auto w, auto c) {
+  RankShards s{};
+  for (int64_t j = 0; j < n; ++j) {
+    if (bad_rank_form(t[j], *p, *io)) return (int)cudaErrorInvalidValue;
+    s.t[j] = t[j];
+  }
+  s.n = n;
+  s.lo = lo;
+  s.per = per;
+  ProbeParams q = *p;  // the key the kernel passes on is its shard's own
+  q.slot_lo = q.hrow_lo = 0;
+  q.slot_hi = q.hrow_hi = 1ll << 32;
+  auto st = (cudaStream_t)stream;
+  return (int)dispatch_probe(q, [&](auto w, auto c) {
     constexpr int W = decltype(w)::value;
     constexpr bool C = decltype(c)::value;
-    return launch_shard<W, C, false, true>(*t, *p, *io,
-                                           per_sm[W <= kMaxFixedW ? W - 1 : kMaxFixedW][C], s);
+    return launch_list_probe<W, C>(q, *io, s, per_sm[W <= kMaxFixedW ? W - 1 : kMaxFixedW][C],
+                                   st);
   });
 }

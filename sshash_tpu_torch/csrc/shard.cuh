@@ -1,9 +1,10 @@
 // Kernel 2's shard form and its rank form: the per-lane inputs of kernel
-// 2 after kernel 1, the owned and packed stores, the warp's queue of owned
-// lanes and the kernel, with its launch. probe.cu instantiates the shard
-// form (sshash_probe), lookup_ranks.cu the rank form (sshash_probe_ranks);
-// two translation units, so that the library's nvcc processes build them
-// side by side.
+// 2 after kernel 1, the owned and packed stores, the shard form's warp
+// queue of owned lanes and its kernel, and the rank form's list pass and
+// list probe, with their launches. probe.cu instantiates the shard form
+// (sshash_probe), lookup_ranks.cu the rank form (sshash_rank_lists,
+// sshash_probe_ranks); two translation units, so that the library's nvcc
+// processes build them side by side.
 #pragma once
 #include "grid.cuh"
 #include "probe.cuh"
@@ -130,26 +131,49 @@ __device__ __forceinline__ uint64_t rank_minval(const ProbeParams& p, const Prob
 // shard_ab.py keeps the designs that lost: a thread a lane on the same grid
 // ("exit"), and a thread a lane on a grid of one lane a thread ("simple").
 //
-// The rank form (RANKS; sshash_probe_ranks) serves the bucket-sharded
-// stream (ShardedStream): the stream's missed lanes, compacted in rank
-// order, and its anchors. It replaces, on a shard, the lookup rounds of
-// sshash_tpu/streaming.py make_stream_step (run_windows :551-588,
-// derive_corr :631) that sshash_tpu/parallel/sharded.py ShardedStream
-// (:376-450) runs through its bucket-sharded lookup: they size the work to
-// the misses' count on the device, and so does this form. It walks the
-// ranks below the device count *io.count only, on the same grid sized to
-// the card, and writes nothing at or past it; the count stays on the
-// device, so the stream step stays one sequence of launches a CUDA graph
-// replays. Its inputs are kernel 1's rank-form minimizers of both strands,
-// which carry no RC kmer, so a rank's RC kmer is formed in the thread
-// (load_rank), as lookup_lane forms it for lookup_ranks.cu; the stores,
-// the fill, the slots and the hand-off are the shard form's. In the owned
+// The rank form (RANKS) serves the bucket-sharded stream (ShardedStream):
+// the stream's missed lanes, compacted in rank order, and its anchors. It
+// replaces, on a shard, the lookup rounds of sshash_tpu/streaming.py
+// make_stream_step (run_windows :551-588, derive_corr :631) that
+// sshash_tpu/parallel/sharded.py ShardedStream (:376-450) runs through its
+// bucket-sharded lookup: they size the work to the misses' count on the
+// device, and so does this form. It takes two steps, each over the ranks
+// below the device count *io.count only, on grids sized to the card, and
+// writes nothing at or past the count; the counts stay on the device, so
+// the stream step stays one sequence of launches a CUDA graph replays:
+//
+//   the list pass (rank_list_kernel, sshash_rank_lists), once for the
+//       shards of a mesh row: each rank's active flag (and, in the owned
+//       form's RC round and second passes, its found flag), the MPHF slot
+//       of each active rank evaluated once (or its handed sk_hrows row
+//       read, in the hand-off's second pass), the rank and its key appended
+//       to a list (a block's appends gathered in shared memory, a warp's
+//       entries contiguous, one atomicAdd a tile and list on the list's
+//       device count), and at once the stores of the ranks no list takes:
+//       the inactive ranks' not found with fill, the combine's identity in
+//       the packed form (one shard there: the rank's). It can also deal
+//       the ranks to a list a shard, by their keys' owners;
+//   the list probe (shard_list_kernel, sshash_probe_ranks), once over a
+//       list: a thread an entry, the shard form's probe and stores at the
+//       entry's rank on the tables of the shard owning its key (a mesh
+//       row's shards, all on one card, in one launch), no queue, the
+//       lookup kernel's register budget.
+//
+// So no shard walks the ranks it does not own, and each active rank's slot
+// is evaluated once a round, not once a shard. The list order (blocks race
+// for their places) changes no output: each entry's stores are its rank's.
+// Its inputs are kernel 1's rank-form minimizers of both strands, which
+// carry no RC kmer, so a rank's RC kmer is formed in the thread
+// (load_rank), as lookup_lane forms it for lookup_ranks.cu. In the owned
 // form it writes the lookup's fields (p.full: the anchors') or the
 // stream's five (ids fields and string_id: the misses'); in the packed
 // form a regular round's RC strand is probed with rc_round and merged after
-// the combine. Bound: the owned ranks' probe (dependent row reads) and each
-// rank's kmer, minimizers and flag read and fields written, below the
-// count. Plain version: sshash_tpu_torch/engine.py probe_ranks_plain.
+// the combine. Bound, a round's launches together: the owned ranks' probe
+// (dependent row reads) and each rank's kmer, minimizers and flag read and
+// fields written, below the count. Plain versions:
+// sshash_tpu_torch/engine.py rank_lists_plain, probe_ranks_plain.
+// shard_ab.py keeps the design that lost: each shard's launch walking every
+// rank below the count with the shard form's queue ("queued").
 constexpr int kOwnerLanes = 4;
 constexpr int kShardQueue = 32 * kOwnerLanes + 32;  // a warp's queue: fewer than 31 + 128
 
@@ -300,8 +324,9 @@ __device__ __forceinline__ void shard_lane(const ProbeTables& t, const ProbePara
 }
 
 // 3 blocks of 256 threads an SM (80 registers a thread): the queue's state
-// stays live across the probe, as in lookup_ranks.cu. RANKS: the rank form,
-// over the ranks below the device count.
+// stays live across the probe. RANKS: the rank form's first design, each
+// shard walking the ranks below the device count (no entry instantiates it
+// now; shard_ab.py's "queued" side does).
 template <int W, bool CANON, bool V2, bool RANKS>
 __global__ void __launch_bounds__(256, W > kMaxFixedW ? 1 : 3)
     shard_probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
@@ -358,8 +383,7 @@ inline int shard_threads(const ProbeParams& p) {
   return shard_smem(p, 256) <= 48 * 1024 ? 256 : 128;
 }
 
-// The rank form's grid is sized by P (p.B), the most ranks the count can
-// reach.
+// RANKS: the grid is sized by P (p.B), the most ranks the count can reach.
 // static: the occupancy cache passed in stays this library's
 template <int W, bool CANON, bool V2, bool RANKS>
 static cudaError_t launch_shard(const ProbeTables& t, const ProbeParams& p, const ProbeIO& io,
@@ -371,6 +395,189 @@ static cudaError_t launch_shard(const ProbeTables& t, const ProbeParams& p, cons
                                       p.B, &blocks, smem);
   if (err != cudaSuccess) return err;
   shard_probe_kernel<W, CANON, V2, RANKS><<<(unsigned)blocks, threads, smem, stream>>>(t, p, io);
+  return cudaGetLastError();
+}
+
+// ---- kernel 2's rank form: the list pass and the list probe
+
+constexpr int kMaxLists = 64;  // lists (shards) a list pass fills
+constexpr int kListRanks = 4;  // ranks a thread of the list pass takes a tile
+
+// The lists a list pass fills: list j (entries + 2 * cap * j, (rank, key)
+// pairs; its length at counts[j]) takes the keys [lo + j * per, lo + (j +
+// 1) * per), shard j's slots (or its sk_hrows rows in the hand-off's second
+// pass); keys outside [lo, lo + n * per) go to no list.
+struct RankLists {
+  int32_t* entries;  // (n, cap, 2)
+  int32_t* counts;   // (n,)
+  int64_t n;
+  int64_t cap;
+  int64_t lo;
+  int64_t per;
+};
+
+// The list pass: tiles of kListRanks x blockDim ranks, each thread's ranks
+// a block apart (a warp's reads contiguous). Every load of a thread's
+// ranks is issued before the first test: their flags, then their keys'
+// inputs (kernel 1's minimizers, the handed rows or the stored slots), then
+// the MPHF's pilots (an inactive rank reads rank 0's, unused). A warp's
+// lanes of one list take their places together (__match_any_sync, one
+// shared atomicAdd a group), then one thread a list takes the tile's place
+// in it with one atomicAdd on its device count (each warp's atomicAdd on
+// the count lost: shard_ab.py's "warpatomic" side).
+template <bool CANON>
+__global__ void __launch_bounds__(256)
+    rank_list_kernel(ProbeTables t, ProbeParams p, ProbeIO io, RankLists L) {
+  constexpr int G = kListRanks;
+  __shared__ int tile_n[kMaxLists], tile_at[kMaxLists];
+  const int lane = threadIdx.x & 31;
+  const bool packed = p.store == kStorePacked;
+  // the owned form's RC round and second passes list the ranks not found yet
+  const bool unfound = !packed && (p.rc_round || io.hrow_in);
+  const int64_t n = misses(io.count, p.B), span = (int64_t)G * blockDim.x;
+  for (int64_t t0 = (int64_t)blockIdx.x * span; t0 < n; t0 += (int64_t)gridDim.x * span) {
+    for (int j = threadIdx.x; j < L.n; j += blockDim.x) tile_n[j] = 0;
+    __syncthreads();
+    int64_t i[G];
+    bool act[G];
+    uint32_t key[G];
+    uint64_t mv[G];
+    int owner[G], at[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      i[g] = t0 + g * blockDim.x + threadIdx.x;
+      const int64_t r = i[g] < n ? i[g] : 0;
+      const bool a = !io.active || io.active[r];
+      act[g] = i[g] < n && a && !(unfound && io.found[r]);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int64_t r = act[g] ? i[g] : 0;
+      if (io.hrow_in)
+        key[g] = io.hrow_in[r];
+      else if (io.slot_in)
+        key[g] = io.slot_in[r];
+      else
+        mv[g] = rank_minval<CANON>(p, io, r);
+    }
+    if (!io.hrow_in && !io.slot_in) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) key[g] = mphf_slot(t, p, mv[g]);
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      owner[g] = -1;
+      if (act[g]) {
+        if (io.slot_out) io.slot_out[i[g]] = key[g];
+        const int64_t d = (int64_t)key[g] - L.lo;
+        if (d >= 0 && d < L.n * L.per) owner[g] = L.n == 1 ? 0 : (int)(d / L.per);
+      }
+      // the ranks no list takes: not found with fill, or the combine's identity
+      if (i[g] < n && owner[g] < 0 && !io.hrow_in && (packed || (!act[g] && p.fill))) {
+        store_shard<false, true>(io, p, i[g], Lane{false, true, Hit{false, 0, kForward, 0, 0, 0}},
+                                 kForward, true);
+        if (io.hrow_out) io.hrow_out[i[g]] = kInvalid32;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const unsigned peers = __match_any_sync(0xFFFFFFFFu, owner[g]);
+      const int first = __ffs(peers) - 1;
+      int base = 0;
+      if (owner[g] >= 0 && lane == first) base = atomicAdd(&tile_n[owner[g]], __popc(peers));
+      at[g] = __shfl_sync(0xFFFFFFFFu, base, first) + __popc(peers & ((1u << lane) - 1u));
+    }
+    __syncthreads();
+    for (int j = threadIdx.x; j < L.n; j += blockDim.x)
+      tile_at[j] = tile_n[j] ? atomicAdd(L.counts + j, tile_n[j]) : 0;
+    __syncthreads();
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (owner[g] < 0) continue;
+      reinterpret_cast<uint2*>(L.entries)[owner[g] * L.cap + tile_at[owner[g]] + at[g]] =
+          make_uint2((uint32_t)i[g], key[g]);
+    }
+    __syncthreads();  // tile_n is zeroed for the next tile
+  }
+}
+
+// Blocks of 256 threads an SM that the list probe's launch bounds ask
+// registers for: the lookup kernel's (lookup_min_blocks), but 3 at the
+// canonical widths where the shard form's stores beside the probe spilled
+// at 4 (3, 4, 6 and 7 words).
+__host__ __device__ constexpr int list_min_blocks(int W, bool canon) {
+  return W > kMaxFixedW ? 1
+         : canon && (W == 3 || W == 4 || W == 6 || W == 7) ? 3
+                                                            : lookup_min_blocks(W, canon);
+}
+
+// The shards one list probe launch serves: their tables, and their keys,
+// shard j's [lo + j * per, lo + (j + 1) * per) (its slots, or its sk_hrows
+// rows in the hand-off's second pass). A mesh row's shards all sit on the
+// card of a LocalMesh, so one launch probes every listed rank on its owner
+// shard's tables.
+constexpr int kMaxRowShards = 8;
+
+struct RankShards {
+  ProbeTables t[kMaxRowShards];
+  int64_t n, lo, per;
+};
+
+// The list probe: a thread an entry of a list (io.list, its length at
+// *io.list_count, read again at each step rather than kept), the shard
+// form's probe and stores at the entry's rank on the tables of the shard
+// owning its key (p's ranges start at 0: the key is made the shard's own).
+// One list for a mesh row's shards keeps a warp's entries within a few
+// hundred ranks, where a list a shard spread them four times as far and
+// its launches' reads and stores over as many more sectors (a list and a
+// launch a shard: shard_ab.py's "pershard" side). No queue's state stays
+// live across the probe.
+template <int W, bool CANON>
+__global__ void __launch_bounds__(256, list_min_blocks(W, CANON))
+    shard_list_kernel(ProbeParams p, ProbeIO io, const __grid_constant__ RankShards s) {
+  extern __shared__ uint32_t stage[];
+  const uint2* list = reinterpret_cast<const uint2*>(io.list);
+  for (uint32_t e = blockIdx.x * blockDim.x + threadIdx.x; e < misses(io.list_count, p.B);
+       e += gridDim.x * blockDim.x) {
+    const uint2 en = list[e];
+    const int64_t d = (int64_t)en.y - s.lo;
+    const int64_t j = s.n == 1 ? 0 : d / s.per;
+    if (d < 0 || j >= s.n) continue;  // a key no shard of the launch owns
+    shard_lane<W, CANON, false, true>(s.t[j], p, io, thread_slot(stage, p), en.x,
+                                      (uint32_t)(d - j * s.per));
+  }
+}
+
+// The list pass's launch: its grid fits the card, or fewer blocks where
+// the P ranks (p.B, the most the count can reach) need fewer; the lists'
+// counts zeroed first, in stream order.
+template <bool CANON>
+static cudaError_t launch_rank_lists(const ProbeTables& t, const ProbeParams& p,
+                                     const ProbeIO& io, const RankLists& L, PerDevice& per_sm,
+                                     cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(L.counts, 0, 4 * L.n, stream);
+  if (err != cudaSuccess) return err;
+  int64_t blocks = 0;
+  err = pass_blocks(rank_list_kernel<CANON>, 256, per_sm, (p.B + kListRanks - 1) / kListRanks,
+                    &blocks);
+  if (err != cudaSuccess) return err;
+  rank_list_kernel<CANON><<<(unsigned)blocks, 256, 0, stream>>>(t, p, io, L);
+  return cudaGetLastError();
+}
+
+// The list probe's launch, on a grid sized to the card by the longest the
+// list can be (p.B).
+template <int W, bool CANON>
+static cudaError_t launch_list_probe(const ProbeParams& p, const ProbeIO& io,
+                                     const RankShards& s, PerDevice& per_sm,
+                                     cudaStream_t stream) {
+  const int threads = stage_threads(p);
+  const size_t smem = (size_t)threads * stage_stride(2 + (int)p.blk_w) * 4;
+  int64_t blocks = 0;
+  const cudaError_t err =
+      pass_blocks(shard_list_kernel<W, CANON>, threads, per_sm, p.B, &blocks, smem);
+  if (err != cudaSuccess) return err;
+  shard_list_kernel<W, CANON><<<(unsigned)blocks, threads, smem, stream>>>(p, io, s);
   return cudaGetLastError();
 }
 

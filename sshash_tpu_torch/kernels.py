@@ -6,8 +6,9 @@ probe, per thread) and kernel 2 alone, over the whole table or in its
 shard form, which the bucket-sharded engine calls after minimizer (kernel
 1); lookup_ranks the lookup kernel's lane over the stream's missed lanes
 in rank space, up to their count on the device, after minimizer's rank
-form, and kernel 2's rank form (its shard form over such ranks, shared
-with probe in shard.cuh), which the bucket-sharded stream calls; access,
+form, and kernel 2's rank form (a list pass that deals the ranks to their
+owner shards' lists, then its shard form's probe over one shard's list,
+shared with probe in shard.cuh), which the bucket-sharded stream calls; access,
 iterator, weight and neighbours the other point queries; scan, stream_anchor, stream_chain and stream_derive
 the stream step; check the sanitizer's postconditions (debug.py);
 read_at2 the read over the interleaved (NW, 2) table
@@ -37,7 +38,8 @@ synchronising, raises if the launch returned a CUDA error, and adds one to
 its `launches` count. The wrappers take CUDA tensors only; each entry
 point (ops/packed.minimizer, .minimizer_ranks, .neighbour_variants,
 .scan_ex, .compact and .read_kmers_at2; engine.lookup, .lookup_ranks,
-.probe, .probe_ranks, .access, .access_read, .iterate and .weight;
+.probe, .rank_lists, .probe_ranks, .access, .access_read, .iterate and
+.weight;
 streaming.stream_anchors, .stream_kmers, .stream_chain, .stream_swin,
 .stream_heads, .stream_round2, .stream_merge and .stream_count;
 debug.check; parallel.mesh.combine) is made by `by_device`, which
@@ -65,7 +67,7 @@ import torch
 
 from .layout import (WHOLE_TABLE, AccessShard, acc_width, acc_win_words, acc_windowed,
                      cand_block_width, check_access, check_fields, check_probe_shard,
-                     check_rank_probe, packed_rows, row_width)
+                     check_rank_lists, packed_rows, rank_probe_shards, row_width)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("minimizer.cu", "probe.cu", "lookup_ranks.cu", "access.cu", "iterator.cu",
@@ -181,13 +183,19 @@ _IO_NAMES = ("kmers", "kmers_rc", "minval", "minpos", "minpos2", "active",
              "kmer_id", "kmer_orientation", "minimizer_found", "found",
              "kmer_id_in_string", "kmer_offset", "string_id", "string_begin",
              "string_end", "hrow", "hrow_in", "count", "minval_r", "minpos_r", "packed",
-             "slot_out", "slot_in")
+             "slot_out", "slot_in", "list", "list_count")
 # the result fields of ProbeIO, in order (the hand-off's "hrow" out last)
 _OUT_NAMES = _IO_NAMES[6:16]
 
 
 class ProbeIO(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _IO_NAMES]
+
+
+class RankLists(ctypes.Structure):
+    """Mirror of csrc/shard.cuh RankLists."""
+    _fields_ = [("entries", ctypes.c_void_p), ("counts", ctypes.c_void_p)] \
+        + [(n, ctypes.c_int64) for n in ("n", "cap", "lo", "per")]
 
 
 class AccessParams(ctypes.Structure):
@@ -219,8 +227,13 @@ def library():
         lib.sshash_lookup.restype = ctypes.c_int
         lib.sshash_lookup_ranks.argtypes = lib.sshash_probe.argtypes
         lib.sshash_lookup_ranks.restype = ctypes.c_int
-        lib.sshash_probe_ranks.argtypes = lib.sshash_probe.argtypes
+        lib.sshash_probe_ranks.argtypes = [ctypes.POINTER(ProbeTables), i64, i64, i64,
+                                           ctypes.POINTER(ProbeParams),
+                                           ctypes.POINTER(ProbeIO), p]
         lib.sshash_probe_ranks.restype = ctypes.c_int
+        lib.sshash_rank_lists.argtypes = [*lib.sshash_probe.argtypes[:3],
+                                          ctypes.POINTER(RankLists), p]
+        lib.sshash_rank_lists.restype = ctypes.c_int
         lib.sshash_probe_occupancy.argtypes = [ctypes.POINTER(ProbeParams), i64,
                                                ctypes.POINTER(ctypes.c_int),
                                                ctypes.POINTER(ctypes.c_int)]
@@ -602,10 +615,67 @@ def lookup_ranks_kernel(cfg, tables, kmers32, mins, active, count):
 lookup_ranks_kernel.launches = 0
 
 
+def _rank_io(cfg, tables, kmers32, mins, active, count, shard, store, fill, rc_round, fields):
+    """What both entries of kernel 2's rank form check and pass: (B,
+    device, ProbeTables, ProbeParams, the ProbeIO fields of the kmers,
+    minimizers, active and count)."""
+    B, dev, tab, prm, _ = _probe_launch(cfg, tables, kmers32, active, "ids", shard, store, fill,
+                                        rc_round)
+    prm.full = int(fields == "full")
+    if B >= 1 << 31:
+        raise ValueError(f"kernel 2's rank form takes fewer than 2^31 ranks, got {B}")
+    _scalar(count, "count")
+    for t, name, dt in zip(mins, ("mv_f", "mp_f", "mv_r", "mp_r"), _RANK_MINS):
+        _check(t, name, dt, (B,))
+    io = dict(kmers=kmers32.data_ptr(), active=_ptr(active), count=count.data_ptr(),
+              **dict(zip(("minval", "minpos", "minval_r", "minpos_r"),
+                         (t.data_ptr() for t in mins))))
+    return B, dev, tab, prm, io
+
+
+def rank_lists_kernel(cfg, tables, kmers32, mins, active, count, fields, shards, out, fill=False,
+                      rc_round=False, slots=None, hrows=None):
+    """The list pass of kernel 2's rank form (csrc/lookup_ranks.cu
+    sshash_rank_lists, the kernel in csrc/shard.cuh): over the ranks below
+    the int32 (1,) device count of (P, W) int32 kmers, each active rank
+    (not found yet, in the owned form's RC round and hand-off passes) goes
+    with its key, the MPHF slot of its minimizer (kernel 1's rank-form mins,
+    as probe_ranks_kernel folds them; out["slot"]'s with slots="read"), or
+    its handed sk_hrows row with hrows, to the list of the shard of
+    `shards` (layout.ProbeShard, consecutive ranges: a mesh row's) that
+    owns the key; the ranks no list takes are stored into out at once (with
+    fill the inactive ones as not found; in the packed form, one shard, the
+    combine's identity), and slots="store" stores the active ranks' slots
+    to out["slot"]. tables: any shard's of the row (the MPHF is whole on
+    each). Returns {"entries": (len(shards), P, 2) int32 (rank, key) pairs,
+    each list's first "count"[j] rows in no set order, "count": (len(shards),)
+    int32}. Same contract as engine.rank_lists_plain (which orders each list
+    by rank)."""
+    handoff, packed, lo, per = check_rank_lists(cfg, fields, shards, hrows, out, fill, rc_round,
+                                                slots)
+    store = STORE_PACKED if packed else STORE_OWNED
+    # the lists' key ranges go in RankLists; the parameters' ranges are unread
+    B, dev, tab, prm, io = _rank_io(cfg, tables, kmers32, mins, active, count, WHOLE_TABLE, store,
+                                    fill, rc_round, fields)
+    lists = {"entries": torch.empty((len(shards), B, 2), dtype=torch.int32, device=dev),
+             "count": torch.empty(len(shards), dtype=torch.int32, device=dev)}
+    rl = RankLists(lists["entries"].data_ptr(), lists["count"].data_ptr(), len(shards), B, lo,
+                   per)
+    io = ProbeIO(**io, **_shard_io(out, fields, B, dev, handoff, packed, hrows, slots))
+    err = library().sshash_rank_lists(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
+                                      ctypes.byref(rl), _stream(dev))
+    _raise_on(err, "rank_lists_kernel")
+    rank_lists_kernel.launches += 1
+    return lists
+
+
+rank_lists_kernel.launches = 0
+
+
 def probe_ranks_kernel(cfg, tables, kmers32, mins, active, count, fields, shard, out, fill=False,
-                       rc_round=False, slots=None, hrows=None):
+                       rc_round=False, slots=None, hrows=None, lists=None):
     """Kernel 2's rank form (csrc/lookup_ranks.cu sshash_probe_ranks, the
-    kernel in csrc/shard.cuh): its shard
+    list probe in csrc/shard.cuh): its shard
     form over the ranks below the int32 (1,) device count of (P, W) int32
     kmers compacted in rank order (the bucket-sharded stream's missed lanes,
     or its anchors), from kernel 1's rank-form minimizers mins = (mv_f,
@@ -615,25 +685,37 @@ def probe_ranks_kernel(cfg, tables, kmers32, mins, active, count, fields, shard,
     into out as the shard form does (layout.check_rank_probe has the forms):
     the owned form's result tensors (fields "full", or "stream", the
     stream's five), or {"packed": (packed_rows("full"), P)}, where rc_round
-    probes the RC strand and the merge follows the combine. Ranks at or
-    past the count are not written, nor hrows and out["slot"] read there.
-    v1 rows only. Same contract as engine.probe_ranks_plain."""
-    handoff, packed = check_rank_probe(cfg, fields, shard, hrows, out, fill, rc_round, slots)
+    probes the RC strand and the merge follows the combine. shard: one
+    layout.ProbeShard (tables its dict), or a mesh row's consecutive shards
+    (tables a dict each; given lists), every listed rank probed on its own
+    shard's tables in one launch. lists: (a rank_lists_kernel result, the
+    list to probe), whose pass made the stores of fill and slots (so both
+    stay off here): one launch, the list probe; None (one shard): the list
+    pass over that shard first (rank_lists_kernel), then the list probe.
+    Ranks at or past the count are not written, nor hrows and out["slot"]
+    read there. v1 rows only. Same contract as engine.probe_ranks_plain."""
+    shards, tabs, handoff, packed, lo, per = rank_probe_shards(
+        cfg, fields, shard, tables, hrows, out, fill, rc_round, slots, lists)
+    if lists is None:
+        lists = (rank_lists_kernel(cfg, tables, kmers32, mins, active, count, fields, shards,
+                                   out, fill, rc_round, slots, hrows), 0)
+    lst, j = lists
     store = STORE_PACKED if packed else STORE_OWNED
-    B, dev, tab, prm, _ = _probe_launch(cfg, tables, kmers32, active, "ids", shard, store, fill,
-                                        rc_round)
-    prm.full = int(fields == "full")
-    if B >= 1 << 32:
-        raise ValueError(f"kernel 2 takes fewer than 2^32 lanes, got {B}")
-    _scalar(count, "count")
-    for t, name, dt in zip(mins, ("mv_f", "mp_f", "mv_r", "mp_r"), _RANK_MINS):
-        _check(t, name, dt, (B,))
-    io = ProbeIO(kmers=kmers32.data_ptr(), active=_ptr(active), count=count.data_ptr(),
-                 **dict(zip(("minval", "minpos", "minval_r", "minpos_r"),
-                            (t.data_ptr() for t in mins))),
-                 **_shard_io(out, fields, B, dev, handoff, packed, hrows, slots))
-    err = library().sshash_probe_ranks(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
-                                       _stream(dev))
+    B, dev, tab, prm, io = _rank_io(cfg, tabs[0], kmers32, mins, active, count, shards[0], store,
+                                    False, rc_round, fields)
+    row = (ProbeTables * len(tabs))(tab, *(_probe_launch(cfg, t, kmers32, active, "ids", None,
+                                                         store)[2] for t in tabs[1:]))
+    entries, counts = lst["entries"], lst["count"]
+    _check(entries, "lists['entries']", torch.int32)
+    _check(counts, "lists['count']", torch.int32)
+    if entries.dim() != 3 or entries.shape[1:] != (B, 2) or counts.shape != entries.shape[:1] \
+            or not 0 <= j < entries.shape[0] or entries.device != dev or counts.device != dev:
+        raise ValueError(f"lists must hold (n, {B}, 2) entries and (n,) counts on {dev}, list "
+                         f"{j} among them")
+    io = ProbeIO(**io, list=entries[j].data_ptr(), list_count=counts[j].data_ptr(),
+                 **_shard_io(out, fields, B, dev, handoff, packed, hrows, None))
+    err = library().sshash_probe_ranks(row, len(tabs), lo, per, ctypes.byref(prm),
+                                       ctypes.byref(io), _stream(dev))
     _raise_on(err, "probe_ranks_kernel")
     probe_ranks_kernel.launches += 1
     return out
@@ -1197,7 +1279,8 @@ combine_kernel.launches = 0
 
 
 KERNELS = (minimizer_kernel, minimizer_ranks_kernel, probe_kernel, lookup_kernel,
-           probe_ranks_kernel, lookup_ranks_kernel, access_kernel, access_read_kernel,
+           rank_lists_kernel, probe_ranks_kernel, lookup_ranks_kernel, access_kernel,
+           access_read_kernel,
            iterate_kernel, weight_kernel, neighbours_kernel, scan_kernel, compact_kernel,
            stream_anchors_kernel, stream_kmers_kernel, stream_chain_kernel, stream_swin_kernel,
            stream_heads_kernel, stream_round2_kernel, stream_merge_kernel, stream_count_kernel,
@@ -1205,7 +1288,8 @@ KERNELS = (minimizer_kernel, minimizer_ranks_kernel, probe_kernel, lookup_kernel
 # the wrappers of each CUDA source
 SOURCE_KERNELS = {"minimizer.cu": ("minimizer_kernel", "minimizer_ranks_kernel"),
                   "probe.cu": ("probe_kernel", "lookup_kernel"),
-                  "lookup_ranks.cu": ("lookup_ranks_kernel", "probe_ranks_kernel"),
+                  "lookup_ranks.cu": ("lookup_ranks_kernel", "rank_lists_kernel",
+                                      "probe_ranks_kernel"),
                   "access.cu": ("access_kernel", "access_read_kernel"),
                   "iterator.cu": ("iterate_kernel",),
                   "weight.cu": ("weight_kernel",), "neighbours.cu": ("neighbours_kernel",),

@@ -152,6 +152,53 @@ def check_rank_probe(cfg, fields, shard, hrows, out, fill=False, rc_round=False,
     return check_probe_shard(cfg, shard, hrows, out, fill, rc_round and not packed, slots)
 
 
+# the most shards (lists) one list pass of kernel 2's rank form serves, and
+# the most shards one launch of its list probe serves (csrc/shard.cuh
+# kMaxLists, kMaxRowShards)
+MAX_RANK_LISTS = 64
+MAX_ROW_SHARDS = 8
+
+
+def check_rank_lists(cfg, fields, shards, hrows, out, fill=False, rc_round=False, slots=None):
+    """The list pass of kernel 2's rank form: the rank form's call forms
+    (check_rank_probe) for each of `shards` (layout.ProbeShard), which
+    must be consecutive key ranges of one width: their slots, or in the
+    hand-off's second pass (hrows given) their sk_hrows rows; one shard in
+    the packed form. Returns (handoff, packed, the first key, the width of
+    a shard's keys)."""
+    shards = list(shards)
+    if not 1 <= len(shards) <= MAX_RANK_LISTS:
+        raise ValueError(f"a list pass serves 1 to {MAX_RANK_LISTS} shards, got {len(shards)}")
+    for sh in shards:
+        handoff, packed = check_rank_probe(cfg, fields, sh, hrows, out, fill, rc_round, slots)
+    if packed and len(shards) != 1:
+        raise ValueError("the packed form's list pass serves its own shard only")
+    ranges = [(sh.hrow_lo, sh.hrow_hi) if hrows is not None else (sh.slot_lo, sh.slot_hi)
+              for sh in shards]
+    lo, per = ranges[0][0], ranges[0][1] - ranges[0][0]
+    if per < 1 or any(r != (lo + j * per, lo + (j + 1) * per) for j, r in enumerate(ranges)):
+        raise ValueError(f"the shards' key ranges must be consecutive and of one width: {ranges}")
+    return handoff, packed, lo, per
+
+
+def rank_probe_shards(cfg, fields, shard, tables, hrows, out, fill=False, rc_round=False,
+                      slots=None, lists=None):
+    """The list probe of kernel 2's rank form: `shard` one ProbeShard with
+    its table dict, or a mesh row's consecutive ProbeShards with theirs (at
+    most MAX_ROW_SHARDS, one launch for all; given lists only). Returns
+    (shards, tables, handoff, packed, first key, width of a shard's keys),
+    as lists."""
+    row = shard is not None and not isinstance(shard, ProbeShard)
+    shards, tabs = (list(shard), list(tables)) if row else ([shard], [tables])
+    if row and (lists is None or len(tabs) != len(shards) or len(shards) > MAX_ROW_SHARDS):
+        raise ValueError(f"a row of shards (at most {MAX_ROW_SHARDS}, a table dict each) probes "
+                         "a list pass's lists: pass lists")
+    if lists is not None and (fill or slots):
+        raise ValueError("fill and slots belong to the list pass that made the lists")
+    return (shards, tabs, *check_rank_lists(cfg, fields, shards, hrows, out, fill, rc_round,
+                                            slots))
+
+
 class AccessShard(NamedTuple):
     """One bucket shard's part of the access tables: the acc_rows rows of
     id blocks [blk_lo, blk_hi) and the strings32 words [word_lo, word_hi)

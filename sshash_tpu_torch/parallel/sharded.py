@@ -31,8 +31,12 @@ and the regular mode's two rounds merge as engine._merge does.
 
 ShardedStream's lookups (its anchors' and both rounds over its missed
 lanes) run in rank space, up to a count on the device, as the unsharded
-stream's do: kernel 1's rank form, then kernel 2's rank form
-(engine.probe_ranks) on each shard, in the same owned or packed form.
+stream's do: kernel 1's rank form, then kernel 2's rank form in the same
+owned or packed form: a list pass a round and hand-off pass
+(engine.rank_lists: each active rank's slot evaluated once, the rank
+listed), then the list probe (engine.probe_ranks), on a LocalMesh one
+launch for the data row, each rank probed on its owner shard's tables; on
+a DistMesh both on the rank's own shard.
 
 The other answers combine over the bucket axis (mesh.py; on a LocalMesh
 one launch of the combine kernel): the access's kmers, the weights and
@@ -49,7 +53,7 @@ import torch
 from .. import kmer as K
 from ..engine import (_neighbours_to_host, _to_host_result, access, access_read,
                       canonical_fold, make_lookup, make_neighbours, merge_rc, probe,
-                      probe_ranks, rc_misses, unpack_result, weight)
+                      probe_ranks, rank_lists, rc_misses, unpack_result, weight)
 from ..kernels import result_dtypes
 from ..layout import (AccessShard, ProbeShard, StaticCfg, device_arrays, packed_rows,
                       row_width, tables_from_host, with_access_tables)
@@ -284,12 +288,11 @@ class ShardedEngine:
         return unpack_result(self.mesh.pmin({s: out["packed"]}, "bucket")[s], fields)
 
     def _probe_pass(self, row, out, call, rc_round=False):
-        """One lookup round on a LocalMesh: kernel 2's shard form (or its
-        rank form) on every shard of data row `row`, call(j, **kw) on shard
-        j, each storing into out the lanes it owns (the first shard also the
-        inactive lanes, in the first round; it stores each lane's MPHF slot,
-        which the others read), then in an hindex index the hand-off's
-        second pass."""
+        """One lookup round on a LocalMesh: kernel 2's shard form on every
+        shard of data row `row`, call(j, **kw) on shard j, each storing into
+        out the lanes it owns (the first shard also the inactive lanes, in
+        the first round; it stores each lane's MPHF slot, which the others
+        read), then in an hindex index the hand-off's second pass."""
         shards = self._row_shards(row)
         for n, s in enumerate(shards):
             call(s[1], out=out, fill=n == 0 and not rc_round, rc_round=rc_round,
@@ -337,29 +340,38 @@ class ShardedEngine:
         return fn
 
     def _owned_ranks(self, row, fields):
-        """The rank-space lookup of data row `row` on a LocalMesh:
-        kernel 2's rank form on each shard of the row, the owned stores of
-        _owned_lookup over the ranks below the count."""
+        """The rank-space lookup of data row `row` on a LocalMesh: the owned
+        stores of _owned_lookup over the ranks below the count. Each round
+        (and hand-off pass) takes two launches: one list pass for the row,
+        which evaluates each active rank's slot once and lists it (and fills
+        the inactive ranks, in the first round), then kernel 2's rank form
+        over the list, each rank probed on its owner shard's tables."""
+        shards = [self.probe_shards[s[1]] for s in self._row_shards(row)]
+        tables = [self.tables[s[1]] for s in self._row_shards(row)]
+        # the row's keys, all in one list
+        whole = [ProbeShard(shards[0].slot_lo, shards[-1].slot_hi, shards[0].hrow_lo,
+                            shards[-1].hrow_hi)]
 
-        def fn(cfg, tables, kmers32, mins, active, count):
+        def fn(cfg, tables_, kmers32, mins, active, count):
             out = self._result_tensors(kmers32.shape[0], fields)
-
-            def call(j, **kw):
-                probe_ranks(cfg, self.tables[j], kmers32, mins, active, count, fields,
-                            self.probe_shards[j], **kw)
-
-            self._probe_pass(row, out, call)
-            if not cfg.canonical:
-                self._probe_pass(row, out, call, rc_round=True)
+            out.pop("slot", None)  # the list pass evaluates each slot once, for every shard
+            args = (kmers32, mins, active, count, fields)
+            for rc_round in (False,) if cfg.canonical else (False, True):
+                for hrows in (None, "hrow") if self.handoff else (None,):
+                    kw = dict(rc_round=rc_round, hrows=out[hrows] if hrows else None)
+                    lists = rank_lists(cfg, tables[0], *args, whole, out,
+                                       fill=not (rc_round or hrows), **kw)
+                    probe_ranks(cfg, tables, *args, shards, out, lists=(lists, 0), **kw)
             out.pop("hrow", None)
-            out.pop("slot", None)
             return out
 
         return fn
 
     def _packed_ranks(self, row, fields):
         """The rank-space lookup of data row `row` on a DistMesh: kernel
-        2's rank form on this rank's shard into one packed (F, P) buffer;
+        2's rank form on this rank's shard into one packed (F, P) buffer
+        (its list pass, the combine's identity on the ranks the shard does
+        not own, then its list probe);
         the hand-off's rows and the buffer each take one all_reduce MIN,
         whose sizes stay P's whatever the count (the ranks at or past it
         are left unwritten, so they combine to values that nothing after
@@ -374,11 +386,15 @@ class ShardedEngine:
                                          device=self.device)}
             if self.handoff:
                 out["hrow"] = torch.empty(B, dtype=torch.int32, device=self.device)
-            call = functools.partial(probe_ranks, self.cfg, tables, kmers32, mins, active, count,
-                                     "full", shard, rc_round=rc_round)
-            call(out)
+            args = (self.cfg, tables, kmers32, mins, active, count, "full")
+
+            def call(**kw):  # the list pass on this shard alone, then its list probe
+                lists = rank_lists(*args, [shard], out, rc_round=rc_round, **kw)
+                probe_ranks(*args, shard, out, rc_round=rc_round, lists=(lists, 0), **kw)
+
+            call()
             if self.handoff:
-                call(out, hrows=self.mesh.pmin({s: out.pop("hrow")}, "bucket", unsigned=True)[s])
+                call(hrows=self.mesh.pmin({s: out.pop("hrow")}, "bucket", unsigned=True)[s])
             return unpack_result(self.mesh.pmin({s: out["packed"]}, "bucket")[s], "full")
 
         def fn(cfg, tables_, kmers32, mins, active, count):

@@ -13,18 +13,37 @@ for instance under .chip_scratch/ (gitignored). Sides:
 
   tree         this tree's kernel library (kernels.build)
   baseline     DIR's own package, loaded under another name, with its own
-               kernel library built from its csrc: its step (before this
-               tree, the misses ran kernel 1 over all P lanes and kernel 2
+               kernel library built from its csrc: its step, and its
+               misses' kernels where it has them in rank space (a DIR
+               before that ran kernel 1 over all P lanes and kernel 2
                twice, given kernel 1's outputs)
   walk         this tree with the rank-space lookup walking its active
                ranks' windows again (kernel 1's, minimizer.cuh) at every
                k (lookup_ranks.cu patched; the tree walks at most 24
                windows and reads kernel 1's rank-form minimizers past that)
   read         the same, reading kernel 1's minimizers at every k
-  strided      this tree with the rank-space lookup a thread a rank over
-               a grid-stride loop, the active ranks looked up where they
-               fall (lookup_ranks.cu patched; the tree queues a warp's
-               active ranks and looks them up 32 at a time)
+  (the rank-space lookup's designs; the tree's: each warp queueing its
+  active ranks in shared memory from one 32-rank group to the next and
+  looking them up 32 at a time, 3 blocks an SM; lookup_ranks.cu patched,
+  its kernel and launch)
+  tiles        a block's tile of 4 x 256 ranks (fewer where the count spread
+               over the grid leaves fewer), its active ones compacted in
+               shared memory with one block-wide prefix, then a thread an
+               entry, nothing carried from tile to tile; the lookup kernel's
+               launch bounds but 3 blocks an SM at the widths where the
+               tile's state spilled at 4
+  tiles4       the tiles at the lookup kernel's launch bounds at every width
+  warptile     a warp's tile of 4 x 32 ranks, its active ones compacted by a
+               ballot into the warp's part of shared memory and looked up a
+               lane an entry, no block barrier and nothing carried from tile
+               to tile
+  lists        two launches: a list pass (the tiles' compaction, one
+               atomicAdd a tile on a device count) writing the active ranks
+               to a list, then a thread an entry of the list
+  queued4      the tree's queue at the lookup kernel's launch bounds (4
+               blocks an SM where it asks them)
+  strided      a thread a rank over a grid-stride loop, the active ranks
+               looked up where they fall
   k1_grid_p    this tree with kernel 1's rank form on a grid of P lanes
                whose threads past the count exit (minimizer.cu patched;
                the tree's grid fits the card and strides up to the count)
@@ -48,10 +67,10 @@ for instance under .chip_scratch/ (gitignored). Sides:
                searches its warp's run (stream_anchor.cu patched; in the
                tree each thread searches all of pstart[:nreads],
                log2(nreads) + 1 dependent steps from L2)
-  masks_atomic (the anchor stage only) the parent's design: DIR's masks
-               kernel (a zero fill, atomicOr a read, then a group
-               popcount launch), the tree's scan of the group counts and
-               the tree's kmer read at the anchors' lanes
+  masks_atomic (the anchor stage only, where DIR predates the one-launch
+               anchor stage) DIR's masks kernel (a zero fill, atomicOr a
+               read, then a group popcount launch), the tree's scan of the
+               group counts and the tree's kmer read at the anchors' lanes
 
 A variant is built from its patched sources alone (nvcc for sm_90a into
 build/stream_ab/) and serves their entries; every other entry runs from
@@ -146,18 +165,256 @@ RANK_STORES = r'''        uint32_t rank = ex[i];
 # reading kernel 1's minimizers, and the widest kernel that walks
 WALK_CUT = "constexpr int kWalkWindows = 24;"
 WALK_W = "constexpr int kWalkMaxW = 4;"
-# ... and a thread a rank, the active ranks looked up where they fall
-QUEUED = re.compile(r"  int held = 0;.*?\n}\n", re.S)
-STRIDED = """  (void)lane;
-  (void)queue;
+# the rank-space lookup's kernel and its launch, which the designs that
+# lost replace
+RANKS_KERNEL = re.compile(r"// 3 blocks of 256 threads an SM \(80 registers a thread\).*?"
+                          r"(?=}  // namespace sshash)", re.S)
+QUEUE_BOUNDS = "__launch_bounds__(256, W > kMaxFixedW ? 1 : 3)\n    lookup_ranks_kernel"
+RANKS_LAUNCH = """template <int W, bool CANON, bool WALK>
+static cudaError_t launch_ranks(const ProbeTables& t, const ProbeParams& p, const ProbeIO& io,
+                                PerDevice& per_sm, cudaStream_t stream) {
+  const int threads = 256 * stage_stride(2 + (int)p.blk_w) * 4 + SIDE_SMEM(256) <= 48 * 1024
+                          ? 256 : 128;
+  const size_t smem = (size_t)threads * stage_stride(2 + (int)p.blk_w) * 4 + SIDE_SMEM(threads);
+  int64_t blocks = 0;
+  const cudaError_t err =
+      pass_blocks(lookup_ranks_kernel<W, CANON, WALK>, threads, per_sm, p.B, &blocks, smem);
+  if (err != cudaSuccess) return err;
+  lookup_ranks_kernel<W, CANON, WALK><<<(unsigned)blocks, threads, smem, stream>>>(t, p, io);
+  return cudaGetLastError();
+}
+
+"""
+# ... a block's tile of ranks, compacted with one block-wide prefix
+TILE_RANKS = """constexpr int kTileRanks = 4;  // ranks a thread takes a tile
+
+// Blocks of 256 threads an SM that the launch bounds ask registers for:
+// the lookup kernel's (lookup_min_blocks), but 3 at the widths where the
+// tile's state beside the lookup spilled at 4 (regular 2-3 words,
+// canonical 4-5).
+__host__ __device__ constexpr int ranks_min_blocks(int W, bool canon) {
+  return W > kMaxFixedW ? 1
+         : (canon ? W == 4 || W == 5 : W == 2 || W == 3) ? 3
+                                                          : lookup_min_blocks(W, canon);
+}
+
+// Tile tb: the span ranks from tb x span on, each warp's 32 at a time
+// contiguous. span is kTileRanks x blockDim, or less where the count spread
+// over the grid leaves less (a multiple of 32), so that a small count
+// reaches as many blocks as it can fill. Across the lookups only the
+// tile's number, the entry's index and the tile's length stay live: the
+// count is read again for the next tile and the list holds the ranks
+// themselves.
+template <int W, bool CANON, bool WALK>
+__global__ void __launch_bounds__(256, ranks_min_blocks(W, CANON))
+    lookup_ranks_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
+  extern __shared__ uint32_t stage[];
+  __shared__ int warp_n[256 / 32];
+  const int64_t per_block = (misses(io.count, p.B) + gridDim.x - 1) / gridDim.x;
+  const int span = per_block < kTileRanks * (int64_t)blockDim.x
+                       ? (int)((per_block + 31) & ~31ll)
+                       : kTileRanks * (int)blockDim.x;
+  for (uint32_t tb = blockIdx.x; (int64_t)tb * span < misses(io.count, p.B); tb += gridDim.x) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const int64_t n = misses(io.count, p.B), t0 = (int64_t)tb * span;
+    uint32_t* tile = stage + blockDim.x * stage_stride(2 + (int)p.blk_w);
+    unsigned on[kTileRanks];
+    int mine = 0;  // the warp's active ranks in the tile
+#pragma unroll
+    for (int g = 0; g < kTileRanks; ++g) {
+      const int q = (g * nwarps + warp) * 32;  // the group's first rank in the tile
+      const int64_t i = t0 + q + lane;
+      const bool in = q < span && i < n, act = in && io.active[i];
+      if (in && !act) write_not_found(io, i);
+      on[g] = __ballot_sync(0xFFFFFFFFu, act);
+      mine += __popc(on[g]);
+    }
+    if (lane == 0) warp_n[warp] = mine;
+    __syncthreads();
+    int at = 0, total = 0;  // the warp's first place in the tile's list; its length
+    for (int w = 0; w < nwarps; ++w) {
+      at += w < warp ? warp_n[w] : 0;
+      total += warp_n[w];
+    }
+#pragma unroll
+    for (int g = 0; g < kTileRanks; ++g) {
+      if ((on[g] >> lane) & 1u)
+        tile[at + __popc(on[g] & ((1u << lane) - 1u))] =
+            (uint32_t)(t0 + (g * nwarps + warp) * 32 + lane);
+      at += __popc(on[g]);
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < total; e += blockDim.x)
+      lookup_rank<W, CANON, WALK>(t, p, io, thread_slot(stage, p),
+                                  stage[blockDim.x * stage_stride(2 + (int)p.blk_w) + e]);
+    __syncthreads();  // warp_n and the tile are refilled next
+  }
+}
+
+// Shared memory of a block: the lookup kernel's staging slots and the
+// tile's list.
+inline size_t ranks_smem(const ProbeParams& p, int threads) {
+  return (size_t)threads * stage_stride(2 + (int)p.blk_w) * 4 +
+         (size_t)threads * kTileRanks * 4;
+}
+
+// Threads a block: 256 while the block's shared memory fits the 48 KB a
+// launch takes without an attribute, else 128 (the widest row heads).
+inline int ranks_threads(const ProbeParams& p) {
+  return ranks_smem(p, 256) <= 48 * 1024 ? 256 : 128;
+}
+
+// A grid sized to the card, or fewer blocks where P's tiles (p.B, the
+// most ranks the count can reach) need fewer. static: the occupancy cache
+// passed in stays this library's
+template <int W, bool CANON, bool WALK>
+static cudaError_t launch_ranks(const ProbeTables& t, const ProbeParams& p, const ProbeIO& io,
+                                PerDevice& per_sm, cudaStream_t stream) {
+  const int threads = ranks_threads(p);
+  const size_t smem = ranks_smem(p, threads);
+  int64_t blocks = 0;
+  const cudaError_t err = pass_blocks(lookup_ranks_kernel<W, CANON, WALK>, threads, per_sm,
+                                      (p.B + kTileRanks - 1) / kTileRanks, &blocks, smem);
+  if (err != cudaSuccess) return err;
+  lookup_ranks_kernel<W, CANON, WALK><<<(unsigned)blocks, threads, smem, stream>>>(t, p, io);
+  return cudaGetLastError();
+}
+
+"""
+# ... the widths the tiles' launch bounds give 3 blocks an SM, not the
+# lookup kernel's
+RANKS_SPILLED = "(canon ? W == 4 || W == 5 : W == 2 || W == 3) ? 3"
+# ... a warp's tile, no block barrier
+WARP_TILE_RANKS = """constexpr int kTileRanks = 4;
+#define SIDE_SMEM(threads) ((size_t)(threads) * kTileRanks * 4)
+template <int W, bool CANON, bool WALK>
+__global__ void __launch_bounds__(256, lookup_min_blocks(W, CANON))
+    lookup_ranks_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
+  extern __shared__ uint32_t stage[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* tile = stage + blockDim.x * stage_stride(2 + (int)p.blk_w) + warp * 32 * kTileRanks;
+  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
+  for (int64_t w0 = ((int64_t)blockIdx.x * (blockDim.x >> 5) + warp) * 32 * kTileRanks;
+       w0 < misses(io.count, p.B); w0 += warps * 32 * kTileRanks) {
+    const int64_t n = misses(io.count, p.B);
+    int total = 0;
+#pragma unroll
+    for (int g = 0; g < kTileRanks; ++g) {
+      const int64_t i = w0 + 32 * g + lane;
+      const bool in = i < n, act = in && io.active[i];
+      if (in && !act) write_not_found(io, i);
+      const unsigned m = __ballot_sync(0xFFFFFFFFu, act);
+      if (act) tile[total + __popc(m & ((1u << lane) - 1u))] = (uint32_t)i;
+      total += __popc(m);
+    }
+    __syncwarp();
+    for (int e = lane; e < total; e += 32)
+      lookup_rank<W, CANON, WALK>(t, p, io, thread_slot(stage, p), tile[e]);
+    __syncwarp();
+  }
+}
+
+""" + RANKS_LAUNCH
+# ... a thread a rank, the active ranks looked up where they fall
+STRIDED_RANKS = """#define SIDE_SMEM(threads) ((size_t)0)
+template <int W, bool CANON, bool WALK>
+__global__ void __launch_bounds__(256, lookup_min_blocks(W, CANON))
+    lookup_ranks_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
+  extern __shared__ uint32_t stage[];
+  const int64_t n = misses(io.count, p.B);
+  uint32_t* slot = thread_slot(stage, p);
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += warps * 32) {
+       i += (int64_t)gridDim.x * blockDim.x) {
     if (io.active[i])
       lookup_rank<W, CANON, WALK>(t, p, io, slot, i);
     else
       write_not_found(io, i);
   }
 }
+
+""" + RANKS_LAUNCH
+# ... a list pass into a device list and count, then a lookup launch over it
+# (its list and count allocated at a first call, before any capture)
+LISTED_RANKS = """// the active ranks' list: tiles of 4 x 256 ranks compacted as the tree's
+// kernel compacts them, each tile's place taken with one atomicAdd
+__global__ void __launch_bounds__(256)
+    rank_list_side(ProbeParams p, ProbeIO io, uint32_t* list, int32_t* cnt) {
+  __shared__ int warp_n[8], tile_at;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int64_t n = misses(io.count, p.B), span = 4 * (int64_t)blockDim.x;
+  for (int64_t t0 = (int64_t)blockIdx.x * span; t0 < n; t0 += (int64_t)gridDim.x * span) {
+    unsigned on[4];
+    int mine = 0;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int64_t i = t0 + (int64_t)(g * nwarps + warp) * 32 + lane;
+      const bool in = i < n, act = in && io.active[i];
+      if (in && !act) write_not_found(io, i);
+      on[g] = __ballot_sync(0xFFFFFFFFu, act);
+      mine += __popc(on[g]);
+    }
+    if (lane == 0) warp_n[warp] = mine;
+    __syncthreads();
+    int at = 0, total = 0;
+    for (int w = 0; w < nwarps; ++w) {
+      at += w < warp ? warp_n[w] : 0;
+      total += warp_n[w];
+    }
+    if (threadIdx.x == 0) tile_at = total ? atomicAdd(cnt, total) : 0;
+    __syncthreads();
+    at += tile_at;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      if ((on[g] >> lane) & 1u)
+        list[at + __popc(on[g] & ((1u << lane) - 1u))] =
+            (uint32_t)(t0 + (int64_t)(g * nwarps + warp) * 32 + lane);
+      at += __popc(on[g]);
+    }
+    __syncthreads();
+  }
+}
+
+template <int W, bool CANON, bool WALK>
+__global__ void __launch_bounds__(256, lookup_min_blocks(W, CANON))
+    lookup_ranks_kernel(ProbeTables t, ProbeParams p, ProbeIO io, const uint32_t* list,
+                        const int32_t* cnt) {
+  extern __shared__ uint32_t stage[];
+  const int64_t n = misses(cnt, p.B);
+  uint32_t* slot = thread_slot(stage, p);
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (int64_t)gridDim.x * blockDim.x)
+    lookup_rank<W, CANON, WALK>(t, p, io, slot, list[e]);
+}
+
+template <int W, bool CANON, bool WALK>
+static cudaError_t launch_ranks(const ProbeTables& t, const ProbeParams& p, const ProbeIO& io,
+                                PerDevice& per_sm, cudaStream_t stream) {
+  static uint32_t* list = nullptr;
+  static int32_t* cnt = nullptr;
+  static int64_t cap = 0;
+  static PerDevice list_sm;
+  cudaError_t err = cudaSuccess;
+  if (p.B > cap) {
+    if (list) cudaFree(list);
+    if (!cnt) err = cudaMalloc(&cnt, 4);
+    if (err == cudaSuccess) err = cudaMalloc(&list, 4 * p.B);
+    if (err != cudaSuccess) return err;
+    cap = p.B;
+  }
+  err = cudaMemsetAsync(cnt, 0, 4, stream);
+  int64_t blocks = 0;
+  if (err == cudaSuccess) err = pass_blocks(rank_list_side, 256, list_sm, (p.B + 3) / 4, &blocks);
+  if (err != cudaSuccess) return err;
+  rank_list_side<<<(unsigned)blocks, 256, 0, stream>>>(p, io, list, cnt);
+  const int threads = stage_threads(p);
+  const size_t smem = (size_t)threads * stage_stride(2 + (int)p.blk_w) * 4;
+  err = pass_blocks(lookup_ranks_kernel<W, CANON, WALK>, threads, per_sm, p.B, &blocks, smem);
+  if (err != cudaSuccess) return err;
+  lookup_ranks_kernel<W, CANON, WALK><<<(unsigned)blocks, threads, smem, stream>>>(t, p, io, list,
+                                                                                  cnt);
+  return cudaGetLastError();
+}
+
 """
 GRID = """    const cudaError_t err = pass_blocks(minimizer_ranks_kernel<WW>, kRankThreads,
                                         per_sm[WW <= kMaxFixedW ? WW - 1 : kMaxFixedW], P,
@@ -230,8 +487,18 @@ def variant_sources():
                                           WALK_W, "constexpr int kWalkMaxW = kWideW;")},
         "read": {"lookup_ranks.cu": patch(text["lookup_ranks.cu"], WALK_CUT,
                                           "constexpr int kWalkWindows = 0;")},
-        "strided": {"lookup_ranks.cu": QUEUED.sub(lambda _: STRIDED, text["lookup_ranks.cu"],
-                                                  count=1)},
+        "tiles": {"lookup_ranks.cu": sub(RANKS_KERNEL, TILE_RANKS, text["lookup_ranks.cu"])},
+        "tiles4": {"lookup_ranks.cu": sub(RANKS_KERNEL, TILE_RANKS.replace(RANKS_SPILLED,
+                                                                            "false ? 3"),
+                                          text["lookup_ranks.cu"])},
+        "strided": {"lookup_ranks.cu": sub(RANKS_KERNEL, STRIDED_RANKS,
+                                           text["lookup_ranks.cu"])},
+        "lists": {"lookup_ranks.cu": sub(RANKS_KERNEL, LISTED_RANKS, text["lookup_ranks.cu"])},
+        "queued4": {"lookup_ranks.cu": patch(text["lookup_ranks.cu"], QUEUE_BOUNDS,
+                                             QUEUE_BOUNDS.replace("W > kMaxFixedW ? 1 : 3",
+                                                                  "lookup_min_blocks(W, CANON)"))},
+        "warptile": {"lookup_ranks.cu": sub(RANKS_KERNEL, WARP_TILE_RANKS,
+                                            text["lookup_ranks.cu"])},
         "k1_grid_p": {"minimizer.cu": patch(
             text["minimizer.cu"], GRID,
             "    (void)per_sm;\n    blocks = (P + kRankThreads - 1) / kRankThreads;\n")},
@@ -433,15 +700,23 @@ def compare_chunk(tag, sides, eng, packed, P, R, CW, av, stages=False):
         runs[side] = (step, calls, out)
     _, calls, ref = runs["tree"]
     want = stage_outputs(calls)
-    # the baseline's anchor stage and reads are other stages (masks, kmers
-    # of the anchors and of the misses); they are held to the tree's below
-    base_skip = ("stream_anchor.cu",)
+    # a baseline before the one-launch anchor stage: its anchor stage and
+    # reads are other stages (masks, kmers of the anchors and of the
+    # misses), held to the tree's below; before the rank space it ran its
+    # misses over all P lanes
+    base_names = {n for n, _, _ in runs["baseline"][1]}
+    old_anchors = "anchors" not in base_names
+    base_skip = ("stream_anchor.cu",) * old_anchors + ("misses",) * (
+        "lookup_ranks" not in base_names)
+    anchor_calls, miss_calls = dict(ANCHOR_CALLS), dict(MISS_CALLS)
+    if not old_anchors:
+        anchor_calls["baseline"], miss_calls["baseline"] = ANCHOR_CALLS["tree"], MISS_CALLS["tree"]
     for side, (_, calls, out) in runs.items():
         S.require(S.rows_equal(out, ref), f"{tag}: the {side} step != the tree's")
         got = stage_outputs(calls, base_skip if side == "baseline" else ())
         for key, v in want.items():
-            if side == "baseline" and SOURCE_OF[key[0]] in ("misses",) + base_skip:
-                continue  # the baseline ran its misses over all P lanes
+            if side == "baseline" and SOURCE_OF[key[0]] in base_skip:
+                continue
             S.require(key in got and all(torch.equal(a, b) for a, b in zip(got[key], v)),
                       f"{tag}: {side} stage {key} != the tree's")
     n_need = [int(o[1][0]) for n, _, o in runs["tree"][1] if n == "compact"][0]
@@ -480,22 +755,25 @@ def compare_chunk(tag, sides, eng, packed, P, R, CW, av, stages=False):
     # the anchor stage: every side's (sbits, fbits, cum_g, anchors) equal the
     # tree's (the baseline's from its masks, group scan and anchors' read),
     # then the sides in turns
-    tree_anchor = picked("tree", ANCHOR_CALLS["tree"])[1][0]
+    tree_anchor = picked("tree", anchor_calls["tree"])[1][0]
     anchor_fns = {}
     for side in sides:
-        fn, outs = picked(side, ANCHOR_CALLS.get(side, ANCHOR_CALLS["tree"]))
-        got = outs[0] if side != "baseline" else (*outs[0][:2], outs[1], outs[2])
+        fn, outs = picked(side, anchor_calls.get(side, anchor_calls["tree"]))
+        got = outs[0] if side != "baseline" or not old_anchors else (*outs[0][:2], outs[1],
+                                                                      outs[2])
         S.require(all(torch.equal(g, w) for g, w in zip(got, tree_anchor)),
                   f"{tag}: the {side} anchor stage != the tree's")
         anchor_fns[side] = fn
-    anchor_fns["masks_atomic"] = masks_atomic(sides["baseline"][0], runs["tree"][1], tree_anchor)
+    if old_anchors:
+        anchor_fns["masks_atomic"] = masks_atomic(sides["baseline"][0], runs["tree"][1],
+                                                  tree_anchor)
     S.time_sides(tag, "the anchor stage", P, anchor_fns, unit="lane", graph=tuple(anchor_fns))
     # the misses' kmer read: rows below the count equal the tree's
     n_miss = int([a for n, a, _ in runs["tree"][1] if n == "kmers"][0][5][0])
-    tree_miss = picked("tree", MISS_CALLS["tree"])[1][0][:n_miss]
+    tree_miss = picked("tree", miss_calls["tree"])[1][0][:n_miss]
     miss_fns = {}
     for side in sides:
-        fn, outs = picked(side, MISS_CALLS.get(side, MISS_CALLS["tree"]))
+        fn, outs = picked(side, miss_calls.get(side, miss_calls["tree"]))
         S.require(torch.equal(outs[0][:n_miss], tree_miss),
                   f"{tag}: the {side} misses' read != the tree's")
         miss_fns[side] = fn
@@ -526,7 +804,7 @@ def compare_chunk(tag, sides, eng, packed, P, R, CW, av, stages=False):
     graph = tuple(sides)
     S.time_sides(tag, "the step", P, {side: step_fn(side) for side in sides}, unit="lane",
                  graph=graph)
-    ranked = [side for side in sides if side != "baseline"]
+    ranked = [side for side in sides if side != "baseline" or "misses" not in base_skip]
     S.time_sides(tag, "the misses' kernels (kernel 1's rank form, both lookup rounds)", P,
                  {side: calls_fn(side, "misses") for side in ranked}, unit="lane", graph=ranked)
     for src in ("scan.cu", "stream_derive.cu"):
@@ -535,7 +813,7 @@ def compare_chunk(tag, sides, eng, packed, P, R, CW, av, stages=False):
     if stages:
         for key in want:
             fns = {side: stage_fn(side, key) for side in sides
-                   if not (side == "baseline" and SOURCE_OF[key[0]] in ("misses",) + base_skip)}
+                   if not (side == "baseline" and SOURCE_OF[key[0]] in base_skip)}
             S.time_sides(tag, f"stage {key[0]} #{key[1]}, {STAGE_CALLS} calls", P * STAGE_CALLS,
                          fns, unit="lane", graph=tuple(fns))
 

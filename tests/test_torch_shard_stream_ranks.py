@@ -1,11 +1,15 @@
 """The bucket-sharded stream's lookups in rank space: kernel 2's rank form
-(engine.probe_ranks: csrc/shard.cuh, entry sshash_probe_ranks) on each shard of a
-data row, after kernel 1's rank form, for ShardedStream's missed lanes and
-anchors. Its plain version against the masked owned lookup it replaces
-(the lane form over all P lanes) below the count, in the owned and the
-packed form; the sharded step against the unsharded port step on the same
-packed chunks; ShardedStream against the JAX package's ShardedStream and
-the host _Batcher; and, on a card, the kernel against its plain version.
+(csrc/shard.cuh: the list pass, engine.rank_lists, entry sshash_rank_lists,
+once a data row; the list probe, engine.probe_ranks, entry
+sshash_probe_ranks, on each shard), after kernel 1's rank form, for
+ShardedStream's missed lanes and anchors. Its plain versions against the
+masked owned lookup it replaces (the lane form over all P lanes) below the
+count, in the owned and the packed form; the list pass's plain version
+against the JAX package's MPHF slots (every active rank in its owner's
+list, with its slot); the sharded step against the unsharded port step on
+the same packed chunks; ShardedStream against the JAX package's
+ShardedStream and the host _Batcher; and, on a card, the kernels against
+their plain versions.
 
 The same seeded inputs go through every side. Outputs are integers: the
 tolerance is 0. JAX and the JAX package are imported inside the CPU
@@ -25,8 +29,9 @@ from sshash_tpu_torch import TorchEngine, kernels, oracle, synthetic
 from sshash_tpu_torch import engine as E
 from sshash_tpu_torch import kmer as K
 from sshash_tpu_torch import streaming as ST
-from sshash_tpu_torch.engine import probe_ranks, probe_ranks_plain, unpack_result
-from sshash_tpu_torch.layout import packed_rows
+from sshash_tpu_torch.engine import (probe_ranks, probe_ranks_plain, rank_lists,
+                                     rank_lists_plain, unpack_result)
+from sshash_tpu_torch.layout import ProbeShard, packed_rows
 from sshash_tpu_torch.ops import packed as P
 from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine, ShardedStream
 from sshash_tpu_torch.parallel.mesh import combine_plain
@@ -34,6 +39,9 @@ from sshash_tpu_torch.parallel.mesh import combine_plain
 P_RANKS = 256
 # no rank, one, a count no multiple of 32, every rank
 COUNTS = (0, 1, 45, P_RANKS)
+# the list pass's and the list probe's edges: a warp, one rank either side
+LIST_COUNTS = (0, 1, 31, 32, 33, 45, P_RANKS)
+M32 = 0xFFFFFFFF
 SHAPES = ((1, 2), (1, 4), (2, 2))
 # regular, canonical, and an hindex index whose heavy lanes' rows another
 # shard holds (the hand-off)
@@ -65,22 +73,22 @@ def sentinel(fields, B, handoff, device="cpu", packed=False):
     return out
 
 
-def rank_batch(eng, seed, device="cpu"):
-    """P_RANKS kmers compacted in rank order: positives (half
+def rank_batch(eng, seed, device="cpu", n=P_RANKS):
+    """n kmers compacted in rank order: positives (half
     reverse-complemented, a third of them in multi-kmer or heavy buckets)
     and random kmers, shuffled; an active mask of about 70% of them; kernel
     1's rank-form minimizers of every rank."""
     idx, cfg = eng.index, eng.cfg
     rng = np.random.default_rng(seed)
-    n_pos = P_RANKS * 3 // 4
+    n_pos = n * 3 // 4
     ids = np.concatenate([rng.integers(0, idx.num_kmers, n_pos - n_pos // 3),
                           synthetic.path_kmer_ids(idx, rng, n_pos // 3)])
     km = oracle.access(idx, ids)
     km[::2] = K.revcomp_kmers(km[::2], idx.k)
-    km = np.concatenate([km, synthetic.random_kmers(idx.k, rng, P_RANKS - len(km))])
-    kt = eng.kmers32(km[rng.permutation(P_RANKS)]).to(device)
-    active = torch.from_numpy(rng.random(P_RANKS) < 0.7).to(device)
-    full = torch.tensor([P_RANKS], dtype=torch.int32, device=device)
+    km = np.concatenate([km, synthetic.random_kmers(idx.k, rng, n - len(km))])
+    kt = eng.kmers32(km[rng.permutation(n)]).to(device)
+    active = torch.from_numpy(rng.random(n) < 0.7).to(device)
+    full = torch.tensor([n], dtype=torch.int32, device=device)
     return kt, active, P.minimizer_ranks(kt, full, cfg.k, cfg.m, cfg.magic)
 
 
@@ -187,6 +195,132 @@ def test_rank_form_raises_on_what_it_does_not_take():
                     v2.probe_shards[0], sentinel("stream", P_RANKS, False))
 
 
+@functools.lru_cache(maxsize=None)
+def jax_engine(name):
+    """The JAX package's engine of the small index `name` (its arrays and
+    StaticCfg)."""
+    import sshash_tpu
+    from test_torch_host import jax_index
+
+    return sshash_tpu.Dictionary(jax_index(index(name))).to_device()
+
+
+def jax_slots(name, minval):
+    """The JAX package's MPHF slot (sshash_tpu/engine.py
+    mphf_eval_minimizer) of each minimizer value (int64 numpy)."""
+    import jax.numpy as jnp
+    from sshash_tpu.engine import mphf_eval_minimizer
+    from sshash_tpu.ops import u64 as ju
+
+    jeng = jax_engine(name)
+    mv = np.asarray(minval, dtype=np.int64).astype(np.uint64)
+    pair = ju.u64(jnp.asarray((mv >> np.uint64(32)).astype(np.uint32)),
+                  jnp.asarray((mv & np.uint64(M32)).astype(np.uint32)))
+    return np.asarray(mphf_eval_minimizer(jeng.cfg, jeng.arrs, pair)).astype(np.int64)
+
+
+def round_minval(cfg, mins, rc_round):
+    """The minimizer value each rank probes (numpy int64): the canonical
+    fold's, or the round's strand."""
+    mv_f, mv_r = mins[0].numpy(), mins[2].numpy()
+    return np.minimum(mv_f, mv_r) if cfg.canonical else mv_r if rc_round else mv_f
+
+
+def lists_of(lists, j):
+    """List j of a list pass as numpy (rank, key as u32) rows, by rank."""
+    n = int(lists["count"][j])
+    e = lists["entries"][j, :n].cpu().numpy().astype(np.int64)
+    e[:, 1] &= M32
+    return e[np.argsort(e[:, 0], kind="stable")]
+
+
+@pytest.mark.parametrize("count", LIST_COUNTS)
+@pytest.mark.parametrize("name", ["m13_regular", "m13_canonical", "m3_skew", "partitioned"])
+def test_rank_lists_plain_deals_active_ranks_to_their_owners(name, count):
+    """The list pass's plain version on a (1, 4) row: every active rank
+    below the count (some, all, none) is in exactly one list, its owner's
+    by the JAX package's MPHF slot, with that slot, each list in rank
+    order; with fill the inactive ranks below the count read not found and
+    the active ones and those past it keep the sentinel; in the RC round
+    (regular) the forward round's found ranks go to no list; the packed
+    form's one list leaves the combine's identity on every other rank; a
+    shard range past the table owns nothing and one over all of it owns
+    every active rank."""
+    eng = ShardedEngine(index(name), LocalMesh((1, 4), "cpu"))
+    cfg, per = eng.cfg, eng.geometry["per_shard"]
+    kt, active, mins = rank_batch(eng, 9)
+    cnt = count_of(count)
+    masks = {"some": active, "all": None, "none": torch.zeros(P_RANKS, dtype=torch.bool)}
+    for rc_round in (False,) if cfg.canonical else (False, True):
+        slots = jax_slots(name, round_minval(cfg, mins, rc_round))
+        for what, act in masks.items():
+            out = sentinel("stream", P_RANKS, eng.handoff)
+            out.pop("slot")
+            found = np.zeros(P_RANKS, dtype=bool)
+            if rc_round:  # the forward round found every third rank
+                found[::3] = True
+                out["found"][:] = torch.from_numpy(found)
+            lists = rank_lists_plain(cfg, eng.tables[0], kt, mins, act, cnt, "stream",
+                                     eng.probe_shards, out, fill=not rc_round,
+                                     rc_round=rc_round)
+            on = np.ones(P_RANKS, bool) if act is None else act.numpy().copy()
+            on[count:] = False
+            on &= ~found
+            owner = slots // per
+            for j in range(4):
+                want = np.nonzero(on & (owner == j))[0]
+                got = lists_of(lists, j)
+                assert np.array_equal(got[:, 0], want), (what, rc_round, j)
+                assert np.array_equal(got[:, 1], slots[want]), (what, rc_round, j)
+            assert int(lists["count"].sum()) == int(on.sum())
+            orient = out["kmer_orientation"].numpy()
+            below = np.arange(P_RANKS) < count
+            idle = below & ~on & ~found if not rc_round else np.zeros(P_RANKS, bool)
+            assert (orient[idle] == 1).all() and (out["kmer_id"].numpy()[idle] == -1).all()
+            assert (orient[~idle] == 7).all() and (out["kmer_id"].numpy()[~idle] == MARK).all()
+    # the packed form: shard 1's list, the identity on every rank it does not take
+    pk = sentinel("full", P_RANKS, eng.handoff, packed=True)
+    lists = rank_lists_plain(cfg, eng.tables[1], kt, mins, active, cnt, "full",
+                             [eng.probe_shards[1]], pk)
+    slots = jax_slots(name, round_minval(cfg, mins, False))
+    mine = active.numpy() & (np.arange(P_RANKS) < count) & (slots // per == 1)
+    assert np.array_equal(lists_of(lists, 0)[:, 0], np.nonzero(mine)[0])
+    ident = (np.arange(P_RANKS) < count) & ~mine
+    assert (pk["packed"][:, mine | (np.arange(P_RANKS) >= count)] == MARK).all()
+    assert torch.equal(pk["packed"][:-3, ident], torch.full_like(pk["packed"][:-3, ident],
+                                                                  0x7FFFFFFF))
+    assert (pk["packed"][-3:, ident] == torch.tensor([[1], [1], [0]])).all()
+    # one range over the whole table, one past it
+    whole = [ProbeShard(0, 1 << 31), ProbeShard(1 << 31, 1 << 32)]
+    out = sentinel("stream", P_RANKS, eng.handoff)
+    lists = rank_lists_plain(cfg, eng.tables[0], kt, mins, active, cnt, "stream", whole, out)
+    assert int(lists["count"][1]) == 0
+    assert np.array_equal(lists_of(lists, 0)[:, 0],
+                          np.nonzero(active.numpy() & (np.arange(P_RANKS) < count))[0])
+
+
+def test_rank_lists_raise_on_what_they_do_not_take():
+    """The list pass takes consecutive shard ranges of one width, one shard
+    in the packed form, CUDA tensors only in its kernel, and neither fill
+    nor slots beside given lists in the probe."""
+    eng = ShardedEngine(index("m13_regular"), LocalMesh((1, 4), "cpu"))
+    cfg, sh = eng.cfg, eng.probe_shards
+    kt, active, mins = rank_batch(eng, 3)
+    out = sentinel("stream", P_RANKS, False)
+    args = (cfg, eng.tables[0], kt, mins, active, count_of(3), "stream")
+    with pytest.raises(ValueError, match="consecutive"):
+        rank_lists(*args, [sh[0], sh[2]], out)
+    with pytest.raises(ValueError, match="packed form's list pass"):
+        rank_lists(*args[:6], "full", sh[:2], sentinel("full", P_RANKS, False, packed=True))
+    before = kernels.counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.rank_lists_kernel(*args, sh, out)
+    assert kernels.counts() == before
+    lists = rank_lists(*args, sh, out)
+    with pytest.raises(ValueError, match="list pass"):
+        kernels.probe_ranks_kernel(*args, sh[0], out, fill=True, lists=(lists, 0))
+
+
 def stream_reads(idx, rng, path, n_index=200, n_random=200):
     """Reads cut from the index (half RC, 1% substitutions) and random
     reads, with Ns: every path of the misses (FASTQ at path)."""
@@ -255,25 +389,29 @@ def test_sharded_step_equals_the_unsharded_step(name, shape, tmp_path, monkeypat
 def test_sharded_step_runs_no_lane_form(tmp_path, monkeypatch):
     """The misses of a regular and of a canonical sharded step reach only
     the rank forms: the stream's two lookup rounds each launch (here: run
-    the plain version of) kernel 2's rank form once a shard and round (and
-    hand-off pass), the anchors' lookup once a shard and round."""
+    the plain version of) kernel 2's rank form's list pass and its list
+    probe once a round (and hand-off pass) for the data row's shards, the
+    list probe over all of them, the anchors' lookup likewise."""
     for name, shape in (("m13_regular", (1, 2)), ("m13_canonical", (1, 4))):
         idx = index(name)
         eng = ShardedEngine(idx, LocalMesh(shape, "cpu"))
         path = stream_reads(idx, np.random.default_rng(12), str(tmp_path / f"{name}.fq"),
                             n_index=40, n_random=20)
-        calls = []
-        plain = E.probe_ranks.plain
+        calls, lists = [], []
+        plain, lists_plain = E.probe_ranks.plain, E.rank_lists.plain
         with monkeypatch.context() as m:
             lane_forms_refused(m)
             m.setattr(E.probe_ranks, "plain",
-                      lambda *a, **kw: calls.append(a[6]) or plain(*a, **kw))
+                      lambda *a, **kw: calls.append((a[6], len(a[7]))) or plain(*a, **kw))
+            m.setattr(E.rank_lists, "plain",
+                      lambda *a, **kw: lists.append(a[6]) or lists_plain(*a, **kw))
             rep, st = run_stream(eng, path)
         assert rep == ST.host_report(idx, path)
         rounds = 1 if eng.cfg.canonical else 2
-        per_chunk = 3 * rounds * shape[1]  # the anchors and the two lookups over the misses
-        assert len(calls) == st.chunks * per_chunk
-        assert calls.count("full") == st.chunks * rounds * shape[1]
+        per_chunk = 3 * rounds  # the anchors and the two lookups over the misses
+        assert len(calls) == len(lists) == st.chunks * per_chunk
+        assert {n for _, n in calls} == {shape[1]}  # every shard of the row in one call
+        assert [f for f, _ in calls].count("full") == lists.count("full") == st.chunks * rounds
 
 
 def jax_stream_report(jeng, path, multiline):
@@ -399,6 +537,117 @@ def test_rank_form_kernel_equals_plain_on_card(card, name, tmp_path):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+CARD_P = 4099  # the list pass's tiles are 1,024 ranks: four and a few ranks
+CARD_COUNTS = (0, 1, 31, 32, 33, 45, CARD_P)
+
+
+def row_rounds(eng, shards, tables, kt, mins, act, cnt, fields, outs, what):
+    """Every round (and hand-off pass) of the rank form on a LocalMesh row
+    of `shards` (tables[n]: shard n's), the kernels into outs[0] and their
+    plain versions into outs[1], in both forms by turns: the row's (one
+    list pass over the row's keys, one list probe over every shard) and a
+    list a shard's (one list pass dealing the ranks to the shards' lists,
+    then each shard's list probe over its own). Each list pass equal in its
+    stores and lists (compared by rank), each list probe in its stores."""
+    cfg = eng.cfg
+    whole = [ProbeShard(shards[0].slot_lo, shards[-1].slot_hi, shards[0].hrow_lo,
+                        shards[-1].hrow_hi)]
+    n_pass = 0
+    for rc in (False,) if cfg.canonical else (False, True):
+        for hand in (False, True) if eng.handoff else (False,):
+            row_form = n_pass % 2 == 0
+            n_pass += 1
+            kw = dict(rc_round=rc, fill=not (rc or hand))
+            before = kernels.counts()
+            lists = [fn(cfg, tables[0], kt, mins, act, cnt, fields, whole if row_form else shards,
+                        out, hrows=out["hrow"] if hand else None, **kw)
+                     for fn, out in zip((rank_lists, rank_lists_plain), outs)]
+            assert kernels.counts()["rank_lists_kernel"] == before["rank_lists_kernel"] + 1
+            _equal(outs, (what, rc, hand, "list pass"))
+            for j in range(lists[0]["count"].shape[0]):
+                assert np.array_equal(lists_of(lists[0], j), lists_of(lists[1], j)), \
+                    (what, rc, hand, j)
+            kw.pop("fill")
+            calls = [(tables, shards, 0)] if row_form else [
+                (tables[j], sh, j) for j, sh in enumerate(shards)]
+            for tab, sh, j in calls:
+                for fn, out, lst in zip((probe_ranks, probe_ranks_plain), outs, lists):
+                    fn(cfg, tab, kt, mins, act, cnt, fields, sh, out,
+                       hrows=out["hrow"] if hand else None, lists=(lst, j), **kw)
+                _equal(outs, (what, rc, hand, "list probe", row_form, j))
+            assert kernels.counts()["probe_ranks_kernel"] == \
+                before["probe_ranks_kernel"] + len(calls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m13_regular", "m13_canonical", "m3_skew", "m3_skew_canonical",
+                                  "k65", "k65_canonical", "k129_canonical"])
+def test_list_pass_and_list_probe_equal_plain_on_card(card, name):
+    """The list pass and the list probe on a (1, 4) row against their
+    plain versions at counts 0, 1, 31, 32, 33, 45 and P, with some, all
+    and no ranks active (the stream's fields; the anchors' full fields with
+    all), through both rounds, the RC round's merge in place and the
+    hand-off's two passes, in the row's form (one list, one probe launch
+    for every shard) and a list a shard's; nothing at or past the count
+    written. Then a row of two ranges, one over the whole table (it owns
+    every rank) and one past it (it owns none); the packed form on each
+    shard; and the row's rank-space lookup captured in a CUDA graph,
+    replayed at other counts written into its count tensor in place."""
+    idx = index(name)
+    eng = ShardedEngine(idx, LocalMesh((1, 4), card))
+    cfg = eng.cfg
+    kt, active, mins = rank_batch(eng, 21, card, CARD_P)
+    masks = {"some": active, "all": None,
+             "none": torch.zeros(CARD_P, dtype=torch.bool, device=card)}
+    tables = [eng.tables[j] for j in range(4)]
+    one = ShardedEngine(idx, LocalMesh((1, 1), card))
+    sh = one.probe_shards[0]
+    w, hw = sh.slot_hi - sh.slot_lo, sh.hrow_hi - sh.hrow_lo
+    past = ProbeShard(sh.slot_hi, sh.slot_hi + w, sh.hrow_hi, sh.hrow_hi + hw)
+    for count in CARD_COUNTS:
+        cnt = count_of(count, card)
+        for fields, what in (("stream", "some"), ("stream", "all"), ("stream", "none"),
+                             ("full", "all")):
+            outs = [sentinel(fields, CARD_P, eng.handoff, card) for _ in range(2)]
+            for out in outs:
+                out.pop("slot")
+            row_rounds(eng, eng.probe_shards, tables, kt, mins, masks[what], cnt, fields, outs,
+                       (name, count, what, fields))
+            assert (outs[0]["kmer_id"][count:] == MARK).all()
+            assert (outs[0]["kmer_orientation"][count:] == 7).all()
+            if count:
+                assert not (outs[0]["kmer_orientation"][:count] == 7).any()
+        outs = [sentinel("stream", CARD_P, eng.handoff, card) for _ in range(2)]
+        for out in outs:
+            out.pop("slot")
+        row_rounds(one, [sh, past], [one.tables[0]] * 2, kt, mins, active, cnt, "stream", outs,
+                   (name, count, "whole and past"))
+        for rc in (False,) if cfg.canonical else (False, True):
+            for j, shard in enumerate(eng.probe_shards):
+                pair = [fn(cfg, eng.tables[j], kt, mins, active, cnt, "full", shard,
+                           sentinel("full", CARD_P, eng.handoff, card, packed=True),
+                           rc_round=rc) for fn in (probe_ranks, probe_ranks_plain)]
+                _equal(pair, (name, count, "packed", rc, j))
+                assert (pair[0]["packed"][:, count:] == MARK).all()
+    fn = eng._ranks_fn(0, "stream")
+    cnt = count_of(CARD_P, card)
+    want = fn(cfg, None, kt, mins, active, cnt)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn(cfg, None, kt, mins, active, cnt)
+    for count in (CARD_P, 45, 0, 1025):
+        cnt.fill_(count)
+        graph.replay()
+        plain = eng._ranks_fn(0, "stream")
+        with pytest.MonkeyPatch.context() as m:
+            for entry in (rank_lists, probe_ranks):
+                m.setattr(entry, "kernel", entry.plain)
+            want = plain(cfg, None, kt, mins, active, cnt)
+        torch.cuda.synchronize()
+        for key in want:
+            assert torch.equal(got[key][:count], want[key][:count]), (count, key)
 
 
 def _equal(pair, what):

@@ -440,6 +440,47 @@ def test_lookup_ranks_kernel_equals_plain_on_card(card, name, n):
         assert torch.equal(got[f][:n], want[f][:n]), f
 
 
+# a warp's 32 ranks and one either side, a count no multiple of 32, a
+# block's 1,024 and one either side, and every rank
+EDGE_COUNTS = (0, 1, 31, 32, 33, 45, 1023, 1024, 1025, CARD_P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m13_regular", "m13_canonical", "m3_skew", "k65",
+                                  "k65_canonical", "k129_canonical"])
+def test_lookup_ranks_counts_and_masks_equal_plain_on_card(card, name):
+    """The rank-space lookup (each warp's active ranks queued in shared
+    memory, looked up 32 at a time) against its plain version at counts 0,
+    1, 31, 32, 33, 45, a block's edges and P, with some, all, no and a few
+    scattered ranks active; then captured in a CUDA graph and replayed at
+    other counts written into its count tensor in place."""
+    eng, kt = _card_case(name)
+    cfg = eng.cfg
+    rng = np.random.default_rng(3)
+    masks = {"some": rng.random(CARD_P) < 0.25, "all": np.ones(CARD_P, bool),
+             "none": np.zeros(CARD_P, bool), "scattered": np.arange(CARD_P) % 997 == 5}
+    masks = {key: torch.from_numpy(v).to(card) for key, v in masks.items()}
+    mins = P.minimizer_ranks_plain(kt, _count(CARD_P, card), cfg.k, cfg.m, cfg.magic)
+    for n in EDGE_COUNTS:
+        for what, active in masks.items():
+            got = E.lookup_ranks(cfg, eng.tables, kt, mins, active, _count(n, card))
+            want = E.lookup_ranks_plain(cfg, eng.tables, kt, mins, active, _count(n, card))
+            for f in kernels.STREAM_FIELDS:
+                assert torch.equal(got[f][:n], want[f][:n]), (n, what, f)
+    cnt = _count(CARD_P, card)
+    E.lookup_ranks(cfg, eng.tables, kt, mins, masks["some"], cnt)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = E.lookup_ranks(cfg, eng.tables, kt, mins, masks["some"], cnt)
+    for n in (CARD_P, 45, 0, 1025):
+        cnt.fill_(n)
+        graph.replay()
+        want = E.lookup_ranks_plain(cfg, eng.tables, kt, mins, masks["some"], cnt)
+        torch.cuda.synchronize()
+        for f in kernels.STREAM_FIELDS:
+            assert torch.equal(got[f][:n], want[f][:n]), (n, f)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["m13_regular", "m13_canonical", "k65", "k127_canonical",
                                   "k129_canonical"])
