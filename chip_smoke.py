@@ -126,7 +126,7 @@ line):
      list pass and its list probe (every shard of the row in one launch)
      once a round and pass (strand, hand-off pass), neither lane form
      launched; at (1, 4) every list pass and list probe equals its plain
-     version on a copy of its output (a list pass's lists compared by
+     version on a copy of its output (a list pass's list compared by
      rank), the first low-hit chunk's first round is timed launch by launch
      (each pass's list count and its ranks a shard, its launches summed
      against the pass's bound, the round's against the round's) beside the
@@ -294,7 +294,7 @@ from sshash_tpu_torch.layout import ProbeShard, packed_rows  # noqa: E402
 from sshash_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from sshash_tpu_torch.parallel.mesh import combine, combine_plain  # noqa: E402
 from sshash_tpu_torch.parallel.sharded import split_weight_runs  # noqa: E402
-from rank_run import held_to_plain, lists_by_rank  # noqa: E402
+from rank_run import held_to_plain, list_by_rank  # noqa: E402
 
 INVALID = np.uint64(2 ** 64 - 1)
 REPS = 7
@@ -2233,7 +2233,7 @@ def ranks_checked(errs, keep=None, first=0):
     list pass, engine.rank_lists, and its list probe, engine.probe_ranks)
     is held to its plain version run on a copy of its output taken before
     the launch (max |err| 0 over every tensor of the output and, of a list
-    pass, its lists compared by rank; rank_run.held_to_plain). With keep,
+    pass, its list compared by rank; rank_run.held_to_plain). With keep,
     the first `first` launches of the misses' lookups (fields "stream": the
     first round's list passes and list probes) go to keep as (the entry,
     args, kw, the output before the launch, the launch's result), for
@@ -2288,9 +2288,9 @@ def rank_pass_bytes(cfg, tables, a, kw, before, lists):
         total += 8 * canon * A + min(4 * A, nb("pilots"))
         total += min(8 * A, nb("mphf_seedrows")) if cfg.mphf_partitioned else 0
         width = 4 * row_width(cfg)
-    for entries in lists_by_rank(lists):
-        total += entries.shape[0] * (4 * cfg.W + 4 * canon + 10)
-        total += int(torch.unique(entries[:, 1]).numel()) * width
+    entries = list_by_rank(lists)
+    total += entries.shape[0] * (4 * cfg.W + 4 * canon + 10)
+    total += int(torch.unique(entries[:, 1]).numel()) * width
     return total
 
 
@@ -2302,7 +2302,7 @@ def ranks_a_shard(lists, a, kw):
     second = kw.get("hrows") is not None
     lo = shards[0].hrow_lo if second else shards[0].slot_lo
     per = (shards[0].hrow_hi - lo) if second else shards[0].slot_hi - lo
-    keys = torch.cat(lists_by_rank(lists))[:, 1]
+    keys = list_by_rank(lists)[:, 1]
     return torch.bincount((keys - lo) // per, minlength=len(shards)).tolist()
 
 

@@ -113,26 +113,23 @@ class Timers:
                 "collectives": self.coll_n}
 
 
-def lists_by_rank(lists):
-    """A list pass's lists (engine.rank_lists) as int64 (rank, key) rows in
-    rank order, list by list."""
-    out = []
-    for j in range(lists["count"].shape[0]):
-        e = lists["entries"][j, :int(lists["count"][j])].to(torch.int64)
-        out.append(e[torch.argsort(e[:, 0])])
-    return out
+def list_by_rank(lists):
+    """A list pass's list (engine.rank_lists) as int64 (rank, key) rows in
+    rank order."""
+    e = lists["entries"][:int(lists["count"][0])].to(torch.int64)
+    return e[torch.argsort(e[:, 0])]
 
 
 def rank_form_err(got, want, got_lists=None, want_lists=None):
     """Max |err| between two outputs of kernel 2's rank form: every tensor
-    of its out dict, and a list pass's lists compared by rank (a list of
+    of its out dict, and a list pass's list compared by rank (a list of
     another length: inf)."""
     err = max((int((g.to(torch.int64) - want[key].to(torch.int64)).abs().max())
                for key, g in got.items() if g.numel()), default=0)
     if got_lists is not None:
-        for g, w in zip(lists_by_rank(got_lists), lists_by_rank(want_lists)):
-            err = max(err, float("inf") if g.shape != w.shape
-                      else int((g - w).abs().max()) if g.numel() else 0)
+        g, w = list_by_rank(got_lists), list_by_rank(want_lists)
+        err = max(err, float("inf") if g.shape != w.shape
+                  else int((g - w).abs().max()) if g.numel() else 0)
     return err
 
 

@@ -38,29 +38,20 @@ for instance under .chip_scratch/ (gitignored). Sides:
             probe in the thread, probe.cuh lookup_lane) over every lane and
             stores the lanes whose slot it owns (probe.cu and probe.cuh
             patched)
-  queued    (the stream cells) kernel 2's rank form as it was first
-            written: no list pass; each shard's launch walks every rank
-            below the count with the shard form's warp queue (lookup_ranks.cu
-            patched: sshash_probe_ranks launches shard_probe_kernel<RANKS>),
-            the row's first shard storing the active ranks' slots for the
-            others and filling the inactive ranks (QueuedEngine); the
-            tree's list pass a round and list probe a shard lose to it
-            where a side's time is lower
-  pershard  (the stream cells) the tree's kernels with a list a shard: the
-            list pass deals the ranks to the shards' lists and each shard's
-            list probe takes its own, one launch a shard (PerShardEngine;
-            the tree lists a mesh row's ranks once and probes them in one
-            launch, each on its owner shard's tables)
   list3     (the stream cells) the tree's rank form with its list probe at
             3 blocks of 256 an SM at every width (shard.cuh patched; the
             tree asks the lookup kernel's 4 where they fit)
   warpatomic (the stream cells) the tree's rank form with its list pass
-            taking each warp's places in a list with one atomicAdd on the
-            list's device count (shard.cuh patched; the tree gathers a
-            block's tile in shared memory first, one atomicAdd a tile)
+            taking each warp's places in the list with one atomicAdd on the
+            list's device count (shard.cuh patched; the tree sums a block's
+            warps first, one atomicAdd a tile)
+
+On the stream cells the baseline is the rank form's earlier design when DIR
+is PR 17's tree (084b58f): no list pass, each shard's launch walking every
+rank below the count with the shard form's warp queue.
 
 A variant is built from its patched sources alone (probe.cu, or
-lookup_ranks.cu for "queued", with probe.cuh and shard.cuh; nvcc for sm_90a
+lookup_ranks.cu for the list sides, with probe.cuh and shard.cuh; nvcc for sm_90a
 into build/shard_ab/) and serves their entries; every other entry runs from
 this tree's library. Cells, each on the sides that have it, every side's
 result equal to the tree's before timing:
@@ -86,8 +77,8 @@ result equal to the tree's before timing:
               1% substitutions) and random reads: the (1, 4)
               ShardedStream's step on its first chunk, whose heavy misses
               take the hand-off's second pass, tree against DIR
-  (the stream cells also run the queued, pershard, list3 and warpatomic
-  sides, and time the tree's first round launch by launch)
+  (the stream cells also run the list3 and warpatomic sides, and time the
+  tree's first round launch by launch)
 Prints the card, each side's registers and spills (ptxas), the ms of each
 side and, for the stream cells, each side's launches in one step, the
 chunk's misses and, for the tree, each round's list pass and list probes
@@ -112,7 +103,6 @@ import torch
 
 from sshash_tpu_torch import kernels, synthetic
 from sshash_tpu_torch import engine as E
-from sshash_tpu_torch.layout import check_rank_probe
 from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine, ShardedStream
 
 ROOT = Path(__file__).resolve().parent
@@ -122,17 +112,18 @@ CELLS = ("lookup100m", "regular5m", "handoff", "lowhit", "highhit100m", "handoff
 # the stream cells' sides that run the tree's engine through their own library
 LIB_SIDES = ("list3", "warpatomic")
 # the stream cells' sides with engines of their own
-ENGINE_SIDES = ("tree", "baseline", "queued", "pershard")
+ENGINE_SIDES = ("tree", "baseline")
 # the 1M planted build's heavy and mid buckets (chip_smoke phase 5)
 PLANTED = [100, 150, 200, 300] + [3, 4, 5, 8, 10, 20, 30, 40] * 8
 
-QUEUED = "  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n"
+QUEUED = ("  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);\n"
+          "  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;\n")
 # side "exit": the grid-stride loop, a thread a lane, before the queue (the
 # queue's code follows unreached)
 GRID_STRIDE = """\
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < p.B; i += 32 * warps) {
     uint32_t key[1];
-    if (shard_owns<CANON, V2, false, 1>(t, p, io, i, 0, p.B, key))
+    if (shard_owns<CANON, V2, 1>(t, p, io, i, 0, key))
       shard_lane<W, CANON, V2, false>(t, p, io, slot, i, key[0]);
   }
   return;
@@ -142,10 +133,10 @@ LAUNCH = """\
   const int threads = shard_threads(p);
   const size_t smem = shard_smem(p, threads);
   int64_t blocks = 0;
-  const cudaError_t err = pass_blocks(shard_probe_kernel<W, CANON, V2, RANKS>, threads, per_sm,
-                                      p.B, &blocks, smem);
+  const cudaError_t err =
+      pass_blocks(shard_probe_kernel<W, CANON, V2>, threads, per_sm, p.B, &blocks, smem);
   if (err != cudaSuccess) return err;
-  shard_probe_kernel<W, CANON, V2, RANKS><<<(unsigned)blocks, threads, smem, stream>>>(t, p, io);
+  shard_probe_kernel<W, CANON, V2><<<(unsigned)blocks, threads, smem, stream>>>(t, p, io);
 """
 SIMPLE_LAUNCH = """\
   const int threads = stage_threads(p);
@@ -161,7 +152,7 @@ __global__ void shard_simple_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
   uint32_t key[1];
-  if (shard_owns<CANON, V2, false, 1>(t, p, io, i, 0, p.B, key))
+  if (shard_owns<CANON, V2, 1>(t, p, io, i, 0, key))
     shard_lane<W, CANON, V2, false>(t, p, io, thread_slot(stage, p), i, key[0]);
 }
 
@@ -173,34 +164,12 @@ UNOWNED = ("  if (s < p.slot_lo || s >= p.slot_hi) return Lane{false, true, Hit{
            "kForward, 0, 0, 0}};")
 STORE = "  write_result<V2>(io, p, i, L, orient);\n}\n"
 WHOLE = "p->store != kStoreAll || p->slot_lo != 0 || p->slot_hi != (1ll << 32))"
-# side "queued": kernel 2's rank form without lists, each shard walking every
-# rank below the count (the shard form's kernel with RANKS), through the
-# tree's C entry's signature (one shard)
-PROBE_ENTRY = re.compile(r'extern "C" int sshash_probe_ranks\(.*', re.S)
-QUEUED_ENTRY = """extern "C" int sshash_probe_ranks(const sshash::ProbeTables* t, int64_t n, int64_t lo,
-                                  int64_t per, const sshash::ProbeParams* p,
-                                  const sshash::ProbeIO* io, void* stream) {
-  using namespace sshash;
-  static PerDevice per_sm[kMaxFixedW + 1][2];  // by width, mode
-  (void)lo;
-  (void)per;
-  if (p->B <= 0) return (int)cudaGetLastError();
-  if (n != 1 || bad_rank_form(*t, *p, *io)) return (int)cudaErrorInvalidValue;
-  auto s = (cudaStream_t)stream;
-  return (int)dispatch_probe(*p, [&](auto w, auto c) {
-    constexpr int W = decltype(w)::value;
-    constexpr bool C = decltype(c)::value;
-    return launch_shard<W, C, false, true>(*t, *p, *io,
-                                           per_sm[W <= kMaxFixedW ? W - 1 : kMaxFixedW][C], s);
-  });
-}
-"""
 # side "list3": the list probe's launch bounds
 LIST_BLOCKS = "canon && (W == 3 || W == 4 || W == 6 || W == 7) ? 3"
 # side "warpatomic": each warp's places taken on the list's device count,
-# no tile gathered in shared memory first
-TILE_ADD = "base = atomicAdd(&tile_n[owner[g]], __popc(peers));"
-TILE_PLACE = "tile_at[j] = tile_n[j] ? atomicAdd(L.counts + j, tile_n[j]) : 0;"
+# no sum over the block's warps first
+WARP_COUNT = "    if (lane == 0) warp_at[warp] = held;\n"
+TILE_PLACE = re.compile(r"    if \(threadIdx\.x == 0\) \{  // the warps' places.*?\n    \}\n", re.S)
 
 
 def variant_sources():
@@ -221,13 +190,12 @@ def variant_sources():
                                        WHOLE, "p->store != kStoreAll)"),
                   "probe.cuh": SA.patch(cuh, UNOWNED, UNOWNED.replace("kForward", "0"))},
                  ("sshash_lookup",)),
-        "queued": ({"lookup_ranks.cu": SA.sub(PROBE_ENTRY, QUEUED_ENTRY, ranks)},
-                   ("sshash_probe_ranks",)),
         "list3": ({"shard.cuh": SA.patch(sh, LIST_BLOCKS, "true ? 3"), "lookup_ranks.cu": ranks},
                   ("sshash_rank_lists", "sshash_probe_ranks")),
-        "warpatomic": ({"shard.cuh": SA.patch(SA.patch(sh, TILE_ADD, TILE_ADD.replace(
-                            "&tile_n[owner[g]]", "L.counts + owner[g]")), TILE_PLACE,
-                            "tile_at[j] = 0;"),
+        "warpatomic": ({"shard.cuh": SA.sub(TILE_PLACE, "    if (threadIdx.x == 0) tile_at = 0;\n",
+                                            SA.patch(sh, WARP_COUNT, WARP_COUNT.replace(
+                                                "held;", "held ? atomicAdd(io.list_count, held) "
+                                                ": 0;"))),
                         "lookup_ranks.cu": ranks},
                        ("sshash_rank_lists", "sshash_probe_ranks")),
     }
@@ -308,81 +276,6 @@ def same(got, want, tag):
     d = diff(got, want)
     S.require(got.keys() == want.keys() and not d,
               f"{tag}: a side's result differs from the tree's: {d}")
-
-
-def queued_probe(lib, cfg, tables, kmers32, mins, active, count, fields, shard, out, fill=False,
-                 rc_round=False, slots=None, hrows=None):
-    """Kernel 2's rank form as first written, through the queued side's
-    library: one launch, the shard's walk over every rank below the count
-    (its stores, fill and slots as engine.probe_ranks_plain's)."""
-    handoff, packed = check_rank_probe(cfg, fields, shard, hrows, out, fill, rc_round, slots)
-    store = kernels.STORE_PACKED if packed else kernels.STORE_OWNED
-    B, dev, tab, prm, io = kernels._rank_io(cfg, tables, kmers32, mins, active, count, shard,
-                                            store, fill, rc_round, fields)
-    io = kernels.ProbeIO(**io, **kernels._shard_io(out, fields, B, dev, handoff, packed, hrows,
-                                                   slots))
-    err = lib.sshash_probe_ranks(ctypes.byref(tab), 1, 0, 1, ctypes.byref(prm),
-                                 ctypes.byref(io), kernels._stream(dev))
-    S.require(err == 0, f"queued side: CUDA error {err}")
-    queued_probe.launches += 1
-    return out
-
-
-queued_probe.launches = 0
-
-
-class QueuedEngine(ShardedEngine):
-    """A LocalMesh ShardedEngine whose rank-space lookups run the queued
-    side: on each shard of the row one launch walking every rank below the
-    count (the first shard filling the inactive ranks and storing the
-    active ranks' slots, the others reading them), each round and hand-off
-    pass."""
-
-    lib = None
-
-    def _owned_ranks(self, row, fields):
-        def fn(cfg, tables, kmers32, mins, active, count):
-            out = self._result_tensors(kmers32.shape[0], fields)
-
-            def call(j, **kw):
-                queued_probe(self.lib, cfg, self.tables[j], kmers32, mins, active, count,
-                             fields, self.probe_shards[j], **kw)
-
-            self._probe_pass(row, out, call)
-            if not cfg.canonical:
-                self._probe_pass(row, out, call, rc_round=True)
-            out.pop("hrow", None)
-            out.pop("slot")
-            return out
-
-        return fn
-
-
-class PerShardEngine(ShardedEngine):
-    """A LocalMesh ShardedEngine whose rank-space lookups keep a list a
-    shard: each round and pass, one list pass dealing the active ranks to
-    the shards' lists, then one list probe a shard over its own."""
-
-    def _owned_ranks(self, row, fields):
-        shards = [s[1] for s in self._row_shards(row)]
-        ranges = [self.probe_shards[j] for j in shards]
-
-        def fn(cfg, tables, kmers32, mins, active, count):
-            out = self._result_tensors(kmers32.shape[0], fields)
-            out.pop("slot", None)
-            args = (kmers32, mins, active, count, fields)
-            for rc_round in (False,) if cfg.canonical else (False, True):
-                for hrows in (None, "hrow") if self.handoff else (None,):
-                    kw = dict(rc_round=rc_round, hrows=out[hrows] if hrows else None)
-                    lists = E.rank_lists(cfg, self.tables[shards[0]], *args, ranges, out,
-                                         fill=not (rc_round or hrows), **kw)
-                    for n, j in enumerate(shards):
-                        E.probe_ranks(cfg, self.tables[j], *args, ranges[n], out,
-                                      lists=(lists, n), **kw)
-            out.pop("hrow", None)
-            return out
-
-        return fn
 
 
 def lane_lookup(lib, seng, kt):
@@ -560,8 +453,7 @@ def stream_sides(tag, base, libs, sides_engines, path, multiline):
     alone (the tree's list passes and list probes, the sides' forms, DIR's
     walks), in turns from CUDA graphs."""
     steps, rounds, lookups = {}, {}, {}
-    for side, stream_cls, seng in zip(ENGINE_SIDES, (ShardedStream, base.parallel.ShardedStream,
-                                                     ShardedStream, ShardedStream),
+    for side, stream_cls, seng in zip(ENGINE_SIDES, (ShardedStream, base.parallel.ShardedStream),
                                       sides_engines):
         packed, *_, av = SA.first_chunk(lambda e, **kw: stream_cls(e, **kw), seng, path,
                                         multiline)
@@ -574,20 +466,17 @@ def stream_sides(tag, base, libs, sides_engines, path, multiline):
     S.require(S.rows_equal(steps["baseline"](), want), f"{tag}: DIR's step != the tree's")
     for side in LIB_SIDES:  # the tree's engine and step through a variant's library
         steps[side], rounds[side], lookups[side] = steps["tree"], rounds["tree"], lookups["tree"]
-    for side in ("queued", "pershard") + LIB_SIDES:
-        with SA.using(libs.get(side, libs["tree"])):
+    for side in LIB_SIDES:
+        with SA.using(libs[side]):
             S.require(S.rows_equal(steps[side](), want), f"{tag}: the {side} step != the tree's")
-    for side, kern in (("tree", kernels), ("baseline", base.kernels), ("queued", kernels),
-                       ("pershard", kernels), *((side, kernels) for side in LIB_SIDES)):
+    for side, kern in (("tree", kernels), ("baseline", base.kernels),
+                       *((side, kernels) for side in LIB_SIDES)):
         torch.cuda.synchronize()
         kern.reset_counts()
-        queued_probe.launches = 0
         with SA.using(libs.get(side, libs["tree"]) if side != "baseline" else libs["tree"]):
             steps[side]()
         torch.cuda.synchronize()
         got = {n: c for n, c in kern.counts().items() if c}
-        if side == "queued":
-            got["queued_probe"] = queued_probe.launches
         S.log(f"  {tag}: {side} launches in one step {got}")
         if side not in LIB_SIDES:
             rounds[side] = rounds[side][-2:]  # this eager step's two rounds
@@ -627,20 +516,11 @@ def stream_sides(tag, base, libs, sides_engines, path, multiline):
                      fns, unit="rank", graph=tuple(fns))
 
 
-def side_engines(idx, host, libs, dev):
-    """The queued and pershard sides' (1, 4) engines on the same index and
-    tables."""
-    qeng = QueuedEngine(idx, LocalMesh((1, 4), dev), host_arrs=host)
-    qeng.lib = libs["queued"]
-    return qeng, PerShardEngine(idx, LocalMesh((1, 4), dev), host_arrs=host)
-
-
 def lowhit(a, libs, base, dev, rng, tmp):
     idx, host = S.build("regular", k=31, m=17, canonical=False, num_strings=S.MAIN_STRINGS,
                         string_len=S.STRING_LEN, seed=40, threads=8)
     path = SA._lowhit_path(idx, rng, tmp)
-    stream_sides("low-hit 5M (1, 4) sharded", base, libs,
-                 (*engines(idx, host, base, dev), *side_engines(idx, host, libs, dev)), path,
+    stream_sides("low-hit 5M (1, 4) sharded", base, libs, engines(idx, host, base, dev), path,
                  False)
     torch.cuda.empty_cache()
 
@@ -653,9 +533,8 @@ def highhit100m(a, libs, base, dev, rng, tmp):
     path = os.path.join(tmp, "genome100m.fa")
     synthetic.write_genome(path, strings, rng)
     del strings
-    stream_sides("high-hit 100M (1, 4) sharded", base, libs,
-                 (*engines(idx, host, base, dev), *side_engines(idx, host, libs, dev)), path,
-                 True)
+    stream_sides("high-hit 100M (1, 4) sharded", base, libs, engines(idx, host, base, dev),
+                 path, True)
     torch.cuda.empty_cache()
 
 
@@ -671,8 +550,7 @@ def handoffstream(a, libs, base, dev, rng, tmp):
     del strings, reads
     seng, bseng = engines(idx, host, base, dev)
     S.require(seng.handoff, "1M planted: no hand-off")
-    stream_sides("1M planted (1, 4) sharded, hand-off", base, libs,
-                 (seng, bseng, *side_engines(idx, host, libs, dev)), path, False)
+    stream_sides("1M planted (1, 4) sharded, hand-off", base, libs, (seng, bseng), path, False)
     torch.cuda.empty_cache()
 
 

@@ -184,59 +184,59 @@ extern "C" int sshash_lookup_ranks(const sshash::ProbeTables* t, const sshash::P
 }
 
 // Kernel 2's rank form, in two entries (shard.cuh): the list pass, then
-// the list probe over a list. Both take its shard form's parameters
+// the list probe over its list (io->list, (B, 2) (rank, key) pairs, and
+// io->list_count, its length). Both take its shard form's parameters
 // (p->store kStoreOwned or kStorePacked, the hand-off's rows in or out in
 // an hindex index) over the ranks below *io->count of the (B, W) kmers (B
 // the stream's P, or its anchors' count); io carries kmers, kernel 1's
 // rank-form minimizers of both strands (minval, minpos, minval_r,
 // minpos_r), active (or null: every rank), count and the fields (owned:
 // the lookup's with p->full, else the ids fields and string_id; packed:
-// the buffer); the RC kmers and minpos2 stay null. v1 rows only.
+// the buffer); the RC kmers, minpos2 and the slots stay null. v1 rows
+// only.
 static bool bad_rank_form(const sshash::ProbeTables& t, const sshash::ProbeParams& p,
                           const sshash::ProbeIO& io) {
   using namespace sshash;
   return bad_params(t, p, io) || p.row_v2 || p.store == kStoreAll || !io.count || !io.minval ||
          !io.minpos || !io.minval_r || !io.minpos_r || io.kmers_rc || io.minpos2 ||
+         io.slot_out || io.slot_in || !io.list || !io.list_count ||
          ((io.hrow_out || io.hrow_in) && !(p.has_skew && p.skew_hrows)) ||
          (io.hrow_out && io.hrow_in) ||
          (p.store == kStoreOwned && !p.full && !io.string_id) || p.B >= (1ll << 31);
 }
 
-// The list pass: *L's lists (its counts zeroed here), one a shard of
-// consecutive equal key ranges (one in the packed form); with fill the
-// inactive ranks' not found, in the packed form the combine's identity on
-// the ranks it lists nowhere; slot_out / slot_in the active ranks' MPHF
-// slots (the owned form's first passes); io->list stays null.
+// The list pass: the list (its count zeroed here) of the active ranks
+// whose key is in p's range (slot_lo..slot_hi, or hrow_lo..hrow_hi with
+// io->hrow_in: the mesh row's, or in the packed form the rank's shard's);
+// with fill the inactive ranks' not found, in the packed form the
+// combine's identity on the ranks it does not list.
 extern "C" int sshash_rank_lists(const sshash::ProbeTables* t, const sshash::ProbeParams* p,
-                                 const sshash::ProbeIO* io, const sshash::RankLists* L,
-                                 void* stream) {
+                                 const sshash::ProbeIO* io, void* stream) {
   using namespace sshash;
   static PerDevice per_sm[2];  // by mode
-  if (bad_rank_form(*t, *p, *io) || io->list || io->list_count || !L->entries || !L->counts ||
-      L->n < 1 || L->n > kMaxLists || L->cap < p->B || L->per < 1 || L->lo < 0 ||
-      (p->store == kStorePacked && L->n != 1))
-    return (int)cudaErrorInvalidValue;
+  if (bad_rank_form(*t, *p, *io)) return (int)cudaErrorInvalidValue;
   auto s = (cudaStream_t)stream;
-  if (p->B <= 0) return (int)cudaMemsetAsync(L->counts, 0, 4 * L->n, s);
-  return (int)(p->canonical ? launch_rank_lists<true>(*t, *p, *io, *L, per_sm[1], s)
-                            : launch_rank_lists<false>(*t, *p, *io, *L, per_sm[0], s));
+  if (p->B <= 0) return (int)cudaMemsetAsync(io->list_count, 0, 4, s);
+  return (int)(p->canonical ? launch_rank_lists<true>(*t, *p, *io, per_sm[1], s)
+                            : launch_rank_lists<false>(*t, *p, *io, per_sm[0], s));
 }
 
-// The list probe over the n shards of tables t[0..n) (n <= kMaxRowShards,
-// a mesh row's on one card, or one shard), whose keys are [lo + j * per, lo
-// + (j + 1) * per) (their slots, or their sk_hrows rows with io->hrow_in;
-// the ranges in p are not read): the entries of io->list below
-// *io->list_count, each probed on its key's shard and stored at its rank;
-// what the list pass stored (fill, identity, slots) it leaves, so fill and
-// the slots stay off. The packed form takes one shard.
+// The list probe over the n shards of tables t[0..n) (n <= kMaxRowShards:
+// a mesh row's on one card, a launch for each kMaxRowShards of them, or
+// one shard), whose keys are [lo + j * per, lo + (j + 1) * per) (their
+// slots, or their sk_hrows rows with io->hrow_in; the ranges in p are not
+// read): the entries of io->list below *io->list_count whose key one of
+// them owns, each probed on its key's shard and stored at its rank; what
+// the list pass stored (fill, identity) it leaves, so fill stays off. The
+// packed form takes one shard.
 extern "C" int sshash_probe_ranks(const sshash::ProbeTables* t, int64_t n, int64_t lo,
                                   int64_t per, const sshash::ProbeParams* p,
                                   const sshash::ProbeIO* io, void* stream) {
   using namespace sshash;
   static PerDevice per_sm[kMaxFixedW + 1][2];  // by width, mode
   if (p->B <= 0) return (int)cudaGetLastError();
-  if (n < 1 || n > kMaxRowShards || lo < 0 || per < 1 || !io->list || !io->list_count ||
-      p->fill || io->slot_out || io->slot_in || (p->store == kStorePacked && n != 1))
+  if (n < 1 || n > kMaxRowShards || lo < 0 || per < 1 || p->fill ||
+      (p->store == kStorePacked && n != 1))
     return (int)cudaErrorInvalidValue;
   RankShards s{};
   for (int64_t j = 0; j < n; ++j) {

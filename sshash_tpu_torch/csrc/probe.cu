@@ -83,8 +83,8 @@ extern "C" int sshash_probe(const sshash::ProbeTables* t, const sshash::ProbePar
     constexpr bool C = decltype(c)::value;
     if (all) return launch_probe<W, C>(*t, *p, *io, false, s);
     auto& cache = per_sm[W <= kMaxFixedW ? W - 1 : kMaxFixedW][C];
-    return p->row_v2 ? launch_shard<W, C, true, false>(*t, *p, *io, cache[1], s)
-                     : launch_shard<W, C, false, false>(*t, *p, *io, cache[0], s);
+    return p->row_v2 ? launch_shard<W, C, true>(*t, *p, *io, cache[1], s)
+                     : launch_shard<W, C, false>(*t, *p, *io, cache[0], s);
   });
 }
 

@@ -170,11 +170,11 @@ struct ProbeIO {
   // row's first shard as it evaluates them, read by the others
   uint32_t* slot_out;
   const uint32_t* slot_in;
-  // kernel 2's rank form's list probe only, null elsewhere: one shard's
-  // list of (rank, key) pairs from the list pass (shard.cuh) and its
-  // length on the device
-  const int32_t* list;
-  const int32_t* list_count;
+  // kernel 2's rank form only, null elsewhere: the list of (rank, key)
+  // pairs and its length on the device, which its list pass writes and its
+  // list probe reads (shard.cuh)
+  int32_t* list;
+  int32_t* list_count;
 };
 
 // Where kernel 2 stores its lanes (probe.cu): every lane (unsharded), or

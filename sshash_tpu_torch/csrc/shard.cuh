@@ -87,7 +87,7 @@ __device__ __forceinline__ ProbeLane load_rank(const ProbeParams& p, const Probe
 }
 
 // The minimizer whose MPHF slot rank i probes in the rank form (load_rank's
-// minval, read without the rest).
+// minval, read without the rest), for the list pass.
 template <bool CANON>
 __device__ __forceinline__ uint64_t rank_minval(const ProbeParams& p, const ProbeIO& io,
                                                 int64_t i) {
@@ -147,17 +147,17 @@ __device__ __forceinline__ uint64_t rank_minval(const ProbeParams& p, const Prob
 //       form's RC round and second passes, its found flag), the MPHF slot
 //       of each active rank evaluated once (or its handed sk_hrows row
 //       read, in the hand-off's second pass), the rank and its key appended
-//       to a list (a block's appends gathered in shared memory, a warp's
-//       entries contiguous, one atomicAdd a tile and list on the list's
-//       device count), and at once the stores of the ranks no list takes:
-//       the inactive ranks' not found with fill, the combine's identity in
-//       the packed form (one shard there: the rank's). It can also deal
-//       the ranks to a list a shard, by their keys' owners;
-//   the list probe (shard_list_kernel, sshash_probe_ranks), once over a
+//       to one list if the key is in the range of p (the row's slots or
+//       rows; the rank's shard's in the packed form), a warp's entries
+//       contiguous, one atomicAdd a tile on the list's device count; and at
+//       once the stores of the ranks the list does not take: the inactive
+//       ranks' not found with fill, the combine's identity in the packed
+//       form;
+//   the list probe (shard_list_kernel, sshash_probe_ranks), once over the
 //       list: a thread an entry, the shard form's probe and stores at the
-//       entry's rank on the tables of the shard owning its key (a mesh
-//       row's shards, all on one card, in one launch), no queue, the
-//       lookup kernel's register budget.
+//       entry's rank on the tables of the shard owning its key (up to
+//       kMaxRowShards of a mesh row's shards, all on one card, in one
+//       launch), no queue, the lookup kernel's register budget.
 //
 // So no shard walks the ranks it does not own, and each active rank's slot
 // is evaluated once a round, not once a shard. The list order (blocks race
@@ -172,8 +172,6 @@ __device__ __forceinline__ uint64_t rank_minval(const ProbeParams& p, const Prob
 // (dependent row reads) and each rank's kmer, minimizers and flag read and
 // fields written, below the count. Plain versions:
 // sshash_tpu_torch/engine.py rank_lists_plain, probe_ranks_plain.
-// shard_ab.py keeps the design that lost: each shard's launch walking every
-// rank below the count with the shard form's queue ("queued").
 constexpr int kOwnerLanes = 4;
 constexpr int kShardQueue = 32 * kOwnerLanes + 32;  // a warp's queue: fewer than 31 + 128
 
@@ -220,13 +218,13 @@ __device__ __forceinline__ void store_shard(const ProbeIO& io, const ProbeParams
 // stored them (slot_out): a mesh row's shards in stream order evaluate
 // each lane's slot once, not once a shard. What the shard does not own it stores at once where it
 // must: the identity in the packed form, the inactive lanes as not found
-// in the owned form's fill launch. n: every lane, or in the rank form the
-// ranks below the device count.
-template <bool CANON, bool V2, bool RANKS, int G>
+// in the owned form's fill launch.
+template <bool CANON, bool V2, int G>
 __device__ __forceinline__ unsigned shard_owns(const ProbeTables& t, const ProbeParams& p,
                                                const ProbeIO& io, int64_t i0, int64_t step,
-                                               int64_t n, uint32_t (&key)[G]) {
+                                               uint32_t (&key)[G]) {
   const bool packed = p.store == kStorePacked;
+  const int64_t n = p.B;
   bool in[G], act[G];
   uint64_t mv[G];
 #pragma unroll
@@ -248,7 +246,7 @@ __device__ __forceinline__ unsigned shard_owns(const ProbeTables& t, const Probe
     else if (io.slot_in)
       key[g] = io.slot_in[i];
     else
-      mv[g] = RANKS ? rank_minval<CANON>(p, io, i) : io.minval[i];
+      mv[g] = io.minval[i];
   }
   unsigned own = 0;
   if (io.hrow_in) {
@@ -272,7 +270,7 @@ __device__ __forceinline__ unsigned shard_owns(const ProbeTables& t, const Probe
     const bool mine = act[g] && key[g] >= p.slot_lo && key[g] < p.slot_hi;
     own |= (unsigned)mine << g;
     if (in[g] && !mine && (packed || (!act[g] && p.fill))) {
-      store_shard<V2, RANKS>(io, p, i, Lane{false, true, Hit{false, 0, kForward, 0, 0, 0}},
+      store_shard<V2, false>(io, p, i, Lane{false, true, Hit{false, 0, kForward, 0, 0, 0}},
                              kForward, true);
       if (io.hrow_out) io.hrow_out[i] = kInvalid32;
     }
@@ -324,10 +322,8 @@ __device__ __forceinline__ void shard_lane(const ProbeTables& t, const ProbePara
 }
 
 // 3 blocks of 256 threads an SM (80 registers a thread): the queue's state
-// stays live across the probe. RANKS: the rank form's first design, each
-// shard walking the ranks below the device count (no entry instantiates it
-// now; shard_ab.py's "queued" side does).
-template <int W, bool CANON, bool V2, bool RANKS>
+// stays live across the probe.
+template <int W, bool CANON, bool V2>
 __global__ void __launch_bounds__(256, W > kMaxFixedW ? 1 : 3)
     shard_probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
   extern __shared__ uint32_t stage[];
@@ -338,12 +334,12 @@ __global__ void __launch_bounds__(256, W > kMaxFixedW ? 1 : 3)
   int held = 0;  // lanes queued, the same in every thread of the warp
   constexpr int G = owner_lanes(W);
   int64_t base = 32 * G * ((int64_t)blockIdx.x * (blockDim.x >> 5) + warp);
-  const int64_t n = RANKS ? misses(io.count, p.B) : p.B;
+  const int64_t n = p.B;
   for (;;) {
     // take the warp's next 32 x G lanes until 32 owned ones are queued
     for (; held < 32 && base < n; base += 32 * G * warps) {
       uint32_t key[G];
-      const unsigned own = shard_owns<CANON, V2, RANKS, G>(t, p, io, base + lane, 32, n, key);
+      const unsigned own = shard_owns<CANON, V2, G>(t, p, io, base + lane, 32, key);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const bool mine = (own >> g) & 1u;
@@ -360,7 +356,7 @@ __global__ void __launch_bounds__(256, W > kMaxFixedW ? 1 : 3)
     __syncwarp();
     const int take = held < 32 ? held : 32;  // 32, or the last lanes
     if (lane < take)
-      shard_lane<W, CANON, V2, RANKS>(t, p, io, slot, queue[lane], queue[kShardQueue + lane]);
+      shard_lane<W, CANON, V2, false>(t, p, io, slot, queue[lane], queue[kShardQueue + lane]);
     __syncwarp();
     // the rest (at most 127) move down by 32: each lane moves the entries
     // at its own index mod 32, so no lane reads what another writes
@@ -383,66 +379,49 @@ inline int shard_threads(const ProbeParams& p) {
   return shard_smem(p, 256) <= 48 * 1024 ? 256 : 128;
 }
 
-// RANKS: the grid is sized by P (p.B), the most ranks the count can reach.
 // static: the occupancy cache passed in stays this library's
-template <int W, bool CANON, bool V2, bool RANKS>
+template <int W, bool CANON, bool V2>
 static cudaError_t launch_shard(const ProbeTables& t, const ProbeParams& p, const ProbeIO& io,
                                 PerDevice& per_sm, cudaStream_t stream) {
   const int threads = shard_threads(p);
   const size_t smem = shard_smem(p, threads);
   int64_t blocks = 0;
-  const cudaError_t err = pass_blocks(shard_probe_kernel<W, CANON, V2, RANKS>, threads, per_sm,
-                                      p.B, &blocks, smem);
+  const cudaError_t err =
+      pass_blocks(shard_probe_kernel<W, CANON, V2>, threads, per_sm, p.B, &blocks, smem);
   if (err != cudaSuccess) return err;
-  shard_probe_kernel<W, CANON, V2, RANKS><<<(unsigned)blocks, threads, smem, stream>>>(t, p, io);
+  shard_probe_kernel<W, CANON, V2><<<(unsigned)blocks, threads, smem, stream>>>(t, p, io);
   return cudaGetLastError();
 }
 
 // ---- kernel 2's rank form: the list pass and the list probe
 
-constexpr int kMaxLists = 64;  // lists (shards) a list pass fills
 constexpr int kListRanks = 4;  // ranks a thread of the list pass takes a tile
-
-// The lists a list pass fills: list j (entries + 2 * cap * j, (rank, key)
-// pairs; its length at counts[j]) takes the keys [lo + j * per, lo + (j +
-// 1) * per), shard j's slots (or its sk_hrows rows in the hand-off's second
-// pass); keys outside [lo, lo + n * per) go to no list.
-struct RankLists {
-  int32_t* entries;  // (n, cap, 2)
-  int32_t* counts;   // (n,)
-  int64_t n;
-  int64_t cap;
-  int64_t lo;
-  int64_t per;
-};
 
 // The list pass: tiles of kListRanks x blockDim ranks, each thread's ranks
 // a block apart (a warp's reads contiguous). Every load of a thread's
 // ranks is issued before the first test: their flags, then their keys'
-// inputs (kernel 1's minimizers, the handed rows or the stored slots), then
-// the MPHF's pilots (an inactive rank reads rank 0's, unused). A warp's
-// lanes of one list take their places together (__match_any_sync, one
-// shared atomicAdd a group), then one thread a list takes the tile's place
-// in it with one atomicAdd on its device count (each warp's atomicAdd on
-// the count lost: shard_ab.py's "warpatomic" side).
+// inputs (kernel 1's minimizers, or the handed rows), then the MPHF's
+// pilots (an inactive rank reads rank 0's, unused). The list (io.list, its
+// length at *io.list_count) takes the active ranks whose key is in p's
+// range (slots, or sk_hrows rows with hrow_in): a warp's places by a
+// ballot, the block's warps' by one prefix, the tile's by one atomicAdd on
+// the device count (each warp's own atomicAdd lost: shard_ab.py's
+// "warpatomic" side).
 template <bool CANON>
-__global__ void __launch_bounds__(256)
-    rank_list_kernel(ProbeTables t, ProbeParams p, ProbeIO io, RankLists L) {
+__global__ void __launch_bounds__(256) rank_list_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
   constexpr int G = kListRanks;
-  __shared__ int tile_n[kMaxLists], tile_at[kMaxLists];
-  const int lane = threadIdx.x & 31;
+  __shared__ int warp_at[32], tile_at;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool packed = p.store == kStorePacked;
   // the owned form's RC round and second passes list the ranks not found yet
   const bool unfound = !packed && (p.rc_round || io.hrow_in);
   const int64_t n = misses(io.count, p.B), span = (int64_t)G * blockDim.x;
   for (int64_t t0 = (int64_t)blockIdx.x * span; t0 < n; t0 += (int64_t)gridDim.x * span) {
-    for (int j = threadIdx.x; j < L.n; j += blockDim.x) tile_n[j] = 0;
-    __syncthreads();
     int64_t i[G];
-    bool act[G];
+    bool act[G], listed[G];
     uint32_t key[G];
     uint64_t mv[G];
-    int owner[G], at[G];
+    int at[G];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       i[g] = t0 + g * blockDim.x + threadIdx.x;
@@ -455,49 +434,48 @@ __global__ void __launch_bounds__(256)
       const int64_t r = act[g] ? i[g] : 0;
       if (io.hrow_in)
         key[g] = io.hrow_in[r];
-      else if (io.slot_in)
-        key[g] = io.slot_in[r];
       else
         mv[g] = rank_minval<CANON>(p, io, r);
     }
-    if (!io.hrow_in && !io.slot_in) {
+    if (!io.hrow_in) {
 #pragma unroll
       for (int g = 0; g < G; ++g) key[g] = mphf_slot(t, p, mv[g]);
     }
+    int held = 0;  // the warp's ranks listed in this tile, the same in every lane
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      owner[g] = -1;
-      if (act[g]) {
-        if (io.slot_out) io.slot_out[i[g]] = key[g];
-        const int64_t d = (int64_t)key[g] - L.lo;
-        if (d >= 0 && d < L.n * L.per) owner[g] = L.n == 1 ? 0 : (int)(d / L.per);
-      }
-      // the ranks no list takes: not found with fill, or the combine's identity
-      if (i[g] < n && owner[g] < 0 && !io.hrow_in && (packed || (!act[g] && p.fill))) {
+      // the key range read where it is tested (kept in registers through
+      // the tile, it made the canonical form spill)
+      listed[g] = act[g] && (io.hrow_in ? key[g] >= p.hrow_lo && key[g] < p.hrow_hi
+                                        : key[g] >= p.slot_lo && key[g] < p.slot_hi);
+      // the ranks the list does not take: not found with fill, or the combine's identity
+      if (i[g] < n && !listed[g] && !io.hrow_in && (packed || (!act[g] && p.fill))) {
         store_shard<false, true>(io, p, i[g], Lane{false, true, Hit{false, 0, kForward, 0, 0, 0}},
                                  kForward, true);
         if (io.hrow_out) io.hrow_out[i[g]] = kInvalid32;
       }
+      const unsigned mask = __ballot_sync(0xFFFFFFFFu, listed[g]);
+      at[g] = held + __popc(mask & ((1u << lane) - 1u));
+      held += __popc(mask);
     }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const unsigned peers = __match_any_sync(0xFFFFFFFFu, owner[g]);
-      const int first = __ffs(peers) - 1;
-      int base = 0;
-      if (owner[g] >= 0 && lane == first) base = atomicAdd(&tile_n[owner[g]], __popc(peers));
-      at[g] = __shfl_sync(0xFFFFFFFFu, base, first) + __popc(peers & ((1u << lane) - 1u));
+    if (lane == 0) warp_at[warp] = held;
+    __syncthreads();
+    if (threadIdx.x == 0) {  // the warps' places in the tile, and the tile's in the list
+      int sum = 0;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+        const int c = warp_at[w];
+        warp_at[w] = sum;
+        sum += c;
+      }
+      tile_at = sum ? atomicAdd(io.list_count, sum) : 0;
     }
     __syncthreads();
-    for (int j = threadIdx.x; j < L.n; j += blockDim.x)
-      tile_at[j] = tile_n[j] ? atomicAdd(L.counts + j, tile_n[j]) : 0;
-    __syncthreads();
+    const int base = tile_at + warp_at[warp];
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      if (owner[g] < 0) continue;
-      reinterpret_cast<uint2*>(L.entries)[owner[g] * L.cap + tile_at[owner[g]] + at[g]] =
-          make_uint2((uint32_t)i[g], key[g]);
-    }
-    __syncthreads();  // tile_n is zeroed for the next tile
+    for (int g = 0; g < G; ++g)
+      if (listed[g])
+        reinterpret_cast<uint2*>(io.list)[base + at[g]] = make_uint2((uint32_t)i[g], key[g]);
+    __syncthreads();  // warp_at and tile_at are rewritten for the next tile
   }
 }
 
@@ -515,7 +493,8 @@ __host__ __device__ constexpr int list_min_blocks(int W, bool canon) {
 // shard j's [lo + j * per, lo + (j + 1) * per) (its slots, or its sk_hrows
 // rows in the hand-off's second pass). A mesh row's shards all sit on the
 // card of a LocalMesh, so one launch probes every listed rank on its owner
-// shard's tables.
+// shard's tables; a row of more shards takes a launch for each
+// kMaxRowShards of them (the parameter's tables are a __grid_constant__).
 constexpr int kMaxRowShards = 8;
 
 struct RankShards {
@@ -523,15 +502,15 @@ struct RankShards {
   int64_t n, lo, per;
 };
 
-// The list probe: a thread an entry of a list (io.list, its length at
+// The list probe: a thread an entry of the list (io.list, its length at
 // *io.list_count, read again at each step rather than kept), the shard
 // form's probe and stores at the entry's rank on the tables of the shard
-// owning its key (p's ranges start at 0: the key is made the shard's own).
-// One list for a mesh row's shards keeps a warp's entries within a few
-// hundred ranks, where a list a shard spread them four times as far and
-// its launches' reads and stores over as many more sectors (a list and a
-// launch a shard: shard_ab.py's "pershard" side). No queue's state stays
-// live across the probe.
+// owning its key (p's ranges start at 0: the key is made the shard's own);
+// an entry whose shard is not among the launch's is left to another
+// launch. One list for a mesh row's shards keeps a warp's entries within a
+// few hundred ranks, where a list a shard spread them four times as far
+// and its launches' reads and stores over as many more sectors (PERF.md,
+// PR 18). No queue's state stays live across the probe.
 template <int W, bool CANON>
 __global__ void __launch_bounds__(256, list_min_blocks(W, CANON))
     shard_list_kernel(ProbeParams p, ProbeIO io, const __grid_constant__ RankShards s) {
@@ -549,19 +528,18 @@ __global__ void __launch_bounds__(256, list_min_blocks(W, CANON))
 }
 
 // The list pass's launch: its grid fits the card, or fewer blocks where
-// the P ranks (p.B, the most the count can reach) need fewer; the lists'
-// counts zeroed first, in stream order.
+// the P ranks (p.B, the most the count can reach) need fewer; the list's
+// count zeroed first, in stream order.
 template <bool CANON>
 static cudaError_t launch_rank_lists(const ProbeTables& t, const ProbeParams& p,
-                                     const ProbeIO& io, const RankLists& L, PerDevice& per_sm,
-                                     cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(L.counts, 0, 4 * L.n, stream);
+                                     const ProbeIO& io, PerDevice& per_sm, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(io.list_count, 0, 4, stream);
   if (err != cudaSuccess) return err;
   int64_t blocks = 0;
   err = pass_blocks(rank_list_kernel<CANON>, 256, per_sm, (p.B + kListRanks - 1) / kListRanks,
                     &blocks);
   if (err != cudaSuccess) return err;
-  rank_list_kernel<CANON><<<(unsigned)blocks, 256, 0, stream>>>(t, p, io, L);
+  rank_list_kernel<CANON><<<(unsigned)blocks, 256, 0, stream>>>(t, p, io);
   return cudaGetLastError();
 }
 

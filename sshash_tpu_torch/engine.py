@@ -69,9 +69,8 @@ from . import debug, kernels
 from . import kmer as K
 from .constants import BACKWARD_ORIENTATION, FORWARD_ORIENTATION, INVALID_UINT64
 from .layout import (SKEW_PARAMS, TABLE_GROUPS, StaticCfg, acc_windowed, cand_block_width,
-                     check_access, check_fields, check_probe_shard, check_rank_lists,
-                     check_rank_probe, rank_probe_shards,
-                     device_arrays, row_width, tables_from_host, take_rows,
+                     check_access, check_fields, check_probe_shard, check_rank_probe,
+                     device_arrays, rank_probe_shards, row_width, tables_from_host, take_rows,
                      with_access_tables)
 from .ops import packed as P
 from .ops import u64 as u
@@ -529,8 +528,8 @@ lookup_ranks = kernels.by_device(kernels.lookup_ranks_kernel, lookup_ranks_plain
                                  "lookup-ranks", arg=2)
 
 
-def probe_ranks_plain(cfg, tables, kmers32, mins, active, count, fields, shard, out, fill=False,
-                      rc_round=False, slots=None, hrows=None, lists=None):
+def probe_ranks_plain(cfg, tables, kmers32, mins, active, count, fields, shard, out, *, lists,
+                      rc_round=False, hrows=None):
     """Plain version of kernel 2's rank form (csrc/shard.cuh, entry
     sshash_probe_ranks), same contract as kernels.probe_ranks_kernel: the
     shard form's masked owned (or packed) lookup through probe_plain,
@@ -540,18 +539,17 @@ def probe_ranks_plain(cfg, tables, kmers32, mins, active, count, fields, shard, 
     forward strand, or with rc_round the RC kmers and strand. Stores into
     out (views of its first count ranks) and returns it; the ranks past the
     count are left as they are. shard: one ProbeShard, or a mesh row's
-    (tables a dict each, lists given), each probed in turn. lists (the
-    kernel's list pass, which made the stores of fill and slots) is not
-    read: each shard's active ranks are found from their slots here, and
-    the stores repeat the list pass's."""
-    shards, tabs, _, _, _, _ = rank_probe_shards(cfg, fields, shard, tables, hrows, out, fill,
-                                                 rc_round, slots, lists)
+    (tables a dict each), each probed in turn. lists (the kernel's list
+    pass) is not read: each shard's active ranks are found from their slots
+    here, and the packed form's identity stores repeat the list pass's."""
+    shards, tabs, _, _, _, _ = rank_probe_shards(cfg, fields, shard, tables, hrows, out,
+                                                 rc_round)
     if len(shards) > 1 or shards[0] is not shard:
         for t, sh in zip(tabs, shards):
-            probe_ranks_plain(cfg, t, kmers32, mins, active, count, fields, sh, out,
+            probe_ranks_plain(cfg, t, kmers32, mins, active, count, fields, sh, out, lists=lists,
                               rc_round=rc_round, hrows=hrows)
         return out
-    handoff, packed = check_rank_probe(cfg, fields, shard, hrows, out, fill, rc_round, slots)
+    handoff, packed = check_rank_probe(cfg, fields, shard, hrows, out, False, rc_round)
     n = min(max(int(count[0]), 0), kmers32.shape[0])
     km = kmers32[:n]
     mv_f, mp_f, mv_r, mp_r = (t[:n] for t in mins)
@@ -564,7 +562,7 @@ def probe_ranks_plain(cfg, tables, kmers32, mins, active, count, fields, shard, 
         args = (km, None, mv_f, mp_f, None)
     view = {key: v[:, :n] if key == "packed" else v[:n] for key, v in out.items()}
     probe_plain(cfg, tables, *args, None if active is None else active[:n], "full", shard,
-                None if hrows is None else hrows[:n], view, fill, rc_round and not packed, slots)
+                None if hrows is None else hrows[:n], view, False, rc_round and not packed)
     return out
 
 
@@ -572,21 +570,19 @@ probe_ranks = kernels.by_device(kernels.probe_ranks_kernel, probe_ranks_plain, "
                                 arg=2)
 
 
-def rank_lists_plain(cfg, tables, kmers32, mins, active, count, fields, shards, out, fill=False,
-                     rc_round=False, slots=None, hrows=None):
+def rank_lists_plain(cfg, tables, kmers32, mins, active, count, fields, shard, out, fill=False,
+                     rc_round=False, hrows=None):
     """Plain version of the list pass of kernel 2's rank form (csrc/shard.cuh
     rank_list_kernel, entry sshash_rank_lists), same contract as
     kernels.rank_lists_kernel, count read on the host here: each active
     rank below the count (not found yet in the owned form's RC round and
-    hand-off passes) with its key (its minimizer's MPHF slot,
+    hand-off passes) whose key (its minimizer's MPHF slot,
     mphf_eval_minimizer, of the canonical fold or the round's strand; or
-    out["slot"]'s, or its handed row) in the list of the shard of `shards`
-    owning the key, in rank order, the rows past each list's count zero;
-    the ranks in no list stored as not found with fill (the combine's
-    identity in the packed form; hrow 0xFFFFFFFF), none in the hand-off's
-    second pass."""
-    handoff, packed, lo, per = check_rank_lists(cfg, fields, shards, hrows, out, fill, rc_round,
-                                                slots)
+    its handed row) is in the range of `shard`, with that key, in the list
+    in rank order, the rows past its count zero; the other ranks below the
+    count stored as not found with fill (the combine's identity in the
+    packed form; hrow 0xFFFFFFFF), none in the hand-off's second pass."""
+    handoff, packed = check_rank_probe(cfg, fields, shard, hrows, out, fill, rc_round)
     Pn, dev = kmers32.shape[0], kmers32.device
     n = min(max(int(count[0]), 0), Pn)
     view = {key: v[:, :n] if key == "packed" else v[:n] for key, v in out.items()}
@@ -594,32 +590,24 @@ def rank_lists_plain(cfg, tables, kmers32, mins, active, count, fields, shards, 
     if not packed and (rc_round or hrows is not None):
         act = act & ~view["found"]
     if hrows is not None:
-        key = u.u32(hrows[:n])
-    elif slots == "read":
-        key = u.u32(view["slot"])
+        key, lo, hi = u.u32(hrows[:n]), shard.hrow_lo, shard.hrow_hi
     else:
         mv_f, mv_r = mins[0][:n], mins[2][:n]
         mv = torch.where(mv_r < mv_f, mv_r, mv_f) if cfg.canonical else mv_r if rc_round else mv_f
-        key = mphf_eval_minimizer(cfg, tables, u.from_i64(mv))
-    if slots == "store":
-        _store(view, {"slot": u.to_i32(key)}, act)
-    d = key - lo
-    owner = torch.where(act & (d >= 0) & (d < len(shards) * per), d // per, -1)
+        key, lo, hi = mphf_eval_minimizer(cfg, tables, u.from_i64(mv)), shard.slot_lo, shard.slot_hi
+    listed = act & (key >= lo) & (key < hi)
     if hrows is None:
-        rest = (owner < 0) & (packed | (~act & fill))
+        rest = ~listed & (packed | (~act & fill))
         zero = torch.zeros(n, dtype=torch.int64, device=dev)
         nf = _result(cfg, "full", (torch.zeros(n, dtype=torch.bool, device=dev), *[zero] * 5),
                      torch.ones(n, dtype=torch.bool, device=dev))
         nf["hrow"] = torch.full((n,), -1, dtype=torch.int32, device=dev)
         _store(view, {"packed": pack_result(nf), "hrow": nf.pop("hrow")} if packed else nf, rest)
-    entries = torch.zeros((len(shards), Pn, 2), dtype=torch.int32, device=dev)
-    counts = torch.zeros(len(shards), dtype=torch.int32, device=dev)
-    for j in range(len(shards)):
-        r = (owner == j).nonzero()[:, 0]
-        entries[j, :len(r), 0] = r.to(torch.int32)
-        entries[j, :len(r), 1] = u.to_i32(key[r])
-        counts[j] = len(r)
-    return {"entries": entries, "count": counts}
+    r = listed.nonzero()[:, 0]
+    entries = torch.zeros((Pn, 2), dtype=torch.int32, device=dev)
+    entries[:len(r), 0] = r.to(torch.int32)
+    entries[:len(r), 1] = u.to_i32(key[r])
+    return {"entries": entries, "count": torch.tensor([len(r)], dtype=torch.int32, device=dev)}
 
 
 rank_lists = kernels.by_device(kernels.rank_lists_kernel, rank_lists_plain, "rank-lists", arg=2)

@@ -6,9 +6,10 @@ probe, per thread) and kernel 2 alone, over the whole table or in its
 shard form, which the bucket-sharded engine calls after minimizer (kernel
 1); lookup_ranks the lookup kernel's lane over the stream's missed lanes
 in rank space, up to their count on the device, after minimizer's rank
-form, and kernel 2's rank form (a list pass that deals the ranks to their
-owner shards' lists, then its shard form's probe over one shard's list,
-shared with probe in shard.cuh), which the bucket-sharded stream calls; access,
+form, and kernel 2's rank form (a list pass that lists the active ranks
+with their keys, then its shard form's probe over the list, each rank on
+its owner shard, shared with probe in shard.cuh), which the bucket-sharded
+stream calls; access,
 iterator, weight and neighbours the other point queries; scan, stream_anchor, stream_chain and stream_derive
 the stream step; check the sanitizer's postconditions (debug.py);
 read_at2 the read over the interleaved (NW, 2) table
@@ -65,9 +66,10 @@ from pathlib import Path
 
 import torch
 
-from .layout import (WHOLE_TABLE, AccessShard, acc_width, acc_win_words, acc_windowed,
-                     cand_block_width, check_access, check_fields, check_probe_shard,
-                     check_rank_lists, packed_rows, rank_probe_shards, row_width)
+from .layout import (MAX_ROW_SHARDS, WHOLE_TABLE, AccessShard, acc_width, acc_win_words,
+                     acc_windowed, cand_block_width, check_access, check_fields,
+                     check_probe_shard, check_rank_probe, packed_rows, rank_probe_shards,
+                     row_width)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("minimizer.cu", "probe.cu", "lookup_ranks.cu", "access.cu", "iterator.cu",
@@ -192,12 +194,6 @@ class ProbeIO(ctypes.Structure):
     _fields_ = [(n, ctypes.c_void_p) for n in _IO_NAMES]
 
 
-class RankLists(ctypes.Structure):
-    """Mirror of csrc/shard.cuh RankLists."""
-    _fields_ = [("entries", ctypes.c_void_p), ("counts", ctypes.c_void_p)] \
-        + [(n, ctypes.c_int64) for n in ("n", "cap", "lo", "per")]
-
-
 class AccessParams(ctypes.Structure):
     """Mirror of csrc/access.cu AccessParams."""
     _fields_ = [(n, ctypes.c_int64) for n in ("B", "W", "k", "C", "windowed", "win_words",
@@ -231,8 +227,7 @@ def library():
                                            ctypes.POINTER(ProbeParams),
                                            ctypes.POINTER(ProbeIO), p]
         lib.sshash_probe_ranks.restype = ctypes.c_int
-        lib.sshash_rank_lists.argtypes = [*lib.sshash_probe.argtypes[:3],
-                                          ctypes.POINTER(RankLists), p]
+        lib.sshash_rank_lists.argtypes = lib.sshash_probe.argtypes
         lib.sshash_rank_lists.restype = ctypes.c_int
         lib.sshash_probe_occupancy.argtypes = [ctypes.POINTER(ProbeParams), i64,
                                                ctypes.POINTER(ctypes.c_int),
@@ -633,37 +628,44 @@ def _rank_io(cfg, tables, kmers32, mins, active, count, shard, store, fill, rc_r
     return B, dev, tab, prm, io
 
 
-def rank_lists_kernel(cfg, tables, kmers32, mins, active, count, fields, shards, out, fill=False,
-                      rc_round=False, slots=None, hrows=None):
+def _rank_list(lists, B, dev):
+    """The ProbeIO fields of a list pass's list ({"entries": (B, 2),
+    "count": (1,)} int32 on dev)."""
+    entries, count = lists["entries"], lists["count"]
+    _check(entries, "lists['entries']", torch.int32)
+    _check(count, "lists['count']", torch.int32)
+    if entries.shape != (B, 2) or count.shape != (1,) or entries.device != dev \
+            or count.device != dev:
+        raise ValueError(f"lists must hold ({B}, 2) entries and a (1,) count on {dev}")
+    return dict(list=entries.data_ptr(), list_count=count.data_ptr())
+
+
+def rank_lists_kernel(cfg, tables, kmers32, mins, active, count, fields, shard, out, fill=False,
+                      rc_round=False, hrows=None):
     """The list pass of kernel 2's rank form (csrc/lookup_ranks.cu
     sshash_rank_lists, the kernel in csrc/shard.cuh): over the ranks below
     the int32 (1,) device count of (P, W) int32 kmers, each active rank
-    (not found yet, in the owned form's RC round and hand-off passes) goes
-    with its key, the MPHF slot of its minimizer (kernel 1's rank-form mins,
-    as probe_ranks_kernel folds them; out["slot"]'s with slots="read"), or
-    its handed sk_hrows row with hrows, to the list of the shard of
-    `shards` (layout.ProbeShard, consecutive ranges: a mesh row's) that
-    owns the key; the ranks no list takes are stored into out at once (with
-    fill the inactive ones as not found; in the packed form, one shard, the
-    combine's identity), and slots="store" stores the active ranks' slots
-    to out["slot"]. tables: any shard's of the row (the MPHF is whole on
-    each). Returns {"entries": (len(shards), P, 2) int32 (rank, key) pairs,
-    each list's first "count"[j] rows in no set order, "count": (len(shards),)
-    int32}. Same contract as engine.rank_lists_plain (which orders each list
-    by rank)."""
-    handoff, packed, lo, per = check_rank_lists(cfg, fields, shards, hrows, out, fill, rc_round,
-                                                slots)
+    (not found yet, in the owned form's RC round and hand-off passes) whose
+    key, the MPHF slot of its minimizer (kernel 1's rank-form mins, as
+    probe_ranks_kernel folds them) or its handed sk_hrows row with hrows,
+    is in the range of `shard` (a layout.ProbeShard: a mesh row's keys, or
+    in the packed form the rank's shard's) goes to one list; the ranks it
+    does not take are stored into out at once (with fill the inactive ones
+    as not found; in the packed form the combine's identity). tables: any
+    shard's of the row (the MPHF is whole on each). Returns {"entries": (P,
+    2) int32 (rank, key) pairs, the first "count"[0] in no set order,
+    "count": (1,) int32}. Same contract as engine.rank_lists_plain (which
+    orders the list by rank)."""
+    handoff, packed = check_rank_probe(cfg, fields, shard, hrows, out, fill, rc_round)
     store = STORE_PACKED if packed else STORE_OWNED
-    # the lists' key ranges go in RankLists; the parameters' ranges are unread
-    B, dev, tab, prm, io = _rank_io(cfg, tables, kmers32, mins, active, count, WHOLE_TABLE, store,
-                                    fill, rc_round, fields)
-    lists = {"entries": torch.empty((len(shards), B, 2), dtype=torch.int32, device=dev),
-             "count": torch.empty(len(shards), dtype=torch.int32, device=dev)}
-    rl = RankLists(lists["entries"].data_ptr(), lists["count"].data_ptr(), len(shards), B, lo,
-                   per)
-    io = ProbeIO(**io, **_shard_io(out, fields, B, dev, handoff, packed, hrows, slots))
+    B, dev, tab, prm, io = _rank_io(cfg, tables, kmers32, mins, active, count, shard, store, fill,
+                                    rc_round, fields)
+    lists = {"entries": torch.empty((B, 2), dtype=torch.int32, device=dev),
+             "count": torch.empty(1, dtype=torch.int32, device=dev)}
+    io = ProbeIO(**io, **_rank_list(lists, B, dev),
+                 **_shard_io(out, fields, B, dev, handoff, packed, hrows, None))
     err = library().sshash_rank_lists(ctypes.byref(tab), ctypes.byref(prm), ctypes.byref(io),
-                                      ctypes.byref(rl), _stream(dev))
+                                      _stream(dev))
     _raise_on(err, "rank_lists_kernel")
     rank_lists_kernel.launches += 1
     return lists
@@ -672,8 +674,8 @@ def rank_lists_kernel(cfg, tables, kmers32, mins, active, count, fields, shards,
 rank_lists_kernel.launches = 0
 
 
-def probe_ranks_kernel(cfg, tables, kmers32, mins, active, count, fields, shard, out, fill=False,
-                       rc_round=False, slots=None, hrows=None, lists=None):
+def probe_ranks_kernel(cfg, tables, kmers32, mins, active, count, fields, shard, out, *, lists,
+                       rc_round=False, hrows=None):
     """Kernel 2's rank form (csrc/lookup_ranks.cu sshash_probe_ranks, the
     list probe in csrc/shard.cuh): its shard
     form over the ranks below the int32 (1,) device count of (P, W) int32
@@ -685,39 +687,30 @@ def probe_ranks_kernel(cfg, tables, kmers32, mins, active, count, fields, shard,
     into out as the shard form does (layout.check_rank_probe has the forms):
     the owned form's result tensors (fields "full", or "stream", the
     stream's five), or {"packed": (packed_rows("full"), P)}, where rc_round
-    probes the RC strand and the merge follows the combine. shard: one
+    probes the RC strand and the merge follows the combine. lists: the
+    list pass's result (rank_lists_kernel), which made the stores of the
+    ranks it did not list; its entries are probed here. shard: one
     layout.ProbeShard (tables its dict), or a mesh row's consecutive shards
-    (tables a dict each; given lists), every listed rank probed on its own
-    shard's tables in one launch. lists: (a rank_lists_kernel result, the
-    list to probe), whose pass made the stores of fill and slots (so both
-    stay off here): one launch, the list probe; None (one shard): the list
-    pass over that shard first (rank_lists_kernel), then the list probe.
-    Ranks at or past the count are not written, nor hrows and out["slot"]
-    read there. v1 rows only. Same contract as engine.probe_ranks_plain."""
-    shards, tabs, handoff, packed, lo, per = rank_probe_shards(
-        cfg, fields, shard, tables, hrows, out, fill, rc_round, slots, lists)
-    if lists is None:
-        lists = (rank_lists_kernel(cfg, tables, kmers32, mins, active, count, fields, shards,
-                                   out, fill, rc_round, slots, hrows), 0)
-    lst, j = lists
+    (tables a dict each), every listed rank probed on its owner shard's
+    tables, one launch for each layout.MAX_ROW_SHARDS shards. Ranks at or
+    past the count are not written, nor hrows read there. v1 rows only.
+    Same contract as engine.probe_ranks_plain."""
+    shards, tabs, handoff, packed, lo, per = rank_probe_shards(cfg, fields, shard, tables, hrows,
+                                                               out, rc_round)
     store = STORE_PACKED if packed else STORE_OWNED
     B, dev, tab, prm, io = _rank_io(cfg, tabs[0], kmers32, mins, active, count, shards[0], store,
                                     False, rc_round, fields)
-    row = (ProbeTables * len(tabs))(tab, *(_probe_launch(cfg, t, kmers32, active, "ids", None,
-                                                         store)[2] for t in tabs[1:]))
-    entries, counts = lst["entries"], lst["count"]
-    _check(entries, "lists['entries']", torch.int32)
-    _check(counts, "lists['count']", torch.int32)
-    if entries.dim() != 3 or entries.shape[1:] != (B, 2) or counts.shape != entries.shape[:1] \
-            or not 0 <= j < entries.shape[0] or entries.device != dev or counts.device != dev:
-        raise ValueError(f"lists must hold (n, {B}, 2) entries and (n,) counts on {dev}, list "
-                         f"{j} among them")
-    io = ProbeIO(**io, list=entries[j].data_ptr(), list_count=counts[j].data_ptr(),
+    row = [tab] + [_probe_launch(cfg, t, kmers32, active, "ids", None, store)[2]
+                   for t in tabs[1:]]
+    io = ProbeIO(**io, **_rank_list(lists, B, dev),
                  **_shard_io(out, fields, B, dev, handoff, packed, hrows, None))
-    err = library().sshash_probe_ranks(row, len(tabs), lo, per, ctypes.byref(prm),
-                                       ctypes.byref(io), _stream(dev))
-    _raise_on(err, "probe_ranks_kernel")
-    probe_ranks_kernel.launches += 1
+    for g in range(0, len(row), MAX_ROW_SHARDS):
+        group = row[g:g + MAX_ROW_SHARDS]
+        err = library().sshash_probe_ranks((ProbeTables * len(group))(*group), len(group),
+                                           lo + g * per, per, ctypes.byref(prm),
+                                           ctypes.byref(io), _stream(dev))
+        _raise_on(err, "probe_ranks_kernel")
+        probe_ranks_kernel.launches += 1
     return out
 
 

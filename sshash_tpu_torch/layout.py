@@ -131,7 +131,7 @@ def check_probe_shard(cfg, shard, hrows, out=None, fill=False, rc_round=False, s
     return handoff, packed
 
 
-def check_rank_probe(cfg, fields, shard, hrows, out, fill=False, rc_round=False, slots=None):
+def check_rank_probe(cfg, fields, shard, hrows, out, fill=False, rc_round=False):
     """Kernel 2's rank form (the bucket-sharded stream's): its shard form's
     call forms (check_probe_shard) on v1 rows, with fields "full" (the
     anchors' lookup) or "stream" (the misses': kmer_id, kmer_orientation,
@@ -149,54 +149,36 @@ def check_rank_probe(cfg, fields, shard, hrows, out, fill=False, rc_round=False,
         raise ValueError("the rank form's packed buffer carries the full fields")
     if rc_round and cfg.canonical:
         raise ValueError("rc_round is the regular mode's RC round")
-    return check_probe_shard(cfg, shard, hrows, out, fill, rc_round and not packed, slots)
+    return check_probe_shard(cfg, shard, hrows, out, fill, rc_round and not packed)
 
 
-# the most shards (lists) one list pass of kernel 2's rank form serves, and
-# the most shards one launch of its list probe serves (csrc/shard.cuh
-# kMaxLists, kMaxRowShards)
-MAX_RANK_LISTS = 64
+# the most shards one launch of kernel 2's rank form's list probe serves
+# (csrc/shard.cuh kMaxRowShards): a longer mesh row takes a launch for each
+# MAX_ROW_SHARDS of its shards
 MAX_ROW_SHARDS = 8
 
 
-def check_rank_lists(cfg, fields, shards, hrows, out, fill=False, rc_round=False, slots=None):
-    """The list pass of kernel 2's rank form: the rank form's call forms
-    (check_rank_probe) for each of `shards` (layout.ProbeShard), which
-    must be consecutive key ranges of one width: their slots, or in the
-    hand-off's second pass (hrows given) their sk_hrows rows; one shard in
-    the packed form. Returns (handoff, packed, the first key, the width of
-    a shard's keys)."""
-    shards = list(shards)
-    if not 1 <= len(shards) <= MAX_RANK_LISTS:
-        raise ValueError(f"a list pass serves 1 to {MAX_RANK_LISTS} shards, got {len(shards)}")
+def rank_probe_shards(cfg, fields, shard, tables, hrows, out, rc_round=False):
+    """The list probe of kernel 2's rank form: `shard` one ProbeShard with
+    its table dict, or a mesh row's ProbeShards with theirs, consecutive
+    key ranges of one width (their slots, or in the hand-off's second pass,
+    hrows given, their sk_hrows rows); one shard in the packed form.
+    Returns (shards, tables, handoff, packed, the first key, the width of a
+    shard's keys), as lists."""
+    row = shard is not None and not isinstance(shard, ProbeShard)
+    shards, tabs = (list(shard), list(tables)) if row else ([shard], [tables])
+    if not shards or len(tabs) != len(shards):
+        raise ValueError("a row of shards takes a table dict each")
     for sh in shards:
-        handoff, packed = check_rank_probe(cfg, fields, sh, hrows, out, fill, rc_round, slots)
+        handoff, packed = check_rank_probe(cfg, fields, sh, hrows, out, False, rc_round)
     if packed and len(shards) != 1:
-        raise ValueError("the packed form's list pass serves its own shard only")
+        raise ValueError("the packed form's list probe serves its own shard only")
     ranges = [(sh.hrow_lo, sh.hrow_hi) if hrows is not None else (sh.slot_lo, sh.slot_hi)
               for sh in shards]
     lo, per = ranges[0][0], ranges[0][1] - ranges[0][0]
     if per < 1 or any(r != (lo + j * per, lo + (j + 1) * per) for j, r in enumerate(ranges)):
         raise ValueError(f"the shards' key ranges must be consecutive and of one width: {ranges}")
-    return handoff, packed, lo, per
-
-
-def rank_probe_shards(cfg, fields, shard, tables, hrows, out, fill=False, rc_round=False,
-                      slots=None, lists=None):
-    """The list probe of kernel 2's rank form: `shard` one ProbeShard with
-    its table dict, or a mesh row's consecutive ProbeShards with theirs (at
-    most MAX_ROW_SHARDS, one launch for all; given lists only). Returns
-    (shards, tables, handoff, packed, first key, width of a shard's keys),
-    as lists."""
-    row = shard is not None and not isinstance(shard, ProbeShard)
-    shards, tabs = (list(shard), list(tables)) if row else ([shard], [tables])
-    if row and (lists is None or len(tabs) != len(shards) or len(shards) > MAX_ROW_SHARDS):
-        raise ValueError(f"a row of shards (at most {MAX_ROW_SHARDS}, a table dict each) probes "
-                         "a list pass's lists: pass lists")
-    if lists is not None and (fill or slots):
-        raise ValueError("fill and slots belong to the list pass that made the lists")
-    return (shards, tabs, *check_rank_lists(cfg, fields, shards, hrows, out, fill, rc_round,
-                                            slots))
+    return shards, tabs, handoff, packed, lo, per
 
 
 class AccessShard(NamedTuple):

@@ -34,9 +34,10 @@ lanes) run in rank space, up to a count on the device, as the unsharded
 stream's do: kernel 1's rank form, then kernel 2's rank form in the same
 owned or packed form: a list pass a round and hand-off pass
 (engine.rank_lists: each active rank's slot evaluated once, the rank
-listed), then the list probe (engine.probe_ranks), on a LocalMesh one
-launch for the data row, each rank probed on its owner shard's tables; on
-a DistMesh both on the rank's own shard.
+listed), then the list probe (engine.probe_ranks), on a LocalMesh one list
+and one launch for the data row (a launch for each layout.MAX_ROW_SHARDS
+of its shards), each rank probed on its owner shard's tables; on a
+DistMesh both on the rank's own shard.
 
 The other answers combine over the bucket axis (mesh.py; on a LocalMesh
 one launch of the combine kernel): the access's kmers, the weights and
@@ -349,8 +350,8 @@ class ShardedEngine:
         shards = [self.probe_shards[s[1]] for s in self._row_shards(row)]
         tables = [self.tables[s[1]] for s in self._row_shards(row)]
         # the row's keys, all in one list
-        whole = [ProbeShard(shards[0].slot_lo, shards[-1].slot_hi, shards[0].hrow_lo,
-                            shards[-1].hrow_hi)]
+        whole = ProbeShard(shards[0].slot_lo, shards[-1].slot_hi, shards[0].hrow_lo,
+                           shards[-1].hrow_hi)
 
         def fn(cfg, tables_, kmers32, mins, active, count):
             out = self._result_tensors(kmers32.shape[0], fields)
@@ -361,7 +362,7 @@ class ShardedEngine:
                     kw = dict(rc_round=rc_round, hrows=out[hrows] if hrows else None)
                     lists = rank_lists(cfg, tables[0], *args, whole, out,
                                        fill=not (rc_round or hrows), **kw)
-                    probe_ranks(cfg, tables, *args, shards, out, lists=(lists, 0), **kw)
+                    probe_ranks(cfg, tables, *args, shards, out, lists=lists, **kw)
             out.pop("hrow", None)
             return out
 
@@ -389,8 +390,8 @@ class ShardedEngine:
             args = (self.cfg, tables, kmers32, mins, active, count, "full")
 
             def call(**kw):  # the list pass on this shard alone, then its list probe
-                lists = rank_lists(*args, [shard], out, rc_round=rc_round, **kw)
-                probe_ranks(*args, shard, out, rc_round=rc_round, lists=(lists, 0), **kw)
+                lists = rank_lists(*args, shard, out, rc_round=rc_round, **kw)
+                probe_ranks(*args, shard, out, lists=lists, rc_round=rc_round, **kw)
 
             call()
             if self.handoff:

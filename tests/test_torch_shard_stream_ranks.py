@@ -1,15 +1,16 @@
 """The bucket-sharded stream's lookups in rank space: kernel 2's rank form
 (csrc/shard.cuh: the list pass, engine.rank_lists, entry sshash_rank_lists,
 once a data row; the list probe, engine.probe_ranks, entry
-sshash_probe_ranks, on each shard), after kernel 1's rank form, for
-ShardedStream's missed lanes and anchors. Its plain versions against the
-masked owned lookup it replaces (the lane form over all P lanes) below the
-count, in the owned and the packed form; the list pass's plain version
-against the JAX package's MPHF slots (every active rank in its owner's
-list, with its slot); the sharded step against the unsharded port step on
-the same packed chunks; ShardedStream against the JAX package's
-ShardedStream and the host _Batcher; and, on a card, the kernels against
-their plain versions.
+sshash_probe_ranks, over the row's shards), after kernel 1's rank form,
+for ShardedStream's missed lanes and anchors. Its plain versions against
+the masked owned lookup it replaces (the lane form over all P lanes) below
+the count, in the owned and the packed form; the list pass's plain
+version against the JAX package's MPHF slots (every active rank in the
+list of its owner's keys, with its slot); the sharded step against the
+unsharded port step on the same packed chunks; ShardedStream against the
+JAX package's ShardedStream and the host _Batcher, also on a row of more
+shards than one list probe launch serves; and, on a card, the kernels
+against their plain versions.
 
 The same seeded inputs go through every side. Outputs are integers: the
 tolerance is 0. JAX and the JAX package are imported inside the CPU
@@ -31,7 +32,7 @@ from sshash_tpu_torch import kmer as K
 from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.engine import (probe_ranks, probe_ranks_plain, rank_lists,
                                      rank_lists_plain, unpack_result)
-from sshash_tpu_torch.layout import ProbeShard, packed_rows
+from sshash_tpu_torch.layout import MAX_ROW_SHARDS, ProbeShard, packed_rows
 from sshash_tpu_torch.ops import packed as P
 from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine, ShardedStream
 from sshash_tpu_torch.parallel.mesh import combine_plain
@@ -96,24 +97,36 @@ def count_of(n, device="cpu"):
     return torch.tensor([n], dtype=torch.int32, device=device)
 
 
+def list_and_probe(kernel, cfg, tables, kt, mins, act, cnt, fields, shard, out, fill=False,
+                   **kw):
+    """One pass of the rank form on one shard: the list pass over its keys,
+    then the list probe of that list; the kernels (kernel) or their plain
+    versions. Returns out."""
+    lists_fn, probe_fn = (rank_lists, probe_ranks) if kernel else (rank_lists_plain,
+                                                                   probe_ranks_plain)
+    lists = lists_fn(cfg, tables, kt, mins, act, cnt, fields, shard, out, fill=fill, **kw)
+    return probe_fn(cfg, tables, kt, mins, act, cnt, fields, shard, out, lists=lists, **kw)
+
+
 def packed_rank_lookup(eng, row, kt, mins, active, count):
     """The DistMesh rank-space lookup's plain version on a LocalMesh's
-    shards: each shard's packed buffer, the hand-off's rows and the buffers
-    combined by min (mesh.combine_plain), in regular mode the RC round
-    after them merged by engine.merge_rc (parallel/sharded.py
-    _packed_ranks, with the collectives taken over the shards at once)."""
+    shards: each shard's packed buffer (its list pass, then its list
+    probe), the hand-off's rows and the buffers combined by min
+    (mesh.combine_plain), in regular mode the RC round after them merged by
+    engine.merge_rc (parallel/sharded.py _packed_ranks, with the
+    collectives taken over the shards at once)."""
     cfg, shards = eng.cfg, [s[1] for s in eng._row_shards(row)]
 
     def one_round(act, rc_round):
         outs = [sentinel("full", P_RANKS, eng.handoff, packed=True) for _ in shards]
         for j, out in zip(shards, outs):
-            probe_ranks_plain(cfg, eng.tables[j], kt, mins, act, count, "full",
-                              eng.probe_shards[j], out, rc_round=rc_round)
+            list_and_probe(False, cfg, eng.tables[j], kt, mins, act, count, "full",
+                           eng.probe_shards[j], out, rc_round=rc_round)
         if eng.handoff:
             hrow = combine_plain("min", True, *(o.pop("hrow") for o in outs))
             for j, out in zip(shards, outs):
-                probe_ranks_plain(cfg, eng.tables[j], kt, mins, act, count, "full",
-                                  eng.probe_shards[j], out, rc_round=rc_round, hrows=hrow)
+                list_and_probe(False, cfg, eng.tables[j], kt, mins, act, count, "full",
+                               eng.probe_shards[j], out, rc_round=rc_round, hrows=hrow)
         return unpack_result(combine_plain("min", False, *(o["packed"] for o in outs)), "full")
 
     res = one_round(active, False)
@@ -171,28 +184,30 @@ def test_rank_form_raises_on_what_it_does_not_take():
     eng = ShardedEngine(idx, LocalMesh((1, 2), "cpu"))
     cfg, sh = eng.cfg, eng.probe_shards[0]
     kt, active, mins = rank_batch(eng, 3)
+    lists = {"entries": torch.zeros((P_RANKS, 2), dtype=torch.int32), "count": count_of(0)}
     before = kernels.counts()
     with pytest.raises(ValueError, match="CUDA"):
         kernels.probe_ranks_kernel(cfg, eng.tables[0], kt, mins, active, count_of(3), "stream",
-                                   sh, sentinel("stream", P_RANKS, False))
+                                   sh, sentinel("stream", P_RANKS, False), lists=lists)
     assert kernels.counts() == before
     with pytest.raises(ValueError, match="full fields"):
         probe_ranks(cfg, eng.tables[0], kt, mins, active, count_of(3), "stream", sh,
-                    sentinel("full", P_RANKS, False, packed=True))
+                    sentinel("full", P_RANKS, False, packed=True), lists=lists)
     with pytest.raises(ValueError, match="fields"):
         probe_ranks(cfg, eng.tables[0], kt, mins, active, count_of(3), "ids", sh,
-                    sentinel("ids", P_RANKS, False))
+                    sentinel("ids", P_RANKS, False), lists=lists)
     with pytest.raises(ValueError, match="shard form"):
         probe_ranks(cfg, eng.tables[0], kt, mins, active, count_of(3), "stream", None,
-                    sentinel("stream", P_RANKS, False))
+                    sentinel("stream", P_RANKS, False), lists=lists)
     ceng = ShardedEngine(index("m13_canonical"), LocalMesh((1, 2), "cpu"))
     with pytest.raises(ValueError, match="RC round"):
         probe_ranks(ceng.cfg, ceng.tables[0], kt, mins, active, count_of(3), "stream",
-                    ceng.probe_shards[0], sentinel("stream", P_RANKS, False), rc_round=True)
+                    ceng.probe_shards[0], sentinel("stream", P_RANKS, False), lists=lists,
+                    rc_round=True)
     v2 = ShardedEngine(idx, LocalMesh((1, 2), "cpu"), row_format="v2")
     with pytest.raises(ValueError, match="v1 rows"):
         probe_ranks(v2.cfg, v2.tables[0], kt, mins, active, count_of(3), "stream",
-                    v2.probe_shards[0], sentinel("stream", P_RANKS, False))
+                    v2.probe_shards[0], sentinel("stream", P_RANKS, False), lists=lists)
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,10 +241,10 @@ def round_minval(cfg, mins, rc_round):
     return np.minimum(mv_f, mv_r) if cfg.canonical else mv_r if rc_round else mv_f
 
 
-def lists_of(lists, j):
-    """List j of a list pass as numpy (rank, key as u32) rows, by rank."""
-    n = int(lists["count"][j])
-    e = lists["entries"][j, :n].cpu().numpy().astype(np.int64)
+def lists_of(lists):
+    """A list pass's list as numpy (rank, key as u32) rows, by rank."""
+    n = int(lists["count"][0])
+    e = lists["entries"][:n].cpu().numpy().astype(np.int64)
     e[:, 1] &= M32
     return e[np.argsort(e[:, 0], kind="stable")]
 
@@ -237,17 +252,20 @@ def lists_of(lists, j):
 @pytest.mark.parametrize("count", LIST_COUNTS)
 @pytest.mark.parametrize("name", ["m13_regular", "m13_canonical", "m3_skew", "partitioned"])
 def test_rank_lists_plain_deals_active_ranks_to_their_owners(name, count):
-    """The list pass's plain version on a (1, 4) row: every active rank
-    below the count (some, all, none) is in exactly one list, its owner's
-    by the JAX package's MPHF slot, with that slot, each list in rank
-    order; with fill the inactive ranks below the count read not found and
-    the active ones and those past it keep the sentinel; in the RC round
-    (regular) the forward round's found ranks go to no list; the packed
-    form's one list leaves the combine's identity on every other rank; a
-    shard range past the table owns nothing and one over all of it owns
-    every active rank."""
+    """The list pass's plain version on a (1, 4) row: over the row's keys
+    every active rank below the count (some, all, none) is in the list with
+    the JAX package's MPHF slot, in rank order, and over each shard's keys
+    exactly its owner's ranks are, so that every active rank is in exactly
+    one shard's list; with fill the inactive ranks below the count read not
+    found and the active ones and those past it keep the sentinel, and
+    without it nothing is stored; in the RC round (regular) the forward
+    round's found ranks go to no list; the packed form's list leaves the
+    combine's identity on every other rank; a range past the table lists
+    nothing and one over all of it every active rank."""
     eng = ShardedEngine(index(name), LocalMesh((1, 4), "cpu"))
-    cfg, per = eng.cfg, eng.geometry["per_shard"]
+    cfg, per, shards = eng.cfg, eng.geometry["per_shard"], eng.probe_shards
+    whole = ProbeShard(shards[0].slot_lo, shards[-1].slot_hi, shards[0].hrow_lo,
+                       shards[-1].hrow_hi)
     kt, active, mins = rank_batch(eng, 9)
     cnt = count_of(count)
     masks = {"some": active, "all": None, "none": torch.zeros(P_RANKS, dtype=torch.bool)}
@@ -260,19 +278,25 @@ def test_rank_lists_plain_deals_active_ranks_to_their_owners(name, count):
             if rc_round:  # the forward round found every third rank
                 found[::3] = True
                 out["found"][:] = torch.from_numpy(found)
-            lists = rank_lists_plain(cfg, eng.tables[0], kt, mins, act, cnt, "stream",
-                                     eng.probe_shards, out, fill=not rc_round,
-                                     rc_round=rc_round)
+            kept = {key: v.clone() for key, v in out.items()}
             on = np.ones(P_RANKS, bool) if act is None else act.numpy().copy()
             on[count:] = False
             on &= ~found
-            owner = slots // per
-            for j in range(4):
+            owner, seen = slots // per, np.zeros(P_RANKS, dtype=int)
+            for j, sh in enumerate(shards):
+                got = lists_of(rank_lists_plain(cfg, eng.tables[0], kt, mins, act, cnt,
+                                                "stream", sh, out, rc_round=rc_round))
                 want = np.nonzero(on & (owner == j))[0]
-                got = lists_of(lists, j)
                 assert np.array_equal(got[:, 0], want), (what, rc_round, j)
                 assert np.array_equal(got[:, 1], slots[want]), (what, rc_round, j)
-            assert int(lists["count"].sum()) == int(on.sum())
+                seen[got[:, 0]] += 1
+            assert np.array_equal(seen, on.astype(int)), (what, rc_round)
+            for key, v in out.items():
+                assert torch.equal(v, kept[key]), (what, rc_round, key)
+            got = lists_of(rank_lists_plain(cfg, eng.tables[0], kt, mins, act, cnt, "stream",
+                                            whole, out, fill=not rc_round, rc_round=rc_round))
+            assert np.array_equal(got[:, 0], np.nonzero(on)[0]), (what, rc_round)
+            assert np.array_equal(got[:, 1], slots[on]), (what, rc_round)
             orient = out["kmer_orientation"].numpy()
             below = np.arange(P_RANKS) < count
             idle = below & ~on & ~found if not rc_round else np.zeros(P_RANKS, bool)
@@ -280,45 +304,47 @@ def test_rank_lists_plain_deals_active_ranks_to_their_owners(name, count):
             assert (orient[~idle] == 7).all() and (out["kmer_id"].numpy()[~idle] == MARK).all()
     # the packed form: shard 1's list, the identity on every rank it does not take
     pk = sentinel("full", P_RANKS, eng.handoff, packed=True)
-    lists = rank_lists_plain(cfg, eng.tables[1], kt, mins, active, cnt, "full",
-                             [eng.probe_shards[1]], pk)
+    lists = rank_lists_plain(cfg, eng.tables[1], kt, mins, active, cnt, "full", shards[1], pk)
     slots = jax_slots(name, round_minval(cfg, mins, False))
     mine = active.numpy() & (np.arange(P_RANKS) < count) & (slots // per == 1)
-    assert np.array_equal(lists_of(lists, 0)[:, 0], np.nonzero(mine)[0])
+    assert np.array_equal(lists_of(lists)[:, 0], np.nonzero(mine)[0])
     ident = (np.arange(P_RANKS) < count) & ~mine
     assert (pk["packed"][:, mine | (np.arange(P_RANKS) >= count)] == MARK).all()
     assert torch.equal(pk["packed"][:-3, ident], torch.full_like(pk["packed"][:-3, ident],
                                                                   0x7FFFFFFF))
     assert (pk["packed"][-3:, ident] == torch.tensor([[1], [1], [0]])).all()
     # one range over the whole table, one past it
-    whole = [ProbeShard(0, 1 << 31), ProbeShard(1 << 31, 1 << 32)]
-    out = sentinel("stream", P_RANKS, eng.handoff)
-    lists = rank_lists_plain(cfg, eng.tables[0], kt, mins, active, cnt, "stream", whole, out)
-    assert int(lists["count"][1]) == 0
-    assert np.array_equal(lists_of(lists, 0)[:, 0],
-                          np.nonzero(active.numpy() & (np.arange(P_RANKS) < count))[0])
+    for sh, want in ((ProbeShard(0, 1 << 32), active.numpy() & (np.arange(P_RANKS) < count)),
+                     (ProbeShard(1 << 32, 1 << 33), np.zeros(P_RANKS, dtype=bool))):
+        out = sentinel("stream", P_RANKS, eng.handoff)
+        lists = rank_lists_plain(cfg, eng.tables[0], kt, mins, active, cnt, "stream", sh, out)
+        assert np.array_equal(lists_of(lists)[:, 0], np.nonzero(want)[0])
 
 
 def test_rank_lists_raise_on_what_they_do_not_take():
-    """The list pass takes consecutive shard ranges of one width, one shard
-    in the packed form, CUDA tensors only in its kernel, and neither fill
-    nor slots beside given lists in the probe."""
+    """The list probe takes a row of consecutive shard ranges of one width,
+    one shard in the packed form, and the list pass's list; the list
+    pass's kernel CUDA tensors only."""
     eng = ShardedEngine(index("m13_regular"), LocalMesh((1, 4), "cpu"))
     cfg, sh = eng.cfg, eng.probe_shards
     kt, active, mins = rank_batch(eng, 3)
     out = sentinel("stream", P_RANKS, False)
     args = (cfg, eng.tables[0], kt, mins, active, count_of(3), "stream")
+    lists = rank_lists(*args, sh[0], out)
+    rows = (cfg, [eng.tables[0]] * 2, *args[2:])
     with pytest.raises(ValueError, match="consecutive"):
-        rank_lists(*args, [sh[0], sh[2]], out)
-    with pytest.raises(ValueError, match="packed form's list pass"):
-        rank_lists(*args[:6], "full", sh[:2], sentinel("full", P_RANKS, False, packed=True))
+        probe_ranks(*rows, [sh[0], sh[2]], out, lists=lists)
+    with pytest.raises(ValueError, match="packed form's list probe"):
+        probe_ranks(*rows[:6], "full", sh[:2], sentinel("full", P_RANKS, False, packed=True),
+                    lists=lists)
+    with pytest.raises(ValueError, match="a table dict each"):
+        probe_ranks(*args, sh[:2], out, lists=lists)
+    with pytest.raises(TypeError, match="lists"):
+        probe_ranks(*args, sh[0], out)
     before = kernels.counts()
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.rank_lists_kernel(*args, sh, out)
+        kernels.rank_lists_kernel(*args, sh[0], out)
     assert kernels.counts() == before
-    lists = rank_lists(*args, sh, out)
-    with pytest.raises(ValueError, match="list pass"):
-        kernels.probe_ranks_kernel(*args, sh[0], out, fill=True, lists=(lists, 0))
 
 
 def stream_reads(idx, rng, path, n_index=200, n_random=200):
@@ -414,6 +440,27 @@ def test_sharded_step_runs_no_lane_form(tmp_path, monkeypatch):
         assert [f for f, _ in calls].count("full") == lists.count("full") == st.chunks * rounds
 
 
+@pytest.mark.parametrize("name", ["m13_regular", "m3_skew"])
+def test_sharded_stream_on_a_row_past_a_launch_of_shards(name, tmp_path, monkeypatch):
+    """ShardedStream on a (1, 16) mesh, a row of twice the shards one list
+    probe launch serves (layout.MAX_ROW_SHARDS), runs no lane form, gives
+    the list probe the row's 16 shards in each call and equals the host
+    _Batcher."""
+    assert 16 == 2 * MAX_ROW_SHARDS
+    idx = index(name)
+    eng = ShardedEngine(idx, LocalMesh((1, 16), "cpu"))
+    n = 20 if name == "m3_skew" else 60
+    path = stream_reads(idx, np.random.default_rng(14), str(tmp_path / "reads.fq"), n, n)
+    calls, plain = [], E.probe_ranks.plain
+    with monkeypatch.context() as m:
+        lane_forms_refused(m)
+        m.setattr(E.probe_ranks, "plain",
+                  lambda *a, **kw: calls.append(len(a[7])) or plain(*a, **kw))
+        rep, _ = run_stream(eng, path)
+    assert rep == ST.host_report(idx, path)
+    assert calls and set(calls) == {16}
+
+
 def jax_stream_report(jeng, path, multiline):
     """The report of the JAX package's ShardedStream on jeng (a JAX
     ShardedEngine on the virtual CPU mesh of tests/conftest.py, which keeps
@@ -484,13 +531,14 @@ def card():
                                   "m3_skew_canonical", "partitioned", "k65", "k65_canonical",
                                   "k129_canonical"])
 def test_rank_form_kernel_equals_plain_on_card(card, name, tmp_path):
-    """Kernel 2's rank form on every shard of a (1, 3) mesh against its
-    plain version: the owned stores (stream and full fields) after every
-    launch over a sentinel, through both rounds and the hand-off's passes,
-    and the packed buffers, at every count, nothing written at or past the
-    count; then ShardedStream on the card launches kernel 1's and kernel
-    2's rank forms and neither lane form, equals the host _Batcher, and its
-    step captured in a CUDA graph replays to the same counters."""
+    """Kernel 2's rank form on every shard of a (1, 3) mesh, a list pass
+    over the shard's keys and the list probe of its list, against its plain
+    version: the owned stores (stream and full fields) after every pass
+    over a sentinel, through both rounds and the hand-off's passes, and the
+    packed buffers, at every count, nothing written at or past the count;
+    then ShardedStream on the card launches kernel 1's and kernel 2's rank
+    forms and neither lane form, equals the host _Batcher, and its step
+    captured in a CUDA graph replays to the same counters."""
     idx = index(name)
     eng = ShardedEngine(idx, LocalMesh((1, 3), card))
     cfg = eng.cfg
@@ -501,22 +549,23 @@ def test_rank_form_kernel_equals_plain_on_card(card, name, tmp_path):
             outs = [sentinel(fields, P_RANKS, eng.handoff, card) for _ in range(2)]
             for rc in (False,) if cfg.canonical else (False, True):
                 for j, sh in enumerate(eng.probe_shards):
-                    for fn, out in zip((probe_ranks, probe_ranks_plain), outs):
-                        fn(cfg, eng.tables[j], kt, mins, act, cnt, fields, sh, out,
-                           fill=j == 0 and not rc, rc_round=rc, slots="read" if j else "store")
+                    for kernel, out in zip((True, False), outs):
+                        list_and_probe(kernel, cfg, eng.tables[j], kt, mins, act, cnt, fields, sh,
+                                       out, fill=j == 0 and not rc, rc_round=rc)
                     _equal(outs, (name, count, fields, rc, j))
                 if eng.handoff:
                     for j, sh in enumerate(eng.probe_shards):
-                        for fn, out in zip((probe_ranks, probe_ranks_plain), outs):
-                            fn(cfg, eng.tables[j], kt, mins, act, cnt, fields, sh, out,
-                               rc_round=rc, hrows=out["hrow"])
+                        for kernel, out in zip((True, False), outs):
+                            list_and_probe(kernel, cfg, eng.tables[j], kt, mins, act, cnt, fields,
+                                           sh, out, rc_round=rc, hrows=out["hrow"])
                         _equal(outs, (name, count, fields, rc, j, "second pass"))
             assert (outs[0]["kmer_id"][count:] == MARK).all()
         for rc in (False,) if cfg.canonical else (False, True):
             for j, sh in enumerate(eng.probe_shards):
-                pair = [fn(cfg, eng.tables[j], kt, mins, active, cnt, "full", sh,
-                           sentinel("full", P_RANKS, eng.handoff, card, packed=True),
-                           rc_round=rc) for fn in (probe_ranks, probe_ranks_plain)]
+                pair = [list_and_probe(kernel, cfg, eng.tables[j], kt, mins, active, cnt, "full",
+                                       sh, sentinel("full", P_RANKS, eng.handoff, card,
+                                                    packed=True), rc_round=rc)
+                        for kernel in (True, False)]
                 _equal(pair, (name, count, "packed", rc, j))
                 assert (pair[0]["packed"][:, count:] == MARK).all()
     if name in ("partitioned", "k129_canonical"):
@@ -546,39 +595,39 @@ CARD_COUNTS = (0, 1, 31, 32, 33, 45, CARD_P)
 def row_rounds(eng, shards, tables, kt, mins, act, cnt, fields, outs, what):
     """Every round (and hand-off pass) of the rank form on a LocalMesh row
     of `shards` (tables[n]: shard n's), the kernels into outs[0] and their
-    plain versions into outs[1], in both forms by turns: the row's (one
-    list pass over the row's keys, one list probe over every shard) and a
-    list a shard's (one list pass dealing the ranks to the shards' lists,
-    then each shard's list probe over its own). Each list pass equal in its
-    stores and lists (compared by rank), each list probe in its stores."""
+    plain versions into outs[1], in two forms by turns: the row's (one
+    list pass over the row's keys, one list probe over every shard, a
+    launch for each MAX_ROW_SHARDS of them) and a list a shard's (a list
+    pass over each shard's keys, then that shard's list probe). Each list
+    pass equal in its stores and its list (compared by rank), each list
+    probe in its stores."""
     cfg = eng.cfg
-    whole = [ProbeShard(shards[0].slot_lo, shards[-1].slot_hi, shards[0].hrow_lo,
-                        shards[-1].hrow_hi)]
+    whole = ProbeShard(shards[0].slot_lo, shards[-1].slot_hi, shards[0].hrow_lo,
+                       shards[-1].hrow_hi)
     n_pass = 0
     for rc in (False,) if cfg.canonical else (False, True):
         for hand in (False, True) if eng.handoff else (False,):
             row_form = n_pass % 2 == 0
             n_pass += 1
-            kw = dict(rc_round=rc, fill=not (rc or hand))
-            before = kernels.counts()
-            lists = [fn(cfg, tables[0], kt, mins, act, cnt, fields, whole if row_form else shards,
-                        out, hrows=out["hrow"] if hand else None, **kw)
-                     for fn, out in zip((rank_lists, rank_lists_plain), outs)]
-            assert kernels.counts()["rank_lists_kernel"] == before["rank_lists_kernel"] + 1
-            _equal(outs, (what, rc, hand, "list pass"))
-            for j in range(lists[0]["count"].shape[0]):
-                assert np.array_equal(lists_of(lists[0], j), lists_of(lists[1], j)), \
-                    (what, rc, hand, j)
-            kw.pop("fill")
-            calls = [(tables, shards, 0)] if row_form else [
-                (tables[j], sh, j) for j, sh in enumerate(shards)]
-            for tab, sh, j in calls:
+            calls = [(tables, shards, whole)] if row_form else [
+                (tables[j], sh, sh) for j, sh in enumerate(shards)]
+            for n, (tab, sh, keys) in enumerate(calls):
+                before = kernels.counts()
+                lists = [fn(cfg, tables[0], kt, mins, act, cnt, fields, keys, out,
+                            fill=not (rc or hand or n), rc_round=rc,
+                            hrows=out["hrow"] if hand else None)
+                         for fn, out in zip((rank_lists, rank_lists_plain), outs)]
+                assert kernels.counts()["rank_lists_kernel"] == before["rank_lists_kernel"] + 1
+                _equal(outs, (what, rc, hand, "list pass", row_form, n))
+                assert np.array_equal(lists_of(lists[0]), lists_of(lists[1])), \
+                    (what, rc, hand, row_form, n)
                 for fn, out, lst in zip((probe_ranks, probe_ranks_plain), outs, lists):
-                    fn(cfg, tab, kt, mins, act, cnt, fields, sh, out,
-                       hrows=out["hrow"] if hand else None, lists=(lst, j), **kw)
-                _equal(outs, (what, rc, hand, "list probe", row_form, j))
-            assert kernels.counts()["probe_ranks_kernel"] == \
-                before["probe_ranks_kernel"] + len(calls)
+                    fn(cfg, tab, kt, mins, act, cnt, fields, sh, out, lists=lst, rc_round=rc,
+                       hrows=out["hrow"] if hand else None)
+                _equal(outs, (what, rc, hand, "list probe", row_form, n))
+                launches = -(-len(shards) // MAX_ROW_SHARDS) if row_form else 1
+                assert kernels.counts()["probe_ranks_kernel"] == \
+                    before["probe_ranks_kernel"] + launches
 
 
 @pytest.mark.cuda
@@ -590,11 +639,12 @@ def test_list_pass_and_list_probe_equal_plain_on_card(card, name):
     and no ranks active (the stream's fields; the anchors' full fields with
     all), through both rounds, the RC round's merge in place and the
     hand-off's two passes, in the row's form (one list, one probe launch
-    for every shard) and a list a shard's; nothing at or past the count
-    written. Then a row of two ranges, one over the whole table (it owns
-    every rank) and one past it (it owns none); the packed form on each
-    shard; and the row's rank-space lookup captured in a CUDA graph,
-    replayed at other counts written into its count tensor in place."""
+    for every shard) and a list a shard's (a list pass and a probe launch
+    a shard); nothing at or past the count written. Then a row of two
+    ranges, one over the whole table (it owns every rank) and one past it
+    (it owns none); the packed form on each shard; and the row's
+    rank-space lookup captured in a CUDA graph, replayed at other counts
+    written into its count tensor in place."""
     idx = index(name)
     eng = ShardedEngine(idx, LocalMesh((1, 4), card))
     cfg = eng.cfg
@@ -626,9 +676,10 @@ def test_list_pass_and_list_probe_equal_plain_on_card(card, name):
                    (name, count, "whole and past"))
         for rc in (False,) if cfg.canonical else (False, True):
             for j, shard in enumerate(eng.probe_shards):
-                pair = [fn(cfg, eng.tables[j], kt, mins, active, cnt, "full", shard,
-                           sentinel("full", CARD_P, eng.handoff, card, packed=True),
-                           rc_round=rc) for fn in (probe_ranks, probe_ranks_plain)]
+                pair = [list_and_probe(kernel, cfg, eng.tables[j], kt, mins, active, cnt, "full",
+                                       shard, sentinel("full", CARD_P, eng.handoff, card,
+                                                       packed=True), rc_round=rc)
+                        for kernel in (True, False)]
                 _equal(pair, (name, count, "packed", rc, j))
                 assert (pair[0]["packed"][:, count:] == MARK).all()
     fn = eng._ranks_fn(0, "stream")
@@ -648,6 +699,34 @@ def test_list_pass_and_list_probe_equal_plain_on_card(card, name):
         torch.cuda.synchronize()
         for key in want:
             assert torch.equal(got[key][:count], want[key][:count]), (count, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m13_regular", "m3_skew"])
+def test_rank_form_past_a_launch_of_shards_on_card(card, name, tmp_path):
+    """A (1, 16) row, twice the shards one list probe launch serves: the
+    list pass and the list probe (two launches a call) against their plain
+    versions at counts 45 and P, some ranks active, through both rounds
+    and the hand-off's passes; then ShardedStream on the row equals the
+    host _Batcher, with two list probe launches for each list pass."""
+    idx = index(name)
+    eng = ShardedEngine(idx, LocalMesh((1, 16), card))
+    assert len(eng.probe_shards) == 2 * MAX_ROW_SHARDS
+    kt, active, mins = rank_batch(eng, 23, card, CARD_P)
+    tables = [eng.tables[j] for j in range(16)]
+    for count in (45, CARD_P):
+        outs = [sentinel("stream", CARD_P, eng.handoff, card) for _ in range(2)]
+        for out in outs:
+            out.pop("slot")
+        row_rounds(eng, eng.probe_shards, tables, kt, mins, active, count_of(count, card),
+                   "stream", outs, (name, count))
+        assert (outs[0]["kmer_id"][count:] == MARK).all()
+    path = stream_reads(idx, np.random.default_rng(14), str(tmp_path / "reads.fq"))
+    kernels.reset_counts()
+    rep, _ = run_stream(eng, path)
+    c = kernels.counts()
+    assert rep == ST.host_report(idx, path)
+    assert c["rank_lists_kernel"] > 0 and c["probe_ranks_kernel"] == 2 * c["rank_lists_kernel"]
 
 
 def _equal(pair, what):
