@@ -37,8 +37,9 @@ printing one JSON line with its seconds and peak RSS:
 
 generate, build and tables each run in a child process (its own peak RSS)
 and keep their output under the work directory, keyed by k-mers, k, m and
-the row format: a second run reuses each finished stage and starts where
-the last one stopped. The last line is one JSON summary (the fields of the
+the row format (and a v2 table's layout version, layout.LAYOUT_VERSION): a
+second run reuses each finished stage and starts where the last one
+stopped. The last line is one JSON summary (the fields of the
 JAX package's CAPACITY_r05.json, the card's name and power limit); the exit
 status is non-zero on any mismatch or without a CUDA card. Nothing here
 imports JAX or the JAX package, and nothing is written outside the work
@@ -443,6 +444,23 @@ def time_entry_points(eng, gt, timer, nav_lanes=NAV_LANES):
     return ms
 
 
+def lookup_bound(eng, gt):
+    """The lookup's least ms over the positives (sshash_tpu_torch.bounds):
+    the larger of kernel 1's operations and the bytes probe_bytes counts
+    (each lane's kmer in and fields out, each distinct table row once; in
+    regular mode the forward strand's rows, not the RC retry's, so the
+    bound is below the work), and its bytes alone."""
+    from sshash_tpu_torch.bounds import lookup_bounds, probe_args, probe_bytes
+    from sshash_tpu_torch.ops import packed as P
+
+    kt = eng.kmers32(gt["query"])
+    args = probe_args(eng.cfg, kt, P.minimizer)
+    nbytes = probe_bytes(eng.cfg, eng.tables, kt, args, fused=True)
+    b = lookup_bounds(eng.cfg, kt.shape[0], nbytes, nbytes)
+    return {"lookup_ids_ms": b["lookup"][0], "by": b["lookup"][1],
+            "bytes_ms": b["lookup_bytes"][0], "bytes": nbytes}
+
+
 def sharded_checks(index, host_arrs, answers, gt, device, timer=None, log=emit):
     """A ShardedEngine on LocalMesh(SHARD_SHAPE) over the same tables: its
     ids lookup of the positives, access and navigation equal the single
@@ -493,10 +511,22 @@ def sharded_checks(index, host_arrs, answers, gt, device, timer=None, log=emit):
 
 
 def _paths(a):
+    """The stages' outputs under the work directory; a v2 table's key names
+    its layout (layout.LAYOUT_VERSION: an earlier tree's v2 cache, whose
+    blocks hold sid0, is rebuilt, not served); v1 rows never changed, and
+    their key is the format alone."""
+    from sshash_tpu_torch.layout import LAYOUT_VERSION
+
     tag = f"{a.kmers}_k{KMER_LEN}"
+
+    def tables(rf):
+        v = LAYOUT_VERSION[rf]
+        return os.path.join(a.workdir, f"tables_{tag}_m{MINIMIZER_LEN}_{rf}"
+                            + (f"_layout{v}" if v > 1 else ""))
+
     return {"fasta": os.path.join(a.workdir, f"soak_{tag}.fa"),
             "index": os.path.join(a.workdir, f"index_{tag}_m{MINIMIZER_LEN}"),
-            "tables": lambda rf: os.path.join(a.workdir, f"tables_{tag}_m{MINIMIZER_LEN}_{rf}")}
+            "tables": tables}
 
 
 def _finish(tmp, final, rec):
@@ -658,8 +688,12 @@ def serve(a, smi):
         summary, c, answers = serve_checks(eng, gt, src, workdir=a.workdir, threads=a.threads,
                                            tag=name, above=ABOVE_CHECKS)
         summary.update(upload_sec=up, checks_sec=time.perf_counter() - t0,
-                       ms=time_entry_points(eng, gt, timer))
-        emit({"engine": name, "ms": summary["ms"]})
+                       ms=time_entry_points(eng, gt, timer), bound=lookup_bound(eng, gt),
+                       row_words=layout.row_width(eng.cfg),
+                       lookup_bytes=int(eng.table_bytes()["lookup"]))
+        emit({"engine": name, "ms": summary["ms"], "bound": summary["bound"],
+              "row_words": summary["row_words"], "lookup_bytes": summary["lookup_bytes"],
+              "lookup_bytes_per_kmer": summary["lookup_bytes"] / index.num_kmers})
         runs[name], checks = summary, checks + [c]
         del eng
         torch.cuda.empty_cache()

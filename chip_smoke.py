@@ -15,11 +15,15 @@ line):
   1. card: nvidia-smi name and power limit; no CUDA card -> exit 1
   2. build: one nvcc per csrc/ source, in parallel, for sm_90a (timed
      per source, registers per kernel, any spills; none allowed in the
-     lookup kernel, the access kernel, kernel 1's rank form, the
+     lookup kernel, kernel 2 over the whole table (v1 and v2 rows), the
+     access kernel, kernel 1's rank form, the
      rank-space lookup, kernel 2's shard form and its rank form's list
      probe at widths 1..8, nor in its list pass, nor in
      the chain kernel, the scan and compaction kernel, the derive kernels,
-     the neighbours kernel or the combine kernel)
+     the neighbours kernel or the combine kernel); the fused row of each
+     width 1..16 (and of the run's cells) in v1 and v2: its words, the
+     16-byte loads that stage its head at each start in a segment, and the
+     mean loads and 32-byte sectors a head over a table's rows
   3. kernel == plain on the card, exactly: kernel 1 at B = 2^20 for
      (k, m) in (31, 17), (31, 21), (63, 25), (65, 25), (127, 31), (129,
      31), (255, 31); on every small configuration of
@@ -105,14 +109,18 @@ line):
   A stream run's device time replays its chunks' steps from one CUDA graph,
   so the host's ~40 launches per chunk stay out of it; the same steps
   queued back to back from the host are timed too (host-enqueue-bound).
- 11. rebased (v2) rows at scale: phase 7's index forced to v2 rows, the
+ 11. rebased (v2) rows at scale: phase 7's index forced to v2 rows (blocks
+     of kid0 and rel_ep1, no sid0), the
      same 2^24 lanes and 2^20 random kmers (misses): every lane equals the
      v1 engine's, every positive round-trips, a 2^20-lane sample equals
      the oracle in the id fields, access and
      iteration equal the v1 engine's, streaming raises; tables with kid0
      rebased by 2^31 + 12345 give every found id + that base mod 2^32 and
      every miss 0xFFFFFFFF from kernel 2 and its plain version; lookup and
-     kernel 2 in v1 and v2 timed in turns, table bytes per kmer of each
+     kernel 2 in v1 and v2 timed in turns with their ratio, each format's
+     row and block words, kernel 2's and the lookup kernel's bounds, the
+     sectors the row heads touch, table bytes per kmer of each and v2's
+     saving
  12. the bucket-sharded engine (parallel/), every shard on this card in a
      LocalMesh: on phase 4's 5M indexes in shapes (1, 4) and (2, 2), 2^23
      positives and 2^20 random kmers equal TorchEngine's lookup in every
@@ -284,8 +292,13 @@ from sshash_tpu_torch.engine import (_neighbours_to_host, _to_host_result,  # no
                                      canonical_fold, lookup_plain, make_lookup,
                                      make_neighbours, probe, probe_plain, unpack_result)
 from sshash_tpu_torch.kernels import lookup_kernel  # noqa: E402
-from sshash_tpu_torch.layout import (acc_width, acc_windowed, cand_block_width,  # noqa: E402
-                                     device_arrays, row_width, take_rows)
+from sshash_tpu_torch.layout import (StaticCfg, acc_width, acc_windowed,  # noqa: E402
+                                     cand_block_width, device_arrays, head_loads,
+                                     head_sectors, row_pad, row_width, save_tables, take_rows)
+from sshash_tpu_torch.layout import row_geometry as layout_geometry  # noqa: E402
+from sshash_tpu_torch.bounds import (FOLD_BYTES, HBM_BPS,  # noqa: E402
+                                     MINIMIZER_OPS_PER_WINDOW, bound, lookup_bounds,
+                                     probe_args, probe_bytes)
 from sshash_tpu_torch.ops import packed as P  # noqa: E402
 from sshash_tpu_torch.ops import u64 as u  # noqa: E402
 from sshash_tpu_torch.parallel import (DistMesh, LocalMesh, ShardedEngine,  # noqa: E402
@@ -557,9 +570,7 @@ def prebuild_main(out, names):
         t2 = time.perf_counter()
         d = os.path.join(out, name)
         idx.save(os.path.join(d, "index"))
-        os.makedirs(os.path.join(d, "tables"))
-        for key, v in host.items():
-            np.save(os.path.join(d, "tables", key + ".npy"), v)
+        save_tables(host, os.path.join(d, "tables"), StaticCfg(idx))
         del idx, host
         with open(os.path.join(d, "done.json"), "w") as f:
             json.dump({"build_s": t1 - t0, "tables_s": t2 - t1,
@@ -617,6 +628,8 @@ class Prebuilt:
 # registers): ptxas's mangled-name pattern and the instantiations it
 # reports
 NO_SPILL = {"lookup_kernel at widths 1..8": (r"13lookup_kernelILi[1-8]E", 32),
+            # kernel 2 over the whole table: both modes, v1 and v2 rows
+            "probe_kernel at widths 1..8": (r"12probe_kernelILi[1-8]E", 32),
             "access_kernel at widths 1..4": (r"13access_kernelILi[1-4]E", 4),
             "access_staged_kernel at widths 5..8": (r"20access_staged_kernelILi[5-8]E", 4),
             "chain_kernel": (r"12chain_kernelE", 1),
@@ -669,6 +682,7 @@ def phase_build():
             log(f"  ptxas: {entry.split(chr(39))[1] if chr(39) in entry else ''}: {ln.strip()}")
     spills = [ln.strip() for ln in lines if "spill" in ln and " 0 bytes spill stores" not in ln]
     log(f"  spills: {spills or 'none'}")
+    log_row_table()
     if not out:  # a library built earlier leaves no ptxas output
         return
     for what, (pattern, n) in NO_SPILL.items():
@@ -679,6 +693,36 @@ def phase_build():
         require(len(fixed) == n and not bad, f"{what}: {len(fixed)} instantiations reported, "
                 f"spills in {bad}")
         log(f"  {what}: {len(fixed)} instantiations, no spills")
+
+
+# (k, m) of phase 2's row table: the widest k of each width 1..16 words
+# (m = k - 10, at most 31), then the run's other cells
+ROW_TABLE = ([(16 * W - 1, min(31, 16 * W - 11)) for W in range(1, 17)]
+             + [(31, 17), (31, 13), (63, 25), (65, 25)])
+
+
+def log_row_table():
+    """Each ROW_TABLE cell's fused row in v1 and v2, with and without
+    candidate 1: the head's words (status, cw_a, candidate 0), the 16-byte
+    loads that stage it at row word o = 0..3 of a segment, and for the
+    row's width (v2: with layout.row_pad's zeros) the mean loads and 32-byte
+    sectors over the rows of a table."""
+    log("  fused rows (head words; staging loads at o = 0..3; row words, mean loads and "
+        "sectors a head, one block / with candidate 1):")
+    for k, m in ROW_TABLE:
+        parts = []
+        for v2 in (False, True):
+            g = layout_geometry(k, m, v2, False)
+            n = 2 + cand_block_width(g)
+            at = "/".join(str((o + n + 3) >> 2) for o in range(4))
+            rows = []
+            for c1 in (False, True):
+                g = layout_geometry(k, m, v2, c1)
+                R = row_width(g)
+                rows.append(f"{R}{f' ({row_pad(g)} pad)' if row_pad(g) else ''} words "
+                            f"{head_loads(n, R):.2f} loads {head_sectors(n, R):.2f} sectors")
+            parts.append(f"{'v2' if v2 else 'v1'} head {n}, loads {at}; " + " / ".join(rows))
+        log(f"    k{k} m{m} (W{(2 * k + 31) // 32}): " + " | ".join(parts))
 
 
 def point_queries_equal_plain(eng, idx, rng, errs):
@@ -707,13 +751,6 @@ def point_queries_equal_plain(eng, idx, rng, errs):
             "access != oracle")
     require(int(pairs["iterate_kernel"][0][0]) == n, "iteration count != num_kmers")
     return "windowed" if acc_windowed(cfg.k, cfg.access_C) else "two-round"
-
-
-def probe_args(cfg, kt, minimizer=P.minimizer_plain):
-    """Kernel 2's inputs after kernel 1 (or its plain version): (kmers_rc,
-    minval, minpos, minpos2), canonically folded in a canonical index."""
-    mv, mp, rc, mv_r, mp_r = minimizer(kt, cfg.k, cfg.m, cfg.magic, both=True)
-    return (rc, *canonical_fold(mv, mp, mv_r, mp_r)) if cfg.canonical else (None, mv, mp, None)
 
 
 def probe_equal_plain(cfg, tables, kt, args, active, tag, errs, key):
@@ -1004,73 +1041,6 @@ def access_bytes(cfg, ids, shard=None):
         blk = blk[(blk >= shard.blk_lo) & (blk < shard.blk_hi)]
     rows = int(torch.unique(blk).numel())
     return ids.shape[0] * (4 + 4 * cfg.W) + rows * 4 * acc_width(cfg)
-
-
-def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None, fused=False, slots=None):
-    """Bytes kernel 2 must move on these lanes (kt and probe_args' args),
-    each input read once: per lane its kmer (and reverse complement),
-    minimizer and position tries in (fused: the lookup kernel's work, the
-    kmer alone) and the result fields out; of the
-    tables, the distinct rows the lanes read: fused rows by MPHF slot and,
-    for heavy lanes, skew slots (the legacy path's sk_positions) and
-    candidate blocks; pilot and seed words one a lane, capped at their
-    table's size. Rows of mid buckets past the fused row (a few lanes) are
-    not counted: a lower bound. With shard (a ProbeShard, tables the
-    shard's: kernel 2's owned shard form), every lane's minimizer is read
-    (its slot decides the owner), and only the lanes whose slot the shard
-    holds read the rest of their inputs, a fused row and write their
-    result; in an hindex index their heavy lanes write their row instead
-    of reading it (the hand-off's first pass). slots as kernel 2's shard
-    form takes it: "store" (the row's first shard) also writes every lane's
-    slot; "read" (the others) reads every lane's slot in place of its
-    minimizer and the MPHF's pilot and seed words, and only the lanes it
-    owns read their minimizer."""
-    B, canon = kt.shape[0], 2 if cfg.canonical else 1
-    nb = lambda name: tables[name].numel() * tables[name].element_size()  # noqa: E731
-
-    def distinct(idx, name):  # rows of tables[name] read at idx, clipped as take_rows does
-        return int(torch.unique(idx.clamp(max=tables[name].shape[0] - 1)).numel())
-
-    lane_in = 4 * cfg.W if fused else 4 * cfg.W * canon + 8 + 4 * canon
-    lane_out = 10 + (20 if fields == "full" else 0)
-    total = 0
-    if slots != "read":  # the MPHF's evaluation
-        total += min(4 * B, nb("pilots"))
-        total += min(8 * B, nb("mphf_seedrows")) if cfg.mphf_partitioned else 0
-    slot = E.mphf_eval_minimizer(cfg, tables, u.from_i64(args[1]))
-    sel = torch.arange(B, device=kt.device)
-    if shard is not None:
-        sel = ((slot >= shard.slot_lo) & (slot < shard.slot_hi)).nonzero()[:, 0]
-        slot = slot[sel] - shard.slot_lo
-        if slots == "read":
-            total += 4 * B  # every lane's slot; the owned lanes' minimizers below
-        else:
-            total += 8 * B + (4 * B if slots == "store" else 0)  # every lane's minimizer (slot)
-            lane_in -= 8
-    total += sel.numel() * (lane_in + lane_out) + distinct(slot, "cw_row") * 4 * row_width(cfg)
-    if not cfg.has_skew:
-        return total
-    head = take_rows(tables["cw_row"][:, :2], slot)  # (status | class << 2, cw_a)
-    heavy = (head[:, 0] & 3) == 2
-    lanes = sel[heavy]
-    nh = lanes.numel()
-    km = u.u32(kt[lanes])
-    if args[0] is not None:
-        kr = u.u32(args[0][lanes])
-        km = torch.where(P.kmer_less(kr, km)[:, None], kr, km)
-    cls = head[heavy, 0] >> 2
-    hidx = (E._skew_param(tables, "pos_off", cls) + E.skew_slot(cfg, tables, km, cls)) & M32
-    total += nb("sk_params") + min(4 * nh, nb("sk_pilots"))
-    total += min(8 * nh, nb("sk_seedrows")) if cfg.skew_partitioned else 0
-    if shard is not None and cfg.skew_hrows:
-        return total + 4 * sel.numel()  # the rows handed on
-    if cfg.skew_hrows:
-        blocks = distinct(hidx, "sk_hrows")
-    else:
-        total += 4 * distinct(hidx, "sk_positions")
-        blocks = distinct((head[heavy, 1] + take_rows(tables["sk_positions"], hidx)) & M32,
-                          "heavy_rows")
-    return total + blocks * 4 * cand_block_width(cfg)
 
 
 def phase_legacy(built, errs):
@@ -1429,13 +1399,6 @@ def phase_scale_point_queries(idx, eng, errs):
     return launches, {"access_kernel": acc, "iterate_kernel": itr}
 
 
-HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s (NVIDIA's H100 data sheet)
-# integer ALU: 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper white paper)
-INT32_OPS = 132 * 64 * 1.98e9
-# kernel 1, per window of both strands: two 64-bit mixer multiplies (3
-# IMADs and an XOR each), the m-mer's reverse complement (~10), the 128-bit
-# window shift and mask (~4), two compare-and-selects (~4 each)
-MINIMIZER_OPS_PER_WINDOW = 32
 
 
 def iterator_ops(nwords, W):
@@ -1465,26 +1428,6 @@ SOURCES = {"minimizer.cu": "sshash_tpu/ops/packed.py:263",
 MINIMIZER_RANKS_REPLACES = "sshash_tpu/streaming.py:551"
 # the lookup kernel (probe.cu sshash_lookup): make_lookup.fn with _merge
 LOOKUP_REPLACES = "sshash_tpu/engine.py:1079"
-
-
-# canonical_fold reads both strands' (minimizer, position), 24 bytes a
-# lane, and writes (minval, minpos, minpos2), 16
-FOLD_BYTES = 40
-
-
-def lookup_bounds(cfg, B, probe_nbytes, lookup_nbytes=None):
-    """Least ms of a canonical lookup's parts for B lanes in the two-kernel
-    form: kernel 1 (bytes or its mixer operations), kernel 2 (probe_nbytes,
-    from probe_bytes) and the fold's glue; and of the lookup kernel: the
-    larger of kernel 1's operations and lookup_nbytes (probe_bytes(...,
-    fused=True): kmers in, result fields out, pilot and seed words and
-    distinct rows; no intermediate reaches device memory)."""
-    ops = B * MINIMIZER_OPS_PER_WINDOW * (cfg.k - cfg.m + 1)
-    b = {"minimizer.cu": bound(B * (4 * cfg.W + 32), ops), "probe.cu": bound(probe_nbytes),
-         "fold": bound(B * FOLD_BYTES)}
-    if lookup_nbytes is not None:
-        b["lookup"], b["lookup_bytes"] = bound(lookup_nbytes, ops), bound(lookup_nbytes)
-    return b
 
 
 def log_lookup_split(lookup, per_kernel, b, tag):
@@ -1580,13 +1523,6 @@ def log_access_occupancy(eng):
     log(f"  access_kernel occupancy at k{eng.cfg.k} (W={eng.cfg.W}, {acc_width(eng.cfg)}-word "
         f"rows): {blocks} blocks of {threads} threads an SM = {blocks * threads / 2048:.0%} of "
         f"the SM's 2048 threads")
-
-
-def bound(nbytes, int_ops=0):
-    """(least ms, what bounds it) for nbytes of device memory traffic and
-    int_ops integer operations."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, int_ops / INT32_OPS * 1e3
-    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 STREAM_SOURCES = ("scan.cu", "stream_anchor.cu", "stream_chain.cu", "stream_derive.cu")
@@ -2088,7 +2024,20 @@ def phase_v2(idx, eng, ids, kt, tmp, errs):
         f"{lookup['v2'] / lookup['v1']:.4f}, kernel 2 v2/v1 {probe_ms['v2'] / probe_ms['v1']:.4f}")
     log(f"  peak device memory: {torch.cuda.max_memory_allocated()} bytes")
     nbytes = probe_bytes(eng2.cfg, eng2.tables, kt, args)
-    log(f"  100M canonical: kernel 2 (ids) v2 bound {bound(nbytes)[0]:.4f} ms ({nbytes} bytes)")
+    for name, e in (("v2", eng2), ("v1", eng)):
+        b = lookup_bounds(e.cfg, SCALE_B, probe_bytes(e.cfg, e.tables, kt, args),
+                          probe_bytes(e.cfg, e.tables, kt, args, fused=True))
+        g = e.cfg
+        lb = e.table_bytes()["lookup"]
+        log(f"  100M canonical {name}: row {row_width(g)} words ({row_pad(g)} pad), block "
+            f"{cand_block_width(g)}; kernel 2 (ids) {probe_ms[name]:.4f} ms against its bound "
+            f"{b['probe.cu'][0]:.4f} ({b['probe.cu'][1]}); the lookup kernel "
+            f"{lookup[name]:.4f} ms against {b['lookup'][0]:.4f} ({b['lookup'][1]}; its bytes "
+            f"{b['lookup_bytes'][0]:.4f}); lookup tables {lb} bytes = "
+            f"{lb / idx.num_kmers:.4f} B/kmer")
+        log_sectors(g, e.tables, kt, args, b)
+    saved = eng.table_bytes()["lookup"] - eng2.table_bytes()["lookup"]
+    log(f"  100M canonical: v2 lookup tables {saved / idx.num_kmers:.4f} B/kmer below v1's")
     return launches, {"kernel": probe_ms["v2"], "plain": plain_ms, "bound": bound(nbytes)}
 
 
@@ -3630,9 +3579,7 @@ def phase_ranks(dev, smi, five_m, planted, scale, tmp):
     idx, host = scale
     d, ref = saved("100M", idx)
     tables = os.path.join(tmp, "tables_100M")
-    os.makedirs(tables)
-    for key, v in host.items():
-        np.save(os.path.join(tables, key + ".npy"), v)
+    save_tables(host, tables, StaticCfg(idx))
     ids, km = positives(idx, rng, RANK_SCALE_B)
     np.save(f"{ref}/q.npy", km)
     np.save(f"{ref}/qids.npy", ids)

@@ -5,6 +5,38 @@ card (chip_smoke.py's timing: CUDA events around windows of calls, median
 of 7, sides run backwards then forwards).
 
     python3 lookup_ab.py [--baseline DIR] [--strings 1000]
+                         [--cells variants,v1,v2,capacity,pad] [--orders v2-first]
+                         [--wide-strings 600] [--capacity-index DIR]
+
+Cells (default: variants):
+  variants  the build variants below, and DIR's kernels 1-2 on this tree's
+            tables
+  v1        the 100M index's v1 rows alone: this tree's lookup kernel and
+            kernel 2 against DIR's kernels on the same tables, three rounds
+            of turns, no v2 side run before them (needs --baseline)
+  v2        rebased (v2) rows at 100M: this tree's v2 rows (blocks of kid0
+            and rel_ep1) against DIR's own v2 rows (its package, loaded
+            under another name, with its own kernel library and its own
+            tables: kid0, sid0, rel_ep1), and this tree's v1 rows against
+            DIR's kernels on them: kernel 2 alone and the lookup kernel
+            (ids), the (1, 4) LocalMesh lookup in v2, each side's bound,
+            table bytes per kmer, and the ptxas lines of the V2 = false
+            instantiations of both builds compared (needs --baseline);
+            its turns run once for each order of --orders (a comma list of
+            ORDERS: v2-first is v2, DIR v2, v1, DIR v1; v1-first is v1,
+            DIR v1, v2, DIR v2, where this tree's v1 side never follows
+            DIR's v2 side), each backwards, then forwards
+  capacity  the v2 cell's sides and turns on capacity_run.py's index
+            (--capacity-index; by default its 300M k31 m17 regular build
+            under build/capacity: `capacity_run.py --kmers 300000000
+            --stages generate,build` first), its (1, 4) LocalMesh too
+  pad       k65 m25 canonical (chip_smoke phase 13's 60M without its tie
+            pairs, --wide-strings strings of 100,064 chars) in v2 rows, where
+            layout.row_pad pads the row from 15 words to 16: kernel 2 alone
+            and the lookup kernel on the padded rows against the same rows
+            unpadded, both through one build of this tree's probe.cu whose
+            bad_row_w also takes the unpadded width (probe.cuh patched), and
+            DIR's v2 rows with --baseline
 
 Index: chip_smoke.py phase 7's 100M k31 m21 canonical build (--strings
 strings of 100,030 chars), 2^24 lanes of 50%-RC positives. Each variant
@@ -23,7 +55,9 @@ sm_90a into build/lookup_ab/:
               probe}.cu: kernel 1 and kernel 2 of an earlier tree, e.g.
               `git archive <commit> | tar -x -C DIR`
 
-Prints the card, each variant's registers (ptxas), and the ms of: the
+Prints the card, each variant's registers (ptxas), the card's SM clock,
+power draw and throttle reasons after each timing of the v1 and v2
+cells, and the ms of: the
 lookup kernel (ids) per variant; kernel 2 alone (ids, kernel 1's folded
 outputs given) per variant and DIR's; kernel 1 (both strands) at k31 m21
 on the positives and at k65 m25 on 2^23 random kmers, this tree's against
@@ -31,19 +65,26 @@ DIR's. Every variant's output equals the tree's, checked before timing.
 """
 
 import argparse
+import contextlib
 import ctypes
+import importlib
 import re
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import chip_smoke as S  # its import finder keeps JAX out; its build and timing helpers
 import numpy as np
 import torch
 
-from sshash_tpu_torch import kernels, synthetic
+import stream_ab as SA  # load_baseline
+from sshash_tpu_torch import bounds, kernels, synthetic
+from sshash_tpu_torch import engine as E
+from sshash_tpu_torch import layout as L
 from sshash_tpu_torch.engine import canonical_fold
 from sshash_tpu_torch.ops import packed as P
+from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine
 
 ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "sshash_tpu_torch" / "csrc"
@@ -242,20 +283,54 @@ def equal(a, b):
     return all(torch.equal(a[key], b[key]) for key in b)
 
 
+def scale_index(a):
+    return S.build("canonical", k=31, m=21, canonical=True, num_strings=a.strings,
+                   string_len=S.STRING_LEN, seed=60, threads=8)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="an unpacked earlier tree: its kernels 1-2 are timed too")
     ap.add_argument("--strings", type=int, default=S.SCALE_STRINGS)
+    ap.add_argument("--cells", default="variants")
+    ap.add_argument("--orders", default="v2-first",
+                    help="the orders of the v2 and capacity cells' turns, of " + ", ".join(ORDERS))
+    ap.add_argument("--wide-strings", type=int, default=S.WIDE_STRINGS["canonical"])
+    ap.add_argument("--capacity-index", default=str(ROOT / "build" / "capacity"
+                                                    / "index_300000000_k31_m17"))
     a = ap.parse_args()
+    cells = a.cells.split(",")
     S.phase_card()
     dev = torch.device("cuda", 0)
+    base = None
+    if {"v1", "v2", "pad", "capacity"} & set(cells):
+        if {"v1", "v2", "capacity"} & set(cells) and not a.baseline:
+            raise SystemExit("the v1, v2 and capacity cells need --baseline")
+        base = build_pair(a.baseline)
+    built = scale_index(a) if {"variants", "v1", "v2"} & set(cells) else None
+    if "variants" in cells:
+        variants_cell(a, dev, *built)
+    if "v1" in cells:
+        v1_cell(dev, base, *built)
+    if "v2" in cells:
+        v2_cell(dev, base, *built, orders=a.orders.split(","))
+    del built
+    if "capacity" in cells:
+        from sshash_tpu_torch.index import Index
+
+        v2_cell(dev, base, Index.load(a.capacity_index), None,
+                f"capacity_run.py's index ({a.capacity_index})", "capacity",
+                a.orders.split(","))
+    if "pad" in cells:
+        pad_cell(a, dev, base)
+    S.log(f"card: {torch.cuda.get_device_name(0)}")
+
+
+def variants_cell(a, dev, idx, host):
     libs, regs = build(variant_sources(a.baseline))
     for ln in regs:
         S.log(f"  ptxas {ln}")
-    idx, host = S.build("canonical", k=31, m=21, canonical=True, num_strings=a.strings,
-                        string_len=S.STRING_LEN, seed=60, threads=8)
     eng = S.TorchEngine(idx, dev, host_arrs=host)
-    del host
     rng = np.random.default_rng(6)
     _, km = S.positives(idx, rng, S.SCALE_B)
     kt = eng.kmers32(km)
@@ -288,7 +363,293 @@ def main():
         S.require(all(torch.equal(x, y) for x, y in zip(mins["tree"](), mins["baseline"]())),
                   "kernel 1 k65: tree != baseline")
         S.time_sides("k65 m25 random", "kernel 1 (both strands)", 1 << 23, mins)
-    S.log(f"card: {torch.cuda.get_device_name(0)}")
+
+
+# --------------------------------------------------------- v2 rows: tree and DIR
+
+# the lookup kernel's and kernel 2's mangled names, V2 their last template
+# argument
+V2_KERNELS = re.compile(r"\d+(?:lookup_kernel|probe_kernel|shard_probe_kernel)"
+                        r"ILi\d+ELb[01]ELb([01])E")
+
+
+def build_pair(baseline):
+    """This tree's kernel library and, with baseline, DIR's package (its own
+    library built from its csrc with its C++ names in a namespace of their
+    own, both nvcc runs at once). Logs the ptxas lines of the V2 = false
+    instantiations of the lookup kernel and kernel 2 that differ between
+    the two builds. Returns DIR's package as a namespace (layout and index
+    too), or None."""
+    if not baseline:
+        kernels.library()
+        return None
+    base = SA.load_baseline(baseline)
+    for mod in ("layout", "index"):
+        setattr(base, mod, importlib.import_module(f"baseline_sshash_tpu_torch.{mod}"))
+    base.kernels.NVCC_FLAGS = (*base.kernels.NVCC_FLAGS, "-Dsshash=sshash_baseline")
+    logs = {}
+    t = threading.Thread(target=lambda: logs.setdefault("baseline", base.kernels.build()[2]))
+    t.start()
+    logs["tree"] = kernels.build()[2]
+    t.join()
+    if "baseline" not in logs:
+        raise RuntimeError("the baseline's kernels did not build")
+    kernels.library()
+    base.kernels.library()
+    props = {}
+    for side, log in logs.items():
+        lines = log.splitlines()
+        for ln, nxt, reg in zip(lines, lines[1:], lines[2:]):
+            m = V2_KERNELS.search(ln)
+            if m and "Function properties" in ln:
+                props.setdefault(side, {})[m.group(0)] = (m.group(1),
+                                                          f"{reg.strip()}; {nxt.strip()}")
+    tree, dir_ = props.get("tree", {}), props.get("baseline", {})
+    v1 = [key for key, (v2, _) in tree.items() if v2 == "0"]
+    diff = [f"{key}: tree {tree[key][1]} | DIR {dir_.get(key, ('', 'none'))[1]}"
+            for key in v1 if tree[key][1] != dir_.get(key, ("", ""))[1]]
+    S.log(f"  ptxas, V2 = false: {len(v1)} instantiations of the lookup kernel and kernel 2 "
+          f"(whole table, shard form); {len(diff)} differ from DIR's"
+          + "".join(f"\n    {d}" for d in diff))
+    for key, (v2, line) in sorted(tree.items()):
+        if v2 == "1" and re.search(r"ILi[25]E", key):
+            S.log(f"  ptxas tree {key}: {line} | DIR {dir_.get(key, ('', 'none'))[1]}")
+    return base
+
+
+def base_index(base, idx, name):
+    """idx as DIR's Index class (saved, then loaded by DIR's package), so that
+    its layout's isinstance tests see its own classes."""
+    path = str(OUT / f"{name}_index")
+    idx.save(path)
+    return base.index.Index.load(path)
+
+
+@contextlib.contextmanager
+def patched(mod, **names):
+    saved = {n: getattr(mod, n) for n in names}
+    for n, v in names.items():
+        setattr(mod, n, v)
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            setattr(mod, n, v)
+
+
+def probe_bounds(cfg, tables, kt, args, lay=L):
+    """lookup_bounds for cfg's rows, counting rows with lay's widths (DIR's
+    layout module for DIR's rows)."""
+    with patched(bounds, row_width=lay.row_width, cand_block_width=lay.cand_block_width):
+        return bounds.lookup_bounds(cfg, kt.shape[0], bounds.probe_bytes(cfg, tables, kt, args),
+                                    bounds.probe_bytes(cfg, tables, kt, args, fused=True))
+
+
+def clocks(tag):
+    """Logs the card's SM clock, power draw, temperature and active throttle
+    reasons (nvidia-smi) after a timing."""
+    q = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu,clocks_throttle_reasons.active"
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={q}", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    S.log(f"  {tag}: after the timing, {q}: {out}")
+
+
+def v1_cell(dev, base, idx, host, tag="100M k31 m21 canonical"):
+    """The index's v1 rows alone: this tree's lookup kernel and kernel 2
+    against DIR's on the same tables, each held to the oracle's ids, then
+    three rounds of turns (six runs a side)."""
+    rng = np.random.default_rng(19)
+    eng1 = S.TorchEngine(idx, dev, host_arrs=host)
+    bcfg1 = base.layout.StaticCfg(base_index(base, idx, "v1"))
+    ids, km = S.positives(idx, rng, S.SCALE_B)
+    kt = eng1.kmers32(km)
+    ref = E.lookup(eng1.cfg, eng1.tables, kt, None, "ids")
+    S.require(torch.equal(ref["kmer_id"], S.id_tensor(ids, dev)), "v1: an id did not round-trip")
+    args = bounds.probe_args(eng1.cfg, kt, P.minimizer)
+    lookups = {"v1": lambda: E.lookup(eng1.cfg, eng1.tables, kt, None, "ids"),
+               "DIR v1": lambda: base.engine.lookup(bcfg1, eng1.tables, kt, None, "ids")}
+    probes = {"v1": lambda: E.probe(eng1.cfg, eng1.tables, kt, *args, None, "ids"),
+              "DIR v1": lambda: base.engine.probe(bcfg1, eng1.tables, kt, *args, None, "ids")}
+    ref2 = probes["v1"]()
+    for side in lookups:
+        ids_equal(lookups[side](), ref, f"v1 cell lookup kernel {side}")
+        ids_equal(probes[side](), ref2, f"v1 cell kernel 2 {side}")
+    S.log(f"  {tag} v1 alone: both sides' lookup kernel equals the positives' ids on "
+          f"{S.SCALE_B} lanes")
+    for r in range(3):
+        S.time_sides(f"{tag} v1 alone, round {r + 1}", "lookup kernel (ids)", S.SCALE_B, lookups)
+        clocks(f"{tag} v1 alone, round {r + 1}, lookup kernel")
+        S.time_sides(f"{tag} v1 alone, round {r + 1}", "kernel 2 alone (ids)", S.SCALE_B, probes)
+        clocks(f"{tag} v1 alone, round {r + 1}, kernel 2")
+
+
+def ids_equal(got, want, tag):
+    for key in ("kmer_id", "kmer_orientation", "minimizer_found", "found"):
+        S.require(torch.equal(got[key], want[key]), f"{tag}: {key} differs")
+
+
+ORDERS = {"v2-first": ("v2", "DIR v2", "v1", "DIR v1"),
+          "v1-first": ("v1", "DIR v1", "v2", "DIR v2")}
+
+
+def v2_cell(dev, base, idx, host, tag="100M k31 m21 canonical", name="scale",
+            orders=("v2-first",)):
+    """An index (the 100M canonical one; the capacity cell's 300M regular)
+    in this tree's v2 rows, DIR's v2 rows and v1 rows: every side held to
+    the oracle on a sample and to the v1 engine's ids on all lanes (kernel
+    2 alone to v1's kernel 2), then timed in turns, once in each of
+    orders (ORDERS' keys)."""
+    rng = np.random.default_rng(19)
+    bidx = base_index(base, idx, name)
+    eng1 = S.TorchEngine(idx, dev, host_arrs=host)
+    host2 = L.device_arrays(idx, "v2")
+    eng2 = S.TorchEngine(idx, dev, host_arrs=host2, row_format="v2")
+    bhost2 = base.layout.device_arrays(bidx, "v2")
+    beng2 = base.engine.TorchEngine(bidx, dev, host_arrs=bhost2, row_format="v2")
+    bcfg1 = base.layout.StaticCfg(bidx)
+    S.log(f"  {tag}: rows (words) v1 {L.row_width(eng1.cfg)}, v2 {L.row_width(eng2.cfg)} "
+          f"(pad {L.row_pad(eng2.cfg)}), DIR's v2 {base.layout.row_width(beng2.cfg)}; "
+          f"c1_in_row {eng2.cfg.c1_in_row}")
+    ids, km = S.positives(idx, rng, S.SCALE_B)
+    kt = eng1.kmers32(km)
+    sample = np.concatenate([km[: S.SAMPLE // 8], synthetic.random_kmers(idx.k, rng,
+                                                                         S.SAMPLE // 8)])
+    want = S.oracle.lookup(idx, sample)
+    for name, e in (("v1", eng1), ("v2", eng2), ("DIR v2", beng2)):
+        got = e.lookup(sample)
+        for key in got:
+            S.require(np.array_equal(got[key], want[key]), f"{name}: {key} != the oracle")
+    ref = E.lookup(eng1.cfg, eng1.tables, kt, None, "ids")
+    S.require(torch.equal(ref["kmer_id"], S.id_tensor(ids, dev)), "v1: an id did not round-trip")
+    args = bounds.probe_args(eng1.cfg, kt, P.minimizer)
+    lookups = {"v2": lambda: E.lookup(eng2.cfg, eng2.tables, kt, None, "ids"),
+               "DIR v2": lambda: base.engine.lookup(beng2.cfg, beng2.tables, kt, None, "ids"),
+               "v1": lambda: E.lookup(eng1.cfg, eng1.tables, kt, None, "ids"),
+               "DIR v1": lambda: base.engine.lookup(bcfg1, eng1.tables, kt, None, "ids")}
+    probes = {"v2": lambda: E.probe(eng2.cfg, eng2.tables, kt, *args, None, "ids"),
+              "DIR v2": lambda: base.engine.probe(beng2.cfg, beng2.tables, kt, *args, None,
+                                                  "ids"),
+              "v1": lambda: E.probe(eng1.cfg, eng1.tables, kt, *args, None, "ids"),
+              "DIR v1": lambda: base.engine.probe(bcfg1, eng1.tables, kt, *args, None, "ids")}
+    ref2 = probes["v1"]()
+    for side in lookups:
+        ids_equal(lookups[side](), ref, f"lookup kernel {side}")
+        ids_equal(probes[side](), ref2, f"kernel 2 {side}")
+    S.log(f"  {tag}: the lookup kernel of every side equals the v1 lookup's ids on {S.SCALE_B} "
+          f"lanes, kernel 2 v1's kernel 2; each side's host lookup equals the oracle on "
+          f"{len(sample)}")
+    for order in orders:
+        S.log(f"  {tag}: {order}, the sides {list(ORDERS[order])} backwards, then forwards")
+        S.time_sides(f"{tag} {order}", "lookup kernel (ids)", S.SCALE_B,
+                     {side: lookups[side] for side in ORDERS[order]})
+        clocks(f"{tag} {order}, lookup kernel")
+        S.time_sides(f"{tag} {order}", "kernel 2 alone (ids)", S.SCALE_B,
+                     {side: probes[side] for side in ORDERS[order]})
+        clocks(f"{tag} {order}, kernel 2")
+    for side, cfg, t, lay in (("v2", eng2.cfg, eng2.tables, L),
+                              ("DIR v2", beng2.cfg, beng2.tables, base.layout),
+                              ("v1", eng1.cfg, eng1.tables, L)):
+        b = probe_bounds(cfg, t, kt, args, lay)
+        nb = sum(t[n].numel() * 4 for n in L.TABLE_GROUPS["lookup"] if n in t)
+        S.log(f"  {tag} {side}: kernel 2 bound {b['probe.cu'][0]:.4f} ms ({b['probe.cu'][1]}), "
+              f"lookup kernel bound {b['lookup'][0]:.4f} ({b['lookup'][1]}; bytes "
+              f"{b['lookup_bytes'][0]:.4f}); lookup tables {nb} bytes = "
+              f"{nb / idx.num_kmers:.4f} B/kmer")
+    del eng1
+    torch.cuda.empty_cache()
+    seng = ShardedEngine(idx, LocalMesh((1, 4), dev), host_arrs=host2, row_format="v2")
+    bseng = base.parallel.ShardedEngine(bidx, base.parallel.LocalMesh((1, 4), dev),
+                                        host_arrs=bhost2, row_format="v2")
+    del host2, bhost2
+    sharded = {"v2 (1, 4)": lambda: seng.lookup_ids_device(kt),
+               "DIR v2 (1, 4)": lambda: bseng.lookup_ids_device(kt)}
+    for side, fn in sharded.items():
+        ids_equal(fn(), ref, side)
+    S.time_sides(tag, "LocalMesh (1, 4) lookup (ids)", S.SCALE_B, sharded)
+
+
+# --------------------------------------------- v2 rows at k65: padded or not
+
+ROW_W_CHECK = "  return p.row_w != R + (padded ? pad : 0);\n"
+
+
+def unpadded_library():
+    """This tree's probe.cu and minimizer.cu built with a bad_row_w that
+    takes a v2 row unpadded as well as padded (probe.cuh patched; every
+    header copied beside it, so that each include resolves to the copies)."""
+    d = OUT / "unpadded"
+    d.mkdir(parents=True, exist_ok=True)
+    for f in CSRC.iterdir():
+        if f.suffix in (".cuh", ".h") or f.name in ("probe.cu", "minimizer.cu"):
+            (d / f.name).write_text(f.read_text())
+    (d / "probe.cuh").write_text(patch((CSRC / "probe.cuh").read_text(), re.escape(ROW_W_CHECK),
+                                       "  return p.row_w != R && p.row_w != R + pad;\n"))
+    libs, _ = build({"unpadded": (d, d)})
+    S.require("unpadded" in libs, "the unpadded side's library did not build")
+    return libs["unpadded"]
+
+
+def unpadded(cfg):
+    """Within: this tree's wrappers pass v2 rows without row_pad's zeros."""
+    return patched(kernels, row_width=lambda c: L.row_width(c) - L.row_pad(c))
+
+
+def pad_cell(a, dev, base):
+    """k65 m25 canonical v2 rows, padded to 16 words (the layout's choice)
+    and the same rows unpadded (15 words), both through unpadded_library,
+    and DIR's 16-word rows: every side's lookup equal to the v1 lookup's
+    ids, then kernel 2 alone and the lookup kernel in turns."""
+    lib = unpadded_library()
+    tag = f"k65 m25 canonical ({a.wide_strings} strings)"
+    # without phase 13's planted tie pairs, whose buckets would put candidate 1
+    # in the row (28 words, unpadded) at small sizes
+    kw = dict(S.PREBUILT["wide"], num_strings=a.wide_strings, seed=130 + a.wide_strings,
+              ties=None)
+    idx, host = S.build(tag, **kw)
+    rng = np.random.default_rng(65)
+    eng1 = S.TorchEngine(idx, dev, host_arrs=host)
+    del host
+    eng2 = S.TorchEngine(idx, dev, row_format="v2")
+    cfg, t = eng2.cfg, eng2.tables
+    R = L.row_width(cfg) - L.row_pad(cfg)
+    S.require(L.row_pad(cfg) > 0, f"{tag}: row_pad {L.row_pad(cfg)}: no padded row to time")
+    t15 = dict(t, cw_row=t["cw_row"][:, :R].contiguous())
+    n = 2 + L.cand_block_width(cfg)
+    S.log(f"  {tag}: v2 head {n} words; padded rows {L.row_width(cfg)} words "
+          f"({L.head_loads(n, L.row_width(cfg)):.2f} loads, "
+          f"{L.head_sectors(n, L.row_width(cfg)):.2f} sectors a head), unpadded {R} "
+          f"({L.head_loads(n, R):.2f}, {L.head_sectors(n, R):.2f}); v1 {L.row_width(eng1.cfg)}")
+    _, km = S.positives(idx, rng, 1 << 23)
+    kt = eng1.kmers32(km)
+    ref = E.lookup(eng1.cfg, eng1.tables, kt, None, "ids")
+    mv, mp, rc, mv_r, mp_r = P.minimizer(kt, idx.k, idx.m, eng1.cfg.magic, both=True)
+    args = (rc, *canonical_fold(mv, mp, mv_r, mp_r))
+
+    def on_unpadded(fn, *xs):
+        def run():
+            with unpadded(cfg):
+                return call(lib, fn, cfg, t15, kt, *xs)
+        return run
+
+    lookups = {"padded": lambda: call(lib, "sshash_lookup", cfg, t, kt),
+               "unpadded": on_unpadded("sshash_lookup")}
+    probes = {"padded": lambda: call(lib, "sshash_probe", cfg, t, kt, args),
+              "unpadded": on_unpadded("sshash_probe", args)}
+    S.require(equal(lookups["padded"](), E.lookup(cfg, t, kt, None, "ids")),
+              f"{tag}: the patched build's lookup kernel != the tree's")
+    if base is not None:
+        bidx = base_index(base, idx, "k65")
+        beng2 = base.engine.TorchEngine(bidx, dev, row_format="v2")
+        lookups["DIR v2"] = lambda: base.engine.lookup(beng2.cfg, beng2.tables, kt, None, "ids")
+        probes["DIR v2"] = lambda: base.engine.probe(beng2.cfg, beng2.tables, kt, *args, None,
+                                                     "ids")
+    for name in lookups:
+        ids_equal(lookups[name](), ref, f"{tag} lookup kernel {name}")
+        ids_equal(probes[name](), ref, f"{tag} kernel 2 {name}")
+    S.log(f"  {tag}: every side's lookup kernel and kernel 2 equal the v1 lookup's ids on "
+          f"{kt.shape[0]} lanes")
+    S.time_sides(tag, "lookup kernel (ids)", kt.shape[0], lookups)
+    S.time_sides(tag, "kernel 2 alone (ids)", kt.shape[0], probes)
 
 
 if __name__ == "__main__":

@@ -41,21 +41,27 @@
 // compacted them into pair windows).
 //
 // Row formats: v1 blocks resolve a match to a char offset and its string
-// (sid0, ep0, ep1, ep2); v2 ("rebased") blocks carry the in-window offset
-// and (kid0, sid0, rel_ep1), so a match resolves straight to its kmer id
-// and no char offset is read or formed (indexes of >= 2^32 chars). v2
-// serves the id fields only.
+// with their resolve quad (sid0, ep0, ep1, ep2); v2 ("rebased") blocks
+// carry the in-window offset and the resolve words (kid0, rel_ep1), so a
+// match resolves straight to its kmer id and no char offset is read or
+// formed (indexes of >= 2^32 chars). v2 serves the id fields only, which
+// never need sid0, so its blocks leave it out: a 10-word row at k31 m21
+// (40 bytes: 2 sectors and 3 staging loads wherever a row starts, as v1's
+// 12-word row), and a v2 cw_row is padded to a multiple of 4 words where
+// that stages its head in fewer loads or touches fewer sectors
+// (layout.row_pad; bad_row_w).
 //
 // Bound: dependent random reads of device memory, three to four rounds per
 // lane (pilot, row, then heavy or mid rows for a few lanes; the legacy
-// heavy path one round more), each a row of 11..34 words at k <= 63 and up
+// heavy path one round more), each a row of 10..34 words at k <= 63 and up
 // to 52 at k = 255; the lookup kernel adds kernel 1's integer work (k-m+1
 // windows a lane), which one warp's hashing can hide under another's row
 // wait. The row read: the head of the row (status, cw_a and the candidate-0
 // block) is copied into the thread's slot of shared memory with 16-byte
 // loads of the aligned segments that cover it (3 loads for a 12-word v1
-// row at k31, at most 4 for any row of <= 13 words), and every later read
-// of it (guard, valid bits, window words, the resolution quad) is a shared
+// row or a 10-word v2 row at k31, at most 4 for any row of <= 13 words),
+// and every later read of it (guard, valid bits, window words, the resolve
+// words) is a shared
 // memory read at a per-lane offset: a warp's word-at-a-time loads from 32
 // rows each cost 32 L1 wavefronts and find rows evicted between them;
 // registers would need a select chain per read at a runtime offset. Other
@@ -255,9 +261,9 @@ __device__ __forceinline__ uint32_t ext_off(uint32_t col0, uint32_t kmw) {
 }
 
 // engine.lookup_with_info.verify_fused: verify and resolve one candidate
-// block [col0, vbits (Wv), window (Ww), quad] at each position try, in
-// order; the first hit wins. v1 quad (sid0, ep0, ep1, ep2); v2 quad (kid0,
-// sid0, rel_ep1): the id is kid0 - pos - over*(k-1), over = (k-m-pos) >=
+// block [col0, vbits (Wv), window (Ww), resolve words] at each position
+// try, in order; the first hit wins. v1 quad (sid0, ep0, ep1, ep2); v2
+// (kid0, rel_ep1): the id is kid0 - pos - over*(k-1), over = (k-m-pos) >=
 // rel_ep1.
 template <int W, bool CANON, bool V2>
 __device__ __forceinline__ Hit verify_block(const uint32_t* blk, const ProbeParams& p,
@@ -286,7 +292,7 @@ __device__ __forceinline__ Hit verify_block(const uint32_t* blk, const ProbePara
     h.match = true;
     h.orient = (eq_r && !eq_f) ? kBackward : kForward;
     if (V2) {
-      h.off = rsv[0] - pos - (j >= rsv[2] ? (uint32_t)(p.k - 1) : 0u);
+      h.off = rsv[0] - pos - (j >= rsv[1] ? (uint32_t)(p.k - 1) : 0u);
       break;
     }
     const uint32_t off = cand - pos;
@@ -520,6 +526,33 @@ inline int stage_threads(const ProbeParams& p) {
   return 256 * stage_stride(2 + (int)p.blk_w) * 4 <= 48 * 1024 ? 256 : 128;
 }
 
+// layout.head_loads and layout.head_sectors times 8: the 16-byte loads that
+// stage a row head of n words, and the 32-byte sectors it touches, summed
+// over 8 rows of a table of R-word rows.
+inline int head_loads8(int n, int R) {
+  int s = 0;
+  for (int r = 0; r < 8; ++r) s += (r * R % 4 + n + 3) >> 2;
+  return s;
+}
+inline int head_sectors8(int n, int R) {
+  int s = 0;
+  for (int r = 0; r < 8; ++r) s += (4 * r * R % 32 + 4 * n + 31) >> 5;
+  return s;
+}
+
+// cw_row's width against the layout's (layout.row_width): status, cw_a and
+// 1 or 2 candidate blocks, and in v2 layout.row_pad's zero words: a row
+// padded to a multiple of 4 words where that stages its head in fewer
+// loads or touches fewer sectors.
+inline bool bad_row_w(const ProbeParams& p) {
+  const int n = 2 + (int)p.blk_w, R = 2 + (p.c1_in_row ? 2 : 1) * (int)p.blk_w;
+  const int pad = (4 - R % 4) % 4;
+  const bool padded = p.row_v2 && pad &&
+                      (head_loads8(n, R + pad) < head_loads8(n, R) ||
+                       head_sectors8(n, R + pad) < head_sectors8(n, R));
+  return p.row_w != R + (padded ? pad : 0);
+}
+
 // The parameters every probe entry checks: widths, row and block widths of the
 // table layout, the skew form's tables, the field form, the shard ranges.
 inline bool bad_params(const ProbeTables& t, const ProbeParams& p, const ProbeIO& io) {
@@ -532,8 +565,7 @@ inline bool bad_params(const ProbeTables& t, const ProbeParams& p, const ProbeIO
          (p.rc_round && p.canonical) ||
          ((io.slot_out || io.slot_in) && (p.store != kStoreOwned || io.hrow_in)) ||
          (io.slot_out && io.slot_in) ||
-         p.blk_w != 1 + p.vbits_words + p.win_words + (p.row_v2 ? 3 : 4) ||
-         p.row_w != 2 + (p.c1_in_row ? 2 : 1) * p.blk_w ||
+         p.blk_w != 1 + p.vbits_words + p.win_words + (p.row_v2 ? 2 : 4) || bad_row_w(p) ||
          (2 + p.blk_w + 6) >> 2 > head_segments(W) ||
          (p.has_skew && (p.skew_hrows ? !t.sk_hrows : !t.heavy_rows || !t.sk_positions)) ||
          (p.has_skew && p.skew_partitioned && !t.sk_seedrows) || p.slot_lo < 0 ||

@@ -70,8 +70,8 @@ from . import kmer as K
 from .constants import BACKWARD_ORIENTATION, FORWARD_ORIENTATION, INVALID_UINT64
 from .layout import (SKEW_PARAMS, TABLE_GROUPS, StaticCfg, acc_windowed, cand_block_width,
                      check_access, check_fields, check_probe_shard, check_rank_probe,
-                     device_arrays, rank_probe_shards, row_width, tables_from_host, take_rows,
-                     with_access_tables)
+                     device_arrays, rank_probe_shards, tables_from_host,
+                     take_rows, with_access_tables)
 from .ops import packed as P
 from .ops import u64 as u
 from .ops.u64 import M32
@@ -147,9 +147,10 @@ def _ext0(cfg, col0):
 
 def _verify(cfg, blk, active, km, kr, tries):
     """Verify and resolve one candidate block per lane
-    ([col0, vbits, window, quad] rows, u32 values in int64) at each
-    position try, in order. Returns (match, off, orient, sid, begin, end);
-    in v2 rows off is the kmer id itself and sid, begin and end stay 0."""
+    ([col0, vbits, window, resolve words] rows, u32 values in int64) at
+    each position try, in order. Returns (match, off, orient, sid, begin,
+    end); in v2 rows (resolve words kid0, rel_ep1) off is the kmer id
+    itself and sid, begin and end stay 0."""
     Wv, Ww, k = cfg.vbits_words, cfg.win_words, cfg.k
     kmw = cfg.kmw
     cand = blk[:, 0]
@@ -179,7 +180,7 @@ def _verify(cfg, blk, active, km, kr, tries):
         match = match | hit
         if cfg.row_v2:
             # kid = kid0 - pos - over*(k-1), over = j >= rel_ep1
-            kid = (rsv[:, 0] - pos - (j >= rsv[:, 2]) * (k - 1)) & M32
+            kid = (rsv[:, 0] - pos - (j >= rsv[:, 1]) * (k - 1)) & M32
             off = torch.where(hit, kid, off)
             continue
         o = torch.where(can, cand - pos, zero)
@@ -812,7 +813,8 @@ class TorchEngine:
     access, weight, navigation and full iteration.
 
     host_arrs: a precomputed table dict (layout.device_arrays, or the JAX
-    package's _device_arrays / its .npy cache) for large indexes.
+    package's _device_arrays / its .npy cache, whose v2 blocks
+    layout.tables_from_host converts) for large indexes.
     row_format: None (rebased v2 rows at >= 2^32 chars, else v1), "v1" or
     "v2". A v2 engine's lookup and navigation return the id fields only,
     as the JAX package's DeviceEngine does.
@@ -828,14 +830,9 @@ class TorchEngine:
         self.cfg = StaticCfg(index, row_format)
         if host_arrs is None:
             host_arrs = device_arrays(index, row_format)
-        elif host_arrs["cw_row"].shape[1] != row_width(self.cfg):
-            raise ValueError(
-                f"stale host_arrs: cw_row has {host_arrs['cw_row'].shape[1]} columns, this "
-                f"engine expects {row_width(self.cfg)} ({'v2' if self.cfg.row_v2 else 'v1'} "
-                f"rows); recompute with layout.device_arrays(index, row_format)")
         else:
             host_arrs = with_access_tables(index, self.cfg, host_arrs)
-        self.tables = tables_from_host(host_arrs, self.device)
+        self.tables = tables_from_host(host_arrs, self.device, self.cfg)
         fields = "ids" if self.cfg.row_v2 else "full"
         self._lookup = make_lookup(self.cfg, fields)
         self._lookup_ids = make_lookup(self.cfg, "ids")

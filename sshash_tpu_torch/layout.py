@@ -2,8 +2,9 @@
 
 JAX-free counterpart of sshash_tpu.engine._device_arrays and of the
 geometry of sshash_tpu.engine.StaticCfg. The tables are the same arrays,
-bit for bit (tests/test_torch_layout.py and tests/test_torch_capacity.py
-hold them against the JAX package):
+bit for bit, but for the v2 blocks below (tests/test_torch_layout.py and
+tests/test_torch_capacity.py hold them against the JAX package; a JAX v2
+dict is converted by port_tables):
 
   cw_row[slot]   one fused row per raw minimizer-MPHF slot:
                  [status | b<<2, a, candidate-0 block, (candidate-1 block)]
@@ -16,14 +17,21 @@ hold them against the JAX package):
   pilots, mphf_seedrows, sk_pilots, sk_seedrows, sk_*   MPHF parameters
 
 A candidate block is [col0, valid-start bits (Wv words), packed string
-window (Ww words), resolve quad]: verifying a candidate and resolving its id
-needs no further gather. Two row formats:
+window (Ww words), resolve words]: verifying a candidate and resolving its
+id needs no further gather. Two row formats:
 
-  v1  col0 = the candidate's char offset, quad (sid0, ep0, ep1, ep2);
+  v1  col0 = the candidate's char offset, resolve quad (sid0, ep0, ep1,
+      ep2);
   v2  ("rebased" rows) col0 = the candidate's offset inside its window,
-      quad (kid0, sid0, rel_ep1) in kmer-id space: no char offset anywhere,
-      so an index of >= 2^32 chars serves as long as its ids fit u32. v2
-      rows serve the id fields of lookup only.
+      resolve words (kid0, rel_ep1) in kmer-id space: no char offset
+      anywhere, so an index of >= 2^32 chars serves as long as its ids fit
+      u32. v2 rows serve the id fields of lookup only, which never read
+      sid0, so v2 blocks leave out the JAX package's third word (kid0,
+      sid0, rel_ep1): 10 words at k31 m21 (40 bytes, 2 sectors and 3
+      16-byte staging loads a row head wherever it starts). A v2 cw_row is
+      padded to a multiple of 4 words where that stages its head in fewer
+      loads or touches fewer 32-byte sectors (row_pad: at k63 and k65 m25
+      without candidate 1, 16 words, not 15).
 
   acc_rows[b]    one row per 32-id block b: [sid hint, kmer_cum of the next
                  C strings, and, when 1+C+Wa <= 16, the Wa packed-string
@@ -270,11 +278,12 @@ class StaticCfg:
         self.W = (2 * index.k + 31) // 32
         self.num_chars = int(index.num_chars)
         self.row_v2 = use_row_v2(index, row_format)
-        self.quad_w = 3 if self.row_v2 else 4
+        # the resolve words: v1's quad, v2's (kid0, rel_ep1)
+        self.quad_w = 2 if self.row_v2 else 4
         self.c1_in_row = use_c1(index)
         self.kmw = index.k - index.m
-        self.win_words = ((4 * index.k - 2 * index.m + 29) >> 5) + 1
-        self.vbits_words = (self.kmw + 1 + 31) // 32
+        self.win_words = win_words(index.k, index.m)
+        self.vbits_words = vbits_words(index.k, index.m)
         # windows start word-aligned at max(0, cand-(k-m)), so the in-window
         # bit offset of any candidate kmer starts at word <= max_start_word
         self.max_start_word = (2 * (15 + self.kmw)) >> 5
@@ -302,6 +311,25 @@ class StaticCfg:
             isinstance(p.mphf, PartitionedMPHF) for p in index.skew_partitions if p.mphf.n > 0)
         self.access_C = access_C(index)
         self.weighted = index.weights is not None
+
+
+def win_words(k, m):
+    """Ww: the packed string words a candidate block's window holds."""
+    return ((4 * k - 2 * m + 29) >> 5) + 1
+
+
+def vbits_words(k, m):
+    """Wv: the words of a candidate's k-m+1 valid-start bits."""
+    return (k - m + 1 + 31) // 32
+
+
+def row_geometry(k, m, row_v2, c1_in_row):
+    """The StaticCfg fields that size a fused row (cand_block_width,
+    row_pad, row_width) for a (k, m) without an index."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(vbits_words=vbits_words(k, m), win_words=win_words(k, m),
+                           quad_w=2 if row_v2 else 4, row_v2=row_v2, c1_in_row=c1_in_row)
 
 
 def access_C(index):
@@ -393,9 +421,82 @@ def cand_block_width(cfg):
     return 1 + cfg.vbits_words + cfg.win_words + cfg.quad_w
 
 
+def head_loads(n, R):
+    """16-byte loads that stage a row head of n words (csrc/stage.cuh: the
+    aligned segments that cover it), the mean over the rows of a table of
+    R-word rows, whose heads start at word o = r*R mod 4 of a segment."""
+    return sum((r * R % 4 + n + 3) >> 2 for r in range(8)) / 8
+
+
+def head_sectors(n, R):
+    """32-byte sectors a row head of n words touches, the mean over the
+    rows of a table of R-word rows (the table starts on a sector)."""
+    return sum((4 * r * R % 32 + 4 * n + 31) >> 5 for r in range(8)) / 8
+
+
+def row_pad(cfg):
+    """Zero words at the end of a v2 cw_row that make it a multiple of 4
+    words, where that stages its head (status, cw_a, candidate 0) in fewer
+    16-byte loads or touches fewer 32-byte sectors than the unpadded row;
+    else 0. v1 rows are never padded."""
+    n = 2 + cand_block_width(cfg)
+    R = 2 + (2 if cfg.c1_in_row else 1) * cand_block_width(cfg)
+    pad = -R % 4
+    if not cfg.row_v2 or not pad:
+        return 0
+    fewer = (head_loads(n, R + pad) < head_loads(n, R)
+             or head_sectors(n, R + pad) < head_sectors(n, R))
+    return pad if fewer else 0
+
+
 def row_width(cfg):
-    """cw_row width in u32 words: [status|b, a] + 1 or 2 candidate blocks."""
-    return 2 + (2 if cfg.c1_in_row else 1) * cand_block_width(cfg)
+    """cw_row width in u32 words: [status|b, a] + 1 or 2 candidate blocks
+    (+ row_pad)."""
+    return 2 + (2 if cfg.c1_in_row else 1) * cand_block_width(cfg) + row_pad(cfg)
+
+
+def port_tables(cfg, host_arrs):
+    """host_arrs in this module's layout for cfg. A JAX package v2 dict
+    (its blocks' resolve words kid0, sid0, rel_ep1; sshash_tpu.engine.
+    _device_arrays) loses sid0 from every block of cw_row, mid_rows,
+    sk_hrows and heavy_rows, and its cw_row gains row_pad's zero words;
+    tables already in this layout pass as they are. A cw_row of any other
+    width is refused, naming both widths. The blocks' width tells the two
+    apart (a padded cw_row may be as wide as JAX's; mid_rows is never
+    padded). Conversion copies a piece of rows at a time, so a
+    memory-mapped cache is read once."""
+    have, want = host_arrs["cw_row"].shape[1], row_width(cfg)
+    R1 = cand_block_width(cfg)
+    blk = host_arrs["mid_rows"].shape[1]
+    if have == want and blk == R1:
+        return host_arrs
+    nblk = 2 if cfg.c1_in_row else 1
+    if not (cfg.row_v2 and have == 2 + nblk * (R1 + 1) and blk == R1 + 1):
+        raise ValueError(
+            f"stale host_arrs: cw_row has {have} words a row and mid_rows {blk}, this "
+            f"engine expects {want} and {R1} "
+            f"({'v2' if cfg.row_v2 else 'v1'} rows of {R1}-word candidate blocks"
+            + (f"; the JAX package's v2 rows, {2 + nblk * (R1 + 1)} words, are converted"
+               if cfg.row_v2 else "")
+            + "); recompute with layout.device_arrays(index, row_format)")
+    sid0 = 1 + cfg.vbits_words + cfg.win_words + 1  # between kid0 and rel_ep1
+    keep = np.delete(np.arange(R1 + 1), sid0)
+    cols = np.concatenate([[0, 1]] + [2 + j * (R1 + 1) + keep for j in range(nblk)])
+    out = dict(host_arrs)
+    out["cw_row"] = _take_columns(host_arrs["cw_row"], cols, want)
+    for name in ("mid_rows", "sk_hrows", "heavy_rows"):
+        if name in out:
+            out[name] = _take_columns(out[name], keep, R1)
+    return out
+
+
+def _take_columns(arr, cols, width, piece=1 << 22):
+    """(n, width) uint32: arr's columns cols, then zeros, piece rows at a
+    time."""
+    out = np.zeros((len(arr), width), np.uint32)
+    for lo in range(0, len(arr), piece):
+        out[lo: lo + piece, :len(cols)] = arr[lo: lo + piece][:, cols]
+    return out
 
 
 def _expand_to_slots(arr, mphf):
@@ -443,17 +544,17 @@ def _seedrows(seedmixes):
 
 def fused_rows(dpos, s32, ep, k, m, row_v2):
     """(n,) candidate char offsets -> (n, R1) u32 candidate blocks
-    [col0, valid-start bits, packed string window, resolve quad]
+    [col0, valid-start bits, packed string window, resolve words]
     (engine._device_arrays.fused_rows). The candidate's possible kmer
     starts span [dpos-(k-m), dpos], shorter than any string, so at most one
-    string boundary falls inside: the quad resolves either side.
+    string boundary falls inside: the resolve words resolve either side.
 
       v1: col0 = dpos, quad [sid0, ep0, ep1, ep2];
       v2: col0 = dpos - 16 * (max(0, dpos-(k-m)) >> 4), the offset inside
-          the window, and quad [kid0, sid0, rel_ep1] with kid0 = dpos -
-          sid0*(k-1) and rel_ep1 = clip(ep1 - (dpos-(k-m)), 0, k-m+1): a
-          match at position try p has id kid0 - p - over*(k-1), over =
-          (k-m-p) >= rel_ep1.
+          the window, and [kid0, rel_ep1] with kid0 = dpos - sid0*(k-1)
+          and rel_ep1 = clip(ep1 - (dpos-(k-m)), 0, k-m+1): a match at
+          position try p has id kid0 - p - over*(k-1), over = (k-m-p) >=
+          rel_ep1 (the JAX package's sid0 between them is never read).
 
     Every offset stays int64 until its u32 field. A start o is valid iff
     o + k <= the end of o's string. s32 is read with int64 word indices
@@ -464,8 +565,7 @@ def fused_rows(dpos, s32, ep, k, m, row_v2):
         return np.concatenate([fused_rows(dpos[i: i + CH], s32, ep, k, m, row_v2)
                                for i in range(0, len(dpos), CH)])
     kmw = k - m
-    Ww = ((4 * k - 2 * m + 29) >> 5) + 1
-    Wv = (kmw + 1 + 31) // 32
+    Ww, Wv = win_words(k, m), vbits_words(k, m)
     last = len(ep) - 1
     c0 = np.asarray(dpos, dtype=np.int64)
     lo = np.maximum(c0 - kmw, 0)
@@ -483,7 +583,7 @@ def fused_rows(dpos, s32, ep, k, m, row_v2):
         b0, n = base + 32 * w, min(32, kmw + 1 - 32 * w)
         vbp[:, w] = _bit_range(-b0, ep1 - k - b0, n) | _bit_range(ep1 - b0, ep2 - k - b0, n)
     if row_v2:
-        rsv = np.stack([(c0 - sid0 * (k - 1)).astype(np.uint32), sid0.astype(np.uint32),
+        rsv = np.stack([(c0 - sid0 * (k - 1)).astype(np.uint32),
                         np.clip(ep1 - (c0 - kmw), 0, kmw + 1).astype(np.uint32)], axis=1)
         col0 = (c0 - (wlo << 4)).astype(np.uint32)
     else:
@@ -517,8 +617,8 @@ def _small(arr):
 
 def _cw_rows(index, cfg, rows, ids, mid_arr):
     """cw_row rows of the minimizers `ids` (int64): [status | b<<2, a, the
-    candidate-0 block, (the candidate-1 block)]. A heavy codeword's a is
-    its bucket's begin in heavy_load_buckets."""
+    candidate-0 block, (the candidate-1 block), (row_pad zeros)]. A heavy
+    codeword's a is its bucket's begin in heavy_load_buckets."""
     status, a, b = decode_codeword(index.codewords.get(ids))
     mid = status == 1
     msize = b.astype(np.int64)
@@ -545,7 +645,8 @@ def _cw_rows(index, cfg, rows, ids, mid_arr):
             cand1 = np.where(has2, mid_arr[np.clip(a + 1, 0, len(mid_arr) - 1)], 0)
         c1rows = rows(cand1)
         c1rows[~has2, :] = 0
-        out[:, 2 + R1:] = c1rows
+        out[:, 2 + R1: 2 + 2 * R1] = c1rows
+    out[:, 2 + (2 if cfg.c1_in_row else 1) * R1:] = 0
     return out
 
 
@@ -768,14 +869,60 @@ def write_tables(index, directory, row_format=None, chunk=1 << 24, threads=1):
     finally:
         for w in out.values():
             w.close()
+    _record_layout(directory, StaticCfg(index, row_format))
     return load_tables(directory)
 
 
+# the version of each row format's layout, recorded beside a table cache
+# (LAYOUT_FILE) and in capacity_run.py's cache keys: v2 is at 2 since its
+# blocks dropped sid0 (resolve words kid0, rel_ep1); v1 rows never changed
+LAYOUT_VERSION = {"v1": 1, "v2": 2}
+LAYOUT_FILE = "layout.json"
+
+
+def _record_layout(directory, cfg):
+    import json
+
+    fmt = "v2" if cfg.row_v2 else "v1"
+    with open(os.path.join(directory, LAYOUT_FILE), "w") as f:
+        json.dump({"layout_version": LAYOUT_VERSION[fmt], "row_format": fmt,
+                   "row_width": row_width(cfg), "block_width": cand_block_width(cfg)}, f)
+
+
+def save_tables(host_arrs, directory, cfg):
+    """A table dict of cfg's layout (device_arrays) written to
+    directory/<name>.npy whole, with the layout record load_tables
+    checks."""
+    os.makedirs(directory, exist_ok=True)
+    for name, v in host_arrs.items():
+        np.save(os.path.join(directory, name + ".npy"), v)
+    _record_layout(directory, cfg)
+
+
 def load_tables(directory):
-    """Every directory/<name>.npy (write_tables' output), loaded with
-    mmap_mode="r": a host_arrs dict whose tables stay on disk until read."""
-    return {f[:-4]: np.load(os.path.join(directory, f), mmap_mode="r")
+    """Every directory/<name>.npy (write_tables' or save_tables' output, or
+    the JAX package's .npy cache), loaded with mmap_mode="r": a host_arrs
+    dict whose tables stay on disk until read. A cache without a layout
+    record (the JAX package's, or an earlier tree's, whose v2 blocks still
+    hold sid0) loads as it is: tables_from_host converts it through
+    port_tables, which refuses any width it cannot convert. A cache whose
+    record names other widths than its files hold is refused."""
+    import json
+
+    arrs = {f[:-4]: np.load(os.path.join(directory, f), mmap_mode="r")
             for f in sorted(os.listdir(directory)) if f.endswith(".npy")}
+    path = os.path.join(directory, LAYOUT_FILE)
+    if os.path.exists(path):
+        with open(path) as f:
+            rec = json.load(f)
+        have = (arrs["cw_row"].shape[1], arrs["mid_rows"].shape[1])
+        if have != (rec["row_width"], rec["block_width"]):
+            raise ValueError(
+                f"{directory}: cw_row {have[0]} words a row and mid_rows {have[1]}, its layout "
+                f"record {rec['row_width']} and {rec['block_width']} "
+                f"({rec['row_format']} layout version {rec['layout_version']}): rebuild it "
+                f"with layout.write_tables")
+    return arrs
 
 
 def take_rows(table, idx):
@@ -790,16 +937,19 @@ def take_rows(table, idx):
     return table.index_select(0, i).to(torch.int64) & 0xFFFFFFFF
 
 
-def tables_from_host(host_arrs, device):
-    """The kernels' tables as int32 tensors (the u32 bits) on `device`, from
-    this module's device_arrays or the JAX package's _device_arrays dict
-    (or its .npy cache, completed by with_access_tables), in either row
-    format and either skew form. Optional lookup tables missing from the
-    dict get one zero row, the eight sk_* parameter vectors become one
-    (8, 8) `sk_params` table in SKEW_PARAMS order, and the weight tables
-    come along when the dict has them."""
+def tables_from_host(host_arrs, device, cfg):
+    """The kernels' tables of cfg's layout as int32 tensors (the u32 bits)
+    on `device`, from this module's device_arrays or the JAX package's
+    _device_arrays dict (or its .npy cache, completed by
+    with_access_tables), in either row format and either skew form: the
+    dict goes through port_tables first (a JAX v2 dict's blocks lose sid0;
+    a width of neither layout is refused). Optional lookup tables missing
+    from the dict get one zero row, the eight sk_* parameter vectors
+    become one (8, 8) `sk_params` table in SKEW_PARAMS order, and the
+    weight tables come along when the dict has them."""
     import torch
 
+    host_arrs = port_tables(cfg, host_arrs)
     R1 = host_arrs["mid_rows"].shape[1]
     fill = {"mphf_seedrows": np.zeros((1, 2), np.uint32),
             "sk_seedrows": np.zeros((1, 2), np.uint32),

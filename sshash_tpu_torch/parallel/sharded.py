@@ -57,7 +57,7 @@ from ..engine import (_neighbours_to_host, _to_host_result, access, access_read,
                       probe_ranks, rank_lists, rc_misses, unpack_result, weight)
 from ..kernels import result_dtypes
 from ..layout import (AccessShard, ProbeShard, StaticCfg, device_arrays, packed_rows,
-                      row_width, tables_from_host, with_access_tables)
+                      port_tables, tables_from_host, with_access_tables)
 from ..ops import packed as P
 from ..streaming import (KERNEL_OPS, _bits, _DeviceStream, check_streamable, make_stream_step,
                          stream_count, stream_swin)
@@ -101,14 +101,16 @@ def _stack_padded(parts):
 
 def shard_tables(host, cfg, nb):
     """The table dict of layout.device_arrays (or of the JAX package's
-    _device_arrays) split over nb bucket shards, as the JAX ShardedEngine
-    splits it (sharded.py:548-664 of the JAX package). Returns (one dict
+    _device_arrays, converted by layout.port_tables first) split over nb
+    bucket shards, as the JAX ShardedEngine splits it (sharded.py:548-664
+    of the JAX package). Returns (one dict
     per shard, geometry): a sharded table holds the shard's slice, a
     replicated one the whole array (the same object in every dict);
     sidk32 and kmer_cum are dropped. geometry: per_shard (slots),
     per_shard_hrows (sk_hrows rows, None without hindex), per_shard_swords
     (strings32 words) and per_shard_blocks (access rows)."""
-    host = {key: v for key, v in host.items() if key not in ("sidk32", "kmer_cum")}
+    host = {key: v for key, v in port_tables(cfg, host).items()
+            if key not in ("sidk32", "kmer_cum")}
     sharded = {}
     n_cw = len(host["cw_row"])
     per_shard = -(-n_cw // nb)
@@ -218,9 +220,6 @@ class ShardedEngine:
         nb = self.mesh.shape[1]
         if host_arrs is None:
             host_arrs = device_arrays(index, row_format)
-        elif host_arrs["cw_row"].shape[1] != row_width(self.cfg):
-            raise ValueError(f"stale host_arrs: cw_row has {host_arrs['cw_row'].shape[1]} "
-                             f"columns, this engine expects {row_width(self.cfg)}")
         else:
             host_arrs = with_access_tables(index, self.cfg, host_arrs)
         t0 = time.perf_counter()
@@ -228,7 +227,8 @@ class ShardedEngine:
         self.shard_seconds = time.perf_counter() - t0  # the host transform
         self.geometry = geo
         self.shard_bytes = [sum(v.nbytes for v in d.values()) for d in shards]
-        self.tables = {j: tables_from_host(shards[j], self.device) for j in self.mesh.columns}
+        self.tables = {j: tables_from_host(shards[j], self.device, self.cfg)
+                       for j in self.mesh.columns}
         del shards
         self.handoff = geo["per_shard_hrows"] is not None
         per, phr = geo["per_shard"], geo["per_shard_hrows"] or 0

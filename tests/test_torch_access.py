@@ -14,6 +14,7 @@ from sshash_tpu_torch import TorchEngine, kernels, synthetic
 from sshash_tpu_torch import engine as E
 from sshash_tpu_torch.layout import acc_windowed
 from test_torch_host import jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=sorted(synthetic.SMALL_CONFIGS))

@@ -20,6 +20,7 @@ from sshash_tpu_torch.layout import AccessShard, acc_width, acc_windowed
 from sshash_tpu_torch.ops.u64 import to_i32, u32
 from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine
 from test_torch_host import jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 NAMES = sorted(synthetic.ACCESS_CONFIGS)
 

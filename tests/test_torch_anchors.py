@@ -25,6 +25,7 @@ from sshash_tpu_torch import TorchEngine, kernels, synthetic
 from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.ops import packed as P
 from sshash_tpu_torch.ops import u64 as u
+from one_thread import one_torch_thread  # noqa: F401
 
 PL, RL = 512, 64  # a synthetic chunk's lanes and read budget
 CASES = synthetic.STREAM_CHUNK_CASES

@@ -26,6 +26,7 @@ from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.engine import _to_host_result
 from sshash_tpu_torch.index import Index
 from test_torch_host import _reload, assert_same_index, jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 IDS_KEYS = ("kmer_id", "kmer_orientation", "minimizer_found")
 INVALID = np.uint64(2 ** 64 - 1)
@@ -50,15 +51,20 @@ def v2case(request):
 
 
 def test_v2_tables_equal_jax(v2case):
+    """The port's v2 tables equal JAX's after port_tables drops sid0 from
+    every JAX block (and pads cw_row as row_pad says)."""
     name, idx, _, _, jeng, jarrs = v2case
     cfg = L.StaticCfg(idx, "v2")
-    assert cfg.row_v2 and cfg.quad_w == jeng.cfg.quad_w == 3
-    assert L.row_width(cfg) == jax_row_width(jeng.cfg) == jarrs["cw_row"].shape[1]
+    assert cfg.row_v2 and cfg.quad_w == jeng.cfg.quad_w - 1 == 2
+    nblk = 2 if cfg.c1_in_row else 1
+    assert jax_row_width(jeng.cfg) == jarrs["cw_row"].shape[1]
+    assert L.row_width(cfg) == jax_row_width(jeng.cfg) - nblk + L.row_pad(cfg)
     port = L.device_arrays(idx, "v2")
-    assert set(port) <= set(jarrs)
+    conv = L.port_tables(cfg, jarrs)
+    assert set(port) <= set(conv)
     for key, v in port.items():
         assert v.dtype == np.uint32, key
-        assert np.array_equal(v, jarrs[key]), f"{name}: {key}"
+        assert np.array_equal(v, conv[key]), f"{name}: {key}"
     assert not L.StaticCfg(idx).row_v2 and L.StaticCfg(idx).quad_w == 4
 
 
@@ -106,8 +112,9 @@ def test_v2_access_and_iterator_equal_jax(v2case):
 def test_v2_tables_from_jax_dict(v2case):
     """JAX's own v2 table dict feeds the port, with the same answers."""
     name, idx, q, want, _, jarrs = v2case
-    own = L.tables_from_host(L.device_arrays(idx, "v2"), "cpu")
-    from_jax = L.tables_from_host(jarrs, "cpu")
+    cfg = L.StaticCfg(idx, "v2")
+    own = L.tables_from_host(L.device_arrays(idx, "v2"), "cpu", cfg)
+    from_jax = L.tables_from_host(jarrs, "cpu", cfg)
     assert set(own) == set(from_jax)
     for key in own:
         assert torch.equal(own[key], from_jax[key]), key
@@ -305,8 +312,8 @@ class _Shifted:
 @pytest.mark.parametrize("name", ["m13_canonical", "m3_skew"])
 def test_v2_rows_past_2_32_chars(name):
     """v2 rows of a string set placed past 2^32 chars (F filler strings
-    before the index's own, read through a view): kid0, sid0, rel_ep1 and
-    col0 hold int64 arithmetic, not values wrapped at 2^32, and the plain
+    before the index's own, read through a view): kid0 (from sid0), rel_ep1
+    and col0 hold int64 arithmetic, not values wrapped at 2^32, and the plain
     probe over tables built from them resolves every id to the oracle's
     off - sid*(k-1) there."""
     idx = synthetic.small_index(name)
@@ -331,17 +338,18 @@ def test_v2_rows_past_2_32_chars(name):
     assert (c0 >= 1 << 32).all()
     sid0 = np.searchsorted(ep, np.maximum(c0 - kmw, 0), side="right") - 1
     ep1 = ep[sid0 + 1]
-    quad = got[:, -3:].astype(np.int64)
+    assert got.shape[1] == L.cand_block_width(L.StaticCfg(idx, "v2"))
+    quad = got[:, -2:].astype(np.int64)  # the resolve words kid0, rel_ep1
     assert np.array_equal(quad[:, 0], c0 - sid0 * (k - 1))
-    assert np.array_equal(quad[:, 1], sid0)
-    assert np.array_equal(quad[:, 2], np.clip(ep1 - (c0 - kmw), 0, kmw + 1))
+    assert np.array_equal(quad[:, 1], np.clip(ep1 - (c0 - kmw), 0, kmw + 1))
     assert np.array_equal(got[:, 0], c0 - ((np.maximum(c0 - kmw, 0) >> 4) << 4))
     # candidates at least k-m chars into the strings keep their small rows'
     # windows and valid-start bits
     small = L.fused_rows(cand, K.pack_words_to_u32(idx.strings64), ep_small, k, m, True)
     inner = cand >= kmw
-    assert np.array_equal(got[inner, :-3], small[inner, :-3])
-    assert np.array_equal(quad[inner, 1], small[inner, -2].astype(np.int64) + F)
+    assert np.array_equal(got[inner, :-2], small[inner, :-2])
+    # their strings sit F further up, so kid0 (c0 - sid0*(k-1)) moves by shift
+    assert np.array_equal(quad[inner, 0], small[inner, -2].astype(np.int64) + shift)
     # the probe over tables of these rows answers shift + the small id
     cfg = L.StaticCfg(idx, "v2")
     host = L.device_arrays(idx, "v2")

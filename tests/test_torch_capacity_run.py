@@ -28,6 +28,7 @@ from sshash_tpu_torch import kmer as K
 from sshash_tpu_torch import layout as L
 from sshash_tpu_torch.index import Index
 from test_torch_host import assert_same_index, jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)

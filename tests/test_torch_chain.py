@@ -24,6 +24,7 @@ from sshash_tpu_torch import engine as E
 from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.layout import AccessShard
 from sshash_tpu_torch.ops.u64 import to_i32, u32
+from one_thread import one_torch_thread  # noqa: F401
 
 CONFIGS = ("m13_regular", "m13_canonical")
 PMAX, RSHIFT = 1 << 12, 4  # positions a chunk, R = P >> 4 reads

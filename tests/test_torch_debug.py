@@ -18,6 +18,7 @@ from sshash_tpu.engine import DeviceEngine
 from sshash_tpu_torch import Dictionary, TorchEngine, debug, kernels, oracle, synthetic
 from sshash_tpu_torch import kmer as K
 from test_torch_host import jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 CONFIGS = ("m13_regular", "m3_skew_canonical", "k63", "k65_canonical")
 

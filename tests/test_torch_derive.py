@@ -26,6 +26,7 @@ from sshash_tpu_torch import TorchEngine, kernels, synthetic
 from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.ops import packed as P
 from test_torch_host import jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 P_RANKS = 2048
 

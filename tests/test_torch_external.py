@@ -21,6 +21,7 @@ from sshash_tpu_torch import BuildConfig, build, native, oracle, synthetic
 from sshash_tpu_torch.builder import distributed
 from sshash_tpu_torch.mphf import PartitionedMPHF
 from test_torch_host import assert_same_index
+from one_thread import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(not native.available(), reason="needs the native scanner")
 

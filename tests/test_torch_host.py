@@ -19,6 +19,7 @@ import sshash_tpu
 from sshash_tpu import oracle as joracle
 from sshash_tpu.index import Index as JaxIndex
 from sshash_tpu_torch import Dictionary, Index, build, oracle, synthetic
+from one_thread import one_torch_thread  # noqa: F401
 
 
 def _reload(idx, loader, fmt):

@@ -31,6 +31,7 @@ from sshash_tpu_torch.ops import packed as P
 from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine
 from sshash_tpu_torch.parallel.mesh import combine, combine_plain
 from sshash_tpu_torch.parallel.sharded import split_weight_runs
+from one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture
@@ -223,6 +224,34 @@ def test_probe_variants_equal_plain_on_card(card, name, form, tmp_path):
             assert torch.equal(got["found"], ref["found"])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m13_regular", "m3_skew", "m3_skew_canonical", "m9_c1",
+                                  "partitioned", "k63", "k65", "k129_canonical"])
+def test_v2_instantiations_equal_plain_on_card(card, name):
+    """The three V2 instantiations over the port's v2 rows (resolve words
+    kid0, rel_ep1; a padded row at k63 and k65) equal their plain versions
+    in every field: kernel 2 over the whole table, the lookup kernel (each
+    launched, counted), and kernel 2's shard form, owned and packed, on
+    three shards; and the v1 engine's ids."""
+    idx = synthetic.small_index(name)
+    eng, v1 = TorchEngine(idx, card, row_format="v2"), TorchEngine(idx, card)
+    cfg, t = eng.cfg, eng.tables
+    assert cfg.row_v2 and cfg.quad_w == 2
+    q, _ = synthetic.query_batch(idx)
+    kt = eng.kmers32(q)
+    active = torch.from_numpy(np.random.default_rng(8).random(kt.shape[0]) < 0.9).to(card)
+    args = _probe_args(cfg, kt)
+    kernels.reset_counts()
+    _equal(probe(cfg, t, kt, *args, active, "ids"), probe_plain(cfg, t, kt, *args, active, "ids"))
+    got = E.lookup(cfg, t, kt, active, "ids")
+    _equal(got, E.lookup_plain(cfg, t, kt, active, "ids"))
+    counts = kernels.counts()
+    assert counts["probe_kernel"] == 1 and counts["lookup_kernel"] == 1
+    want = E.lookup(v1.cfg, v1.tables, kt, active, "ids")
+    _equal(got, {key: want[key] for key in got})
+    _shard_forms_equal_plain(cfg, t, kt, active, ("ids",), card)
+
+
 def _cuts(n):
     """Uneven cuts of n >= 3 rows into three non-empty ranges."""
     a = max(1, n // 7)
@@ -242,25 +271,13 @@ def _equal(got, want):
         assert torch.equal(got[key], want[key]), key
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["m3_skew", "m3_skew_canonical", "m9_c1", "short_strings",
-                                  "weighted", "k63", "k65", "k129_canonical"])
-def test_sharded_kernels_equal_plain_on_card(card, name):
-    """Kernel 2's shard form, access (both rounds), weight and the stream
-    window read on three shards cut unevenly (1/7, then to 1/2, then the
-    rest of the slots, heavy rows, id blocks, string words and weight
-    runs): each kernel equals its plain version (kernel 2's owned stores
-    after every launch, over a sentinel, through both rounds of a regular
-    lookup and the hand-off's passes; its packed buffers), and the shards'
-    answers combine to the unsharded kernels' (the owned stores to the
-    lookup's; the chain given the combined windows equals the chain that
-    reads strings32)."""
-    idx = synthetic.small_index(name)
-    eng = TorchEngine(idx, card)
-    cfg, t = eng.cfg, eng.tables
-    q, _ = synthetic.query_batch(idx)
-    kt = eng.kmers32(q)
-    active = torch.from_numpy(np.random.default_rng(6).random(kt.shape[0]) < 0.9).to(card)
+def _shard_forms_equal_plain(cfg, t, kt, active, forms, card):
+    """Kernel 2's shard form on three shards cut unevenly (1/7, then to
+    1/2, then the rest of the slots and heavy rows) equals its plain
+    version in each field form of forms: the owned stores after every
+    launch, over a sentinel, through both rounds of a regular lookup and
+    the hand-off's passes, making the unsharded lookup's answer; the packed
+    buffers, whose signed min is the unsharded kernel 2's."""
     sc = _cuts(t["cw_row"].shape[0])
     hc = _cuts(t["sk_hrows"].shape[0]) if cfg.skew_hrows else [0, 0, 0, 0]
     shards = [ProbeShard(a, b, c, d) for a, b, c, d in zip(sc, sc[1:], hc, hc[1:])]
@@ -269,7 +286,7 @@ def test_sharded_kernels_equal_plain_on_card(card, name):
                  else t["sk_hrows"]) for s in shards]
     rounds = shard_rounds(cfg, kt)
     B = kt.shape[0]
-    for fields in ("full", "ids"):
+    for fields in forms:
         # the owned form: kernel and plain version each on its own result
         # tensors, equal after every launch; the lookup they make equals
         # the unsharded lookup's
@@ -313,6 +330,28 @@ def test_sharded_kernels_equal_plain_on_card(card, name):
                 _equal(*pair)
         want = probe(cfg, t, *args, active, fields)
         _equal(unpack_result(torch.stack([b[0]["packed"] for b in bufs]).amin(0), fields), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["m3_skew", "m3_skew_canonical", "m9_c1", "short_strings",
+                                  "weighted", "k63", "k65", "k129_canonical"])
+def test_sharded_kernels_equal_plain_on_card(card, name):
+    """Kernel 2's shard form, access (both rounds), weight and the stream
+    window read on three shards cut unevenly (1/7, then to 1/2, then the
+    rest of the slots, heavy rows, id blocks, string words and weight
+    runs): each kernel equals its plain version (kernel 2's owned stores
+    after every launch, over a sentinel, through both rounds of a regular
+    lookup and the hand-off's passes; its packed buffers), and the shards'
+    answers combine to the unsharded kernels' (the owned stores to the
+    lookup's; the chain given the combined windows equals the chain that
+    reads strings32)."""
+    idx = synthetic.small_index(name)
+    eng = TorchEngine(idx, card)
+    cfg, t = eng.cfg, eng.tables
+    q, _ = synthetic.query_batch(idx)
+    kt = eng.kmers32(q)
+    active = torch.from_numpy(np.random.default_rng(6).random(kt.shape[0]) < 0.9).to(card)
+    _shard_forms_equal_plain(cfg, t, kt, active, ("full", "ids"), card)
     # access: id blocks and string words cut unevenly, the strings' slices
     # with their halo
     ids = torch.arange(idx.num_kmers, dtype=torch.int32, device=card)

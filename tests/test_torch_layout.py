@@ -26,6 +26,7 @@ from sshash_tpu_torch.layout import (ACCESS_KEYS, LOOKUP_KEYS, OPTIONAL_KEYS, SK
                                      WEIGHT_KEYS, StaticCfg, device_arrays, row_width,
                                      tables_from_host)
 from test_torch_host import jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEOMETRY = ("k", "m", "canonical", "W", "kmw", "win_words", "vbits_words",
@@ -65,8 +66,9 @@ def test_device_arrays_equal_jax(built):
 def test_tables_from_jax_dict(built):
     """The JAX package's table dict feeds the port directly."""
     name, idx, jax_arrs = built
-    from_jax = tables_from_host(jax_arrs, "cpu")
-    own = tables_from_host(device_arrays(idx), "cpu")
+    cfg = StaticCfg(idx)
+    from_jax = tables_from_host(jax_arrs, "cpu", cfg)
+    own = tables_from_host(device_arrays(idx), "cpu", cfg)
     keys = set(LOOKUP_KEYS + OPTIONAL_KEYS + ACCESS_KEYS) | {"sk_params"}
     if idx.weights is not None:
         keys |= set(WEIGHT_KEYS)
@@ -89,7 +91,7 @@ def test_stale_access_tables_are_rebuilt(name):
     with the tables device_arrays builds."""
     idx = synthetic.small_index(name)
     jax_arrs = _device_arrays(jax_index(idx))
-    own = tables_from_host(device_arrays(idx), "cpu")
+    own = tables_from_host(device_arrays(idx), "cpu", StaticCfg(idx))
     ids = np.arange(idx.num_kmers)
     for drop, narrow in (("acc_rows", False), ("vstart32", False), (None, True)):
         stale = {key: v for key, v in jax_arrs.items() if key != drop}

@@ -14,6 +14,7 @@ from sshash_tpu_torch import TorchEngine, kernels, synthetic
 from sshash_tpu_torch.engine import _to_host_result, make_lookup, probe_plain
 from sshash_tpu_torch.ops import packed as P
 from test_torch_host import jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 IDS_KEYS = ("kmer_id", "kmer_orientation", "minimizer_found")
 

@@ -30,6 +30,7 @@ from sshash_tpu_torch import engine as E
 from sshash_tpu_torch.constants import BACKWARD_ORIENTATION, FORWARD_ORIENTATION
 from sshash_tpu_torch.ops import packed as P
 from test_torch_host import jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 INVALID = np.uint64(2 ** 64 - 1)
 TIES = 60  # tie lanes that hit, and as many that miss, per canonical configuration

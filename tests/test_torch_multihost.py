@@ -19,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+from one_thread import one_torch_thread  # noqa: F401
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)

@@ -18,6 +18,7 @@ from sshash_tpu_torch import TorchEngine, kernels, synthetic
 from sshash_tpu_torch.engine import make_neighbours, probe_plain
 from sshash_tpu_torch.ops import packed as P
 from test_torch_host import jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("k", [15, 16, 31, 47, 63, 64, 65, 127, 129, 255])

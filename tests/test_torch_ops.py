@@ -24,6 +24,7 @@ from sshash_tpu_torch.layout import StaticCfg, device_arrays, tables_from_host
 from sshash_tpu_torch.ops import packed as P
 from test_torch_host import jax_index
 from sshash_tpu_torch.ops import u64 as u
+from one_thread import one_torch_thread  # noqa: F401
 
 
 def _t(a):
@@ -191,7 +192,7 @@ def test_probe_matches_jax_lookup_with_info(name):
     idx = synthetic.small_index(name)
     cfg, jcfg = StaticCfg(idx), JaxCfg(jax_index(idx))
     host = device_arrays(idx)
-    tables = tables_from_host(host, "cpu")
+    tables = tables_from_host(host, "cpu", cfg)
     rng = np.random.default_rng(5)
     n = 1001
     ids = rng.integers(0, idx.num_kmers, n)

@@ -25,6 +25,7 @@ from sshash_tpu_torch.parallel.mesh import combine, combine_plain
 from test_torch_host import jax_index
 from test_torch_kernels import MARK, sentinel_result, shard_rounds
 from test_torch_sharded import jax_mesh, straddling_reads
+from one_thread import one_torch_thread  # noqa: F401
 
 INVALID = np.uint64(2 ** 64 - 1)
 M32 = 0xFFFFFFFF

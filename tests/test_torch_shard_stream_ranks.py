@@ -36,6 +36,7 @@ from sshash_tpu_torch.layout import MAX_ROW_SHARDS, ProbeShard, packed_rows
 from sshash_tpu_torch.ops import packed as P
 from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine, ShardedStream
 from sshash_tpu_torch.parallel.mesh import combine_plain
+from one_thread import one_torch_thread  # noqa: F401
 
 P_RANKS = 256
 # no rank, one, a count no multiple of 32, every rank

@@ -17,6 +17,7 @@ from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.layout import device_arrays
 from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine, ShardedStream, shard_tables
 from test_torch_host import jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 INVALID = np.uint64(2 ** 64 - 1)
 BASE = (1 << 31) + 12345  # synthetic.rebase_ids: every found id lands at or above 2^31

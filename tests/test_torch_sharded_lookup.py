@@ -7,6 +7,7 @@ between shards, four-word kmers on eight data rows. Tolerance 0."""
 import pytest
 
 from test_torch_sharded import assert_lookup_equals_jax
+from one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("name,shape", [("m13_canonical", (2, 4)), ("m3_skew_canonical", (2, 4)),

@@ -30,6 +30,7 @@ from sshash_tpu_torch import kmer as K
 from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.ops import packed as P
 from sshash_tpu_torch.parallel import mesh  # noqa: F401
+from one_thread import one_torch_thread  # noqa: F401
 
 INVALID = np.uint64(2 ** 64 - 1)
 P_RANKS = 256

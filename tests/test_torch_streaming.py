@@ -29,6 +29,7 @@ from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.ops import packed as P
 from sshash_tpu_torch.ops import u64 as u
 from test_torch_host import jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 CHUNK, RSHIFT = 1 << 16, 8
 CONFIGS = ("m13_regular", "m13_canonical", "k15")

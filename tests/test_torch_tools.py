@@ -24,6 +24,7 @@ from sshash_tpu_torch import kmer as K
 from sshash_tpu_torch.builder.parse import parse_input
 from sshash_tpu_torch.tools import cli
 from test_torch_host import jax_index
+from one_thread import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INVALID = np.uint64(2 ** 64 - 1)

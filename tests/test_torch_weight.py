@@ -18,6 +18,7 @@ from sshash_tpu.parallel.sharded import make_sharded_weight
 from sshash_tpu_torch import engine as E
 from sshash_tpu_torch import kernels, synthetic
 from sshash_tpu_torch.parallel.sharded import split_weight_runs
+from one_thread import one_torch_thread  # noqa: F401
 
 S = kernels.WEIGHT_SAMPLE
 # run counts: one and two runs, the 5M build's (chip_smoke phase 8), and

@@ -38,21 +38,10 @@ from sshash_tpu_torch import streaming as ST
 from sshash_tpu_torch.parallel import LocalMesh, ShardedEngine
 from test_torch_host import jax_index
 from test_torch_layout import GEOMETRY
+from one_thread import one_torch_thread  # noqa: F401 (autouse; test_torch_wide_k1* import it)
 
 INVALID = np.uint64(2 ** 64 - 1)
 TIES = 120  # tie lanes that hit, and as many that miss, per canonical configuration
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The plain versions on one CPU thread: these files run beside other
-    test processes and the JAX package's compiles, where a full pool of
-    threads per process oversubscribes the cores (one thread is as fast
-    here when alone)."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @functools.lru_cache(maxsize=None)
