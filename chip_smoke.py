@@ -49,12 +49,15 @@ line):
   5. heavy and sweep paths at 1M kmers k31 m13 with planted m-mers: lane
      counts per path, oracle equality
   6. legacy skew forms on phase 5's indexes (synthetic.legacy_skew: hindex
-     dropped, then also plain class MPHFs): every lane equals the v1.2
-     form's in every field, heavy lanes counted, kernel 2 == plain, lookup
-     and kernel 2 timed against the v1.2 form; the same on a batch of 2^20
-     lanes tiled from the heavy lanes alone, where every lane takes the
-     legacy path (the kernels line's legacy row); these calls take tens of
-     microseconds, so the kernels' sides replay from a CUDA graph
+     dropped, then also plain class MPHFs), served in the one-hop form (the
+     hindex derived on the host, layout.class_hindex: its seconds, and the
+     heavy tables' bytes in the one-hop form and in the TPU's two-hop form
+     logged): every lane equals the v1.2 form's in every field, heavy
+     lanes counted, kernel 2 == plain, lookup and kernel 2 timed against
+     the v1.2 form; the same on a batch of 2^20 lanes tiled from the heavy
+     lanes alone, where every lane takes the skew path (the kernels line's
+     legacy row); these calls take tens of microseconds, so the kernels'
+     sides replay from a CUDA graph
   7. scale, 100M kmers k31 m21 canonical (the repo's human-config scale
      bench, 200M, cut to half for the run's time; its lookup tables are
      still about 20 times the 50 MB L2; built, with phase 13's 60M, in a
@@ -139,11 +142,11 @@ line):
      (each pass's list count and its ranks a shard, its launches summed
      against the pass's bound, the round's against the round's) beside the
      plain versions, and the chunks' sharded steps are timed from a CUDA
-     graph; on phase 5's
-     1M planted indexes (hindex, and both legacy forms) every field equals
-     the unsharded engine's, with the heavy lanes handed to another shard
-     counted (> 0); on phase 7's 100M index in (1, 4) 2^24 lanes equal the
-     unsharded ids, with shard_tables' host time, per-shard table bytes,
+     graph; on phase 5's 1M planted indexes (hindex, and both legacy
+     forms, which hand heavy lanes off as the hindex form does) every
+     field equals the unsharded engine's, with the heavy lanes handed to
+     another shard counted (> 0); on phase 7's 100M index in (1, 4) 2^24
+     lanes equal the unsharded ids, with shard_tables' host time, per-shard table bytes,
      the sharded and unsharded lookups in turns, kernel 2's shard form
      (owned stores) per shard against its bound, and the combine kernel
      (csrc/combine.cu) on the 4 shards' packed buffers against its plain
@@ -293,7 +296,7 @@ from sshash_tpu_torch.engine import (_neighbours_to_host, _to_host_result,  # no
                                      make_neighbours, probe, probe_plain, unpack_result)
 from sshash_tpu_torch.kernels import lookup_kernel  # noqa: E402
 from sshash_tpu_torch.layout import (StaticCfg, acc_width, acc_windowed,  # noqa: E402
-                                     cand_block_width, device_arrays, head_loads,
+                                     cand_block_width, class_hindex, device_arrays, head_loads,
                                      head_sectors, row_pad, row_width, save_tables, take_rows)
 from sshash_tpu_torch.layout import row_geometry as layout_geometry  # noqa: E402
 from sshash_tpu_torch.bounds import (FOLD_BYTES, HBM_BPS,  # noqa: E402
@@ -317,6 +320,9 @@ SAMPLE = 1 << 20
 NAV_B = 1 << 20
 NAV_SAMPLE = 1 << 14
 HEAVY_B = 1 << 20  # phase 6's batch of heavy lanes only
+# phase 5's plants: 4 heavy buckets (> 2^MIN_L = 64 super-kmers) and 64 mid
+# buckets of 3..40
+PATH_PLANTED = [100, 150, 200, 300] + [3, 4, 5, 8, 10, 20, 30, 40] * 8
 BASE = (1 << 31) + 12345  # synthetic.rebase_ids: every found id lands at or above 2^31
 M32 = 0xFFFFFFFF
 # kernel 2's variants beside v1 rows (probe_kernel), each a row of the
@@ -961,7 +967,8 @@ def probe_variants_equal_plain(idx, eng, q, kt, args, active, name, errs):
     for plain in (False, True):
         lidx = synthetic.legacy_skew(idx, plain_mphf=plain)
         leng = TorchEngine(lidx, dev)
-        require(leng.cfg.skew_hrows is False, f"{name}: legacy form kept hindex")
+        require(all(p.hindex is None for p in lidx.skew_partitions),
+                f"{name}: legacy form kept hindex")
         probe_equal_plain(leng.cfg, leng.tables, kt, args, active, f"{name} legacy", errs,
                           "probe_legacy_skew")
         lookup_equal(leng, kt, f"{name} legacy", errs, active, quiet=True)
@@ -1004,13 +1011,11 @@ def phase_main(dev, errs):
 def phase_paths(dev):
     log("[5] heavy and sweep paths: 1M kmers k31 m13, planted m-mers")
     rng = np.random.default_rng(5)
-    # 4 heavy buckets (> 2^MIN_L = 64 super-kmers) and 64 mid buckets of 3..40
-    planted = [100, 150, 200, 300] + [3, 4, 5, 8, 10, 20, 30, 40] * 8
     built = {}
     for mode in ("regular", "canonical"):
         idx, host = build(mode, k=31, m=13, canonical=mode == "canonical",
                           num_strings=PATH_STRINGS, string_len=STRING_LEN, seed=50,
-                          planted=planted)
+                          planted=PATH_PLANTED)
         eng = TorchEngine(idx, dev, host_arrs=host)
         ids = np.concatenate([rng.integers(0, idx.num_kmers, SAMPLE // 4),
                               synthetic.path_kmer_ids(idx, rng, SAMPLE // 4)])
@@ -1061,10 +1066,21 @@ def phase_legacy(built, errs):
             form = "plain class MPHFs" if plain else "no hindex"
             t0 = time.perf_counter()
             lidx = synthetic.legacy_skew(idx, plain_mphf=plain)
+            tc = time.perf_counter()
+            class_hindex(lidx)
+            tc = time.perf_counter() - tc
             leng = TorchEngine(lidx, eng.device)
-            require(not leng.cfg.skew_hrows and leng.cfg.skew_partitioned == (not plain),
+            require(all(p.hindex is None for p in lidx.skew_partitions)
+                    and leng.cfg.skew_partitioned == (not plain),
                     f"{mode} {form}: not a legacy form")
             t1 = time.perf_counter()
+            one = leng.tables["sk_hrows"].numel() * 4
+            two = (len(np.asarray(lidx.heavy_load_buckets)) * cand_block_width(leng.cfg) * 4
+                   + leng.tables["sk_hrows"].shape[0] * 4)
+            log(f"  {mode} {form}: served in the one-hop form (the hindex derived by "
+                f"class_hindex in {tc:.3f} s); heavy tables one-hop (sk_hrows) {one} bytes = "
+                f"{one / idx.num_kmers:.4f} B/kmer, two-hop (heavy_rows, sk_positions) {two} "
+                f"bytes = {two / idx.num_kmers:.4f} B/kmer")
             kernels.reset_counts()
             got, got_h = leng.lookup_device(kt), leng.lookup_device(kth)
             c = path_counts(f"{mode} {form} lookup path", ("lookup_kernel",))
@@ -1093,9 +1109,9 @@ def phase_legacy(built, errs):
                            lambda: probe(eng.cfg, eng.tables, x, *a, None, "ids"),
                            sides=both, graph=both)
             if mode == "canonical" and plain:
-                # the row of the kernels line: the legacy path on heavy lanes
-                # only; the plain version reads a count on the host, so it
-                # runs queued
+                # the row of the kernels line: the one-hop form on heavy
+                # lanes only; the plain version reads a count on the host, so
+                # it runs queued
                 t = time_turns(f"{mode} {form}", "kernel 2 (ids), heavy lanes only", HEAVY_B,
                                lambda: probe(leng.cfg, leng.tables, kth, *args_h, None, "ids"),
                                lambda: probe_plain(leng.cfg, leng.tables, kth, *args_h, None,
@@ -1105,6 +1121,8 @@ def phase_legacy(built, errs):
                 log(f"  {mode} {form}, heavy lanes only: kernel 2 bound {timed['bound'][0]:.4f} "
                     f"ms ({nbytes} bytes); the mixed batch's "
                     f"{bound(probe_bytes(leng.cfg, leng.tables, kt, args))[0]:.4f} ms")
+    log("  probe_legacy_skew ships the one-hop route: CUDA, csrc/probe.cu's kernels reading "
+        "each heavy lane's sk_hrows row at the hindex layout.class_hindex derives")
     return launches, timed
 
 
@@ -2487,19 +2505,17 @@ def phase_sharded(dev, built, paths, weighted, scale, read_sets, errs):
                 idx, plain_mphf=form == "plain class MPHFs")
             for shape in SHARD_SHAPES:
                 seng = ShardedEngine(fidx, LocalMesh(shape, dev))
-                require(seng.handoff == (form == "hindex"), f"{mode} {form}: hand-off")
+                require(seng.handoff, f"{mode} {form}: no hand-off")
                 kernels.reset_counts()
                 got = seng.lookup_device(kt)[0]
                 add_counts(launches, path_counts(f"1M {mode} {form} {shape} sharded lookup",
                                                  ("minimizer_kernel", "probe_kernel")))
                 equal_fields(got, ref, f"1M {mode} {form} {shape}")
             heavy, moved = shard_probes_equal_plain(seng, kt, ref, f"1M {mode} {form}", errs)
-            if form == "hindex":
-                require(moved > 0, f"1M {mode}: no heavy lane's row is another shard's")
+            require(moved > 0, f"1M {mode} {form}: no heavy lane's row is another shard's")
             log(f"  1M {mode} {form}: {len(q)} lanes equal TorchEngine's in all {len(ref)} "
-                f"fields in shapes {SHARD_SHAPES}; kernel 2 == plain on every (2, 2) shard"
-                + (f"; {heavy} heavy lanes handed on, {moved} of them to another shard"
-                   if form == "hindex" else ""))
+                f"fields in shapes {SHARD_SHAPES}; kernel 2 == plain on every (2, 2) shard; "
+                f"{heavy} heavy lanes handed on, {moved} of them to another shard")
     # ---- 100M canonical, (1, 4)
     idx, eng, ids, kt, host = scale
     t0 = time.perf_counter()

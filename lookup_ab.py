@@ -5,7 +5,7 @@ card (chip_smoke.py's timing: CUDA events around windows of calls, median
 of 7, sides run backwards then forwards).
 
     python3 lookup_ab.py [--baseline DIR] [--strings 1000]
-                         [--cells variants,v1,v2,capacity,pad] [--orders v2-first]
+                         [--cells variants,v1,v2,capacity,pad,legacy] [--orders v2-first]
                          [--wide-strings 600] [--capacity-index DIR]
 
 Cells (default: variants):
@@ -37,6 +37,22 @@ Cells (default: variants):
             unpadded, both through one build of this tree's probe.cu whose
             bad_row_w also takes the unpadded width (probe.cuh patched), and
             DIR's v2 rows with --baseline
+  legacy    pre-v1.2 skew forms (synthetic.legacy_skew: hindex dropped, and
+            plain class MPHFs) of chip_smoke phase 5's 1M k31 m13 canonical
+            planted index and of a 100M k31 m21 canonical index (--strings)
+            whose planted heavy buckets (LEGACY_PLANTED, every skew class)
+            take over 100 MB in the two-hop form, twice the L2: this tree's
+            one-hop form (each heavy lane's sk_hrows row at the derived
+            hindex) against DIR's two-hop form (sk_positions, then
+            heavy_rows; DIR's package, its own tables) and DIR's kernels on
+            this tree's one-hop tables; kernel 2 on 2^20 heavy lanes only,
+            kernel 2 and the lookup kernel on 2^24 lanes of 50%-RC
+            positives, the (1, 4) LocalMesh lookup; each form's heavy share,
+            skew table bytes per kmer, bounds, and the conversion's seconds
+            (layout.class_hindex alone, and write_tables with it, on
+            THREADS host threads; the 100M index and its one-hop tables are
+            cached under build/lookup_ab/, keyed by strings, seed and layout
+            version, and a run finding them loads them); needs --baseline
 
 Index: chip_smoke.py phase 7's 100M k31 m21 canonical build (--strings
 strings of 100,030 chars), 2^24 lanes of 50%-RC positives. Each variant
@@ -72,6 +88,7 @@ import re
 import subprocess
 import sys
 import threading
+import time
 from pathlib import Path
 
 import chip_smoke as S  # its import finder keeps JAX out; its build and timing helpers
@@ -303,9 +320,9 @@ def main():
     S.phase_card()
     dev = torch.device("cuda", 0)
     base = None
-    if {"v1", "v2", "pad", "capacity"} & set(cells):
-        if {"v1", "v2", "capacity"} & set(cells) and not a.baseline:
-            raise SystemExit("the v1, v2 and capacity cells need --baseline")
+    if {"v1", "v2", "pad", "capacity", "legacy"} & set(cells):
+        if {"v1", "v2", "capacity", "legacy"} & set(cells) and not a.baseline:
+            raise SystemExit("the v1, v2, capacity and legacy cells need --baseline")
         base = build_pair(a.baseline)
     built = scale_index(a) if {"variants", "v1", "v2"} & set(cells) else None
     if "variants" in cells:
@@ -323,6 +340,8 @@ def main():
                 a.orders.split(","))
     if "pad" in cells:
         pad_cell(a, dev, base)
+    if "legacy" in cells:
+        legacy_cell(a, dev, base)
     S.log(f"card: {torch.cuda.get_device_name(0)}")
 
 
@@ -384,7 +403,7 @@ def build_pair(baseline):
         kernels.library()
         return None
     base = SA.load_baseline(baseline)
-    for mod in ("layout", "index"):
+    for mod in ("layout", "index", "bounds"):
         setattr(base, mod, importlib.import_module(f"baseline_sshash_tpu_torch.{mod}"))
     base.kernels.NVCC_FLAGS = (*base.kernels.NVCC_FLAGS, "-Dsshash=sshash_baseline")
     logs = {}
@@ -650,6 +669,191 @@ def pad_cell(a, dev, base):
           f"{kt.shape[0]} lanes")
     S.time_sides(tag, "lookup kernel (ids)", kt.shape[0], lookups)
     S.time_sides(tag, "kernel 2 alone (ids)", kt.shape[0], probes)
+
+
+# ------------------------------------ legacy skew forms: one hop or two
+
+# the legacy cell's 100M index: chip_smoke phase 7's k31 m21 canonical
+# shape with heavy buckets planted in every skew class, (m-mers, sites
+# each) with sizes in class c's range (2^(6+c), 2^(7+c)], 1,398,860 sites of
+# about 11 kmers each (of the 1,613 a string holds 2k apart); every site's
+# k - m context chars its own (synthetic.plant), so no heavy kmer repeats
+LEGACY_PLANTED = [(20, 100), (30, 150), (40, 300), (50, 700), (60, 1500), (80, 3000),
+                  (60, 6000), (40, 16384)]
+LEGACY_SEED = 62
+THREADS = 8  # host threads of the legacy cell's builds: the card host's cores
+FORMS = {"no hindex": False, "plain class MPHFs": True}
+
+
+def legacy_index(a):
+    """The 100M planted index, built once and kept under build/lookup_ab/
+    (Index.save), keyed by --strings and the seed."""
+    from sshash_tpu_torch.index import Index
+
+    path = OUT / f"legacy_{a.strings}_k31_m21_seed{LEGACY_SEED}" / "index"
+    if (path / "meta.json").exists():  # Index.save writes it last
+        S.log(f"  legacy: the planted index loaded from {path}")
+        return Index.load(str(path))
+    planted = [c for n, c in LEGACY_PLANTED for _ in range(n)]
+    t0 = time.perf_counter()
+    idx = synthetic.build_index(k=31, m=21, canonical=True, num_strings=a.strings,
+                                string_len=S.STRING_LEN, seed=LEGACY_SEED, threads=THREADS,
+                                planted=planted, context=10)
+    S.log(f"  legacy: {idx.num_kmers} kmers, {len(planted)} m-mers planted "
+          f"{sum(planted)} times, built in {time.perf_counter() - t0:.1f} s")
+    idx.save(str(path))
+    return idx
+
+
+def legacy_tables(a, lidx, name):
+    """This tree's tables of a legacy form (the one-hop form: the hindex
+    derived inside), cached under build/lookup_ab/ for the 100M index
+    (write_tables on THREADS threads), built in memory for the small
+    one. Returns (tables, seconds of the build, or None when loaded)."""
+    if name is None:
+        t0 = time.perf_counter()
+        host = L.device_arrays(lidx, None, 1 << 24, THREADS)
+        return host, time.perf_counter() - t0
+    d = OUT / f"{name}_layout{L.LAYOUT_VERSION['v1']}"
+    if (d / "done").exists():
+        return L.load_tables(str(d)), None
+    t0 = time.perf_counter()
+    host = L.write_tables(lidx, str(d), None, 1 << 24, THREADS)
+    (d / "done").write_text("")
+    return host, time.perf_counter() - t0
+
+
+def heavy_lanes(cfg, tables, kt, args):
+    """Mask of the lanes whose bucket is heavy (their fused row's status)."""
+    from sshash_tpu_torch.ops import u64 as u
+
+    slot = E.mphf_eval_minimizer(cfg, tables, u.from_i64(args[1]))
+    return (L.take_rows(tables["cw_row"][:, :1], slot)[:, 0] & 3) == 2
+
+
+def legacy_cell(a, dev, base):
+    """The 1M planted cell and the 100M one, each in both legacy forms:
+    this tree's one-hop form against DIR's two-hop form and DIR's kernels on
+    the one-hop tables, every side's ids equal to the one-hop form's (and
+    the positives' own ids) before timing, each engine's host lookup equal
+    to the oracle on a sample with heavy misses."""
+    import copy
+
+    small = S.build("legacy 1M k31 m13 canonical planted", k=31, m=13, canonical=True,
+                    num_strings=S.PATH_STRINGS, string_len=S.STRING_LEN, seed=50,
+                    planted=S.PATH_PLANTED)[0]
+    cells = [("1M k31 m13 canonical planted", small, None),
+             (f"{a.strings // 10}M k31 m21 canonical planted", legacy_index(a),
+              f"legacy_{a.strings}_k31_m21_seed{LEGACY_SEED}")]
+    for tag, idx, key in cells:
+        rng = np.random.default_rng(20)
+        n_heavy = sum(p.mphf.n for p in idx.skew_partitions)
+        S.log(f"  {tag}: {idx.num_kmers} kmers, {n_heavy} heavy ({n_heavy / idx.num_kmers:.4%}), "
+              f"skew classes {[p.mphf.n for p in idx.skew_partitions]}, "
+              f"{len(np.asarray(idx.heavy_load_buckets))} heavy positions")
+        ids, km = S.positives(idx, rng, S.SCALE_B)
+        for form, plain in FORMS.items():
+            ftag = f"{tag}, {form}"
+            t0 = time.perf_counter()
+            lidx = synthetic.legacy_skew(idx, plain_mphf=plain)
+            t1 = time.perf_counter()
+            L.class_hindex(lidx, THREADS)
+            t2 = time.perf_counter()
+            host, tsec = legacy_tables(a, lidx, key and f"{key}_{'plain' if plain else 'part'}")
+            S.log(f"  {ftag}: legacy_skew {t1 - t0:.1f} s; the conversion (class_hindex, "
+                  f"{THREADS} threads) {t2 - t1:.2f} s; this tree's tables with it "
+                  + (f"{tsec:.1f} s" if tsec is not None else "loaded from the cache"))
+            eng = S.TorchEngine(lidx, dev, host_arrs=host)
+            bidx = base_index(base, lidx, "legacy")
+            bhost = base.layout.device_arrays(bidx, None, 1 << 24, THREADS)
+            beng = base.engine.TorchEngine(bidx, dev, host_arrs=bhost)
+            S.require(not beng.cfg.skew_hrows,
+                      f"{ftag}: DIR's engine did not take the two-hop form")
+            # DIR's kernels on this tree's one-hop tables: its v1.2 path
+            bcfg1 = copy.copy(beng.cfg)
+            bcfg1.skew_hrows = True
+            R1 = L.cand_block_width(eng.cfg)
+            btab1 = dict(eng.tables,
+                         heavy_rows=torch.zeros((1, R1), dtype=torch.int32, device=dev),
+                         sk_positions=torch.zeros(1, dtype=torch.int32, device=dev))
+            n = idx.num_kmers
+            two = {name: bhost[name].nbytes for name in ("heavy_rows", "sk_positions")}
+            one = host["sk_hrows"].nbytes
+            tb = {side: sum(t[name].numel() * 4 for name in L.TABLE_GROUPS["lookup"] if name in t)
+                  for side, t in (("one-hop", eng.tables), ("two-hop", beng.tables))}
+            S.log(f"  {ftag}: heavy tables, two-hop {two} = {sum(two.values())} bytes "
+                  f"({sum(two.values()) / n:.4f} B/kmer, {sum(two.values()) / S.L2_BYTES:.2f}x "
+                  f"the L2); one-hop sk_hrows {one} bytes ({one / n:.4f} B/kmer, "
+                  f"{one / S.L2_BYTES:.2f}x the L2); lookup tables one-hop {tb['one-hop']} "
+                  f"({tb['one-hop'] / n:.4f} B/kmer), two-hop {tb['two-hop']} "
+                  f"({tb['two-hop'] / n:.4f} B/kmer)")
+            kt = eng.kmers32(km)
+            args = bounds.probe_args(eng.cfg, kt, P.minimizer)
+            heavy = heavy_lanes(eng.cfg, eng.tables, kt, args)
+            hl = heavy.nonzero()[:, 0]
+            S.require(hl.numel() > 0, f"{ftag}: no heavy lane")
+            # the oracle on a sample: positives, heavy positives with their
+            # first char changed (mostly heavy misses) and random kmers
+            hk = km[hl[: S.SAMPLE // 16].cpu().numpy()]
+            hk[:, 0] ^= np.uint64(1)
+            sample = np.concatenate([km[: S.SAMPLE // 16], hk,
+                                     synthetic.random_kmers(idx.k, rng, S.SAMPLE // 64)])
+            want = S.oracle.lookup(lidx, sample)
+            for name, e in (("one-hop", eng), ("DIR two-hop", beng)):
+                got = e.lookup(sample)
+                for k_ in want:
+                    S.require(np.array_equal(got[k_], want[k_]), f"{ftag} {name}: {k_} != oracle")
+            kth = kt[hl.repeat((S.HEAVY_B + hl.numel() - 1) // hl.numel())[:S.HEAVY_B]]
+            args_h = bounds.probe_args(eng.cfg, kth, P.minimizer)
+            ref = E.lookup(eng.cfg, eng.tables, kt, None, "ids")
+            S.require(torch.equal(ref["kmer_id"], S.id_tensor(ids, dev)),
+                      f"{ftag}: an id did not round-trip")
+            sides = {"one-hop": (E, eng.cfg, eng.tables), "DIR two-hop": (base.engine, beng.cfg,
+                                                                          beng.tables),
+                     "DIR one-hop": (base.engine, bcfg1, btab1)}
+            lookups = {side: (lambda m=m, c=c, t=t: m.lookup(c, t, kt, None, "ids"))
+                       for side, (m, c, t) in sides.items()}
+            probes = {side: (lambda m=m, c=c, t=t: m.probe(c, t, kt, *args, None, "ids"))
+                      for side, (m, c, t) in sides.items()}
+            heavies = {side: (lambda m=m, c=c, t=t: m.probe(c, t, kth, *args_h, None, "ids"))
+                       for side, (m, c, t) in sides.items()}
+            ref2, ref_h = probes["one-hop"](), heavies["one-hop"]()
+            for side in sides:
+                ids_equal(lookups[side](), ref, f"{ftag} lookup kernel {side}")
+                ids_equal(probes[side](), ref2, f"{ftag} kernel 2 {side}")
+                ids_equal(heavies[side](), ref_h, f"{ftag} kernel 2, heavy lanes, {side}")
+            S.log(f"  {ftag}: every side's lookup kernel and kernel 2 equal the one-hop form's "
+                  f"ids on {S.SCALE_B} lanes ({int(heavy.sum())} heavy) and on {S.HEAVY_B} heavy "
+                  f"lanes ({int(ref_h['found'].sum())} found); the host lookups equal the oracle "
+                  f"on {len(sample)}")
+            S.time_sides(ftag, "kernel 2 alone (ids), heavy lanes only", S.HEAVY_B, heavies,
+                         graph=tuple(sides))
+            clocks(f"{ftag}, kernel 2 on heavy lanes")
+            S.time_sides(ftag, "kernel 2 alone (ids)", S.SCALE_B, probes)
+            S.time_sides(ftag, "lookup kernel (ids)", S.SCALE_B, lookups)
+            clocks(f"{ftag}, the mixed batch")
+            for side, b in (("one-hop", bounds.probe_bytes(eng.cfg, eng.tables, kth, args_h)),
+                            ("two-hop", base.bounds.probe_bytes(beng.cfg, beng.tables, kth,
+                                                                args_h))):
+                ms, by = bounds.bound(b)
+                S.log(f"  {ftag}: kernel 2's bound on the heavy lanes, {side}: {ms:.4f} ms "
+                      f"({by}, {b} bytes)")
+            b = probe_bounds(eng.cfg, eng.tables, kt, args)
+            S.log(f"  {ftag}: the mixed batch's bounds, one-hop: kernel 2 "
+                  f"{b['probe.cu'][0]:.4f} ms ({b['probe.cu'][1]}), lookup kernel "
+                  f"{b['lookup'][0]:.4f} ({b['lookup'][1]})")
+            del eng, beng, btab1, sides, lookups, probes, heavies
+            torch.cuda.empty_cache()
+            seng = ShardedEngine(lidx, LocalMesh((1, 4), dev), host_arrs=host)
+            bseng = base.parallel.ShardedEngine(bidx, base.parallel.LocalMesh((1, 4), dev),
+                                                host_arrs=bhost)
+            sharded = {"one-hop (1, 4)": lambda: seng.lookup_ids_device(kt),
+                       "DIR two-hop (1, 4)": lambda: bseng.lookup_ids_device(kt)}
+            for side, fn in sharded.items():
+                ids_equal(fn(), ref, f"{ftag} {side}")
+            S.time_sides(ftag, "LocalMesh (1, 4) lookup (ids)", S.SCALE_B, sharded)
+            del seng, bseng, sharded, host, bhost
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -157,7 +157,8 @@ __global__ void shard_simple_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
 }
 
 """
-BOUNDS = "__launch_bounds__(256, W > kMaxFixedW ? 1 : 3)\n    shard_probe_kernel"
+BOUNDS = ("__launch_bounds__(256, W > kMaxFixedW ? 1 : !CANON && W == 8 ? 2 : 3)\n"
+          "    shard_probe_kernel")
 # the lookup kernel on one shard: a lane of another shard's slot marks its
 # result (orientation 0) and is not stored
 UNOWNED = ("  if (s < p.slot_lo || s >= p.slot_hi) return Lane{false, true, Hit{false, 0, "
@@ -165,7 +166,7 @@ UNOWNED = ("  if (s < p.slot_lo || s >= p.slot_hi) return Lane{false, true, Hit{
 STORE = "  write_result<V2>(io, p, i, L, orient);\n}\n"
 WHOLE = "p->store != kStoreAll || p->slot_lo != 0 || p->slot_hi != (1ll << 32))"
 # side "list3": the list probe's launch bounds
-LIST_BLOCKS = "canon && (W == 3 || W == 4 || W == 6 || W == 7) ? 3"
+LIST_BLOCKS = "canon && W >= 3 ? 3"
 # side "warpatomic": each warp's places taken on the list's device count,
 # no sum over the block's warps first
 WARP_COUNT = "    if (lane == 0) warp_at[warp] = held;\n"

@@ -50,17 +50,16 @@ def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None, fused=False, sl
     """Bytes kernel 2 must move on these lanes (kt and probe_args' args),
     each input read once: per lane its kmer (and reverse complement),
     minimizer and position tries in (fused: the lookup kernel's work, the
-    kmer alone) and the result fields out; of the
-    tables, the distinct rows the lanes read: fused rows by MPHF slot and,
-    for heavy lanes, skew slots (the legacy path's sk_positions) and
-    candidate blocks; pilot and seed words one a lane, capped at their
+    kmer alone) and the result fields out; of the tables, the distinct rows
+    the lanes read: fused rows by MPHF slot and, for heavy lanes, sk_hrows
+    blocks by skew slot; pilot and seed words one a lane, capped at their
     table's size. Rows of mid buckets past the fused row (a few lanes) are
     not counted: a lower bound. With shard (a ProbeShard, tables the
     shard's: kernel 2's owned shard form), every lane's minimizer is read
     (its slot decides the owner), and only the lanes whose slot the shard
     holds read the rest of their inputs, a fused row and write their
-    result; in an hindex index their heavy lanes write their row instead
-    of reading it (the hand-off's first pass). slots as kernel 2's shard
+    result; their heavy lanes write their sk_hrows row instead of reading
+    it (the hand-off's first pass). slots as kernel 2's shard
     form takes it: "store" (the row's first shard) also writes every lane's
     slot; "read" (the others) reads every lane's slot in place of its
     minimizer and the MPHF's pilot and seed words, and only the lanes it
@@ -102,15 +101,9 @@ def probe_bytes(cfg, tables, kt, args, fields="ids", shard=None, fused=False, sl
     hidx = (E._skew_param(tables, "pos_off", cls) + E.skew_slot(cfg, tables, km, cls)) & u.M32
     total += nb("sk_params") + min(4 * nh, nb("sk_pilots"))
     total += min(8 * nh, nb("sk_seedrows")) if cfg.skew_partitioned else 0
-    if shard is not None and cfg.skew_hrows:
+    if shard is not None:
         return total + 4 * sel.numel()  # the rows handed on
-    if cfg.skew_hrows:
-        blocks = distinct(hidx, "sk_hrows")
-    else:
-        total += 4 * distinct(hidx, "sk_positions")
-        blocks = distinct((head[heavy, 1] + take_rows(tables["sk_positions"], hidx)) & u.M32,
-                          "heavy_rows")
-    return total + blocks * 4 * cand_block_width(cfg)
+    return total + distinct(hidx, "sk_hrows") * 4 * cand_block_width(cfg)
 
 
 def lookup_bounds(cfg, B, probe_nbytes, lookup_nbytes=None):

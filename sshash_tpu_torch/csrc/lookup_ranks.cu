@@ -92,9 +92,10 @@ __device__ __forceinline__ void lookup_rank(const ProbeTables& t, const ProbePar
 // 3 blocks of 256 threads an SM (80 registers a thread), at every fixed
 // width: the queue's state stays live across the lookup, and at the
 // lookup kernel's 4 blocks (64 registers) the narrow canonical widths
-// spilled.
+// spilled; 2 blocks at the regular mode's 6-8 words, which spilled 4-8
+// bytes at 80 once the skew eval read one row.
 template <int W, bool CANON, bool WALK>
-__global__ void __launch_bounds__(256, W > kMaxFixedW ? 1 : 3)
+__global__ void __launch_bounds__(256, W > kMaxFixedW ? 1 : !CANON && W >= 6 ? 2 : 3)
     lookup_ranks_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
   extern __shared__ uint32_t stage[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -187,7 +188,7 @@ extern "C" int sshash_lookup_ranks(const sshash::ProbeTables* t, const sshash::P
 // the list probe over its list (io->list, (B, 2) (rank, key) pairs, and
 // io->list_count, its length). Both take its shard form's parameters
 // (p->store kStoreOwned or kStorePacked, the hand-off's rows in or out in
-// an hindex index) over the ranks below *io->count of the (B, W) kmers (B
+// an index with skew classes) over the ranks below *io->count of the (B, W) kmers (B
 // the stream's P, or its anchors' count); io carries kmers, kernel 1's
 // rank-form minimizers of both strands (minval, minpos, minval_r,
 // minpos_r), active (or null: every rank), count and the fields (owned:
@@ -200,7 +201,7 @@ static bool bad_rank_form(const sshash::ProbeTables& t, const sshash::ProbeParam
   return bad_params(t, p, io) || p.row_v2 || p.store == kStoreAll || !io.count || !io.minval ||
          !io.minpos || !io.minval_r || !io.minpos_r || io.kmers_rc || io.minpos2 ||
          io.slot_out || io.slot_in || !io.list || !io.list_count ||
-         ((io.hrow_out || io.hrow_in) && !(p.has_skew && p.skew_hrows)) ||
+         ((io.hrow_out || io.hrow_in) && !p.has_skew) ||
          (io.hrow_out && io.hrow_in) ||
          (p.store == kStoreOwned && !p.full && !io.string_id) || p.B >= (1ll << 31);
 }

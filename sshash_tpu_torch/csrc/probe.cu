@@ -64,7 +64,7 @@ cudaError_t launch_probe(const ProbeTables& t, const ProbeParams& p, const Probe
 //
 // Kernel 2: p->store kStoreAll over the whole slot range, or its shard
 // form (kStoreOwned, kStorePacked) on one shard's ranges, the hand-off's
-// rows in or out in an hindex index.
+// rows in or out in an index with skew classes.
 extern "C" int sshash_probe(const sshash::ProbeTables* t, const sshash::ProbeParams* p,
                             const sshash::ProbeIO* io, void* stream) {
   using namespace sshash;
@@ -72,7 +72,7 @@ extern "C" int sshash_probe(const sshash::ProbeTables* t, const sshash::ProbePar
   if (p->B <= 0) return (int)cudaGetLastError();
   const bool all = p->store == kStoreAll;
   if (bad_params(*t, *p, *io) || (p->canonical && !io->kmers_rc) ||
-      ((io->hrow_out || io->hrow_in) && !(p->has_skew && p->skew_hrows)) ||
+      ((io->hrow_out || io->hrow_in) && !p->has_skew) ||
       (io->hrow_out && io->hrow_in) || io->count || io->minval_r || io->minpos_r ||
       p->B >= (1ll << 32) || (p->rc_round && p->store != kStoreOwned) ||
       (all && (io->hrow_out || io->hrow_in || p->slot_lo != 0 || p->slot_hi != (1ll << 32))))

@@ -34,9 +34,9 @@
 // when partitioned) -> one cw_row read carrying the candidate-0 block (and
 // candidate 1 when c1_in_row) -> minimizer guard -> candidate tries; heavy
 // lanes hash the canonical kmer into their skew class (a partitioned or a
-// plain class MPHF) and read one sk_hrows block, or on a pre-v1.2 index
-// (no hindex) its position in the bucket from sk_positions and then the
-// heavy_rows block at the bucket's begin plus that position; mid buckets
+// plain class MPHF) and read one sk_hrows block (a pre-v1.2 index's too:
+// layout.class_hindex derives its rows on the host, so no lane walks the
+// TPU's slot -> position -> heavy row chain); mid buckets
 // past the row's candidates loop over mid_rows in the lane itself (the TPU
 // compacted them into pair windows).
 //
@@ -77,9 +77,9 @@
 // Bucket shards (kernel 2's shard form, shard.cuh shard_probe_kernel;
 // sshash_tpu/parallel/sharded.py _branchfree_lookup, the owner masks of
 // engine.py:778-784 and :904-911): a shard holds the rows of MPHF slots
-// [slot_lo, slot_hi), its own mid and legacy heavy rows (cw_a local), and
-// in hindex indexes the sk_hrows rows [hrow_lo, hrow_hi). Only the slot's
-// owner knows a heavy lane's global sk_hrows row, so an hindex probe
+// [slot_lo, slot_hi), its own mid rows (cw_a local), and in an index with
+// skew classes the sk_hrows rows [hrow_lo, hrow_hi). Only the slot's
+// owner knows a heavy lane's global sk_hrows row, so such a probe
 // splits there: with hrow_out the heavy lanes write that row and verify
 // nothing; with hrow_in each shard verifies the rows it holds. probe.cu
 // sets out where each lane is stored. An unsharded call passes the whole
@@ -121,17 +121,13 @@ struct ProbeTables {
   int64_t sk_pilots_n;
   const uint32_t* sk_seedrows;
   int64_t sk_seedrows_n;
-  const uint32_t* heavy_rows;  // legacy heavy path (skew_hrows == 0)
-  int64_t heavy_rows_n;
-  const uint32_t* sk_positions;
-  int64_t sk_positions_n;
   const uint32_t* sk_params;  // (8 params, 8 classes)
 };
 
 struct ProbeParams {
   int64_t B, W, k, m, canonical, full;
   int64_t win_words, vbits_words, max_start_word, row_w, blk_w;
-  int64_t c1_in_row, has_skew, row_v2, skew_hrows, skew_partitioned;
+  int64_t c1_in_row, has_skew, row_v2, skew_partitioned;
   int64_t mphf_partitioned, mphf_P, mphf_part_table, mphf_part_buckets;
   int64_t mphf_nbuckets, mphf_table, pilot_w, sk_pilot_w;
   int64_t slot_lo, slot_hi, hrow_lo, hrow_hi;  // this shard's slots and sk_hrows rows
@@ -354,15 +350,8 @@ __device__ __forceinline__ Lane probe_row(const ProbeTables& t, const ProbeParam
     if (hrow) {
       *hrow = hidx;  // verified by the shard holding that row
     } else {
-      const uint32_t* blk;
-      if (p.skew_hrows) {
-        blk = t.sk_hrows + clip_row(hidx, t.sk_hrows_n) * p.blk_w;
-      } else {
-        // engine.skew_eval: slot -> position in the bucket -> heavy row
-        const uint32_t pos = t.sk_positions[clip_row(hidx, t.sk_positions_n)];
-        blk = t.heavy_rows + clip_row(cw_a + pos, t.heavy_rows_n) * p.blk_w;
-      }
-      L.res = verify_block<W, CANON, V2>(blk, p, km, kr, tries, ntries);
+      L.res = verify_block<W, CANON, V2>(t.sk_hrows + clip_row(hidx, t.sk_hrows_n) * p.blk_w,
+                                         p, km, kr, tries, ntries);
     }
   }
   L.found = L.res.match;
@@ -567,7 +556,7 @@ inline bool bad_params(const ProbeTables& t, const ProbeParams& p, const ProbeIO
          (io.slot_out && io.slot_in) ||
          p.blk_w != 1 + p.vbits_words + p.win_words + (p.row_v2 ? 2 : 4) || bad_row_w(p) ||
          (2 + p.blk_w + 6) >> 2 > head_segments(W) ||
-         (p.has_skew && (p.skew_hrows ? !t.sk_hrows : !t.heavy_rows || !t.sk_positions)) ||
+         (p.has_skew && !t.sk_hrows) ||
          (p.has_skew && p.skew_partitioned && !t.sk_seedrows) || p.slot_lo < 0 ||
          p.slot_hi > (1ll << 32) || p.hrow_lo < 0 || p.hrow_hi > (1ll << 32);
 }

@@ -101,8 +101,8 @@ __device__ __forceinline__ uint64_t rank_minval(const ProbeParams& p, const Prob
 // ---- kernel 2's shard form
 //
 // A lane's MPHF slot has one owner among the bucket shards (their slot
-// ranges partition the table), and an hindex heavy lane's sk_hrows row
-// one holder. So each shard stores only the lanes it owns:
+// ranges partition the table), and a heavy lane's sk_hrows row one
+// holder. So each shard stores only the lanes it owns:
 //
 //   kStoreOwned   (LocalMesh: every shard of a mesh row on this card) into
 //       result tensors the row's shards share, launched in stream order,
@@ -322,9 +322,10 @@ __device__ __forceinline__ void shard_lane(const ProbeTables& t, const ProbePara
 }
 
 // 3 blocks of 256 threads an SM (80 registers a thread): the queue's state
-// stays live across the probe.
+// stays live across the probe; 2 at the regular mode's 8 words, which
+// spilled 4 bytes at 80 once the skew eval read one row.
 template <int W, bool CANON, bool V2>
-__global__ void __launch_bounds__(256, W > kMaxFixedW ? 1 : 3)
+__global__ void __launch_bounds__(256, W > kMaxFixedW ? 1 : !CANON && W == 8 ? 2 : 3)
     shard_probe_kernel(ProbeTables t, ProbeParams p, ProbeIO io) {
   extern __shared__ uint32_t stage[];
   uint32_t* slot = thread_slot(stage, p);
@@ -481,12 +482,11 @@ __global__ void __launch_bounds__(256) rank_list_kernel(ProbeTables t, ProbePara
 
 // Blocks of 256 threads an SM that the list probe's launch bounds ask
 // registers for: the lookup kernel's (lookup_min_blocks), but 3 at the
-// canonical widths where the shard form's stores beside the probe spilled
-// at 4 (3, 4, 6 and 7 words).
+// canonical widths of 3 words or more, where the shard form's stores
+// beside the probe spilled at 4 (5 words since the skew eval reads one
+// row).
 __host__ __device__ constexpr int list_min_blocks(int W, bool canon) {
-  return W > kMaxFixedW ? 1
-         : canon && (W == 3 || W == 4 || W == 6 || W == 7) ? 3
-                                                            : lookup_min_blocks(W, canon);
+  return W > kMaxFixedW ? 1 : canon && W >= 3 ? 3 : lookup_min_blocks(W, canon);
 }
 
 // The shards one list probe launch serves: their tables, and their keys,

@@ -12,8 +12,10 @@ lookup is the work of two kernels:
      reverse-complemented kmers, in one launch;
   2. kernel 2 (`probe`): MPHF slot, fused codeword row, minimizer guard,
      candidate verification and id resolution, one thread per lane. Heavy
-     lanes resolve through the skew index: slot -> sk_hrows row, or on a
-     pre-v1.2 index slot -> sk_positions -> heavy_rows (skew_eval).
+     lanes resolve through the skew index: slot -> sk_hrows row, on a
+     pre-v1.2 index too (the JAX package's skew_eval walks slot ->
+     position in the bucket -> heavy row; layout.class_hindex derives
+     the rows on the host).
 
 Canonical mode folds the tie retry into two extra position tries of one
 probe (the minimizer VALUES tie, so both strands probe the same bucket).
@@ -219,13 +221,13 @@ def probe_plain(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2=None,
       - the packed form ({"packed": (F, B) int32}) stores every lane in the
         mesh combine's order (pack_result), the combine's identity on the
         lanes the shard does not own.
-    In an hindex index the owner's heavy lanes verify nothing: out["hrow"]
-    gets their global sk_hrows row (0xFFFFFFFF on the other lanes it
-    stores), and a second call given hrows stores the hits of the rows this
-    shard holds (of the lanes out does not hold as found, in the owned
-    form), without minimizer_found. slots="store": the probed lanes' MPHF
-    slots go to out["slot"] (a mesh row's first shard); "read": they are
-    taken from there."""
+    In an index with skew classes the owner's heavy lanes verify nothing:
+    out["hrow"] gets their global sk_hrows row (0xFFFFFFFF on the other
+    lanes it stores), and a second call given hrows stores the hits of the
+    rows this shard holds (of the lanes out does not hold as found, in the
+    owned form), without minimizer_found. slots="store": the probed lanes'
+    MPHF slots go to out["slot"] (a mesh row's first shard); "read": they
+    are taken from there."""
     check_fields(cfg, fields)
     handoff, packed = check_probe_shard(cfg, shard, hrows, out, fill, rc_round, slots)
     B, dev = kmers32.shape[0], kmers32.device
@@ -336,13 +338,9 @@ def _probe_lanes(cfg, tables, kmers32, kmers_rc32, minval, minpos, minpos2, acti
         hidx = (_skew_param(tables, "pos_off", cls) + skew_slot(cfg, tables, canon, cls)) & M32
         if handoff:  # verified by the shard holding the row
             hrow = torch.where(active & heavy, hidx, INVALID32)
-        elif cfg.skew_hrows:
+        else:
             take(_verify(cfg, take_rows(tables["sk_hrows"], hidx), active & heavy, km, kr,
                          tries))
-        else:  # skew_eval: slot -> position in the bucket -> heavy row
-            blk = take_rows(tables["heavy_rows"], (cw_a + take_rows(tables["sk_positions"], hidx))
-                            & M32)
-            take(_verify(cfg, blk, active & heavy, km, kr, tries))
 
     minimizer_found = ~(active & ~guard_ok & ~heavy)
     active = active & (guard_ok | heavy)
@@ -813,8 +811,8 @@ class TorchEngine:
     access, weight, navigation and full iteration.
 
     host_arrs: a precomputed table dict (layout.device_arrays, or the JAX
-    package's _device_arrays / its .npy cache, whose v2 blocks
-    layout.tables_from_host converts) for large indexes.
+    package's _device_arrays / its .npy cache, whose v2 blocks and legacy
+    heavy path layout.tables_from_host converts) for large indexes.
     row_format: None (rebased v2 rows at >= 2^32 chars, else v1), "v1" or
     "v2". A v2 engine's lookup and navigation return the id fields only,
     as the JAX package's DeviceEngine does.
@@ -832,7 +830,7 @@ class TorchEngine:
             host_arrs = device_arrays(index, row_format)
         else:
             host_arrs = with_access_tables(index, self.cfg, host_arrs)
-        self.tables = tables_from_host(host_arrs, self.device, self.cfg)
+        self.tables = tables_from_host(host_arrs, self.device, self.cfg, index)
         fields = "ids" if self.cfg.row_v2 else "full"
         self._lookup = make_lookup(self.cfg, fields)
         self._lookup_ids = make_lookup(self.cfg, "ids")

@@ -159,7 +159,7 @@ def build():
 
 # ctypes mirrors of the structs in csrc/probe.cu (8-byte fields only)
 _TABLE_NAMES = ("cw_row", "mid_rows", "sk_hrows", "pilots", "mphf_seedrows",
-                "sk_pilots", "sk_seedrows", "heavy_rows", "sk_positions")
+                "sk_pilots", "sk_seedrows")
 
 
 class ProbeTables(ctypes.Structure):
@@ -170,7 +170,7 @@ class ProbeTables(ctypes.Structure):
 
 _PARAM_NAMES = ("B", "W", "k", "m", "canonical", "full", "win_words",
                 "vbits_words", "max_start_word", "row_w", "blk_w", "c1_in_row",
-                "has_skew", "row_v2", "skew_hrows", "skew_partitioned",
+                "has_skew", "row_v2", "skew_partitioned",
                 "mphf_partitioned", "mphf_P", "mphf_part_table", "mphf_part_buckets",
                 "mphf_nbuckets", "mphf_table", "pilot_w", "sk_pilot_w",
                 "slot_lo", "slot_hi", "hrow_lo", "hrow_hi", "store", "fill", "rc_round")
@@ -432,7 +432,7 @@ def _probe_launch(cfg, tables, kmers32, active, fields, shard=None, store=0, fil
     blk_w, row_w = cand_block_width(cfg), row_width(cfg)
     if tuple(t["cw_row"].shape[1:]) != (row_w,):
         raise ValueError(f"cw_row must have {row_w} columns, got {tuple(t['cw_row'].shape)}")
-    for name in ("mid_rows", "sk_hrows", "heavy_rows"):
+    for name in ("mid_rows", "sk_hrows"):
         if tuple(t[name].shape[1:]) != (blk_w,):
             raise ValueError(f"{name} must have {blk_w} columns")
     if tuple(t["sk_params"].shape) != (8, 8):
@@ -472,7 +472,7 @@ def probe_params(cfg, B, fields="ids", shard=None, store=STORE_ALL, fill=False, 
         full=int(fields == "full"), win_words=cfg.win_words, vbits_words=cfg.vbits_words,
         max_start_word=cfg.max_start_word, row_w=row_width(cfg), blk_w=cand_block_width(cfg),
         c1_in_row=int(cfg.c1_in_row), has_skew=int(cfg.has_skew), row_v2=int(cfg.row_v2),
-        skew_hrows=int(cfg.skew_hrows), skew_partitioned=int(cfg.skew_partitioned),
+        skew_partitioned=int(cfg.skew_partitioned),
         mphf_partitioned=int(cfg.mphf_partitioned), mphf_P=cfg.mphf_P,
         mphf_part_table=cfg.mphf_part_table, mphf_part_buckets=cfg.mphf_part_buckets,
         mphf_nbuckets=cfg.mphf_nbuckets, mphf_table=cfg.mphf_table,

@@ -9,11 +9,13 @@ dict is converted by port_tables):
   cw_row[slot]   one fused row per raw minimizer-MPHF slot:
                  [status | b<<2, a, candidate-0 block, (candidate-1 block)]
   mid_rows[i]    candidate block of mid_load_buckets[i]
-  sk_hrows[i]    candidate block of the heavy kmer with skew slot i (v1.2+
-                 indexes: every skew class carries hindex)
-  heavy_rows[i], sk_positions   the legacy heavy path, for skew classes
-                 without hindex: slot -> position in the bucket ->
-                 heavy_rows[bucket begin + position]
+  sk_hrows[i]    candidate block of the heavy kmer with skew slot i, by the
+                 skew classes' hindex: a v1.2+ index's own, a pre-v1.2
+                 index's derived from its positions (class_hindex), so
+                 every index reads one row a heavy lane (the JAX package's
+                 legacy path reads slot -> position in the bucket ->
+                 heavy_rows[bucket begin + position]; port_tables converts
+                 such a dict)
   pilots, mphf_seedrows, sk_pilots, sk_seedrows, sk_*   MPHF parameters
 
 A candidate block is [col0, valid-start bits (Wv words), packed string
@@ -45,10 +47,10 @@ The port serves every index with k <= 255 (MAX_K: at most 16 u32 words
 per kmer) and fewer than 2^32 - 1 kmers
 (ids are u32, 0xFFFFFFFF the not-found sentinel) and weights below 2^32:
 v1 rows below 2^32 chars, v2 rows at or above it (or when asked for), skew
-classes with or without hindex, partitioned or plain class MPHFs. Char
-offsets stay int64 until they become a u32 field, so a v2 row past 2^32
-chars holds exact values (the JAX package casts candidate offsets to
-uint32 first, which wraps there).
+classes with or without hindex (served alike), partitioned or plain class
+MPHFs. Char offsets stay int64 until they become a u32 field, so a v2 row
+past 2^32 chars holds exact values (the JAX package casts candidate
+offsets to uint32 first, which wraps there).
 """
 
 import mmap
@@ -70,7 +72,9 @@ ROW_FORMATS = (None, "v1", "v2")
 # tables the probe reads; the optional ones get a placeholder row when the
 # index has no such structure
 LOOKUP_KEYS = ("strings32", "cw_row", "mid_rows", "pilots", "sk_pilots")
-OPTIONAL_KEYS = ("mphf_seedrows", "sk_seedrows", "sk_hrows", "heavy_rows", "sk_positions")
+OPTIONAL_KEYS = ("mphf_seedrows", "sk_seedrows", "sk_hrows")
+# the JAX package's legacy heavy path, converted by port_tables
+LEGACY_KEYS = ("heavy_rows", "sk_positions")
 # tables of access and iteration, and of weight (uploaded for a weighted
 # index only)
 ACCESS_KEYS = ("acc_rows", "vstart32")
@@ -81,8 +85,8 @@ TABLE_GROUPS = {"lookup": LOOKUP_KEYS + OPTIONAL_KEYS + ("sk_params",),
 
 class ProbeShard(NamedTuple):
     """One bucket shard's part of the probe's tables (parallel/sharded.py):
-    the fused rows of MPHF slots [slot_lo, slot_hi) and, in hindex
-    indexes, the sk_hrows rows [hrow_lo, hrow_hi)."""
+    the fused rows of MPHF slots [slot_lo, slot_hi) and, in an index with
+    skew classes, the sk_hrows rows [hrow_lo, hrow_hi)."""
 
     slot_lo: int
     slot_hi: int
@@ -106,10 +110,10 @@ def check_probe_shard(cfg, shard, hrows, out=None, fill=False, rc_round=False, s
     `out`: the result tensors a mesh row's shards share (the lanes the
     shard owns; fill: the inactive lanes too; rc_round: the regular mode's
     RC round, merged in place) or {"packed": the (F, B) combine buffer},
-    every lane. handoff: a shard of an index whose skew classes carry
-    hindex, where only the slot's owner knows a heavy lane's sk_hrows row,
-    so the first pass writes it to out["hrow"] and a second pass given
-    hrows verifies the rows the shard holds. slots (owned form, first
+    every lane. handoff: a shard of an index with skew classes, where only
+    the slot's owner knows a heavy lane's sk_hrows row, so the first pass
+    writes it to out["hrow"] and a second pass given hrows verifies the
+    rows the shard holds. slots (owned form, first
     passes): "store" the lanes' MPHF slots the call evaluates into
     out["slot"] (a mesh row's first shard), or "read" them from there (the
     others), so that a row's shards evaluate each lane's slot once."""
@@ -121,10 +125,10 @@ def check_probe_shard(cfg, shard, hrows, out=None, fill=False, rc_round=False, s
     if out is None:
         raise ValueError("kernel 2's shard form stores into out: the mesh row's result tensors "
                          "or {'packed': its combine buffer}")
-    handoff = bool(cfg.skew_hrows)
+    handoff = bool(cfg.has_skew)
     if hrows is not None and not handoff:
         raise ValueError("hrows (the heavy-row hand-off's second pass) needs a shard of an "
-                         "index whose skew classes carry hindex")
+                         "index with skew classes")
     packed = "packed" in out
     if packed and (fill or rc_round):
         raise ValueError("fill and rc_round belong to the owned stores, not the packed buffer")
@@ -303,10 +307,9 @@ class StaticCfg:
             self.mphf_part_table = max(1, f.part_table)
             self.mphf_part_buckets = f.part_buckets
         self.has_skew = any(p.mphf.n > 0 for p in index.skew_partitions)
-        # v1.2+ builds: every skew class carries hindex (slot -> heavy row)
-        # and is a PartitionedMPHF; older ones take the legacy forms
-        self.skew_hrows = self.has_skew and all(p.hindex is not None
-                                                for p in index.skew_partitions)
+        # v1.2+ builds: every skew class is a PartitionedMPHF; older ones
+        # may hold plain class MPHFs (with or without hindex, the tables
+        # read one sk_hrows row a heavy lane)
         self.skew_partitioned = self.has_skew and all(
             isinstance(p.mphf, PartitionedMPHF) for p in index.skew_partitions if p.mphf.n > 0)
         self.access_C = access_C(index)
@@ -455,16 +458,21 @@ def row_width(cfg):
     return 2 + (2 if cfg.c1_in_row else 1) * cand_block_width(cfg) + row_pad(cfg)
 
 
-def port_tables(cfg, host_arrs):
-    """host_arrs in this module's layout for cfg. A JAX package v2 dict
-    (its blocks' resolve words kid0, sid0, rel_ep1; sshash_tpu.engine.
-    _device_arrays) loses sid0 from every block of cw_row, mid_rows,
-    sk_hrows and heavy_rows, and its cw_row gains row_pad's zero words;
-    tables already in this layout pass as they are. A cw_row of any other
-    width is refused, naming both widths. The blocks' width tells the two
-    apart (a padded cw_row may be as wide as JAX's; mid_rows is never
-    padded). Conversion copies a piece of rows at a time, so a
+def port_tables(cfg, host_arrs, index=None):
+    """host_arrs in this module's layout for cfg. A JAX package dict of the
+    legacy heavy path (heavy_rows, sk_positions: an index whose skew
+    classes lack hindex; or an earlier tree's cache of it) gets sk_hrows
+    in their place, heavy_rows' rows at the index's class_hindex, so it
+    needs the index. A JAX package v2 dict (its blocks' resolve words kid0,
+    sid0, rel_ep1; sshash_tpu.engine._device_arrays) loses sid0 from every
+    block of cw_row, mid_rows and sk_hrows, and its cw_row gains row_pad's
+    zero words; tables already in this layout pass as they are. A cw_row
+    of any other width is refused, naming both widths. The blocks' width
+    tells the two apart (a padded cw_row may be as wide as JAX's; mid_rows
+    is never padded). Conversion copies a piece of rows at a time, so a
     memory-mapped cache is read once."""
+    if any(key in host_arrs for key in LEGACY_KEYS):
+        host_arrs = _one_hop(cfg, host_arrs, index)
     have, want = host_arrs["cw_row"].shape[1], row_width(cfg)
     R1 = cand_block_width(cfg)
     blk = host_arrs["mid_rows"].shape[1]
@@ -484,9 +492,28 @@ def port_tables(cfg, host_arrs):
     cols = np.concatenate([[0, 1]] + [2 + j * (R1 + 1) + keep for j in range(nblk)])
     out = dict(host_arrs)
     out["cw_row"] = _take_columns(host_arrs["cw_row"], cols, want)
-    for name in ("mid_rows", "sk_hrows", "heavy_rows"):
+    for name in ("mid_rows", "sk_hrows"):
         if name in out:
             out[name] = _take_columns(out[name], keep, R1)
+    return out
+
+
+def _one_hop(cfg, host_arrs, index):
+    """A legacy heavy path's dict (heavy_rows, sk_positions) with sk_hrows
+    in their place: the heavy_rows row of each skew slot's class_hindex,
+    keyed as the slots of sk_positions are (the same pos_off). Without
+    skew classes (or beside the JAX package's sk_hrows: its heavy_rows of
+    zeros) nothing reads them, and they go."""
+    out = {key: v for key, v in host_arrs.items() if key not in LEGACY_KEYS}
+    if cfg.has_skew and "sk_positions" in host_arrs:
+        if index is None:
+            raise ValueError("tables of the legacy heavy path (heavy_rows, sk_positions) are "
+                             "converted to sk_hrows from the index: pass it")
+        parts = index.skew_partitions[:NUM_SKEW]
+        slots = np.concatenate([_expand_to_slots(h, p.mphf)
+                                for h, p in zip(class_hindex(index), parts)])
+        heavy = host_arrs["heavy_rows"]
+        out["sk_hrows"] = np.asarray(heavy[np.clip(slots.astype(np.int64), 0, len(heavy) - 1)])
     return out
 
 
@@ -650,12 +677,88 @@ def _cw_rows(index, cfg, rows, ids, mid_arr):
     return out
 
 
-def _lookup_specs(index, cfg, rows):
+def heavy_kmers(index, chunk=1 << 16, threads=1):
+    """Every kmer of the index's heavy buckets, found from the buckets'
+    positions alone: (keys, cls, begin, offset), keys the (n, W) uint32
+    kmers the skew classes hash (the smaller strand in a canonical
+    index), cls their skew class, begin their bucket's begin in
+    heavy_load_buckets and offset their char offset, each offset once. A
+    kmer whose minimizer sits at char p starts in [p - (k - m), p] of p's
+    string, so each heavy position's k - m + 1 starts there are read, a
+    chunk of positions at a time on `threads` threads, and kept where the
+    kmer's bucket minimizer has a heavy codeword of the position's own
+    bucket: a kmer of another bucket never comes back."""
+    from . import kmer as K
+    from . import oracle
+
+    k, m = index.k, index.m
+    heavy_arr = np.asarray(index.heavy_load_buckets).astype(np.int64)
+    status, a, _ = decode_codeword(np.asarray(index.codewords))
+    begins = np.unique(a[status == 2].astype(np.int64))
+    ep = index.string_endpoints.astype(np.int64)
+    magic = H.mixer_magic(index.seed)
+    W = -(-2 * k // 32)
+
+    def scan(lo):
+        p = heavy_arr[lo: lo + chunk]
+        beg = begins[np.searchsorted(begins, np.arange(lo, lo + len(p)), side="right") - 1]
+        sid = np.searchsorted(ep, p, side="right") - 1
+        o = p[:, None] - np.arange(k - m + 1)[None, :]
+        ok = (o >= ep[sid][:, None]) & (o + k <= ep[sid + 1][:, None])
+        o, beg = o[ok], np.broadcast_to(beg[:, None], ok.shape)[ok]
+        km = K.read_kmers_at(index.strings64, o, k)
+        mv, _ = oracle.compute_minimizer(km, k, m, magic)
+        if index.canonical:
+            rc = K.revcomp_kmers(km, k)
+            mv = np.minimum(mv, oracle.compute_minimizer(rc, k, m, magic)[0])
+            km = np.where(oracle._kmer_less_mask(rc, km)[:, None], rc, km)
+        st, ca, cb = decode_codeword(index.codewords.get(index.minimizer_mphf(mv)))
+        keep = (st == 2) & (ca.astype(np.int64) == beg)
+        return (K.kmers_to_u32(km[keep], k), cb[keep].astype(np.int64), beg[keep], o[keep])
+
+    parts = list(ordered_map(scan, range(0, len(heavy_arr), chunk), threads))
+    if not parts:
+        return (np.zeros((0, W), np.uint32), *(np.zeros(0, np.int64) for _ in range(3)))
+    keys, cls, beg, off = (np.concatenate(x) for x in zip(*parts))
+    _, first = np.unique(off, return_index=True)
+    return keys[first], cls[first], beg[first], off[first]
+
+
+def class_hindex(index, threads=1):
+    """Each skew class's hindex (uint32[n], by class MPHF position: the
+    kmer's row in heavy_load_buckets). A class that carries one (v1.2+
+    builds) keeps it; a pre-v1.2 class's is derived by the index build's
+    own formula (builder/assemble.py: hindex[slot] = bucket begin +
+    position in the bucket): hindex[slot_c(x)] = begin(x) + positions_c[slot_c(x)]
+    for every kmer x of heavy_kmers, with the class's own MPHF, partitioned
+    or plain. Raises if a class's slots are not all reached."""
+    parts = index.skew_partitions[:NUM_SKEW]
+    if all(p.hindex is not None for p in parts):
+        return [p.hindex for p in parts]
+    keys, cls, beg, _ = heavy_kmers(index, threads=threads)
+    out = []
+    for i, p in enumerate(parts):
+        if p.hindex is not None or p.mphf.n == 0:
+            out.append(p.hindex if p.hindex is not None else np.zeros(0, np.uint32))
+            continue
+        sel = cls == i
+        slot = p.mphf.eval_words(keys[sel])
+        if len(np.unique(slot)) != p.mphf.n:
+            raise ValueError(f"skew class {i}: {len(np.unique(slot))} of its {p.mphf.n} slots "
+                             f"reached from the heavy buckets")
+        h = np.zeros(p.mphf.n, np.uint32)
+        h[slot] = (beg[sel] + p.positions[slot].astype(np.int64)).astype(np.uint32)
+        out.append(h)
+    return out
+
+
+def _lookup_specs(index, cfg, rows, threads=1):
     """The probe's tables (cw_row, mid_rows, pilots, mphf_seedrows and the
     skew tables) from the index's codewords, as _Spec's, with rows(dpos)
     -> candidate blocks for int64 candidate char offsets (fused_rows bound
     to the index's strings). cw_row is keyed by raw MPHF slot: slot s
-    holds minimizer src[s]'s row (_expand_to_slots of the minimizer ids)."""
+    holds minimizer src[s]'s row (_expand_to_slots of the minimizer ids).
+    A pre-v1.2 index's hindex is derived here, on `threads` threads."""
     mid_arr = np.asarray(index.mid_load_buckets).astype(np.int64)
     heavy_arr = np.asarray(index.heavy_load_buckets).astype(np.int64)
     R1 = cand_block_width(cfg)
@@ -673,9 +776,11 @@ def _lookup_specs(index, cfg, rows):
         specs["mphf_seedrows"] = _small(_seedrows(f.seedmixes()))
 
     # skew size classes: concatenated pilots, 8 per-class parameter slots,
-    # and per slot either an hindex-keyed heavy row (sk_hrows) or, for the
-    # legacy classes, the kmer's position in its bucket (sk_positions)
+    # and per slot the hindex-keyed heavy row (sk_hrows): a pre-v1.2
+    # class's hindex is derived (class_hindex), so every form reads one row
+    # (without skew only the classes' slot counts matter: pos_off)
     parts = index.skew_partitions[:NUM_SKEW]
+    keyed = class_hindex(index, threads) if cfg.has_skew else [p.positions for p in parts]
     params = {name: np.zeros(NUM_SKEW, dtype=np.uint32) for name in SKEW_PARAMS}
     params["nbuckets"][:] = 1
     params["table"][:] = 1
@@ -701,24 +806,16 @@ def _lookup_specs(index, cfg, rows):
             params["table"][i] = max(1, fp.table_size)
             params["nbuckets"][i] = fp.num_buckets
         sk_pilots.append(_pack_pilots(_pilots_u32(fp), cfg.sk_pilot_w))
-        sk_aux.append(_expand_to_slots(part.hindex if cfg.skew_hrows else part.positions, fp))
+        sk_aux.append(_expand_to_slots(keyed[i], fp))
     if cfg.skew_partitioned:
         specs["sk_seedrows"] = _small(np.concatenate(sk_seedrows) if sk_seedrows
                                       else np.zeros((1, 2), np.uint32))
     specs["sk_pilots"] = _small(_nz(np.concatenate(sk_pilots) if sk_pilots
                                     else np.zeros(0, np.uint32)))
-    allh = np.concatenate(sk_aux) if sk_aux else np.zeros(0, np.uint32)
-    if cfg.skew_hrows and len(allh):
-        gidx = np.clip(allh.astype(np.int64), 0, max(0, len(heavy_arr) - 1))
+    if cfg.has_skew:
+        gidx = np.clip(np.concatenate(sk_aux).astype(np.int64), 0, len(heavy_arr) - 1)
         specs["sk_hrows"] = _Spec((len(gidx), R1), np.uint32,
                                   lambda lo, hi: rows(heavy_arr[gidx[lo:hi]]))
-    elif cfg.skew_hrows:
-        specs["sk_hrows"] = _small(np.zeros((1, R1), np.uint32))
-    else:
-        specs["heavy_rows"] = (_Spec((len(heavy_arr), R1), np.uint32,
-                                     lambda lo, hi: rows(heavy_arr[lo:hi]))
-                               if len(heavy_arr) else _small(np.zeros((1, R1), np.uint32)))
-        specs["sk_positions"] = _small(_nz(allh))
     for name, v in params.items():
         specs[f"sk_{name}"] = _small(v)
     return specs
@@ -748,9 +845,10 @@ def _vstart_fill(index, nchars):
     return fill
 
 
-def table_specs(index, row_format=None):
+def table_specs(index, row_format=None, threads=1):
     """Every table of device_arrays as a _Spec, in the row format
-    StaticCfg(index, row_format) picks."""
+    StaticCfg(index, row_format) picks (a pre-v1.2 index's hindex derived
+    on `threads` threads)."""
     cfg = StaticCfg(index, row_format)
     k, m = index.k, index.m
     ep = index.string_endpoints.astype(np.int64)
@@ -776,7 +874,8 @@ def table_specs(index, row_format=None):
                                                   k, first=lo)),
     }
     specs.update(_lookup_specs(index, cfg,
-                               lambda dpos: fused_rows(dpos, s32, ep, k, m, cfg.row_v2)))
+                               lambda dpos: fused_rows(dpos, s32, ep, k, m, cfg.row_v2),
+                               threads))
     w = index.weights
     if w is not None:  # check_supported refuses weights that u32 would wrap
         specs["w_value_ids"] = _small(w.interval_value_ids.astype(np.uint32))
@@ -817,7 +916,7 @@ def device_arrays(index, row_format=None, chunk=None, threads=1):
     about chunk chars' worth of rows at a time (None: at once), on
     `threads` threads; the arrays are the same at any chunk and thread
     count. write_tables writes them to .npy files instead."""
-    specs = table_specs(index, row_format)
+    specs = table_specs(index, row_format, threads)
     out = {name: np.empty(spec.shape, spec.dtype) for name, spec in specs.items()}
     return fill_tables(specs, out, int(index.num_chars), chunk, threads)
 
@@ -860,7 +959,7 @@ def write_tables(index, directory, row_format=None, chunk=1 << 24, threads=1):
     and written chunk chars' worth of rows at a time on `threads`
     threads, so that the host holds pieces of them, not the tables.
     Returns the tables loaded with mmap_mode="r"."""
-    specs = table_specs(index, row_format)
+    specs = table_specs(index, row_format, threads)
     os.makedirs(directory, exist_ok=True)
     out = {name: _NpyRows(os.path.join(directory, name + ".npy"), spec.shape, spec.dtype)
            for name, spec in specs.items()}
@@ -937,25 +1036,24 @@ def take_rows(table, idx):
     return table.index_select(0, i).to(torch.int64) & 0xFFFFFFFF
 
 
-def tables_from_host(host_arrs, device, cfg):
+def tables_from_host(host_arrs, device, cfg, index=None):
     """The kernels' tables of cfg's layout as int32 tensors (the u32 bits)
     on `device`, from this module's device_arrays or the JAX package's
     _device_arrays dict (or its .npy cache, completed by
     with_access_tables), in either row format and either skew form: the
     dict goes through port_tables first (a JAX v2 dict's blocks lose sid0;
-    a width of neither layout is refused). Optional lookup tables missing
+    a legacy heavy path becomes sk_hrows through `index`, which it then
+    needs; a width of neither layout is refused). Optional lookup tables missing
     from the dict get one zero row, the eight sk_* parameter vectors
     become one (8, 8) `sk_params` table in SKEW_PARAMS order, and the
     weight tables come along when the dict has them."""
     import torch
 
-    host_arrs = port_tables(cfg, host_arrs)
+    host_arrs = port_tables(cfg, host_arrs, index)
     R1 = host_arrs["mid_rows"].shape[1]
     fill = {"mphf_seedrows": np.zeros((1, 2), np.uint32),
             "sk_seedrows": np.zeros((1, 2), np.uint32),
-            "sk_hrows": np.zeros((1, R1), np.uint32),
-            "heavy_rows": np.zeros((1, R1), np.uint32),
-            "sk_positions": np.zeros(1, np.uint32)}
+            "sk_hrows": np.zeros((1, R1), np.uint32)}
     host = {name: host_arrs.get(name, fill.get(name))
             for name in LOOKUP_KEYS + OPTIONAL_KEYS}
     host["sk_params"] = np.stack([host_arrs[f"sk_{p}"] for p in SKEW_PARAMS])

@@ -5,9 +5,10 @@ Counterpart of sshash_tpu/parallel/sharded.py (ShardedEngine,
 _branchfree_lookup, make_sharded_*, ShardedStream). The index splits over
 the bucket axis by contiguous ranges, exactly as the JAX engine splits it
 (`shard_tables`): the fused codeword rows by MPHF slot, with each shard's
-mid-bucket and legacy heavy rows re-keyed to local offsets; the hindex
-heavy rows (sk_hrows) by row; strings32 by word, with a halo of W + 1
-words; the access rows by id block; the weight runs by run. The query
+mid-bucket rows re-keyed to local offsets; the heavy rows (sk_hrows, by
+the skew classes' hindex, a pre-v1.2 index's derived) by row; strings32
+by word, with a halo of W + 1 words; the access rows by id block; the
+weight runs by run. The query
 batch splits over the data axis by rows. Each shard answers the lanes it
 owns through the kernels given its range (kernel 2's slot and heavy-row
 owners, the access kernel's block and word owners, the weight kernel's
@@ -21,9 +22,9 @@ lanes; a canonical lookup folds the tie retry into one probe (a tie
 probes the same bucket, hence the same owner); a regular one runs a
 forward round, then an RC round whose owners merge in place into the
 lanes the forward round left unfound (BACKWARD, minimizer_found ORed).
-In an index whose skew classes carry hindex, only the owner of a heavy
-lane's slot knows its sk_hrows row: it writes the row into the row's
-shared hand-off tensor, and the shard that holds the row stores the hit.
+In an index with skew classes, only the owner of a heavy lane's slot
+knows its sk_hrows row: it writes the row into the row's shared hand-off
+tensor, and the shard that holds the row stores the hit.
 On a DistMesh each rank's kernel 2 writes every lane into one packed
 buffer in the combine's order (the identity where another rank owns the
 lane), the hand-off's row and the buffer each take one all_reduce MIN,
@@ -77,14 +78,14 @@ def _ranges(sizes):
     return out - np.repeat(starts, sizes)
 
 
-def _split_rekeyed(rows, status, cw_a, which, sizes, per_shard, nb):
-    """Each shard's rows of the buckets of `which` status in its slot range,
-    at local offsets: returns (per-shard row arrays, cw_a with those
-    buckets' begins rewritten in place)."""
+def _split_rekeyed(rows, status, cw_a, sizes, per_shard, nb):
+    """Each shard's rows of the mid buckets in its slot range, at local
+    offsets: returns (per-shard row arrays, cw_a with those buckets'
+    begins rewritten in place)."""
     out = []
     for j in range(nb):
         sl = slice(j * per_shard, (j + 1) * per_shard)
-        sel = status[sl] == which
+        sel = status[sl] == 1
         sz = np.where(sel, sizes[sl], 0).astype(np.int64)
         local_begin = np.cumsum(sz) - sz
         idx = np.repeat(cw_a[sl][sel].astype(np.int64), sz[sel]) + _ranges(sz[sel])
@@ -99,17 +100,19 @@ def _stack_padded(parts):
     return np.concatenate([np.pad(p, ((0, n - len(p)), (0, 0))) for p in parts])
 
 
-def shard_tables(host, cfg, nb):
+def shard_tables(host, cfg, nb, index=None):
     """The table dict of layout.device_arrays (or of the JAX package's
-    _device_arrays, converted by layout.port_tables first) split over nb
-    bucket shards, as the JAX ShardedEngine splits it (sharded.py:548-664
-    of the JAX package). Returns (one dict
+    _device_arrays, converted by layout.port_tables first: a legacy heavy
+    path's through `index`) split over nb bucket shards, as the JAX
+    ShardedEngine splits an index whose skew classes carry hindex
+    (sharded.py:548-664 of the JAX package). Returns (one dict
     per shard, geometry): a sharded table holds the shard's slice, a
     replicated one the whole array (the same object in every dict);
     sidk32 and kmer_cum are dropped. geometry: per_shard (slots),
-    per_shard_hrows (sk_hrows rows, None without hindex), per_shard_swords
-    (strings32 words) and per_shard_blocks (access rows)."""
-    host = {key: v for key, v in port_tables(cfg, host).items()
+    per_shard_hrows (sk_hrows rows, None without skew classes),
+    per_shard_swords (strings32 words) and per_shard_blocks (access
+    rows)."""
+    host = {key: v for key, v in port_tables(cfg, host, index).items()
             if key not in ("sidk32", "kmer_cum")}
     sharded = {}
     n_cw = len(host["cw_row"])
@@ -122,28 +125,13 @@ def shard_tables(host, cfg, nb):
     cw_a = cw_row[:, 1].copy()
     cw_b = cw_row[:, 0] >> 2
     sharded["mid_rows"] = _stack_padded(
-        _split_rekeyed(host["mid_rows"], status, cw_a, 1, cw_b, per_shard, nb))
-    # legacy heavy rows the same way; a bucket's size comes from the UNIQUE
-    # sorted begins (slots remapped to one bucket repeat its begin, and a
-    # plain diff would give the repeat size 0 and drop the bucket)
-    R1 = host["mid_rows"].shape[1]
-    heavy = host.get("heavy_rows", np.zeros((0, R1), np.uint32))
-    size_of_slot = np.zeros(len(status), dtype=np.int64)
-    if (status == 2).any() and not cfg.skew_hrows:
-        hv_all = np.flatnonzero(status == 2)
-        hb = cw_a[hv_all].astype(np.int64)
-        ub = np.unique(hb)
-        usz = np.diff(np.concatenate([ub, [len(heavy)]]))
-        size_of_slot[hv_all] = usz[np.searchsorted(ub, hb)]
-        parts = _split_rekeyed(heavy, status, cw_a, 2, size_of_slot, per_shard, nb)
-    else:  # hindex: heavy lanes resolve through sk_hrows
-        parts = [np.zeros((0, R1), heavy.dtype)] * nb
-    sharded["heavy_rows"] = _stack_padded(parts)
+        _split_rekeyed(host["mid_rows"], status, cw_a, cw_b, per_shard, nb))
     cw_row[:, 1] = cw_a
     sharded["cw_row"] = cw_row
 
+    # heavy lanes resolve through sk_hrows, split by row
     per_hr = None
-    if cfg.skew_hrows and "sk_hrows" in host:
+    if cfg.has_skew and "sk_hrows" in host:
         hr = host["sk_hrows"]
         per_hr = max(1, -(-len(hr) // nb))
         sk = np.zeros((per_hr * nb, hr.shape[1]), hr.dtype)
@@ -223,7 +211,7 @@ class ShardedEngine:
         else:
             host_arrs = with_access_tables(index, self.cfg, host_arrs)
         t0 = time.perf_counter()
-        shards, geo = shard_tables(host_arrs, self.cfg, nb)
+        shards, geo = shard_tables(host_arrs, self.cfg, nb, index)
         self.shard_seconds = time.perf_counter() - t0  # the host transform
         self.geometry = geo
         self.shard_bytes = [sum(v.nbytes for v in d.values()) for d in shards]
@@ -293,7 +281,8 @@ class ShardedEngine:
         shard of data row `row`, call(j, **kw) on shard j, each storing into
         out the lanes it owns (the first shard also the inactive lanes, in
         the first round; it stores each lane's MPHF slot, which the others
-        read), then in an hindex index the hand-off's second pass."""
+        read), then in an index with skew classes the hand-off's second
+        pass."""
         shards = self._row_shards(row)
         for n, s in enumerate(shards):
             call(s[1], out=out, fill=n == 0 and not rc_round, rc_round=rc_round,
@@ -304,8 +293,8 @@ class ShardedEngine:
 
     def _result_tensors(self, B, fields):
         """A LocalMesh lookup's result tensors, uninitialised: every lane is
-        stored by its owner (and "hrow", the hand-off's rows in an hindex
-        index; "slot", the lanes' MPHF slots, with more than one shard)."""
+        stored by its owner (and "hrow", the hand-off's rows in an index
+        with skew classes; "slot", the lanes' MPHF slots, with more than one shard)."""
         out = {name: torch.empty(B, dtype=dt, device=self.device)
                for name, dt in result_dtypes(fields).items()}
         for name in ("hrow",) * self.handoff + ("slot",) * (self.mesh.shape[1] > 1):

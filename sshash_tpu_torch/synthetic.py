@@ -113,13 +113,20 @@ def low_hash_mmers(n, m, seed, sample=1 << 20, rng=None):
     return ((best[:, None] >> shifts[None, :]) & np.uint64(3)).astype(np.uint8)
 
 
-def plant(codes, mmers, counts, k, rng, leads=None):
+def plant(codes, mmers, counts, k, rng, leads=None, context=0):
     """Write mmers[i] (code arrays) counts[i] times at distinct random sites
     of `codes`, sites 2k chars apart, leads[i] chars (0 by default) into
-    its site; a unit and its lead take at most 2k chars."""
+    its site; a unit and its lead take at most 2k chars. context c > 0
+    writes c chars on each side of every unit (its lead then c), the same
+    c chars before and after it and different at each of a unit's sites:
+    an m-mer unit's kmers of k = m + c then never repeat, where random
+    chars around a unit planted thousands of times would repeat some (two
+    sites share a kmer when the kmer's c other chars agree)."""
     S, L = codes.shape
+    if context:
+        leads = [context] * len(mmers)
     leads = leads or [0] * len(mmers)
-    m = max(len(x) + d for x, d in zip(mmers, leads))
+    m = max(len(x) + d for x, d in zip(mmers, leads)) + context
     per = (L - m) // (2 * k)
     need = int(sum(counts))
     if need > S * per:
@@ -131,6 +138,15 @@ def plant(codes, mmers, counts, k, rng, leads=None):
         sel = owner == j
         for i in range(len(x)):
             codes[rows[sel], cols[sel] + leads[j] + i] = x[i]
+        if context:
+            if counts[j] > 4 ** context:
+                raise ValueError(f"{counts[j]} sites of a unit need more than {context} "
+                                 f"context chars")
+            ctx = rng.choice(4 ** context, counts[j], replace=False)
+            for i in range(context):
+                digit = ((ctx >> (2 * i)) & 3).astype(np.uint8)
+                codes[rows[sel], cols[sel] + i] = digit
+                codes[rows[sel], cols[sel] + context + len(x) + i] = digit
     return codes
 
 
@@ -256,12 +272,15 @@ def string_codes(num_strings, string_len, seed):
 
 
 def write_input(path, k, m, canonical, num_strings, string_len, seed,
-                avg_partition_size=None, planted=None, threads=1, weights=None, ties=None):
+                avg_partition_size=None, planted=None, threads=1, weights=None, ties=None,
+                context=0):
     """Write the FASTA of random strings drawn from `seed` to path and
     return its BuildConfig. planted: list of plant counts, one low-hash
-    m-mer per entry. ties: list of plant counts of tie_pair units, one
-    low-hash m-mer per entry. weights: the mean run length of a weighted
-    build, with weight_runs drawn from the same seed."""
+    m-mer per entry (with context, plant's distinct contexts around each:
+    k - m chars keeps every heavy kmer distinct). ties: list of plant
+    counts of tie_pair units, one low-hash m-mer per entry. weights: the
+    mean run length of a weighted build, with weight_runs drawn from the
+    same seed."""
     rng, codes = string_codes(num_strings, string_len, seed)
     cfg = BuildConfig(k=k, m=m, canonical=canonical, verbose=False, threads=threads,
                       avg_partition_size=avg_partition_size, weighted=bool(weights))
@@ -272,7 +291,12 @@ def write_input(path, k, m, canonical, num_strings, string_len, seed,
         # a tie pair sits k - 2m - 3 chars into its site, so that each of
         # the k - 2m - 2 kmers holding it starts inside the string
         leads = [0] * len(planted or []) + [k - 2 * m - 3] * len(ties or [])
-        plant(codes, units, list(planted or []) + list(ties or []), k, rng, leads)
+        if context:
+            if ties:
+                raise ValueError("context plants planted m-mers alone, without tie pairs")
+            plant(codes, units, list(planted), k, rng, context=context)
+        else:
+            plant(codes, units, list(planted or []) + list(ties or []), k, rng, leads)
     w = weight_runs(num_strings * (string_len - k + 1), rng, weights) if weights else None
     write_fasta(path, codes, k, w)
     return cfg
@@ -313,25 +337,25 @@ def bucket_minimizers(idx, km):
 
 def legacy_skew(idx, plain_mphf=False):
     """A copy of a v1.2+ index in a pre-v1.2 skew form: every skew class
-    loses hindex (heavy lanes then resolve slot -> position in the bucket
-    -> heavy row). With plain_mphf each non-empty class is also rebuilt as
-    a plain MPHF over its canonical heavy kmers, found with the oracle as
-    path_kmer_ids finds them, its positions re-keyed so that
+    loses hindex (the JAX package's heavy lanes then resolve slot ->
+    position in the bucket -> heavy row; the port derives the hindex
+    again, layout.class_hindex). With plain_mphf each non-empty class is
+    also rebuilt as a plain MPHF over its heavy kmers (the canonical ones
+    in a canonical index, found by layout.heavy_kmers from the heavy
+    buckets' positions), its positions re-keyed so that
     new[new_slot(kmer)] = old[old_slot(kmer)]."""
+    from .layout import heavy_kmers
+
     parts = [dataclasses.replace(p, hindex=None) for p in idx.skew_partitions]
     if plain_mphf and any(p.mphf.n for p in parts):
-        km = oracle.access(idx, np.arange(idx.num_kmers))
-        status, _, _, pid = oracle._decode_codewords(idx, bucket_minimizers(idx, km))
-        if idx.canonical:
-            rc = K.revcomp_kmers(km, idx.k)
-            km = np.where(oracle._kmer_less_mask(rc, km)[:, None], rc, km)
-        words = K.kmers_to_u32(km, idx.k)
+        words, cls, _, _ = heavy_kmers(idx)
         for i, p in enumerate(parts):
             if p.mphf.n == 0:
                 continue
-            keys = words[(status == 2) & (pid == i)]
-            old = p.mphf.eval_words(keys)
-            if len(keys) != p.mphf.n or len(np.unique(old)) != p.mphf.n:
+            keys = words[cls == i]
+            old, first = np.unique(p.mphf.eval_words(keys), return_index=True)
+            keys = keys[first]  # one a slot: a kmer found at two offsets counts once
+            if len(keys) != p.mphf.n:
                 raise ValueError(f"skew class {i}: {len(keys)} heavy kmers found for "
                                  f"{p.mphf.n} keys")
             f = MPHF.build_words(keys, seed=idx.seed + 1000 + i)
@@ -364,7 +388,7 @@ def rebase_ids(cfg, tables, base):
     out = dict(tables)
     out["cw_row"] = shifted(tables["cw_row"],
                             [2 + kid0 + j * R1 for j in range(2 if cfg.c1_in_row else 1)])
-    for name in ("mid_rows", "sk_hrows", "heavy_rows"):
+    for name in ("mid_rows", "sk_hrows"):
         out[name] = shifted(tables[name], [kid0])
     return out
 

@@ -169,7 +169,8 @@ WALK_W = "constexpr int kWalkMaxW = 4;"
 # lost replace
 RANKS_KERNEL = re.compile(r"// 3 blocks of 256 threads an SM \(80 registers a thread\).*?"
                           r"(?=}  // namespace sshash)", re.S)
-QUEUE_BOUNDS = "__launch_bounds__(256, W > kMaxFixedW ? 1 : 3)\n    lookup_ranks_kernel"
+QUEUE_BOUNDS = ("__launch_bounds__(256, W > kMaxFixedW ? 1 : !CANON && W >= 6 ? 2 : 3)\n"
+                "    lookup_ranks_kernel")
 RANKS_LAUNCH = """template <int W, bool CANON, bool WALK>
 static cudaError_t launch_ranks(const ProbeTables& t, const ProbeParams& p, const ProbeIO& io,
                                 PerDevice& per_sm, cudaStream_t stream) {
@@ -495,8 +496,9 @@ def variant_sources():
                                            text["lookup_ranks.cu"])},
         "lists": {"lookup_ranks.cu": sub(RANKS_KERNEL, LISTED_RANKS, text["lookup_ranks.cu"])},
         "queued4": {"lookup_ranks.cu": patch(text["lookup_ranks.cu"], QUEUE_BOUNDS,
-                                             QUEUE_BOUNDS.replace("W > kMaxFixedW ? 1 : 3",
-                                                                  "lookup_min_blocks(W, CANON)"))},
+                                             QUEUE_BOUNDS.replace(
+                                                 "W > kMaxFixedW ? 1 : !CANON && W >= 6 ? 2 : 3",
+                                                 "lookup_min_blocks(W, CANON)"))},
         "warptile": {"lookup_ranks.cu": sub(RANKS_KERNEL, WARP_TILE_RANKS,
                                             text["lookup_ranks.cu"])},
         "k1_grid_p": {"minimizer.cu": patch(

@@ -127,21 +127,30 @@ def test_v2_tables_from_jax_dict(v2case):
 @pytest.mark.parametrize("plain_mphf", [False, True], ids=["no_hindex", "plain_mphf"])
 def test_legacy_skew_equals_jax_and_oracle(name, plain_mphf):
     """Both pre-v1.2 skew forms: the tables equal JAX's (which takes the
-    sk_positions path by itself), and lookup equals JAX's DeviceEngine,
-    the oracle and the v1.2 form in every field; v2 rows over the legacy
-    form give the same ids. Index.save/load keeps the form."""
+    sk_positions path by itself) as port_tables converts them, sk_hrows in
+    place of heavy_rows and sk_positions (without plain class MPHFs, the
+    v1.2 form's tables, array for array), and lookup equals JAX's
+    DeviceEngine, the oracle and the v1.2 form in every field; v2 rows
+    over the legacy form give the same ids. Index.save/load keeps the
+    form."""
     idx0 = synthetic.small_index(name)
     idx = synthetic.legacy_skew(idx0, plain_mphf=plain_mphf)
     assert all(p.hindex is None for p in idx.skew_partitions)
     jidx = jax_index(idx)
     cfg, jcfg = L.StaticCfg(idx), JaxCfg(jidx)
-    assert cfg.has_skew and not cfg.skew_hrows and not jcfg.skew_hrows
+    assert cfg.has_skew and not jcfg.skew_hrows
     assert cfg.skew_partitioned == jcfg.skew_partitioned == (not plain_mphf)
     jarrs = _device_arrays(jidx)
+    assert "sk_positions" in jarrs
     port = L.device_arrays(idx)
-    assert "sk_positions" in port and "sk_hrows" not in port
+    assert "sk_hrows" in port and not set(L.LEGACY_KEYS) & set(port)
+    conv = L.port_tables(cfg, jarrs, idx)
+    assert set(port) <= set(conv)
     for key, v in port.items():
-        assert np.array_equal(v, jarrs[key]), key
+        assert np.array_equal(v, conv[key]), key
+    if not plain_mphf:
+        for key, v in L.device_arrays(idx0).items():
+            assert np.array_equal(v, port[key]), key
     q, npos = synthetic.query_batch(idx0)
     want = oracle.lookup(jidx, q)
     got = TorchEngine(idx, "cpu").lookup(q)

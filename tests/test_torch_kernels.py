@@ -279,10 +279,10 @@ def _shard_forms_equal_plain(cfg, t, kt, active, forms, card):
     the hand-off's passes, making the unsharded lookup's answer; the packed
     buffers, whose signed min is the unsharded kernel 2's."""
     sc = _cuts(t["cw_row"].shape[0])
-    hc = _cuts(t["sk_hrows"].shape[0]) if cfg.skew_hrows else [0, 0, 0, 0]
+    hc = _cuts(t["sk_hrows"].shape[0]) if cfg.has_skew else [0, 0, 0, 0]
     shards = [ProbeShard(a, b, c, d) for a, b, c, d in zip(sc, sc[1:], hc, hc[1:])]
     tabs = [dict(t, cw_row=t["cw_row"][s.slot_lo:s.slot_hi],
-                 sk_hrows=t["sk_hrows"][s.hrow_lo:s.hrow_hi] if cfg.skew_hrows
+                 sk_hrows=t["sk_hrows"][s.hrow_lo:s.hrow_hi] if cfg.has_skew
                  else t["sk_hrows"]) for s in shards]
     rounds = shard_rounds(cfg, kt)
     B = kt.shape[0]
@@ -290,14 +290,14 @@ def _shard_forms_equal_plain(cfg, t, kt, active, forms, card):
         # the owned form: kernel and plain version each on its own result
         # tensors, equal after every launch; the lookup they make equals
         # the unsharded lookup's
-        outs = [sentinel_result(fields, B, cfg.skew_hrows, card) for _ in range(2)]
+        outs = [sentinel_result(fields, B, cfg.has_skew, card) for _ in range(2)]
         for args, rc in rounds:
             for n, (sh, tab) in enumerate(zip(shards, tabs)):
                 for fn, out in zip((probe, probe_plain), outs):
                     fn(cfg, tab, *args, active, fields, sh, out=out, fill=n == 0 and not rc,
                        rc_round=rc, slots="read" if n else "store")
                 _equal(*outs)
-            if cfg.skew_hrows:
+            if cfg.has_skew:
                 assert (outs[0]["hrow"] != -1).any()
                 for sh, tab in zip(shards, tabs):
                     for fn, out in zip((probe, probe_plain), outs):
@@ -316,12 +316,12 @@ def _shard_forms_equal_plain(cfg, t, kt, active, forms, card):
             for fn in (probe, probe_plain):
                 out = {"packed": torch.full((packed_rows(fields), B), MARK, dtype=torch.int32,
                                             device=card)}
-                if cfg.skew_hrows:
+                if cfg.has_skew:
                     out["hrow"] = torch.full((B,), MARK, dtype=torch.int32, device=card)
                 pair.append(fn(cfg, tab, *args, active, fields, sh, out=out))
             _equal(*pair)
             bufs.append(pair)
-        if cfg.skew_hrows:
+        if cfg.has_skew:
             hrow = _combine([b[0].pop("hrow") for b in bufs], "pmin")
             for (sh, tab), pair in zip(zip(shards, tabs), bufs):
                 for fn, out in zip((probe, probe_plain), pair):

@@ -32,7 +32,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GEOMETRY = ("k", "m", "canonical", "W", "kmw", "win_words", "vbits_words",
             "max_start_word", "quad_w", "magic", "c1_in_row", "mphf_partitioned",
             "mphf_table", "mphf_nbuckets", "mphf_seedmix", "pilot_w", "sk_pilot_w",
-            "has_skew", "access_C", "row_v2", "num_chars", "skew_hrows", "skew_partitioned")
+            "has_skew", "access_C", "row_v2", "num_chars", "skew_partitioned")
 
 
 @pytest.fixture(scope="module", params=sorted(synthetic.SMALL_CONFIGS))
@@ -56,7 +56,7 @@ def test_device_arrays_equal_jax(built):
     cfg, jcfg = StaticCfg(idx), JaxCfg(jax_index(idx))
     for attr in GEOMETRY:
         assert getattr(cfg, attr) == getattr(jcfg, attr), attr
-    assert cfg.has_skew == cfg.skew_hrows == cfg.skew_partitioned
+    assert cfg.has_skew == jcfg.skew_hrows == cfg.skew_partitioned
     if cfg.mphf_partitioned:
         for attr in ("mphf_P", "mphf_part_table", "mphf_part_buckets"):
             assert getattr(cfg, attr) == getattr(jcfg, attr), attr

@@ -30,8 +30,8 @@ from one_thread import one_torch_thread  # noqa: F401
 INVALID = np.uint64(2 ** 64 - 1)
 M32 = 0xFFFFFFFF
 SHAPES = [(1, 2), (1, 4), (2, 2)]
-# an hindex index hands heavy lanes between shards (m3_skew*); the legacy
-# forms resolve them on the slot's owner
+# an index with skew classes hands heavy lanes between shards (m3_skew*),
+# in the legacy forms too (their hindex derived by layout.class_hindex)
 FORMS = {"m13_regular": None, "m13_canonical": None, "m3_skew": None,
          "m3_skew_canonical": None, "partitioned": None, "k63": None,
          "legacy_m3_skew": "no hindex", "legacy_plain_m3_skew_canonical": "plain class MPHFs",
@@ -148,7 +148,8 @@ def test_every_lane_has_one_owner_in_each_pass(name, nb):
     active = torch.from_numpy(np.random.default_rng(5).random(B) < 0.85)
     out = sentinel_result(eng.fields, B, eng.handoff, "cpu")
     per_hr = eng.geometry["per_shard_hrows"]
-    assert eng.handoff == (name in ("m3_skew", "m3_skew_canonical", "k129_canonical"))
+    assert eng.handoff == (name in ("m3_skew", "m3_skew_canonical", "legacy_m3_skew",
+                                    "k129_canonical"))
     for args, rc in shard_rounds(cfg, kt):
         todo = active & ~out["found"] if rc else active
         before = _copy(out)

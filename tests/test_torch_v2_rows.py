@@ -98,8 +98,9 @@ def test_v2_rebased_ids_above_2_31(v2):
 
 def test_v2_tables_from_jax_dict_equal_device_arrays(v2):
     """tables_from_host of the JAX v2 dict equals device_arrays(idx, "v2")
-    key by key; a v2 block is 2 words narrower than v1's (the quad's 4
-    against kid0, rel_ep1), and the row adds only row_pad's zeros."""
+    key by key (a legacy dict's heavy path converted through the index);
+    a v2 block is 2 words narrower than v1's (the quad's 4 against kid0,
+    rel_ep1), and the row adds only row_pad's zeros."""
     case, idx, _, _, jarrs, _ = v2
     cfg, cfg1 = L.StaticCfg(idx, "v2"), L.StaticCfg(idx, "v1")
     nblk = 2 if cfg.c1_in_row else 1
@@ -110,7 +111,7 @@ def test_v2_tables_from_jax_dict_equal_device_arrays(v2):
     assert own["cw_row"].shape[1] == L.row_width(cfg)
     pad = own["cw_row"][:, L.row_width(cfg) - L.row_pad(cfg):]
     assert not pad.any()
-    got, want = L.tables_from_host(jarrs, "cpu", cfg), L.tables_from_host(own, "cpu", cfg)
+    got, want = L.tables_from_host(jarrs, "cpu", cfg, idx), L.tables_from_host(own, "cpu", cfg)
     assert set(got) == set(want)
     for key in want:
         assert np.array_equal(got[key].numpy(), want[key].numpy()), f"{case}: {key}"
